@@ -1,0 +1,41 @@
+"""Finite-difference stencils on periodic grids, as sums of rolled copies.
+
+Counterpart of percnn_tpu/ops/stencils.py: the 4th-order Laplacian is the
+5-point cross per axis with coefficients [-1/12, 4/3, -5/2, 4/3, -1/12]
+over dx^2, and ``torch.roll`` supplies the periodic boundary.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+# 1D second-derivative cross-section of the 4th-order Laplacian, offsets -2..2.
+LAP_CROSS_1D = (-1.0 / 12.0, 4.0 / 3.0, -5.0 / 2.0, 4.0 / 3.0, -1.0 / 12.0)
+
+
+def _shifted_sum(u: torch.Tensor, coeffs: Sequence[float], dim: int) -> torch.Tensor:
+    """sum_k coeffs[k] * u[i + k - r] along `dim` (periodic)."""
+    r = len(coeffs) // 2
+    out = None
+    for k, c in enumerate(coeffs):
+        off = k - r
+        term = u if off == 0 else torch.roll(u, -off, dims=dim)
+        term = term * c
+        out = term if out is None else out + term
+    return out
+
+
+def laplacian(u: torch.Tensor, dx: float, dims: Sequence[int]) -> torch.Tensor:
+    """4th-order Laplacian over `dims` on a periodic grid."""
+    acc = None
+    for d in dims:
+        t = _shifted_sum(u, LAP_CROSS_1D, d)
+        acc = t if acc is None else acc + t
+    return acc / (dx * dx)
+
+
+def laplacian_2d(u: torch.Tensor, dx: float) -> torch.Tensor:
+    """Laplacian over the (H, W) dims of [..., H, W, C]."""
+    return laplacian(u, dx, dims=(u.ndim - 3, u.ndim - 2))
