@@ -1,24 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GS2D serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's GS2D serving and training paths once on one
+NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the checkout's sources with nvcc,
-holds them against the committed golden model and against their plain
-PyTorch versions, serves GS2D requests through ``build_serving_fn`` at full
-width (100 x 100, 2500 steps), and times the kernels.  Phases, one JSON line
-each with the seconds since start:
+holds them against the committed golden model, against their plain PyTorch
+versions and against f64 autograd, serves GS2D requests through
+``build_serving_fn`` and trains GS2D through ``run_experiment`` at full
+width (100 x 100), and times the kernels.  Phases, one JSON line each with
+the seconds since start:
 
-  env      card name and power limit (nvidia-smi), torch and CUDA versions
-  build    nvcc build of percnn_tpu_torch/ops/kernels/csrc/cell2d.cu
-  golden   ISG and kernel rollout against tests/golden/pt_gs2d.npz
-  kernels  each kernel against its plain version at 100 x 100, T = 200
-  serve    three frames requests and one final-state request, 2500 steps,
-           with the kernels' launch counters set to 0 just before
-  times    each kernel's and its plain version's ms per rollout at the
-           serving shape, beside the card's bound for the same work
+  env          card name and power limit (nvidia-smi), torch and CUDA versions
+  build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel
+  golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
+  kernels      the forward kernels against their plain versions, 100 x 100, T = 200
+  grads        pg2d_kernel against its plain version (100 x 100, T = 200,
+               golden cell, data-loss cotangent), and the fused gradients
+               against f64 autograd
+  serve        one uncounted warm-up request of each kind, then three frames
+               requests and one final-state request, 2500 steps, with the
+               kernels' launch counters set to 0 just before
+  train        run_experiment(GS2D_RECON): truth, ISG pretrain, 10 iterations
+               at each of T = 200, 400, 800, a 2500-step evaluation, with the
+               launch counters set to 0 just before
+  train_parity train() on the card against train() on the CPU (plain
+               versions), 32 x 32, T = 40, 5 iterations
+  step_breakdown  one training iteration at each T after a warm-up: host
+               and device ms of the whole, the same split into ISG and
+               forward, losses, backward (and pg2d_kernel in it), Adam, and
+               the device's idle share from a torch.profiler trace
+  times        each kernel's and its plain version's ms at the main path's
+               shapes, beside the card's bound for the same work
 
 Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
@@ -29,11 +44,15 @@ script imports neither jax nor percnn_tpu.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import dataclasses
 import json
 import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -48,6 +67,10 @@ PEAK_F32_FLOP_PER_S = 67e12
 SERVE_STEPS = 2500
 CHECK_STEPS = 200
 SEEDS = (66, 67, 68)
+TRAIN_ITERS = 30          # 10 at each of T = 200, 400, 800
+ISG_PRETRAIN_ITERS = 200
+TIME_BACKWARD_STEPS = 800
+BREAKDOWN_REPS = 5
 
 
 class CheckFailed(Exception):
@@ -82,6 +105,21 @@ def flops_per_cell_step(cfg) -> int:
     return 2 * (12 + 4 + cfg.hidden * (5 * cfg.n_branches + 1) + 1)
 
 
+def pg_flops_per_cell_step(cfg) -> int:
+    """Flops that one reverse step of pg2d_kernel needs at one cell: per
+    equation and hidden channel, 4 per branch activation, the fewest
+    multiplies giving the full product and the nb leave-one-out products
+    (3 nb - 5 by prefix and suffix products: 4 at nb = 3), 2 for the w_out
+    plane and, per branch, 1 for zz, 4 for the dw planes, 1 for the db
+    plane and 4 for the Jacobian (w_i * w_out depends on the parameters
+    only, so it is not counted per cell); plus 9 * 2 adds forming g_in,
+    four Laplacians of 12, 6 for the diffusion and b_out planes and 8 for
+    the update."""
+    nb, per_branch = cfg.n_branches, 1 + 4 + 1 + 4
+    pi = 2 * cfg.hidden * (4 * nb + max(3 * nb - 5, 0) + 2 + nb * per_branch)
+    return pi + 18 + 4 * 12 + 6 + 8
+
+
 def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_FLOP_PER_S
@@ -100,6 +138,45 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_busy(torch, fn) -> dict:
+    """fn() once under torch.profiler, ended by a synchronise.  From its
+    trace: the window (first host op to the last event's end), the device's
+    busy ms (the union of its kernels, copies and sets), the idle share of
+    the window and the kernel ms of the port's kernels.  The profiler's own
+    host cost lengthens the window, so the idle share is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    finally:
+        os.remove(path)
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, reach = 0.0, -float("inf")
+    for a, b in device:
+        busy += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    window = (max(float(e["ts"]) + float(e["dur"]) for e in events)
+              - min(float(e["ts"]) for e in events))
+    kernels = {name: [float(e["dur"]) for e in events
+                      if e.get("cat") == "kernel" and name in e.get("name", "")]
+               for name in ("rollout2d_kernel", "pg2d_kernel")}
+    return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
+            "device_idle_share": 1.0 - busy / window if device else None,
+            "device_events": len(device),
+            "kernel_ms": {name: 1e-3 * sum(d) for name, d in kernels.items()},
+            "kernel_us_per_launch": {name: sum(d) / len(d) if d else None
+                                     for name, d in kernels.items()}}
 
 
 def main() -> int:
@@ -121,12 +198,18 @@ def main() -> int:
               "script; run it from the root of a checkout", file=sys.stderr)
         return 2
 
-    from percnn_tpu_torch.bridge import params_from_numpy, unflatten_dotted
+    from percnn_tpu_torch.bridge import params_from_numpy, params_to_numpy, unflatten_dotted
+    from percnn_tpu_torch.core.cell import init_pi_cell, pi_cell_step
+    from percnn_tpu_torch.core.checkpoint import flatten_with_paths, load_checkpoint_tree
     from percnn_tpu_torch.core.isg import isg_apply
+    from percnn_tpu_torch.core.losses import data_loss, subsample
+    from percnn_tpu_torch.core.rollout import rollout
+    from percnn_tpu_torch.core.train import train
     from percnn_tpu_torch.data.noise import add_noise
-    from percnn_tpu_torch.data.simulate import default_ic
+    from percnn_tpu_torch.data.simulate import default_ic, simulate
+    from percnn_tpu_torch.experiments import runner
     from percnn_tpu_torch.experiments.configs import GS2D_RECON
-    from percnn_tpu_torch.ops.kernels import _build, cell2d
+    from percnn_tpu_torch.ops.kernels import _build, backward2d, cell2d
     from percnn_tpu_torch.serving import build_serving_fn
 
     dev = torch.device("cuda", 0)
@@ -142,10 +225,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    t = time.perf_counter()
-    _build.load_library("cell2d")
-    phase("build", source="percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
-          seconds=round(time.perf_counter() - t, 3))
+    def build(name):
+        t = time.perf_counter()
+        _build.load_library(name)
+        return time.perf_counter() - t
+
+    sources = ("cell2d", "backward2d")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        build_s = dict(zip(sources, pool.map(build, sources)))
+    phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
+                            for n in sources})
 
     cfg, isg_cfg = GS2D_RECON.cell, GS2D_RECON.isg
     with np.load(GOLDEN) as z:
@@ -187,6 +276,95 @@ def main() -> int:
     phase("kernels", shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2], steps=CHECK_STEPS,
           max_abs_err=err, rtol=2e-4, atol=1e-5)
 
+    # grads: the backward kernel and the fused gradients at full width
+    data_cfg = GS2D_RECON.data
+    w_data = GS2D_RECON.loss_weights["data"]
+
+    def data_term(frames, meas):
+        return w_data * data_loss(frames, meas, data_cfg, 2)[0]
+
+    def cotangent(frames):
+        """Measurements (a noisy copy of the frames) and the cotangent of
+        40 * data_loss at the frames."""
+        meas = subsample(torch.as_tensor(add_noise(frames.cpu().numpy(), GS2D_RECON.noise_pct),
+                                         device=dev), data_cfg, 2)
+        fr = frames.clone().requires_grad_(True)
+        (fbar,) = torch.autograd.grad(data_term(fr, meas), fr)
+        return meas, fbar
+
+    frames = cell2d._rollout_cuda(packed, h0, cfg, CHECK_STEPS)
+    meas, fbar = cotangent(frames)
+    g0_k, acc_k = backward2d._pg_cuda(packed, frames, fbar, cfg)
+    g0_p, acc_p = backward2d.fused_phase1_pg_2d_plain(packed, frames, fbar.contiguous(), cfg)
+    torch.cuda.synchronize()
+    sums_k, sums_p = acc_k.sum((1, 2)), acc_p.sum((1, 2))
+    lay, C, nb = backward2d._pg_layout(cfg), cfg.hidden, cfg.n_branches
+    groups = {"diff": (lay["diff"], 2)}
+    for o in range(2):
+        for i in range(nb):
+            groups[f"pi[{o}].w{i}"] = (lay["dw"] + (o * nb + i) * 2 * C, 2 * C)
+            groups[f"pi[{o}].b{i}"] = (lay["db"] + (o * nb + i) * C, C)
+        groups[f"pi[{o}].w_out"] = (lay["wout"] + o * C, C)
+        groups[f"pi[{o}].b_out"] = (lay["bout"] + o, 1)
+    leaf_err = {"g0": (max_abs(g0_k, g0_p), float(g0_p.abs().max()))}
+    for name, (start, n) in groups.items():
+        leaf_err[name] = (max_abs(sums_k[start:start + n], sums_p[start:start + n]),
+                          float(sums_p[start:start + n].abs().max()))
+    for name, (e, scale) in leaf_err.items():
+        check(e <= 2e-4 * scale + 2e-6,
+              f"pg2d_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+    err["pg2d_kernel"] = max(e for e, _ in leaf_err.values())
+
+    def rel_errs_vs_f64(cell_np, x0, steps, loss):
+        """Worst |g - g64| / max|g64| per leaf (cell leaves and dh0) of the
+        fused f32 gradients and of plain f32 autograd, against f64 autograd
+        through rollout(pi_cell_step), all on the card."""
+        grads = {}
+        for kind, dtype in (("fused", torch.float32), ("autograd_f32", torch.float32),
+                            ("f64", torch.float64)):
+            p = params_from_numpy(cell_np, device=dev, dtype=dtype)
+            leaves = [p["diff"]] + [br[k] for br in p["pi"] for k in sorted(br)]
+            x = x0.to(dtype).clone()
+            for leaf in leaves + [x]:
+                leaf.requires_grad_(True)
+            if kind == "fused":
+                fr = backward2d.fused_rollout_tp_2d_pg(p, x, cfg, steps)
+            else:
+                fr = rollout(lambda h: pi_cell_step(p, h, cfg), x, steps)
+            grads[kind] = torch.autograd.grad(loss(fr), leaves + [x])
+        names = ["diff"] + [f"pi[{o}].{k}" for o in range(2) for k in sorted(cell_np["pi"][o])]
+        return {kind: {n: float((a.double() - b).abs().max() / b.abs().max())
+                       for n, a, b in zip(names + ["h0"], grads[kind], grads["f64"])}
+                for kind in ("fused", "autograd_f32")}
+
+    # (b1) the measure of the JAX package's gradient referee (random-init
+    # cell, random targets, 12 steps, full width): held to 1e-4
+    rng = np.random.RandomState(1)
+    ref_cell = params_to_numpy(init_pi_cell(torch.Generator().manual_seed(0), cfg, device="cpu"))
+    x_ref = torch.as_tensor(0.3 * rng.standard_normal((GS2D_RECON.grid,) * 2 + (2,)),
+                            dtype=torch.float32, device=dev)
+    tgt = torch.as_tensor(rng.standard_normal((13,) + tuple(x_ref.shape)), device=dev)
+    rel_ref = rel_errs_vs_f64(ref_cell, x_ref, 12, lambda fr: ((fr - tgt.to(fr.dtype)) ** 2).mean())
+    worst_ref = max(rel_ref["fused"], key=rel_ref["fused"].get)
+    check(rel_ref["fused"][worst_ref] <= 1e-4,
+          f"fused gradients vs f64 autograd: {worst_ref} at "
+          f"{rel_ref['fused'][worst_ref]} over 1e-4")
+    # (b2) the trained cell at T = 200 with the data-loss cotangent: the
+    # f32 forward's rounding sets the floor of this measure for any f32
+    # path, so the fused gradients are held to plain f32 autograd's error
+    rel_gold = rel_errs_vs_f64(model["cell"], h0, CHECK_STEPS,
+                               lambda fr: data_term(fr, meas.to(fr.dtype)))
+    worst_gold = {k: max(v.values()) for k, v in rel_gold.items()}
+    check(worst_gold["fused"] <= 2 * worst_gold["autograd_f32"],
+          f"fused gradients vs f64 autograd on the trained cell: {worst_gold['fused']} over "
+          f"2 x plain f32 autograd's {worst_gold['autograd_f32']}")
+    phase("grads", shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2], steps=CHECK_STEPS,
+          pg2d_vs_plain_max_abs_err={k: e for k, (e, _) in leaf_err.items()},
+          pg2d_bar="2e-4 * max|leaf| + 2e-6",
+          f64_random_cell_12_steps={"worst_leaf": worst_ref, "bar": 1e-4, **rel_ref},
+          f64_trained_cell_200_steps={"worst": worst_gold, "bar": "2 x autograd_f32",
+                                      **rel_gold})
+
     # serve: the main path, through the entry point a user calls
     serve = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg, device=dev)
     serve_final = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg,
@@ -194,18 +372,28 @@ def main() -> int:
     requests = [add_noise(default_ic("gray_scott_2d", GS2D_RECON.grid, seed=s)[None],
                           GS2D_RECON.noise_pct, seed=s)[0][::isg_cfg.scale, ::isg_cfg.scale]
                 for s in SEEDS]
+    # one request of each kind first, neither counted nor timed with the
+    # rest: its time is the first-call cost of the ISG and the allocator
+    warmup_s = []
+    for fn in (serve, serve_final):
+        t = time.perf_counter()
+        fn(requests[-1])
+        torch.cuda.synchronize()
+        warmup_s.append(time.perf_counter() - t)
     cell2d.fused_rollout_2d.launches = 0
     cell2d.fused_rollout_final_2d.launches = 0
-    answers, request_s = [], []
-    for req in requests:
+    answers, request_s, enqueue_s = [], [], []
+
+    def timed(fn, req):
         t = time.perf_counter()
-        answers.append(serve(req))
+        out = fn(req)
+        enqueue_s.append(time.perf_counter() - t)
         torch.cuda.synchronize()
         request_s.append(time.perf_counter() - t)
-    t = time.perf_counter()
-    final = serve_final(requests[0])
-    torch.cuda.synchronize()
-    request_s.append(time.perf_counter() - t)
+        return out
+
+    answers = [timed(serve, req) for req in requests]
+    final = timed(serve_final, requests[0])
     launches = {"rollout2d_kernel": cell2d.fused_rollout_2d.launches,
                 "final2d_kernel": cell2d.fused_rollout_final_2d.launches}
     n = GS2D_RECON.grid
@@ -220,7 +408,141 @@ def main() -> int:
     check(launches == {"rollout2d_kernel": len(SEEDS) * SERVE_STEPS,
                        "final2d_kernel": SERVE_STEPS}, f"launch counts {launches}")
     phase("serve", requests=len(requests) + 1, steps=SERVE_STEPS, launches=launches,
-          request_seconds=request_s, final_vs_last_frame_max_abs_err=final_err)
+          request_seconds=request_s, enqueue_seconds=enqueue_s,
+          request_order="frames x 3, then final-state",
+          warmup_request_seconds=dict(zip(("frames", "final_state"), warmup_s)),
+          final_vs_last_frame_max_abs_err=final_err)
+
+    # train: the main path of training, through the entry point a user calls
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        cell2d.fused_rollout_2d.launches = 0
+        backward2d.fused_rollout_tp_2d_pg.launches = 0
+        with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
+            res = runner.run_experiment(GS2D_RECON, device=dev, out_dir=out_dir, cache_dir=None,
+                                        n_iters_override=TRAIN_ITERS,
+                                        isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
+        train_launches = {"rollout2d_kernel": cell2d.fused_rollout_2d.launches,
+                          "pg2d_kernel": backward2d.fused_rollout_tp_2d_pg.launches}
+        ckpt, meta = load_checkpoint_tree(os.path.join(out_dir, f"{GS2D_RECON.name}.ckpt.npz"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    stages = list(GS2D_RECON.curriculum) + [GS2D_RECON.train_steps]
+    per_stage = TRAIN_ITERS // len(stages)
+    want = {"pg2d_kernel": per_stage * sum(stages),
+            "rollout2d_kernel": per_stage * sum(stages) + GS2D_RECON.infer_steps}
+    hist = res["history"]
+    check(len(hist) == TRAIN_ITERS and bool(np.isfinite(hist).all()), f"training losses {hist}")
+    check(train_launches == want, f"training launch counts {train_launches}, expected {want}")
+    check(bool(np.isfinite(res["rel_l2"])) and not res["diverged"],
+          f"evaluation rel_l2 {res['rel_l2']}, diverged {res['diverged']}")
+    check(meta.get("iteration") == per_stage and meta.get("stage") == len(stages) - 1
+          and np.array_equal(ckpt["params"]["cell"]["diff"],
+                             res["params"]["cell"]["diff"].cpu().numpy()),
+          f"latest checkpoint meta {meta}")
+    sec = res["seconds"]
+    phase("train", experiment=GS2D_RECON.name, grid=GS2D_RECON.grid, launches=train_launches,
+          truth_frames=GS2D_RECON.infer_steps, truth_s=sec["truth"],
+          isg_pretrain_iters=ISG_PRETRAIN_ITERS, isg_pretrain_s=sec["isg_pretrain"],
+          stages=[{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]} for st in sec["stages"]],
+          evaluate_s=sec["evaluate"], history=hist, rel_l2=res["rel_l2"],
+          rel_l2_u=res["rel_l2_u"], rel_l2_v=res["rel_l2_v"])
+
+    # train_parity: the whole training path on the card against its plain self
+    pexp = dataclasses.replace(
+        GS2D_RECON, grid=32, train_steps=40, infer_steps=40, curriculum=(),
+        data=dataclasses.replace(GS2D_RECON.data, time_stride=10),
+        train=dataclasses.replace(GS2D_RECON.train, n_iters=5, steps_per_call=5))
+    ptruth = simulate(pexp.system, default_ic(pexp.system, pexp.grid), pexp.train_steps,
+                      pexp.dt, pexp.dx, device=dev)
+    init = params_to_numpy(runner.init_model(pexp, torch.Generator().manual_seed(0),
+                                             device="cpu"))
+    parity = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        prob = runner.setup_problem(pexp, ptruth, device=d)
+        with contextlib.redirect_stdout(sys.stderr):
+            parity[label] = train(runner.build_loss_fn(prob, pexp.train_steps), init,
+                                  pexp.train, device=d)[1]
+    gpu_h, cpu_h = np.asarray(parity["card"]), np.asarray(parity["cpu"])
+    parity_err = float(np.max(np.abs(gpu_h - cpu_h) / np.abs(cpu_h)))
+    check(np.allclose(gpu_h, cpu_h, rtol=1e-4, atol=0),
+          f"train on the card vs the CPU: {gpu_h.tolist()} vs {cpu_h.tolist()}")
+    phase("train_parity", grid=pexp.grid, steps=pexp.train_steps, iters=pexp.train.n_iters,
+          card=gpu_h.tolist(), cpu=cpu_h.tolist(), max_rel_err=parity_err, rtol=1e-4)
+
+    # step_breakdown: where one training iteration's time goes at each T, with
+    # the trained params; a served rollout stands in for the truth (the
+    # times do not depend on the data)
+    bprob = runner.setup_problem(GS2D_RECON, answers[0].cpu().numpy(), device=dev)
+
+    def event_ms(fn):
+        """fn() and the device ms between events recorded around it, with
+        the stream idle before: the segment's kernels and any gap while the
+        host enqueues them."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    breakdown = []
+    for steps in stages:
+        tp = params_from_numpy(res["params"], device=dev, dtype=torch.float32)
+        leaves = [t.requires_grad_(True) for _, t in flatten_with_paths(tp)]
+        opt = torch.optim.Adam(leaves, lr=GS2D_RECON.train.lr, eps=1e-8)
+        loss_fn = runner.build_loss_fn(bprob, steps)
+
+        def iteration():
+            opt.zero_grad(set_to_none=True)
+            total, _ = loss_fn(tp)
+            total.backward()
+            opt.step()
+
+        iteration()   # warm-up, not counted
+        rows = []
+        for _ in range(BREAKDOWN_REPS):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            iteration()
+            end.record()
+            enqueue_ms = 1e3 * (time.perf_counter() - t)
+            torch.cuda.synchronize()
+            iteration_ms = 1e3 * (time.perf_counter() - t)
+            device_ms = start.elapsed_time(end)
+            opt.zero_grad(set_to_none=True)
+            frames, fwd_ms = event_ms(lambda: runner.forward_rollout(tp, bprob, steps, device=dev))
+            (total, _), loss_ms = event_ms(
+                lambda: runner.build_loss_fn(bprob, steps, rollout_fn=lambda _: frames)(tp))
+            _, bwd_ms = event_ms(total.backward)
+            _, adam_ms = event_ms(opt.step)
+            fr = frames.detach()
+            fb = cotangent(fr)[1].contiguous()
+            own = cell2d.pack_pi_params_2d(tp["cell"], cfg).detach()
+            _, pg_ms = event_ms(lambda: backward2d._pg_cuda(own, fr, fb, cfg))
+            rows.append([iteration_ms, enqueue_ms, device_ms, fwd_ms, loss_ms, bwd_ms, pg_ms,
+                         adam_ms])
+        med = np.median(np.asarray(rows), axis=0).tolist()
+        breakdown.append({**dict(zip(
+            ["steps", "iteration_ms", "enqueue_ms", "device_span_ms", "isg_and_forward_ms",
+             "losses_ms", "backward_ms", "pg2d_kernel_ms", "adam_ms"], [steps] + med)),
+            "profiled": profile_busy(torch, iteration)})
+        # the profiled busy time over the unprofiled device span
+        breakdown[-1]["device_idle_share_of_span"] = (
+            1.0 - breakdown[-1]["profiled"]["device_busy_ms"] / breakdown[-1]["device_span_ms"])
+    phase("step_breakdown", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
+          rows=breakdown,
+          note="iteration_ms: host clock to the synchronised end of a whole iteration; "
+               "enqueue_ms: host clock until the iteration's last op is enqueued; "
+               "device_span_ms: CUDA events around the whole iteration; the segments: "
+               "CUDA events around each run alone, backward_ms includes pg2d_kernel_ms; "
+               "profiled: one more iteration under torch.profiler; "
+               "device_idle_share_of_span: 1 - its busy ms / device_span_ms")
 
     # times: per rollout at the serving shape (the ISG output of request 0)
     with torch.inference_mode():
@@ -247,13 +569,36 @@ def main() -> int:
         kernels.append({
             "name": name, "jax_kernel": jax_name, "route": "cuda",
             "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": launches[name] + train_launches.get(name, 0),
+            "launches_by_path": {"serve": launches[name],
+                                 "train": train_launches.get(name, 0)},
             "max_abs_err": err[name], "ms": cuda_ms(torch, kernel, reps=5),
             "plain_ms": cuda_ms(torch, plain, reps=1), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         })
-    phase("times", shape=list(h0.shape), steps=SERVE_STEPS,
-          flops_per_rollout=flops, nvidia_smi=smi)
+    # the backward at the longest training stage: trained cell, data-loss cotangent
+    frames = cell2d._rollout_cuda(packed, h0, cfg, TIME_BACKWARD_STEPS)
+    fbar = cotangent(frames)[1].contiguous()
+    bw_flops = TIME_BACKWARD_STEPS * cells * pg_flops_per_cell_step(cfg)
+    bw_bytes = (param_bytes + 2 * TIME_BACKWARD_STEPS * state_bytes + state_bytes
+                + 4 * lay["A"] * cells)
+    b_ms, b_by = bound_ms(bw_bytes, bw_flops)
+    kernels.append({
+        "name": "pg2d_kernel", "jax_kernel": "backward2d._phase1_pg_kernel", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward2d.py:902",
+        "launches": train_launches["pg2d_kernel"],
+        "launches_by_path": {"serve": 0, "train": train_launches["pg2d_kernel"]},
+        "max_abs_err": err["pg2d_kernel"],
+        "ms": cuda_ms(torch, lambda: backward2d._pg_cuda(packed, frames, fbar, cfg), reps=5),
+        "plain_ms": cuda_ms(torch, lambda: backward2d.fused_phase1_pg_2d_plain(
+            packed, frames, fbar, cfg), reps=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    phase("times", shape=list(h0.shape), steps=SERVE_STEPS, flops_per_rollout=flops,
+          backward_steps=TIME_BACKWARD_STEPS, flops_per_backward=bw_flops,
+          bytes_per_backward=bw_bytes, nvidia_smi=smi)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

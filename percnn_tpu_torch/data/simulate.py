@@ -1,12 +1,18 @@
-"""Initial conditions of the reference systems (the part serving needs).
+"""Ground-truth generation: initial conditions and the f64 RK4 integrator.
 
-A copy of ``default_ic`` from percnn_tpu/data/simulate.py for the Gray-Scott
-2D system; the RK4 truth generator comes with training.
+Counterpart of ``default_ic`` (Gray-Scott 2D) and ``simulate`` in
+percnn_tpu/data/simulate.py.  The JAX package integrates on the host; here
+the RK4 runs as tensor ops on ``device`` (the card by default), since the
+GS2D truth is 2500 frames of 4 substeps each.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from percnn_tpu_torch._device import resolve_device
+from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
 
 
 def default_ic(system: str, n: int, seed: int = 66) -> np.ndarray:
@@ -22,3 +28,27 @@ def default_ic(system: str, n: int, seed: int = 66) -> np.ndarray:
         v[c, c] = 0.25 + 0.1 * rng.rand(*v[c, c].shape)
         return np.stack([u, v], axis=-1)
     raise NotImplementedError(f"default_ic for {system!r} is not ported yet")
+
+
+def simulate(system: str, h0: np.ndarray, n_steps: int, dt: float, dx: float, *,
+             oversample: int = 4, dtype=torch.float64,
+             device: str | torch.device = "cuda") -> np.ndarray:
+    """Integrate `system` from h0 for n_steps steps of dt, by RK4 at
+    dt/oversample; returns [n_steps+1, *spatial, 2] on the host (frame 0 =
+    h0), in `dtype`."""
+    dev = resolve_device(device)
+    rhs = PDE_SYSTEMS[system].rhs
+    dts = dt / oversample
+    h = torch.as_tensor(np.asarray(h0), dtype=dtype, device=dev)
+    frames = torch.empty((n_steps + 1,) + tuple(h.shape), dtype=dtype, device=dev)
+    frames[0] = h
+    with torch.no_grad():
+        for t in range(n_steps):
+            for _ in range(oversample):
+                k1 = rhs(h, dx)
+                k2 = rhs(h + 0.5 * dts * k1, dx)
+                k3 = rhs(h + 0.5 * dts * k2, dx)
+                k4 = rhs(h + dts * k3, dx)
+                h = h + (dts / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+            frames[t + 1] = h
+    return frames.cpu().numpy()

@@ -10,44 +10,8 @@ import dataclasses
 
 from percnn_tpu_torch.core.cell import PiCellConfig
 from percnn_tpu_torch.core.isg import ISGConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class DataLossConfig:
-    """Strides that pick the supervised rollout entries (percnn_tpu/core/losses.py)."""
-
-    time_stride: int = 20
-    space_stride: int = 4
-    val_frac: float = 0.1
-    drop_last_frame: bool = True
-
-
-@dataclasses.dataclass(frozen=True)
-class TrainConfig:
-    """Trainer settings (percnn_tpu/core/train.py), carried for the configs;
-    the trainer comes with training."""
-
-    n_iters: int = 1000
-    lr: float = 1e-3
-    lr_step: int = 200
-    lr_gamma: float = 0.985
-    ckpt_path: str | None = None
-    ckpt_every: int = 100
-    best_val: bool = False
-    val_key: str = "val"
-    watchdog: bool = False
-    watchdog_key: str = "phy"
-    spike_mult: float | None = None
-    spike_warmup: int = 500
-    spike_max_retries: int = 5
-    lr_recover: float = 1.0
-    best_key: str | None = None
-    spike_reset_opt: bool = False
-    abort_policy: str = "raise"
-    probe_every: int = 0
-    log_path: str | None = None
-    log_every: int = 50
-    steps_per_call: int = 1
+from percnn_tpu_torch.core.losses import DataLossConfig
+from percnn_tpu_torch.core.train import TrainConfig
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,20 +1,113 @@
-"""Experiment runner, the part that serving needs: model init and inference.
+"""Experiment runner: composes data, model, losses and trainer per config.
 
-Counterpart of ``init_model`` and ``inference_rollout`` in
-percnn_tpu/experiments/runner.py.  ``inference_rollout`` takes the request
-(the low-res IC, or the full-res IC when the model has no ISG) directly,
-instead of a truth-carrying Problem.
+Counterpart of percnn_tpu/experiments/runner.py for the data-driven GS2D
+path: truth (RK4 on the device), noise, ISG pretrain, the curriculum of
+training stages, and the evaluation rollout scored by rel-L2.
+``inference_rollout`` takes the request (the low-res IC, or the full-res
+IC when the model has no ISG) directly, instead of a truth-carrying
+Problem.
+
+Not ported yet: training on a device mesh, a shared ISG pretrain file, the
+visual exports, the closed-form Pi expressions and the probe/restart
+machinery (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+import os
+import time
+import zipfile
+
+import numpy as np
 import torch
 
 from percnn_tpu_torch._device import full_f32, resolve_device
-from percnn_tpu_torch.core.cell import init_pi_cell
+from percnn_tpu_torch.core.cell import init_pi_cell, pi_cell_step
+from percnn_tpu_torch.core.checkpoint import peek_meta
 from percnn_tpu_torch.core.isg import init_isg, isg_apply
+from percnn_tpu_torch.core.losses import DataLossConfig, data_loss, ic_loss, phys_loss
+from percnn_tpu_torch.core.rollout import rollout
+from percnn_tpu_torch.core.train import pretrain_isg, train
+from percnn_tpu_torch.data.noise import add_noise
+from percnn_tpu_torch.data.simulate import default_ic, simulate
 from percnn_tpu_torch.experiments.configs import ExperimentConfig
+from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d_pg
 from percnn_tpu_torch.ops.kernels.cell2d import fused_rollout_2d
+from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
+from percnn_tpu_torch.utils.metrics import MetricsLogger, rel_l2
+
+
+def make_dataset(exp: ExperimentConfig, *, n_frames: int | None = None,
+                 warmup: int = 0, oversample: int = 4, cache_dir: str | None = None,
+                 device: str | torch.device = "cuda") -> np.ndarray:
+    """Ground-truth rollout [T+1, *spatial, 2] f64 for the experiment's system.
+
+    The cache file has the JAX package's name and ``truth`` key, so both
+    packages share a cache directory.  warmup: initial steps discarded.
+    """
+    dev = resolve_device(device)
+    n = exp.grid
+    n_frames = n_frames if n_frames is not None else max(exp.train_steps, exp.infer_steps)
+    cache = None
+    if cache_dir:
+        cache = os.path.join(
+            cache_dir,
+            f"{exp.system}_{n}_{n_frames}_{warmup}_{oversample}"
+            f"_dt{exp.dt}_dx{round(exp.dx, 8)}_s{exp.seed}_v2.npz",
+        )
+        if os.path.exists(cache):
+            try:
+                with np.load(cache) as z:
+                    return z["truth"]
+            except (OSError, EOFError, ValueError, KeyError, zipfile.BadZipFile):
+                # a half-written cache (process killed mid-save): rebuild
+                os.remove(cache)
+    h0 = default_ic(exp.system, n, seed=exp.seed)
+    if warmup:
+        h0 = simulate(exp.system, h0, warmup, exp.dt, exp.dx, oversample=oversample,
+                      device=dev)[-1]
+    truth = simulate(exp.system, h0, n_frames, exp.dt, exp.dx, oversample=oversample,
+                     device=dev)
+    if cache:
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = cache + f".tmp{os.getpid()}.npz"  # .npz: savez won't re-suffix
+        np.savez_compressed(tmp, truth=truth)
+        os.replace(tmp, cache)  # atomic: readers never see a partial file
+    return truth
+
+
+@dataclasses.dataclass
+class Problem:
+    """Everything the loss needs, on the device."""
+
+    exp: ExperimentConfig
+    truth: np.ndarray                   # [T+1, *spatial, 2] clean (for eval)
+    h0: torch.Tensor | None             # full-res IC (no ISG) or None
+    ic_low: torch.Tensor | None         # low-res noisy IC [1, *low, 2] or None
+    measurement: torch.Tensor | None    # subsampled noisy truth or None
+
+
+def setup_problem(exp: ExperimentConfig, truth: np.ndarray, dtype=torch.float32, *,
+                  device: str | torch.device = "cuda") -> Problem:
+    dev = resolve_device(device)
+    noisy = add_noise(truth, exp.noise_pct, seed=exp.seed)
+    nd = exp.cell.ndim
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+
+    if exp.isg is None:
+        return Problem(exp, truth, put(truth[0]), None, None)
+    down = (slice(None, None, exp.isg.scale),) * nd
+    ic_low = put(noisy[0][down])[None]
+    meas = None
+    if exp.data is not None:
+        t_sl = slice(0, -1 if exp.data.drop_last_frame else None, exp.data.time_stride)
+        idx = (t_sl,) + (slice(None, None, exp.data.space_stride),) * nd
+        meas = put(noisy[: exp.train_steps + 1][idx])
+    return Problem(exp, truth, None, ic_low, meas)
 
 
 def init_model(exp: ExperimentConfig, gen: torch.Generator, dtype=torch.float32,
@@ -25,6 +118,116 @@ def init_model(exp: ExperimentConfig, gen: torch.Generator, dtype=torch.float32,
     if exp.isg is not None:
         params["isg"] = init_isg(gen, exp.isg, dtype, device=dev)
     return params
+
+
+def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = True,
+                    bptt: str = "auto", ic_low=None, h0=None,
+                    device: str | torch.device = "cuda") -> torch.Tensor:
+    """ISG (if present) then rollout on `device`, where the params live;
+    returns frames [n_steps+1, *spatial, 2].  ic_low/h0 override the
+    Problem's.
+
+    bptt:
+      'auto'     -- 'fused_pg' for a 2D kernel_size-1 cell with a float32
+                    state (kernels on the card, their plain versions on the
+                    CPU), else 'remat';
+      'fused_pg' -- rollout2d_kernel forward, pg2d_kernel backward
+                    (ops/kernels/backward2d.py);
+      'remat'    -- autograd through the cell step, checkpointed segments.
+    'fused' and 'two_phase' are not ported yet.
+    """
+    dev = resolve_device(device)
+    exp = prob.exp
+    if exp.isg is not None:
+        ic_low = prob.ic_low if ic_low is None else ic_low
+        h0 = isg_apply(params["isg"], ic_low.to(dev), exp.isg)[0]
+    else:
+        h0 = (prob.h0 if h0 is None else h0).to(dev)
+    cell = exp.cell
+    if bptt == "auto":
+        bptt = ("fused_pg" if cell.ndim == 2 and cell.kernel_size == 1
+                and cell.channels == 2 and h0.dtype == torch.float32 else "remat")
+    if bptt == "fused_pg":
+        return fused_rollout_tp_2d_pg(params["cell"], h0, cell, n_steps)
+    if bptt == "fused":
+        raise NotImplementedError("bptt='fused' (backward2d._phase1_kernel) comes with "
+                                  "the 5x5 Burgers/lambda-omega slice")
+    if bptt == "two_phase":
+        raise NotImplementedError("bptt='two_phase' (rollout_tp) comes with the "
+                                  "5x5 Burgers/lambda-omega slice")
+    if bptt != "remat":
+        raise ValueError(f"unknown bptt {bptt!r}")
+    return rollout(lambda h: pi_cell_step(params["cell"], h, cell), h0, n_steps, remat=remat)
+
+
+def _n_meas(n_frames: int, dcfg: DataLossConfig) -> int:
+    return len(range(n_frames)[slice(0, -1 if dcfg.drop_last_frame else None,
+                                     dcfg.time_stride)])
+
+
+def build_loss_fn(prob: Problem, n_steps: int, *, bptt: str = "auto", rollout_fn=None):
+    """Composite loss per the experiment's weights; aux carries every
+    component plus 'val' (holdout data MSE) and 'phy' (residual metric).
+
+    loss_fn(params) -> (total, aux).  rollout_fn(params) -> frames
+    overrides forward_rollout.  When 'phy' has no weight it is a metric
+    only, computed without autograd.
+    """
+    exp = prob.exp
+    w = exp.loss_weights
+    system = PDE_SYSTEMS[exp.system]
+    nd = exp.cell.ndim
+    dev = (prob.ic_low if prob.ic_low is not None else prob.h0).device
+    if "data" in w and prob.measurement is None:
+        raise ValueError(
+            f"experiment {exp.name!r} weights the data loss but the problem "
+            "has no measurement (no data config / ISG-free setup)")
+
+    def loss_fn(params):
+        frames = (rollout_fn(params) if rollout_fn is not None
+                  else forward_rollout(params, prob, n_steps, bptt=bptt, device=dev))
+        total = torch.zeros((), dtype=frames.dtype, device=frames.device)
+        aux = {}
+        if prob.measurement is not None:
+            # the measurement covers train_steps+1 frames; a curriculum
+            # stage's rollout is shorter
+            meas = prob.measurement[: _n_meas(frames.shape[0], exp.data)]
+            tr, va = data_loss(frames, meas, exp.data, nd)
+            aux["data"] = tr
+            aux["val"] = va
+            if "data" in w:
+                total = total + w["data"] * tr
+        if exp.isg is not None:
+            out = isg_apply(params["isg"], prob.ic_low, exp.isg)
+            icl = ic_loss(out, prob.ic_low, nd, exp.interp_method,
+                          align_corners=exp.interp_align_corners,
+                          periodic_extend=exp.interp_periodic_extend)
+            aux["ic"] = icl
+            if "ic" in w:
+                total = total + w["ic"] * icl
+        if "phy" in w:
+            pl = phys_loss(system, frames, exp.dt, exp.dx)
+            total = total + w["phy"] * pl
+            aux.setdefault("val", pl)
+        else:
+            with torch.no_grad():
+                pl = phys_loss(system, frames.detach(), exp.dt, exp.dx)
+        aux["phy"] = pl
+        return total, aux
+
+    return loss_fn
+
+
+def build_isg_pretrain_loss(prob: Problem):
+    exp = prob.exp
+
+    def loss_fn(isg_params):
+        out = isg_apply(isg_params, prob.ic_low, exp.isg)
+        return ic_loss(out, prob.ic_low, exp.cell.ndim, exp.interp_method,
+                       align_corners=exp.interp_align_corners,
+                       periodic_extend=exp.interp_periodic_extend)
+
+    return loss_fn
 
 
 def inference_rollout(params: dict, exp: ExperimentConfig, x, n_steps: int, *,
@@ -39,3 +242,118 @@ def inference_rollout(params: dict, exp: ExperimentConfig, x, n_steps: int, *,
     with torch.inference_mode(), full_f32():
         h0 = isg_apply(params["isg"], x[None], exp.isg)[0] if exp.isg else x
         return fused_rollout_2d(params["cell"], h0, exp.cell, n_steps)
+
+
+def evaluate(params: dict, prob: Problem, n_steps: int) -> dict:
+    """Inference rollout + rel-L2 against the clean truth.
+
+    If the rollout goes non-finite, the headline ``rel_l2*`` keys are NaN;
+    the finite prefix is scored under ``rel_l2*_stable`` beside
+    ``stable_frames`` and ``diverged``.
+    """
+    exp = prob.exp
+    x = prob.ic_low[0] if exp.isg is not None else prob.h0
+    frames = inference_rollout(params, exp, x, n_steps, device=x.device).cpu().numpy()
+    t = min(frames.shape[0], prob.truth.shape[0])
+    finite = np.isfinite(frames[:t]).all(axis=tuple(range(1, frames.ndim)))
+    bad = np.flatnonzero(~finite)
+    stable = int(bad[0]) if bad.size else t
+    s = max(stable, 1)  # frame 0 is the IC; keep metrics well-defined
+    diff = (frames[:s] - prob.truth[:s]).reshape(s, -1).astype(np.float64)
+    ref = prob.truth[:s].reshape(s, -1).astype(np.float64)
+    per_frame = np.linalg.norm(diff, axis=1) / np.maximum(np.linalg.norm(ref, axis=1), 1e-30)
+    diverged = stable < t
+    prefix = {
+        "rel_l2_stable": rel_l2(frames[:s], prob.truth[:s]),
+        "rel_l2_u_stable": rel_l2(frames[:s, ..., 0], prob.truth[:s, ..., 0]),
+        "rel_l2_v_stable": rel_l2(frames[:s, ..., 1], prob.truth[:s, ..., 1]),
+    }
+    return {
+        "rel_l2": np.nan if diverged else prefix["rel_l2_stable"],
+        "rel_l2_u": np.nan if diverged else prefix["rel_l2_u_stable"],
+        "rel_l2_v": np.nan if diverged else prefix["rel_l2_v_stable"],
+        **prefix,
+        "rel_l2_per_frame": per_frame,
+        "stable_frames": stable,
+        "diverged": diverged,
+        "frames": frames,
+    }
+
+
+def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
+                   cache_dir: str | None = "data_cache", dtype=torch.float32,
+                   n_iters_override: int | None = None,
+                   isg_pretrain_override: int | None = None, warmup: int | None = None,
+                   steps_per_call: int | None = None, resume: bool = False,
+                   seed: int = 0, device: str | torch.device = "cuda") -> dict:
+    """Full pipeline on `device`: data -> (ISG pretrain) -> curriculum train -> eval.
+
+    resume=True reloads params and optimizer from the experiment checkpoint
+    and re-enters the curriculum stage it records; the ISG pretrain is
+    skipped then.  Besides the JAX package's result keys, ``seconds`` holds
+    the host seconds of each phase (truth, ISG pretrain, each stage,
+    evaluation).
+    """
+    dev = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    logger = MetricsLogger(os.path.join(out_dir, f"{exp.name}.metrics.jsonl"),
+                           echo_every=exp.train.log_every)
+    seconds: dict = {"stages": []}
+    if warmup is None:
+        warmup = 100 if exp.system == "lambda_omega" else 0
+    t0 = time.perf_counter()
+    truth = make_dataset(exp, warmup=warmup, cache_dir=cache_dir, device=dev)
+    seconds["truth"] = time.perf_counter() - t0
+    prob = setup_problem(exp, truth, dtype, device=dev)
+    params = init_model(exp, torch.Generator().manual_seed(seed), dtype, device=dev)
+
+    if exp.isg is not None and not resume:
+        t0 = time.perf_counter()
+        n_pre = isg_pretrain_override if isg_pretrain_override is not None \
+            else exp.isg_pretrain_iters
+        params["isg"] = pretrain_isg(build_isg_pretrain_loss(prob), params["isg"],
+                                     n_iters=n_pre, logger=logger, device=dev)
+        seconds["isg_pretrain"] = time.perf_counter() - t0
+
+    stages = list(exp.curriculum) + [exp.train_steps]
+    n_total = n_iters_override if n_iters_override is not None else exp.train.n_iters
+    per_stage = max(1, n_total // len(stages))
+    ckpt_path = os.path.join(out_dir, f"{exp.name}.ckpt.npz")
+    start_stage = 0
+    if resume and os.path.exists(ckpt_path):
+        start_stage = min(int(peek_meta(ckpt_path).get("stage", 0)), len(stages) - 1)
+    history: list = []
+    last_stage_history: list = []
+    for i, steps in enumerate(stages):
+        if i < start_stage:
+            continue
+        tcfg = dataclasses.replace(
+            exp.train,
+            n_iters=per_stage if i < len(stages) - 1 else n_total - per_stage * (len(stages) - 1),
+            ckpt_path=ckpt_path,
+            log_path=None,
+            **({"steps_per_call": steps_per_call} if steps_per_call else {}),
+        )
+        t0 = time.perf_counter()
+        params, h = train(build_loss_fn(prob, steps), params, tcfg, logger=logger,
+                          resume=resume and i == start_stage, extra_meta={"stage": i},
+                          device=dev)
+        seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,
+                                  "seconds": time.perf_counter() - t0})
+        history.extend(h)
+        last_stage_history = h
+
+    t0 = time.perf_counter()
+    metrics = evaluate(params, prob, min(exp.infer_steps, truth.shape[0] - 1))
+    seconds["evaluate"] = time.perf_counter() - t0
+    logger.log(n_total, final_rel_l2=metrics["rel_l2"],
+               **({"stable_frames": metrics["stable_frames"],
+                   "rel_l2_stable": metrics["rel_l2_stable"],
+                   "diverged": True} if metrics["diverged"] else {}))
+    logger.close()
+    result = {"params": params, "history": history, **metrics, "seconds": seconds}
+    # truth-free convergence telemetry: the minimum training loss of the
+    # final curriculum stage (loss scales compare only within a stage)
+    finite_tail = [x for x in last_stage_history if math.isfinite(x)]
+    result["final_stage_min_loss"] = min(finite_tail) if finite_tail else None
+    return result

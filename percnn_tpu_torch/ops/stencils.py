@@ -39,3 +39,10 @@ def laplacian(u: torch.Tensor, dx: float, dims: Sequence[int]) -> torch.Tensor:
 def laplacian_2d(u: torch.Tensor, dx: float) -> torch.Tensor:
     """Laplacian over the (H, W) dims of [..., H, W, C]."""
     return laplacian(u, dx, dims=(u.ndim - 3, u.ndim - 2))
+
+
+def time_derivative_fwd(seq: torch.Tensor, dt: float) -> torch.Tensor:
+    """Forward difference in time, aligned with the physics residual:
+    out[i] = (seq[i+1] - seq[i]) / dt for i in [0, T-2), so [T, ...] ->
+    [T-2, ...], matching spatial terms taken on frames [0:T-2]."""
+    return (seq[1:-1] - seq[:-2]) / dt

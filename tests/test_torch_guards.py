@@ -32,6 +32,8 @@ def _imported_roots(path):
 def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "percnn_tpu_torch/ops/kernels/cell2d.py" in names
+    assert "percnn_tpu_torch/ops/kernels/backward2d.py" in names
+    assert "percnn_tpu_torch/experiments/runner.py" in names
     assert "chip_smoke.py" in names
 
 
