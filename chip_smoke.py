@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GS2D serving and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's GS2D and GS3D serving and training paths once
+on one NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
@@ -8,18 +8,24 @@ Run from the root of a checkout, with one CUDA device:
 
 It builds the port's CUDA kernels from the checkout's sources with nvcc,
 holds them against the committed golden model, against their plain PyTorch
-versions and against f64 autograd, serves GS2D requests through
-``build_serving_fn`` and trains GS2D through ``run_experiment`` at full
-width (100 x 100), and times the kernels.  Phases, one JSON line each with
-the seconds since start:
+versions and against f64 autograd, serves GS2D and GS3D requests through
+``build_serving_fn``, trains GS2D (100 x 100) and GS3D (48^3) through
+``run_experiment`` at full width, and times the kernels.  Phases, one JSON
+line each with the seconds since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
   build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
+  golden3d     the 3D ISG and rollout3d_kernel against tests/golden/pt_gs3d.npz
   kernels      the forward kernels against their plain versions, 100 x 100, T = 200
   grads        pg2d_kernel against its plain version (100 x 100, T = 200,
                golden cell, data-loss cotangent), and the fused gradients
                against f64 autograd
+  kernels3d    at 48^3: rollout3d_kernel against its plain version (frames
+               and final state, T = 300), pg3d_kernel against its plain
+               sweep (T = 50, golden cell, data-loss cotangent), and the
+               fused 3D gradients against f64 autograd (random-init cell,
+               random target, 12 steps)
   serve        one uncounted warm-up request of each kind, then three frames
                requests and one final-state request, 2500 steps, with the
                kernels' launch counters set to 0 just before
@@ -28,10 +34,21 @@ the seconds since start:
                launch counters set to 0 just before
   train_parity train() on the card against train() on the CPU (plain
                versions), 32 x 32, T = 40, 5 iterations
+  train3d      run_experiment(GS3D_RECON): the 1000-frame truth, ISG pretrain,
+               10 iterations at each of T = 150, 300 with the watchdog family
+               and the stability probe at each stage's end, candidate
+               selection and the 1000-step evaluation, with the launch
+               counters set to 0 just before
+  train3d_parity  as train_parity for GS3D: 16^3, T = 20, 5 iterations,
+               watchdog on
+  serve3d      one uncounted warm-up request of each kind, then one frames
+               request and one final-state request, 1000 steps, on the
+               trained GS3D model, with the launch counter set to 0 just before
   step_breakdown  one training iteration at each T after a warm-up: host
                and device ms of the whole, the same split into ISG and
                forward, losses, backward (and pg2d_kernel in it), Adam, and
                the device's idle share from a torch.profiler trace
+  step_breakdown3d  the same for GS3D at T = 150, 300 (pg3d_kernel)
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work
 
@@ -58,6 +75,7 @@ import time
 T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "pt_gs2d.npz")
+GOLDEN3D = os.path.join(ROOT, "tests", "golden", "pt_gs3d.npz")
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM3 bandwidth and float32 outside the tensor cores (an FMA counts as 2).
@@ -71,6 +89,10 @@ TRAIN_ITERS = 30          # 10 at each of T = 200, 400, 800
 ISG_PRETRAIN_ITERS = 200
 TIME_BACKWARD_STEPS = 800
 BREAKDOWN_REPS = 5
+CHECK3D_STEPS = 300       # rollout3d_kernel against its plain version
+PG3D_CHECK_STEPS = 50     # pg3d_kernel against its plain sweep
+TRAIN3D_ITERS = 20        # 10 at each of T = 150, 300
+TIME_BACKWARD3D_STEPS = 300
 
 
 class CheckFailed(Exception):
@@ -105,19 +127,29 @@ def flops_per_cell_step(cfg) -> int:
     return 2 * (12 + 4 + cfg.hidden * (5 * cfg.n_branches + 1) + 1)
 
 
+def flops_per_cell_step_3d() -> int:
+    """Flops of one expanded-cubic Euler step (rollout3d_kernel) at one
+    cell: 5 adds for each of the four neighbour sums (s1, s2 of u and v), 7
+    multiplies for the shared monomials, and per equation 11 multiplies and
+    12 adds for the update."""
+    return 4 * 5 + 7 + 2 * (11 + 12)
+
+
 def pg_flops_per_cell_step(cfg) -> int:
-    """Flops that one reverse step of pg2d_kernel needs at one cell: per
-    equation and hidden channel, 4 per branch activation, the fewest
-    multiplies giving the full product and the nb leave-one-out products
-    (3 nb - 5 by prefix and suffix products: 4 at nb = 3), 2 for the w_out
-    plane and, per branch, 1 for zz, 4 for the dw planes, 1 for the db
-    plane and 4 for the Jacobian (w_i * w_out depends on the parameters
-    only, so it is not counted per cell); plus 9 * 2 adds forming g_in,
-    four Laplacians of 12, 6 for the diffusion and b_out planes and 8 for
+    """Flops that one reverse step of pg2d_kernel or pg3d_kernel needs at one
+    cell: per equation and hidden channel, 4 per branch activation, the
+    fewest multiplies giving the full product and the nb leave-one-out
+    products (3 nb - 5 by prefix and suffix products: 4 at nb = 3), 2 for
+    the w_out plane and, per branch, 1 for zz, 4 for the dw planes, 1 for
+    the db plane and 4 for the Jacobian (w_i * w_out depends on the
+    parameters only, so it is not counted per cell); plus 2 adds a stencil
+    point forming g_in (9 points in 2D, 13 in 3D), four Laplacians (12
+    flops in 2D, 16 in 3D), 6 for the diffusion and b_out planes and 8 for
     the update."""
     nb, per_branch = cfg.n_branches, 1 + 4 + 1 + 4
     pi = 2 * cfg.hidden * (4 * nb + max(3 * nb - 5, 0) + 2 + nb * per_branch)
-    return pi + 18 + 4 * 12 + 6 + 8
+    points = 4 * cfg.ndim + 1
+    return pi + 2 * points + 4 * (4 * cfg.ndim + 4) + 6 + 8
 
 
 def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -170,7 +202,8 @@ def profile_busy(torch, fn) -> dict:
               - min(float(e["ts"]) for e in events))
     kernels = {name: [float(e["dur"]) for e in events
                       if e.get("cat") == "kernel" and name in e.get("name", "")]
-               for name in ("rollout2d_kernel", "pg2d_kernel")}
+               for name in ("rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
+                            "pg3d_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
             "device_idle_share": 1.0 - busy / window if device else None,
             "device_events": len(device),
@@ -208,8 +241,8 @@ def main() -> int:
     from percnn_tpu_torch.data.noise import add_noise
     from percnn_tpu_torch.data.simulate import default_ic, simulate
     from percnn_tpu_torch.experiments import runner
-    from percnn_tpu_torch.experiments.configs import GS2D_RECON
-    from percnn_tpu_torch.ops.kernels import _build, backward2d, cell2d
+    from percnn_tpu_torch.experiments.configs import GS2D_RECON, GS3D_RECON
+    from percnn_tpu_torch.ops.kernels import _build, backward2d, backward3d, cell2d, cell3d
     from percnn_tpu_torch.serving import build_serving_fn
 
     dev = torch.device("cuda", 0)
@@ -230,11 +263,12 @@ def main() -> int:
         _build.load_library(name)
         return time.perf_counter() - t
 
-    sources = ("cell2d", "backward2d")
+    sources = ("cell2d", "backward2d", "cell3d", "backward3d")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(build, sources)))
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
-                            for n in sources})
+                            for n in sources},
+          ptxas={n: _build.PTXAS.get(n) for n in sources})
 
     cfg, isg_cfg = GS2D_RECON.cell, GS2D_RECON.isg
     with np.load(GOLDEN) as z:
@@ -259,6 +293,27 @@ def main() -> int:
     phase("golden", isg_max_abs_err=isg_err, isg_atol=2e-6,
           rollout_max_abs_err_per_step=step_err, rollout_bar="2e-5 * t")
 
+    # golden3d: the reference's trained GS3D model, ISG 12^3 -> 24^3, 6 steps
+    cfg3, isg3 = GS3D_RECON.cell, GS3D_RECON.isg
+    with np.load(GOLDEN3D) as z:
+        golden3 = {k: z[k] for k in z.files}
+    model3 = {"cell": unflatten_dotted(golden3, "cell."), "isg": unflatten_dotted(golden3, "isg.")}
+    params3 = params_from_numpy(model3, device=dev, dtype=torch.float32)
+    isg3_out = isg_apply(params3["isg"], torch.as_tensor(golden3["isg_in"], device=dev), isg3)
+    isg3_want = torch.as_tensor(golden3["isg_out"], device=dev)
+    isg3_err = max_abs(isg3_out, isg3_want)
+    check(allclose(isg3_out, isg3_want, rtol=1e-5, atol=2e-6),
+          f"golden 3D ISG: max |diff| {isg3_err} over atol 2e-6")
+    frames3_want = torch.as_tensor(golden3["frames"], device=dev)
+    n_golden3 = frames3_want.shape[0] - 1
+    frames3 = cell3d.fused_rollout_3d(params3["cell"], frames3_want[0], cfg3, n_golden3)
+    torch.cuda.synchronize()
+    step3_err = [max_abs(frames3[k], frames3_want[k]) for k in range(1, n_golden3 + 1)]
+    for k, e in enumerate(step3_err, start=1):
+        check(e <= 2e-5 * k, f"golden 3D rollout step {k}: max |diff| {e} over {2e-5 * k}")
+    phase("golden3d", isg_max_abs_err=isg3_err, isg_atol=2e-6, shape=list(frames3.shape[1:]),
+          rollout_max_abs_err_per_step=step3_err, rollout_bar="2e-5 * t")
+
     # kernels: full width, trained weights, against the plain versions
     h0 = torch.as_tensor(default_ic("gray_scott_2d", GS2D_RECON.grid), dtype=torch.float32,
                          device=dev)
@@ -277,19 +332,17 @@ def main() -> int:
           max_abs_err=err, rtol=2e-4, atol=1e-5)
 
     # grads: the backward kernel and the fused gradients at full width
-    data_cfg = GS2D_RECON.data
-    w_data = GS2D_RECON.loss_weights["data"]
+    def data_term(frames, meas, exp=GS2D_RECON):
+        return (exp.loss_weights["data"]
+                * data_loss(frames, meas, exp.data, exp.cell.ndim)[0])
 
-    def data_term(frames, meas):
-        return w_data * data_loss(frames, meas, data_cfg, 2)[0]
-
-    def cotangent(frames):
-        """Measurements (a noisy copy of the frames) and the cotangent of
-        40 * data_loss at the frames."""
-        meas = subsample(torch.as_tensor(add_noise(frames.cpu().numpy(), GS2D_RECON.noise_pct),
-                                         device=dev), data_cfg, 2)
+    def cotangent(frames, exp=GS2D_RECON):
+        """Measurements (a noisy copy of the frames) and the cotangent of the
+        weighted data loss at the frames (40 * data_loss for GS2D)."""
+        meas = subsample(torch.as_tensor(add_noise(frames.cpu().numpy(), exp.noise_pct),
+                                         device=dev), exp.data, exp.cell.ndim)
         fr = frames.clone().requires_grad_(True)
-        (fbar,) = torch.autograd.grad(data_term(fr, meas), fr)
+        (fbar,) = torch.autograd.grad(data_term(fr, meas, exp), fr)
         return meas, fbar
 
     frames = cell2d._rollout_cuda(packed, h0, cfg, CHECK_STEPS)
@@ -315,7 +368,8 @@ def main() -> int:
               f"pg2d_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
     err["pg2d_kernel"] = max(e for e, _ in leaf_err.values())
 
-    def rel_errs_vs_f64(cell_np, x0, steps, loss):
+    def rel_errs_vs_f64(cell_np, x0, steps, loss, cfg=cfg,
+                        fused_fn=backward2d.fused_rollout_tp_2d_pg):
         """Worst |g - g64| / max|g64| per leaf (cell leaves and dh0) of the
         fused f32 gradients and of plain f32 autograd, against f64 autograd
         through rollout(pi_cell_step), all on the card."""
@@ -328,7 +382,7 @@ def main() -> int:
             for leaf in leaves + [x]:
                 leaf.requires_grad_(True)
             if kind == "fused":
-                fr = backward2d.fused_rollout_tp_2d_pg(p, x, cfg, steps)
+                fr = fused_fn(p, x, cfg, steps)
             else:
                 fr = rollout(lambda h: pi_cell_step(p, h, cfg), x, steps)
             grads[kind] = torch.autograd.grad(loss(fr), leaves + [x])
@@ -359,11 +413,79 @@ def main() -> int:
           f"fused gradients vs f64 autograd on the trained cell: {worst_gold['fused']} over "
           f"2 x plain f32 autograd's {worst_gold['autograd_f32']}")
     phase("grads", shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2], steps=CHECK_STEPS,
-          pg2d_vs_plain_max_abs_err={k: e for k, (e, _) in leaf_err.items()},
+          pg2d_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in leaf_err.items()},
           pg2d_bar="2e-4 * max|leaf| + 2e-6",
           f64_random_cell_12_steps={"worst_leaf": worst_ref, "bar": 1e-4, **rel_ref},
           f64_trained_cell_200_steps={"worst": worst_gold, "bar": "2 x autograd_f32",
                                       **rel_gold})
+
+    # kernels3d: the 3D kernels at full width against their plain versions
+    n3 = GS3D_RECON.grid
+    h03 = torch.as_tensor(default_ic("gray_scott_3d", n3), dtype=torch.float32, device=dev)
+    expanded3 = cell3d.pack_pi_expanded_3d(params3["cell"], cfg3).contiguous()
+    packed3 = cell3d.pack_pi_params_3d(params3["cell"], cfg3)
+    got = cell3d._rollout_cuda(expanded3, h03, CHECK3D_STEPS)
+    want = cell3d.fused_rollout_3d_plain(expanded3, h03, CHECK3D_STEPS)
+    got_final = cell3d._rollout_cuda(expanded3, h03, CHECK3D_STEPS, final_only=True)
+    want_final = cell3d.fused_rollout_3d_plain(expanded3, h03, CHECK3D_STEPS, final_only=True)
+    torch.cuda.synchronize()
+    err["rollout3d_kernel"] = max(max_abs(got, want), max_abs(got_final, want_final))
+    check(allclose(got, want, rtol=2e-4, atol=1e-5),
+          f"rollout3d_kernel vs plain, frames: max |diff| {max_abs(got, want)}")
+    check(allclose(got_final, want_final, rtol=2e-4, atol=1e-5),
+          f"rollout3d_kernel vs plain, final state: max |diff| {max_abs(got_final, want_final)}")
+    del got, want
+    frames3 = cell3d._rollout_cuda(expanded3, h03, PG3D_CHECK_STEPS)
+    # a cotangent of O(1) in every cell (GS3D's data-loss cotangent is near
+    # 5e-7 a cell, which would put every leaf under the bar's 2e-6 floor)
+    fbar3 = torch.as_tensor(np.random.RandomState(3).standard_normal(tuple(frames3.shape)),
+                            dtype=torch.float32, device=dev)
+    g0_k, acc_k = backward3d._pg_cuda(packed3, frames3, fbar3, cfg3)
+    g0_p, acc_p = backward3d.fused_phase1_pg_3d_plain(packed3, frames3, fbar3.contiguous(), cfg3)
+    torch.cuda.synchronize()
+    sums_k, sums_p = acc_k.sum((1, 2, 3)), acc_p.sum((1, 2, 3))
+    lay3 = backward2d._pg_layout(cfg3)
+    groups3 = {"diff": (lay3["diff"], 2)}
+    for o in range(2):
+        for i in range(cfg3.n_branches):
+            groups3[f"pi[{o}].w{i}"] = (lay3["dw"] + (o * cfg3.n_branches + i) * 2 * cfg3.hidden,
+                                        2 * cfg3.hidden)
+            groups3[f"pi[{o}].b{i}"] = (lay3["db"] + (o * cfg3.n_branches + i) * cfg3.hidden,
+                                        cfg3.hidden)
+        groups3[f"pi[{o}].w_out"] = (lay3["wout"] + o * cfg3.hidden, cfg3.hidden)
+        groups3[f"pi[{o}].b_out"] = (lay3["bout"] + o, 1)
+    leaf3_err = {"g0": (max_abs(g0_k, g0_p), float(g0_p.abs().max()))}
+    for name, (start, n) in groups3.items():
+        leaf3_err[name] = (max_abs(sums_k[start:start + n], sums_p[start:start + n]),
+                           float(sums_p[start:start + n].abs().max()))
+    for name, (e, scale) in leaf3_err.items():
+        check(2e-6 <= 0.01 * 2e-4 * scale,
+              f"pg3d_kernel vs plain, {name}: the floor 2e-6 sets the bar (max|leaf| {scale})")
+        check(e <= 2e-4 * scale + 2e-6,
+              f"pg3d_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+    err["pg3d_kernel"] = max(e for e, _ in leaf3_err.values())
+    del acc_k, acc_p
+    # the measure of the gradient referee at GS3D's shape: random-init cell,
+    # random target, 12 steps, 48^3, held to 1e-4
+    rng3 = np.random.RandomState(2)
+    ref3_cell = params_to_numpy(init_pi_cell(torch.Generator().manual_seed(0), cfg3,
+                                             device="cpu"))
+    x3_ref = torch.as_tensor(0.5 + 0.2 * rng3.standard_normal((n3,) * 3 + (2,)),
+                             dtype=torch.float32, device=dev)
+    tgt3 = torch.as_tensor(rng3.standard_normal((13,) + tuple(x3_ref.shape)), device=dev)
+    rel3 = rel_errs_vs_f64(ref3_cell, x3_ref, 12,
+                           lambda fr: ((fr - tgt3.to(fr.dtype)) ** 2).mean(), cfg=cfg3,
+                           fused_fn=backward3d.fused_rollout_tp_3d_pg)
+    worst3 = max(rel3["fused"], key=rel3["fused"].get)
+    check(rel3["fused"][worst3] <= 1e-4,
+          f"fused 3D gradients vs f64 autograd: {worst3} at {rel3['fused'][worst3]} over 1e-4")
+    phase("kernels3d", shape=[n3, n3, n3, 2], rollout_steps=CHECK3D_STEPS,
+          rollout3d_max_abs_err=err["rollout3d_kernel"], rollout_rtol=2e-4, rollout_atol=1e-5,
+          pg_steps=PG3D_CHECK_STEPS,
+          pg3d_cotangent="standard normal, seed 3",
+          pg3d_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in leaf3_err.items()},
+          pg3d_bar="2e-4 * max|leaf| + 2e-6",
+          f64_random_cell_12_steps={"worst_leaf": worst3, "bar": 1e-4, **rel3})
 
     # serve: the main path, through the entry point a user calls
     serve = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg, device=dev)
@@ -470,11 +592,122 @@ def main() -> int:
     phase("train_parity", grid=pexp.grid, steps=pexp.train_steps, iters=pexp.train.n_iters,
           card=gpu_h.tolist(), cpu=cpu_h.tolist(), max_rel_err=parity_err, rtol=1e-4)
 
+    # train3d: the main path of GS3D training, through the entry point a user
+    # calls: the whole robustness family and the probe are on
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train3d_")
+    try:
+        cell3d.fused_rollout_3d.launches = 0
+        backward3d.fused_rollout_tp_3d_pg.launches = 0
+        with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
+            res3 = runner.run_experiment(GS3D_RECON, device=dev, out_dir=out_dir, cache_dir=None,
+                                         n_iters_override=TRAIN3D_ITERS,
+                                         isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
+        train3_launches = {"rollout3d_kernel": cell3d.fused_rollout_3d.launches,
+                           "pg3d_kernel": backward3d.fused_rollout_tp_3d_pg.launches}
+        with open(os.path.join(out_dir, f"{GS3D_RECON.name}.metrics.jsonl")) as f:
+            records3 = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    stages3 = list(GS3D_RECON.curriculum) + [GS3D_RECON.train_steps]
+    per_stage3 = TRAIN3D_ITERS // len(stages3)
+    hist3 = res3["history"]
+    scores3 = res3["probe_scores"]
+    events3 = [r for r in records3 if "event" in r]
+    # forward and backward of every iteration, and again of every chunk that
+    # a rollback or an abort drops (the replay starts at the same iteration);
+    # a probe at each stage's end, one per candidate and the evaluation, each
+    # over the inference horizon.  A stage's records end with its loss line
+    # at its last iteration (then its probe).
+    spc = GS3D_RECON.train.steps_per_call
+    iters_run, stage = [per_stage3] * len(stages3), 0
+    for r in records3:
+        if r.get("event") in ("nan_watchdog", "spike_watchdog", "aborted"):
+            iters_run[stage] += min(spc, per_stage3 - int(r["step"]))
+        elif "loss" in r and int(r["step"]) == per_stage3 - 1:
+            stage += 1
+    ran3 = sum(n * steps for n, steps in zip(iters_run, stages3))
+    want3 = {"pg3d_kernel": ran3,
+             "rollout3d_kernel": ran3 + GS3D_RECON.infer_steps * (len(stages3) + len(scores3) + 1)}
+    check(len(hist3) == TRAIN3D_ITERS and bool(np.isfinite(hist3).all()),
+          f"GS3D training losses {hist3}")
+    check(any(np.isfinite(v) for v in scores3.values()), f"GS3D probe scores {scores3}")
+    check(bool(np.isfinite(res3["rel_l2"])), f"GS3D evaluation rel_l2 {res3['rel_l2']}")
+    check(train3_launches == want3,
+          f"GS3D training launch counts {train3_launches}, expected {want3}")
+    sec3 = res3["seconds"]
+    phase("train3d", experiment=GS3D_RECON.name, grid=GS3D_RECON.grid, launches=train3_launches,
+          expected_launches=want3, iterations_run=iters_run, events=events3,
+          truth_frames=GS3D_RECON.infer_steps, truth_s=sec3["truth"],
+          isg_pretrain_iters=ISG_PRETRAIN_ITERS, isg_pretrain_s=sec3["isg_pretrain"],
+          stages=[{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]}
+                  for st in sec3["stages"]],
+          select_s=sec3["select"], evaluate_s=sec3["evaluate"], history=hist3,
+          candidate=res3["candidate"], probe_scores=scores3, rel_l2=res3["rel_l2"],
+          rel_l2_u=res3["rel_l2_u"], rel_l2_v=res3["rel_l2_v"],
+          stable_frames=res3["stable_frames"], diverged=bool(res3["diverged"]))
+
+    # train3d_parity: GS3D training on the card against its plain self
+    pexp3 = dataclasses.replace(
+        GS3D_RECON, grid=16, train_steps=20, infer_steps=20, curriculum=(),
+        data=dataclasses.replace(GS3D_RECON.data, time_stride=5),
+        train=dataclasses.replace(GS3D_RECON.train, n_iters=5, steps_per_call=5))
+    ptruth3 = simulate(pexp3.system, default_ic(pexp3.system, pexp3.grid), pexp3.train_steps,
+                       pexp3.dt, pexp3.dx, device=dev)
+    init3 = params_to_numpy(runner.init_model(pexp3, torch.Generator().manual_seed(0),
+                                              device="cpu"))
+    parity3 = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        prob = runner.setup_problem(pexp3, ptruth3, device=d)
+        with contextlib.redirect_stdout(sys.stderr):
+            parity3[label] = train(runner.build_loss_fn(prob, pexp3.train_steps), init3,
+                                   pexp3.train, device=d)[1]
+    gpu3_h, cpu3_h = np.asarray(parity3["card"]), np.asarray(parity3["cpu"])
+    check(len(gpu3_h) == len(cpu3_h) == pexp3.train.n_iters,
+          f"GS3D parity histories {gpu3_h.tolist()} and {cpu3_h.tolist()}")
+    parity3_err = float(np.max(np.abs(gpu3_h - cpu3_h) / np.abs(cpu3_h)))
+    check(np.allclose(gpu3_h, cpu3_h, rtol=1e-4, atol=0),
+          f"GS3D train on the card vs the CPU: {gpu3_h.tolist()} vs {cpu3_h.tolist()}")
+    phase("train3d_parity", grid=pexp3.grid, steps=pexp3.train_steps,
+          iters=pexp3.train.n_iters, watchdog=pexp3.train.watchdog, card=gpu3_h.tolist(),
+          cpu=cpu3_h.tolist(), max_rel_err=parity3_err, rtol=1e-4)
+
+    # serve3d: the trained GS3D model through the entry point a user calls
+    serve3 = build_serving_fn(res3["params"], cfg3, GS3D_RECON.infer_steps, isg_cfg=isg3,
+                              device=dev)
+    serve3_final = build_serving_fn(res3["params"], cfg3, GS3D_RECON.infer_steps, isg_cfg=isg3,
+                                    final_only=True, device=dev)
+    request3 = add_noise(default_ic("gray_scott_3d", n3, seed=SEEDS[0])[None],
+                         GS3D_RECON.noise_pct, seed=SEEDS[0])[0][::isg3.scale, ::isg3.scale,
+                                                                 ::isg3.scale]
+    warmup3_s = []
+    for fn in (serve3, serve3_final):
+        t = time.perf_counter()
+        fn(request3)
+        torch.cuda.synchronize()
+        warmup3_s.append(time.perf_counter() - t)
+    cell3d.fused_rollout_3d.launches = 0
+    request_s, enqueue_s = [], []
+    answer3 = timed(serve3, request3)
+    final3 = timed(serve3_final, request3)
+    serve3_launches = {"rollout3d_kernel": cell3d.fused_rollout_3d.launches}
+    check(tuple(answer3.shape) == (GS3D_RECON.infer_steps + 1, n3, n3, n3, 2)
+          and bool(torch.isfinite(answer3).all()), "GS3D frames not finite or misshapen")
+    check(tuple(final3.shape) == (n3, n3, n3, 2) and bool(torch.isfinite(final3).all()),
+          "GS3D final state not finite or misshapen")
+    final3_err = max_abs(final3, answer3[-1])
+    check(allclose(final3, answer3[-1], rtol=1e-6, atol=1e-7),
+          f"GS3D final-state request vs last frame: max |diff| {final3_err}")
+    check(serve3_launches == {"rollout3d_kernel": 2 * GS3D_RECON.infer_steps},
+          f"GS3D serving launch counts {serve3_launches}")
+    phase("serve3d", requests=2, steps=GS3D_RECON.infer_steps, launches=serve3_launches,
+          request_seconds=request_s, enqueue_seconds=enqueue_s,
+          request_order="frames, then final-state",
+          warmup_request_seconds=dict(zip(("frames", "final_state"), warmup3_s)),
+          final_vs_last_frame_max_abs_err=final3_err)
+
     # step_breakdown: where one training iteration's time goes at each T, with
     # the trained params; a served rollout stands in for the truth (the
     # times do not depend on the data)
-    bprob = runner.setup_problem(GS2D_RECON, answers[0].cpu().numpy(), device=dev)
-
     def event_ms(fn):
         """fn() and the device ms between events recorded around it, with
         the stream idle before: the segment's kernels and any gap while the
@@ -488,61 +721,73 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    breakdown = []
-    for steps in stages:
-        tp = params_from_numpy(res["params"], device=dev, dtype=torch.float32)
-        leaves = [t.requires_grad_(True) for _, t in flatten_with_paths(tp)]
-        opt = torch.optim.Adam(leaves, lr=GS2D_RECON.train.lr, eps=1e-8)
-        loss_fn = runner.build_loss_fn(bprob, steps)
+    def breakdown(exp, bprob, trained, stages, pg_cuda, pg_name):
+        rows_out = []
+        for steps in stages:
+            tp = params_from_numpy(trained, device=dev, dtype=torch.float32)
+            leaves = [t.requires_grad_(True) for _, t in flatten_with_paths(tp)]
+            opt = torch.optim.Adam(leaves, lr=exp.train.lr, eps=1e-8)
+            loss_fn = runner.build_loss_fn(bprob, steps)
 
-        def iteration():
-            opt.zero_grad(set_to_none=True)
-            total, _ = loss_fn(tp)
-            total.backward()
-            opt.step()
+            def iteration():
+                opt.zero_grad(set_to_none=True)
+                total, _ = loss_fn(tp)
+                total.backward()
+                opt.step()
 
-        iteration()   # warm-up, not counted
-        rows = []
-        for _ in range(BREAKDOWN_REPS):
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            t = time.perf_counter()
-            start.record()
-            iteration()
-            end.record()
-            enqueue_ms = 1e3 * (time.perf_counter() - t)
-            torch.cuda.synchronize()
-            iteration_ms = 1e3 * (time.perf_counter() - t)
-            device_ms = start.elapsed_time(end)
-            opt.zero_grad(set_to_none=True)
-            frames, fwd_ms = event_ms(lambda: runner.forward_rollout(tp, bprob, steps, device=dev))
-            (total, _), loss_ms = event_ms(
-                lambda: runner.build_loss_fn(bprob, steps, rollout_fn=lambda _: frames)(tp))
-            _, bwd_ms = event_ms(total.backward)
-            _, adam_ms = event_ms(opt.step)
-            fr = frames.detach()
-            fb = cotangent(fr)[1].contiguous()
-            own = cell2d.pack_pi_params_2d(tp["cell"], cfg).detach()
-            _, pg_ms = event_ms(lambda: backward2d._pg_cuda(own, fr, fb, cfg))
-            rows.append([iteration_ms, enqueue_ms, device_ms, fwd_ms, loss_ms, bwd_ms, pg_ms,
-                         adam_ms])
-        med = np.median(np.asarray(rows), axis=0).tolist()
-        breakdown.append({**dict(zip(
-            ["steps", "iteration_ms", "enqueue_ms", "device_span_ms", "isg_and_forward_ms",
-             "losses_ms", "backward_ms", "pg2d_kernel_ms", "adam_ms"], [steps] + med)),
-            "profiled": profile_busy(torch, iteration)})
-        # the profiled busy time over the unprofiled device span
-        breakdown[-1]["device_idle_share_of_span"] = (
-            1.0 - breakdown[-1]["profiled"]["device_busy_ms"] / breakdown[-1]["device_span_ms"])
+            iteration()   # warm-up, not counted
+            rows = []
+            for _ in range(BREAKDOWN_REPS):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                start.record()
+                iteration()
+                end.record()
+                enqueue_ms = 1e3 * (time.perf_counter() - t)
+                torch.cuda.synchronize()
+                iteration_ms = 1e3 * (time.perf_counter() - t)
+                device_ms = start.elapsed_time(end)
+                opt.zero_grad(set_to_none=True)
+                frames, fwd_ms = event_ms(
+                    lambda: runner.forward_rollout(tp, bprob, steps, device=dev))
+                (total, _), loss_ms = event_ms(
+                    lambda: runner.build_loss_fn(bprob, steps, rollout_fn=lambda _: frames)(tp))
+                _, bwd_ms = event_ms(total.backward)
+                _, adam_ms = event_ms(opt.step)
+                fr = frames.detach()
+                fb = cotangent(fr, exp)[1].contiguous()
+                own = cell2d.pack_pi_params_2d(tp["cell"], exp.cell).detach()
+                _, pg_ms = event_ms(lambda: pg_cuda(own, fr, fb, exp.cell))
+                rows.append([iteration_ms, enqueue_ms, device_ms, fwd_ms, loss_ms, bwd_ms,
+                             pg_ms, adam_ms])
+            med = np.median(np.asarray(rows), axis=0).tolist()
+            rows_out.append({**dict(zip(
+                ["steps", "iteration_ms", "enqueue_ms", "device_span_ms", "isg_and_forward_ms",
+                 "losses_ms", "backward_ms", f"{pg_name}_ms", "adam_ms"], [steps] + med)),
+                "profiled": profile_busy(torch, iteration)})
+            # the profiled busy time over the unprofiled device span
+            rows_out[-1]["device_idle_share_of_span"] = (
+                1.0 - rows_out[-1]["profiled"]["device_busy_ms"]
+                / rows_out[-1]["device_span_ms"])
+        return rows_out
+
+    note = ("iteration_ms: host clock to the synchronised end of a whole iteration; "
+            "enqueue_ms: host clock until the iteration's last op is enqueued; "
+            "device_span_ms: CUDA events around the whole iteration; the segments: "
+            "CUDA events around each run alone, backward_ms includes the pg kernel's ms; "
+            "profiled: one more iteration under torch.profiler; "
+            "device_idle_share_of_span: 1 - its busy ms / device_span_ms")
+    bprob = runner.setup_problem(GS2D_RECON, answers[0].cpu().numpy(), device=dev)
     phase("step_breakdown", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
-          rows=breakdown,
-          note="iteration_ms: host clock to the synchronised end of a whole iteration; "
-               "enqueue_ms: host clock until the iteration's last op is enqueued; "
-               "device_span_ms: CUDA events around the whole iteration; the segments: "
-               "CUDA events around each run alone, backward_ms includes pg2d_kernel_ms; "
-               "profiled: one more iteration under torch.profiler; "
-               "device_idle_share_of_span: 1 - its busy ms / device_span_ms")
+          rows=breakdown(GS2D_RECON, bprob, res["params"], stages, backward2d._pg_cuda,
+                         "pg2d_kernel"), note=note)
+    bprob3 = runner.setup_problem(GS3D_RECON, answer3.cpu().numpy(), device=dev)
+    phase("step_breakdown3d", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
+          rows=breakdown(GS3D_RECON, bprob3, res3["params"], stages3, backward3d._pg_cuda,
+                         "pg3d_kernel"), note=note)
+    del bprob3, answer3, final3
 
     # times: per rollout at the serving shape (the ISG output of request 0)
     with torch.inference_mode():
@@ -596,9 +841,61 @@ def main() -> int:
             packed, frames, fbar, cfg), reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+    # GS3D at 48^3: a rollout over the inference horizon, frames and final
+    # state, and the backward at the longest training stage; golden cell,
+    # data-loss cotangent
+    steps3 = GS3D_RECON.infer_steps
+    cells3, state3_bytes = n3 ** 3, 8 * n3 ** 3
+    flops3 = steps3 * cells3 * flops_per_cell_step_3d()
+    coef_bytes = 4 * expanded3.numel()
+    b_ms, b_by = bound_ms(coef_bytes + state3_bytes + (steps3 + 1) * state3_bytes, flops3)
+    bf_ms, bf_by = bound_ms(coef_bytes + 2 * state3_bytes, flops3)
+    by_path3 = {"serve": serve3_launches["rollout3d_kernel"],
+                "train": train3_launches["rollout3d_kernel"]}
+    # the two forms in turns (frames, final, final, frames), before the
+    # plain versions load the host
+    turns = [cuda_ms(torch, lambda: cell3d._rollout_cuda(expanded3, h03, steps3,
+                                                         final_only=final_only), reps=5)
+             for final_only in (False, True, True, False)]
+    kernels.append({
+        "name": "rollout3d_kernel", "jax_kernel": "cell3d._rollout3d_kernel", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/cell3d.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell3d.py:225",
+        "launches": sum(by_path3.values()), "launches_by_path": by_path3,
+        "max_abs_err": err["rollout3d_kernel"], "ms": (turns[0] + turns[3]) / 2,
+        "ms_turns": {"frames": [turns[0], turns[3]], "final_only": [turns[1], turns[2]]},
+        "plain_ms": cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
+            expanded3, h03, steps3), reps=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "final_only": {
+            "ms": (turns[1] + turns[2]) / 2,
+            "plain_ms": cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
+                expanded3, h03, steps3, final_only=True), reps=1),
+            "bound_ms": bf_ms, "bound_by": bf_by},
+    })
+    frames3 = cell3d._rollout_cuda(expanded3, h03, TIME_BACKWARD3D_STEPS)
+    fbar3 = cotangent(frames3, GS3D_RECON)[1].contiguous()
+    bw3_flops = TIME_BACKWARD3D_STEPS * cells3 * pg_flops_per_cell_step(cfg3)
+    bw3_bytes = (4 * packed3.numel() + 2 * TIME_BACKWARD3D_STEPS * state3_bytes + state3_bytes
+                 + 4 * lay3["A"] * cells3)
+    b_ms, b_by = bound_ms(bw3_bytes, bw3_flops)
+    kernels.append({
+        "name": "pg3d_kernel", "jax_kernel": "backward3d._phase1_pg_kernel3d", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/backward3d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward3d.py:227",
+        "launches": train3_launches["pg3d_kernel"],
+        "launches_by_path": {"serve": 0, "train": train3_launches["pg3d_kernel"]},
+        "max_abs_err": err["pg3d_kernel"],
+        "ms": cuda_ms(torch, lambda: backward3d._pg_cuda(packed3, frames3, fbar3, cfg3), reps=5),
+        "plain_ms": cuda_ms(torch, lambda: backward3d.fused_phase1_pg_3d_plain(
+            packed3, frames3, fbar3, cfg3), reps=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
     phase("times", shape=list(h0.shape), steps=SERVE_STEPS, flops_per_rollout=flops,
           backward_steps=TIME_BACKWARD_STEPS, flops_per_backward=bw_flops,
-          bytes_per_backward=bw_bytes, nvidia_smi=smi)
+          bytes_per_backward=bw_bytes, shape3d=list(h03.shape), steps3d=steps3,
+          flops_per_rollout3d=flops3, backward_steps3d=TIME_BACKWARD3D_STEPS,
+          flops_per_backward3d=bw3_flops, bytes_per_backward3d=bw3_bytes, nvidia_smi=smi)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

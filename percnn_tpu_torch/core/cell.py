@@ -4,8 +4,9 @@
 Counterpart of percnn_tpu/core/cell.py.  Pi is N parallel 1x1 conv
 branches, multiplied elementwise, then aggregated by a 1x1 conv; the
 diffusion coefficients are raw or bounded as mu_up * sigmoid(c).  The state
-is channels-last [..., *spatial, channels].  This slice covers the 1x1
-cell of the GS2D model; k x k branches come with the cells that use them.
+is channels-last [..., *spatial, channels].  The port covers the 1x1
+cells of the GS2D and GS3D models; k x k branches come with the cells that
+use them.
 """
 
 from __future__ import annotations

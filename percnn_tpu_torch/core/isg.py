@@ -1,8 +1,9 @@
 """Initial-state generator (ISG): transposed-conv upsampler, low-res IC -> grid.
 
 Counterpart of percnn_tpu/core/isg.py.  GS2D's ISG is ConvT(2->8, k5, s2),
-sigmoid, ConvT(8->8, k5, s2), then a 1x1 conv 8->2: 4x upsampling.  Every
-ConvT stage has k=5, padding=2 and output_padding=stride-1.
+sigmoid, ConvT(8->8, k5, s2), then a 1x1 conv 8->2: 4x upsampling.  GS3D's
+is the same in 3D with strides (2, 1): 2x.  Every ConvT stage has k=5,
+padding=2 and output_padding=stride-1, so a stride-1 stage keeps the size.
 """
 
 from __future__ import annotations

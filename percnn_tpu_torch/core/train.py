@@ -1,18 +1,20 @@
 """Training loop: Adam with a StepLR staircase, atomic checkpoints and resume,
-best-validation selection.
+best-validation selection, the NaN/spike watchdog family and the stability
+probe.
 
 Counterpart of percnn_tpu/core/train.py.  ``torch.optim.Adam(eps=1e-8)``
 takes the place of ``optax.scale_by_adam`` scaled by -lr: the two compute
 the same update.  The learning rate lr * gamma^(it // lr_step) * lr_scale
 is set on the parameter group before every step.  ``steps_per_call`` is
 the number of steps between host reads of the losses: one device
-synchronisation per chunk.  Every step runs in full float32
-(``_device.full_f32``).
+synchronisation per chunk, where the watchdog judges the chunk.  Every step
+runs in full float32 (``_device.full_f32``).
 
-Not ported yet: the NaN/spike watchdog family (``watchdog``, ``spike_*``,
-``lr_recover``, ``spike_reset_opt``, ``abort_policy``) and the stability
-probe; ``train`` raises NotImplementedError when a config asks for any of
-them.
+The JAX trainer computes a chunk functionally and drops a failed chunk's
+new params and optimizer state.  Here ``opt.step()`` updates in place, so
+with the watchdog on the trainer snapshots the params and the Adam state
+before each chunk and restores that snapshot when the chunk fails, before
+it reloads the checkpoint (if one exists): the same replay as in JAX.
 """
 
 from __future__ import annotations
@@ -27,7 +29,12 @@ import torch
 
 from percnn_tpu_torch._device import full_f32, resolve_device
 from percnn_tpu_torch.bridge import _map_tree
-from percnn_tpu_torch.core.checkpoint import flatten_with_paths, load_checkpoint, save_checkpoint
+from percnn_tpu_torch.core.checkpoint import (
+    flatten_with_paths,
+    load_checkpoint,
+    peek_meta,
+    save_checkpoint,
+)
 from percnn_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -43,30 +50,20 @@ class TrainConfig:
     ckpt_every: int = 100
     best_val: bool = False    # checkpoint on best validation metric
     val_key: str = "val"      # aux key used for best-val
-    watchdog: bool = False    # NaN watchdog (not ported yet)
+    watchdog: bool = False    # NaN watchdog: restore, LR * 0.9, replay
     watchdog_key: str = "phy"
-    spike_mult: float | None = None
-    spike_warmup: int = 500
-    spike_max_retries: int = 5
-    lr_recover: float = 1.0
+    spike_mult: float | None = None  # a finite jump past spike_mult x the EMA
+                                     # of watchdog_key also rolls back
+    spike_warmup: int = 500   # iterations before spike checks arm
+    spike_max_retries: int = 5  # then the spike is accepted, EMA rebased
+    lr_recover: float = 1.0   # lr_scale *= lr_recover per clean iteration, to 1
     best_key: str | None = None  # return the params with the lowest aux metric
-    spike_reset_opt: bool = False
-    abort_policy: str = "raise"
-    probe_every: int = 0
+    spike_reset_opt: bool = False  # fresh Adam state on the 2nd+ rollback in a row
+    abort_policy: str = "raise"    # after 50 failed chunks: "raise" or "stop"
+    probe_every: int = 0      # stability-probe cadence (iterations); 0 = off
     log_path: str | None = None
     log_every: int = 50
     steps_per_call: int = 1   # optimizer steps between host reads of the losses
-
-
-def _check_ported(cfg: TrainConfig, probe) -> None:
-    asked = [name for name, on in (
-        ("watchdog", cfg.watchdog), ("spike_mult", cfg.spike_mult is not None),
-        ("lr_recover", cfg.lr_recover != 1.0), ("spike_reset_opt", cfg.spike_reset_opt),
-        ("abort_policy", cfg.abort_policy != "raise"),
-        ("probe", probe is not None or cfg.probe_every > 0)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"train options {asked} are not ported yet (they come with GS3D)")
 
 
 def _leaves(tree) -> list:
@@ -121,6 +118,28 @@ class TrainState:
             self.opt.state[p] = ({"step": torch.tensor(step), "exp_avg": m.clone(),
                                   "exp_avg_sq": v.clone()} if step > 0 else {})
 
+    def capture(self) -> tuple:
+        """Copies of the params and the Adam state, for ``restore``."""
+        leaves = _leaves(self.params)
+        return ([p.detach().clone() for p in leaves],
+                [{k: v.clone() for k, v in self.opt.state[p].items()} for p in leaves])
+
+    def restore(self, snap: tuple) -> None:
+        """Put back what ``capture`` copied (the copies are taken over, not
+        copied again: each chunk takes a fresh capture)."""
+        values, opt_states = snap
+        with torch.no_grad():
+            for p, v in zip(_leaves(self.params), values):
+                p.copy_(v)
+        for p, st in zip(_leaves(self.params), opt_states):
+            self.opt.state[p] = st
+
+    def reset_opt(self) -> None:
+        """Fresh Adam state: zero moments and step 0, so the bias correction
+        restarts (optax's ``tx.init``)."""
+        for p in _leaves(self.params):
+            self.opt.state[p] = {}
+
     def meta(self) -> dict:
         return {"iteration": self.iteration, "lr_scale": self.lr_scale,
                 "best_val": None if math.isinf(self.best_val) else self.best_val}
@@ -142,9 +161,14 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
     params: a tree of tensors or numpy arrays; the trainer works on its own
     copies on `device`.  extra_meta is merged into every checkpoint's
     metadata (the curriculum stage, so a resume re-enters the right stage).
-    Returns (best-or-final params, loss history list).
+    probe(params) -> float, lower is better and non-finite marks the iterate
+    unstable; it fires every cfg.probe_every iterations and at the end, and
+    each finite improvement is checkpointed to ``cfg.ckpt_path + '.stable'``
+    with its ``probe_score``.  Returns (best-or-final params, loss history
+    list); under best_val/best_key the best params start as the starting
+    params (after any resume), so a run that never sees a finite best
+    returns those.
     """
-    _check_ported(cfg, probe)
     if cfg.best_val and cfg.best_key is not None:
         raise ValueError("best_val and best_key are mutually exclusive selection "
                          "policies: they would race for best_params/.best")
@@ -159,21 +183,32 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
     if own_logger:
         logger = MetricsLogger(cfg.log_path, echo_every=cfg.log_every)
     history: list = []
-    best_params = None
+    best_params = _snapshot(state.params)
+    nan_streak = 0
+    spike_streak = 0
+    watch_ema = None
     best_metric = math.inf
     last_best_write = -10 ** 9
     best_unflushed = None  # (tree, meta) of a best improvement not yet on disk
+    best_probe = math.inf
+    if probe is not None and cfg.ckpt_path and os.path.exists(cfg.ckpt_path + ".stable"):
+        # the probe competition carries across curriculum stages and resumes
+        # (callers delete a stale file on a fresh run)
+        prev = peek_meta(cfg.ckpt_path + ".stable").get("probe_score")
+        if prev is not None:
+            best_probe = float(prev)
 
-    def save(path_suffix: str = "") -> None:
+    def save(path_suffix: str = "", extra: dict | None = None) -> None:
         if cfg.ckpt_path:
             save_checkpoint(cfg.ckpt_path + path_suffix, state.as_tree(),
-                            {**state.meta(), **(extra_meta or {})})
+                            {**state.meta(), **(extra_meta or {}), **(extra or {})})
 
     try:
         with full_f32():
             while state.iteration < cfg.n_iters:
                 it = state.iteration
                 n_sub = min(cfg.steps_per_call, cfg.n_iters - it)
+                before = state.capture() if cfg.watchdog else None
                 totals, auxs, lrs = [], [], []
                 for k in range(n_sub):
                     lr = cfg.lr * cfg.lr_gamma ** ((it + k) // cfg.lr_step) * state.lr_scale
@@ -190,6 +225,59 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                 totals = torch.stack(totals).cpu().numpy()
                 auxs = {name: torch.stack([a[name] for a in auxs]).cpu().numpy()
                         for name in auxs[0]}
+                watch = auxs.get(cfg.watchdog_key, totals) if cfg.watchdog else totals
+
+                bad = bool(np.isnan(watch).any() or np.isnan(totals).any())
+                spiked = (not bad and cfg.watchdog and cfg.spike_mult is not None
+                          and watch_ema is not None and it >= cfg.spike_warmup
+                          and float(np.max(watch)) > cfg.spike_mult * watch_ema)
+                if spiked and spike_streak >= cfg.spike_max_retries:
+                    # a rollback replays deterministically and is not escaping
+                    # this: accept the new regime, rebasing the EMA to finite
+                    # values only (0.9 * inf stays inf)
+                    spiked = False
+                    spike_streak = 0
+                    w_new = float(np.max(watch))
+                    watch_ema = w_new if math.isfinite(w_new) else None
+                    logger.log(it, event="spike_accepted", ema=watch_ema)
+                if cfg.watchdog and (bad or spiked):
+                    # drop the chunk, as the JAX trainer does, then reload the
+                    # checkpoint if there is one; LR * 0.9; replay the same
+                    # iterations
+                    state.restore(before)
+                    if bad:
+                        nan_streak += 1
+                        if nan_streak > 50:
+                            if cfg.abort_policy == "stop":
+                                logger.log(it, event="aborted",
+                                           reason="50 consecutive failed chunks")
+                                break
+                            raise FloatingPointError(
+                                "watchdog: 50 consecutive failed chunks "
+                                f"(iteration {it}); aborting")
+                    else:
+                        spike_streak += 1
+                    state.lr_scale *= 0.9
+                    if cfg.ckpt_path and os.path.exists(cfg.ckpt_path):
+                        tree, _ = load_checkpoint(cfg.ckpt_path, state.as_tree())
+                        state.load_tree(tree)
+                    opt_reset = cfg.spike_reset_opt and nan_streak + spike_streak >= 2
+                    if opt_reset:
+                        state.reset_opt()
+                    logger.log(it, event="spike_watchdog" if spiked else "nan_watchdog",
+                               lr_scale=state.lr_scale,
+                               **({"opt_reset": True} if opt_reset else {}),
+                               **({"watch": float(np.max(watch)), "ema": watch_ema}
+                                  if spiked else {}))
+                    continue
+                nan_streak = 0
+                spike_streak = 0
+                if cfg.lr_recover > 1.0 and state.lr_scale < 1.0:
+                    state.lr_scale = min(1.0, state.lr_scale * cfg.lr_recover ** n_sub)
+                w_last = float(watch[-1])
+                if np.isfinite(w_last):
+                    watch_ema = w_last if watch_ema is None else 0.9 * watch_ema + 0.1 * w_last
+
                 state.iteration += n_sub
                 history.extend(totals.tolist())
 
@@ -229,6 +317,16 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                                           state.as_tree()),
                                 {**state.meta(), **(extra_meta or {})})
 
+                if (probe is not None and cfg.probe_every > 0
+                        and (state.iteration % cfg.probe_every < n_sub
+                             or state.iteration >= cfg.n_iters)):
+                    score = float(probe(state.params))
+                    if math.isfinite(score) and score < best_probe:
+                        best_probe = score
+                        save(".stable", {"probe_score": score})
+                    if not math.isfinite(score) or state.iteration >= cfg.n_iters:
+                        logger.log(last, event="probe", score=score, best=best_probe)
+
                 if cfg.ckpt_path and (state.iteration % cfg.ckpt_every < n_sub
                                       or state.iteration >= cfg.n_iters):
                     save()
@@ -239,10 +337,9 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
         if own_logger:
             logger.close()
 
-    final = _snapshot(state.params)
     if cfg.best_val or cfg.best_key is not None:
-        return (best_params if best_params is not None else final), history
-    return final, history
+        return best_params, history
+    return _snapshot(state.params), history
 
 
 def pretrain_isg(isg_loss_fn: Callable, params, *, n_iters: int = 4000,

@@ -1,9 +1,10 @@
 """Ground-truth generation: initial conditions and the f64 RK4 integrator.
 
-Counterpart of ``default_ic`` (Gray-Scott 2D) and ``simulate`` in
+Counterpart of ``default_ic`` (Gray-Scott 2D and 3D) and ``simulate`` in
 percnn_tpu/data/simulate.py.  The JAX package integrates on the host; here
 the RK4 runs as tensor ops on ``device`` (the card by default), since the
-GS2D truth is 2500 frames of 4 substeps each.
+GS2D truth is 2500 frames of 4 substeps each and the GS3D truth 1000 frames
+of a 48^3 grid.
 """
 
 from __future__ import annotations
@@ -26,6 +27,14 @@ def default_ic(system: str, n: int, seed: int = 66) -> np.ndarray:
         c = slice(n // 2 - q // 2, n // 2 + q // 2)
         u[c, c] = 0.5 + 0.1 * rng.rand(*u[c, c].shape)
         v[c, c] = 0.25 + 0.1 * rng.rand(*v[c, c].shape)
+        return np.stack([u, v], axis=-1)
+    if system == "gray_scott_3d":
+        u = np.ones((n, n, n))
+        v = np.zeros((n, n, n))
+        q = max(2, n // 6)
+        c = slice(n // 2 - q // 2, n // 2 + q // 2)
+        u[c, c, c] = 0.5 + 0.1 * rng.rand(*u[c, c, c].shape)
+        v[c, c, c] = 0.25 + 0.1 * rng.rand(*v[c, c, c].shape)
         return np.stack([u, v], axis=-1)
     raise NotImplementedError(f"default_ic for {system!r} is not ported yet")
 

@@ -1,4 +1,4 @@
-"""Experiment configurations: the GS2D reconstruction model.
+"""Experiment configurations: the GS2D and GS3D reconstruction models.
 
 Counterpart of percnn_tpu/experiments/configs.py, with the same field
 values.  The other experiments come with the slices that run them.
@@ -60,4 +60,38 @@ GS2D_RECON = ExperimentConfig(
     loss_weights={"data": 40.0, "ic": 0.25},
     noise_pct=0.1,
     interp_method="cubic",
+)
+
+
+# 3D Gray-Scott reconstruction (train_3drd.py:494-558): ISG 2x trilinear,
+# Pi C=2 k=1, mu_up=0.274, 10*data + 5*ic, Adam 2e-3 StepLR(250, .975)
+# x12000, T curriculum 150->300, 1000-step inference.  The trainer's whole
+# robustness family is on: NaN and spike watchdog, lr_recover,
+# spike_reset_opt, best-by-loss, abort_policy="stop" and the stability
+# probe every 250 iterations (percnn_tpu/experiments/configs.py gives the
+# runs that motivated each).
+GS3D_RECON = ExperimentConfig(
+    name="gs3d_recon",
+    system="gray_scott_3d",
+    grid=48,
+    dt=0.5,
+    dx=100.0 / 48.0,
+    train_steps=300,
+    infer_steps=1000,
+    curriculum=(150,),
+    cell=PiCellConfig(
+        ndim=3, hidden=2, kernel_size=1, dt=0.5, dx=100.0 / 48.0,
+        diffusion="sigmoid", mu_up=0.274, init="xavier", init_scale=0.01,
+    ),
+    isg=ISGConfig(ndim=3, hidden=8, strides=(2, 1), activation="sigmoid"),
+    data=DataLossConfig(time_stride=15, space_stride=2, val_frac=0.0,
+                        drop_last_frame=True),
+    train=TrainConfig(n_iters=12000, lr=2e-3, lr_step=250, lr_gamma=0.975,
+                      watchdog=True, watchdog_key="phy", steps_per_call=10,
+                      spike_mult=10.0, best_key="loss", lr_recover=1.002,
+                      spike_reset_opt=True, probe_every=250,
+                      abort_policy="stop"),
+    loss_weights={"data": 10.0, "ic": 5.0},
+    noise_pct=0.1,
+    interp_method="linear",
 )

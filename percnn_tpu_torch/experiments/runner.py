@@ -1,15 +1,15 @@
 """Experiment runner: composes data, model, losses and trainer per config.
 
 Counterpart of percnn_tpu/experiments/runner.py for the data-driven GS2D
-path: truth (RK4 on the device), noise, ISG pretrain, the curriculum of
-training stages, and the evaluation rollout scored by rel-L2.
-``inference_rollout`` takes the request (the low-res IC, or the full-res
-IC when the model has no ISG) directly, instead of a truth-carrying
-Problem.
+and GS3D paths: truth (RK4 on the device), noise, ISG pretrain, the
+curriculum of training stages with the stability probe, the selection of
+a stable candidate, and the evaluation rollout scored by rel-L2; and
+``run_experiment_with_restarts`` around it.  ``inference_rollout`` takes
+the request (the low-res IC, or the full-res IC when the model has no ISG)
+directly, instead of a truth-carrying Problem.
 
 Not ported yet: training on a device mesh, a shared ISG pretrain file, the
-visual exports, the closed-form Pi expressions and the probe/restart
-machinery (ROADMAP.md).
+visual exports and the closed-form Pi expressions (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,8 +24,13 @@ import numpy as np
 import torch
 
 from percnn_tpu_torch._device import full_f32, resolve_device
+from percnn_tpu_torch.bridge import params_from_numpy
 from percnn_tpu_torch.core.cell import init_pi_cell, pi_cell_step
-from percnn_tpu_torch.core.checkpoint import peek_meta
+from percnn_tpu_torch.core.checkpoint import (
+    flatten_with_paths,
+    load_checkpoint_tree,
+    peek_meta,
+)
 from percnn_tpu_torch.core.isg import init_isg, isg_apply
 from percnn_tpu_torch.core.losses import DataLossConfig, data_loss, ic_loss, phys_loss
 from percnn_tpu_torch.core.rollout import rollout
@@ -34,7 +39,9 @@ from percnn_tpu_torch.data.noise import add_noise
 from percnn_tpu_torch.data.simulate import default_ic, simulate
 from percnn_tpu_torch.experiments.configs import ExperimentConfig
 from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d_pg
+from percnn_tpu_torch.ops.kernels.backward3d import fused_rollout_tp_3d_pg
 from percnn_tpu_torch.ops.kernels.cell2d import fused_rollout_2d
+from percnn_tpu_torch.ops.kernels.cell3d import fused_rollout_3d
 from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
 from percnn_tpu_torch.utils.metrics import MetricsLogger, rel_l2
 
@@ -128,11 +135,13 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
     Problem's.
 
     bptt:
-      'auto'     -- 'fused_pg' for a 2D kernel_size-1 cell with a float32
-                    state (kernels on the card, their plain versions on the
-                    CPU), else 'remat';
+      'auto'     -- 'fused_pg' for a kernel_size-1 two-channel cell with a
+                    float32 state, 2D or 3D with three branches (kernels on
+                    the card, their plain versions on the CPU), else 'remat';
       'fused_pg' -- rollout2d_kernel forward, pg2d_kernel backward
-                    (ops/kernels/backward2d.py);
+                    (ops/kernels/backward2d.py) in 2D; rollout3d_kernel
+                    forward, pg3d_kernel backward (ops/kernels/backward3d.py)
+                    in 3D;
       'remat'    -- autograd through the cell step, checkpointed segments.
     'fused' and 'two_phase' are not ported yet.
     """
@@ -145,10 +154,12 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
         h0 = (prob.h0 if h0 is None else h0).to(dev)
     cell = exp.cell
     if bptt == "auto":
-        bptt = ("fused_pg" if cell.ndim == 2 and cell.kernel_size == 1
-                and cell.channels == 2 and h0.dtype == torch.float32 else "remat")
+        fusable = cell.ndim == 2 or (cell.ndim == 3 and cell.n_branches == 3)
+        bptt = ("fused_pg" if fusable and cell.kernel_size == 1 and cell.channels == 2
+                and h0.dtype == torch.float32 else "remat")
     if bptt == "fused_pg":
-        return fused_rollout_tp_2d_pg(params["cell"], h0, cell, n_steps)
+        fused = fused_rollout_tp_2d_pg if cell.ndim == 2 else fused_rollout_tp_3d_pg
+        return fused(params["cell"], h0, cell, n_steps)
     if bptt == "fused":
         raise NotImplementedError("bptt='fused' (backward2d._phase1_kernel) comes with "
                                   "the 5x5 Burgers/lambda-omega slice")
@@ -232,16 +243,66 @@ def build_isg_pretrain_loss(prob: Problem):
 
 def inference_rollout(params: dict, exp: ExperimentConfig, x, n_steps: int, *,
                       device: str | torch.device = "cuda") -> torch.Tensor:
-    """ISG (if the model has one), then the fused 2D rollout:
-    [n_steps+1, H, W, 2] f32 frames on `device`.
+    """ISG (if the model has one), then the fused rollout (2D or 3D):
+    [n_steps+1, *spatial, 2] f32 frames on `device`.
 
-    x: the low-res IC [H/s, W/s, 2] when ``exp.isg`` is set, else the IC.
+    x: the low-res IC [*spatial/s, 2] when ``exp.isg`` is set, else the IC.
+    A cell the fused kernels do not take raises; nothing falls back.
     """
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    roll = fused_rollout_2d if exp.cell.ndim == 2 else fused_rollout_3d
     with torch.inference_mode(), full_f32():
         h0 = isg_apply(params["isg"], x[None], exp.isg)[0] if exp.isg else x
-        return fused_rollout_2d(params["cell"], h0, exp.cell, n_steps)
+        return roll(params["cell"], h0, exp.cell, n_steps)
+
+
+def make_stability_probe(prob: Problem, n_steps: int):
+    """Stability probe over the inference horizon (``train(probe=...)``).
+
+    Rolls the model out autonomously for ``n_steps`` (the evaluation
+    horizon, not the training segment) and returns the measurement data-fit
+    (train + holdout MSE) if every frame is finite, else +inf.  Only the
+    noisy measurements the model trains on are consulted, never the truth.
+    """
+    exp = prob.exp
+    x = prob.ic_low[0] if exp.isg is not None else prob.h0
+
+    def probe(params) -> float:
+        frames = inference_rollout(params, exp, x, n_steps, device=x.device)
+        if not bool(torch.isfinite(frames).all()):
+            return float("inf")
+        tr, va = data_loss(frames[: exp.train_steps + 1], prob.measurement, exp.data,
+                           exp.cell.ndim)
+        return float(tr + va)
+
+    return probe
+
+
+def select_stable_candidate(params: dict, ckpt_path: str, probe) -> tuple[dict, dict]:
+    """Among the trainer's params ('best'), the latest checkpoint ('latest')
+    and the probe's '.stable' checkpoint ('stable'), keep the one with the
+    lowest finite probe score; if none probes finite, keep the trainer's.
+
+    Checkpointed candidates are loaded onto the device of `params`.  The
+    JAX package's signature also takes the Problem, which it does not read.
+    Returns (chosen params, {'candidate', 'probe_scores'}).
+    """
+    first = flatten_with_paths(params)[0][1]
+    dev = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+    candidates = {"best": params}
+    for tag, suffix in (("latest", ""), ("stable", ".stable")):
+        path = ckpt_path + suffix
+        if os.path.exists(path):
+            try:
+                tree = load_checkpoint_tree(path)[0]["params"]
+            except (OSError, KeyError, ValueError, zipfile.BadZipFile):
+                continue   # an unreadable candidate is no candidate
+            candidates[tag] = params_from_numpy(tree, device=dev, dtype=torch.float32)
+    scores = {tag: float(probe(p)) for tag, p in candidates.items()}
+    stable = {t: s for t, s in scores.items() if np.isfinite(s)}
+    choice = min(stable, key=stable.get) if stable else "best"
+    return candidates[choice], {"candidate": choice, "probe_scores": scores}
 
 
 def evaluate(params: dict, prob: Problem, n_steps: int) -> dict:
@@ -290,9 +351,12 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
 
     resume=True reloads params and optimizer from the experiment checkpoint
     and re-enters the curriculum stage it records; the ISG pretrain is
-    skipped then.  Besides the JAX package's result keys, ``seconds`` holds
-    the host seconds of each phase (truth, ISG pretrain, each stage,
-    evaluation).
+    skipped then.  When the config sets ``train.probe_every``, every stage
+    runs the stability probe over the inference horizon and the evaluated
+    params are the stable candidate (``select_stable_candidate``); the
+    result then holds ``candidate`` and ``probe_scores``.  Besides the JAX
+    package's result keys, ``seconds`` holds the host seconds of each phase
+    (truth, ISG pretrain, each stage, candidate selection, evaluation).
     """
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
@@ -322,6 +386,11 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     start_stage = 0
     if resume and os.path.exists(ckpt_path):
         start_stage = min(int(peek_meta(ckpt_path).get("stage", 0)), len(stages) - 1)
+    probe = None
+    if exp.train.probe_every > 0 and prob.measurement is not None:
+        probe = make_stability_probe(prob, min(exp.infer_steps, truth.shape[0] - 1))
+        if not resume and os.path.exists(ckpt_path + ".stable"):
+            os.remove(ckpt_path + ".stable")   # stale: another run's params
     history: list = []
     last_stage_history: list = []
     for i, steps in enumerate(stages):
@@ -337,12 +406,19 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
         t0 = time.perf_counter()
         params, h = train(build_loss_fn(prob, steps), params, tcfg, logger=logger,
                           resume=resume and i == start_stage, extra_meta={"stage": i},
-                          device=dev)
+                          probe=probe, device=dev)
         seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,
                                   "seconds": time.perf_counter() - t0})
         history.extend(h)
         last_stage_history = h
 
+    selection: dict = {}
+    if probe is not None:
+        t0 = time.perf_counter()
+        params, selection = select_stable_candidate(params, ckpt_path, probe)
+        logger.log(n_total, candidate=selection["candidate"],
+                   **{f"probe_{t}": s for t, s in selection["probe_scores"].items()})
+        seconds["select"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     metrics = evaluate(params, prob, min(exp.infer_steps, truth.shape[0] - 1))
     seconds["evaluate"] = time.perf_counter() - t0
@@ -351,9 +427,67 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                    "rel_l2_stable": metrics["rel_l2_stable"],
                    "diverged": True} if metrics["diverged"] else {}))
     logger.close()
-    result = {"params": params, "history": history, **metrics, "seconds": seconds}
+    result = {"params": params, "history": history, **metrics, **selection,
+              "seconds": seconds}
     # truth-free convergence telemetry: the minimum training loss of the
     # final curriculum stage (loss scales compare only within a stage)
     finite_tail = [x for x in last_stage_history if math.isfinite(x)]
     result["final_stage_min_loss"] = min(finite_tail) if finite_tail else None
     return result
+
+
+def run_experiment_with_restarts(exp: ExperimentConfig, *, out_dir: str = "runs",
+                                 seed: int = 0, max_restarts: int = 2,
+                                 seed_stride: int = 1000, loss_gate: float | None = None,
+                                 **kw) -> dict:
+    """run_experiment, retried with the init seed shifted by ``seed_stride``
+    (the data and noise untouched) when a truth-free gate trips:
+
+    - training raised FloatingPointError (the watchdog under
+      abort_policy="raise");
+    - the selected candidate's inference rollout diverged (evaluate's
+      finiteness scan);
+    - ``loss_gate`` is set and the final curriculum stage never reached a
+      training loss below it.
+
+    Among completed attempts the one with the lowest final-stage training
+    loss is returned, with the attempt log under ``result["attempts"]``;
+    attempt n > 0 keeps its artifacts in ``<out_dir>.retry<n>``.  An attempt
+    whose directory already holds a checkpoint is resumed, not restarted.
+    kw goes to run_experiment (device, cache_dir, overrides).
+    """
+    attempts = []
+    best = None
+    for attempt in range(max_restarts + 1):
+        s = seed + attempt * seed_stride
+        d = out_dir if attempt == 0 else f"{out_dir}.retry{attempt}"
+        rec = {"attempt": attempt, "init_seed": s, "out_dir": d}
+        # resume only when the checkpoint exists: resume=True skips the ISG
+        # pretrain
+        akw = kw
+        if "resume" not in kw and os.path.exists(os.path.join(d, f"{exp.name}.ckpt.npz")):
+            akw = dict(kw, resume=True)
+        try:
+            res = run_experiment(exp, out_dir=d, seed=s, **akw)
+        except FloatingPointError as e:
+            rec.update(error=str(e)[:200])
+            attempts.append(rec)
+            continue
+        ml = res.get("final_stage_min_loss")
+        rec.update(rel_l2=res.get("rel_l2"), diverged=res.get("diverged"),
+                   final_stage_min_loss=ml, candidate=res.get("candidate"))
+        attempts.append(rec)
+        best_ml = (best or {}).get("final_stage_min_loss")
+        if best is None or (ml is not None
+                            and ml < (math.inf if best_ml is None else best_ml)):
+            best = res
+        # a missing final-stage loss (a resumed run whose training had
+        # finished) trips the gate only when a loss_gate is in use
+        gated = (res.get("diverged")
+                 or (loss_gate is not None and (ml is None or ml > loss_gate)))
+        if not gated:
+            break
+    if best is None:
+        raise FloatingPointError(f"all {max_restarts + 1} attempts aborted: {attempts}")
+    best["attempts"] = attempts
+    return best

@@ -23,17 +23,22 @@ def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
 def conv_transpose_torch(x: torch.Tensor, w: torch.Tensor,
                          b: torch.Tensor | None = None, *, stride: int = 2,
                          padding: int = 2, output_padding: int = 1) -> torch.Tensor:
-    """2D transposed conv with ``ConvTranspose2d`` semantics, channels-last.
+    """2D or 3D transposed conv with ``ConvTranspose{2,3}d`` semantics,
+    channels-last.
 
-    x: [..., H, W, Cin]; w: [kh, kw, Cin, Cout].  PyTorch stores a
-    transposed conv's weight as [Cin, Cout, kh, kw], so w is permuted to
-    that.  out_size = (in - 1) * stride - 2 * padding + k + output_padding.
+    x: [..., *spatial, Cin]; w: [*k, Cin, Cout] with one k per spatial axis.
+    PyTorch stores a transposed conv's weight as [Cin, Cout, *k], so w is
+    permuted to that.  out_size = (in - 1) * stride - 2 * padding + k +
+    output_padding.
     """
-    if w.ndim != 4:
-        raise NotImplementedError("only the 2D transposed conv is ported so far")
-    lead = x.shape[:-3]
-    xb = x.reshape((-1,) + tuple(x.shape[-3:])).movedim(-1, 1)
-    y = F.conv_transpose2d(xb, w.permute(2, 3, 0, 1), b, stride=stride,
-                           padding=padding, output_padding=output_padding)
+    nd = w.ndim - 2
+    if nd not in (2, 3):
+        raise ValueError(f"transposed conv takes a 2D or 3D kernel, got weight "
+                         f"{tuple(w.shape)}")
+    conv = F.conv_transpose2d if nd == 2 else F.conv_transpose3d
+    lead = x.shape[:-1 - nd]
+    xb = x.reshape((-1,) + tuple(x.shape[-1 - nd:])).movedim(-1, 1)
+    y = conv(xb, w.permute(nd, nd + 1, *range(nd)), b, stride=stride,
+             padding=padding, output_padding=output_padding)
     y = y.movedim(1, -1)
     return y.reshape(tuple(lead) + tuple(y.shape[1:]))

@@ -68,21 +68,22 @@ def _pg_layout(cfg: PiCellConfig) -> dict:
             "diff": dw + db + wout + 2, "A": dw + db + wout + 2 + 2}
 
 
-def fused_phase1_pg_2d_plain(packed: torch.Tensor, frames: torch.Tensor,
-                             frames_bar: torch.Tensor, cfg: PiCellConfig):
-    """Plain version of pg2d_kernel: the reverse sweep written with tensor ops.
+def _pg_sweep_plain(packed: torch.Tensor, frames: torch.Tensor,
+                    frames_bar: torch.Tensor, cfg: PiCellConfig, lap) -> tuple:
+    """The fused reverse sweep written with tensor ops, for any spatial rank.
 
-    packed [P] (pack_pi_params_2d); frames [T+1, H, W, 2], the forward's
-    output; frames_bar [T+1, H, W, 2], their cotangent.  Returns (g0
-    [H, W, 2], the adjoint at frame 0 without frames_bar[0]; acc [A, H, W]).
+    packed [P] (pack_pi_params_2d); frames [T+1, *spatial, 2], the forward's
+    output; frames_bar [T+1, *spatial, 2], their cotangent; lap(x) the
+    Laplacian of a [*spatial, 2] field.  Returns (g0 [*spatial, 2], the
+    adjoint at frame 0 without frames_bar[0]; acc [A, *spatial]).
     """
     C, nb = cfg.hidden, cfg.n_branches
     block = _param_block(cfg)
     n_steps = frames.shape[0] - 1
-    H, W = frames.shape[1], frames.shape[2]
-    acc = torch.zeros((H, W, _pg_layout(cfg)["A"]), dtype=torch.float32,
+    spatial = tuple(frames.shape[1:-1])
+    acc = torch.zeros(spatial + (_pg_layout(cfg)["A"],), dtype=torch.float32,
                       device=frames.device)
-    g = torch.zeros((H, W, 2), dtype=torch.float32, device=frames.device)
+    g = torch.zeros(spatial + (2,), dtype=torch.float32, device=frames.device)
     for t in range(n_steps - 1, -1, -1):
         h = frames[t]
         g_in = g + frames_bar[t + 1]
@@ -92,7 +93,7 @@ def fused_phase1_pg_2d_plain(packed: torch.Tensor, frames: torch.Tensor,
             br = p[: nb * 3 * C].reshape(nb, 3, C)      # per branch: w[0], w[1], b
             w_out = p[nb * 3 * C: nb * 3 * C + C]
             y = h[..., 0, None, None] * br[:, 0] + h[..., 1, None, None] * br[:, 1] + br[:, 2]
-            go = g_in[..., o, None, None]                # [H, W, 1, 1]
+            go = g_in[..., o, None, None]                # [*spatial, 1, 1]
             others = []                                   # prod_{j != i} y_j
             for i in range(nb):
                 pexc = torch.ones_like(y[..., 0, :])
@@ -100,17 +101,29 @@ def fused_phase1_pg_2d_plain(packed: torch.Tensor, frames: torch.Tensor,
                     if j != i:
                         pexc = pexc * y[..., j, :]
                 others.append(pexc)
-            zz = go * torch.stack(others, dim=-2)         # [H, W, nb, C]
+            zz = go * torch.stack(others, dim=-2)         # [*spatial, nb, C]
             dw.append(torch.stack([zz * h[..., 0, None, None], zz * h[..., 1, None, None]],
-                                  dim=-1).reshape(H, W, nb * C * 2))
-            db.append(zz.reshape(H, W, nb * C))
+                                  dim=-1).reshape(spatial + (nb * C * 2,)))
+            db.append(zz.reshape(spatial + (nb * C,)))
             wout_planes.append(go[..., 0] * torch.prod(y, dim=-2))
             # Pi Jacobian transpose: d/du and d/dv of both equations
             jac = jac + torch.stack([(zz * br[:, 0] * w_out).sum((-2, -1)),
                                      (zz * br[:, 1] * w_out).sum((-2, -1))], dim=-1)
-        acc += torch.cat(dw + db + wout_planes + [g_in, g_in * laplacian_2d(h, cfg.dx)], dim=-1)
-        g = g_in + cfg.dt * (packed[:2] * laplacian_2d(g_in, cfg.dx) + jac)
-    return g, acc.permute(2, 0, 1)
+        acc += torch.cat(dw + db + wout_planes + [g_in, g_in * lap(h)], dim=-1)
+        g = g_in + cfg.dt * (packed[:2] * lap(g_in) + jac)
+    return g, acc.movedim(-1, 0)
+
+
+def fused_phase1_pg_2d_plain(packed: torch.Tensor, frames: torch.Tensor,
+                             frames_bar: torch.Tensor, cfg: PiCellConfig):
+    """Plain version of pg2d_kernel: the reverse sweep written with tensor ops.
+
+    packed [P] (pack_pi_params_2d); frames [T+1, H, W, 2], the forward's
+    output; frames_bar [T+1, H, W, 2], their cotangent.  Returns (g0
+    [H, W, 2], the adjoint at frame 0 without frames_bar[0]; acc [A, H, W]).
+    """
+    return _pg_sweep_plain(packed, frames, frames_bar, cfg,
+                           lambda x: laplacian_2d(x, cfg.dx))
 
 
 def _pg_unpack(acc_sums: torch.Tensor, packed: torch.Tensor,

@@ -19,7 +19,8 @@
 // packed parameters follow pack_pi_params_2d (cell2d.py).
 //
 // pg2d_kernel replaces percnn_tpu/ops/pallas/backward2d.py:_phase1_pg_kernel
-// (pallas_call in _fused_phase1_pg).
+// (pallas_call in _fused_phase1_pg).  The accumulation at a cell is
+// pg_accumulate in pg_common.cuh, shared with the 3D sweep (backward3d.cu).
 //
 // Bound on an H100 SXM at its 700 W power limit (published peaks: 3.35 TB/s,
 // 67 TFLOP/s f32 outside the tensor cores), GS2D training shape 100 x 100,
@@ -57,6 +58,8 @@
 // shared memory, with a grid barrier per step) is later work.
 
 #include <cuda_runtime.h>
+
+#include "pg_common.cuh"
 
 namespace {
 
@@ -114,76 +117,8 @@ __global__ void pg2d_kernel(const float* __restrict__ params, int n_params,
                             gs[6].y, gs[7].y, gs[8].y, inv_dx2);
   const float gin[2] = {gs[0].x, gs[0].y};
 
-  // plane offsets (backward2d.py: _pg_layout)
-  const int C = hidden;
-  const int p_dw = 0;
-  const int p_db = 2 * NB * C * 2;
-  const int p_wout = p_db + 2 * NB * C;
-  const int p_bout = p_wout + 2 * C;
-  const int p_diff = p_bout + 2;
-  // Plane q of this cell is a[q * cells].  Each group of planes is loaded
-  // before any of it is stored: the offsets are known only at run time, so
-  // the compiler cannot move a load above an earlier store, and without
-  // that every update would wait a full L2 round trip for the one before.
-  float* a = acc + idx;
-  {
-    float* pd = a + p_diff * cells;
-    float* pb = a + p_bout * cells;
-    const float d0 = pd[0], d1 = pd[cells], b0 = pb[0], b1 = pb[cells];
-    pd[0] = d0 + gin[0] * lap_hu;
-    pd[cells] = d1 + gin[1] * lap_hv;
-    pb[0] = b0 + gin[0];
-    pb[cells] = b1 + gin[1];
-  }
-
-  const int stride = 3 * C;                // per branch: w_i[0, :], w_i[1, :], b_i
-  const int block = NB * stride + C + 1;   // per equation, then w_out [C], b_out
-  float du = 0.0f, dv = 0.0f;
-#pragma unroll
-  for (int o = 0; o < 2; ++o) {
-    const float* p = sp + 2 + o * block;
-    const float g = gin[o];
-    for (int c = 0; c < C; ++c) {
-      // this (o, c)'s planes: w_out, then per branch dw (u, v) and db
-      float* pw = a + (p_wout + o * C + c) * cells;
-      float* pdw[NB];
-      float* pdb[NB];
-      float old_dw[NB][2], old_db[NB];
-      const float old_w = *pw;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const int q = (o * NB + b) * C + c;
-        pdw[b] = a + (p_dw + 2 * q) * cells;
-        pdb[b] = a + (p_db + q) * cells;
-        old_dw[b][0] = pdw[b][0];
-        old_dw[b][1] = pdw[b][cells];
-        old_db[b] = *pdb[b];
-      }
-      float y[NB];
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        y[b] = p[b * stride + c] * u + p[b * stride + C + c] * v + p[b * stride + 2 * C + c];
-      // prod_{j != b} y_j from prefix and suffix products
-      float pre[NB + 1], suf[NB + 1];
-      pre[0] = 1.0f;
-      suf[NB] = 1.0f;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) pre[b + 1] = pre[b] * y[b];
-#pragma unroll
-      for (int b = NB - 1; b >= 0; --b) suf[b] = suf[b + 1] * y[b];
-      *pw = old_w + g * pre[NB];
-      const float wo = p[NB * stride + c];
-#pragma unroll
-      for (int b = 0; b < NB; ++b) {
-        const float zz = g * (pre[b] * suf[b + 1]);
-        pdw[b][0] = old_dw[b][0] + zz * u;
-        pdw[b][cells] = old_dw[b][1] + zz * v;
-        *pdb[b] = old_db[b] + zz;
-        du += (p[b * stride + c] * wo) * zz;
-        dv += (p[b * stride + C + c] * wo) * zz;
-      }
-    }
-  }
+  float du, dv;
+  pg_accumulate<NB>(sp, u, v, gin, lap_hu, lap_hv, acc + idx, cells, hidden, du, dv);
   g_out[idx] = make_float2(gin[0] + dt * (sp[0] * lap_gu + du),
                            gin[1] + dt * (sp[1] * lap_gv + dv));
 }

@@ -2,9 +2,11 @@
 
 Counterpart of ``build_serving_fn`` in percnn_tpu/serving.py with
 ``use_pallas=True``: the ISG upsamples the request in-graph, then the fused
-2D rollout runs on the card through the cell2d CUDA kernels
-(``rollout2d_kernel`` for frames, ``final2d_kernel`` for the final state).
-Export and load of a serialized model come later.
+rollout runs on the card: a 2D cell through the cell2d CUDA kernels
+(``rollout2d_kernel`` for frames, ``final2d_kernel`` for the final state),
+a 3D cell through ``rollout3d_kernel`` (frames, or the final state without
+frame writes).  For 3D the JAX package serves with its jnp rollout; the
+math is the same.  Export and load of a serialized model come later.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from percnn_tpu_torch.ops.kernels.cell2d import (
     fused_rollout_2d,
     fused_rollout_final_2d,
 )
+from percnn_tpu_torch.ops.kernels.cell3d import fused_rollout_3d
 
 
 def build_serving_fn(params: dict, cell_cfg: PiCellConfig, n_steps: int, *,
@@ -31,17 +34,21 @@ def build_serving_fn(params: dict, cell_cfg: PiCellConfig, n_steps: int, *,
 
     `params` is a model tree ``{'cell': ..., 'isg': ...}`` (or a bare cell
     tree without an ISG), with numpy or tensor leaves; it is put on `device`
-    once, here.  The request is the initial state [H, W, 2], or the low-res
-    measured IC [H/s, W/s, 2] when `isg_cfg` is given.  The answer is a
-    tensor on `device`: [n_steps+1, H, W, 2] frames, or the final state
-    [H, W, 2] with `final_only=True`.
+    once, here.  The request is the initial state [*spatial, 2], or the
+    low-res measured IC [*spatial/s, 2] when `isg_cfg` is given.  The answer
+    is a tensor on `device`: [n_steps+1, *spatial, 2] frames, or the final
+    state [*spatial, 2] with `final_only=True`.
     """
-    if not (isinstance(cell_cfg, PiCellConfig) and cell_cfg.ndim == 2):
-        raise NotImplementedError("serving takes 2D Pi cells in this port so far")
+    if not (isinstance(cell_cfg, PiCellConfig) and cell_cfg.ndim in (2, 3)):
+        raise NotImplementedError("serving takes 2D and 3D Pi cells in this port so far")
     dev = resolve_device(device)
     params = params_from_numpy(params, device=dev, dtype=torch.float32)
     cell_params = params.get("cell", params)
-    roll = fused_rollout_final_2d if final_only else fused_rollout_2d
+    if cell_cfg.ndim == 2:
+        roll = fused_rollout_final_2d if final_only else fused_rollout_2d
+    else:
+        def roll(p, h0, cfg, n):
+            return fused_rollout_3d(p, h0, cfg, n, final_only=final_only)
 
     def fn(x: np.ndarray | torch.Tensor) -> torch.Tensor:
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)

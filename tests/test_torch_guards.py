@@ -33,6 +33,8 @@ def test_port_files_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "percnn_tpu_torch/ops/kernels/cell2d.py" in names
     assert "percnn_tpu_torch/ops/kernels/backward2d.py" in names
+    assert "percnn_tpu_torch/ops/kernels/cell3d.py" in names
+    assert "percnn_tpu_torch/ops/kernels/backward3d.py" in names
     assert "percnn_tpu_torch/experiments/runner.py" in names
     assert "chip_smoke.py" in names
 
@@ -47,3 +49,4 @@ def test_chip_smoke_reads_only_the_golden_file():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "runs/" not in src and '"runs"' not in src
     assert '"tests", "golden", "pt_gs2d.npz"' in src
+    assert '"tests", "golden", "pt_gs3d.npz"' in src

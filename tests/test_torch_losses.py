@@ -116,7 +116,25 @@ def test_mse_matches_jax():
                                float(jlosses.mse(jnp.asarray(a))), rtol=RTOL)
 
 
-@pytest.mark.parametrize("name", ["lambda_omega", "gray_scott_3d", "burgers"])
+@pytest.mark.parametrize("dtype,rtol", [(np.float64, 1e-12), (np.float32, 1e-5)])
+def test_gs3d_phys_loss_and_residual_match_jax(dtype, rtol):
+    """Gray-Scott 3D (Du 0.2, Dv 0.1, f 0.025, k 0.055) over a 6 x 8 x 7 grid."""
+    roll = _rand((6, 6, 8, 7, 2), 10, dtype=dtype, scale=0.1, shift=0.4)
+    system = J_PDE_SYSTEMS["gray_scott_3d"]
+    want_r = np.asarray(jlosses.physics_residual(system, jnp.asarray(roll), 0.5, 100 / 48))
+    got_r = losses.physics_residual(PDE_SYSTEMS["gray_scott_3d"], torch.from_numpy(roll),
+                                    0.5, 100 / 48).numpy()
+    assert PDE_SYSTEMS["gray_scott_3d"].ndim == system.ndim == 3
+    assert got_r.shape == want_r.shape == (4, 6, 8, 7, 2)
+    scale = np.abs(want_r).max()
+    np.testing.assert_allclose(got_r, want_r, rtol=rtol, atol=rtol * scale)
+    want = float(jlosses.phys_loss(system, jnp.asarray(roll), 0.5, 100 / 48))
+    got = float(losses.phys_loss(PDE_SYSTEMS["gray_scott_3d"], torch.from_numpy(roll), 0.5,
+                                 100 / 48))
+    np.testing.assert_allclose(got, want, rtol=10 * rtol)
+
+
+@pytest.mark.parametrize("name", ["lambda_omega", "burgers"])
 def test_unported_systems_raise(name):
     assert name in J_PDE_SYSTEMS
     with pytest.raises(NotImplementedError, match="not ported"):

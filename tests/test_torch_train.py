@@ -226,15 +226,6 @@ def test_run_experiment_resume_reenters_the_curriculum(tmp_path):
     assert np.isfinite(res["rel_l2"])
 
 
-@pytest.mark.parametrize("option", [dict(watchdog=True), dict(spike_mult=3.0),
-                                    dict(lr_recover=1.002), dict(spike_reset_opt=True),
-                                    dict(abort_policy="stop"), dict(probe_every=10)])
-def test_train_refuses_unported_options(option):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        train(lambda p: (p["w"].sum(), {}), {"w": np.zeros(1, np.float32)},
-              TrainConfig(n_iters=1, **option), device="cpu")
-
-
 def test_forward_rollout_dispatch():
     _, prob = _problems()
     _, npp = _params()
