@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's GS2D and GS3D serving and training paths once
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's GS2D, GS3D and Burgers Stage-1 serving and
+training paths once on one NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the checkout's sources with nvcc,
-holds them against the committed golden model, against their plain PyTorch
-versions and against f64 autograd, serves GS2D and GS3D requests through
-``build_serving_fn``, trains GS2D (100 x 100) and GS3D (48^3) through
-``run_experiment`` at full width, and times the kernels.  Phases, one JSON
-line each with the seconds since start:
+holds them against the committed golden models, against their plain PyTorch
+versions and against f64 autograd, serves GS2D, GS3D and Burgers requests
+through ``build_serving_fn``, trains GS2D (100 x 100), GS3D (48^3) and
+Burgers Stage-1 (100 x 100, 5x5 Pi cell) through ``run_experiment`` at full
+width, and times the kernels.  Phases, one JSON line each with the seconds
+since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
   build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_kernel against tests/golden/pt_gs3d.npz
+  golden_burgers  the Burgers ISG and rollout2d_kxk_kernel against
+               tests/golden/pt_burgers_s1.npz
   kernels      the forward kernels against their plain versions, 100 x 100, T = 200
   grads        pg2d_kernel against its plain version (100 x 100, T = 200,
                golden cell, data-loss cotangent), and the fused gradients
@@ -26,6 +29,12 @@ line each with the seconds since start:
                sweep (T = 50, golden cell, data-loss cotangent), and the
                fused 3D gradients against f64 autograd (random-init cell,
                random target, 12 steps)
+  kernels_kxk  rollout2d_kxk_kernel against its plain version at 100 x 100,
+               C = 16, k = 5, T = 200, golden Burgers cell, Burgers IC
+  grads_kxk    adj2d_kxk_kernel against its plain sweep (the same, a
+               standard-normal cotangent), and the fused k x k gradients
+               against f64 autograd (random-init cell, random target, 12
+               steps, 100 x 100)
   serve        one uncounted warm-up request of each kind, then three frames
                requests and one final-state request, 2500 steps, with the
                kernels' launch counters set to 0 just before
@@ -44,11 +53,21 @@ line each with the seconds since start:
   serve3d      one uncounted warm-up request of each kind, then one frames
                request and one final-state request, 1000 steps, on the
                trained GS3D model, with the launch counter set to 0 just before
+  serve_burgers  one uncounted warm-up request, then three frames requests,
+               1200 steps, on the golden Burgers model, with the launch
+               counter set to 0 just before
+  train_burgers  run_experiment(BURGERS_STAGE1): the 1200-frame truth, ISG
+               pretrain, 10 iterations at T = 200 with best-val selection,
+               the 1200-step evaluation, with the launch counters set to 0
+               just before
+  train_burgers_parity  as train_parity for Burgers: 32 x 32, T = 20,
+               5 iterations
   step_breakdown  one training iteration at each T after a warm-up: host
                and device ms of the whole, the same split into ISG and
                forward, losses, backward (and pg2d_kernel in it), Adam, and
                the device's idle share from a torch.profiler trace
   step_breakdown3d  the same for GS3D at T = 150, 300 (pg3d_kernel)
+  step_breakdown_kxk  the same for Burgers at T = 200 (adj2d_kxk_kernel)
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work
 
@@ -76,6 +95,7 @@ T0 = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "pt_gs2d.npz")
 GOLDEN3D = os.path.join(ROOT, "tests", "golden", "pt_gs3d.npz")
+GOLDEN_BURGERS = os.path.join(ROOT, "tests", "golden", "pt_burgers_s1.npz")
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM3 bandwidth and float32 outside the tensor cores (an FMA counts as 2).
@@ -93,6 +113,8 @@ CHECK3D_STEPS = 300       # rollout3d_kernel against its plain version
 PG3D_CHECK_STEPS = 50     # pg3d_kernel against its plain sweep
 TRAIN3D_ITERS = 20        # 10 at each of T = 150, 300
 TIME_BACKWARD3D_STEPS = 300
+CHECK_KXK_STEPS = 200     # the k x k kernels against their plain versions
+TRAIN_BURGERS_ITERS = 10  # of BURGERS_STAGE1's 10000, at T = 200
 
 
 class CheckFailed(Exception):
@@ -152,6 +174,29 @@ def pg_flops_per_cell_step(cfg) -> int:
     return pi + 2 * points + 4 * (4 * cfg.ndim + 4) + 6 + 8
 
 
+def flops_per_cell_step_kxk(cfg) -> int:
+    """Flops of one k x k Euler step at one cell that the function needs:
+    per activation row k*k*2 multiplies and as many adds (the bias
+    included), per equation and hidden channel nb - 1 multiplies for the
+    product and 2 for the aggregation, 1 per equation for b_out, and per
+    channel 12 for the Laplacian and 4 for the update."""
+    taps, rows = cfg.kernel_size ** 2 * 2, 2 * cfg.n_branches * cfg.hidden
+    return 2 * taps * rows + 2 * cfg.hidden * (cfg.n_branches - 1 + 2) + 2 + 2 * (12 + 4)
+
+
+def adj_flops_per_cell_step_kxk(cfg) -> int:
+    """Flops of one reverse step of adj2d_kxk_kernel at one cell that the
+    function needs: the activations (2 k*k*2 a row), and the same again for
+    zw; per equation and hidden channel the leave-one-out products (3 nb - 6
+    multiplies by prefix and suffix products, none for nb <= 2), 1 for
+    w_out g and nb for the z; k*k adds a channel for the gather, 2 for g_in,
+    two Laplacians (12 each) and 8 for the update."""
+    k, nb = cfg.kernel_size, cfg.n_branches
+    taps, rows = k * k * 2, 2 * nb * cfg.hidden
+    z = 2 * cfg.hidden * (max(3 * nb - 6, 0) + 1 + nb)
+    return 2 * taps * rows + z + 2 * taps * rows + 2 * k * k + 2 + 24 + 8
+
+
 def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_FLOP_PER_S
@@ -203,7 +248,8 @@ def profile_busy(torch, fn) -> dict:
     kernels = {name: [float(e["dur"]) for e in events
                       if e.get("cat") == "kernel" and name in e.get("name", "")]
                for name in ("rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
-                            "pg3d_kernel")}
+                            "pg3d_kernel", "rollout2d_kxk_kernel", "adj2d_kxk_act_kernel",
+                            "adj2d_kxk_gather_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
             "device_idle_share": 1.0 - busy / window if device else None,
             "device_events": len(device),
@@ -241,7 +287,7 @@ def main() -> int:
     from percnn_tpu_torch.data.noise import add_noise
     from percnn_tpu_torch.data.simulate import default_ic, simulate
     from percnn_tpu_torch.experiments import runner
-    from percnn_tpu_torch.experiments.configs import GS2D_RECON, GS3D_RECON
+    from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1, GS2D_RECON, GS3D_RECON
     from percnn_tpu_torch.ops.kernels import _build, backward2d, backward3d, cell2d, cell3d
     from percnn_tpu_torch.serving import build_serving_fn
 
@@ -263,7 +309,7 @@ def main() -> int:
         _build.load_library(name)
         return time.perf_counter() - t
 
-    sources = ("cell2d", "backward2d", "cell3d", "backward3d")
+    sources = ("cell2d", "backward2d", "cell3d", "backward3d", "cell2d_kxk", "backward2d_kxk")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(build, sources)))
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
@@ -313,6 +359,32 @@ def main() -> int:
         check(e <= 2e-5 * k, f"golden 3D rollout step {k}: max |diff| {e} over {2e-5 * k}")
     phase("golden3d", isg_max_abs_err=isg3_err, isg_atol=2e-6, shape=list(frames3.shape[1:]),
           rollout_max_abs_err_per_step=step3_err, rollout_bar="2e-5 * t")
+
+    # golden_burgers: the reference's trained Burgers Stage-1 model (5x5 Pi
+    # cell, C = 16), ISG 32^2 -> 64^2, 8 steps through rollout2d_kxk_kernel
+    cfgb, isgb = BURGERS_STAGE1.cell, BURGERS_STAGE1.isg
+    with np.load(GOLDEN_BURGERS) as z:
+        goldenb = {k: z[k] for k in z.files}
+    modelb = {"cell": unflatten_dotted(goldenb, "cell."), "isg": unflatten_dotted(goldenb, "isg.")}
+    paramsb = params_from_numpy(modelb, device=dev, dtype=torch.float32)
+    isgb_out = isg_apply(paramsb["isg"], torch.as_tensor(goldenb["isg_in"], device=dev), isgb)
+    isgb_want = torch.as_tensor(goldenb["isg_out"], device=dev)
+    isgb_err = max_abs(isgb_out, isgb_want)
+    check(allclose(isgb_out, isgb_want, rtol=1e-5, atol=2e-6),
+          f"golden Burgers ISG: max |diff| {isgb_err} over atol 2e-6")
+    framesb_want = torch.as_tensor(goldenb["frames"], device=dev)
+    n_goldenb = framesb_want.shape[0] - 1
+    cell2d.fused_rollout_kxk_2d.launches = 0
+    framesb = cell2d.fused_rollout_2d(paramsb["cell"], framesb_want[0], cfgb, n_goldenb)
+    torch.cuda.synchronize()
+    check(cell2d.fused_rollout_kxk_2d.launches == n_goldenb,
+          f"golden Burgers rollout: {cell2d.fused_rollout_kxk_2d.launches} kernel launches")
+    stepb_err = [max_abs(framesb[k], framesb_want[k]) for k in range(1, n_goldenb + 1)]
+    for k, e in enumerate(stepb_err, start=1):
+        check(e <= 2e-5 * k, f"golden Burgers rollout step {k}: max |diff| {e} over {2e-5 * k}")
+    phase("golden_burgers", isg_max_abs_err=isgb_err, isg_atol=2e-6,
+          shape=list(framesb.shape[1:]), rollout_max_abs_err_per_step=stepb_err,
+          rollout_bar="2e-5 * t")
 
     # kernels: full width, trained weights, against the plain versions
     h0 = torch.as_tensor(default_ic("gray_scott_2d", GS2D_RECON.grid), dtype=torch.float32,
@@ -486,6 +558,58 @@ def main() -> int:
           pg3d_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in leaf3_err.items()},
           pg3d_bar="2e-4 * max|leaf| + 2e-6",
           f64_random_cell_12_steps={"worst_leaf": worst3, "bar": 1e-4, **rel3})
+
+    # kernels_kxk: rollout2d_kxk_kernel at Burgers' full width, golden cell,
+    # against its plain version
+    nb_grid = BURGERS_STAGE1.grid
+    h0b = torch.as_tensor(default_ic("burgers", nb_grid), dtype=torch.float32, device=dev)
+    wmatb = cell2d.pack_pi_matrix_2d(paramsb["cell"], cfgb).contiguous()
+    tailb = cell2d.pi_tail_2d(paramsb["cell"], cfgb)
+    got = cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb, CHECK_KXK_STEPS)
+    want = cell2d.fused_rollout_kxk_2d_plain(wmatb, tailb, h0b, cfgb, CHECK_KXK_STEPS)
+    torch.cuda.synchronize()
+    err["rollout2d_kxk_kernel"] = max_abs(got, want)
+    check(allclose(got, want, rtol=2e-4, atol=1e-5),
+          f"rollout2d_kxk_kernel vs plain: max |diff| {err['rollout2d_kxk_kernel']}")
+    phase("kernels_kxk", shape=[nb_grid, nb_grid, 2], hidden=cfgb.hidden,
+          kernel_size=cfgb.kernel_size, steps=CHECK_KXK_STEPS,
+          max_abs_err=err["rollout2d_kxk_kernel"], max_abs_frame=float(want.abs().max()),
+          rtol=2e-4, atol=1e-5)
+
+    # grads_kxk: adj2d_kxk_kernel against its plain sweep on those frames, and
+    # the fused k x k gradients against f64 autograd
+    fbarb = torch.as_tensor(np.random.RandomState(4).standard_normal(tuple(got.shape)),
+                            dtype=torch.float32, device=dev)
+    out_k = backward2d._phase1_kxk_cuda(wmatb, tailb, got, fbarb, cfgb)
+    out_p = backward2d.fused_phase1_kxk_2d_plain(wmatb, tailb, got, fbarb, cfgb)
+    torch.cuda.synchronize()
+    kxk_err = {name: (max_abs(a, b), float(b.abs().max()))
+               for name, a, b in zip(("g_ins", "g0", "ys"), out_k, out_p)}
+    for name, (e, scale) in kxk_err.items():
+        check(e <= 2e-4 * scale + 2e-6,
+              f"adj2d_kxk_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+    err["adj2d_kxk_kernel"] = max(e for e, _ in kxk_err.values())
+    del got, want, out_k, out_p
+    # the measure of the gradient referee at Burgers' shape: random-init
+    # cell, random target, 12 steps, 100 x 100, held to 1e-4
+    rngb = np.random.RandomState(5)
+    refb_cell = params_to_numpy(init_pi_cell(torch.Generator().manual_seed(0), cfgb,
+                                             device="cpu"))
+    xb_ref = torch.as_tensor(0.5 * rngb.standard_normal((nb_grid,) * 2 + (2,)),
+                             dtype=torch.float32, device=dev)
+    tgtb = torch.as_tensor(rngb.standard_normal((13,) + tuple(xb_ref.shape)), device=dev)
+    relb = rel_errs_vs_f64(refb_cell, xb_ref, 12,
+                           lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean(), cfg=cfgb,
+                           fused_fn=backward2d.fused_rollout_tp_2d)
+    worstb = max(relb["fused"], key=relb["fused"].get)
+    check(relb["fused"][worstb] <= 1e-4,
+          f"fused k x k gradients vs f64 autograd: {worstb} at {relb['fused'][worstb]} "
+          f"over 1e-4 (plain f32 autograd: {relb['autograd_f32']})")
+    phase("grads_kxk", shape=[nb_grid, nb_grid, 2], steps=CHECK_KXK_STEPS,
+          cotangent="standard normal, seed 4",
+          adj_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in kxk_err.items()},
+          adj_bar="2e-4 * max|leaf| + 2e-6",
+          f64_random_cell_12_steps={"worst_leaf": worstb, "bar": 1e-4, **relb})
 
     # serve: the main path, through the entry point a user calls
     serve = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg, device=dev)
@@ -705,6 +829,95 @@ def main() -> int:
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmup3_s)),
           final_vs_last_frame_max_abs_err=final3_err)
 
+    # serve_burgers: the golden Burgers model's frames, through the entry
+    # point a user calls (its final-state form is queued)
+    serveb = build_serving_fn(modelb, cfgb, BURGERS_STAGE1.infer_steps, isg_cfg=isgb,
+                              device=dev)
+    requestsb = [add_noise(default_ic("burgers", nb_grid, seed=s)[None],
+                           BURGERS_STAGE1.noise_pct, seed=s)[0][::isgb.scale, ::isgb.scale]
+                 for s in SEEDS]
+    t = time.perf_counter()
+    serveb(requestsb[-1])
+    torch.cuda.synchronize()
+    warmupb_s = time.perf_counter() - t
+    cell2d.fused_rollout_kxk_2d.launches = 0
+    request_s, enqueue_s = [], []
+    answersb = [timed(serveb, req) for req in requestsb]
+    serveb_launches = cell2d.fused_rollout_kxk_2d.launches
+    for a in answersb:
+        check(tuple(a.shape) == (BURGERS_STAGE1.infer_steps + 1, nb_grid, nb_grid, 2)
+              and bool(torch.isfinite(a).all()), "Burgers frames not finite or misshapen")
+    check(serveb_launches == len(SEEDS) * BURGERS_STAGE1.infer_steps,
+          f"Burgers serving launch count {serveb_launches}")
+    phase("serve_burgers", requests=len(requestsb), steps=BURGERS_STAGE1.infer_steps,
+          launches={"rollout2d_kxk_kernel": serveb_launches}, request_seconds=request_s,
+          enqueue_seconds=enqueue_s, warmup_request_seconds=warmupb_s,
+          max_abs_frame=[float(a.abs().max()) for a in answersb])
+
+    # train_burgers: the main path of Burgers Stage-1 training, through the
+    # entry point a user calls
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_burgers_")
+    try:
+        cell2d.fused_rollout_kxk_2d.launches = 0
+        backward2d.fused_rollout_tp_2d.launches = 0
+        with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
+            resb = runner.run_experiment(BURGERS_STAGE1, device=dev, out_dir=out_dir,
+                                         cache_dir=None, n_iters_override=TRAIN_BURGERS_ITERS,
+                                         isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
+        trainb_launches = {"rollout2d_kxk_kernel": cell2d.fused_rollout_kxk_2d.launches,
+                           "adj2d_kxk_kernel": backward2d.fused_rollout_tp_2d.launches}
+        best_tree, best_meta = load_checkpoint_tree(
+            os.path.join(out_dir, f"{BURGERS_STAGE1.name}.ckpt.npz.best"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    stepsb = BURGERS_STAGE1.train_steps
+    wantb = {"rollout2d_kxk_kernel": TRAIN_BURGERS_ITERS * stepsb + BURGERS_STAGE1.infer_steps,
+             "adj2d_kxk_kernel": 2 * TRAIN_BURGERS_ITERS * stepsb}
+    histb = resb["history"]
+    check(len(histb) == TRAIN_BURGERS_ITERS and bool(np.isfinite(histb).all()),
+          f"Burgers training losses {histb}")
+    check(trainb_launches == wantb,
+          f"Burgers training launch counts {trainb_launches}, expected {wantb}")
+    check(bool(np.isfinite(resb["rel_l2"])) and not resb["diverged"],
+          f"Burgers evaluation rel_l2 {resb['rel_l2']}, diverged {resb['diverged']}")
+    # best_val: the evaluated params are the .best checkpoint's
+    for (path, a), (_, b) in zip(flatten_with_paths(resb["params"]),
+                                 flatten_with_paths(best_tree["params"])):
+        check(np.array_equal(a.detach().cpu().numpy(), np.asarray(b)),
+              f"Burgers evaluated params differ from the best-val checkpoint at {path}")
+    secb = resb["seconds"]
+    phase("train_burgers", experiment=BURGERS_STAGE1.name, grid=nb_grid,
+          launches=trainb_launches, expected_launches=wantb,
+          truth_frames=BURGERS_STAGE1.infer_steps, truth_s=secb["truth"],
+          isg_pretrain_iters=ISG_PRETRAIN_ITERS, isg_pretrain_s=secb["isg_pretrain"],
+          stages=[{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]}
+                  for st in secb["stages"]],
+          evaluate_s=secb["evaluate"], history=histb, best_val=best_meta.get("best_val"),
+          best_iteration=best_meta.get("iteration"), rel_l2=resb["rel_l2"],
+          rel_l2_u=resb["rel_l2_u"], rel_l2_v=resb["rel_l2_v"])
+
+    # train_burgers_parity: Burgers training on the card against its plain self
+    pexpb = dataclasses.replace(
+        BURGERS_STAGE1, grid=32, train_steps=20, infer_steps=20,
+        train=dataclasses.replace(BURGERS_STAGE1.train, n_iters=5, steps_per_call=5))
+    ptruthb = simulate(pexpb.system, default_ic(pexpb.system, pexpb.grid), pexpb.train_steps,
+                       pexpb.dt, pexpb.dx, device=dev)
+    initb = params_to_numpy(runner.init_model(pexpb, torch.Generator().manual_seed(0),
+                                              device="cpu"))
+    parityb = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        prob = runner.setup_problem(pexpb, ptruthb, device=d)
+        with contextlib.redirect_stdout(sys.stderr):
+            parityb[label] = train(runner.build_loss_fn(prob, pexpb.train_steps), initb,
+                                   pexpb.train, device=d)[1]
+    gpub_h, cpub_h = np.asarray(parityb["card"]), np.asarray(parityb["cpu"])
+    parityb_err = float(np.max(np.abs(gpub_h - cpub_h) / np.abs(cpub_h)))
+    check(np.allclose(gpub_h, cpub_h, rtol=1e-4, atol=0),
+          f"Burgers train on the card vs the CPU: {gpub_h.tolist()} vs {cpub_h.tolist()}")
+    phase("train_burgers_parity", grid=pexpb.grid, steps=pexpb.train_steps,
+          iters=pexpb.train.n_iters, card=gpub_h.tolist(), cpu=cpub_h.tolist(),
+          max_rel_err=parityb_err, rtol=1e-4)
+
     # step_breakdown: where one training iteration's time goes at each T, with
     # the trained params; a served rollout stands in for the truth (the
     # times do not depend on the data)
@@ -721,7 +934,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    def breakdown(exp, bprob, trained, stages, pg_cuda, pg_name):
+    def breakdown(exp, bprob, trained, stages, bwd_kernel, pg_name):
+        """bwd_kernel(cell params) -> run(frames, cotangent): the backward
+        kernel alone, its parameters packed beforehand."""
         rows_out = []
         for steps in stages:
             tp = params_from_numpy(trained, device=dev, dtype=torch.float32)
@@ -758,8 +973,8 @@ def main() -> int:
                 _, adam_ms = event_ms(opt.step)
                 fr = frames.detach()
                 fb = cotangent(fr, exp)[1].contiguous()
-                own = cell2d.pack_pi_params_2d(tp["cell"], exp.cell).detach()
-                _, pg_ms = event_ms(lambda: pg_cuda(own, fr, fb, exp.cell))
+                run = bwd_kernel(tp["cell"])
+                _, pg_ms = event_ms(lambda: run(fr, fb))
                 rows.append([iteration_ms, enqueue_ms, device_ms, fwd_ms, loss_ms, bwd_ms,
                              pg_ms, adam_ms])
             med = np.median(np.asarray(rows), axis=0).tolist()
@@ -776,18 +991,35 @@ def main() -> int:
     note = ("iteration_ms: host clock to the synchronised end of a whole iteration; "
             "enqueue_ms: host clock until the iteration's last op is enqueued; "
             "device_span_ms: CUDA events around the whole iteration; the segments: "
-            "CUDA events around each run alone, backward_ms includes the pg kernel's ms; "
+            "CUDA events around each run alone, backward_ms includes the backward kernel's "
+            "ms; "
             "profiled: one more iteration under torch.profiler; "
             "device_idle_share_of_span: 1 - its busy ms / device_span_ms")
+    def pg_kernel(pg_cuda, cfg_):
+        def bind(cell_params):
+            own = cell2d.pack_pi_params_2d(cell_params, cfg_).detach()
+            return lambda fr, fb: pg_cuda(own, fr, fb, cfg_)
+        return bind
+
+    def adj_kxk_kernel(cell_params):
+        wm = cell2d.pack_pi_matrix_2d(cell_params, cfgb).detach().contiguous()
+        tl = cell2d.pi_tail_2d(cell_params, cfgb).detach()
+        return lambda fr, fb: backward2d._phase1_kxk_cuda(wm, tl, fr, fb, cfgb)
+
     bprob = runner.setup_problem(GS2D_RECON, answers[0].cpu().numpy(), device=dev)
     phase("step_breakdown", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
-          rows=breakdown(GS2D_RECON, bprob, res["params"], stages, backward2d._pg_cuda,
-                         "pg2d_kernel"), note=note)
+          rows=breakdown(GS2D_RECON, bprob, res["params"], stages,
+                         pg_kernel(backward2d._pg_cuda, cfg), "pg2d_kernel"), note=note)
     bprob3 = runner.setup_problem(GS3D_RECON, answer3.cpu().numpy(), device=dev)
     phase("step_breakdown3d", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
-          rows=breakdown(GS3D_RECON, bprob3, res3["params"], stages3, backward3d._pg_cuda,
-                         "pg3d_kernel"), note=note)
+          rows=breakdown(GS3D_RECON, bprob3, res3["params"], stages3,
+                         pg_kernel(backward3d._pg_cuda, cfg3), "pg3d_kernel"), note=note)
     del bprob3, answer3, final3
+    bprobb = runner.setup_problem(BURGERS_STAGE1, answersb[0].cpu().numpy(), device=dev)
+    phase("step_breakdown_kxk", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
+          rows=breakdown(BURGERS_STAGE1, bprobb, resb["params"], [BURGERS_STAGE1.train_steps],
+                         adj_kxk_kernel, "adj2d_kxk_kernel"), note=note)
+    del bprobb, answersb
 
     # times: per rollout at the serving shape (the ISG output of request 0)
     with torch.inference_mode():
@@ -891,11 +1123,60 @@ def main() -> int:
             packed3, frames3, fbar3, cfg3), reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+    # Burgers at 100 x 100, golden cell: the forward and the backward at the
+    # training T = 200 (data-loss cotangent), and the forward over the
+    # 1200-step serving and evaluation horizon
+    cellsb, stateb_bytes = nb_grid ** 2, 8 * nb_grid ** 2
+    mat_bytes = 4 * (wmatb.numel() + tailb.numel())
+    fwdb_flops = stepsb * cellsb * flops_per_cell_step_kxk(cfgb)
+    b_ms, b_by = bound_ms(mat_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes, fwdb_flops)
+    horizon = BURGERS_STAGE1.infer_steps
+    hb_ms, hb_by = bound_ms(mat_bytes + stateb_bytes + (horizon + 1) * stateb_bytes,
+                            horizon * cellsb * flops_per_cell_step_kxk(cfgb))
+    by_pathb = {"serve": serveb_launches, "train": trainb_launches["rollout2d_kxk_kernel"]}
+    kernels.append({
+        "name": "rollout2d_kxk_kernel", "jax_kernel": "cell2d._rollout_kernel_mxu",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell2d.py:193",
+        "launches": sum(by_pathb.values()), "launches_by_path": by_pathb,
+        "max_abs_err": err["rollout2d_kxk_kernel"], "steps": stepsb,
+        "ms": cuda_ms(torch, lambda: cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb, stepsb),
+                      reps=5),
+        "plain_ms": cuda_ms(torch, lambda: cell2d.fused_rollout_kxk_2d_plain(
+            wmatb, tailb, h0b, cfgb, stepsb), reps=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "horizon": {
+            "steps": horizon,
+            "ms": cuda_ms(torch, lambda: cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb,
+                                                                  horizon), reps=3),
+            "bound_ms": hb_ms, "bound_by": hb_by},
+    })
+    framesb = cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb, stepsb)
+    fbarb = cotangent(framesb, BURGERS_STAGE1)[1].contiguous()
+    bwb_flops = stepsb * cellsb * adj_flops_per_cell_step_kxk(cfgb)
+    bwb_bytes = (mat_bytes + 2 * stepsb * stateb_bytes + stepsb * stateb_bytes + stateb_bytes
+                 + 4 * stepsb * cell2d.mxu_rows(cfgb) * cellsb)
+    b_ms, b_by = bound_ms(bwb_bytes, bwb_flops)
+    kernels.append({
+        "name": "adj2d_kxk_kernel", "jax_kernel": "backward2d._phase1_mxu_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d_kxk.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward2d.py:370",
+        "launches": trainb_launches["adj2d_kxk_kernel"],
+        "launches_by_path": {"serve": 0, "train": trainb_launches["adj2d_kxk_kernel"]},
+        "max_abs_err": err["adj2d_kxk_kernel"], "steps": stepsb,
+        "ms": cuda_ms(torch, lambda: backward2d._phase1_kxk_cuda(wmatb, tailb, framesb, fbarb,
+                                                                 cfgb), reps=5),
+        "plain_ms": cuda_ms(torch, lambda: backward2d.fused_phase1_kxk_2d_plain(
+            wmatb, tailb, framesb, fbarb, cfgb), reps=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
     phase("times", shape=list(h0.shape), steps=SERVE_STEPS, flops_per_rollout=flops,
           backward_steps=TIME_BACKWARD_STEPS, flops_per_backward=bw_flops,
           bytes_per_backward=bw_bytes, shape3d=list(h03.shape), steps3d=steps3,
           flops_per_rollout3d=flops3, backward_steps3d=TIME_BACKWARD3D_STEPS,
-          flops_per_backward3d=bw3_flops, bytes_per_backward3d=bw3_bytes, nvidia_smi=smi)
+          flops_per_backward3d=bw3_flops, bytes_per_backward3d=bw3_bytes,
+          burgers_shape=list(h0b.shape), burgers_steps=stepsb, flops_per_rollout_kxk=fwdb_flops,
+          flops_per_backward_kxk=bwb_flops, bytes_per_backward_kxk=bwb_bytes, nvidia_smi=smi)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,11 @@
 """The Pi-block recurrent cell: one forward-Euler step of
     h_next = h + dt * (D_eff * Lap(h) + Pi(h)).
 
-Counterpart of percnn_tpu/core/cell.py.  Pi is N parallel 1x1 conv
-branches, multiplied elementwise, then aggregated by a 1x1 conv; the
-diffusion coefficients are raw or bounded as mu_up * sigmoid(c).  The state
-is channels-last [..., *spatial, channels].  The port covers the 1x1
-cells of the GS2D and GS3D models; k x k branches come with the cells that
-use them.
+Counterpart of percnn_tpu/core/cell.py.  Pi is N parallel conv branches
+(1x1, or k x k with periodic padding as in the 5x5 Burgers and
+lambda-omega Stage-1 cells), multiplied elementwise, then aggregated by a
+1x1 conv; the diffusion coefficients are raw or bounded as
+mu_up * sigmoid(c).  The state is channels-last [..., *spatial, channels].
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ from percnn_tpu_torch.core.init import (
     scaled_xavier_uniform,
     uniform_symmetric,
 )
-from percnn_tpu_torch.ops.convs import pointwise_conv
+from percnn_tpu_torch.ops.convs import conv_nd_periodic, pointwise_conv
 from percnn_tpu_torch.ops.stencils import laplacian
 
 
@@ -86,12 +85,10 @@ def effective_diffusion(params: dict, cfg: PiCellConfig) -> torch.Tensor:
 
 def pi_block(branch: dict, h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
     """Pi nonlinearity for one output channel: [..., C] -> [..., 1]."""
-    if cfg.kernel_size != 1:
-        raise NotImplementedError(
-            f"Pi branches with kernel_size {cfg.kernel_size} are not ported yet")
+    conv = pointwise_conv if cfg.kernel_size == 1 else conv_nd_periodic
     prod = None
     for i in range(cfg.n_branches):
-        y = pointwise_conv(h, branch[f"w{i}"], branch[f"b{i}"])
+        y = conv(h, branch[f"w{i}"], branch[f"b{i}"])
         prod = y if prod is None else prod * y
     return pointwise_conv(prod, branch["w_out"], branch["b_out"])
 

@@ -1,7 +1,8 @@
-"""Experiment configurations: the GS2D and GS3D reconstruction models.
+"""Experiment configurations: the GS2D and GS3D reconstruction models and
+the 5x5-Pi Stage-1 reconstructions of Burgers and lambda-omega.
 
 Counterpart of percnn_tpu/experiments/configs.py, with the same field
-values.  The other experiments come with the slices that run them.
+values.  The forward simulation of lambda-omega comes with its slice.
 """
 
 from __future__ import annotations
@@ -94,4 +95,58 @@ GS3D_RECON = ExperimentConfig(
     loss_weights={"data": 10.0, "ic": 5.0},
     noise_pct=0.1,
     interp_method="linear",
+)
+
+
+# 2D Burgers Stage-1 reconstruction (rcnn_Burgers...py:911-1015): ISG 2x
+# Tanh C=16, Pi 5x5 C=16, bounded diffusion mu_up=0.01 (nu=1/200 true),
+# 1*data + 1*ic, best-val checkpoint, Adam 2e-3 StepLR(200, .97) x10000,
+# 1200-step inference; the IC target is wrap-extended, bicubic with
+# align_corners=True.
+BURGERS_STAGE1 = ExperimentConfig(
+    name="burgers_stage1",
+    system="burgers",
+    grid=100,
+    dt=0.00025,
+    dx=0.01,
+    train_steps=200,
+    infer_steps=1200,
+    cell=PiCellConfig(
+        ndim=2, hidden=16, kernel_size=5, dt=0.00025, dx=0.01,
+        diffusion="sigmoid", mu_up=0.01, init="xavier", init_scale=0.02,
+    ),
+    isg=ISGConfig(ndim=2, hidden=16, strides=(2,), activation="tanh"),
+    data=DataLossConfig(time_stride=5, space_stride=2, val_frac=0.1),
+    train=TrainConfig(n_iters=10000, lr=2e-3, lr_step=200, lr_gamma=0.97,
+                      best_val=True, steps_per_call=5),
+    loss_weights={"data": 1.0, "ic": 1.0},
+    noise_pct=0.05,
+    interp_method="cubic",
+    interp_align_corners=True,
+    interp_periodic_extend=True,
+)
+
+# 2D lambda-omega Stage-1 reconstruction (rcnn_LO...py): like Burgers
+# Stage-1 with lambda-omega dynamics, 15000 iterations, 400-step inference.
+LO_STAGE1 = ExperimentConfig(
+    name="lo_stage1",
+    system="lambda_omega",
+    grid=100,
+    dt=0.0125,
+    dx=0.2,
+    train_steps=200,
+    infer_steps=400,
+    cell=PiCellConfig(
+        ndim=2, hidden=16, kernel_size=5, dt=0.0125, dx=0.2,
+        diffusion="sigmoid", mu_up=0.2, init="xavier", init_scale=0.02,
+    ),
+    isg=ISGConfig(ndim=2, hidden=16, strides=(2,), activation="tanh"),
+    data=DataLossConfig(time_stride=5, space_stride=2, val_frac=0.1),
+    train=TrainConfig(n_iters=15000, lr=2e-3, lr_step=200, lr_gamma=0.97,
+                      best_val=True, steps_per_call=5),
+    loss_weights={"data": 1.0, "ic": 1.0},
+    noise_pct=0.1,
+    interp_method="cubic",
+    interp_align_corners=True,
+    interp_periodic_extend=True,
 )

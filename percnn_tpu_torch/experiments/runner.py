@@ -1,7 +1,8 @@
 """Experiment runner: composes data, model, losses and trainer per config.
 
-Counterpart of percnn_tpu/experiments/runner.py for the data-driven GS2D
-and GS3D paths: truth (RK4 on the device), noise, ISG pretrain, the
+Counterpart of percnn_tpu/experiments/runner.py for the data-driven
+paths (GS2D, GS3D, and the 5x5-Pi Stage-1 reconstructions of Burgers and
+lambda-omega): truth (RK4 on the device), noise, ISG pretrain, the
 curriculum of training stages with the stability probe, the selection of
 a stable candidate, and the evaluation rollout scored by rel-L2; and
 ``run_experiment_with_restarts`` around it.  ``inference_rollout`` takes
@@ -38,7 +39,7 @@ from percnn_tpu_torch.core.train import pretrain_isg, train
 from percnn_tpu_torch.data.noise import add_noise
 from percnn_tpu_torch.data.simulate import default_ic, simulate
 from percnn_tpu_torch.experiments.configs import ExperimentConfig
-from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d_pg
+from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d, fused_rollout_tp_2d_pg
 from percnn_tpu_torch.ops.kernels.backward3d import fused_rollout_tp_3d_pg
 from percnn_tpu_torch.ops.kernels.cell2d import fused_rollout_2d
 from percnn_tpu_torch.ops.kernels.cell3d import fused_rollout_3d
@@ -135,15 +136,20 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
     Problem's.
 
     bptt:
-      'auto'     -- 'fused_pg' for a kernel_size-1 two-channel cell with a
-                    float32 state, 2D or 3D with three branches (kernels on
-                    the card, their plain versions on the CPU), else 'remat';
+      'auto'     -- for a two-channel cell with a float32 state (kernels on
+                    the card, their plain versions on the CPU): 'fused_pg'
+                    for a kernel_size-1 cell, 2D or 3D with three branches;
+                    'fused' for a 2D cell with odd kernel_size 3 or 5; else
+                    'remat';
       'fused_pg' -- rollout2d_kernel forward, pg2d_kernel backward
                     (ops/kernels/backward2d.py) in 2D; rollout3d_kernel
                     forward, pg3d_kernel backward (ops/kernels/backward3d.py)
                     in 3D;
+      'fused'    -- a 2D k x k cell: rollout2d_kxk_kernel forward,
+                    adj2d_kxk_kernel reverse sweep and time-batched
+                    parameter gradients (ops/kernels/backward2d.py);
       'remat'    -- autograd through the cell step, checkpointed segments.
-    'fused' and 'two_phase' are not ported yet.
+    'fused' of a 1x1 or 3D cell and 'two_phase' are queued (ROADMAP.md A1).
     """
     dev = resolve_device(device)
     exp = prob.exp
@@ -154,18 +160,24 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
         h0 = (prob.h0 if h0 is None else h0).to(dev)
     cell = exp.cell
     if bptt == "auto":
-        fusable = cell.ndim == 2 or (cell.ndim == 3 and cell.n_branches == 3)
-        bptt = ("fused_pg" if fusable and cell.kernel_size == 1 and cell.channels == 2
-                and h0.dtype == torch.float32 else "remat")
+        k = cell.kernel_size
+        pg_ok = k == 1 and (cell.ndim == 2 or (cell.ndim == 3 and cell.n_branches == 3))
+        fused_ok = cell.ndim == 2 and k in (3, 5)
+        f32 = cell.channels == 2 and h0.dtype == torch.float32
+        bptt = ("fused_pg" if f32 and pg_ok else "fused" if f32 and fused_ok else "remat")
     if bptt == "fused_pg":
         fused = fused_rollout_tp_2d_pg if cell.ndim == 2 else fused_rollout_tp_3d_pg
         return fused(params["cell"], h0, cell, n_steps)
     if bptt == "fused":
-        raise NotImplementedError("bptt='fused' (backward2d._phase1_kernel) comes with "
-                                  "the 5x5 Burgers/lambda-omega slice")
+        if cell.ndim != 2 or cell.kernel_size == 1:
+            raise NotImplementedError(
+                "bptt='fused' of a 1x1 or 3D cell (backward2d._phase1_kernel, "
+                "backward3d._phase1_kernel3d) is queued for the fallback-adjoint slice, "
+                "ROADMAP.md A1")
+        return fused_rollout_tp_2d(params["cell"], h0, cell, n_steps)
     if bptt == "two_phase":
-        raise NotImplementedError("bptt='two_phase' (rollout_tp) comes with the "
-                                  "5x5 Burgers/lambda-omega slice")
+        raise NotImplementedError("bptt='two_phase' (rollout_tp) is queued for the "
+                                  "fallback-adjoint slice, ROADMAP.md A1")
     if bptt != "remat":
         raise ValueError(f"unknown bptt {bptt!r}")
     return rollout(lambda h: pi_cell_step(params["cell"], h, cell), h0, n_steps, remat=remat)

@@ -2,13 +2,18 @@
 
 Counterpart of percnn_tpu/ops/convs.py.  Activations are [..., *spatial, C]
 and weights [*k, Cin, Cout], as there; PyTorch's own convolutions take
-channels first, so the transposed conv permutes around the library call.
+channels first, so the convs permute around the library call.  The k x k
+convs run in full float32 (``full_f32``): cuDNN would take them to TF32.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from percnn_tpu_torch._device import full_f32
+
+_CONV = {2: F.conv2d, 3: F.conv3d}
 
 
 def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
@@ -18,6 +23,40 @@ def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         y = y + b
     return y
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
+          wrap: bool) -> torch.Tensor:
+    """VALID cross-correlation of channels-last x [..., *spatial, Cin] with
+    w [*k, Cin, Cout], stride 1; with `wrap`, x is first wrap-padded by
+    (k//2, (k-1)//2) per spatial dim."""
+    nd = w.ndim - 2
+    if nd not in _CONV:
+        raise ValueError(f"the convs take a 2D or 3D kernel, got weight {tuple(w.shape)}")
+    lead = tuple(x.shape[:-1 - nd])
+    xb = x.reshape((-1,) + tuple(x.shape[-1 - nd:])).movedim(-1, 1)
+    if wrap:
+        pads = []
+        for k in reversed(w.shape[:nd]):   # F.pad lists the last dim first
+            pads += [k // 2, (k - 1) // 2]
+        xb = F.pad(xb, pads, mode="circular")
+    with full_f32():
+        y = _CONV[nd](xb, w.permute(nd + 1, nd, *range(nd)), b)
+    y = y.movedim(1, -1)
+    return y.reshape(lead + tuple(y.shape[1:]))
+
+
+def conv_nd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
+    """VALID 2D or 3D conv, channels-last: x [..., *spatial, Cin],
+    w [*k, Cin, Cout], stride 1."""
+    return _conv(x, w, b, wrap=False)
+
+
+def conv_nd_periodic(x: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor | None = None) -> torch.Tensor:
+    """'Same'-size conv on a periodic grid: wrap-pad by (k//2, (k-1)//2) per
+    spatial dim, then a VALID conv."""
+    return _conv(x, w, b, wrap=True)
 
 
 def conv_transpose_torch(x: torch.Tensor, w: torch.Tensor,

@@ -1,7 +1,26 @@
-"""Fully fused backward of the 1x1 Pi-cell rollout: a CUDA kernel for Hopper
-and its plain version.
+"""Backward of the fused 2D Pi-cell rollout: CUDA kernels for Hopper and
+their plain versions.
 
-Counterpart of the fused-pg half of percnn_tpu/ops/pallas/backward2d.py.
+Counterpart of percnn_tpu/ops/pallas/backward2d.py, in two parts.
+
+**k x k cells** (the Burgers and lambda-omega Stage-1 models).
+``fused_rollout_tp_2d`` is a differentiable rollout whose forward is
+``rollout2d_kxk_kernel`` (ops/kernels/cell2d.py) and whose backward is the
+reverse sweep of ``adj2d_kxk_kernel`` (csrc/backward2d_kxk.cu, in place of
+``_phase1_mxu_kernel``), then the parameter gradients as time-batched
+contractions outside any kernel (``_param_grads_stream``, as the JAX
+package leaves them to XLA).  For t = T-1 .. 0 the sweep computes
+
+    g_in  = g_{t+1} + fbar_{t+1}                       (g_T = 0)
+    y     = Wm . im2col(h_t)                           (streamed out as ys[t])
+    z[m]  = w_out_o[c] g_in_o prod_{j != i} y[(o nb + j) C + c],  m = (o nb + i) C + c
+    zw    = W2 . z                                     (W2 = pack_adjoint_matrix_2d)
+    jt    = sum_{tap} zw[tap] shifted by the reversed tap offset
+    g_t   = g_in + dt (D Lap(g_in) + jt)
+
+and returns g_ins [T, H, W, 2], g_0 and ys [T, M, H, W].
+
+**1x1 cells** (GS2D), the fused-pg half.
 ``fused_rollout_tp_2d_pg`` is a differentiable rollout whose forward is
 ``rollout2d_kernel`` (ops/kernels/cell2d.py) and whose backward is
 ``pg2d_kernel`` (csrc/backward2d.cu, in place of ``_phase1_pg_kernel``): one
@@ -22,9 +41,11 @@ factor and the layout of the packed parameter vector are applied then
 (``pack_pi_params_2d``, which applies mu_up * sigmoid), so autograd carries
 the gradient on through the reparametrisation to the parameter tree.
 
-A CPU tensor takes the plain version (``fused_phase1_pg_2d_plain``); a CUDA
-tensor launches the kernel or raises.  ``fused_rollout_tp_2d_pg.launches``
-counts the reverse steps launched.
+A CPU tensor takes the plain versions (``fused_phase1_kxk_2d_plain``,
+``fused_phase1_pg_2d_plain``); a CUDA tensor launches the kernel or raises.
+``fused_rollout_tp_2d_pg.launches`` counts the reverse steps launched;
+``fused_rollout_tp_2d.launches`` the launches of the k x k sweep, two a
+reverse step.
 """
 
 from __future__ import annotations
@@ -33,16 +54,28 @@ import ctypes
 
 import torch
 
+import torch.nn.functional as F
+
+from percnn_tpu_torch._device import full_f32
 from percnn_tpu_torch.core.cell import PiCellConfig
 from percnn_tpu_torch.ops.kernels import _build
 from percnn_tpu_torch.ops.kernels.cell2d import (
     _MAX_PARAMS,
     _check_fusable,
+    _check_kxk_inputs,
+    _kxk_smem_bytes,
     _param_block,
     _raise_on_error,
     _rollout_cuda,
+    _rollout_kxk_cuda,
+    _round_up,
     fused_rollout_2d_plain,
+    fused_rollout_kxk_2d_plain,
+    im2col_2d,
+    mxu_rows,
+    pack_pi_matrix_2d,
     pack_pi_params_2d,
+    pi_tail_2d,
 )
 from percnn_tpu_torch.ops.stencils import laplacian_2d
 
@@ -52,6 +85,9 @@ _F = ctypes.c_float
 # params, n_params, frames, frames_bar, g0, scratch, acc, n_steps, H, W,
 # hidden, n_branches, dt, inv_dx2, stream
 _SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+# wmat, tail, frames, frames_bar, g, g_ins, ys, zw, n_steps, H, W, hidden,
+# n_branches, kernel_size, dt, inv_dx2, stream
+_KXK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 # The kernel is compiled for 1 to 4 branches (csrc/backward2d.cu).
 _MAX_BRANCHES = 4
 
@@ -251,3 +287,222 @@ def fused_rollout_tp_2d_pg(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 
 
 fused_rollout_tp_2d_pg.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# k x k cells: adj2d_kxk_kernel and the parameter gradients around it
+# ---------------------------------------------------------------------------
+
+
+def pack_adjoint_matrix_2d(wmat: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """[K2, M] adjoint operand from the forward's [M, K] matrix: the
+    transpose of its k*k*2 tap columns (the biases do not enter the
+    Jacobian), zero rows up to the next multiple of 8."""
+    taps = cfg.kernel_size ** 2 * 2
+    return F.pad(wmat[:, :taps].T, (0, 0, 0, _round_up(taps, 8) - taps))
+
+
+def _leave_one_out_prod(y: torch.Tensor, dim: int) -> torch.Tensor:
+    """prod_{j != i} y_j along `dim` for every i, in y's shape."""
+    n = y.shape[dim]
+    return torch.stack([torch.prod(torch.cat([y.narrow(dim, 0, i),
+                                              y.narrow(dim, i + 1, n - i - 1)], dim=dim), dim=dim)
+                        for i in range(n)], dim=dim)
+
+
+def fused_phase1_kxk_2d_plain(wmat: torch.Tensor, tail: torch.Tensor, frames: torch.Tensor,
+                              frames_bar: torch.Tensor, cfg: PiCellConfig):
+    """Plain version of adj2d_kxk_kernel: the reverse sweep with tensor ops.
+
+    wmat [M, K] (pack_pi_matrix_2d); tail (pi_tail_2d); frames [T+1, H, W, 2],
+    the forward's output; frames_bar [T+1, H, W, 2], their cotangent.
+    Returns (g_ins [T, H, W, 2], g0 [H, W, 2] without frames_bar[0],
+    ys [T, M, H, W]).
+    """
+    C, nb, k = cfg.hidden, cfg.n_branches, cfg.kernel_size
+    r = k // 2
+    w2 = pack_adjoint_matrix_2d(wmat, cfg)
+    w_out = tail[2:2 + 2 * C].reshape(2, 1, C)
+    n_steps = frames.shape[0] - 1
+    g = torch.zeros_like(frames[0])
+    g_ins, ys = [None] * n_steps, [None] * n_steps
+    for t in range(n_steps - 1, -1, -1):
+        g_in = g + frames_bar[t + 1]
+        y = im2col_2d(frames[t], cfg) @ wmat.T                  # [H, W, M]
+        ys[t] = y.movedim(-1, 0)
+        gw = g_in[..., :, None, None] * w_out                    # [H, W, 2, 1, C]
+        z = gw * _leave_one_out_prod(y.unflatten(-1, (2, nb, C)), -2)   # [H, W, 2, nb, C]
+        zw = z.flatten(-3) @ w2.T                                # [H, W, K2]
+        jt = 0.0
+        for ki in range(k):
+            for kj in range(k):
+                tap = ki * k + kj
+                jt = jt + torch.roll(zw[..., 2 * tap: 2 * tap + 2],
+                                     shifts=(ki - r, kj - r), dims=(0, 1))
+        g_ins[t] = g_in
+        g = g_in + cfg.dt * (tail[:2] * laplacian_2d(g_in, cfg.dx) + jt)
+    return torch.stack(g_ins), g, torch.stack(ys)
+
+
+def _kxk_bwd_smem_bytes(cfg: PiCellConfig) -> int:
+    """Shared memory of adj2d_kxk_kernel's first kernel (csrc/backward2d_kxk.cu):
+    the forward's staging plus the exchange of the k*k*2 partial sums of
+    128 cells."""
+    return _kxk_smem_bytes(cfg) + 4 * cfg.kernel_size ** 2 * 2 * 128
+
+
+def _phase1_kxk_cuda(wmat, tail, frames, frames_bar, cfg):
+    """adj2d_kxk_kernel: two launches per reverse step, the loop in C."""
+    n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    _check_kxk_inputs(wmat, tail, frames[0], cfg, n_steps, _kxk_bwd_smem_bytes(cfg))
+    if frames.dim() != 4 or frames_bar.shape != frames.shape or not frames.is_contiguous():
+        raise ValueError(f"frames and frames_bar must be [T+1, H, W, 2] and frames "
+                         f"contiguous, got {tuple(frames.shape)} and {tuple(frames_bar.shape)}")
+    if frames_bar.device != frames.device:
+        raise ValueError(f"frames_bar on {frames_bar.device}, frames on {frames.device}")
+    # the cotangent of a strided slice arrives sparse, expanded or strided
+    frames_bar = frames_bar.to(torch.float32).contiguous()
+    fn = _build.load_library("backward2d_kxk").backward2d_kxk
+    fn.argtypes = _KXK_SIGNATURE
+    fn.restype = ctypes.c_int
+    dev = frames.device
+    g = torch.zeros((H, W, 2), dtype=torch.float32, device=dev)
+    g_ins = torch.empty((n_steps, H, W, 2), dtype=torch.float32, device=dev)
+    ys = torch.empty((n_steps, mxu_rows(cfg), H, W), dtype=torch.float32, device=dev)
+    zw = torch.empty((cfg.kernel_size ** 2 * 2, H, W), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(wmat.data_ptr(), tail.data_ptr(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g.data_ptr(), g_ins.data_ptr(),
+                           ys.data_ptr(), zw.data_ptr(), n_steps, H, W, cfg.hidden,
+                           cfg.n_branches, cfg.kernel_size, cfg.dt, 1.0 / (cfg.dx * cfg.dx),
+                           stream), "backward2d_kxk")
+    fused_rollout_tp_2d.launches += 2 * n_steps
+    return g_ins, g, ys
+
+
+def fused_phase1_kxk_2d(wmat, tail, frames, frames_bar, cfg):
+    """(g_ins, g0, ys): adj2d_kxk_kernel on CUDA, the plain version on the CPU."""
+    if frames.device.type == "cpu":
+        return fused_phase1_kxk_2d_plain(wmat, tail, frames, frames_bar.to(torch.float32), cfg)
+    return _phase1_kxk_cuda(wmat, tail, frames, frames_bar, cfg)
+
+
+def _param_grads_direct(params: dict, h_prev: torch.Tensor, g_ins: torch.Tensor,
+                        ys: torch.Tensor, cfg: PiCellConfig) -> dict:
+    """Parameter gradients from the sweep's cotangents and activations, summed
+    over time and space (percnn_tpu's ``_param_grads_direct``):
+
+        cot_i      = g_o w_out[c] prod_{j != i} y_j
+        dw_i       = dt conv_weight_grad(h, cot_i)   (periodic k x k)
+        db_i       = dt sum cot_i
+        dw_out[c]  = dt sum g_o prod_j y_j
+        db_out     = dt sum g_o
+        ddiff_o    = dt sum g_o Lap(h_o), times mu_up s (1 - s) for the
+                     sigmoid parametrisation (s = sigmoid(diff))
+
+    h_prev [T, H, W, 2] (the steps' inputs), g_ins [T, H, W, 2], ys
+    [T, 2, nb, C, H, W] (JAX's takes them channels-last; here they stay in
+    the layout the sweep writes).  dw_i and db_i together are the gradient
+    of the branch matrix (pack_pi_matrix_2d): the product of the [T, M, H W]
+    cotangents with the [T, H W, K] im2col stack of h, one batched matrix
+    product in full f32 (a cuDNN weight-grad convolution may pick an
+    algorithm that rounds this sum of 10^6 terms to about 1e-3).
+    """
+    C, nb, k, dt = cfg.hidden, cfg.n_branches, cfg.kernel_size, cfg.dt
+    h32, g32 = h_prev.to(torch.float32), g_ins.to(torch.float32)
+    draw = dt * (g32 * laplacian_2d(h32, cfg.dx)).sum((0, 1, 2))
+    if cfg.diffusion == "raw":
+        ddiff = draw
+    else:
+        s = torch.sigmoid(params["diff"].to(torch.float32))
+        ddiff = cfg.mu_up * s * (1 - s) * draw
+    w_out = torch.stack([params["pi"][o]["w_out"].reshape(C) for o in range(2)])
+    w_out = w_out.to(torch.float32)[None, :, None, :, None, None]   # [1, 2, 1, C, 1, 1]
+    go = g32.movedim(-1, 1)[:, :, None, None]                       # [T, 2, 1, 1, H, W]
+    cot = _leave_one_out_prod(ys, 2) * (go * w_out)                 # [T, 2, nb, C, H, W]
+    with full_f32():
+        dmat = torch.bmm(cot.flatten(1, 3).flatten(2), im2col_2d(h32, cfg).flatten(1, 2))
+    dmat = dt * dmat.sum(0)                                          # [M, K]
+    taps = k * k * 2
+    dw = dmat[:, :taps].reshape(2, nb, C, k, k, 2)                   # [o, i, c, ki, kj, cin]
+    db = dmat[:, taps].reshape(2, nb, C)
+    dwout = dt * (go[:, :, 0] * torch.prod(ys, dim=2)).sum((0, 3, 4))   # [2, C]
+    dbout = dt * g32.sum((0, 1, 2))
+    pi_bar = []
+    for o in range(2):
+        br = params["pi"][o]
+        bar = {"w_out": dwout[o].reshape(br["w_out"].shape), "b_out": dbout[o:o + 1]}
+        for i in range(nb):
+            bar[f"w{i}"] = dw[o, i].permute(1, 2, 3, 0).reshape(br[f"w{i}"].shape)
+            bar[f"b{i}"] = db[o, i]
+        pi_bar.append({key: v.to(br[key].dtype) for key, v in bar.items()})
+    return {"diff": ddiff.to(params["diff"].dtype), "pi": pi_bar}
+
+
+def _param_grads_stream(params: dict, h_prev: torch.Tensor, g_ins: torch.Tensor,
+                        ys_stream: torch.Tensor, cfg: PiCellConfig) -> dict:
+    """``_param_grads_direct`` on the sweep's ys [T, M, H, W] (rows
+    (o nb + i) C + c), read as a [T, 2, nb, C, H, W] view, without a copy."""
+    return _param_grads_direct(params, h_prev, g_ins,
+                               ys_stream.unflatten(1, (2, cfg.n_branches, cfg.hidden)), cfg)
+
+
+def _cell_leaves(params: dict) -> list:
+    """The cell's tensors in a fixed order: diff, then per equation its keys sorted."""
+    return [params["diff"]] + [br[key] for br in params["pi"] for key in sorted(br)]
+
+
+def _cell_tree(like: dict, leaves) -> dict:
+    """A cell tree of `like`'s structure holding `leaves` (_cell_leaves order)."""
+    it = iter(leaves)
+    out = {"diff": next(it), "pi": []}
+    for br in like["pi"]:
+        out["pi"].append({key: next(it) for key in sorted(br)})
+    return out
+
+
+class FusedRolloutTP2d(torch.autograd.Function):
+    """frames = rollout of a k x k cell from h0; backward by adj2d_kxk_kernel
+    and the time-batched parameter gradients."""
+
+    @staticmethod
+    def forward(ctx, h0, cfg, n_steps, like, *leaves):
+        params = _cell_tree(like, leaves)
+        wmat = pack_pi_matrix_2d(params, cfg)
+        tail = pi_tail_2d(params, cfg)
+        if h0.device.type == "cpu":
+            frames = fused_rollout_kxk_2d_plain(wmat, tail, h0, cfg, n_steps)
+        else:
+            frames = _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps)
+        ctx.cfg, ctx.like = cfg, like
+        ctx.save_for_backward(frames, wmat, tail, *leaves)
+        return frames
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, frames_bar):
+        frames, wmat, tail, *leaves = ctx.saved_tensors
+        params = _cell_tree(ctx.like, leaves)
+        g_ins, g0, ys = fused_phase1_kxk_2d(wmat, tail, frames, frames_bar, ctx.cfg)
+        bar = _param_grads_stream(params, frames[:-1], g_ins, ys, ctx.cfg)
+        return (g0 + frames_bar[0], None, None, None, *_cell_leaves(bar))
+
+
+def fused_rollout_tp_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
+                        n_steps: int) -> torch.Tensor:
+    """Differentiable rollout of a k x k cell: [H, W, 2] -> [n_steps+1, H, W, 2]
+    f32.  Forward by rollout2d_kxk_kernel, backward by adj2d_kxk_kernel on
+    CUDA; the plain versions of both on the CPU.  Gradients reach the
+    cell's tensors and h0, as percnn_tpu's ``fused_rollout_tp_2d``."""
+    _check_fusable(cfg)
+    if cfg.kernel_size == 1:
+        raise NotImplementedError(
+            "fused_rollout_tp_2d of a 1x1 cell (percnn_tpu backward2d._phase1_kernel) is "
+            "queued in ROADMAP.md A1, the fallback-adjoint slice; fused_rollout_tp_2d_pg "
+            "takes the 1x1 cell")
+    return FusedRolloutTP2d.apply(h0.to(torch.float32).contiguous(), cfg, n_steps, params,
+                                  *_cell_leaves(params))
+
+
+fused_rollout_tp_2d.launches = 0

@@ -1,15 +1,20 @@
 """Fused 2D Pi-cell rollout: CUDA kernels for Hopper and their plain versions.
 
-Counterpart of percnn_tpu/ops/pallas/cell2d.py for 1x1 Pi cells (the GS2D
-model).  ``fused_rollout_2d`` streams every frame (``rollout2d_kernel``, in
-place of ``_rollout_kernel``); ``fused_rollout_final_2d`` returns the final
-state only (``final2d_kernel``, in place of ``_final_kernel``).  The kernels
-are in csrc/cell2d.cu, with their bound on the card and their design.
+Counterpart of percnn_tpu/ops/pallas/cell2d.py.  ``fused_rollout_2d``
+streams every frame: for a 1x1 cell (the GS2D model) through
+``rollout2d_kernel``, in place of ``_rollout_kernel``; for a k x k cell
+(k = 3 or 5: the Burgers and lambda-omega Stage-1 models) through
+``fused_rollout_kxk_2d`` and ``rollout2d_kxk_kernel``, in place of
+``_rollout_kernel_mxu``.  ``fused_rollout_final_2d`` returns the final
+state of a 1x1 cell only (``final2d_kernel``, in place of
+``_final_kernel``).  The kernels are in csrc/cell2d.cu and
+csrc/cell2d_kxk.cu, with their bound on the card and their design.
 
 A CPU tensor takes the plain PyTorch version of the same arithmetic
-(``fused_rollout_2d_plain``, ``fused_rollout_final_2d_plain``); a CUDA
-tensor launches the kernel or raises.  Each public wrapper counts, in its
-``launches`` attribute, the kernel launches it makes: one per time step.
+(``fused_rollout_2d_plain``, ``fused_rollout_final_2d_plain``,
+``fused_rollout_kxk_2d_plain``); a CUDA tensor launches the kernel or
+raises.  Each public wrapper counts, in its ``launches`` attribute, the
+kernel launches it makes: one per time step.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from percnn_tpu_torch.core.cell import PiCellConfig, effective_diffusion
 from percnn_tpu_torch.ops.kernels import _build
+from percnn_tpu_torch.ops.stencils import laplacian_2d
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,8 +37,12 @@ _SIGNATURES = {
     # params, n_params, h0, out, scratch, n_steps, H, W, hidden, n_branches,
     # dt, inv_dx2, stream
     "cell2d_final": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # wmat, tail, h0, frames, n_steps, H, W, hidden, n_branches, kernel_size,
+    # dt, inv_dx2, stream
+    "cell2d_kxk_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
-# The kernels stage the packed parameters in the default 48 KB of shared memory.
+# The 1x1 kernels stage the packed parameters in the default 48 KB of shared
+# memory; the k x k kernels stage the branch matrix instead (_kxk_smem_bytes).
 _MAX_PARAMS = 48 * 1024 // 4
 
 
@@ -65,10 +75,80 @@ def _check_fusable(cfg: PiCellConfig) -> None:
     if cfg.ndim != 2 or cfg.channels != 2:
         raise NotImplementedError("the fused 2D kernels take 2D cells with 2 "
                                   "state channels (u, v)")
-    if cfg.kernel_size != 1:
-        raise NotImplementedError(
-            f"fused rollout with kernel_size {cfg.kernel_size} "
-            "(percnn_tpu cell2d._rollout_kernel_mxu) is not ported yet")
+    if cfg.kernel_size % 2 == 0 or cfg.kernel_size > 5:
+        raise NotImplementedError(f"the fused 2D kernels take odd kernel_size <= 5, "
+                                  f"got {cfg.kernel_size}")
+
+
+def n_taps(cfg: PiCellConfig) -> int:
+    """im2col rows of a k x k cell: k*k taps x 2 channels, plus a ones row
+    that folds the branch biases into the product."""
+    return cfg.kernel_size ** 2 * 2 + 1
+
+
+def mxu_rows(cfg: PiCellConfig) -> int:
+    """Rows M of the branch matrix: one per (equation, branch, hidden channel)."""
+    return cfg.channels * cfg.n_branches * cfg.hidden
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def pack_pi_matrix_2d(params: dict, cfg: PiCellConfig) -> torch.Tensor:
+    """The branch convs of a k x k cell as one [M, K] f32 matrix.
+
+    Row (o*nb + i)*C + c holds branch i of equation o, hidden channel c:
+    column (ki*k + kj)*2 + cin is its conv tap, column k*k*2 its bias (the
+    ones row of the im2col stack) and the columns up to K, the next
+    multiple of 8, are zero.  The layout of percnn_tpu's.
+    """
+    k, C, nb = cfg.kernel_size, cfg.hidden, cfg.n_branches
+    K = _round_up(n_taps(cfg), 8)
+    blocks = []
+    for o in range(cfg.channels):
+        br = params["pi"][o]
+        for i in range(nb):
+            w = br[f"w{i}"].to(torch.float32).reshape(k, k, 2, C)
+            b = br[f"b{i}"].to(torch.float32).reshape(C, 1)
+            pad = torch.zeros((C, K - k * k * 2 - 1), dtype=torch.float32, device=w.device)
+            blocks.append(torch.cat([w.movedim(-1, 0).reshape(C, k * k * 2), b, pad], dim=1))
+    return torch.cat(blocks, dim=0)
+
+
+def pi_tail_2d(params: dict, cfg: PiCellConfig) -> torch.Tensor:
+    """What the k x k kernels read besides the matrix, f32: [Du, Dv] (after
+    the diffusion reparametrisation), w_out of equations 0 and 1 [C each],
+    then b_out of equations 0 and 1."""
+    pi = params["pi"]
+    parts = ([effective_diffusion(params, cfg)] + [pi[o]["w_out"] for o in range(2)]
+             + [pi[o]["b_out"] for o in range(2)])
+    return torch.cat([t.reshape(-1).to(torch.float32) for t in parts])
+
+
+def im2col_2d(h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """[..., H, W, 2] -> [..., H, W, K]: the k x k neighbourhood of each cell
+    (periodic) in the column order of pack_pi_matrix_2d, then the ones
+    column and zeros."""
+    k = cfg.kernel_size
+    r = k // 2
+    dims = (h.ndim - 3, h.ndim - 2)
+    cols = [torch.roll(h, shifts=(r - ki, r - kj), dims=dims)
+            for ki in range(k) for kj in range(k)]
+    extra = torch.zeros(h.shape[:-1] + (_round_up(n_taps(cfg), 8) - k * k * 2,),
+                        dtype=h.dtype, device=h.device)
+    extra[..., 0] = 1.0
+    return torch.cat(cols + [extra], dim=-1)
+
+
+def pi_from_activations(y: torch.Tensor, tail: torch.Tensor,
+                        cfg: PiCellConfig) -> torch.Tensor:
+    """[..., M] branch activations -> [..., 2] Pi outputs:
+    Pi_o = sum_c w_out[c] prod_i y[(o*nb + i)*C + c] + b_out."""
+    C, nb = cfg.hidden, cfg.n_branches
+    y = y.unflatten(-1, (2, nb, C))
+    w_out = tail[2:2 + 2 * C].reshape(2, C)
+    return (torch.prod(y, dim=-2) * w_out).sum(-1) + tail[2 + 2 * C:]
 
 
 def _plain_step(packed: torch.Tensor, h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
@@ -113,6 +193,22 @@ def fused_rollout_final_2d_plain(packed: torch.Tensor, h0: torch.Tensor,
     return h
 
 
+def fused_rollout_kxk_2d_plain(wmat: torch.Tensor, tail: torch.Tensor, h0: torch.Tensor,
+                               cfg: PiCellConfig, n_steps: int) -> torch.Tensor:
+    """Plain version of rollout2d_kxk_kernel: [H, W, 2] -> [n_steps+1, H, W, 2].
+
+    Each step: y = im2col(h) @ wmat^T, the branch product and the 1x1
+    aggregation (pi_from_activations), the Laplacian and the Euler update.
+    """
+    frames = [h0]
+    for _ in range(n_steps):
+        h = frames[-1]
+        y = im2col_2d(h, cfg) @ wmat.T
+        frames.append(h + cfg.dt * (tail[:2] * laplacian_2d(h, cfg.dx)
+                                    + pi_from_activations(y, tail, cfg)))
+    return torch.stack(frames)
+
+
 def _launch_args(packed: torch.Tensor, h0: torch.Tensor, cfg: PiCellConfig,
                  n_steps: int) -> tuple:
     """Check the kernel's inputs and return the shared ctypes arguments."""
@@ -136,9 +232,9 @@ def _launch_args(packed: torch.Tensor, h0: torch.Tensor, cfg: PiCellConfig,
             cfg.hidden, cfg.n_branches, cfg.dt, 1.0 / (cfg.dx * cfg.dx))
 
 
-def _kernel_fn(fn_name: str):
-    """A C entry point of the cell2d library, built on first use."""
-    fn = getattr(_build.load_library("cell2d"), fn_name)
+def _kernel_fn(fn_name: str, library: str = "cell2d"):
+    """A C entry point of a kernel library, built on first use."""
+    fn = getattr(_build.load_library(library), fn_name)
     fn.argtypes = _SIGNATURES[fn_name]
     fn.restype = ctypes.c_int
     return fn
@@ -162,6 +258,63 @@ def _rollout_cuda(packed, h0, cfg, n_steps):
     return frames
 
 
+def _kxk_smem_bytes(cfg: PiCellConfig) -> int:
+    """Shared memory of rollout2d_kxk_kernel (csrc/cell2d_kxk.cu): the matrix,
+    the tail rounded to 4 floats, and a (8 + 4) x (16 + 4) float2 state tile."""
+    K = _round_up(n_taps(cfg), 8)
+    return 4 * (mxu_rows(cfg) * K + _round_up(2 * cfg.hidden + 4, 4)) + 8 * 12 * 20
+
+
+# A block's dynamic shared memory on an H100 (cudaFuncSetAttribute's ceiling).
+_MAX_SMEM = 227 * 1024
+# The k x k kernels are compiled for 1 to 4 branches and kernel_size 3 or 5.
+_KXK_BRANCHES = (1, 2, 3, 4)
+_KXK_SIZES = (3, 5)
+
+
+def _check_kxk_inputs(wmat: torch.Tensor, tail: torch.Tensor, h0: torch.Tensor,
+                      cfg: PiCellConfig, n_steps: int, smem_bytes: int) -> None:
+    """Check the inputs of the k x k kernels (both directions)."""
+    tensors = (wmat, tail, h0)
+    if h0.device.type != "cuda" or any(t.device != h0.device for t in tensors):
+        raise ValueError("the k x k kernels take CUDA tensors on one device; got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"the k x k kernels take float32, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the k x k kernels take contiguous tensors")
+    if h0.dim() != 3 or h0.shape[-1] != 2:
+        raise ValueError(f"state must be [H, W, 2], got {tuple(h0.shape)}")
+    K = _round_up(n_taps(cfg), 8)
+    if tuple(wmat.shape) != (mxu_rows(cfg), K) or wmat.data_ptr() % 16:
+        raise ValueError(f"matrix must be [{mxu_rows(cfg)}, {K}] and 16-byte aligned, "
+                         f"got {tuple(wmat.shape)}")
+    if tail.numel() != 2 * cfg.hidden + 4:
+        raise ValueError(f"tail has {tail.numel()} floats, expected {2 * cfg.hidden + 4}")
+    if cfg.kernel_size not in _KXK_SIZES or cfg.n_branches not in _KXK_BRANCHES:
+        raise ValueError(f"the k x k kernels take kernel_size {_KXK_SIZES} and "
+                         f"{_KXK_BRANCHES} branches, got {cfg.kernel_size}, {cfg.n_branches}")
+    if smem_bytes > _MAX_SMEM:
+        raise ValueError(f"{smem_bytes} bytes of shared memory a block, over {_MAX_SMEM}")
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+
+
+def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
+    """rollout2d_kxk_kernel: one launch per step, the loop in C."""
+    _check_kxk_inputs(wmat, tail, h0, cfg, n_steps, _kxk_smem_bytes(cfg))
+    fn = _kernel_fn("cell2d_kxk_rollout", "cell2d_kxk")
+    H, W = h0.shape[0], h0.shape[1]
+    frames = torch.empty((n_steps + 1, H, W, 2), dtype=torch.float32, device=h0.device)
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(wmat.data_ptr(), tail.data_ptr(), h0.data_ptr(), frames.data_ptr(),
+                           n_steps, H, W, cfg.hidden, cfg.n_branches, cfg.kernel_size, cfg.dt,
+                           1.0 / (cfg.dx * cfg.dx), stream), "cell2d_kxk_rollout")
+    fused_rollout_kxk_2d.launches += n_steps
+    return frames
+
+
 def _final_cuda(packed, h0, cfg, n_steps):
     fn = _kernel_fn("cell2d_final")
     p_ptr, n_params, h_ptr, n, H, W, C, nb, dt, inv_dx2 = _launch_args(
@@ -177,14 +330,34 @@ def _final_cuda(packed, h0, cfg, n_steps):
     return out
 
 
+def fused_rollout_kxk_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
+                         n_steps: int) -> torch.Tensor:
+    """Full rollout of a k x k cell: [H, W, 2] -> [n_steps+1, H, W, 2] f32.
+
+    On CUDA, one rollout2d_kxk_kernel launch per step; on the CPU, the
+    plain version.
+    """
+    _check_fusable(cfg)
+    if cfg.kernel_size == 1:
+        raise ValueError("a 1x1 cell takes fused_rollout_2d's rollout2d_kernel")
+    wmat = pack_pi_matrix_2d(params, cfg)
+    tail = pi_tail_2d(params, cfg)
+    h0 = h0.to(torch.float32).contiguous()
+    if h0.device.type == "cpu":
+        return fused_rollout_kxk_2d_plain(wmat, tail, h0, cfg, n_steps)
+    return _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps)
+
+
 def fused_rollout_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
                      n_steps: int) -> torch.Tensor:
     """Full rollout: [H, W, 2] -> [n_steps+1, H, W, 2] f32 (frame 0 = h0).
 
-    On CUDA, one rollout2d_kernel launch per step; on the CPU, the plain
-    version.
+    A 1x1 cell: on CUDA, one rollout2d_kernel launch per step; on the CPU,
+    the plain version.  A k x k cell goes to fused_rollout_kxk_2d.
     """
     _check_fusable(cfg)
+    if cfg.kernel_size > 1:
+        return fused_rollout_kxk_2d(params, h0, cfg, n_steps)
     packed = pack_pi_params_2d(params, cfg)
     h0 = h0.to(torch.float32).contiguous()
     if h0.device.type == "cpu":
@@ -197,9 +370,14 @@ def fused_rollout_final_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
     """Final state only: [H, W, 2] -> [H, W, 2] f32 after n_steps.
 
     On CUDA, one final2d_kernel launch per step; on the CPU, the plain
-    version.
+    version.  A 1x1 cell only.
     """
     _check_fusable(cfg)
+    if cfg.kernel_size != 1:
+        raise NotImplementedError(
+            f"the final-state rollout of a kernel_size {cfg.kernel_size} cell "
+            "(percnn_tpu cell2d._final_kernel at k > 1) is queued in ROADMAP.md A1; "
+            "fused_rollout_2d gives its frames")
     packed = pack_pi_params_2d(params, cfg)
     h0 = h0.to(torch.float32).contiguous()
     if h0.device.type == "cpu":
@@ -209,3 +387,4 @@ def fused_rollout_final_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 
 fused_rollout_2d.launches = 0
 fused_rollout_final_2d.launches = 0
+fused_rollout_kxk_2d.launches = 0

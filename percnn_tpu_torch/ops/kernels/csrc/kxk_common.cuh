@@ -1,0 +1,129 @@
+// What the k x k Pi-cell kernels share: rollout2d_kxk_kernel (cell2d_kxk.cu)
+// and adj2d_kxk_act_kernel (backward2d_kxk.cu) both form, at every cell of a
+// block's tile, the branch activations y = Wm . im2col(h) of the 5x5 (or 3x3)
+// neighbourhood, with Wm the [M, kRow] matrix of pack_pi_matrix_2d
+// (../cell2d.py): row (o nb + i) C + c, columns (ki k + kj) 2 + cin, then the
+// bias column (the ones entry of the im2col stack), then zeros to kRow.
+//
+// A block covers a kTileH x kTileW tile of the periodic H x W grid with two
+// threads a cell, one per equation o: threads [0, kCells) take o = 0 and
+// [kCells, 2 kCells) o = 1, so every warp reads one row of Wm at a time, a
+// broadcast from shared memory.  The block stages in shared memory:
+//   Wm [M][kRow] f32, float4-aligned;
+//   the tail [Du, Dv, w_out (2 x C), b_out (2)], rounded up to 4 floats
+//   (pi_tail_2d in ../cell2d.py);
+//   the state tile with a 2-cell periodic halo, [kTileH + 4][kTileW + 4]
+//   float2 (u, v), indices wrapped as it is loaded: the port's state has no
+//   halo, and the Laplacian and any k <= 5 read at most 2 cells away.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace kxk {
+
+constexpr int kHalo = 2;
+constexpr int kTileH = 8;
+constexpr int kTileW = 16;
+constexpr int kCells = kTileH * kTileW;               // 128 cells a block
+constexpr int kThreads = 2 * kCells;                  // one thread a cell and equation
+constexpr int kTileRow = kTileW + 2 * kHalo;          // 20
+constexpr int kTileLen = (kTileH + 2 * kHalo) * kTileRow;
+
+template <int KS>
+struct Shape {
+  static constexpr int kTaps = KS * KS * 2;           // conv taps x channels
+  static constexpr int kQ = (kTaps + 1 + 3) / 4;      // float4s holding taps + bias
+  static constexpr int kRow = (kTaps + 1 + 7) / 8 * 8;  // row length of Wm
+};
+
+__host__ __device__ constexpr int tail_floats(int hidden) {
+  return (2 * hidden + 4 + 3) / 4 * 4;
+}
+
+// Shared-memory bytes of the staged matrix, tail and state tile.
+template <int KS>
+__host__ __device__ constexpr int staged_bytes(int hidden, int n_branches) {
+  return 4 * (2 * n_branches * hidden * Shape<KS>::kRow + tail_floats(hidden)) +
+         8 * kTileLen;
+}
+
+struct Staged {
+  const float4* wm;  // [M][kRow / 4]
+  const float* tail;
+  const float2* tile;
+};
+
+// Stage Wm, the tail and the block's state tile (rows i0 - 2 .. i0 + kTileH + 1,
+// columns j0 - 2 .. j0 + kTileW + 1, wrapped).  The caller synchronises.
+template <int KS>
+__device__ __forceinline__ Staged stage(float4* smem, const float* __restrict__ wm,
+                                        const float* __restrict__ tail,
+                                        const float2* __restrict__ state, int H, int W,
+                                        int hidden, int n_branches, int i0, int j0) {
+  const int n4 = 2 * n_branches * hidden * Shape<KS>::kRow / 4;
+  float4* sw = smem;
+  float* st = reinterpret_cast<float*>(sw + n4);
+  float2* tile = reinterpret_cast<float2*>(st + tail_floats(hidden));
+  const float4* wm4 = reinterpret_cast<const float4*>(wm);
+  for (int k = threadIdx.x; k < n4; k += blockDim.x) sw[k] = wm4[k];
+  for (int k = threadIdx.x; k < 2 * hidden + 4; k += blockDim.x) st[k] = tail[k];
+  for (int k = threadIdx.x; k < kTileLen; k += blockDim.x) {
+    const int ti = k / kTileRow;
+    int gi = (i0 + ti - kHalo) % H;
+    int gj = (j0 + k - ti * kTileRow - kHalo) % W;
+    gi += gi < 0 ? H : 0;
+    gj += gj < 0 ? W : 0;
+    tile[k] = state[gi * W + gj];
+  }
+  return {sw, st, tile};
+}
+
+// The im2col column of tile cell (li, lj): taps (ki, kj, cin), then 1, then 0.
+template <int KS>
+__device__ __forceinline__ void gather_taps(const float2* tile, int li, int lj,
+                                            float (&tap)[4 * Shape<KS>::kQ]) {
+  constexpr int r = KS / 2;
+#pragma unroll
+  for (int ki = 0; ki < KS; ++ki) {
+#pragma unroll
+    for (int kj = 0; kj < KS; ++kj) {
+      const float2 v = tile[(li + kHalo + ki - r) * kTileRow + lj + kHalo + kj - r];
+      tap[(ki * KS + kj) * 2] = v.x;
+      tap[(ki * KS + kj) * 2 + 1] = v.y;
+    }
+  }
+  tap[Shape<KS>::kTaps] = 1.0f;
+#pragma unroll
+  for (int q = Shape<KS>::kTaps + 1; q < 4 * Shape<KS>::kQ; ++q) tap[q] = 0.0f;
+}
+
+// One activation: row . column, in four interleaved partial sums.
+template <int KS>
+__device__ __forceinline__ float row_dot(const float4* row,
+                                         const float (&tap)[4 * Shape<KS>::kQ]) {
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+#pragma unroll
+  for (int q = 0; q < Shape<KS>::kQ; ++q) {
+    const float4 w = row[q];
+    a0 = fmaf(w.x, tap[4 * q], a0);
+    a1 = fmaf(w.y, tap[4 * q + 1], a1);
+    a2 = fmaf(w.z, tap[4 * q + 2], a2);
+    a3 = fmaf(w.w, tap[4 * q + 3], a3);
+  }
+  return (a0 + a1) + (a2 + a3);
+}
+
+// The 4th-order Laplacian's 5-point cross of channel o at tile cell (li, lj).
+__device__ __forceinline__ float tile_lap(const float2* tile, int li, int lj, int o,
+                                          float inv_dx2) {
+  const float* t = reinterpret_cast<const float*>(tile);
+  auto at = [&](int di, int dj) {
+    return t[((li + kHalo + di) * kTileRow + lj + kHalo + dj) * 2 + o];
+  };
+  const float s1 = at(1, 0) + at(-1, 0) + at(0, 1) + at(0, -1);
+  const float s2 = at(2, 0) + at(-2, 0) + at(0, 2) + at(0, -2);
+  return (-5.0f * at(0, 0) + (4.0f / 3.0f) * s1 - (1.0f / 12.0f) * s2) * inv_dx2;
+}
+
+}  // namespace kxk

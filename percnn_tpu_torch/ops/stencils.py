@@ -2,7 +2,8 @@
 
 Counterpart of percnn_tpu/ops/stencils.py: the 4th-order Laplacian is the
 5-point cross per axis with coefficients [-1/12, 4/3, -5/2, 4/3, -1/12]
-over dx^2, and ``torch.roll`` supplies the periodic boundary.
+over dx^2, the first derivative [1/12, -2/3, 0, 2/3, -1/12] over dx, and
+``torch.roll`` supplies the periodic boundary.
 """
 
 from __future__ import annotations
@@ -14,12 +15,17 @@ import torch
 # 1D second-derivative cross-section of the 4th-order Laplacian, offsets -2..2.
 LAP_CROSS_1D = (-1.0 / 12.0, 4.0 / 3.0, -5.0 / 2.0, 4.0 / 3.0, -1.0 / 12.0)
 
+# 4th-order central first derivative, offsets -2..2.
+FD1_CENTRAL_1D = (1.0 / 12.0, -2.0 / 3.0, 0.0, 2.0 / 3.0, -1.0 / 12.0)
+
 
 def _shifted_sum(u: torch.Tensor, coeffs: Sequence[float], dim: int) -> torch.Tensor:
     """sum_k coeffs[k] * u[i + k - r] along `dim` (periodic)."""
     r = len(coeffs) // 2
     out = None
     for k, c in enumerate(coeffs):
+        if c == 0.0:
+            continue
         off = k - r
         term = u if off == 0 else torch.roll(u, -off, dims=dim)
         term = term * c
@@ -39,6 +45,29 @@ def laplacian(u: torch.Tensor, dx: float, dims: Sequence[int]) -> torch.Tensor:
 def laplacian_2d(u: torch.Tensor, dx: float) -> torch.Tensor:
     """Laplacian over the (H, W) dims of [..., H, W, C]."""
     return laplacian(u, dx, dims=(u.ndim - 3, u.ndim - 2))
+
+
+def grad_axis(u: torch.Tensor, dx: float, dim: int) -> torch.Tensor:
+    """4th-order central first derivative along one periodic dim."""
+    return _shifted_sum(u, FD1_CENTRAL_1D, dim) / dx
+
+
+def grad_x(u: torch.Tensor, dx: float) -> torch.Tensor:
+    """d/dx, x being the width dim (the last spatial dim) of [..., H, W, C]."""
+    return grad_axis(u, dx, u.ndim - 2)
+
+
+def grad_y(u: torch.Tensor, dx: float) -> torch.Tensor:
+    """d/dy, y being the height dim of [..., H, W, C]."""
+    return grad_axis(u, dx, u.ndim - 3)
+
+
+def periodic_pad(u: torch.Tensor, width: int, dims: Sequence[int]) -> torch.Tensor:
+    """Wrap-pad `u` by `width` cells on both sides of each dim in `dims`."""
+    for d in dims:
+        n = u.shape[d]
+        u = torch.cat([u.narrow(d, n - width, width), u, u.narrow(d, 0, width)], dim=d)
+    return u
 
 
 def time_derivative_fwd(seq: torch.Tensor, dt: float) -> torch.Tensor:

@@ -2,10 +2,11 @@
 
 Counterpart of ``build_serving_fn`` in percnn_tpu/serving.py with
 ``use_pallas=True``: the ISG upsamples the request in-graph, then the fused
-rollout runs on the card: a 2D cell through the cell2d CUDA kernels
+rollout runs on the card: a 2D 1x1 cell through the cell2d CUDA kernels
 (``rollout2d_kernel`` for frames, ``final2d_kernel`` for the final state),
-a 3D cell through ``rollout3d_kernel`` (frames, or the final state without
-frame writes).  For 3D the JAX package serves with its jnp rollout; the
+a 2D k x k cell through ``rollout2d_kxk_kernel`` (frames; its final-state
+form is queued in ROADMAP.md A1), a 3D cell through ``rollout3d_kernel``
+(frames, or the final state without frame writes).  For 3D the JAX package serves with its jnp rollout; the
 math is the same.  Export and load of a serialized model come later.
 """
 
@@ -41,6 +42,10 @@ def build_serving_fn(params: dict, cell_cfg: PiCellConfig, n_steps: int, *,
     """
     if not (isinstance(cell_cfg, PiCellConfig) and cell_cfg.ndim in (2, 3)):
         raise NotImplementedError("serving takes 2D and 3D Pi cells in this port so far")
+    if final_only and cell_cfg.ndim == 2 and cell_cfg.kernel_size != 1:
+        raise NotImplementedError(
+            "final-state serving of a k x k cell (percnn_tpu cell2d._final_kernel at "
+            "k > 1) is queued in ROADMAP.md A1; serve its frames")
     dev = resolve_device(device)
     params = params_from_numpy(params, device=dev, dtype=torch.float32)
     cell_params = params.get("cell", params)

@@ -129,8 +129,3 @@ def test_kernel_inputs_are_checked():
     with pytest.raises(ValueError, match="CUDA tensors"):
         cell2d._launch_args(packed, torch.zeros(8, 8, 2), cfg, 3)
 
-
-def test_k5_cell_is_not_ported():
-    cfg = PiCellConfig(ndim=2, hidden=4, kernel_size=5)
-    with pytest.raises(NotImplementedError, match="kernel_size 5"):
-        cell2d.fused_rollout_2d({}, torch.zeros(8, 8, 2), cfg, 1)

@@ -50,3 +50,4 @@ def test_chip_smoke_reads_only_the_golden_file():
     assert "runs/" not in src and '"runs"' not in src
     assert '"tests", "golden", "pt_gs2d.npz"' in src
     assert '"tests", "golden", "pt_gs3d.npz"' in src
+    assert '"tests", "golden", "pt_burgers_s1.npz"' in src

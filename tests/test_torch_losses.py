@@ -134,10 +134,6 @@ def test_gs3d_phys_loss_and_residual_match_jax(dtype, rtol):
     np.testing.assert_allclose(got, want, rtol=10 * rtol)
 
 
-@pytest.mark.parametrize("name", ["lambda_omega", "burgers"])
-def test_unported_systems_raise(name):
-    assert name in J_PDE_SYSTEMS
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PDE_SYSTEMS[name]
+def test_unknown_system_raises():
     with pytest.raises(KeyError):
         PDE_SYSTEMS["no_such_system"]
