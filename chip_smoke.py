@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GS2D, GS3D and Burgers Stage-1 serving and
-training paths once on one NVIDIA GPU.
+training paths, and their fallback routes, once on one NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
@@ -11,7 +11,9 @@ holds them against the committed golden models, against their plain PyTorch
 versions and against f64 autograd, serves GS2D, GS3D and Burgers requests
 through ``build_serving_fn``, trains GS2D (100 x 100), GS3D (48^3) and
 Burgers Stage-1 (100 x 100, 5x5 Pi cell) through ``run_experiment`` at full
-width, and times the kernels.  Phases, one JSON line each with the seconds
+width, drives the fallback routes (``bptt="fused"`` of the 1x1 and 3D cells,
+``bptt="two_phase"``, the MXU switches off) through the same entry points,
+and times the kernels.  Phases, one JSON line each with the seconds
 since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
@@ -33,8 +35,18 @@ since start:
                C = 16, k = 5, T = 200, golden Burgers cell, Burgers IC
   grads_kxk    adj2d_kxk_kernel against its plain sweep (the same, a
                standard-normal cotangent), and the fused k x k gradients
-               against f64 autograd (random-init cell, random target, 12
-               steps, 100 x 100)
+               and those of remat (eager autograd) against f64 autograd
+               (random-init cell, random target, 12 steps, 100 x 100)
+  kernels_fallback  rollout2d_kernel (T = 200) and final2d_kernel (1200
+               steps) at k = 5, adj2d_ys_kernel and adj2d_kernel at k = 5
+               (T = 200) on the golden Burgers cell, adj2d_kernel at k = 1
+               (T = 200, golden GS2D cell, data-loss cotangent) and
+               adj3d_kernel (48^3, T = 50, golden GS3D cell) against their
+               plain versions
+  grads_fallback  the gradients of bptt="fused" (GS2D, GS3D, Burgers with
+               the MXU switches off, and with YS_PATH_ENABLED off too) and
+               of bptt="two_phase" (the three cells) against f64 autograd on
+               the referee setup, each route's launches counted
   serve        one uncounted warm-up request of each kind, then three frames
                requests and one final-state request, 2500 steps, with the
                kernels' launch counters set to 0 just before
@@ -53,15 +65,21 @@ since start:
   serve3d      one uncounted warm-up request of each kind, then one frames
                request and one final-state request, 1000 steps, on the
                trained GS3D model, with the launch counter set to 0 just before
-  serve_burgers  one uncounted warm-up request, then three frames requests,
-               1200 steps, on the golden Burgers model, with the launch
-               counter set to 0 just before
-  train_burgers  run_experiment(BURGERS_STAGE1): the 1200-frame truth, ISG
-               pretrain, 10 iterations at T = 200 with best-val selection,
-               the 1200-step evaluation, with the launch counters set to 0
-               just before
+  serve_burgers  one uncounted warm-up request of each kind, then three
+               frames requests and one final-state request (final2d_kernel
+               at k = 5), 1200 steps, on the golden Burgers model, with the
+               launch counters set to 0 just before
+  train_burgers  run_experiment(BURGERS_STAGE1): the 1200-frame truth (kept
+               in a temp cache for train_fallback), ISG pretrain, 10
+               iterations at T = 200 with best-val selection, the 1200-step
+               evaluation, with the launch counters set to 0 just before
   train_burgers_parity  as train_parity for Burgers: 32 x 32, T = 20,
                5 iterations
+  train_fallback  run_experiment(BURGERS_STAGE1) with the MXU switches off
+               (10 iterations at T = 200, the cached truth, the evaluation),
+               and build_loss_fn(bptt="fused") + train for 5 iterations of
+               GS2D at T = 800 and of GS3D at T = 300 and 3 of Burgers with
+               YS_PATH_ENABLED off, every launch counted
   step_breakdown  one training iteration at each T after a warm-up: host
                and device ms of the whole, the same split into ISG and
                forward, losses, backward (and pg2d_kernel in it), Adam, and
@@ -69,9 +87,12 @@ since start:
   step_breakdown3d  the same for GS3D at T = 150, 300 (pg3d_kernel)
   step_breakdown_kxk  the same for Burgers at T = 200 (adj2d_kxk_kernel)
   times        each kernel's and its plain version's ms at the main path's
-               shapes, beside the card's bound for the same work
+               shapes, beside the card's bound for the same work, and one
+               bptt="two_phase" GS2D backward at T = 800
 
-Then a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
+Then a ``{"kernels": [...]}`` line (13 entries: the ten ported TPU kernels,
+with the k = 5 contracts of rollout2d_kernel, final2d_kernel and
+adj2d_kernel listed apart), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
 a directory without the percnn_tpu_torch package beside this script.  The
@@ -115,6 +136,8 @@ TRAIN3D_ITERS = 20        # 10 at each of T = 150, 300
 TIME_BACKWARD3D_STEPS = 300
 CHECK_KXK_STEPS = 200     # the k x k kernels against their plain versions
 TRAIN_BURGERS_ITERS = 10  # of BURGERS_STAGE1's 10000, at T = 200
+FALLBACK_ITERS = 5        # GS2D at T = 800 and GS3D at T = 300 through bptt="fused"
+FALLBACK_YS_OFF_ITERS = 3  # Burgers at T = 200 through adj2d_kernel at k = 5
 
 
 class CheckFailed(Exception):
@@ -195,6 +218,19 @@ def adj_flops_per_cell_step_kxk(cfg) -> int:
     taps, rows = k * k * 2, 2 * nb * cfg.hidden
     z = 2 * cfg.hidden * (max(3 * nb - 6, 0) + 1 + nb)
     return 2 * taps * rows + z + 2 * taps * rows + 2 * k * k + 2 + 24 + 8
+
+
+def adj_flops_per_cell_step_1x1(cfg) -> int:
+    """Flops that one reverse step of adj2d_kernel at k = 1 or adj3d_kernel
+    needs at one cell: pg_flops_per_cell_step without the accumulators (per
+    equation and hidden channel, 4 per branch activation, 3 nb - 5 for the
+    leave-one-out products and, per branch, 1 for zz and 4 for the
+    Jacobian; 2 adds a stencil point forming g_in, two Laplacians of g_in
+    and 8 for the update)."""
+    nb = cfg.n_branches
+    pi = 2 * cfg.hidden * (4 * nb + max(3 * nb - 5, 0) + nb * 5)
+    points = 4 * cfg.ndim + 1
+    return pi + 2 * points + 2 * (4 * cfg.ndim + 4) + 8
 
 
 def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -282,7 +318,7 @@ def main() -> int:
     from percnn_tpu_torch.core.checkpoint import flatten_with_paths, load_checkpoint_tree
     from percnn_tpu_torch.core.isg import isg_apply
     from percnn_tpu_torch.core.losses import data_loss, subsample
-    from percnn_tpu_torch.core.rollout import rollout
+    from percnn_tpu_torch.core.rollout import rollout, rollout_tp
     from percnn_tpu_torch.core.train import train
     from percnn_tpu_torch.data.noise import add_noise
     from percnn_tpu_torch.data.simulate import default_ic, simulate
@@ -309,7 +345,8 @@ def main() -> int:
         _build.load_library(name)
         return time.perf_counter() - t
 
-    sources = ("cell2d", "backward2d", "cell3d", "backward3d", "cell2d_kxk", "backward2d_kxk")
+    sources = ("cell2d", "backward2d", "cell3d", "backward3d", "cell2d_kxk", "backward2d_kxk",
+               "adj2d")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(build, sources)))
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
@@ -440,28 +477,31 @@ def main() -> int:
               f"pg2d_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
     err["pg2d_kernel"] = max(e for e, _ in leaf_err.values())
 
-    def rel_errs_vs_f64(cell_np, x0, steps, loss, cfg=cfg,
-                        fused_fn=backward2d.fused_rollout_tp_2d_pg):
-        """Worst |g - g64| / max|g64| per leaf (cell leaves and dh0) of the
-        fused f32 gradients and of plain f32 autograd, against f64 autograd
-        through rollout(pi_cell_step), all on the card."""
+    def rel_errs_vs_f64(cell_np, x0, steps, loss, cfg=cfg, routes=None):
+        """Worst |g - g64| / max|g64| per leaf (cell leaves and dh0) of each
+        route's f32 gradients (routes: name -> fn(params, h0, cfg, steps),
+        by default the fused pg rollout) and of plain f32 autograd through
+        rollout(pi_cell_step) (remat), against f64 autograd through the
+        same, all on the card."""
+        routes = routes or {"fused": backward2d.fused_rollout_tp_2d_pg}
         grads = {}
-        for kind, dtype in (("fused", torch.float32), ("autograd_f32", torch.float32),
-                            ("f64", torch.float64)):
+        kinds = [(k, torch.float32) for k in routes] + [("autograd_f32", torch.float32),
+                                                        ("f64", torch.float64)]
+        for kind, dtype in kinds:
             p = params_from_numpy(cell_np, device=dev, dtype=dtype)
             leaves = [p["diff"]] + [br[k] for br in p["pi"] for k in sorted(br)]
             x = x0.to(dtype).clone()
             for leaf in leaves + [x]:
                 leaf.requires_grad_(True)
-            if kind == "fused":
-                fr = fused_fn(p, x, cfg, steps)
+            if kind in routes:
+                fr = routes[kind](p, x, cfg, steps)
             else:
                 fr = rollout(lambda h: pi_cell_step(p, h, cfg), x, steps)
             grads[kind] = torch.autograd.grad(loss(fr), leaves + [x])
         names = ["diff"] + [f"pi[{o}].{k}" for o in range(2) for k in sorted(cell_np["pi"][o])]
         return {kind: {n: float((a.double() - b).abs().max() / b.abs().max())
                        for n, a, b in zip(names + ["h0"], grads[kind], grads["f64"])}
-                for kind in ("fused", "autograd_f32")}
+                for kind, _ in kinds[:-1]}
 
     # (b1) the measure of the JAX package's gradient referee (random-init
     # cell, random targets, 12 steps, full width): held to 1e-4
@@ -547,7 +587,7 @@ def main() -> int:
     tgt3 = torch.as_tensor(rng3.standard_normal((13,) + tuple(x3_ref.shape)), device=dev)
     rel3 = rel_errs_vs_f64(ref3_cell, x3_ref, 12,
                            lambda fr: ((fr - tgt3.to(fr.dtype)) ** 2).mean(), cfg=cfg3,
-                           fused_fn=backward3d.fused_rollout_tp_3d_pg)
+                           routes={"fused": backward3d.fused_rollout_tp_3d_pg})
     worst3 = max(rel3["fused"], key=rel3["fused"].get)
     check(rel3["fused"][worst3] <= 1e-4,
           f"fused 3D gradients vs f64 autograd: {worst3} at {rel3['fused'][worst3]} over 1e-4")
@@ -600,16 +640,176 @@ def main() -> int:
     tgtb = torch.as_tensor(rngb.standard_normal((13,) + tuple(xb_ref.shape)), device=dev)
     relb = rel_errs_vs_f64(refb_cell, xb_ref, 12,
                            lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean(), cfg=cfgb,
-                           fused_fn=backward2d.fused_rollout_tp_2d)
-    worstb = max(relb["fused"], key=relb["fused"].get)
-    check(relb["fused"][worstb] <= 1e-4,
-          f"fused k x k gradients vs f64 autograd: {worstb} at {relb['fused'][worstb]} "
-          f"over 1e-4 (plain f32 autograd: {relb['autograd_f32']})")
+                           routes={"fused": backward2d.fused_rollout_tp_2d})
+    worstb = {kind: max(v, key=v.get) for kind, v in relb.items()}
+    check(relb["fused"][worstb["fused"]] <= 1e-4,
+          f"fused k x k gradients vs f64 autograd: {worstb['fused']} at "
+          f"{relb['fused'][worstb['fused']]} over 1e-4")
+    # remat through the k x k cell, whose branch-weight gradients are the
+    # FFMA matmul of ops/convs.py's _PeriodicConv2d (cuDNN's weight-grad
+    # convolution measured 2.2e-4 here, ROADMAP.md C2)
+    check(relb["autograd_f32"][worstb["autograd_f32"]] <= 1e-4,
+          f"remat k x k gradients vs f64 autograd: {worstb['autograd_f32']} at "
+          f"{relb['autograd_f32'][worstb['autograd_f32']]} over 1e-4")
     phase("grads_kxk", shape=[nb_grid, nb_grid, 2], steps=CHECK_KXK_STEPS,
           cotangent="standard normal, seed 4",
           adj_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in kxk_err.items()},
           adj_bar="2e-4 * max|leaf| + 2e-6",
           f64_random_cell_12_steps={"worst_leaf": worstb, "bar": 1e-4, **relb})
+
+    # kernels_fallback: the fallback slice's kernels at full width against
+    # their plain versions
+    def sweep_errs(name, got_, want_):
+        """(max |diff|, max |plain|) of g_ins and g0, each held to the
+        backward bar 2e-4 * max|plain| + 2e-6."""
+        out = {}
+        for key, a, b in zip(("g_ins", "g0"), got_, want_):
+            e, scale = max_abs(a, b), float(b.abs().max())
+            check(e <= 2e-4 * scale + 2e-6,
+                  f"{name} vs plain, {key}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+            out[key] = [e, scale]
+        err[name] = max(e for e, _ in out.values())
+        return out
+
+    # rollout2d_kernel and final2d_kernel at k = 5 on the golden Burgers cell:
+    # frames from the Burgers IC, as rollout2d_kxk_kernel's check; the final
+    # state over the serving horizon from what serving rolls out, the ISG's
+    # answer to a Burgers request
+    packedb = cell2d.pack_pi_params_2d(paramsb["cell"], cfgb)
+    framesb = cell2d._rollout_cuda(packedb, h0b, cfgb, CHECK_KXK_STEPS)
+    want = cell2d.fused_rollout_2d_plain(packedb, h0b, cfgb, CHECK_KXK_STEPS)
+    requestb = add_noise(default_ic("burgers", nb_grid, seed=SEEDS[0])[None],
+                         BURGERS_STAGE1.noise_pct, seed=SEEDS[0])[0][::isgb.scale, ::isgb.scale]
+    with torch.inference_mode():
+        h0s = isg_apply(paramsb["isg"], torch.as_tensor(requestb, dtype=torch.float32,
+                                                        device=dev)[None], isgb)[0].contiguous()
+    final5 = cell2d._final_cuda(packedb, h0s, cfgb, BURGERS_STAGE1.infer_steps)
+    final5_want = cell2d.fused_rollout_final_2d_plain(packedb, h0s, cfgb,
+                                                      BURGERS_STAGE1.infer_steps)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(final5).all() and torch.isfinite(final5_want).all()),
+          f"final2d_kernel k = 5 over {BURGERS_STAGE1.infer_steps} steps: finite "
+          f"{bool(torch.isfinite(final5).all())}, plain finite "
+          f"{bool(torch.isfinite(final5_want).all())}")
+    err["rollout2d_kernel[k=5]"] = max_abs(framesb, want)
+    err["final2d_kernel[k=5]"] = max_abs(final5, final5_want)
+    check(allclose(framesb, want, rtol=2e-4, atol=1e-5),
+          f"rollout2d_kernel k = 5 vs plain: max |diff| {err['rollout2d_kernel[k=5]']}")
+    check(allclose(final5, final5_want, rtol=2e-4, atol=1e-5),
+          f"final2d_kernel k = 5 vs plain: max |diff| {err['final2d_kernel[k=5]']}")
+    # adj2d_ys_kernel and adj2d_kernel at k = 5 on those frames, a
+    # standard-normal cotangent (as adj2d_kxk_kernel's check)
+    fbarb = torch.as_tensor(np.random.RandomState(4).standard_normal(tuple(framesb.shape)),
+                            dtype=torch.float32, device=dev)
+    ysb = backward2d._precompute_ys(paramsb["cell"], framesb[:-1], cfgb)
+    fallback_errs = {
+        "adj2d_ys_kernel": sweep_errs(
+            "adj2d_ys_kernel", backward2d._phase1_ys_cuda(packedb, fbarb, ysb, cfgb),
+            backward2d.fused_phase1_ys_2d_plain(packedb, fbarb, ysb, cfgb)),
+        "adj2d_kernel[k=5]": sweep_errs(
+            "adj2d_kernel[k=5]", backward2d._phase1_cuda(packedb, framesb, fbarb, cfgb),
+            backward2d.fused_phase1_2d_plain(packedb, framesb, fbarb, cfgb)),
+    }
+    del ysb, want
+    # adj2d_kernel at k = 1 on the golden GS2D cell, the data-loss cotangent
+    frames1 = cell2d._rollout_cuda(packed, h0, cfg, CHECK_STEPS)
+    fbar1 = cotangent(frames1)[1].contiguous()
+    fallback_errs["adj2d_kernel"] = sweep_errs(
+        "adj2d_kernel", backward2d._phase1_cuda(packed, frames1, fbar1, cfg),
+        backward2d.fused_phase1_2d_plain(packed, frames1, fbar1, cfg))
+    # adj3d_kernel on the golden GS3D cell at 48^3, a standard-normal
+    # cotangent (as pg3d_kernel's check)
+    frames3 = cell3d._rollout_cuda(expanded3, h03, PG3D_CHECK_STEPS)
+    fbar3 = torch.as_tensor(np.random.RandomState(3).standard_normal(tuple(frames3.shape)),
+                            dtype=torch.float32, device=dev)
+    fallback_errs["adj3d_kernel"] = sweep_errs(
+        "adj3d_kernel", backward3d._phase1_cuda(packed3, frames3, fbar3, cfg3),
+        backward3d.fused_phase1_3d_plain(packed3, frames3, fbar3, cfg3))
+    torch.cuda.synchronize()
+    del frames1, frames3, fbar1, fbar3
+    phase("kernels_fallback", burgers_steps=CHECK_KXK_STEPS,
+          burgers_final_steps=BURGERS_STAGE1.infer_steps, gs2d_steps=CHECK_STEPS,
+          gs3d_steps=PG3D_CHECK_STEPS, shape3d=[n3, n3, n3, 2],
+          forward_max_abs_err={k: err[k] for k in ("rollout2d_kernel[k=5]",
+                                                   "final2d_kernel[k=5]")},
+          forward_rtol=2e-4, forward_atol=1e-5,
+          cotangents={"Burgers": "standard normal, seed 4", "GS2D": "data loss",
+                      "GS3D": "standard normal, seed 3"},
+          sweep_err_and_max={k: v for k, v in fallback_errs.items()},
+          sweep_bar="2e-4 * max|plain| + 2e-6")
+
+    # grads_fallback: each new route's gradients against f64 autograd on the
+    # referee setup, with the launches of each route counted
+    @contextlib.contextmanager
+    def switches(fwd, bwd, ys):
+        """cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED and
+        backward2d.YS_PATH_ENABLED for the forward and the backward inside."""
+        saved = (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED, backward2d.YS_PATH_ENABLED)
+        cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED, backward2d.YS_PATH_ENABLED = (
+            fwd, bwd, ys)
+        try:
+            yield
+        finally:
+            (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED,
+             backward2d.YS_PATH_ENABLED) = saved
+
+    counters = [(cell2d.fused_rollout_2d, "launches"), (cell2d.fused_rollout_2d, "launches_kxk"),
+                (cell2d.fused_rollout_final_2d, "launches_kxk"),
+                (cell2d.fused_rollout_kxk_2d, "launches"), (cell3d.fused_rollout_3d, "launches"),
+                (backward2d.fused_rollout_tp_2d, "launches"),
+                (backward2d.fused_phase1_2d, "launches"),
+                (backward2d.fused_phase1_ys_2d, "launches"),
+                (backward3d.fused_phase1_3d, "launches")]
+
+    def zero_counts():
+        for obj, attr in counters:
+            setattr(obj, attr, 0)
+
+    def read_counts():
+        return {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in counters
+                if getattr(obj, attr)}
+
+    def two_phase(p, x, cfg_, steps):
+        return rollout_tp(runner._cell_step_for(cfg_), p, x, steps)
+
+    referee = {}
+
+    def hold_to_f64(label, want_counts, cell_np, x0, loss, cfg_, routes, flags=(True, True, True)):
+        zero_counts()
+        with switches(*flags):
+            rel = rel_errs_vs_f64(cell_np, x0, 12, loss, cfg=cfg_, routes=routes)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == want_counts, f"{label}: launch counts {counts}, expected {want_counts}")
+        for kind in routes:
+            worst = max(rel[kind], key=rel[kind].get)
+            check(rel[kind][worst] <= 1e-4, f"{label} {kind} gradients vs f64 autograd: "
+                                            f"{worst} at {rel[kind][worst]} over 1e-4")
+        referee[label] = {"launches": counts, "switches": flags,
+                          **{kind: rel[kind] for kind in routes}}
+
+    hold_to_f64("gs2d", {"fused_rollout_2d.launches": 12, "fused_phase1_2d.launches": 12},
+                ref_cell, x_ref, lambda fr: ((fr - tgt.to(fr.dtype)) ** 2).mean(), cfg,
+                {"fused": backward2d.fused_rollout_tp_2d, "two_phase": two_phase})
+    hold_to_f64("gs3d", {"fused_rollout_3d.launches": 12, "fused_phase1_3d.launches": 12},
+                ref3_cell, x3_ref, lambda fr: ((fr - tgt3.to(fr.dtype)) ** 2).mean(), cfg3,
+                {"fused": backward3d.fused_rollout_tp_3d, "two_phase": two_phase})
+    lossb = lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean()   # noqa: E731
+    hold_to_f64("burgers_mxu_off", {"fused_rollout_2d.launches_kxk": 12,
+                                    "fused_phase1_ys_2d.launches": 24},
+                refb_cell, xb_ref, lossb, cfgb, {"fused": backward2d.fused_rollout_tp_2d},
+                flags=(False, False, True))
+    hold_to_f64("burgers_ys_off", {"fused_rollout_2d.launches_kxk": 12,
+                                   "fused_phase1_2d.launches": 24},
+                refb_cell, xb_ref, lossb, cfgb, {"fused": backward2d.fused_rollout_tp_2d},
+                flags=(False, False, False))
+    hold_to_f64("burgers_two_phase", {}, refb_cell, xb_ref, lossb, cfgb,
+                {"two_phase": two_phase})
+    phase("grads_fallback", setup="random-init cell, random target, 12 steps, full width",
+          bar=1e-4, routes=referee,
+          remat_5x5={"worst_leaf": worstb["autograd_f32"],
+                     "rel_err": relb["autograd_f32"][worstb["autograd_f32"]],
+                     "from": "grads_kxk"})
 
     # serve: the main path, through the entry point a user calls
     serve = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg, device=dev)
@@ -829,40 +1029,60 @@ def main() -> int:
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmup3_s)),
           final_vs_last_frame_max_abs_err=final3_err)
 
-    # serve_burgers: the golden Burgers model's frames, through the entry
-    # point a user calls (its final-state form is queued)
+    # serve_burgers: the golden Burgers model's frames (rollout2d_kxk_kernel)
+    # and its final state (final2d_kernel at k = 5), through the entry point
+    # a user calls
     serveb = build_serving_fn(modelb, cfgb, BURGERS_STAGE1.infer_steps, isg_cfg=isgb,
                               device=dev)
+    serveb_final = build_serving_fn(modelb, cfgb, BURGERS_STAGE1.infer_steps, isg_cfg=isgb,
+                                    final_only=True, device=dev)
     requestsb = [add_noise(default_ic("burgers", nb_grid, seed=s)[None],
                            BURGERS_STAGE1.noise_pct, seed=s)[0][::isgb.scale, ::isgb.scale]
                  for s in SEEDS]
-    t = time.perf_counter()
-    serveb(requestsb[-1])
-    torch.cuda.synchronize()
-    warmupb_s = time.perf_counter() - t
+    warmupb_s = []
+    for fn in (serveb, serveb_final):
+        t = time.perf_counter()
+        fn(requestsb[-1])
+        torch.cuda.synchronize()
+        warmupb_s.append(time.perf_counter() - t)
     cell2d.fused_rollout_kxk_2d.launches = 0
+    cell2d.fused_rollout_final_2d.launches_kxk = 0
     request_s, enqueue_s = [], []
     answersb = [timed(serveb, req) for req in requestsb]
-    serveb_launches = cell2d.fused_rollout_kxk_2d.launches
+    finalb = timed(serveb_final, requestsb[0])
+    serveb_launches = {"rollout2d_kxk_kernel": cell2d.fused_rollout_kxk_2d.launches,
+                       "final2d_kernel[k=5]": cell2d.fused_rollout_final_2d.launches_kxk}
     for a in answersb:
         check(tuple(a.shape) == (BURGERS_STAGE1.infer_steps + 1, nb_grid, nb_grid, 2)
               and bool(torch.isfinite(a).all()), "Burgers frames not finite or misshapen")
-    check(serveb_launches == len(SEEDS) * BURGERS_STAGE1.infer_steps,
-          f"Burgers serving launch count {serveb_launches}")
-    phase("serve_burgers", requests=len(requestsb), steps=BURGERS_STAGE1.infer_steps,
-          launches={"rollout2d_kxk_kernel": serveb_launches}, request_seconds=request_s,
-          enqueue_seconds=enqueue_s, warmup_request_seconds=warmupb_s,
+    check(tuple(finalb.shape) == (nb_grid, nb_grid, 2) and bool(torch.isfinite(finalb).all()),
+          "Burgers final state not finite or misshapen")
+    # the frames come from the branch-matrix form and the final state from
+    # the tap-by-tap form: held to each other at the forward bar
+    finalb_err = max_abs(finalb, answersb[0][-1])
+    check(allclose(finalb, answersb[0][-1], rtol=2e-4, atol=1e-5),
+          f"Burgers final-state request vs last frame: max |diff| {finalb_err}")
+    check(serveb_launches == {"rollout2d_kxk_kernel": len(SEEDS) * BURGERS_STAGE1.infer_steps,
+                              "final2d_kernel[k=5]": BURGERS_STAGE1.infer_steps},
+          f"Burgers serving launch counts {serveb_launches}")
+    phase("serve_burgers", requests=len(requestsb) + 1, steps=BURGERS_STAGE1.infer_steps,
+          launches=serveb_launches, request_seconds=request_s, enqueue_seconds=enqueue_s,
+          request_order="frames x 3, then final-state",
+          warmup_request_seconds=dict(zip(("frames", "final_state"), warmupb_s)),
+          final_vs_last_frame_max_abs_err=finalb_err,
           max_abs_frame=[float(a.abs().max()) for a in answersb])
 
     # train_burgers: the main path of Burgers Stage-1 training, through the
     # entry point a user calls
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_burgers_")
+    truth_cache = tempfile.mkdtemp(prefix="chip_smoke_truth_")   # train_fallback reuses it
     try:
         cell2d.fused_rollout_kxk_2d.launches = 0
         backward2d.fused_rollout_tp_2d.launches = 0
         with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
             resb = runner.run_experiment(BURGERS_STAGE1, device=dev, out_dir=out_dir,
-                                         cache_dir=None, n_iters_override=TRAIN_BURGERS_ITERS,
+                                         cache_dir=truth_cache,
+                                         n_iters_override=TRAIN_BURGERS_ITERS,
                                          isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
         trainb_launches = {"rollout2d_kxk_kernel": cell2d.fused_rollout_kxk_2d.launches,
                            "adj2d_kxk_kernel": backward2d.fused_rollout_tp_2d.launches}
@@ -917,6 +1137,81 @@ def main() -> int:
     phase("train_burgers_parity", grid=pexpb.grid, steps=pexpb.train_steps,
           iters=pexpb.train.n_iters, card=gpub_h.tolist(), cpu=cpub_h.tolist(),
           max_rel_err=parityb_err, rtol=1e-4)
+
+    # train_fallback: the fallback routes through the entry points a user
+    # calls, every launch counted: run_experiment(BURGERS_STAGE1) with the
+    # MXU switches off (rollout2d_kernel at k = 5, adj2d_ys_kernel) on
+    # train_burgers' cached truth; build_loss_fn(bptt="fused") and train for
+    # GS2D at T = 800 (rollout2d_kernel, adj2d_kernel), GS3D at T = 300
+    # (rollout3d_kernel, adj3d_kernel) and Burgers with YS_PATH_ENABLED off
+    # too (rollout2d_kernel and adj2d_kernel at k = 5), from seeded random
+    # inits, on served frames as the data
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_fallback_")
+    try:
+        zero_counts()
+        with switches(False, False, True), contextlib.redirect_stdout(sys.stderr):
+            resf = runner.run_experiment(BURGERS_STAGE1, device=dev, out_dir=out_dir,
+                                         cache_dir=truth_cache,
+                                         n_iters_override=TRAIN_BURGERS_ITERS,
+                                         isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
+        torch.cuda.synchronize()
+        fallback_launches = {"burgers_mxu_off": read_counts()}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(truth_cache, ignore_errors=True)
+    fallback_want = {"burgers_mxu_off": {
+        "fused_rollout_2d.launches_kxk": TRAIN_BURGERS_ITERS * stepsb + BURGERS_STAGE1.infer_steps,
+        "fused_phase1_ys_2d.launches": 2 * TRAIN_BURGERS_ITERS * stepsb}}
+    histf = resf["history"]
+    check(len(histf) == TRAIN_BURGERS_ITERS and bool(np.isfinite(histf).all()),
+          f"Burgers training with the MXU switches off: losses {histf}")
+    check(bool(np.isfinite(resf["rel_l2"])) and not resf["diverged"],
+          f"Burgers evaluation with the MXU switches off: rel_l2 {resf['rel_l2']}")
+    # the same run as train_burgers on another route: the same losses
+    hist_err = float(np.max(np.abs(np.asarray(histf) - np.asarray(histb)) / np.abs(histb)))
+    check(hist_err <= 1e-4, f"Burgers losses with the MXU switches off vs on: {histf} vs {histb}")
+    fallback_hist = {"burgers_mxu_off": histf}
+
+    def train_fused(label, exp, frames, steps, iters, flags, want_counts):
+        prob_ = runner.setup_problem(exp, frames.cpu().numpy(), device=dev)
+        init_ = params_to_numpy(runner.init_model(exp, torch.Generator().manual_seed(0),
+                                                  device="cpu"))
+        tcfg = dataclasses.replace(exp.train, n_iters=iters, steps_per_call=iters,
+                                   watchdog=False, probe_every=0)
+        zero_counts()
+        with switches(*flags), contextlib.redirect_stdout(sys.stderr):
+            hist_ = train(runner.build_loss_fn(prob_, steps, bptt="fused"), init_, tcfg,
+                          device=dev)[1]
+        torch.cuda.synchronize()
+        fallback_launches[label] = read_counts()
+        fallback_want[label] = want_counts
+        fallback_hist[label] = hist_
+        check(len(hist_) == iters and bool(np.isfinite(hist_).all()),
+              f"{label} training losses {hist_}")
+
+    t2, t3 = GS2D_RECON.train_steps, GS3D_RECON.train_steps
+    train_fused("gs2d_fused", GS2D_RECON, answers[0], t2, FALLBACK_ITERS, (True, True, True),
+                {"fused_rollout_2d.launches": FALLBACK_ITERS * t2,
+                 "fused_phase1_2d.launches": FALLBACK_ITERS * t2})
+    train_fused("gs3d_fused", GS3D_RECON, answer3, t3, FALLBACK_ITERS, (True, True, True),
+                {"fused_rollout_3d.launches": FALLBACK_ITERS * t3,
+                 "fused_phase1_3d.launches": FALLBACK_ITERS * t3})
+    train_fused("burgers_ys_off", BURGERS_STAGE1, answersb[0], stepsb, FALLBACK_YS_OFF_ITERS,
+                (False, False, False),
+                {"fused_rollout_2d.launches_kxk": FALLBACK_YS_OFF_ITERS * stepsb,
+                 "fused_phase1_2d.launches": 2 * FALLBACK_YS_OFF_ITERS * stepsb})
+    check(fallback_launches == fallback_want,
+          f"fallback training launch counts {fallback_launches}, expected {fallback_want}")
+    secf = resf["seconds"]
+    phase("train_fallback", launches=fallback_launches, histories=fallback_hist,
+          burgers_mxu_off={"stages": [{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]}
+                                      for st in secf["stages"]],
+                           "truth_s": secf["truth"], "evaluate_s": secf["evaluate"],
+                           "rel_l2": resf["rel_l2"], "rel_l2_mxu_on": resb["rel_l2"],
+                           "history_max_rel_err_vs_mxu_on": hist_err},
+          steps={"gs2d_fused": t2, "gs3d_fused": t3, "burgers_ys_off": stepsb},
+          iterations={"gs2d_fused": FALLBACK_ITERS, "gs3d_fused": FALLBACK_ITERS,
+                      "burgers_ys_off": FALLBACK_YS_OFF_ITERS})
 
     # step_breakdown: where one training iteration's time goes at each T, with
     # the trained params; a served rollout stands in for the truth (the
@@ -1133,7 +1428,8 @@ def main() -> int:
     horizon = BURGERS_STAGE1.infer_steps
     hb_ms, hb_by = bound_ms(mat_bytes + stateb_bytes + (horizon + 1) * stateb_bytes,
                             horizon * cellsb * flops_per_cell_step_kxk(cfgb))
-    by_pathb = {"serve": serveb_launches, "train": trainb_launches["rollout2d_kxk_kernel"]}
+    by_pathb = {"serve": serveb_launches["rollout2d_kxk_kernel"],
+                "train": trainb_launches["rollout2d_kxk_kernel"]}
     kernels.append({
         "name": "rollout2d_kxk_kernel", "jax_kernel": "cell2d._rollout_kernel_mxu",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",
@@ -1170,13 +1466,102 @@ def main() -> int:
             wmatb, tailb, framesb, fbarb, cfgb), reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+    # the fallback slice at its main paths' shapes: rollout2d_kernel and
+    # final2d_kernel at k = 5 (golden Burgers cell; T = 200 frames from the
+    # Burgers IC as row 3, the final state over the 1200-step serving horizon
+    # from the ISG's answer to a request),
+    # adj2d_kernel at k = 1 (the GS2D backward above: T = 800, data-loss
+    # cotangent), adj2d_kernel at k = 5 and adj2d_ys_kernel (the Burgers
+    # backward above: T = 200), adj3d_kernel (the GS3D backward above: 48^3,
+    # T = 300); each sweep reads the T step inputs and cotangents and writes
+    # the T g_ins and g0, adj2d_ys_kernel reads the [T, 96, H, W] activations
+    # (made outside the timing, as _precompute_ys makes them) instead of the
+    # frames
+    packedb_bytes = 4 * packedb.numel()
+    ysb = backward2d._precompute_ys(paramsb["cell"], framesb[:-1], cfgb)
+    taps_rows = 2 * cfgb.kernel_size ** 2 * 2 * cell2d.mxu_rows(cfgb)
+    fallback_rows = {
+        "rollout2d_kernel[k=5]": (
+            lambda: cell2d._rollout_cuda(packedb, h0b, cfgb, stepsb),
+            lambda: cell2d.fused_rollout_2d_plain(packedb, h0b, cfgb, stepsb),
+            packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes, fwdb_flops, stepsb,
+            "cell2d._rollout_kernel", "percnn_tpu/ops/pallas/cell2d.py:332", "cell2d.cu",
+            {"train": fallback_launches["burgers_mxu_off"]["fused_rollout_2d.launches_kxk"]
+             + fallback_launches["burgers_ys_off"]["fused_rollout_2d.launches_kxk"]}),
+        "final2d_kernel[k=5]": (
+            lambda: cell2d._final_cuda(packedb, h0s, cfgb, horizon),
+            lambda: cell2d.fused_rollout_final_2d_plain(packedb, h0s, cfgb, horizon),
+            packedb_bytes + 2 * stateb_bytes, horizon * cellsb * flops_per_cell_step_kxk(cfgb),
+            horizon, "cell2d._final_kernel", "percnn_tpu/ops/pallas/cell2d.py:384", "cell2d.cu",
+            {"serve": serveb_launches["final2d_kernel[k=5]"]}),
+        "adj2d_kernel": (
+            lambda: backward2d._phase1_cuda(packed, frames, fbar, cfg),
+            lambda: backward2d.fused_phase1_2d_plain(packed, frames, fbar, cfg),
+            param_bytes + 3 * TIME_BACKWARD_STEPS * state_bytes + state_bytes,
+            TIME_BACKWARD_STEPS * cells * adj_flops_per_cell_step_1x1(cfg), TIME_BACKWARD_STEPS,
+            "backward2d._phase1_kernel", "percnn_tpu/ops/pallas/backward2d.py:184", "adj2d.cu",
+            {"train": fallback_launches["gs2d_fused"]["fused_phase1_2d.launches"]}),
+        "adj2d_kernel[k=5]": (
+            lambda: backward2d._phase1_cuda(packedb, framesb, fbarb, cfgb),
+            lambda: backward2d.fused_phase1_2d_plain(packedb, framesb, fbarb, cfgb),
+            packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes, bwb_flops, stepsb,
+            "backward2d._phase1_kernel", "percnn_tpu/ops/pallas/backward2d.py:184", "adj2d.cu",
+            {"train": fallback_launches["burgers_ys_off"]["fused_phase1_2d.launches"]}),
+        "adj2d_ys_kernel": (
+            lambda: backward2d._phase1_ys_cuda(packedb, fbarb, ysb, cfgb),
+            lambda: backward2d.fused_phase1_ys_2d_plain(packedb, fbarb, ysb, cfgb),
+            packedb_bytes + 2 * stepsb * stateb_bytes + stateb_bytes + 4 * ysb.numel(),
+            bwb_flops - stepsb * cellsb * taps_rows, stepsb,
+            "backward2d._phase1_ys_kernel", "percnn_tpu/ops/pallas/backward2d.py:260",
+            "adj2d.cu",
+            {"train": fallback_launches["burgers_mxu_off"]["fused_phase1_ys_2d.launches"]}),
+        "adj3d_kernel": (
+            lambda: backward3d._phase1_cuda(packed3, frames3, fbar3, cfg3),
+            lambda: backward3d.fused_phase1_3d_plain(packed3, frames3, fbar3, cfg3),
+            4 * packed3.numel() + 3 * TIME_BACKWARD3D_STEPS * state3_bytes + state3_bytes,
+            TIME_BACKWARD3D_STEPS * cells3 * adj_flops_per_cell_step_1x1(cfg3),
+            TIME_BACKWARD3D_STEPS,
+            "backward3d._phase1_kernel3d", "percnn_tpu/ops/pallas/backward3d.py:60",
+            "backward3d.cu",
+            {"train": fallback_launches["gs3d_fused"]["fused_phase1_3d.launches"]}),
+    }
+    fallback_work = {}
+    for name, (kernel, plain, nbytes, nflops, steps, jax_name, replaces, source,
+               by_path) in fallback_rows.items():
+        b_ms, b_by = bound_ms(nbytes, nflops)
+        fallback_work[name] = {"steps": steps, "bytes": nbytes, "flops": nflops}
+        kernels.append({
+            "name": name, "jax_kernel": jax_name, "route": "cuda",
+            "source": f"percnn_tpu_torch/ops/kernels/csrc/{source}", "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err[name], "steps": steps,
+            "ms": cuda_ms(torch, kernel, reps=3 if steps > 1000 else 5),
+            "plain_ms": cuda_ms(torch, plain, reps=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    del ysb
+    # one "two_phase" backward of GS2D at T = 800 (rollout_tp: one
+    # autograd.grad a step, then the parameter gradients), trained cell,
+    # data-loss cotangent: the forward and the backward by CUDA events
+    tp2 = params_from_numpy(model["cell"], device=dev, dtype=torch.float32)
+    tp2_leaves = [tp2["diff"]] + [br[k] for br in tp2["pi"] for k in sorted(br)]
+    for leaf in tp2_leaves:
+        leaf.requires_grad_(True)
+    two_phase_ms = []
+    for _ in range(2):   # a warm-up, then the reading
+        fr2, fwd2_ms = event_ms(lambda: rollout_tp(runner._cell_step_for(cfg), tp2, h0,
+                                                   TIME_BACKWARD_STEPS))
+        _, bwd2_ms = event_ms(lambda: torch.autograd.grad((fr2 * fbar).sum(), tp2_leaves))
+        two_phase_ms.append({"forward_ms": fwd2_ms, "backward_ms": bwd2_ms})
+    del fr2
     phase("times", shape=list(h0.shape), steps=SERVE_STEPS, flops_per_rollout=flops,
           backward_steps=TIME_BACKWARD_STEPS, flops_per_backward=bw_flops,
           bytes_per_backward=bw_bytes, shape3d=list(h03.shape), steps3d=steps3,
           flops_per_rollout3d=flops3, backward_steps3d=TIME_BACKWARD3D_STEPS,
           flops_per_backward3d=bw3_flops, bytes_per_backward3d=bw3_bytes,
           burgers_shape=list(h0b.shape), burgers_steps=stepsb, flops_per_rollout_kxk=fwdb_flops,
-          flops_per_backward_kxk=bwb_flops, bytes_per_backward_kxk=bwb_bytes, nvidia_smi=smi)
+          flops_per_backward_kxk=bwb_flops, bytes_per_backward_kxk=bwb_bytes,
+          fallback_work=fallback_work, two_phase_gs2d_t800=two_phase_ms[-1], nvidia_smi=smi)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

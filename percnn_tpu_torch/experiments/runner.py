@@ -16,6 +16,7 @@ visual exports and the closed-form Pi expressions (ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import time
@@ -34,13 +35,13 @@ from percnn_tpu_torch.core.checkpoint import (
 )
 from percnn_tpu_torch.core.isg import init_isg, isg_apply
 from percnn_tpu_torch.core.losses import DataLossConfig, data_loss, ic_loss, phys_loss
-from percnn_tpu_torch.core.rollout import rollout
+from percnn_tpu_torch.core.rollout import rollout, rollout_tp
 from percnn_tpu_torch.core.train import pretrain_isg, train
 from percnn_tpu_torch.data.noise import add_noise
 from percnn_tpu_torch.data.simulate import default_ic, simulate
 from percnn_tpu_torch.experiments.configs import ExperimentConfig
 from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d, fused_rollout_tp_2d_pg
-from percnn_tpu_torch.ops.kernels.backward3d import fused_rollout_tp_3d_pg
+from percnn_tpu_torch.ops.kernels.backward3d import fused_rollout_tp_3d, fused_rollout_tp_3d_pg
 from percnn_tpu_torch.ops.kernels.cell2d import fused_rollout_2d
 from percnn_tpu_torch.ops.kernels.cell3d import fused_rollout_3d
 from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
@@ -145,11 +146,19 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
                     (ops/kernels/backward2d.py) in 2D; rollout3d_kernel
                     forward, pg3d_kernel backward (ops/kernels/backward3d.py)
                     in 3D;
-      'fused'    -- a 2D k x k cell: rollout2d_kxk_kernel forward,
-                    adj2d_kxk_kernel reverse sweep and time-batched
-                    parameter gradients (ops/kernels/backward2d.py);
+      'fused'    -- the streaming adjoints: a 2D cell (any odd kernel_size
+                    <= 5) through backward2d.fused_rollout_tp_2d, whose
+                    routes the MXU switches and the activation budget pick
+                    (rollout2d_kxk_kernel or rollout2d_kernel forward;
+                    adj2d_kxk_kernel, adj2d_ys_kernel or adj2d_kernel
+                    backward); a 3D cell through
+                    backward3d.fused_rollout_tp_3d (rollout3d_kernel,
+                    adj3d_kernel); the parameter gradients outside the
+                    kernels;
+      'two_phase' -- core.rollout.rollout_tp around the cell step: a reverse
+                    sweep of autograd through the state, then the parameter
+                    gradients batched over time;
       'remat'    -- autograd through the cell step, checkpointed segments.
-    'fused' of a 1x1 or 3D cell and 'two_phase' are queued (ROADMAP.md A1).
     """
     dev = resolve_device(device)
     exp = prob.exp
@@ -169,18 +178,20 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
         fused = fused_rollout_tp_2d_pg if cell.ndim == 2 else fused_rollout_tp_3d_pg
         return fused(params["cell"], h0, cell, n_steps)
     if bptt == "fused":
-        if cell.ndim != 2 or cell.kernel_size == 1:
-            raise NotImplementedError(
-                "bptt='fused' of a 1x1 or 3D cell (backward2d._phase1_kernel, "
-                "backward3d._phase1_kernel3d) is queued for the fallback-adjoint slice, "
-                "ROADMAP.md A1")
-        return fused_rollout_tp_2d(params["cell"], h0, cell, n_steps)
+        fused = fused_rollout_tp_2d if cell.ndim == 2 else fused_rollout_tp_3d
+        return fused(params["cell"], h0, cell, n_steps)
     if bptt == "two_phase":
-        raise NotImplementedError("bptt='two_phase' (rollout_tp) is queued for the "
-                                  "fallback-adjoint slice, ROADMAP.md A1")
+        return rollout_tp(_cell_step_for(cell), params["cell"], h0, n_steps)
     if bptt != "remat":
         raise ValueError(f"unknown bptt {bptt!r}")
     return rollout(lambda h: pi_cell_step(params["cell"], h, cell), h0, n_steps, remat=remat)
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_step_for(cell_cfg):
+    """The step closure (params, h) -> h_next of a cell config, one per
+    config, as percnn_tpu keeps it."""
+    return lambda p, h: pi_cell_step(p, h, cell_cfg)
 
 
 def _n_meas(n_frames: int, dcfg: DataLossConfig) -> int:

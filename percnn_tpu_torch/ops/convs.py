@@ -4,6 +4,9 @@ Counterpart of percnn_tpu/ops/convs.py.  Activations are [..., *spatial, C]
 and weights [*k, Cin, Cout], as there; PyTorch's own convolutions take
 channels first, so the convs permute around the library call.  The k x k
 convs run in full float32 (``full_f32``): cuDNN would take them to TF32.
+The weight gradient of the 2D periodic conv (the k x k Pi branches) is one
+FFMA matrix product of the output cotangent with the im2col stack of the
+input (``_PeriodicConv2d``), not cuDNN's weight-grad convolution.
 """
 
 from __future__ import annotations
@@ -25,6 +28,42 @@ def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+class _PeriodicConv2d(torch.autograd.Function):
+    """VALID conv2d of a wrap-padded batch xb [N, Cin, H+k-1, W+k-1] with
+    w [Cout, Cin, kh, kw]: cuDNN's forward, and a backward whose weight
+    gradient is one full-f32 matmul of the cotangent [Cout, N*L] with the
+    im2col stack [N*L, Cin*kh*kw] of xb (L = H*W).
+
+    cuDNN chooses its weight-grad algorithm itself, and on an H100 the one
+    it chose for the 5x5 branches rounded the sum over N*L terms to 2.2e-4
+    of the f64 gradient, where FFMA gives under 1e-6 (PERF.md, ROADMAP.md
+    C2).  The input gradient stays cuDNN's.  The backward is written with
+    differentiable ops, so a second derivative still works.
+    """
+
+    @staticmethod
+    def forward(ctx, xb, w, b):
+        ctx.save_for_backward(xb, w)
+        ctx.has_bias = b is not None
+        with full_f32():
+            return F.conv2d(xb, w, b)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xb, w = ctx.saved_tensors
+        gx = gw = gb = None
+        with full_f32():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(xb.shape, w, gy)
+            if ctx.needs_input_grad[1]:
+                cols = F.unfold(xb, tuple(w.shape[2:]))             # [N, Cin*kh*kw, L]
+                gw = (gy.flatten(2).transpose(0, 1).flatten(1)       # [Cout, N*L]
+                      @ cols.transpose(1, 2).flatten(0, 1)).reshape(w.shape)
+        if ctx.has_bias and ctx.needs_input_grad[2]:
+            gb = gy.sum((0, 2, 3))
+        return gx, gw, gb
+
+
 def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
           wrap: bool) -> torch.Tensor:
     """VALID cross-correlation of channels-last x [..., *spatial, Cin] with
@@ -40,8 +79,12 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
         for k in reversed(w.shape[:nd]):   # F.pad lists the last dim first
             pads += [k // 2, (k - 1) // 2]
         xb = F.pad(xb, pads, mode="circular")
-    with full_f32():
-        y = _CONV[nd](xb, w.permute(nd + 1, nd, *range(nd)), b)
+    wt = w.permute(nd + 1, nd, *range(nd))
+    if wrap and nd == 2:
+        y = _PeriodicConv2d.apply(xb, wt, b)
+    else:
+        with full_f32():
+            y = _CONV[nd](xb, wt, b)
     y = y.movedim(1, -1)
     return y.reshape(lead + tuple(y.shape[1:]))
 

@@ -3,22 +3,35 @@ their plain versions.
 
 Counterpart of percnn_tpu/ops/pallas/backward2d.py, in two parts.
 
-**k x k cells** (the Burgers and lambda-omega Stage-1 models).
-``fused_rollout_tp_2d`` is a differentiable rollout whose forward is
-``rollout2d_kxk_kernel`` (ops/kernels/cell2d.py) and whose backward is the
-reverse sweep of ``adj2d_kxk_kernel`` (csrc/backward2d_kxk.cu, in place of
-``_phase1_mxu_kernel``), then the parameter gradients as time-batched
-contractions outside any kernel (``_param_grads_stream``, as the JAX
-package leaves them to XLA).  For t = T-1 .. 0 the sweep computes
+**The streaming adjoints.** ``fused_rollout_tp_2d`` is a differentiable
+rollout of any odd kernel_size <= 5, percnn_tpu's ``fused_rollout_tp_2d``.
+Its forward is ``rollout2d_kxk_kernel`` for a k x k cell with
+cell2d.MXU_FWD_ENABLED, else ``rollout2d_kernel`` (ops/kernels/cell2d.py).
+Its backward is a reverse sweep that streams the adjoint out, then the
+parameter gradients outside any kernel, as the JAX package leaves them to
+XLA.  For t = T-1 .. 0 the sweep computes
 
     g_in  = g_{t+1} + fbar_{t+1}                       (g_T = 0)
-    y     = Wm . im2col(h_t)                           (streamed out as ys[t])
+    y     = the branch activations at h_t, [M] a cell
     z[m]  = w_out_o[c] g_in_o prod_{j != i} y[(o nb + j) C + c],  m = (o nb + i) C + c
-    zw    = W2 . z                                     (W2 = pack_adjoint_matrix_2d)
+    zw    = the branch weights' taps contracted with z
     jt    = sum_{tap} zw[tap] shifted by the reversed tap offset
     g_t   = g_in + dt (D Lap(g_in) + jt)
 
-and returns g_ins [T, H, W, 2], g_0 and ys [T, M, H, W].
+and returns g_ins [T, H, W, 2] and g_0.  ``backward_route`` picks the sweep
+as percnn_tpu's ``_fused_tp_bwd`` does:
+
+- 'mxu', a k x k cell with MXU_BWD_ENABLED: ``adj2d_kxk_kernel``
+  (csrc/backward2d_kxk.cu, in place of ``_phase1_mxu_kernel``), y as a
+  product with the branch matrix, streamed out as ys [T, M, H, W]; then
+  ``_param_grads_stream``, time-batched contractions of the cotangents;
+- 'ys', a k x k cell otherwise: ``_precompute_ys`` (time-batched convs),
+  then ``adj2d_ys_kernel`` (csrc/adj2d.cu, in place of
+  ``_phase1_ys_kernel``), which reads y from it; then
+  ``_param_grads_stream``;
+- 'adjoint', a 1x1 cell, or with YS_PATH_ENABLED off or over its 8 GiB:
+  ``adj2d_kernel`` (csrc/adj2d.cu, in place of ``_phase1_kernel``), y
+  recomputed from the frames; then ``core.rollout.chunked_param_grads``.
 
 **1x1 cells** (GS2D), the fused-pg half.
 ``fused_rollout_tp_2d_pg`` is a differentiable rollout whose forward is
@@ -42,28 +55,35 @@ factor and the layout of the packed parameter vector are applied then
 the gradient on through the reparametrisation to the parameter tree.
 
 A CPU tensor takes the plain versions (``fused_phase1_kxk_2d_plain``,
-``fused_phase1_pg_2d_plain``); a CUDA tensor launches the kernel or raises.
-``fused_rollout_tp_2d_pg.launches`` counts the reverse steps launched;
-``fused_rollout_tp_2d.launches`` the launches of the k x k sweep, two a
-reverse step.
+``fused_phase1_2d_plain``, ``fused_phase1_ys_2d_plain``,
+``fused_phase1_pg_2d_plain``); a CUDA tensor launches the kernel or
+raises.  Launch counters: ``fused_rollout_tp_2d_pg.launches`` (pg2d_kernel,
+one a reverse step), ``fused_rollout_tp_2d.launches`` (adj2d_kxk_kernel,
+two a reverse step), ``fused_phase1_2d.launches`` (adj2d_kernel, one a
+reverse step at k = 1, two at k > 1) and ``fused_phase1_ys_2d.launches``
+(adj2d_ys_kernel, two a reverse step).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
-
 import torch.nn.functional as F
 
 from percnn_tpu_torch._device import full_f32
-from percnn_tpu_torch.core.cell import PiCellConfig
-from percnn_tpu_torch.ops.kernels import _build
+from percnn_tpu_torch.core.cell import PiCellConfig, pi_cell_step
+from percnn_tpu_torch.core.rollout import chunked_param_grads
+from percnn_tpu_torch.ops.convs import conv_nd_periodic
+from percnn_tpu_torch.ops.kernels import _build, cell2d
 from percnn_tpu_torch.ops.kernels.cell2d import (
+    _KXK_SIZES,
     _MAX_PARAMS,
     _check_fusable,
     _check_kxk_inputs,
     _kxk_smem_bytes,
+    _packed_equation,
     _param_block,
     _raise_on_error,
     _rollout_cuda,
@@ -88,7 +108,13 @@ _SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
 # wmat, tail, frames, frames_bar, g, g_ins, ys, zw, n_steps, H, W, hidden,
 # n_branches, kernel_size, dt, inv_dx2, stream
 _KXK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
-# The kernel is compiled for 1 to 4 branches (csrc/backward2d.cu).
+# params, n_params, frames, frames_bar, g, scratch, g_ins, zw, n_steps, H, W,
+# hidden, n_branches, kernel_size, dt, inv_dx2, stream
+_ADJ_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+# params, n_params, frames_bar, ys, g, g_ins, zw, n_steps, H, W, hidden,
+# n_branches, kernel_size, dt, inv_dx2, stream
+_YS_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+# The kernels are compiled for 1 to 4 branches (csrc/backward2d.cu, csrc/adj2d.cu).
 _MAX_BRANCHES = 4
 
 
@@ -290,7 +316,8 @@ fused_rollout_tp_2d_pg.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# k x k cells: adj2d_kxk_kernel and the parameter gradients around it
+# The streaming adjoints: adj2d_kxk_kernel (row 6), adj2d_kernel (row 4),
+# adj2d_ys_kernel (row 5), and the parameter gradients after them
 # ---------------------------------------------------------------------------
 
 
@@ -310,6 +337,64 @@ def _leave_one_out_prod(y: torch.Tensor, dim: int) -> torch.Tensor:
                         for i in range(n)], dim=dim)
 
 
+def _branch_operands(packed: torch.Tensor, cfg: PiCellConfig) -> tuple:
+    """(w [k*k*2, M], b [M], w_out [2, C]) from the packed vector, column m =
+    (o nb + i) C + c of w holding branch i of equation o, hidden channel c."""
+    taps, M = cfg.kernel_size ** 2 * 2, mxu_rows(cfg)
+    eqs = [_packed_equation(packed, o, cfg) for o in range(2)]
+    w = torch.cat([e[0] for e in eqs]).permute(1, 0, 2).reshape(taps, M)
+    return w, torch.cat([e[1] for e in eqs]).reshape(M), torch.stack([e[2] for e in eqs])
+
+
+def _adjoint_sweep_plain(w: torch.Tensor, b: torch.Tensor, w_out: torch.Tensor,
+                         diff: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+                         cfg: PiCellConfig, lap, ys: torch.Tensor | None = None,
+                         keep_ys: bool = False) -> tuple:
+    """The streaming reverse sweep with tensor ops, any spatial rank (k > 1
+    in 2D only).  For t = T-1 .. 0, at every cell:
+
+        g_in  = g_{t+1} + fbar_{t+1}                       (g_T = 0)
+        y     = w^T im2col(h_t) + b, or ys[t]              ([..., M])
+        z[m]  = w_out_o[c] g_in_o prod_{j != i} y[(o nb + j) C + c]
+        zw    = w z                                        ([..., k*k*2])
+        jt    = sum_{tap} zw[tap] shifted by the reversed tap offset
+        g_t   = g_in + dt (diff Lap(g_in) + jt)
+
+    w [k*k*2, M], b [M], w_out [2, C], diff [2] (_branch_operands);
+    frames [T+1, *spatial, 2], frames_bar their cotangent; lap(x) the
+    Laplacian of a [*spatial, 2] field; ys, if given, [T, M, *spatial].
+    Returns (g_ins [T, *spatial, 2], g0 without frames_bar[0]) and, with
+    keep_ys, the activations [T, M, *spatial].
+    """
+    C, nb, k = cfg.hidden, cfg.n_branches, cfg.kernel_size
+    r = k // 2
+    n_steps = frames_bar.shape[0] - 1
+    g = torch.zeros_like(frames_bar[0])
+    g_ins, y_out = [None] * n_steps, [None] * n_steps
+    for t in range(n_steps - 1, -1, -1):
+        g_in = g + frames_bar[t + 1]
+        if ys is not None:
+            y = ys[t].movedim(0, -1)
+        else:
+            h = frames[t]
+            cols = h if k == 1 else im2col_2d(h, cfg)[..., :k * k * 2]
+            y = cols @ w + b
+        y_out[t] = y.movedim(-1, 0)
+        gw = g_in[..., :, None, None] * w_out[:, None, :]              # [..., 2, 1, C]
+        z = gw * _leave_one_out_prod(y.unflatten(-1, (2, nb, C)), -2)  # [..., 2, nb, C]
+        zw = z.flatten(-3) @ w.T                                       # [..., k*k*2]
+        jt = 0.0
+        for ki in range(k):
+            for kj in range(k):
+                tap = ki * k + kj
+                jt = jt + torch.roll(zw[..., 2 * tap: 2 * tap + 2],
+                                     shifts=(ki - r, kj - r), dims=(0, 1))
+        g_ins[t] = g_in
+        g = g_in + cfg.dt * (diff * lap(g_in) + jt)
+    out = (torch.stack(g_ins), g)
+    return out + (torch.stack(y_out),) if keep_ys else out
+
+
 def fused_phase1_kxk_2d_plain(wmat: torch.Tensor, tail: torch.Tensor, frames: torch.Tensor,
                               frames_bar: torch.Tensor, cfg: PiCellConfig):
     """Plain version of adj2d_kxk_kernel: the reverse sweep with tensor ops.
@@ -319,29 +404,122 @@ def fused_phase1_kxk_2d_plain(wmat: torch.Tensor, tail: torch.Tensor, frames: to
     Returns (g_ins [T, H, W, 2], g0 [H, W, 2] without frames_bar[0],
     ys [T, M, H, W]).
     """
-    C, nb, k = cfg.hidden, cfg.n_branches, cfg.kernel_size
-    r = k // 2
-    w2 = pack_adjoint_matrix_2d(wmat, cfg)
-    w_out = tail[2:2 + 2 * C].reshape(2, 1, C)
-    n_steps = frames.shape[0] - 1
-    g = torch.zeros_like(frames[0])
-    g_ins, ys = [None] * n_steps, [None] * n_steps
-    for t in range(n_steps - 1, -1, -1):
-        g_in = g + frames_bar[t + 1]
-        y = im2col_2d(frames[t], cfg) @ wmat.T                  # [H, W, M]
-        ys[t] = y.movedim(-1, 0)
-        gw = g_in[..., :, None, None] * w_out                    # [H, W, 2, 1, C]
-        z = gw * _leave_one_out_prod(y.unflatten(-1, (2, nb, C)), -2)   # [H, W, 2, nb, C]
-        zw = z.flatten(-3) @ w2.T                                # [H, W, K2]
-        jt = 0.0
-        for ki in range(k):
-            for kj in range(k):
-                tap = ki * k + kj
-                jt = jt + torch.roll(zw[..., 2 * tap: 2 * tap + 2],
-                                     shifts=(ki - r, kj - r), dims=(0, 1))
-        g_ins[t] = g_in
-        g = g_in + cfg.dt * (tail[:2] * laplacian_2d(g_in, cfg.dx) + jt)
-    return torch.stack(g_ins), g, torch.stack(ys)
+    taps, C = cfg.kernel_size ** 2 * 2, cfg.hidden
+    return _adjoint_sweep_plain(wmat[:, :taps].T, wmat[:, taps], tail[2:2 + 2 * C].reshape(2, C),
+                                tail[:2], frames, frames_bar, cfg,
+                                lambda x: laplacian_2d(x, cfg.dx), keep_ys=True)
+
+
+def fused_phase1_2d_plain(packed: torch.Tensor, frames: torch.Tensor,
+                          frames_bar: torch.Tensor, cfg: PiCellConfig):
+    """Plain version of adj2d_kernel (any odd k <= 5): (g_ins [T, H, W, 2],
+    g0 [H, W, 2] without frames_bar[0]) from the packed vector
+    (pack_pi_params_2d), the frames [T+1, H, W, 2] and their cotangent."""
+    w, b, w_out = _branch_operands(packed, cfg)
+    return _adjoint_sweep_plain(w, b, w_out, packed[:2], frames, frames_bar, cfg,
+                                lambda x: laplacian_2d(x, cfg.dx))
+
+
+def fused_phase1_ys_2d_plain(packed: torch.Tensor, frames_bar: torch.Tensor,
+                             ys: torch.Tensor, cfg: PiCellConfig):
+    """Plain version of adj2d_ys_kernel: fused_phase1_2d_plain with the
+    activations read from ys [T, M, H, W] (_precompute_ys)."""
+    w, b, w_out = _branch_operands(packed, cfg)
+    return _adjoint_sweep_plain(w, b, w_out, packed[:2], None, frames_bar, cfg,
+                                lambda x: laplacian_2d(x, cfg.dx), ys=ys)
+
+
+def _check_sweep_inputs(name: str, packed: torch.Tensor, frames_bar: torch.Tensor,
+                        cfg: PiCellConfig, *tensors: torch.Tensor) -> torch.Tensor:
+    """Check a streaming sweep's inputs (frames_bar [T+1, H, W, 2] and the
+    contiguous f32 `tensors` on its device); return frames_bar as contiguous
+    f32 (the cotangent of a strided slice arrives sparse, expanded or
+    strided)."""
+    dev = frames_bar.device
+    if dev.type != "cuda" or any(t.device != dev for t in (packed,) + tensors):
+        raise ValueError(f"{name} takes CUDA tensors on one device; got "
+                         f"{[str(t.device) for t in (packed, frames_bar) + tensors]}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in (packed,) + tensors):
+        raise ValueError(f"{name} takes contiguous float32 tensors")
+    if frames_bar.dim() != 4 or frames_bar.shape[-1] != 2:
+        raise ValueError(f"frames_bar must be [T+1, H, W, 2], got {tuple(frames_bar.shape)}")
+    if packed.numel() != 2 + 2 * _param_block(cfg) or packed.numel() > _MAX_PARAMS:
+        raise ValueError(f"packed params have {packed.numel()} floats, expected "
+                         f"{2 + 2 * _param_block(cfg)} (at most {_MAX_PARAMS})")
+    if not 1 <= cfg.n_branches <= _MAX_BRANCHES:
+        raise ValueError(f"{name} takes 1 to {_MAX_BRANCHES} branches, got {cfg.n_branches}")
+    return frames_bar.to(torch.float32).contiguous()
+
+
+def _sweep_fn(name: str, signature: list):
+    fn = getattr(_build.load_library("adj2d"), name)
+    fn.argtypes = signature
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _phase1_cuda(packed, frames, frames_bar, cfg):
+    """adj2d_kernel: one launch per reverse step at k = 1, two at k > 1, the
+    loop in C."""
+    frames_bar = _check_sweep_inputs("adj2d_kernel", packed, frames_bar, cfg, frames)
+    if frames.shape != frames_bar.shape:
+        raise ValueError(f"frames {tuple(frames.shape)} and frames_bar "
+                         f"{tuple(frames_bar.shape)} differ")
+    fn = _sweep_fn("adj2d_sweep", _ADJ_SIGNATURE)
+    n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    k, dev = cfg.kernel_size, frames.device
+    g = torch.zeros((H, W, 2), dtype=torch.float32, device=dev)
+    scratch = torch.zeros_like(g) if k == 1 else None
+    zw = torch.empty((k * k * 2, H, W), dtype=torch.float32, device=dev) if k > 1 else None
+    g_ins = torch.empty((n_steps, H, W, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.numel(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(), g_ins.data_ptr(),
+                           None if zw is None else zw.data_ptr(), n_steps, H, W, cfg.hidden,
+                           cfg.n_branches, k, cfg.dt, 1.0 / (cfg.dx * cfg.dx), stream),
+                        "adj2d_sweep")
+    fused_phase1_2d.launches += n_steps if k == 1 else 2 * n_steps
+    return g_ins, g
+
+
+def _phase1_ys_cuda(packed, frames_bar, ys, cfg):
+    """adj2d_ys_kernel: two launches per reverse step, the loop in C."""
+    frames_bar = _check_sweep_inputs("adj2d_ys_kernel", packed, frames_bar, cfg, ys)
+    n_steps, H, W = frames_bar.shape[0] - 1, frames_bar.shape[1], frames_bar.shape[2]
+    if cfg.kernel_size not in _KXK_SIZES or tuple(ys.shape) != (n_steps, mxu_rows(cfg), H, W):
+        raise ValueError(f"adj2d_ys_kernel takes kernel_size {_KXK_SIZES} and ys "
+                         f"[{n_steps}, {mxu_rows(cfg)}, {H}, {W}], got {cfg.kernel_size} "
+                         f"and {tuple(ys.shape)}")
+    fn = _sweep_fn("adj2d_ys_sweep", _YS_SIGNATURE)
+    dev = frames_bar.device
+    k = cfg.kernel_size
+    g = torch.zeros((H, W, 2), dtype=torch.float32, device=dev)
+    zw = torch.empty((k * k * 2, H, W), dtype=torch.float32, device=dev)
+    g_ins = torch.empty((n_steps, H, W, 2), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.numel(), frames_bar.data_ptr(),
+                           ys.data_ptr(), g.data_ptr(), g_ins.data_ptr(), zw.data_ptr(),
+                           n_steps, H, W, cfg.hidden, cfg.n_branches, k, cfg.dt,
+                           1.0 / (cfg.dx * cfg.dx), stream), "adj2d_ys_sweep")
+    fused_phase1_ys_2d.launches += 2 * n_steps
+    return g_ins, g
+
+
+def fused_phase1_2d(packed, frames, frames_bar, cfg):
+    """(g_ins, g0): adj2d_kernel on CUDA, the plain version on the CPU."""
+    if frames.device.type == "cpu":
+        return fused_phase1_2d_plain(packed, frames, frames_bar.to(torch.float32), cfg)
+    return _phase1_cuda(packed, frames, frames_bar, cfg)
+
+
+def fused_phase1_ys_2d(packed, frames_bar, ys, cfg):
+    """(g_ins, g0): adj2d_ys_kernel on CUDA, the plain version on the CPU."""
+    if frames_bar.device.type == "cpu":
+        return fused_phase1_ys_2d_plain(packed, frames_bar.to(torch.float32), ys, cfg)
+    return _phase1_ys_cuda(packed, frames_bar, ys, cfg)
 
 
 def _kxk_bwd_smem_bytes(cfg: PiCellConfig) -> int:
@@ -386,6 +564,20 @@ def fused_phase1_kxk_2d(wmat, tail, frames, frames_bar, cfg):
     if frames.device.type == "cpu":
         return fused_phase1_kxk_2d_plain(wmat, tail, frames, frames_bar.to(torch.float32), cfg)
     return _phase1_kxk_cuda(wmat, tail, frames, frames_bar, cfg)
+
+
+def _precompute_ys(params: dict, h_prev: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """The branch activations y of every step, [T, M, H, W] f32 with plane
+    (o nb + i) C + c: time-batched periodic convs of h_prev [T, H, W, 2]
+    (the steps' inputs) in full f32, outside any kernel, as percnn_tpu's
+    ``_precompute_ys`` leaves them to XLA."""
+    k, C = cfg.kernel_size, cfg.hidden
+    h32 = h_prev.to(torch.float32)
+    ys = [conv_nd_periodic(h32, br[f"w{i}"].to(torch.float32).reshape(k, k, 2, C),
+                           br[f"b{i}"].to(torch.float32))
+          for br in params["pi"] for i in range(cfg.n_branches)]   # [T, H, W, C] each
+    stacked = torch.stack(ys, dim=1).movedim(-1, 2)                  # [T, 2 nb, C, H, W]
+    return stacked.reshape(h_prev.shape[0], mxu_rows(cfg), h_prev.shape[1], h_prev.shape[2])
 
 
 def _param_grads_direct(params: dict, h_prev: torch.Tensor, g_ins: torch.Tensor,
@@ -448,6 +640,36 @@ def _param_grads_stream(params: dict, h_prev: torch.Tensor, g_ins: torch.Tensor,
                                ys_stream.unflatten(1, (2, cfg.n_branches, cfg.hidden)), cfg)
 
 
+YS_PATH_ENABLED = True
+"""Route a k x k backward with MXU_BWD_ENABLED off through _precompute_ys and
+adj2d_ys_kernel; off, through adj2d_kernel and chunked_param_grads.  Looked
+up at every call."""
+
+MXU_BWD_ENABLED = os.environ.get("PERCNN_DISABLE_MXU", "") != "1"
+"""Route a k x k backward through adj2d_kxk_kernel, which forms the
+activations as a product with the branch matrix and streams them out for
+the parameter gradients.  Read from PERCNN_DISABLE_MXU=1 at import, as
+percnn_tpu does, and looked up at every call."""
+
+
+def _ys_path_ok(cfg: PiCellConfig, n_steps: int, H: int, W: int) -> bool:
+    """The activation-streaming backwards hold [T, 2 nb C, H, W] f32 in
+    device memory: at most 8 GiB of it, as in percnn_tpu (768 MB for
+    Burgers at T = 200)."""
+    return YS_PATH_ENABLED and mxu_rows(cfg) * n_steps * H * W * 4 <= 8 * 1024 ** 3
+
+
+def backward_route(cfg: PiCellConfig, n_steps: int, H: int, W: int) -> str:
+    """The reverse sweep fused_rollout_tp_2d takes, as percnn_tpu's
+    ``_fused_tp_bwd`` picks it (without its TPU memory guards):
+    'mxu' (adj2d_kxk_kernel) for a k x k cell with MXU_BWD_ENABLED and
+    _ys_path_ok; else 'ys' (adj2d_ys_kernel) for a k x k cell with
+    _ys_path_ok; else 'adjoint' (adj2d_kernel and chunked_param_grads)."""
+    if cfg.kernel_size > 1 and _ys_path_ok(cfg, n_steps, H, W):
+        return "mxu" if MXU_BWD_ENABLED else "ys"
+    return "adjoint"
+
+
 def _cell_leaves(params: dict) -> list:
     """The cell's tensors in a fixed order: diff, then per equation its keys sorted."""
     return [params["diff"]] + [br[key] for br in params["pi"] for key in sorted(br)]
@@ -463,46 +685,62 @@ def _cell_tree(like: dict, leaves) -> dict:
 
 
 class FusedRolloutTP2d(torch.autograd.Function):
-    """frames = rollout of a k x k cell from h0; backward by adj2d_kxk_kernel
-    and the time-batched parameter gradients."""
+    """frames = the rollout of a 2D cell from h0, by rollout2d_kxk_kernel (a
+    k x k cell with MXU_FWD_ENABLED) or rollout2d_kernel; backward by the
+    sweep of backward_route, then the parameter gradients."""
 
     @staticmethod
-    def forward(ctx, h0, cfg, n_steps, like, *leaves):
+    def forward(ctx, h0, cfg, n_steps, pgrad_chunk, like, *leaves):
         params = _cell_tree(like, leaves)
-        wmat = pack_pi_matrix_2d(params, cfg)
-        tail = pi_tail_2d(params, cfg)
-        if h0.device.type == "cpu":
-            frames = fused_rollout_kxk_2d_plain(wmat, tail, h0, cfg, n_steps)
+        cpu = h0.device.type == "cpu"
+        if cfg.kernel_size > 1 and cell2d.MXU_FWD_ENABLED:
+            wmat, tail = pack_pi_matrix_2d(params, cfg), pi_tail_2d(params, cfg)
+            frames = (fused_rollout_kxk_2d_plain(wmat, tail, h0, cfg, n_steps) if cpu
+                      else _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps))
         else:
-            frames = _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps)
-        ctx.cfg, ctx.like = cfg, like
-        ctx.save_for_backward(frames, wmat, tail, *leaves)
+            packed = pack_pi_params_2d(params, cfg)
+            frames = (fused_rollout_2d_plain(packed, h0, cfg, n_steps) if cpu
+                      else _rollout_cuda(packed, h0, cfg, n_steps))
+        ctx.cfg, ctx.pgrad_chunk, ctx.like = cfg, pgrad_chunk, like
+        ctx.save_for_backward(frames, *leaves)
         return frames
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, frames_bar):
-        frames, wmat, tail, *leaves = ctx.saved_tensors
-        params = _cell_tree(ctx.like, leaves)
-        g_ins, g0, ys = fused_phase1_kxk_2d(wmat, tail, frames, frames_bar, ctx.cfg)
-        bar = _param_grads_stream(params, frames[:-1], g_ins, ys, ctx.cfg)
-        return (g0 + frames_bar[0], None, None, None, *_cell_leaves(bar))
+        frames, *leaves = ctx.saved_tensors
+        cfg, params = ctx.cfg, _cell_tree(ctx.like, leaves)
+        n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+        route = backward_route(cfg, n_steps, H, W)
+        if route == "mxu":
+            wmat = pack_pi_matrix_2d(params, cfg)
+            g_ins, g0, ys = fused_phase1_kxk_2d(wmat, pi_tail_2d(params, cfg), frames,
+                                                frames_bar, cfg)
+            bar = _param_grads_stream(params, frames[:-1], g_ins, ys, cfg)
+        elif route == "ys":
+            ys = _precompute_ys(params, frames[:-1], cfg)
+            g_ins, g0 = fused_phase1_ys_2d(pack_pi_params_2d(params, cfg), frames_bar, ys, cfg)
+            bar = _param_grads_stream(params, frames[:-1], g_ins, ys, cfg)
+        else:
+            g_ins, g0 = fused_phase1_2d(pack_pi_params_2d(params, cfg), frames, frames_bar, cfg)
+            bar = chunked_param_grads(lambda p, h: pi_cell_step(p, h, cfg), params,
+                                      frames[:-1], g_ins, n_steps, ctx.pgrad_chunk)
+        return (g0 + frames_bar[0], None, None, None, None, *_cell_leaves(bar))
 
 
 def fused_rollout_tp_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
-                        n_steps: int) -> torch.Tensor:
-    """Differentiable rollout of a k x k cell: [H, W, 2] -> [n_steps+1, H, W, 2]
-    f32.  Forward by rollout2d_kxk_kernel, backward by adj2d_kxk_kernel on
-    CUDA; the plain versions of both on the CPU.  Gradients reach the
-    cell's tensors and h0, as percnn_tpu's ``fused_rollout_tp_2d``."""
+                        n_steps: int, pgrad_chunk: int = 64) -> torch.Tensor:
+    """Differentiable rollout of a 2D cell of any odd kernel_size <= 5:
+    [H, W, 2] -> [n_steps+1, H, W, 2] f32, percnn_tpu's
+    ``fused_rollout_tp_2d``.  The kernels on CUDA, their plain versions on
+    the CPU, by the routes of MXU_FWD_ENABLED and backward_route;
+    pgrad_chunk is chunked_param_grads' steps a batch on the 'adjoint'
+    route.  Gradients reach the cell's tensors and h0."""
     _check_fusable(cfg)
-    if cfg.kernel_size == 1:
-        raise NotImplementedError(
-            "fused_rollout_tp_2d of a 1x1 cell (percnn_tpu backward2d._phase1_kernel) is "
-            "queued in ROADMAP.md A1, the fallback-adjoint slice; fused_rollout_tp_2d_pg "
-            "takes the 1x1 cell")
-    return FusedRolloutTP2d.apply(h0.to(torch.float32).contiguous(), cfg, n_steps, params,
-                                  *_cell_leaves(params))
+    return FusedRolloutTP2d.apply(h0.to(torch.float32).contiguous(), cfg, n_steps, pgrad_chunk,
+                                  params, *_cell_leaves(params))
 
 
 fused_rollout_tp_2d.launches = 0
+fused_phase1_2d.launches = 0
+fused_phase1_ys_2d.launches = 0

@@ -1,25 +1,30 @@
 """Fused 2D Pi-cell rollout: CUDA kernels for Hopper and their plain versions.
 
 Counterpart of percnn_tpu/ops/pallas/cell2d.py.  ``fused_rollout_2d``
-streams every frame: for a 1x1 cell (the GS2D model) through
-``rollout2d_kernel``, in place of ``_rollout_kernel``; for a k x k cell
-(k = 3 or 5: the Burgers and lambda-omega Stage-1 models) through
-``fused_rollout_kxk_2d`` and ``rollout2d_kxk_kernel``, in place of
-``_rollout_kernel_mxu``.  ``fused_rollout_final_2d`` returns the final
-state of a 1x1 cell only (``final2d_kernel``, in place of
-``_final_kernel``).  The kernels are in csrc/cell2d.cu and
+streams every frame through ``rollout2d_kernel`` (in place of
+``_rollout_kernel``), which takes the packed parameters and any odd
+kernel_size <= 5: a 1x1 cell (the GS2D model) one thread a cell, a k x k
+cell (k = 3 or 5: the Burgers and lambda-omega Stage-1 models) from a
+block's staged tile, its branch convs tap by tap.  With ``MXU_FWD_ENABLED``
+on (the default) a k x k cell goes instead to ``fused_rollout_kxk_2d`` and
+``rollout2d_kxk_kernel`` (in place of ``_rollout_kernel_mxu``), the branch
+convs as one product with the branch matrix.  ``fused_rollout_final_2d``
+returns the final state of any cell through ``final2d_kernel`` (in place
+of ``_final_kernel``).  The kernels are in csrc/cell2d.cu and
 csrc/cell2d_kxk.cu, with their bound on the card and their design.
 
 A CPU tensor takes the plain PyTorch version of the same arithmetic
 (``fused_rollout_2d_plain``, ``fused_rollout_final_2d_plain``,
 ``fused_rollout_kxk_2d_plain``); a CUDA tensor launches the kernel or
-raises.  Each public wrapper counts, in its ``launches`` attribute, the
-kernel launches it makes: one per time step.
+raises.  Each public wrapper counts the kernel launches it makes, one per
+time step: ``launches`` for a 1x1 cell, ``launches_kxk`` for the k x k
+contract of rollout2d_kernel and final2d_kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -27,22 +32,30 @@ from percnn_tpu_torch.core.cell import PiCellConfig, effective_diffusion
 from percnn_tpu_torch.ops.kernels import _build
 from percnn_tpu_torch.ops.stencils import laplacian_2d
 
+MXU_FWD_ENABLED = os.environ.get("PERCNN_DISABLE_MXU", "") != "1"
+"""Route a k x k rollout of ``fused_rollout_2d`` (and the forward of
+backward2d.fused_rollout_tp_2d) through rollout2d_kxk_kernel, the branch
+matrix product; off, through rollout2d_kernel's tap-by-tap form.  Read
+from PERCNN_DISABLE_MXU=1 at import, as percnn_tpu does, and looked up at
+every call, so a caller may set it in-process."""
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # params, n_params, h0, frames, n_steps, H, W, hidden, n_branches, dt,
-    # inv_dx2, stream
-    "cell2d_rollout": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # params, n_params, h0, frames, n_steps, H, W, hidden, n_branches,
+    # kernel_size, dt, inv_dx2, stream
+    "cell2d_rollout": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # params, n_params, h0, out, scratch, n_steps, H, W, hidden, n_branches,
-    # dt, inv_dx2, stream
-    "cell2d_final": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P],
+    # kernel_size, dt, inv_dx2, stream
+    "cell2d_final": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # wmat, tail, h0, frames, n_steps, H, W, hidden, n_branches, kernel_size,
     # dt, inv_dx2, stream
     "cell2d_kxk_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
 }
-# The 1x1 kernels stage the packed parameters in the default 48 KB of shared
-# memory; the k x k kernels stage the branch matrix instead (_kxk_smem_bytes).
+# rollout2d_kernel and final2d_kernel stage the packed parameters in shared
+# memory, at most 48 KB of them (4932 floats for the Burgers cell); the
+# branch-matrix kernels stage the matrix instead (_kxk_smem_bytes).
 _MAX_PARAMS = 48 * 1024 // 4
 
 
@@ -55,10 +68,11 @@ def _param_block(cfg: PiCellConfig) -> int:
 def pack_pi_params_2d(params: dict, cfg: PiCellConfig) -> torch.Tensor:
     """Flatten cell params to one f32 vector, the layout of percnn_tpu's.
 
-    [Du, Dv] then per output channel: per branch (w_i [2, C] row-major,
-    then b_i [C]), then w_out [C], b_out [1].  The diffusion
-    reparametrisation (mu_up * sigmoid) is applied here, so the kernel sees
-    plain coefficients.  164 floats for the GS2D cell.
+    [Du, Dv] then per output channel: per branch (w_i row-major, [2, C] for
+    a 1x1 cell and [k, k, 2, C] for a k x k one, then b_i [C]), then w_out
+    [C], b_out [1].  The diffusion reparametrisation (mu_up * sigmoid) is
+    applied here, so the kernel sees plain coefficients.  164 floats for
+    the GS2D cell, 4932 for the Burgers cell.
     """
     parts = [effective_diffusion(params, cfg).reshape(-1)]
     for c in range(cfg.channels):
@@ -151,33 +165,38 @@ def pi_from_activations(y: torch.Tensor, tail: torch.Tensor,
     return (torch.prod(y, dim=-2) * w_out).sum(-1) + tail[2 + 2 * C:]
 
 
+def _packed_equation(packed: torch.Tensor, o: int, cfg: PiCellConfig) -> tuple:
+    """Equation o's block of the packed vector: (w [nb, k*k*2, C] with rows
+    (ki*k + kj)*2 + cin, b [nb, C], w_out [C], b_out [1])."""
+    C, nb, taps = cfg.hidden, cfg.n_branches, cfg.kernel_size ** 2 * 2
+    block = _param_block(cfg)
+    p = packed[2 + o * block: 2 + (o + 1) * block]
+    br = p[: nb * (taps + 1) * C].reshape(nb, taps + 1, C)   # per branch: w_i, then b_i
+    return br[:, :taps], br[:, taps], p[nb * (taps + 1) * C: -1], p[-1:]
+
+
 def _plain_step(packed: torch.Tensor, h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
     """One Euler step from the packed parameters, the kernels' arithmetic
     written with tensor ops.  h: [H, W, 2]."""
-    C, nb = cfg.hidden, cfg.n_branches
-    block = _param_block(cfg)
     inv_dx2 = 1.0 / (cfg.dx * cfg.dx)
     s1 = (torch.roll(h, -1, 0) + torch.roll(h, 1, 0)
           + torch.roll(h, -1, 1) + torch.roll(h, 1, 1))
     s2 = (torch.roll(h, -2, 0) + torch.roll(h, 2, 0)
           + torch.roll(h, -2, 1) + torch.roll(h, 2, 1))
     lap = (-5.0 * h + (4.0 / 3.0) * s1 - (1.0 / 12.0) * s2) * inv_dx2
+    cols = h if cfg.kernel_size == 1 else im2col_2d(h, cfg)[..., :cfg.kernel_size ** 2 * 2]
     pis = []
     for o in range(2):
-        p = packed[2 + o * block: 2 + (o + 1) * block]
-        br = p[: nb * 3 * C].reshape(nb, 3, C)   # per branch: w[0], w[1], b
-        y = h[..., 0, None, None] * br[:, 0] + h[..., 1, None, None] * br[:, 1] + br[:, 2]
-        prod = y[..., 0, :]
-        for i in range(1, nb):
-            prod = prod * y[..., i, :]
-        pis.append(prod @ p[nb * 3 * C: nb * 3 * C + C] + p[-1])
-    pi = torch.stack(pis, dim=-1)
-    return h + cfg.dt * (packed[:2] * lap + pi)
+        w, b, w_out, b_out = _packed_equation(packed, o, cfg)
+        y = torch.einsum("...q,iqc->...ic", cols, w) + b          # [H, W, nb, C]
+        pis.append(torch.prod(y, dim=-2) @ w_out + b_out)
+    return h + cfg.dt * (packed[:2] * lap + torch.stack(pis, dim=-1))
 
 
 def fused_rollout_2d_plain(packed: torch.Tensor, h0: torch.Tensor,
                            cfg: PiCellConfig, n_steps: int) -> torch.Tensor:
-    """Plain version of rollout2d_kernel: [H, W, 2] -> [n_steps+1, H, W, 2]."""
+    """Plain version of rollout2d_kernel: [H, W, 2] -> [n_steps+1, H, W, 2],
+    any odd kernel_size <= 5."""
     frames = [h0]
     for _ in range(n_steps):
         frames.append(_plain_step(packed, frames[-1], cfg))
@@ -186,7 +205,8 @@ def fused_rollout_2d_plain(packed: torch.Tensor, h0: torch.Tensor,
 
 def fused_rollout_final_2d_plain(packed: torch.Tensor, h0: torch.Tensor,
                                  cfg: PiCellConfig, n_steps: int) -> torch.Tensor:
-    """Plain version of final2d_kernel: [H, W, 2] -> [H, W, 2]."""
+    """Plain version of final2d_kernel: [H, W, 2] -> [H, W, 2], any odd
+    kernel_size <= 5."""
     h = h0
     for _ in range(n_steps):
         h = _plain_step(packed, h, cfg)
@@ -229,7 +249,7 @@ def _launch_args(packed: torch.Tensor, h0: torch.Tensor, cfg: PiCellConfig,
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
     H, W = h0.shape[0], h0.shape[1]
     return (packed.data_ptr(), n_params, h0.data_ptr(), n_steps, H, W,
-            cfg.hidden, cfg.n_branches, cfg.dt, 1.0 / (cfg.dx * cfg.dx))
+            cfg.hidden, cfg.n_branches, cfg.kernel_size, cfg.dt, 1.0 / (cfg.dx * cfg.dx))
 
 
 def _kernel_fn(fn_name: str, library: str = "cell2d"):
@@ -245,16 +265,25 @@ def _raise_on_error(err: int, fn_name: str) -> None:
         raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
 
 
+def _count(wrapper, cfg: PiCellConfig, n: int) -> None:
+    """Add n launches to the wrapper's counter of cfg's contract."""
+    if cfg.kernel_size == 1:
+        wrapper.launches += n
+    else:
+        wrapper.launches_kxk += n
+
+
 def _rollout_cuda(packed, h0, cfg, n_steps):
+    """rollout2d_kernel: one launch per step, the loop in C."""
     fn = _kernel_fn("cell2d_rollout")
-    p_ptr, n_params, h_ptr, n, H, W, C, nb, dt, inv_dx2 = _launch_args(
+    p_ptr, n_params, h_ptr, n, H, W, C, nb, k, dt, inv_dx2 = _launch_args(
         packed, h0, cfg, n_steps)
     frames = torch.empty((n + 1, H, W, 2), dtype=torch.float32, device=h0.device)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on_error(fn(p_ptr, n_params, h_ptr, frames.data_ptr(), n, H, W,
-                           C, nb, dt, inv_dx2, stream), "cell2d_rollout")
-    fused_rollout_2d.launches += n
+                           C, nb, k, dt, inv_dx2, stream), "cell2d_rollout")
+    _count(fused_rollout_2d, cfg, n)
     return frames
 
 
@@ -316,17 +345,18 @@ def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
 
 
 def _final_cuda(packed, h0, cfg, n_steps):
+    """final2d_kernel: one launch per step, the loop in C."""
     fn = _kernel_fn("cell2d_final")
-    p_ptr, n_params, h_ptr, n, H, W, C, nb, dt, inv_dx2 = _launch_args(
+    p_ptr, n_params, h_ptr, n, H, W, C, nb, k, dt, inv_dx2 = _launch_args(
         packed, h0, cfg, n_steps)
     out = torch.empty((H, W, 2), dtype=torch.float32, device=h0.device)
     scratch = torch.empty_like(out)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on_error(fn(p_ptr, n_params, h_ptr, out.data_ptr(),
-                           scratch.data_ptr(), n, H, W, C, nb, dt, inv_dx2,
+                           scratch.data_ptr(), n, H, W, C, nb, k, dt, inv_dx2,
                            stream), "cell2d_final")
-    fused_rollout_final_2d.launches += n
+    _count(fused_rollout_final_2d, cfg, n)
     return out
 
 
@@ -352,11 +382,12 @@ def fused_rollout_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
                      n_steps: int) -> torch.Tensor:
     """Full rollout: [H, W, 2] -> [n_steps+1, H, W, 2] f32 (frame 0 = h0).
 
-    A 1x1 cell: on CUDA, one rollout2d_kernel launch per step; on the CPU,
-    the plain version.  A k x k cell goes to fused_rollout_kxk_2d.
+    A k x k cell with MXU_FWD_ENABLED goes to fused_rollout_kxk_2d; any
+    other cell, on CUDA, takes one rollout2d_kernel launch per step and, on
+    the CPU, the plain version.
     """
     _check_fusable(cfg)
-    if cfg.kernel_size > 1:
+    if cfg.kernel_size > 1 and MXU_FWD_ENABLED:
         return fused_rollout_kxk_2d(params, h0, cfg, n_steps)
     packed = pack_pi_params_2d(params, cfg)
     h0 = h0.to(torch.float32).contiguous()
@@ -367,17 +398,13 @@ def fused_rollout_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 
 def fused_rollout_final_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
                            n_steps: int) -> torch.Tensor:
-    """Final state only: [H, W, 2] -> [H, W, 2] f32 after n_steps.
+    """Final state only: [H, W, 2] -> [H, W, 2] f32 after n_steps, any odd
+    kernel_size <= 5.
 
     On CUDA, one final2d_kernel launch per step; on the CPU, the plain
-    version.  A 1x1 cell only.
+    version.
     """
     _check_fusable(cfg)
-    if cfg.kernel_size != 1:
-        raise NotImplementedError(
-            f"the final-state rollout of a kernel_size {cfg.kernel_size} cell "
-            "(percnn_tpu cell2d._final_kernel at k > 1) is queued in ROADMAP.md A1; "
-            "fused_rollout_2d gives its frames")
     packed = pack_pi_params_2d(params, cfg)
     h0 = h0.to(torch.float32).contiguous()
     if h0.device.type == "cpu":
@@ -386,5 +413,7 @@ def fused_rollout_final_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 
 
 fused_rollout_2d.launches = 0
+fused_rollout_2d.launches_kxk = 0
 fused_rollout_final_2d.launches = 0
+fused_rollout_final_2d.launches_kxk = 0
 fused_rollout_kxk_2d.launches = 0

@@ -147,34 +147,7 @@ __global__ void __launch_bounds__(kGatherThreads)
                             const float* __restrict__ tail, float2* __restrict__ g, int H,
                             int W, float dt, float inv_dx2) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cells = H * W;
-  if (idx >= cells) return;
-  const int i = idx / W;
-  const int j = idx - i * W;
-  auto wrap = [](int x, int n) { x %= n; return x < 0 ? x + n : x; };
-  constexpr int r = KS / 2;
-  float ju = 0.0f, jv = 0.0f;
-#pragma unroll
-  for (int ki = 0; ki < KS; ++ki) {
-    const int row = wrap(i + r - ki, H) * W;
-#pragma unroll
-    for (int kj = 0; kj < KS; ++kj) {
-      const int n = row + wrap(j + r - kj, W);
-      const int tap = ki * KS + kj;
-      ju += zw[(2 * tap) * cells + n];
-      jv += zw[(2 * tap + 1) * cells + n];
-    }
-  }
-  const float2 c = g_in[idx];
-  const float2 a1 = g_in[wrap(i + 1, H) * W + j], a2 = g_in[wrap(i - 1, H) * W + j];
-  const float2 a3 = g_in[i * W + wrap(j + 1, W)], a4 = g_in[i * W + wrap(j - 1, W)];
-  const float2 b1 = g_in[wrap(i + 2, H) * W + j], b2 = g_in[wrap(i - 2, H) * W + j];
-  const float2 b3 = g_in[i * W + wrap(j + 2, W)], b4 = g_in[i * W + wrap(j - 2, W)];
-  const float lap_u = (-5.0f * c.x + (4.0f / 3.0f) * (a1.x + a2.x + a3.x + a4.x) -
-                       (1.0f / 12.0f) * (b1.x + b2.x + b3.x + b4.x)) * inv_dx2;
-  const float lap_v = (-5.0f * c.y + (4.0f / 3.0f) * (a1.y + a2.y + a3.y + a4.y) -
-                       (1.0f / 12.0f) * (b1.y + b2.y + b3.y + b4.y)) * inv_dx2;
-  g[idx] = make_float2(c.x + dt * (tail[0] * lap_u + ju), c.y + dt * (tail[1] * lap_v + jv));
+  if (idx < H * W) gather_update<KS>(zw, g_in, tail, g, H, W, dt, inv_dx2, idx);
 }
 
 template <int KS, int NB>

@@ -18,7 +18,10 @@
 // the forward ran the expanded form of the same cell.
 //
 // pg3d_kernel replaces percnn_tpu/ops/pallas/backward3d.py:_phase1_pg_kernel3d
-// (pallas_call in _fused_phase1_pg_3d).
+// (pallas_call in _fused_phase1_pg_3d).  adj3d_kernel, at the end, replaces
+// _phase1_kernel3d (pallas_call in _fused_phase1_3d): the same sweep without
+// the accumulators, streaming g_ins[t] = g_in [D, H, W, 2] out for the
+// time-batched parameter gradients (chunked_param_grads, ../backward3d.py).
 //
 // Bound on an H100 SXM at its 700 W power limit (published peaks: 3.35 TB/s,
 // 67 TFLOP/s f32 outside the tensor cores), GS3D training shape 48^3,
@@ -124,6 +127,71 @@ cudaError_t sweep(const float* params, int n_params, const float2* frames,
   return cudaGetLastError();
 }
 
+// The streaming sweep: one reverse step of pg3d_kernel's arithmetic without
+// the accumulators, g_in written to g_ins[t].
+//
+// Bound on the same card, GS3D 48^3, T = 300: per cell and step 2 adds a
+// stencil point for g_in (26), two Laplacians (32), the Jacobian's
+// transpose (per equation and hidden channel 12 for the activations, 4 for
+// the leave-one-out products, 5 a branch: 124 at C = 2) and 8 for the
+// update, about 190 flops, 6.3 GFLOP, 94 us; h_t and fbar_{t+1} read and
+// g_ins written once, 3 x 885 KB x 300 = 797 MB, 238 us: bound by bytes.
+// The design is pg3d_kernel's, with the same __launch_bounds__(256, 4).
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 4) adj3d_kernel(const float* __restrict__ params, int n_params,
+                            const float2* __restrict__ h,     // frame t
+                            const float2* __restrict__ fbar,  // cotangent of frame t + 1
+                            const float2* __restrict__ g_next,
+                            float2* __restrict__ g_out,
+                            float2* __restrict__ g_in_out,    // g_ins[t]
+                            int D, int H, int W, int hidden, float dt, float inv_dx2) {
+  extern __shared__ float sp[];
+  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sp[k] = params[k];
+  __syncthreads();
+
+  const int cells = D * H * W;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= cells) return;
+  int nbr[kPoints];
+  stencil13(idx, D, H, W, nbr);
+  float gu[kPoints], gv[kPoints];
+#pragma unroll
+  for (int k = 0; k < kPoints; ++k) {
+    const float2 a = g_next[nbr[k]], b = fbar[nbr[k]];
+    gu[k] = a.x + b.x;
+    gv[k] = a.y + b.y;
+  }
+  const float lap_gu = lap13(gu, inv_dx2), lap_gv = lap13(gv, inv_dx2);
+  const float gin[2] = {gu[0], gv[0]};
+  g_in_out[idx] = make_float2(gin[0], gin[1]);
+  const float2 x = h[idx];
+  float du, dv;
+  jacobian_t_1x1<NB>(sp, x.x, x.y, gin, hidden, du, dv);
+  g_out[idx] = make_float2(gin[0] + dt * (sp[0] * lap_gu + du),
+                           gin[1] + dt * (sp[1] * lap_gv + dv));
+}
+
+template <int NB>
+cudaError_t adj_sweep(const float* params, int n_params, const float2* frames,
+                      const float2* frames_bar, float2* g0, float2* scratch, float2* g_ins,
+                      int n_steps, int D, int H, int W, int hidden, float dt, float inv_dx2,
+                      cudaStream_t stream) {
+  const size_t cells = static_cast<size_t>(D) * H * W;
+  const int blocks = static_cast<int>((cells + kThreads - 1) / kThreads);
+  // as in sweep: both g buffers start at zero and the last step writes g0
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = n_steps - 1 - s;
+    float2* dst = (t % 2 == 0) ? g0 : scratch;
+    const float2* src = (t % 2 == 0) ? scratch : g0;
+    adj3d_kernel<NB><<<blocks, kThreads, n_params * sizeof(float), stream>>>(
+        params, n_params, frames + t * cells, frames_bar + (t + 1) * cells, src, dst,
+        g_ins + t * cells, D, H, W, hidden, dt, inv_dx2);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // frames, frames_bar: [n_steps + 1, D, H, W, 2]; g0, scratch: [D, H, W, 2],
@@ -144,4 +212,19 @@ extern "C" int backward3d_pg(const void* params, int n_params, const void* frame
   // The forward's expanded cubic is for three branches (cell3d.cu).
   if (n_branches != 3) return cudaErrorInvalidValue;
   return sweep<3>(p, n_params, f, fb, g, s, a, n_steps, D, H, W, hidden, dt, inv_dx2, st);
+}
+
+// frames, frames_bar: [n_steps + 1, D, H, W, 2]; g0, scratch: [D, H, W, 2],
+// zeroed; g_ins: [n_steps, D, H, W, 2].  On return g0 holds the adjoint at
+// frame 0 (without frames_bar[0]).
+extern "C" int backward3d_adj(const void* params, int n_params, const void* frames,
+                              const void* frames_bar, void* g0, void* scratch, void* g_ins,
+                              int n_steps, int D, int H, int W, int hidden, int n_branches,
+                              float dt, float inv_dx2, void* stream) {
+  if (n_branches != 3) return cudaErrorInvalidValue;
+  return adj_sweep<3>(static_cast<const float*>(params), n_params,
+                      static_cast<const float2*>(frames), static_cast<const float2*>(frames_bar),
+                      static_cast<float2*>(g0), static_cast<float2*>(scratch),
+                      static_cast<float2*>(g_ins), n_steps, D, H, W, hidden, dt, inv_dx2,
+                      static_cast<cudaStream_t>(stream));
 }

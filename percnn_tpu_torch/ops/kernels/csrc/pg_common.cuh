@@ -1,6 +1,9 @@
-// The per-cell accumulation of the fully fused 1x1 Pi-cell backward, shared
-// by pg2d_kernel (backward2d.cu) and pg3d_kernel (backward3d.cu): the two
-// sweeps differ only in their stencil.  At one cell, for one reverse step,
+// The per-cell arithmetic of the 1x1 Pi-cell backward sweeps, which differ
+// only in their stencil.  pg_accumulate is the accumulation of the fully
+// fused backward, shared by pg2d_kernel (backward2d.cu) and pg3d_kernel
+// (backward3d.cu); jacobian_t_1x1, at the end, is the Jacobian's transpose
+// alone, for the streaming sweeps adj2d_kernel (adj2d.cu) and adj3d_kernel
+// (backward3d.cu).  At one cell, for one reverse step,
 // with g_in the adjoint entering the step, (u, v) = h_t and Lap h_t given:
 //   acc[diff + o] += g_in[o] * Lap(h_t)[o];   acc[bout + o] += g_in[o]
 //   per equation o, hidden channel c, branch i, y_i = w_i[0,c] u + w_i[1,c] v + b_i[c]:
@@ -86,6 +89,43 @@ __device__ __forceinline__ void pg_accumulate(const float* sp, float u, float v,
         pdw[b][0] = old_dw[b][0] + zz * u;
         pdw[b][cells] = old_dw[b][1] + zz * v;
         *pdb[b] = old_db[b] + zz;
+        du += (p[b * stride + c] * wo) * zz;
+        dv += (p[b * stride + C + c] * wo) * zz;
+      }
+    }
+  }
+}
+
+// The 1x1 Pi Jacobian's transpose applied to g_in at a cell with state
+// (u, v): sum_{o,c,i} (w_i[0,c], w_i[1,c]) w_out[c] g_o prod_{j != i} y_j.
+template <int NB>
+__device__ __forceinline__ void jacobian_t_1x1(const float* sp, float u, float v,
+                                               const float gin[2], int hidden, float& du,
+                                               float& dv) {
+  const int C = hidden;
+  const int stride = 3 * C;                // per branch: w_i[0, :], w_i[1, :], b_i
+  const int block = NB * stride + C + 1;   // per equation, then w_out [C], b_out
+  du = 0.0f;
+  dv = 0.0f;
+#pragma unroll
+  for (int o = 0; o < 2; ++o) {
+    const float* p = sp + 2 + o * block;
+    const float g = gin[o];
+    for (int c = 0; c < C; ++c) {
+      float y[NB], pre[NB + 1], suf[NB + 1];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        y[b] = p[b * stride + c] * u + p[b * stride + C + c] * v + p[b * stride + 2 * C + c];
+      pre[0] = 1.0f;
+      suf[NB] = 1.0f;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) pre[b + 1] = pre[b] * y[b];
+#pragma unroll
+      for (int b = NB - 1; b >= 0; --b) suf[b] = suf[b + 1] * y[b];
+      const float wo = p[NB * stride + c];
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const float zz = g * (pre[b] * suf[b + 1]);
         du += (p[b * stride + c] * wo) * zz;
         dv += (p[b * stride + C + c] * wo) * zz;
       }

@@ -2,11 +2,11 @@
 
 Counterpart of ``build_serving_fn`` in percnn_tpu/serving.py with
 ``use_pallas=True``: the ISG upsamples the request in-graph, then the fused
-rollout runs on the card: a 2D 1x1 cell through the cell2d CUDA kernels
-(``rollout2d_kernel`` for frames, ``final2d_kernel`` for the final state),
-a 2D k x k cell through ``rollout2d_kxk_kernel`` (frames; its final-state
-form is queued in ROADMAP.md A1), a 3D cell through ``rollout3d_kernel``
-(frames, or the final state without frame writes).  For 3D the JAX package serves with its jnp rollout; the
+rollout runs on the card: a 2D cell through ``cell2d.fused_rollout_2d`` for
+frames (``rollout2d_kernel``, or for a k x k cell with MXU_FWD_ENABLED
+``rollout2d_kxk_kernel``) and ``fused_rollout_final_2d`` for the final
+state (``final2d_kernel``, any kernel size), a 3D cell through
+``rollout3d_kernel`` (frames, or the final state without frame writes).  For 3D the JAX package serves with its jnp rollout; the
 math is the same.  Export and load of a serialized model come later.
 """
 
@@ -41,11 +41,8 @@ def build_serving_fn(params: dict, cell_cfg: PiCellConfig, n_steps: int, *,
     state [*spatial, 2] with `final_only=True`.
     """
     if not (isinstance(cell_cfg, PiCellConfig) and cell_cfg.ndim in (2, 3)):
-        raise NotImplementedError("serving takes 2D and 3D Pi cells in this port so far")
-    if final_only and cell_cfg.ndim == 2 and cell_cfg.kernel_size != 1:
-        raise NotImplementedError(
-            "final-state serving of a k x k cell (percnn_tpu cell2d._final_kernel at "
-            "k > 1) is queued in ROADMAP.md A1; serve its frames")
+        raise NotImplementedError("serving takes 2D and 3D Pi cells; the discovery "
+                                  "pipeline's SymbolicCell is queued in ROADMAP.md A5")
     dev = resolve_device(device)
     params = params_from_numpy(params, device=dev, dtype=torch.float32)
     cell_params = params.get("cell", params)

@@ -247,6 +247,23 @@ def test_kernel_inputs_are_checked():
 
 
 def test_1x1_cell_is_queued():
-    cfg = PiCellConfig(ndim=2, hidden=4, kernel_size=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        backward2d.fused_rollout_tp_2d({}, torch.zeros(8, 8, 2), cfg, 1)
+    """fused_rollout_tp_2d of a 1x1 cell (rollout2d_kernel, adj2d_kernel and
+    chunked_param_grads): its gradients against percnn_tpu's
+    fused_rollout_tp_2d at k = 1."""
+    kw = dict(ndim=2, hidden=4, kernel_size=1, dt=0.05, dx=0.2, diffusion="sigmoid",
+              mu_up=0.2, init_scale=0.3)
+    jcfg, cfg = JPiCellConfig(**kw), PiCellConfig(**kw)
+    jp = j_init_pi_cell(jax.random.PRNGKey(18), jcfg)
+    h0 = _rand((H, W, 2), 19, scale=0.3, shift=0.5)
+    tgt = _rand((T + 1, H, W, 2), 20)
+    tp = _trainable(jax.tree_util.tree_map(np.asarray, jp))
+    th0 = torch.from_numpy(h0).requires_grad_(True)
+    grads = torch.autograd.grad(_loss_all(backward2d.fused_rollout_tp_2d(tp, th0, cfg, T),
+                                          torch.from_numpy(tgt)),
+                                backward2d._cell_leaves(tp) + [th0])
+    jg_p, jg_h = jax.grad(
+        lambda p, h: _loss_all(jbackward2d.fused_rollout_tp_2d(p, h, jcfg, T), jnp.asarray(tgt)),
+        argnums=(0, 1))(jp, jnp.asarray(h0))
+    for got, want in zip(grads, _jleaves(jg_p) + [np.asarray(jg_h)]):
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)

@@ -188,8 +188,9 @@ def test_fused_gradients_raw_diffusion_match_jax():
 
 def test_forward_rollout_dispatch_kxk():
     """'auto' takes the fused k x k Function; 'remat' agrees with it;
-    'two_phase' is queued."""
-    exp, prob, _, _, jp = _setup("BURGERS_STAGE1", seed=5)
+    'two_phase' (rollout_tp) agrees with it too, and its gradients with
+    percnn_tpu's forward_rollout(bptt='two_phase')."""
+    exp, prob, _, jprob, jp = _setup("BURGERS_STAGE1", seed=5)
     tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
     for t in _flat(tp):
         t.requires_grad_(True)
@@ -198,7 +199,14 @@ def test_forward_rollout_dispatch_kxk():
     plain = runner.forward_rollout(tp, prob, 4, bptt="remat", device="cpu")
     np.testing.assert_allclose(fused.detach().numpy(), plain.detach().numpy(),
                                rtol=2e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        runner.forward_rollout(tp, prob, 4, bptt="two_phase", device="cpu")
+    two = runner.forward_rollout(tp, prob, 4, bptt="two_phase", device="cpu")
+    assert type(two.grad_fn).__name__.startswith("_RolloutTP")
+    np.testing.assert_allclose(two.detach().numpy(), plain.detach().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    grads = torch.autograd.grad(two.square().mean(), _flat(tp))
+    jg = jax.grad(lambda p: jnp.mean(jrunner.forward_rollout(p, jprob, 4, bptt="two_phase")
+                                     ** 2))(jp)
+    for got, want in zip(grads, _flat(jax.tree_util.tree_map(np.asarray, jg))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     frames = runner.inference_rollout(tp, exp, prob.ic_low[0], 4, device="cpu")
     np.testing.assert_allclose(frames.numpy(), plain.detach().numpy(), rtol=2e-4, atol=1e-5)

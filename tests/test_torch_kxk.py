@@ -214,8 +214,16 @@ def test_kernel_size_outside_the_kernels_raises(kernel_size):
 
 
 def test_final_state_of_kxk_cell_is_queued():
-    _, _, cfg, tp = _pair("k5")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        cell2d.fused_rollout_final_2d(tp, torch.zeros(8, 8, 2), cfg, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A1"):
-        build_serving_fn(tp, cfg, 4, final_only=True, device="cpu")
+    """The final state of a 5x5 cell (final2d_kernel's k > 1 contract)
+    against percnn_tpu's fused_rollout_final_2d in interpret mode, and
+    final-state serving against the last served frame."""
+    jcfg, jp, cfg, tp = _pair("k5")
+    h0 = _rand((8, 10, 2), 21, scale=0.3)
+    want = np.asarray(jcell2d.fused_rollout_final_2d(jp, jnp.asarray(h0), jcfg, 3,
+                                                     interpret=True))
+    got = cell2d.fused_rollout_final_2d(tp, torch.from_numpy(h0), cfg, 3)
+    assert got.shape == (8, 10, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-5)
+    final = build_serving_fn(tp, cfg, 3, final_only=True, device="cpu")(h0)
+    frames = build_serving_fn(tp, cfg, 3, device="cpu")(h0)
+    np.testing.assert_allclose(final.numpy(), frames[-1].numpy(), rtol=2e-4, atol=1e-5)

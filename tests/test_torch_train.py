@@ -237,9 +237,20 @@ def test_forward_rollout_dispatch():
     plain = runner.forward_rollout(tp, prob, 4, bptt="remat", device="cpu")
     np.testing.assert_allclose(fused.detach().numpy(), plain.detach().numpy(),
                                rtol=2e-4, atol=1e-5)
-    for bptt in ("fused", "two_phase"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            runner.forward_rollout(tp, prob, 4, bptt=bptt, device="cpu")
+    # 'fused' (rollout2d_kernel, adj2d_kernel, chunked_param_grads) and
+    # 'two_phase' (rollout_tp) of the 1x1 cell: the frames, and the gradient
+    # of every leaf against percnn_tpu's forward_rollout on the same route
+    jprob, _ = _problems()
+    jp, _ = _params()
+    for bptt, fn in (("fused", "FusedRolloutTP2d"), ("two_phase", "_RolloutTP")):
+        frames = runner.forward_rollout(tp, prob, 4, bptt=bptt, device="cpu")
+        assert type(frames.grad_fn).__name__.startswith(fn)
+        np.testing.assert_allclose(frames.detach().numpy(), plain.detach().numpy(),
+                                   rtol=2e-4, atol=1e-5)
+        grads = torch.autograd.grad(frames.square().mean(), _flat(tp))
+        jg = jax.grad(lambda p: jnp.mean(jrunner.forward_rollout(p, jprob, 4, bptt=bptt) ** 2))(jp)
+        for got, want in zip(grads, _flat(jax.tree_util.tree_map(np.asarray, jg))):
+            np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-6)
 
 
 _ENTRY_POINTS = {
