@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GS2D, GS3D and Burgers Stage-1 serving and
-training paths, and their fallback routes, once on one NVIDIA GPU.
+training paths, their fallback routes and ensemble training, once on one
+NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
@@ -13,7 +14,8 @@ through ``build_serving_fn``, trains GS2D (100 x 100), GS3D (48^3) and
 Burgers Stage-1 (100 x 100, 5x5 Pi cell) through ``run_experiment`` at full
 width, drives the fallback routes (``bptt="fused"`` of the 1x1 and 3D cells,
 ``bptt="two_phase"``, the MXU switches off) through the same entry points,
-and times the kernels.  Phases, one JSON line each with the seconds
+trains GS2D and Burgers ensembles through ``run_ensemble``, and times the
+kernels.  Phases, one JSON line each with the seconds
 since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
@@ -86,13 +88,38 @@ since start:
                the device's idle share from a torch.profiler trace
   step_breakdown3d  the same for GS3D at T = 150, 300 (pg3d_kernel)
   step_breakdown_kxk  the same for Burgers at T = 200 (adj2d_kxk_kernel)
+  kernels_batched  the ensemble's kernels (rollout2d_batched_kernel,
+               adj2d_batched_kernel, pg2d_batched_kernel) against their plain
+               versions at M = 4, 100 x 100, T = 200 (the golden GS2D cell
+               and three seeded perturbations of it, a standard-normal
+               cotangent), each member against the single-member kernel on
+               that member, and the k = 5 contracts of the first two on the
+               golden Burgers cell (M = 2)
+  grads_batched  the gradients of bptt="batched" and "batched_pg" against
+               f64 autograd on the referee setup (random-init cells, random
+               targets, 12 steps, full width, M = 4), and "batched" of the
+               5x5 cell (M = 2), each route's launches counted
+  train_ensemble  run_ensemble(GS2D_RECON, 4) in "batched_pg", "batched" and
+               "auto": ISG pretrain, 2 iterations at each of T = 200, 400,
+               800, each member's 2500-step evaluation, on the train phase's
+               cached truth; then run_ensemble(BURGERS_STAGE1, 2, "batched"),
+               2 iterations, on train_burgers' cached truth; every launch
+               counted
+  train_ensemble_parity  run_ensemble on the card against the CPU (plain
+               versions), 32 x 32, T = 20, M = 2, 3 iterations, both batched
+               modes
+  step_breakdown_ensemble  one ensemble iteration at T = 800, M = 4, for
+               "batched_pg" and for "auto" (the per-member loop): host and
+               device ms, enqueue, and the device's idle share from a
+               torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work, and one
                bptt="two_phase" GS2D backward at T = 800
 
-Then a ``{"kernels": [...]}`` line (13 entries: the ten ported TPU kernels,
-with the k = 5 contracts of rollout2d_kernel, final2d_kernel and
-adj2d_kernel listed apart), the nvidia-smi line, and last
+Then a ``{"kernels": [...]}`` line (18 entries: the 13 ported TPU kernels,
+with the k = 5 contracts of rollout2d_kernel, final2d_kernel, adj2d_kernel,
+rollout2d_batched_kernel and adj2d_batched_kernel listed apart), the
+nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
 a directory without the percnn_tpu_torch package beside this script.  The
@@ -138,6 +165,10 @@ CHECK_KXK_STEPS = 200     # the k x k kernels against their plain versions
 TRAIN_BURGERS_ITERS = 10  # of BURGERS_STAGE1's 10000, at T = 200
 FALLBACK_ITERS = 5        # GS2D at T = 800 and GS3D at T = 300 through bptt="fused"
 FALLBACK_YS_OFF_ITERS = 3  # Burgers at T = 200 through adj2d_kernel at k = 5
+ENS_MEMBERS = 4           # the ensemble's M, the CLI's default
+ENS_KXK_MEMBERS = 2       # the 5x5 cell's ensemble (kernels_batched, grads_batched)
+ENS_ITERS = 6             # 2 at each of T = 200, 400, 800
+ENS_BURGERS_ITERS = 2     # at T = 200
 
 
 class CheckFailed(Exception):
@@ -285,7 +316,8 @@ def profile_busy(torch, fn) -> dict:
                       if e.get("cat") == "kernel" and name in e.get("name", "")]
                for name in ("rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
                             "pg3d_kernel", "rollout2d_kxk_kernel", "adj2d_kxk_act_kernel",
-                            "adj2d_kxk_gather_kernel")}
+                            "adj2d_kxk_gather_kernel", "rollout2d_batched_kernel",
+                            "adj2d_batched_kernel", "pg2d_batched_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
             "device_idle_share": 1.0 - busy / window if device else None,
             "device_events": len(device),
@@ -322,9 +354,10 @@ def main() -> int:
     from percnn_tpu_torch.core.train import train
     from percnn_tpu_torch.data.noise import add_noise
     from percnn_tpu_torch.data.simulate import default_ic, simulate
-    from percnn_tpu_torch.experiments import runner
+    from percnn_tpu_torch.experiments import ensemble, runner
     from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1, GS2D_RECON, GS3D_RECON
-    from percnn_tpu_torch.ops.kernels import _build, backward2d, backward3d, cell2d, cell3d
+    from percnn_tpu_torch.ops.kernels import (_build, backward2d, backward3d, batched2d, cell2d,
+                                              cell3d)
     from percnn_tpu_torch.serving import build_serving_fn
 
     dev = torch.device("cuda", 0)
@@ -346,7 +379,7 @@ def main() -> int:
         return time.perf_counter() - t
 
     sources = ("cell2d", "backward2d", "cell3d", "backward3d", "cell2d_kxk", "backward2d_kxk",
-               "adj2d")
+               "adj2d", "batched2d")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(build, sources)))
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
@@ -759,7 +792,13 @@ def main() -> int:
                 (backward2d.fused_rollout_tp_2d, "launches"),
                 (backward2d.fused_phase1_2d, "launches"),
                 (backward2d.fused_phase1_ys_2d, "launches"),
-                (backward3d.fused_phase1_3d, "launches")]
+                (backward3d.fused_phase1_3d, "launches"),
+                (backward2d.fused_rollout_tp_2d_pg, "launches"),
+                (batched2d.fused_rollout_2d_batched, "launches"),
+                (batched2d.fused_rollout_2d_batched, "launches_kxk"),
+                (batched2d.fused_phase1_2d_batched, "launches"),
+                (batched2d.fused_phase1_2d_batched, "launches_kxk"),
+                (batched2d.fused_phase1_pg_2d_batched, "launches")]
 
     def zero_counts():
         for obj, attr in counters:
@@ -811,6 +850,145 @@ def main() -> int:
                      "rel_err": relb["autograd_f32"][worstb["autograd_f32"]],
                      "from": "grads_kxk"})
 
+    # kernels_batched: the ensemble's kernels at full width against their
+    # plain versions, and each member against the single-member kernel on
+    # that member (the same step, so the same bits)
+    def member_cells(cell_np, n):
+        """The cell and n - 1 seeded 1% perturbations of every leaf, stacked
+        on the card (the members differ)."""
+        def perturb(seed):
+            rs = np.random.RandomState(seed)
+            return {"diff": cell_np["diff"] * (1 + 0.01 * rs.standard_normal(cell_np["diff"].shape)),
+                    "pi": [{k: v * (1 + 0.01 * rs.standard_normal(v.shape)) for k, v in br.items()}
+                           for br in cell_np["pi"]]}
+        trees = [cell_np] + [perturb(10 + m) for m in range(1, n)]
+        return ensemble._stack_trees([params_from_numpy(t, device=dev, dtype=torch.float32)
+                                      for t in trees])
+
+    def member_ics(system, grid, n):
+        """n initial conditions of the system, seeds 60 .. 60 + n - 1."""
+        return torch.stack([torch.as_tensor(default_ic(system, grid, seed=60 + m),
+                                            dtype=torch.float32, device=dev)
+                            for m in range(n)]).contiguous()
+
+    batched_err, vs_single = {}, {}
+    for suffix, cfg_, cell_np, exp_, n_mem in (
+            ("", cfg, model["cell"], GS2D_RECON, ENS_MEMBERS),
+            ("[k=5]", cfgb, modelb["cell"], BURGERS_STAGE1, ENS_KXK_MEMBERS)):
+        packed_m = batched2d.pack_pi_params_2d_batched(member_cells(cell_np, n_mem),
+                                                       cfg_).contiguous()
+        h0_m = member_ics(exp_.system, exp_.grid, n_mem)
+        got = batched2d._rollout_b_cuda(packed_m, h0_m, cfg_, CHECK_STEPS)
+        want = batched2d.fused_rollout_2d_batched_plain(packed_m, h0_m, cfg_, CHECK_STEPS)
+        single = [cell2d._rollout_cuda(packed_m[m].contiguous(), h0_m[m], cfg_, CHECK_STEPS)
+                  for m in range(n_mem)]
+        torch.cuda.synchronize()
+        name = f"rollout2d_batched_kernel{suffix}"
+        err[name] = max_abs(got, want)
+        check(bool(torch.isfinite(want).all()) and allclose(got, want, rtol=2e-4, atol=1e-5),
+              f"{name} vs plain: max |diff| {err[name]}")
+        vs_single[name] = max(max_abs(got[m], single[m]) for m in range(n_mem))
+        fbar_m = torch.as_tensor(np.random.RandomState(9).standard_normal(tuple(got.shape)),
+                                 dtype=torch.float32, device=dev)
+        name = f"adj2d_batched_kernel{suffix}"
+        out_k = batched2d._phase1_b_cuda(packed_m, got, fbar_m, cfg_)
+        batched_err[name] = sweep_errs(
+            name, out_k, batched2d.fused_phase1_2d_batched_plain(packed_m, got, fbar_m, cfg_))
+        single = [backward2d._phase1_cuda(packed_m[m].contiguous(), got[m].contiguous(),
+                                          fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
+        vs_single[name] = max(max(max_abs(out_k[0][m], single[m][0]),
+                                  max_abs(out_k[1][m], single[m][1])) for m in range(n_mem))
+        if cfg_.kernel_size > 1:
+            continue
+        # pg2d_batched_kernel: g0 and each member's plane sums, leaf by leaf
+        g0_k, acc_k = batched2d._pg_b_cuda(packed_m, got, fbar_m, cfg_)
+        g0_p, acc_p = batched2d.fused_phase1_pg_2d_batched_plain(packed_m, got, fbar_m, cfg_)
+        single = [backward2d._pg_cuda(packed_m[m].contiguous(), got[m].contiguous(),
+                                      fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
+        torch.cuda.synchronize()
+        sums_k, sums_p = acc_k.sum((2, 3)), acc_p.sum((2, 3))
+        pg_err = {"g0": (max_abs(g0_k, g0_p), float(g0_p.abs().max()))}
+        for m in range(n_mem):
+            for leaf, (start, n) in groups.items():
+                pg_err[f"member{m}.{leaf}"] = (
+                    max_abs(sums_k[m, start:start + n], sums_p[m, start:start + n]),
+                    float(sums_p[m, start:start + n].abs().max()))
+        for leaf, (e, scale) in pg_err.items():
+            check(e <= 2e-4 * scale + 2e-6, f"pg2d_batched_kernel vs plain, {leaf}: max |diff| "
+                                            f"{e} over 2e-4 * {scale} + 2e-6")
+        err["pg2d_batched_kernel"] = max(e for e, _ in pg_err.values())
+        batched_err["pg2d_batched_kernel"] = {k: list(v) for k, v in pg_err.items()}
+        vs_single["pg2d_batched_kernel"] = max(max(max_abs(g0_k[m], single[m][0]),
+                                                   max_abs(acc_k[m], single[m][1]))
+                                               for m in range(n_mem))
+        del acc_k, acc_p
+    del got, want, single, out_k, fbar_m
+    phase("kernels_batched", members={"gs2d": ENS_MEMBERS, "burgers": ENS_KXK_MEMBERS},
+          steps=CHECK_STEPS, shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2],
+          cells="golden cell and seeded 1% perturbations", ics="default_ic seeds 60..",
+          cotangent="standard normal, seed 9",
+          forward_max_abs_err={k: err[k] for k in ("rollout2d_batched_kernel",
+                                                   "rollout2d_batched_kernel[k=5]")},
+          forward_rtol=2e-4, forward_atol=1e-5, sweep_err_and_max=batched_err,
+          sweep_bar="2e-4 * max|plain| + 2e-6",
+          member_vs_single_kernel_max_abs_diff=vs_single)
+
+    # grads_batched: the batched routes' gradients against f64 autograd on
+    # the referee setup (random-init cells, one per member, random targets,
+    # 12 steps, full width), each route's launches counted
+    def batched_vs_f64(cfg_, n_mem, route, want_counts, seed):
+        rs = np.random.RandomState(seed)
+        cells_np = [params_to_numpy(init_pi_cell(torch.Generator().manual_seed(m), cfg_,
+                                                 device="cpu")) for m in range(n_mem)]
+        scale = 0.3 if cfg_.kernel_size == 1 else 0.5
+        x0 = scale * rs.standard_normal((n_mem, GS2D_RECON.grid, GS2D_RECON.grid, 2))
+        target = torch.as_tensor(rs.standard_normal((n_mem, 13) + x0.shape[1:]), device=dev)
+        grads = {}
+        for kind, dtype in ((route, torch.float32), ("f64", torch.float64)):
+            p = ensemble._stack_trees([params_from_numpy(c, device=dev, dtype=dtype)
+                                       for c in cells_np])
+            leaves = [p["diff"]] + [br[k] for br in p["pi"] for k in sorted(br)]
+            x = torch.as_tensor(x0, dtype=dtype, device=dev)
+            for leaf in leaves + [x]:
+                leaf.requires_grad_(True)
+            zero_counts()
+            if kind == "f64":
+                fr = torch.stack([rollout(lambda h, m=m: pi_cell_step(
+                    ensemble._member(p, m), h, cfg_), x[m], 12) for m in range(n_mem)])
+            elif kind == "batched_pg":
+                fr = batched2d.fused_rollout_tp_2d_batched_pg(p, x, cfg_, 12)
+            else:
+                fr = batched2d.fused_rollout_tp_2d_batched(p, x, cfg_, 12)
+            grads[kind] = torch.autograd.grad(((fr - target.to(dtype)) ** 2).mean(), leaves + [x])
+            torch.cuda.synchronize()
+            if kind != "f64":
+                counts = read_counts()
+        check(counts == want_counts, f"{route} k = {cfg_.kernel_size}: launch counts {counts}, "
+                                     f"expected {want_counts}")
+        names = ["diff"] + [f"pi[{o}].{k}" for o in range(2) for k in sorted(cells_np[0]["pi"][o])]
+        rel = {f"member{m}.{n}": float((a[m].double() - b[m]).abs().max() / b[m].abs().max())
+               for n, a, b in zip(names + ["h0"], grads[route], grads["f64"])
+               for m in range(n_mem)}
+        worst = max(rel, key=rel.get)
+        check(rel[worst] <= 1e-4, f"{route} k = {cfg_.kernel_size} gradients vs f64 autograd: "
+                                  f"{worst} at {rel[worst]} over 1e-4")
+        return {"members": n_mem, "launches": counts, "worst_leaf": worst,
+                "worst_rel_err": rel[worst], "rel_err": rel}
+
+    grads_b = {
+        "batched_pg": batched_vs_f64(cfg, ENS_MEMBERS, "batched_pg",
+                                     {"fused_rollout_2d_batched.launches": 12,
+                                      "fused_phase1_pg_2d_batched.launches": 12}, 11),
+        "batched": batched_vs_f64(cfg, ENS_MEMBERS, "batched",
+                                  {"fused_rollout_2d_batched.launches": 12,
+                                   "fused_phase1_2d_batched.launches": 12}, 11),
+        "batched[k=5]": batched_vs_f64(cfgb, ENS_KXK_MEMBERS, "batched",
+                                       {"fused_rollout_2d_batched.launches_kxk": 12,
+                                        "fused_phase1_2d_batched.launches_kxk": 24}, 12),
+    }
+    phase("grads_batched", setup="random-init cells (seeds 0..M-1), random targets, 12 steps, "
+                                 "full width", bar=1e-4, routes=grads_b)
+
     # serve: the main path, through the entry point a user calls
     serve = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg, device=dev)
     serve_final = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg,
@@ -861,11 +1039,13 @@ def main() -> int:
 
     # train: the main path of training, through the entry point a user calls
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    truth_cache2d = tempfile.mkdtemp(prefix="chip_smoke_truth2d_")   # train_ensemble reuses it
     try:
         cell2d.fused_rollout_2d.launches = 0
         backward2d.fused_rollout_tp_2d_pg.launches = 0
         with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
-            res = runner.run_experiment(GS2D_RECON, device=dev, out_dir=out_dir, cache_dir=None,
+            res = runner.run_experiment(GS2D_RECON, device=dev, out_dir=out_dir,
+                                        cache_dir=truth_cache2d,
                                         n_iters_override=TRAIN_ITERS,
                                         isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
         train_launches = {"rollout2d_kernel": cell2d.fused_rollout_2d.launches,
@@ -1075,7 +1255,8 @@ def main() -> int:
     # train_burgers: the main path of Burgers Stage-1 training, through the
     # entry point a user calls
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_burgers_")
-    truth_cache = tempfile.mkdtemp(prefix="chip_smoke_truth_")   # train_fallback reuses it
+    # train_fallback and train_ensemble reuse it
+    truth_cache = tempfile.mkdtemp(prefix="chip_smoke_truth_")
     try:
         cell2d.fused_rollout_kxk_2d.launches = 0
         backward2d.fused_rollout_tp_2d.launches = 0
@@ -1158,7 +1339,6 @@ def main() -> int:
         fallback_launches = {"burgers_mxu_off": read_counts()}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
-        shutil.rmtree(truth_cache, ignore_errors=True)
     fallback_want = {"burgers_mxu_off": {
         "fused_rollout_2d.launches_kxk": TRAIN_BURGERS_ITERS * stepsb + BURGERS_STAGE1.infer_steps,
         "fused_phase1_ys_2d.launches": 2 * TRAIN_BURGERS_ITERS * stepsb}}
@@ -1212,6 +1392,111 @@ def main() -> int:
           steps={"gs2d_fused": t2, "gs3d_fused": t3, "burgers_ys_off": stepsb},
           iterations={"gs2d_fused": FALLBACK_ITERS, "gs3d_fused": FALLBACK_ITERS,
                       "burgers_ys_off": FALLBACK_YS_OFF_ITERS})
+
+    # train_ensemble: the ensemble's main path through the entry point a user
+    # calls, at full width: run_ensemble(GS2D_RECON, 4) in the batched modes
+    # (rows 11-13) and "auto" (on the card the per-member loop of
+    # rollout2d_kernel and pg2d_kernel), each with its members' evaluation
+    # (rollout2d_kernel); then run_ensemble(BURGERS_STAGE1, 2) in "batched"
+    # (rows 11-12 at k = 5; the evaluation by rollout2d_kxk_kernel).  The
+    # truths come from the train and train_burgers phases' caches.
+    per_ens = ENS_ITERS // len(stages)
+    ens_steps = per_ens * sum(stages)
+    ens_eval = ENS_MEMBERS * GS2D_RECON.infer_steps
+    ens_want = {
+        "batched_pg": {"fused_rollout_2d_batched.launches": ens_steps,
+                       "fused_phase1_pg_2d_batched.launches": ens_steps,
+                       "fused_rollout_2d.launches": ens_eval},
+        "batched": {"fused_rollout_2d_batched.launches": ens_steps,
+                    "fused_phase1_2d_batched.launches": ens_steps,
+                    "fused_rollout_2d.launches": ens_eval},
+        "auto": {"fused_rollout_2d.launches": ENS_MEMBERS * ens_steps + ens_eval,
+                 "fused_rollout_tp_2d_pg.launches": ENS_MEMBERS * ens_steps},
+        "burgers_batched": {
+            "fused_rollout_2d_batched.launches_kxk": ENS_BURGERS_ITERS * stepsb,
+            "fused_phase1_2d_batched.launches_kxk": 2 * ENS_BURGERS_ITERS * stepsb,
+            "fused_rollout_kxk_2d.launches": ENS_KXK_MEMBERS * BURGERS_STAGE1.infer_steps},
+    }
+    ens_res, ens_launches, ens_s = {}, {}, {}
+    try:
+        for label, exp_, n_mem, n_iters, bptt, cache in (
+                ("batched_pg", GS2D_RECON, ENS_MEMBERS, ENS_ITERS, "batched_pg", truth_cache2d),
+                ("batched", GS2D_RECON, ENS_MEMBERS, ENS_ITERS, "batched", truth_cache2d),
+                ("auto", GS2D_RECON, ENS_MEMBERS, ENS_ITERS, "auto", truth_cache2d),
+                ("burgers_batched", BURGERS_STAGE1, ENS_KXK_MEMBERS, ENS_BURGERS_ITERS, "batched",
+                 truth_cache)):
+            out_dir = tempfile.mkdtemp(prefix="chip_smoke_ensemble_")
+            try:
+                zero_counts()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
+                    ens_res[label] = ensemble.run_ensemble(
+                        exp_, n_mem, out_dir=out_dir, cache_dir=cache, n_iters_override=n_iters,
+                        isg_pretrain_override=ISG_PRETRAIN_ITERS, bptt=bptt, seed=0, device=dev)
+                torch.cuda.synchronize()
+                ens_s[label] = time.perf_counter() - t
+                ens_launches[label] = read_counts()
+            finally:
+                shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(truth_cache, ignore_errors=True)
+        shutil.rmtree(truth_cache2d, ignore_errors=True)
+    check(ens_launches == ens_want,
+          f"ensemble training launch counts {ens_launches}, expected {ens_want}")
+    for label, r in ens_res.items():
+        n_mem = ENS_KXK_MEMBERS if label.startswith("burgers") else ENS_MEMBERS
+        n_iters = ENS_BURGERS_ITERS if label.startswith("burgers") else ENS_ITERS
+        check(len(r["history"]) == n_iters and bool(np.isfinite(r["history"]).all()),
+              f"ensemble {label}: losses {r['history']}")
+        check(len(r["rel_l2_members"]) == n_mem and bool(np.isfinite(r["rel_l2_members"]).all()),
+              f"ensemble {label}: members' rel_l2 {r['rel_l2_members']}")
+    # the three GS2D runs train the same members on the same data by three
+    # routes: the same losses
+    ens_hist_err = {label: float(np.max(np.abs(np.asarray(ens_res[label]["history"])
+                                               - np.asarray(ens_res["batched_pg"]["history"]))
+                                        / np.abs(ens_res["batched_pg"]["history"])))
+                    for label in ("batched", "auto")}
+    check(max(ens_hist_err.values()) <= 1e-4,
+          f"ensemble losses by route differ: {ens_hist_err} (rtol 1e-4)")
+    phase("train_ensemble", members={"gs2d": ENS_MEMBERS, "burgers": ENS_KXK_MEMBERS},
+          stages={"gs2d": stages, "burgers": [stepsb]},
+          iterations={"gs2d": ENS_ITERS, "burgers": ENS_BURGERS_ITERS},
+          isg_pretrain_iters=ISG_PRETRAIN_ITERS, launches=ens_launches,
+          expected_launches=ens_want, seconds=ens_s,
+          history={k: r["history"] for k, r in ens_res.items()},
+          history_max_rel_err_vs_batched_pg=ens_hist_err,
+          rel_l2_members={k: r["rel_l2_members"] for k, r in ens_res.items()},
+          rel_l2_mean={k: r["rel_l2_mean"] for k, r in ens_res.items()},
+          rel_l2_std={k: r["rel_l2_std"] for k, r in ens_res.items()})
+
+    # train_ensemble_parity: ensemble training on the card against the CPU
+    # (the plain versions), both batched modes
+    eexp = dataclasses.replace(
+        GS2D_RECON, grid=32, train_steps=20, infer_steps=20, curriculum=(),
+        data=dataclasses.replace(GS2D_RECON.data, time_stride=10),
+        train=dataclasses.replace(GS2D_RECON.train, n_iters=3, steps_per_call=3))
+    ens_parity = {}
+    for bptt in ("batched_pg", "batched"):
+        runs = {}
+        for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            out_dir = tempfile.mkdtemp(prefix="chip_smoke_ensemble_parity_")
+            try:
+                with contextlib.redirect_stdout(sys.stderr):
+                    runs[label] = ensemble.run_ensemble(
+                        eexp, ENS_KXK_MEMBERS, out_dir=out_dir, cache_dir=None,
+                        isg_pretrain_override=20, bptt=bptt, seed=0, device=d)
+            finally:
+                shutil.rmtree(out_dir, ignore_errors=True)
+        card = np.asarray(runs["card"]["history"] + runs["card"]["rel_l2_members"])
+        cpu = np.asarray(runs["cpu"]["history"] + runs["cpu"]["rel_l2_members"])
+        check(len(runs["card"]["history"]) == eexp.train.n_iters
+              and np.allclose(card, cpu, rtol=1e-4, atol=0),
+              f"ensemble {bptt} on the card vs the CPU: {card.tolist()} vs {cpu.tolist()}")
+        ens_parity[bptt] = {"card": card.tolist(), "cpu": cpu.tolist(),
+                            "max_rel_err": float(np.max(np.abs(card - cpu) / np.abs(cpu)))}
+    phase("train_ensemble_parity", grid=eexp.grid, steps=eexp.train_steps,
+          iters=eexp.train.n_iters, members=ENS_KXK_MEMBERS,
+          compared="the loss history, then the members' rel_l2", rtol=1e-4, **ens_parity)
 
     # step_breakdown: where one training iteration's time goes at each T, with
     # the trained params; a served rollout stands in for the truth (the
@@ -1316,6 +1601,51 @@ def main() -> int:
                          adj_kxk_kernel, "adj2d_kxk_kernel"), note=note)
     del bprobb, answersb
 
+    # step_breakdown_ensemble: one ensemble iteration at T = 800, M = 4, by
+    # the batched kernels ("batched_pg") and by the per-member loop of the
+    # single model's kernels ("auto", which is "fused_pg" on the card), from
+    # train_ensemble's params; served frames stand in for the truth
+    eprobs = [runner.setup_problem(dataclasses.replace(GS2D_RECON, seed=GS2D_RECON.seed + k),
+                                   answers[0].cpu().numpy(), device=dev)
+              for k in range(ENS_MEMBERS)]
+    ens_rows = {}
+    for label, mode in (("batched_pg", "batched_pg"), ("auto", ensemble.auto_bptt(GS2D_RECON))):
+        tp = params_from_numpy(params_to_numpy(ens_res["batched_pg"]["params"]), device=dev,
+                               dtype=torch.float32)
+        leaves = [t.requires_grad_(True) for _, t in flatten_with_paths(tp)]
+        opt = torch.optim.Adam(leaves, lr=GS2D_RECON.train.lr, eps=1e-8)
+        loss_fn = ensemble.build_ensemble_loss_fn(GS2D_RECON, eprobs, GS2D_RECON.train_steps, mode)
+
+        def ens_iteration():
+            opt.zero_grad(set_to_none=True)
+            total, _ = loss_fn(tp)
+            total.backward()
+            opt.step()
+
+        ens_iteration()   # warm-up, not counted
+        rows = []
+        for _ in range(BREAKDOWN_REPS):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            ens_iteration()
+            end.record()
+            enqueue_ms = 1e3 * (time.perf_counter() - t)
+            torch.cuda.synchronize()
+            rows.append([1e3 * (time.perf_counter() - t), enqueue_ms, start.elapsed_time(end)])
+        med = np.median(np.asarray(rows), axis=0).tolist()
+        prof = profile_busy(torch, ens_iteration)
+        ens_rows[label] = {"bptt": mode, "iteration_ms": med[0], "enqueue_ms": med[1],
+                           "device_span_ms": med[2], "profiled": prof,
+                           "device_idle_share_of_span": 1.0 - prof["device_busy_ms"] / med[2]}
+    del eprobs
+    phase("step_breakdown_ensemble", members=ENS_MEMBERS, steps=GS2D_RECON.train_steps,
+          reps=BREAKDOWN_REPS, statistic="median, after one warm-up", rows=ens_rows,
+          note="as step_breakdown, for a whole ensemble iteration (ISG, rollouts, losses, "
+               "backward and Adam of every member)")
+
     # times: per rollout at the serving shape (the ISG output of request 0)
     with torch.inference_mode():
         h0 = isg_apply(params["isg"], torch.as_tensor(requests[0], dtype=torch.float32,
@@ -1335,6 +1665,10 @@ def main() -> int:
             param_bytes + 2 * state_bytes,
             "cell2d._final_kernel", "percnn_tpu/ops/pallas/cell2d.py:384"),
     }
+    # rollout2d_kernel in the ensemble: the members' evaluations, and the
+    # per-member loop of "auto"
+    ens_row1 = {"rollout2d_kernel": sum(c.get("fused_rollout_2d.launches", 0)
+                                        for c in ens_launches.values())}
     kernels = []
     for name, (kernel, plain, nbytes, jax_name, replaces) in runs.items():
         b_ms, b_by = bound_ms(nbytes, flops)
@@ -1342,9 +1676,10 @@ def main() -> int:
             "name": name, "jax_kernel": jax_name, "route": "cuda",
             "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
             "replaces": replaces,
-            "launches": launches[name] + train_launches.get(name, 0),
+            "launches": launches[name] + train_launches.get(name, 0) + ens_row1.get(name, 0),
             "launches_by_path": {"serve": launches[name],
-                                 "train": train_launches.get(name, 0)},
+                                 "train": train_launches.get(name, 0),
+                                 "ensemble": ens_row1.get(name, 0)},
             "max_abs_err": err[name], "ms": cuda_ms(torch, kernel, reps=5),
             "plain_ms": cuda_ms(torch, plain, reps=1), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
@@ -1360,8 +1695,10 @@ def main() -> int:
         "name": "pg2d_kernel", "jax_kernel": "backward2d._phase1_pg_kernel", "route": "cuda",
         "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d.cu",
         "replaces": "percnn_tpu/ops/pallas/backward2d.py:902",
-        "launches": train_launches["pg2d_kernel"],
-        "launches_by_path": {"serve": 0, "train": train_launches["pg2d_kernel"]},
+        "launches": train_launches["pg2d_kernel"]
+        + ens_launches["auto"]["fused_rollout_tp_2d_pg.launches"],
+        "launches_by_path": {"serve": 0, "train": train_launches["pg2d_kernel"],
+                             "ensemble": ens_launches["auto"]["fused_rollout_tp_2d_pg.launches"]},
         "max_abs_err": err["pg2d_kernel"],
         "ms": cuda_ms(torch, lambda: backward2d._pg_cuda(packed, frames, fbar, cfg), reps=5),
         "plain_ms": cuda_ms(torch, lambda: backward2d.fused_phase1_pg_2d_plain(
@@ -1429,7 +1766,8 @@ def main() -> int:
     hb_ms, hb_by = bound_ms(mat_bytes + stateb_bytes + (horizon + 1) * stateb_bytes,
                             horizon * cellsb * flops_per_cell_step_kxk(cfgb))
     by_pathb = {"serve": serveb_launches["rollout2d_kxk_kernel"],
-                "train": trainb_launches["rollout2d_kxk_kernel"]}
+                "train": trainb_launches["rollout2d_kxk_kernel"],
+                "ensemble": ens_launches["burgers_batched"]["fused_rollout_kxk_2d.launches"]}
     kernels.append({
         "name": "rollout2d_kxk_kernel", "jax_kernel": "cell2d._rollout_kernel_mxu",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",
@@ -1540,6 +1878,87 @@ def main() -> int:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     del ysb
+    # the ensemble's kernels at its main paths' shapes: M = 4, 100 x 100,
+    # C = 8, k = 1, T = 800 (the golden GS2D cell and its perturbations, as
+    # kernels_batched; a standard-normal cotangent); pg2d_batched_kernel also
+    # at M = 8, where its accumulator planes (52 MB) pass the 50 MB L2; the
+    # k = 5 contracts of rows 11-12 at M = 2, T = 200 on the golden Burgers
+    # cell.  The bounds are M times the single model's work.
+    gen = torch.Generator(device=dev).manual_seed(9)
+    packed4 = batched2d.pack_pi_params_2d_batched(member_cells(model["cell"], ENS_MEMBERS),
+                                                  cfg).contiguous()
+    h04 = member_ics(GS2D_RECON.system, GS2D_RECON.grid, ENS_MEMBERS)
+    frames4 = batched2d._rollout_b_cuda(packed4, h04, cfg, TIME_BACKWARD_STEPS)
+    fbar4 = torch.randn(frames4.shape, generator=gen, device=dev)
+    packed2 = batched2d.pack_pi_params_2d_batched(member_cells(modelb["cell"], ENS_KXK_MEMBERS),
+                                                  cfgb).contiguous()
+    h02 = member_ics(BURGERS_STAGE1.system, BURGERS_STAGE1.grid, ENS_KXK_MEMBERS)
+    frames2 = batched2d._rollout_b_cuda(packed2, h02, cfgb, stepsb)
+    fbar2 = torch.randn(frames2.shape, generator=gen, device=dev)
+    m4, m2, t8 = ENS_MEMBERS, ENS_KXK_MEMBERS, TIME_BACKWARD_STEPS
+    pg_bytes = param_bytes + 2 * t8 * state_bytes + state_bytes + 4 * lay["A"] * cells
+    batched_rows = {
+        "rollout2d_batched_kernel": (
+            lambda: batched2d._rollout_b_cuda(packed4, h04, cfg, t8),
+            lambda: batched2d.fused_rollout_2d_batched_plain(packed4, h04, cfg, t8),
+            m4 * (param_bytes + state_bytes + (t8 + 1) * state_bytes),
+            m4 * t8 * cells * flops_per_cell_step(cfg), t8, m4,
+            "batched2d._rollout_kernel_b", ":63",
+            ens_launches["batched_pg"]["fused_rollout_2d_batched.launches"]
+            + ens_launches["batched"]["fused_rollout_2d_batched.launches"]),
+        "adj2d_batched_kernel": (
+            lambda: batched2d._phase1_b_cuda(packed4, frames4, fbar4, cfg),
+            lambda: batched2d.fused_phase1_2d_batched_plain(packed4, frames4, fbar4, cfg),
+            m4 * (param_bytes + 3 * t8 * state_bytes + state_bytes),
+            m4 * t8 * cells * adj_flops_per_cell_step_1x1(cfg), t8, m4,
+            "batched2d._phase1_kernel_b", ":117",
+            ens_launches["batched"]["fused_phase1_2d_batched.launches"]),
+        "pg2d_batched_kernel": (
+            lambda: batched2d._pg_b_cuda(packed4, frames4, fbar4, cfg),
+            lambda: batched2d.fused_phase1_pg_2d_batched_plain(packed4, frames4, fbar4, cfg),
+            m4 * pg_bytes, m4 * t8 * cells * pg_flops_per_cell_step(cfg), t8, m4,
+            "batched2d._phase1_pg_kernel_b", ":272",
+            ens_launches["batched_pg"]["fused_phase1_pg_2d_batched.launches"]),
+        "rollout2d_batched_kernel[k=5]": (
+            lambda: batched2d._rollout_b_cuda(packed2, h02, cfgb, stepsb),
+            lambda: batched2d.fused_rollout_2d_batched_plain(packed2, h02, cfgb, stepsb),
+            m2 * (packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes), m2 * fwdb_flops,
+            stepsb, m2, "batched2d._rollout_kernel_b", ":63",
+            ens_launches["burgers_batched"]["fused_rollout_2d_batched.launches_kxk"]),
+        "adj2d_batched_kernel[k=5]": (
+            lambda: batched2d._phase1_b_cuda(packed2, frames2, fbar2, cfgb),
+            lambda: batched2d.fused_phase1_2d_batched_plain(packed2, frames2, fbar2, cfgb),
+            m2 * (packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes), m2 * bwb_flops,
+            stepsb, m2, "batched2d._phase1_kernel_b", ":117",
+            ens_launches["burgers_batched"]["fused_phase1_2d_batched.launches_kxk"]),
+    }
+    batched_work = {}
+    for name, (kernel, plain, nbytes, nflops, steps, n_mem, jax_name, line,
+               n_launches) in batched_rows.items():
+        b_ms, b_by = bound_ms(nbytes, nflops)
+        batched_work[name] = {"members": n_mem, "steps": steps, "bytes": nbytes, "flops": nflops}
+        kernels.append({
+            "name": name, "jax_kernel": jax_name, "route": "cuda",
+            "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
+            "replaces": f"percnn_tpu/ops/pallas/batched2d.py{line}",
+            "launches": n_launches, "launches_by_path": {"ensemble": n_launches},
+            "max_abs_err": err[name], "members": n_mem, "steps": steps,
+            "ms": cuda_ms(torch, kernel, reps=5), "plain_ms": cuda_ms(torch, plain, reps=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
+    del frames4, fbar4, frames2, fbar2
+    # pg2d_batched_kernel at M = 8
+    m8 = 2 * ENS_MEMBERS
+    packed8 = batched2d.pack_pi_params_2d_batched(member_cells(model["cell"], m8),
+                                                  cfg).contiguous()
+    frames8 = batched2d._rollout_b_cuda(packed8, member_ics(GS2D_RECON.system, GS2D_RECON.grid,
+                                                            m8), cfg, t8)
+    fbar8 = torch.randn(frames8.shape, generator=gen, device=dev)
+    b_ms, b_by = bound_ms(m8 * pg_bytes, m8 * t8 * cells * pg_flops_per_cell_step(cfg))
+    next(k for k in kernels if k["name"] == "pg2d_batched_kernel")["m8"] = {"members": m8, "steps": t8, "bound_ms": b_ms, "bound_by": b_by,
+                         "ms": cuda_ms(torch, lambda: batched2d._pg_b_cuda(packed8, frames8,
+                                                                           fbar8, cfg), reps=3)}
+    del frames8, fbar8
     # one "two_phase" backward of GS2D at T = 800 (rollout_tp: one
     # autograd.grad a step, then the parameter gradients), trained cell,
     # data-loss cotangent: the forward and the backward by CUDA events
@@ -1561,7 +1980,8 @@ def main() -> int:
           flops_per_backward3d=bw3_flops, bytes_per_backward3d=bw3_bytes,
           burgers_shape=list(h0b.shape), burgers_steps=stepsb, flops_per_rollout_kxk=fwdb_flops,
           flops_per_backward_kxk=bwb_flops, bytes_per_backward_kxk=bwb_bytes,
-          fallback_work=fallback_work, two_phase_gs2d_t800=two_phase_ms[-1], nvidia_smi=smi)
+          fallback_work=fallback_work, batched_work=batched_work,
+          two_phase_gs2d_t800=two_phase_ms[-1], nvidia_smi=smi)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

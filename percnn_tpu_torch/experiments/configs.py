@@ -150,3 +150,7 @@ LO_STAGE1 = ExperimentConfig(
     interp_align_corners=True,
     interp_periodic_extend=True,
 )
+
+# name -> config, as percnn_tpu's EXPERIMENTS for the configs ported so far
+# (FORWARD_SIM_LO comes with its slice, ROADMAP.md A4)
+EXPERIMENTS = {e.name: e for e in (GS2D_RECON, GS3D_RECON, BURGERS_STAGE1, LO_STAGE1)}

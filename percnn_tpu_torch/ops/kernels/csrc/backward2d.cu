@@ -59,19 +59,11 @@
 
 #include <cuda_runtime.h>
 
-#include "pg_common.cuh"
+#include "adj2d_step.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ float lap5(float c, float a1, float a2, float a3,
-                                      float a4, float b1, float b2, float b3,
-                                      float b4, float inv_dx2) {
-  return (-5.0f * c + (4.0f / 3.0f) * (a1 + a2 + a3 + a4) -
-          (1.0f / 12.0f) * (b1 + b2 + b3 + b4)) *
-         inv_dx2;
-}
+using adj2d::kThreads;
 
 template <int NB>
 __global__ void pg2d_kernel(const float* __restrict__ params, int n_params,
@@ -81,46 +73,8 @@ __global__ void pg2d_kernel(const float* __restrict__ params, int n_params,
                             float2* __restrict__ g_out,
                             float* __restrict__ acc, int H, int W, int hidden,
                             float dt, float inv_dx2) {
-  extern __shared__ float sp[];
-  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sp[k] = params[k];
-  __syncthreads();
-
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int cells = H * W;
-  if (idx >= cells) return;
-  const int i = idx / W;
-  const int j = idx - i * W;
-  const int im1 = (i + H - 1) % H, ip1 = (i + 1) % H;
-  const int im2 = (i + 2 * H - 2) % H, ip2 = (i + 2) % H;
-  const int jm1 = (j + W - 1) % W, jp1 = (j + 1) % W;
-  const int jm2 = (j + 2 * W - 2) % W, jp2 = (j + 2) % W;
-  // centre, the 4 neighbours at distance 1, the 4 at distance 2
-  const int nbr[9] = {idx,         ip1 * W + j, im1 * W + j,
-                      i * W + jp1, i * W + jm1, ip2 * W + j,
-                      im2 * W + j, i * W + jp2, i * W + jm2};
-
-  float2 hs[9], gs[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    hs[k] = h[nbr[k]];
-    const float2 a = g_next[nbr[k]], b = fbar[nbr[k]];
-    gs[k] = make_float2(a.x + b.x, a.y + b.y);
-  }
-  const float u = hs[0].x, v = hs[0].y;
-  const float lap_hu = lap5(hs[0].x, hs[1].x, hs[2].x, hs[3].x, hs[4].x, hs[5].x,
-                            hs[6].x, hs[7].x, hs[8].x, inv_dx2);
-  const float lap_hv = lap5(hs[0].y, hs[1].y, hs[2].y, hs[3].y, hs[4].y, hs[5].y,
-                            hs[6].y, hs[7].y, hs[8].y, inv_dx2);
-  const float lap_gu = lap5(gs[0].x, gs[1].x, gs[2].x, gs[3].x, gs[4].x, gs[5].x,
-                            gs[6].x, gs[7].x, gs[8].x, inv_dx2);
-  const float lap_gv = lap5(gs[0].y, gs[1].y, gs[2].y, gs[3].y, gs[4].y, gs[5].y,
-                            gs[6].y, gs[7].y, gs[8].y, inv_dx2);
-  const float gin[2] = {gs[0].x, gs[0].y};
-
-  float du, dv;
-  pg_accumulate<NB>(sp, u, v, gin, lap_hu, lap_hv, acc + idx, cells, hidden, du, dv);
-  g_out[idx] = make_float2(gin[0] + dt * (sp[0] * lap_gu + du),
-                           gin[1] + dt * (sp[1] * lap_gv + dv));
+  adj2d::pg2d_step<NB>(params, n_params, h, fbar, g_next, g_out, acc, H, W, hidden, dt,
+                       inv_dx2);
 }
 
 template <int NB>

@@ -27,6 +27,7 @@ from percnn_tpu_torch.core import checkpoint
 from percnn_tpu_torch.core.train import TrainConfig, pretrain_isg, train
 from percnn_tpu_torch.data.simulate import simulate
 from percnn_tpu_torch.experiments import runner
+from percnn_tpu_torch.experiments.ensemble import run_ensemble
 from percnn_tpu_torch.experiments.configs import GS2D_RECON
 
 
@@ -268,13 +269,18 @@ _ENTRY_POINTS = {
         dataclasses.replace(EXP, grid=12, train_steps=4, infer_steps=4, train=dataclasses.replace(
             EXP.train, n_iters=1)), out_dir=dev.pop("out_dir"), cache_dir=None,
         isg_pretrain_override=1, **dev),
+    "run_ensemble": lambda dev: run_ensemble(
+        dataclasses.replace(EXP, grid=12, train_steps=4, infer_steps=4, train=dataclasses.replace(
+            EXP.train, n_iters=1)), 2, out_dir=dev.pop("out_dir"), cache_dir=None,
+        isg_pretrain_override=1, bptt="batched_pg", **dev),
 }
+_WRITE_FILES = ("run_experiment", "run_ensemble")
 
 
 @pytest.mark.parametrize("name", list(_ENTRY_POINTS))
 def test_entry_points_need_cuda_unless_told_cpu(monkeypatch, tmp_path, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _ENTRY_POINTS[name]({"out_dir": str(tmp_path)} if name == "run_experiment" else {})
+        _ENTRY_POINTS[name]({"out_dir": str(tmp_path)} if name in _WRITE_FILES else {})
     _ENTRY_POINTS[name]({"device": "cpu", **({"out_dir": str(tmp_path)}
-                                             if name == "run_experiment" else {})})
+                                             if name in _WRITE_FILES else {})})
