@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GS2D, GS3D and Burgers Stage-1 serving and
-training paths, their fallback routes and ensemble training, once on one
-NVIDIA GPU.
+training paths, their fallback routes, ensemble training and spatially
+decomposed training, once on one NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
@@ -14,8 +14,9 @@ through ``build_serving_fn``, trains GS2D (100 x 100), GS3D (48^3) and
 Burgers Stage-1 (100 x 100, 5x5 Pi cell) through ``run_experiment`` at full
 width, drives the fallback routes (``bptt="fused"`` of the 1x1 and 3D cells,
 ``bptt="two_phase"``, the MXU switches off) through the same entry points,
-trains GS2D and Burgers ensembles through ``run_ensemble``, and times the
-kernels.  Phases, one JSON line each with the seconds
+trains GS2D and Burgers ensembles through ``run_ensemble``, runs the
+domain decomposition (``sharded_rollout_nd``, ``run_experiment(mesh=...)``)
+on meshes that repeat cuda:0, and times the kernels.  Phases, one JSON line each with the seconds
 since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
@@ -99,12 +100,29 @@ since start:
                f64 autograd on the referee setup (random-init cells, random
                targets, 12 steps, full width, M = 4), and "batched" of the
                5x5 cell (M = 2), each route's launches counted
+  kernels_sharded  step2d_haloed_kernel against its plain version on the
+               haloed blocks of a 2 x 2 mesh of cuda:0 (four 50 x 50 blocks
+               of 100 x 100, and a 6 x 10 block) for the golden GS2D (k = 1)
+               and Burgers (k = 5) cells; then sharded_rollout_nd
+               (impl="pallas", T = 200, launches counted) against the
+               single-device rollout2d_kernel and against impl="jnp"
+  grads_sharded  the gradients of sharded_rollout_nd, impl="pallas" and
+               "jnp", against f64 autograd on the referee setup (k = 1 and
+               k = 5, 12 steps, full width), launches counted
+  sharded3d    GS3D's sharded_rollout_nd on a (2, 2, 2) mesh of cuda:0 at
+               48^3, T = 50, against rollout3d_kernel
   train_ensemble  run_ensemble(GS2D_RECON, 4) in "batched_pg", "batched" and
                "auto": ISG pretrain, 2 iterations at each of T = 200, 400,
                800, each member's 2500-step evaluation, on the train phase's
                cached truth; then run_ensemble(BURGERS_STAGE1, 2, "batched"),
                2 iterations, on train_burgers' cached truth; every launch
                counted
+  train_mesh   run_experiment(GS2D_RECON, mesh=<2 x 2 of cuda:0>) and the
+               same run without a mesh on the train phase's cached truth:
+               ISG pretrain, one iteration at each of T = 200, 400, 800 (a
+               decomposed iteration is paced by the host: PERF.md), the
+               2500-step evaluation; the losses held to each other at rtol
+               1e-4, each run's ms per iteration, launches counted
   train_ensemble_parity  run_ensemble on the card against the CPU (plain
                versions), 32 x 32, T = 20, M = 2, 3 iterations, both batched
                modes
@@ -113,10 +131,11 @@ since start:
                device ms, enqueue, and the device's idle share from a
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
-               shapes, beside the card's bound for the same work, and one
-               bptt="two_phase" GS2D backward at T = 800
+               shapes, beside the card's bound for the same work, one
+               bptt="two_phase" GS2D backward at T = 800, and a T = 200
+               decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (18 entries: the 13 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (19 entries: the 14 ported TPU kernels,
 with the k = 5 contracts of rollout2d_kernel, final2d_kernel, adj2d_kernel,
 rollout2d_batched_kernel and adj2d_batched_kernel listed apart), the
 nvidia-smi line, and last
@@ -169,6 +188,8 @@ ENS_MEMBERS = 4           # the ensemble's M, the CLI's default
 ENS_KXK_MEMBERS = 2       # the 5x5 cell's ensemble (kernels_batched, grads_batched)
 ENS_ITERS = 6             # 2 at each of T = 200, 400, 800
 ENS_BURGERS_ITERS = 2     # at T = 200
+MESH_ITERS = 3            # train_mesh: 1 at each of T = 200, 400, 800
+SHARDED3D_STEPS = 50      # the GS3D decomposed rollout on a (2, 2, 2) mesh
 
 
 class CheckFailed(Exception):
@@ -317,7 +338,8 @@ def profile_busy(torch, fn) -> dict:
                for name in ("rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
                             "pg3d_kernel", "rollout2d_kxk_kernel", "adj2d_kxk_act_kernel",
                             "adj2d_kxk_gather_kernel", "rollout2d_batched_kernel",
-                            "adj2d_batched_kernel", "pg2d_batched_kernel")}
+                            "adj2d_batched_kernel", "pg2d_batched_kernel",
+                            "step2d_haloed_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
             "device_idle_share": 1.0 - busy / window if device else None,
             "device_events": len(device),
@@ -357,7 +379,9 @@ def main() -> int:
     from percnn_tpu_torch.experiments import ensemble, runner
     from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1, GS2D_RECON, GS3D_RECON
     from percnn_tpu_torch.ops.kernels import (_build, backward2d, backward3d, batched2d, cell2d,
-                                              cell3d)
+                                              cell3d, sharded_step2d)
+    from percnn_tpu_torch.parallel import halo_exchange, make_mesh, sharded_rollout_nd
+    from percnn_tpu_torch.parallel.halo import object_grid
     from percnn_tpu_torch.serving import build_serving_fn
 
     dev = torch.device("cuda", 0)
@@ -379,7 +403,7 @@ def main() -> int:
         return time.perf_counter() - t
 
     sources = ("cell2d", "backward2d", "cell3d", "backward3d", "cell2d_kxk", "backward2d_kxk",
-               "adj2d", "batched2d")
+               "adj2d", "batched2d", "sharded_step2d")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(build, sources)))
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
@@ -679,7 +703,7 @@ def main() -> int:
           f"fused k x k gradients vs f64 autograd: {worstb['fused']} at "
           f"{relb['fused'][worstb['fused']]} over 1e-4")
     # remat through the k x k cell, whose branch-weight gradients are the
-    # FFMA matmul of ops/convs.py's _PeriodicConv2d (cuDNN's weight-grad
+    # FFMA matmul of ops/convs.py's _Conv2d (cuDNN's weight-grad
     # convolution measured 2.2e-4 here, ROADMAP.md C2)
     check(relb["autograd_f32"][worstb["autograd_f32"]] <= 1e-4,
           f"remat k x k gradients vs f64 autograd: {worstb['autograd_f32']} at "
@@ -798,7 +822,8 @@ def main() -> int:
                 (batched2d.fused_rollout_2d_batched, "launches_kxk"),
                 (batched2d.fused_phase1_2d_batched, "launches"),
                 (batched2d.fused_phase1_2d_batched, "launches_kxk"),
-                (batched2d.fused_phase1_pg_2d_batched, "launches")]
+                (batched2d.fused_phase1_pg_2d_batched, "launches"),
+                (sharded_step2d.step_haloed_2d, "launches")]
 
     def zero_counts():
         for obj, attr in counters:
@@ -988,6 +1013,118 @@ def main() -> int:
     }
     phase("grads_batched", setup="random-init cells (seeds 0..M-1), random targets, 12 steps, "
                                  "full width", bar=1e-4, routes=grads_b)
+
+    # kernels_sharded: row 14 on the haloed blocks of a 2 x 2 mesh that
+    # repeats cuda:0 (four 50 x 50 blocks of the 100 x 100 field, and a
+    # 6 x 10 block narrower than the k x k tile) for the golden GS2D (k = 1)
+    # and Burgers (k = 5) cells against its plain version; then the
+    # decomposed rollout of impl="pallas", the slice's main path with its
+    # launches counted, against the single-device rollout2d_kernel (the same
+    # step on the periodic field) and against impl="jnp" (the eager step)
+    axes2 = ("x", "y")
+    mesh = make_mesh(axes2, shape=(2, 2), devices=[dev] * 4)
+
+    def mesh_blocks(h):
+        n, m = h.shape[0] // 2, h.shape[1] // 2
+        return object_grid((2, 2), [h[i * n:(i + 1) * n, j * m:(j + 1) * m]
+                                    for i in range(2) for j in range(2)])
+
+    def haloed(grid):
+        return halo_exchange(grid, mesh=mesh, axis_names=axes2, array_axes=(0, 1))
+
+    packedb = cell2d.pack_pi_params_2d(paramsb["cell"], cfgb)
+    sharded_cells = {"gs2d_k1": (cfg, params["cell"], h0, packed),
+                     "burgers_k5": (cfgb, paramsb["cell"], h0b, packedb)}
+    block_err = {}
+    for label, (cfg_, _, x0, pk) in sharded_cells.items():
+        narrow = (0.3 * torch.randn((10, 14, 2), generator=torch.Generator(device=dev)
+                                    .manual_seed(10), device=dev) + x0[:1, :1])
+        for name, xb in [(f"block{k}", b.contiguous()) for k, b in
+                         enumerate(haloed(mesh_blocks(x0)).flat)] + [("narrow_6x10", narrow)]:
+            a = sharded_step2d._step_cuda(pk, xb, cfg_)
+            b = sharded_step2d.step_haloed_2d_plain(pk, xb, cfg_)
+            torch.cuda.synchronize()
+            block_err[f"{label}.{name}"] = max_abs(a, b)
+            check(allclose(a, b, rtol=2e-4, atol=1e-5),
+                  f"step2d_haloed_kernel vs plain, {label} {name}: max |diff| {max_abs(a, b)}")
+    err["step2d_haloed_kernel"] = max(block_err.values())
+    sharded_step2d.step_haloed_2d.launches = 0
+    sharded_roll = {}
+    with torch.no_grad():
+        for label, (cfg_, cell_, x0, pk) in sharded_cells.items():
+            got = sharded_rollout_nd(cell_, x0, cfg_, CHECK_STEPS, mesh, impl="pallas")
+            single = cell2d._rollout_cuda(pk, x0, cfg_, CHECK_STEPS)
+            eager = sharded_rollout_nd(cell_, x0, cfg_, CHECK_STEPS, mesh, impl="jnp")
+            torch.cuda.synchronize()
+            bar = 2e-5 * torch.arange(CHECK_STEPS + 1, device=dev)
+            for other, ref_frames in (("single_rollout2d_kernel", single), ("jnp", eager)):
+                per_step = (got - ref_frames).abs().flatten(1).amax(1)
+                worst = int((per_step - bar).argmax())
+                check(bool((per_step <= bar).all()),
+                      f"sharded pallas rollout vs {other}, {label}: step {worst} max |diff| "
+                      f"{float(per_step[worst])} over {float(bar[worst])}")
+                sharded_roll[f"{label}.vs_{other}"] = {
+                    "max_abs_err": float(per_step.max()),
+                    "worst_step_over_bar": float((per_step[1:] / bar[1:]).max())}
+            del got, single, eager
+    sharded_launches = {"kernels_sharded": sharded_step2d.step_haloed_2d.launches}
+    check(sharded_launches["kernels_sharded"] == len(sharded_cells) * 4 * CHECK_STEPS,
+          f"sharded rollouts: {sharded_launches} launches of step2d_haloed_kernel")
+    phase("kernels_sharded", mesh=mesh.shape, devices=[str(d) for d in mesh.devices.flat],
+          block=[50, 50], steps=CHECK_STEPS, step_vs_plain_max_abs_err=block_err,
+          rtol=2e-4, atol=1e-5, rollouts=sharded_roll, rollout_bar="2e-5 * t",
+          launches=sharded_launches["kernels_sharded"])
+
+    # grads_sharded: the gradients through the exchange, impl="pallas" (row
+    # 14 forward, eager adjoint) and "jnp", against f64 autograd on the
+    # referee setup of grads and grads_kxk (random-init cell, random target,
+    # 12 steps, full width), launches counted: with remat each checkpointed
+    # segment runs its forward twice
+    def sharded_route(impl):
+        return lambda p, x, cfg_, steps: sharded_rollout_nd(p, x, cfg_, steps, mesh, impl=impl)
+
+    sharded_step2d.step_haloed_2d.launches = 0
+    routes_sh = {"pallas": sharded_route("pallas"), "jnp": sharded_route("jnp")}
+    rel_sh = {
+        "gs2d_k1": rel_errs_vs_f64(ref_cell, x_ref, 12,
+                                   lambda fr: ((fr - tgt.to(fr.dtype)) ** 2).mean(),
+                                   routes=routes_sh),
+        "burgers_k5": rel_errs_vs_f64(refb_cell, xb_ref, 12,
+                                      lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean(),
+                                      cfg=cfgb, routes=routes_sh),
+    }
+    sharded_launches["grads_sharded"] = sharded_step2d.step_haloed_2d.launches
+    check(sharded_launches["grads_sharded"] == 2 * len(rel_sh) * 4 * 12,
+          f"sharded gradients: {sharded_launches['grads_sharded']} launches")
+    worst_sh = {}
+    for label, rel in rel_sh.items():
+        for route in routes_sh:
+            leaf = max(rel[route], key=rel[route].get)
+            worst_sh[f"{label}.{route}"] = [leaf, rel[route][leaf]]
+            check(rel[route][leaf] <= 1e-4,
+                  f"sharded {route} gradients vs f64, {label}: {leaf} at {rel[route][leaf]}")
+    phase("grads_sharded", setup="random-init cell, random target, 12 steps, full width, "
+                                 "2 x 2 mesh on cuda:0", bar=1e-4, worst_leaf=worst_sh,
+          launches=sharded_launches["grads_sharded"], **rel_sh)
+
+    # sharded3d: GS3D's decomposed rollout (eager, the only 3D route) on a
+    # (2, 2, 2) mesh of cuda:0 at 48^3, golden cell, against rollout3d_kernel
+    mesh3 = make_mesh(("x", "y", "z"), shape=(2, 2, 2), devices=[dev] * 8)
+    t = time.perf_counter()
+    with torch.no_grad():
+        got3 = sharded_rollout_nd(params3["cell"], h03, cfg3, SHARDED3D_STEPS, mesh3)
+        torch.cuda.synchronize()
+        sharded3d_s = time.perf_counter() - t
+        want3 = cell3d.fused_rollout_3d(params3["cell"], h03, cfg3, SHARDED3D_STEPS)
+    per_step3 = (got3 - want3).abs().flatten(1).amax(1)
+    bar3 = 2e-5 * torch.arange(SHARDED3D_STEPS + 1, device=dev)
+    check(bool((per_step3 <= bar3).all()),
+          f"sharded 3D rollout vs rollout3d_kernel: max |diff| per step {per_step3.tolist()}")
+    del got3, want3
+    phase("sharded3d", mesh=mesh3.shape, shape=[n3, n3, n3, 2], steps=SHARDED3D_STEPS,
+          max_abs_err=float(per_step3.max()),
+          worst_step_over_bar=float((per_step3[1:] / bar3[1:]).max()), bar="2e-5 * t",
+          seconds=sharded3d_s)
 
     # serve: the main path, through the entry point a user calls
     serve = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg, device=dev)
@@ -1440,7 +1577,6 @@ def main() -> int:
                 shutil.rmtree(out_dir, ignore_errors=True)
     finally:
         shutil.rmtree(truth_cache, ignore_errors=True)
-        shutil.rmtree(truth_cache2d, ignore_errors=True)
     check(ens_launches == ens_want,
           f"ensemble training launch counts {ens_launches}, expected {ens_want}")
     for label, r in ens_res.items():
@@ -1468,6 +1604,56 @@ def main() -> int:
           rel_l2_members={k: r["rel_l2_members"] for k, r in ens_res.items()},
           rel_l2_mean={k: r["rel_l2_mean"] for k, r in ens_res.items()},
           rel_l2_std={k: r["rel_l2_std"] for k, r in ens_res.items()})
+
+    # train_mesh: run_experiment(GS2D_RECON) on the 2 x 2 mesh of cuda:0
+    # (parallel_impl="halo": the eager valid step on each block, as
+    # percnn_tpu's runner keeps it) and the same run without a mesh, on the
+    # train phase's cached truth: ISG pretrain, one iteration at each of
+    # T = 200, 400, 800 and the 2500-step evaluation, launches counted; the
+    # losses of the two held to each other at rtol 1e-4, as
+    # tests/test_parallel.py holds percnn_tpu's first five
+    per_mesh = MESH_ITERS // len(stages)
+    mesh_want = {
+        "single": {"fused_rollout_2d.launches": per_mesh * sum(stages) + GS2D_RECON.infer_steps,
+                   "fused_rollout_tp_2d_pg.launches": per_mesh * sum(stages)},
+        "mesh": {"fused_rollout_2d.launches": GS2D_RECON.infer_steps},
+    }
+    mesh_res, mesh_launches = {}, {}
+    try:
+        for label, mesh_ in (("single", None), ("mesh", mesh)):
+            out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+            try:
+                zero_counts()
+                with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
+                    mesh_res[label] = runner.run_experiment(
+                        GS2D_RECON, device=dev, out_dir=out_dir, cache_dir=truth_cache2d,
+                        n_iters_override=MESH_ITERS, isg_pretrain_override=ISG_PRETRAIN_ITERS,
+                        seed=0, mesh=mesh_)
+                torch.cuda.synchronize()
+                mesh_launches[label] = read_counts()
+            finally:
+                shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(truth_cache2d, ignore_errors=True)
+    check(mesh_launches == mesh_want,
+          f"mesh training launch counts {mesh_launches}, expected {mesh_want}")
+    hist_m, hist_s = (np.asarray(mesh_res[k]["history"]) for k in ("mesh", "single"))
+    check(len(hist_m) == MESH_ITERS and bool(np.isfinite(hist_m).all()),
+          f"mesh training losses {hist_m.tolist()}")
+    mesh_hist_err = float(np.max(np.abs(hist_m - hist_s) / np.abs(hist_s)))
+    check(mesh_hist_err <= 1e-4, f"mesh vs unsharded losses: {hist_m.tolist()} vs "
+                                 f"{hist_s.tolist()} (rtol 1e-4)")
+    for label, r in mesh_res.items():
+        check(bool(np.isfinite(r["rel_l2"])) and not r["diverged"],
+              f"{label} evaluation rel_l2 {r['rel_l2']}, diverged {r['diverged']}")
+    phase("train_mesh", mesh=mesh.shape, iterations=MESH_ITERS, stages=stages,
+          isg_pretrain_iters=ISG_PRETRAIN_ITERS, launches=mesh_launches,
+          history={k: r["history"] for k, r in mesh_res.items()},
+          history_max_rel_err=mesh_hist_err, rtol=1e-4,
+          ms_per_iter={k: [1e3 * st["seconds"] / st["iters"] for st in r["seconds"]["stages"]]
+                       for k, r in mesh_res.items()},
+          evaluate_s={k: r["seconds"]["evaluate"] for k, r in mesh_res.items()},
+          rel_l2={k: r["rel_l2"] for k, r in mesh_res.items()})
 
     # train_ensemble_parity: ensemble training on the card against the CPU
     # (the plain versions), both batched modes
@@ -1973,6 +2159,50 @@ def main() -> int:
         _, bwd2_ms = event_ms(lambda: torch.autograd.grad((fr2 * fbar).sum(), tp2_leaves))
         two_phase_ms.append({"forward_ms": fwd2_ms, "backward_ms": bwd2_ms})
     del fr2
+    # row 14: a T = 200 decomposed rollout of the golden GS2D cell on the
+    # 2 x 2 mesh (impl="pallas", four 50 x 50 blocks, 4 launches a step) by
+    # CUDA events, beside the same rollout with the plain version in the
+    # kernel's place, one launch alone, and a profiler trace of the rollout
+    # for the kernel's device time and the time outside it (the exchange:
+    # slices, copies and cats, and the host's enqueue); the bound is the
+    # kernel's work, per step 4 haloed 54^2 blocks in and 4 50^2 out
+    def sharded_plain(pk, x0, cfg_, steps):
+        grid = mesh_blocks(x0)
+        for _ in range(steps):
+            grid = object_grid((2, 2), [sharded_step2d.step_haloed_2d_plain(pk, b.contiguous(), cfg_)
+                                        for b in haloed(grid).flat])
+        return grid
+
+    blk = GS2D_RECON.grid // 2
+    b14_ms, b14_by = bound_ms(
+        CHECK_STEPS * 4 * (param_bytes + 8 * (blk + 4) ** 2 + 8 * blk ** 2),
+        CHECK_STEPS * 4 * blk ** 2 * flops_per_cell_step(cfg))
+    with torch.no_grad():
+        sharded_fn = lambda: sharded_rollout_nd(params["cell"], h0, cfg, CHECK_STEPS, mesh,
+                                                impl="pallas")
+        row14_ms = cuda_ms(torch, sharded_fn, reps=3)
+        row14_trace = profile_busy(torch, sharded_fn)
+    xb14 = haloed(mesh_blocks(h0))[0, 0].contiguous()
+    kernel14_ms = row14_trace["kernel_ms"]["step2d_haloed_kernel"]
+    kernels.append({
+        "name": "step2d_haloed_kernel", "jax_kernel": "sharded_step2d._step_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/sharded_step2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/sharded_step2d.py:37",
+        "launches": sum(sharded_launches.values()), "launches_by_path": sharded_launches,
+        "max_abs_err": err["step2d_haloed_kernel"], "steps": CHECK_STEPS, "blocks": 4,
+        "ms": row14_ms,
+        "plain_ms": cuda_ms(torch, lambda: sharded_plain(packed, h0, cfg, CHECK_STEPS), reps=1),
+        "bound_ms": b14_ms, "bound_by": b14_by, "library_ms": None,
+        "one_launch_ms": cuda_ms(torch, lambda: sharded_step2d._step_cuda(packed, xb14, cfg),
+                                 reps=200),
+        "trace": {"window_ms": row14_trace["window_ms"],
+                  "device_busy_ms": row14_trace["device_busy_ms"],
+                  "kernel_ms": kernel14_ms,
+                  "kernel_us_per_launch": row14_trace["kernel_us_per_launch"][
+                      "step2d_haloed_kernel"],
+                  "outside_kernel_share": 1.0 - kernel14_ms / row14_trace["window_ms"],
+                  "device_idle_share": row14_trace["device_idle_share"]},
+    })
     phase("times", shape=list(h0.shape), steps=SERVE_STEPS, flops_per_rollout=flops,
           backward_steps=TIME_BACKWARD_STEPS, flops_per_backward=bw_flops,
           bytes_per_backward=bw_bytes, shape3d=list(h03.shape), steps3d=steps3,

@@ -6,6 +6,8 @@ Counterpart of percnn_tpu/core/cell.py.  Pi is N parallel conv branches
 lambda-omega Stage-1 cells), multiplied elementwise, then aggregated by a
 1x1 conv; the diffusion coefficients are raw or bounded as
 mu_up * sigmoid(c).  The state is channels-last [..., *spatial, channels].
+``pi_cell_step_valid`` is the same step on a block with a halo, the local
+update of a domain-decomposed rollout (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ from percnn_tpu_torch.core.init import (
     scaled_xavier_uniform,
     uniform_symmetric,
 )
-from percnn_tpu_torch.ops.convs import conv_nd_periodic, pointwise_conv
-from percnn_tpu_torch.ops.stencils import laplacian
+from percnn_tpu_torch.ops.convs import conv_nd, conv_nd_periodic, pointwise_conv
+from percnn_tpu_torch.ops.stencils import STENCIL_HALO, interior, laplacian, laplacian_valid
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,3 +106,39 @@ def pi_rhs(params: dict, h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
 def pi_cell_step(params: dict, h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
     """One forward-Euler step."""
     return h + cfg.dt * pi_rhs(params, h, cfg)
+
+
+def pi_cell_step_valid(params: dict, xp: torch.Tensor, cfg: PiCellConfig, *,
+                       halo: int = STENCIL_HALO) -> torch.Tensor:
+    """One Euler step from a block extended by `halo` cells on each side of
+    each spatial dim, [..., *(spatial + 2 halo), C], to its interior
+    [..., *spatial, C]: no periodic wrap, every stencil and conv VALID.
+
+    The local update under domain decomposition: the halo was filled from
+    the neighbouring blocks (parallel/halo.py), so the global periodic
+    boundary lives in the exchange, not here.  A k x k cell's branch convs
+    read ``halo - k // 2`` cells in from the block's edge.  Autograd through
+    this step is also the backward of the kernel step
+    (ops/kernels/sharded_step2d.py): its cotangent of `xp` covers the halo,
+    and the exchange carries that part back to the neighbours.
+    """
+    nd = cfg.ndim
+    dims = tuple(range(xp.ndim - 1 - nd, xp.ndim - 1))
+    centre = interior(xp, dims, halo)
+    lap = laplacian_valid(xp, cfg.dx, dims, halo)
+    if cfg.kernel_size == 1:
+        nonlin = torch.cat([pi_block(params["pi"][c], centre, cfg)
+                            for c in range(cfg.channels)], dim=-1)
+    else:
+        cut = halo - cfg.kernel_size // 2
+        xk = interior(xp, dims, cut) if cut else xp
+        outs = []
+        for c in range(cfg.channels):
+            br = params["pi"][c]
+            prod = None
+            for i in range(cfg.n_branches):
+                y = conv_nd(xk, br[f"w{i}"], br[f"b{i}"])
+                prod = y if prod is None else prod * y
+            outs.append(pointwise_conv(prod, br["w_out"], br["b_out"]))
+        nonlin = torch.cat(outs, dim=-1)
+    return centre + cfg.dt * (effective_diffusion(params, cfg) * lap + nonlin)

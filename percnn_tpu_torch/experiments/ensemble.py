@@ -10,7 +10,7 @@ scale cancels in Adam's m / sqrt(v)).
 The member axis is a Python loop where percnn_tpu vmaps (the ISG, the
 two-phase loss), or one kernel launch a step for every member (the
 ``batched`` modes, ops/kernels/batched2d.py).  Not ported yet: sharding the
-members over a device mesh (``mesh``, ``spatial_axes``; ROADMAP.md A7).
+members over a device mesh (``mesh``, ``spatial_axes``; ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -156,7 +156,7 @@ def run_ensemble(
     """
     if mesh is not None or spatial_axes:
         raise NotImplementedError("ensemble training over a device mesh (mesh=, "
-                                  "spatial_axes=) is not ported yet: ROADMAP.md A7")
+                                  "spatial_axes=) is not ported yet: ROADMAP.md A10")
     if bptt == "auto":
         bptt = auto_bptt(exp, dtype)
     if bptt not in BPTT_MODES:

@@ -9,8 +9,13 @@ a stable candidate, and the evaluation rollout scored by rel-L2; and
 the request (the low-res IC, or the full-res IC when the model has no ISG)
 directly, instead of a truth-carrying Problem.
 
-Not ported yet: training on a device mesh, a shared ISG pretrain file, the
-visual exports and the closed-form Pi expressions (ROADMAP.md).
+``run_experiment(mesh=...)`` trains on a spatially decomposed field
+(``make_mesh_rollout_fn``: parallel.sharded_rollout_nd, a halo exchange
+a step).
+
+Not ported yet: the GSPMD mesh route (``parallel_impl="gspmd"``), a shared
+ISG pretrain file, the visual exports and the closed-form Pi expressions
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d, fused_r
 from percnn_tpu_torch.ops.kernels.backward3d import fused_rollout_tp_3d, fused_rollout_tp_3d_pg
 from percnn_tpu_torch.ops.kernels.cell2d import fused_rollout_2d
 from percnn_tpu_torch.ops.kernels.cell3d import fused_rollout_3d
+from percnn_tpu_torch.parallel import sharded_rollout_nd
+from percnn_tpu_torch.parallel.mesh import canonical_device
 from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
 from percnn_tpu_torch.utils.metrics import MetricsLogger, rel_l2
 
@@ -192,6 +199,51 @@ def _cell_step_for(cell_cfg):
     """The step closure (params, h) -> h_next of a cell config, one per
     config, as percnn_tpu keeps it."""
     return lambda p, h: pi_cell_step(p, h, cell_cfg)
+
+
+def make_mesh_rollout_fn(prob: Problem, n_steps: int, mesh, *, impl: str = "halo"):
+    """The rollout of ``build_loss_fn`` on a spatially decomposed field:
+    rollout_fn(params) -> frames [n_steps + 1, *spatial, 2] on the mesh's
+    first device.
+
+    impl:
+      'halo'  -- explicit domain decomposition: parallel.sharded_rollout_nd
+                 over the mesh's first ndim axes, a 2-cell halo exchange a
+                 step, the eager valid-region step on each block (its
+                 default impl, as percnn_tpu's runner keeps); autograd
+                 crosses the exchange;
+      'gspmd' -- not ported (ROADMAP.md A10): PyTorch has no GSPMD; its
+                 counterpart is DTensor over a process group.
+    """
+    exp = prob.exp
+    nd = exp.cell.ndim
+    axis_names = tuple(mesh.axis_names)[:nd]
+    if len(axis_names) != nd:
+        raise ValueError(
+            f"mesh {tuple(mesh.axis_names)} has fewer axes than the "
+            f"{nd}D experiment {exp.name!r}")
+    spatial = prob.truth.shape[1:1 + nd]
+    for n, a in zip(spatial, axis_names):
+        if n % mesh.shape[a]:
+            raise ValueError(
+                f"grid axis {a}={n} not divisible by mesh axis "
+                f"{a}={mesh.shape[a]} for experiment {exp.name!r}")
+    if impl == "gspmd":
+        raise NotImplementedError("parallel_impl='gspmd' is not ported: PyTorch has no "
+                                  "GSPMD; DTensor over a process group is its "
+                                  "counterpart (ROADMAP.md A10)")
+    if impl != "halo":
+        raise ValueError(f"unknown parallel impl {impl!r} (expected 'halo' or 'gspmd')")
+
+    def rollout_fn(params):
+        if exp.isg is not None:
+            h0 = isg_apply(params["isg"], prob.ic_low, exp.isg)[0]
+        else:
+            h0 = prob.h0
+        return sharded_rollout_nd(params["cell"], h0, exp.cell, n_steps, mesh,
+                                  axis_names=axis_names)
+
+    return rollout_fn
 
 
 def _n_meas(n_frames: int, dcfg: DataLossConfig) -> int:
@@ -369,7 +421,8 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                    n_iters_override: int | None = None,
                    isg_pretrain_override: int | None = None, warmup: int | None = None,
                    steps_per_call: int | None = None, resume: bool = False,
-                   seed: int = 0, device: str | torch.device = "cuda") -> dict:
+                   seed: int = 0, device: str | torch.device = "cuda", mesh=None,
+                   parallel_impl: str = "halo") -> dict:
     """Full pipeline on `device`: data -> (ISG pretrain) -> curriculum train -> eval.
 
     resume=True reloads params and optimizer from the experiment checkpoint
@@ -380,8 +433,17 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     result then holds ``candidate`` and ``probe_scores``.  Besides the JAX
     package's result keys, ``seconds`` holds the host seconds of each phase
     (truth, ISG pretrain, each stage, candidate selection, evaluation).
+
+    mesh: a parallel.Mesh whose first device is `device` -- training runs
+    spatially decomposed over its devices (``make_mesh_rollout_fn`` with
+    `parallel_impl`), without the stability probe, as in percnn_tpu.  The
+    parameters stay on `device` throughout (each rollout copies them to the
+    other mesh devices), so evaluation and serving take them as they are.
     """
     dev = resolve_device(device)
+    if mesh is not None and mesh.devices.flat[0] != canonical_device(dev):
+        raise ValueError(f"the mesh's first device {mesh.devices.flat[0]} is not the "
+                         f"run's device {dev}; pass device={mesh.devices.flat[0]!s}")
     os.makedirs(out_dir, exist_ok=True)
     logger = MetricsLogger(os.path.join(out_dir, f"{exp.name}.metrics.jsonl"),
                            echo_every=exp.train.log_every)
@@ -410,7 +472,7 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     if resume and os.path.exists(ckpt_path):
         start_stage = min(int(peek_meta(ckpt_path).get("stage", 0)), len(stages) - 1)
     probe = None
-    if exp.train.probe_every > 0 and prob.measurement is not None:
+    if exp.train.probe_every > 0 and prob.measurement is not None and mesh is None:
         probe = make_stability_probe(prob, min(exp.infer_steps, truth.shape[0] - 1))
         if not resume and os.path.exists(ckpt_path + ".stable"):
             os.remove(ckpt_path + ".stable")   # stale: another run's params
@@ -427,7 +489,10 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
             **({"steps_per_call": steps_per_call} if steps_per_call else {}),
         )
         t0 = time.perf_counter()
-        params, h = train(build_loss_fn(prob, steps), params, tcfg, logger=logger,
+        rollout_fn = (make_mesh_rollout_fn(prob, steps, mesh, impl=parallel_impl)
+                      if mesh is not None else None)
+        params, h = train(build_loss_fn(prob, steps, rollout_fn=rollout_fn), params, tcfg,
+                          logger=logger,
                           resume=resume and i == start_stage, extra_meta={"stage": i},
                           probe=probe, device=dev)
         seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,

@@ -4,9 +4,9 @@ Counterpart of percnn_tpu/ops/convs.py.  Activations are [..., *spatial, C]
 and weights [*k, Cin, Cout], as there; PyTorch's own convolutions take
 channels first, so the convs permute around the library call.  The k x k
 convs run in full float32 (``full_f32``): cuDNN would take them to TF32.
-The weight gradient of the 2D periodic conv (the k x k Pi branches) is one
-FFMA matrix product of the output cotangent with the im2col stack of the
-input (``_PeriodicConv2d``), not cuDNN's weight-grad convolution.
+The weight gradient of the 2D convs (the k x k Pi branches, periodic or
+VALID) is one FFMA matrix product of the output cotangent with the im2col
+stack of the input (``_Conv2d``), not cuDNN's weight-grad convolution.
 """
 
 from __future__ import annotations
@@ -28,8 +28,8 @@ def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-class _PeriodicConv2d(torch.autograd.Function):
-    """VALID conv2d of a wrap-padded batch xb [N, Cin, H+k-1, W+k-1] with
+class _Conv2d(torch.autograd.Function):
+    """VALID conv2d of a (wrap-padded or haloed) batch xb [N, Cin, H+k-1, W+k-1] with
     w [Cout, Cin, kh, kw]: cuDNN's forward, and a backward whose weight
     gradient is one full-f32 matmul of the cotangent [Cout, N*L] with the
     im2col stack [N*L, Cin*kh*kw] of xb (L = H*W).
@@ -80,8 +80,8 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
             pads += [k // 2, (k - 1) // 2]
         xb = F.pad(xb, pads, mode="circular")
     wt = w.permute(nd + 1, nd, *range(nd))
-    if wrap and nd == 2:
-        y = _PeriodicConv2d.apply(xb, wt, b)
+    if nd == 2:
+        y = _Conv2d.apply(xb, wt, b)
     else:
         with full_f32():
             y = _CONV[nd](xb, wt, b)

@@ -1,10 +1,16 @@
 // One forward-Euler step of the 2D Pi cell from the packed parameters, at one
-// cell of the periodic H x W grid, and the launch shape of such a step.
+// cell of an H x W output, and the launch shape of such a step.
 // rollout2d_kernel and final2d_kernel (cell2d.cu) run it for one model;
 // rollout2d_batched_kernel (batched2d.cu) runs it for member m of an
 // ensemble, from row m of the [M, P] parameter table and member m's frames,
 // so a member's step is the single model's arithmetic.  The step, the
 // packed layout and the design are described in cell2d.cu.
+//
+// Where a step reads a cell's neighbours is its Grid: Periodic, the whole
+// H x W field with no halo, indices wrapped (those three kernels); Haloed,
+// one block of a domain-decomposed field with a 2-cell halo,
+// [H + 4, W + 4], whose H x W interior is the output, read without a wrap
+// (step2d_haloed_kernel, sharded_step2d.cu).  The arithmetic is the same.
 
 #pragma once
 
@@ -15,6 +21,53 @@
 namespace step2d {
 
 constexpr int kThreads = 256;
+
+// The input indices of output cell idx = (i, j) and of its 5-point cross:
+// the centre, the four neighbours at distance 1, the four at distance 2.
+struct Cross {
+  int c, a1, a2, a3, a4, b1, b2, b3, b4;
+};
+
+// The whole H x W field, indices wrapped.
+struct Periodic {
+  int H, W;
+
+  __device__ __forceinline__ Cross cross(int idx, int i, int j) const {
+    const int im1 = (i + H - 1) % H, ip1 = (i + 1) % H;
+    const int im2 = (i + 2 * H - 2) % H, ip2 = (i + 2) % H;
+    const int jm1 = (j + W - 1) % W, jp1 = (j + 1) % W;
+    const int jm2 = (j + 2 * W - 2) % W, jp2 = (j + 2) % W;
+    return {idx,          ip1 * W + j, im1 * W + j, i * W + jp1, i * W + jm1,
+            ip2 * W + j, im2 * W + j, i * W + jp2, i * W + jm2};
+  }
+
+  // The k x k steps' tile: rows i0 - 2 .. i0 + kTileH + 1 and columns
+  // j0 - 2 .. j0 + kTileW + 1 of the field, wrapped.
+  __device__ __forceinline__ void stage(float2* tile, const float2* __restrict__ in, int i0,
+                                        int j0) const {
+    kxk::stage_tile(tile, in, H, W, i0, j0);
+  }
+};
+
+// A block with a 2-cell halo, [H + 4, W + 4]; output cell (i, j) is input
+// cell (i + 2, j + 2), and every neighbour a step reads lies in the block.
+struct Haloed {
+  int H, W;
+
+  __device__ __forceinline__ Cross cross(int, int i, int j) const {
+    const int ld = W + 2 * kxk::kHalo;
+    const int c = (i + kxk::kHalo) * ld + j + kxk::kHalo;
+    return {c, c + ld, c - ld, c + 1, c - 1, c + 2 * ld, c - 2 * ld, c + 2, c - 2};
+  }
+
+  // The same tile as Periodic's, rows i0 .. i0 + kTileH + 3 and columns
+  // j0 .. j0 + kTileW + 3 of the haloed block, zero past its edge (read only
+  // by the tile's cells past the output's edge, which write nothing).
+  __device__ __forceinline__ void stage(float2* tile, const float2* __restrict__ in, int i0,
+                                        int j0) const {
+    kxk::stage_tile_haloed(tile, in, H, W, i0, j0);
+  }
+};
 
 // Pi-block output for one equation; `p` points at that equation's block.
 __device__ __forceinline__ float pi_poly(const float* p, float u, float v,
@@ -34,30 +87,28 @@ __device__ __forceinline__ float pi_poly(const float* p, float u, float v,
   return acc + w_out[hidden];
 }
 
+template <class Grid>
 __device__ __forceinline__ void euler_step(const float* __restrict__ params,
                                            int n_params,
                                            const float2* __restrict__ in,
-                                           float2* __restrict__ out, int H,
-                                           int W, int hidden, int n_branches,
+                                           float2* __restrict__ out, Grid g,
+                                           int hidden, int n_branches,
                                            float dt, float inv_dx2) {
   extern __shared__ float sp[];
   for (int k = threadIdx.x; k < n_params; k += blockDim.x) sp[k] = params[k];
   __syncthreads();
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= H * W) return;
-  const int i = idx / W;
-  const int j = idx - i * W;
-  const int im1 = (i + H - 1) % H, ip1 = (i + 1) % H;
-  const int im2 = (i + 2 * H - 2) % H, ip2 = (i + 2) % H;
-  const int jm1 = (j + W - 1) % W, jp1 = (j + 1) % W;
-  const int jm2 = (j + 2 * W - 2) % W, jp2 = (j + 2) % W;
+  if (idx >= g.H * g.W) return;
+  const int i = idx / g.W;
+  const int j = idx - i * g.W;
+  const Cross x = g.cross(idx, i, j);
 
-  const float2 c = in[idx];
-  const float2 a1 = in[ip1 * W + j], a2 = in[im1 * W + j];
-  const float2 a3 = in[i * W + jp1], a4 = in[i * W + jm1];
-  const float2 b1 = in[ip2 * W + j], b2 = in[im2 * W + j];
-  const float2 b3 = in[i * W + jp2], b4 = in[i * W + jm2];
+  const float2 c = in[x.c];
+  const float2 a1 = in[x.a1], a2 = in[x.a2];
+  const float2 a3 = in[x.a3], a4 = in[x.a4];
+  const float2 b1 = in[x.b1], b2 = in[x.b2];
+  const float2 b3 = in[x.b3], b4 = in[x.b4];
   const float s1u = a1.x + a2.x + a3.x + a4.x, s1v = a1.y + a2.y + a3.y + a4.y;
   const float s2u = b1.x + b2.x + b3.x + b4.x, s2v = b1.y + b2.y + b3.y + b4.y;
   const float lap_u = (-5.0f * c.x + (4.0f / 3.0f) * s1u - (1.0f / 12.0f) * s2u) * inv_dx2;
@@ -75,19 +126,19 @@ __device__ __forceinline__ void euler_step(const float* __restrict__ params,
 // equation 0 and [kCells, 2 kCells) equation 1, so each warp walks one
 // equation's weights (the layout of kxk_common.cuh's kernels).  The tile is
 // (blockIdx.y, blockIdx.x).
-template <int KS, int NB>
+template <int KS, int NB, class Grid>
 __device__ __forceinline__ void euler_step_kxk(const float* __restrict__ params,
                                                int n_params,
                                                const float2* __restrict__ in,
-                                               float2* __restrict__ out, int H,
-                                               int W, int hidden, float dt,
-                                               float inv_dx2) {
+                                               float2* __restrict__ out, Grid g,
+                                               int hidden, float dt, float inv_dx2) {
+  const int H = g.H, W = g.W;
   extern __shared__ float4 smem_kxk[];
   float* sp = reinterpret_cast<float*>(smem_kxk);
   float2* tile = reinterpret_cast<float2*>(sp + (n_params + 3) / 4 * 4);
   for (int k = threadIdx.x; k < n_params; k += blockDim.x) sp[k] = params[k];
   const int i0 = blockIdx.y * kxk::kTileH, j0 = blockIdx.x * kxk::kTileW;
-  kxk::stage_tile(tile, in, H, W, i0, j0);
+  g.stage(tile, in, i0, j0);
   __syncthreads();
 
   const int o = threadIdx.x / kxk::kCells;  // the same in every warp
@@ -115,17 +166,17 @@ __device__ __forceinline__ void euler_step_kxk(const float* __restrict__ params,
 }
 
 // KS = 1 takes the branch count at run time (NB = 0); KS = 3, 5 take it as
-// NB.
-template <int KS, int NB>
+// NB.  H x W is the output; the Grid says where its neighbours are read.
+template <int KS, int NB, class Grid = Periodic>
 __device__ __forceinline__ void step(const float* __restrict__ params, int n_params,
                                      const float2* __restrict__ in,
                                      float2* __restrict__ out, int H, int W,
                                      int hidden, int n_branches, float dt,
                                      float inv_dx2) {
   if constexpr (KS == 1)
-    euler_step(params, n_params, in, out, H, W, hidden, n_branches, dt, inv_dx2);
+    euler_step(params, n_params, in, out, Grid{H, W}, hidden, n_branches, dt, inv_dx2);
   else
-    euler_step_kxk<KS, NB>(params, n_params, in, out, H, W, hidden, dt, inv_dx2);
+    euler_step_kxk<KS, NB>(params, n_params, in, out, Grid{H, W}, hidden, dt, inv_dx2);
 }
 
 // The launch shape of a step: H*W threads in blocks of kThreads at k = 1;

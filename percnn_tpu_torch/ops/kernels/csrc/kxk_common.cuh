@@ -67,6 +67,19 @@ __device__ __forceinline__ void stage_tile(float2* tile, const float2* __restric
   }
 }
 
+// The same tile from a block with a 2-cell halo, [H + 4, W + 4] (H x W its
+// interior): tile cell (ti, tj) is block cell (i0 + ti, j0 + tj), no wrap,
+// and zero past the block's edge.  The caller synchronises.
+__device__ __forceinline__ void stage_tile_haloed(float2* tile, const float2* __restrict__ xp,
+                                                  int H, int W, int i0, int j0) {
+  const int ld = W + 2 * kHalo;
+  for (int k = threadIdx.x; k < kTileLen; k += blockDim.x) {
+    const int ti = k / kTileRow;
+    const int bi = i0 + ti, bj = j0 + k - ti * kTileRow;
+    tile[k] = (bi < H + 2 * kHalo && bj < ld) ? xp[bi * ld + bj] : make_float2(0.0f, 0.0f);
+  }
+}
+
 struct Staged {
   const float4* wm;  // [M][kRow / 4]
   const float* tail;

@@ -1,9 +1,12 @@
-"""Finite-difference stencils on periodic grids, as sums of rolled copies.
+"""Finite-difference stencils on periodic grids, as sums of rolled copies,
+and on haloed blocks, as sums of shifted slices.
 
 Counterpart of percnn_tpu/ops/stencils.py: the 4th-order Laplacian is the
 5-point cross per axis with coefficients [-1/12, 4/3, -5/2, 4/3, -1/12]
 over dx^2, the first derivative [1/12, -2/3, 0, 2/3, -1/12] over dx, and
-``torch.roll`` supplies the periodic boundary.
+``torch.roll`` supplies the periodic boundary.  The ``*_valid`` variants
+take a block extended by a halo on each listed dim (parallel/halo.py fills
+it from the neighbouring blocks) and return its interior: they never wrap.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ LAP_CROSS_1D = (-1.0 / 12.0, 4.0 / 3.0, -5.0 / 2.0, 4.0 / 3.0, -1.0 / 12.0)
 
 # 4th-order central first derivative, offsets -2..2.
 FD1_CENTRAL_1D = (1.0 / 12.0, -2.0 / 3.0, 0.0, 2.0 / 3.0, -1.0 / 12.0)
+
+# Cells a 5-point stencil reads on each side: the halo a block needs.
+STENCIL_HALO = 2
 
 
 def _shifted_sum(u: torch.Tensor, coeffs: Sequence[float], dim: int) -> torch.Tensor:
@@ -68,6 +74,50 @@ def periodic_pad(u: torch.Tensor, width: int, dims: Sequence[int]) -> torch.Tens
         n = u.shape[d]
         u = torch.cat([u.narrow(d, n - width, width), u, u.narrow(d, 0, width)], dim=d)
     return u
+
+
+# Valid-region variants: the input is a block extended by `halo` cells on
+# each side of each dim in `dims`; the output is trimmed by `halo` there.
+
+
+def _valid_slice(x: torch.Tensor, offs: dict, dims: Sequence[int], halo: int) -> torch.Tensor:
+    """The interior of x along `dims`, shifted by offs[d] cells along d."""
+    sl = [slice(None)] * x.ndim
+    for d in dims:
+        off = offs.get(d, 0)
+        sl[d] = slice(halo + off, x.shape[d] - halo + off)
+    return x[tuple(sl)]
+
+
+def laplacian_valid(xp: torch.Tensor, dx: float, dims: Sequence[int],
+                    halo: int = STENCIL_HALO) -> torch.Tensor:
+    """4th-order Laplacian of a haloed block over `dims`, trimmed by `halo`."""
+    r = len(LAP_CROSS_1D) // 2
+    acc = None
+    for d in dims:
+        for k, c in enumerate(LAP_CROSS_1D):
+            t = c * _valid_slice(xp, {d: k - r}, dims, halo)
+            acc = t if acc is None else acc + t
+    return acc / (dx * dx)
+
+
+def grad_axis_valid(xp: torch.Tensor, dx: float, dim: int, dims: Sequence[int],
+                    halo: int = STENCIL_HALO) -> torch.Tensor:
+    """4th-order first derivative along `dim` of a haloed block, trimmed by
+    `halo` on each of `dims`."""
+    r = len(FD1_CENTRAL_1D) // 2
+    acc = None
+    for k, c in enumerate(FD1_CENTRAL_1D):
+        if c == 0.0:
+            continue
+        t = c * _valid_slice(xp, {dim: k - r}, dims, halo)
+        acc = t if acc is None else acc + t
+    return acc / dx
+
+
+def interior(xp: torch.Tensor, dims: Sequence[int], halo: int = STENCIL_HALO) -> torch.Tensor:
+    """The centre of a haloed block: trimmed by `halo` on each of `dims`."""
+    return _valid_slice(xp, {}, dims, halo)
 
 
 def time_derivative_fwd(seq: torch.Tensor, dt: float) -> torch.Tensor:

@@ -140,9 +140,9 @@ def test_members_draw_their_inits_from_seed_plus_k(monkeypatch, tmp_path):
 
 
 def test_mesh_and_unknown_mode_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A10"):
         ensemble.run_ensemble(EXP, M, out_dir=str(tmp_path), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A10"):
         ensemble.run_ensemble(EXP, M, out_dir=str(tmp_path), spatial_axes=("x",), device="cpu")
     with pytest.raises(ValueError, match="unknown bptt mode"):
         ensemble.run_ensemble(EXP, M, out_dir=str(tmp_path), bptt="vmap", device="cpu")
@@ -194,7 +194,7 @@ def test_cli_ensemble_verb(monkeypatch, capsys):
     cli.main(["ensemble", "burgers_stage1"])
     assert calls[-1][0] is BURGERS_STAGE1 and calls[-1][1] == 4
     assert calls[-1][2]["device"] == "cuda"
-    for argv, msg in ((["ensemble", "gs2d_recon", "--shard"], "A7"),
+    for argv, msg in ((["ensemble", "gs2d_recon", "--shard"], "A10"),
                       (["ensemble", "forward_sim_lo"], "unknown experiment")):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)

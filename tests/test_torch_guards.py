@@ -36,6 +36,9 @@ def test_port_files_found():
     assert "percnn_tpu_torch/ops/kernels/cell3d.py" in names
     assert "percnn_tpu_torch/ops/kernels/backward3d.py" in names
     assert "percnn_tpu_torch/experiments/runner.py" in names
+    assert "percnn_tpu_torch/ops/kernels/sharded_step2d.py" in names
+    for module in ("__init__", "mesh", "halo", "sharded"):
+        assert f"percnn_tpu_torch/parallel/{module}.py" in names
     assert "chip_smoke.py" in names
 
 

@@ -29,6 +29,7 @@ from percnn_tpu_torch.data.simulate import simulate
 from percnn_tpu_torch.experiments import runner
 from percnn_tpu_torch.experiments.ensemble import run_ensemble
 from percnn_tpu_torch.experiments.configs import GS2D_RECON
+from percnn_tpu_torch.parallel import make_mesh
 
 
 def _small(base):
@@ -269,12 +270,18 @@ _ENTRY_POINTS = {
         dataclasses.replace(EXP, grid=12, train_steps=4, infer_steps=4, train=dataclasses.replace(
             EXP.train, n_iters=1)), out_dir=dev.pop("out_dir"), cache_dir=None,
         isg_pretrain_override=1, **dev),
+    "make_mesh": lambda dev: make_mesh(("x", "y"), devices=[dev["device"]] if dev else None),
+    "run_experiment_mesh": lambda dev: runner.run_experiment(
+        dataclasses.replace(EXP, grid=12, train_steps=4, infer_steps=4, train=dataclasses.replace(
+            EXP.train, n_iters=1)), out_dir=dev.pop("out_dir"), cache_dir=None,
+        isg_pretrain_override=1, mesh=make_mesh(("x", "y"), shape=(2, 2),
+                                                devices=[dev.get("device", "cuda")] * 4), **dev),
     "run_ensemble": lambda dev: run_ensemble(
         dataclasses.replace(EXP, grid=12, train_steps=4, infer_steps=4, train=dataclasses.replace(
             EXP.train, n_iters=1)), 2, out_dir=dev.pop("out_dir"), cache_dir=None,
         isg_pretrain_override=1, bptt="batched_pg", **dev),
 }
-_WRITE_FILES = ("run_experiment", "run_ensemble")
+_WRITE_FILES = ("run_experiment", "run_experiment_mesh", "run_ensemble")
 
 
 @pytest.mark.parametrize("name", list(_ENTRY_POINTS))
