@@ -20,15 +20,25 @@ on meshes that repeat cuda:0, and times the kernels.  Phases, one JSON line each
 since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
-  build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel
+  build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel,
+               ptxas's registers and spills, and the one-launch kernels'
+               plans at GS2D's shape (cluster size, co-resident grid) beside
+               what the card holds of them
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_kernel against tests/golden/pt_gs3d.npz
   golden_burgers  the Burgers ISG and rollout2d_kxk_kernel against
                tests/golden/pt_burgers_s1.npz
-  kernels      the forward kernels against their plain versions, 100 x 100, T = 200
-  grads        pg2d_kernel against its plain version (100 x 100, T = 200,
-               golden cell, data-loss cotangent), and the fused gradients
-               against f64 autograd
+  kernels      the forward kernels against their plain versions, 100 x 100,
+               T = 200: rollout2d_cluster_kernel (the frames rollout's route
+               at that shape) also against rollout2d_kernel, the per-step
+               route, to the bit, and on a field of 17 rows (strips of 2 and
+               3) and one past the cluster's capacity (449 x 449, the
+               per-step route by the rule)
+  grads        pg2d_persistent_kernel (the sweep's route at 100 x 100)
+               against its plain version and against pg2d_kernel, the
+               per-step route (T = 200, golden cell, data-loss cotangent),
+               on a field past its capacity (195 x 195, pg2d_kernel by the
+               rule), and the fused gradients against f64 autograd
   kernels3d    at 48^3: rollout3d_kernel against its plain version (frames
                and final state, T = 300), pg3d_kernel against its plain
                sweep (T = 50, golden cell, data-loss cotangent), and the
@@ -52,7 +62,7 @@ since start:
                the referee setup, each route's launches counted
   serve        one uncounted warm-up request of each kind, then three frames
                requests and one final-state request, 2500 steps, with the
-               kernels' launch counters set to 0 just before
+               kernels' launch and step counters set to 0 just before
   train        run_experiment(GS2D_RECON): truth, ISG pretrain, 10 iterations
                at each of T = 200, 400, 800, a 2500-step evaluation, with the
                launch counters set to 0 just before
@@ -105,7 +115,7 @@ since start:
                of 100 x 100, and a 6 x 10 block) for the golden GS2D (k = 1)
                and Burgers (k = 5) cells; then sharded_rollout_nd
                (impl="pallas", T = 200, launches counted) against the
-               single-device rollout2d_kernel and against impl="jnp"
+               single-device frames rollout and against impl="jnp"
   grads_sharded  the gradients of sharded_rollout_nd, impl="pallas" and
                "jnp", against f64 autograd on the referee setup (k = 1 and
                k = 5, 12 steps, full width), launches counted
@@ -131,7 +141,8 @@ since start:
                device ms, enqueue, and the device's idle share from a
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
-               shapes, beside the card's bound for the same work, one
+               shapes, beside the card's bound for the same work (rows 1
+               and 7 also by their per-step routes, in the same call), one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
@@ -335,7 +346,8 @@ def profile_busy(torch, fn) -> dict:
               - min(float(e["ts"]) for e in events))
     kernels = {name: [float(e["dur"]) for e in events
                       if e.get("cat") == "kernel" and name in e.get("name", "")]
-               for name in ("rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
+               for name in ("rollout2d_cluster_kernel", "pg2d_persistent_kernel",
+                            "rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
                             "pg3d_kernel", "rollout2d_kxk_kernel", "adj2d_kxk_act_kernel",
                             "adj2d_kxk_gather_kernel", "rollout2d_batched_kernel",
                             "adj2d_batched_kernel", "pg2d_batched_kernel",
@@ -406,9 +418,23 @@ def main() -> int:
                "adj2d", "batched2d", "sharded_step2d")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(build, sources)))
+    n_gs2d = GS2D_RECON.grid
+    one_launch = {
+        "rollout2d_cluster_kernel": {
+            **cell2d.rollout_plan(n_gs2d, n_gs2d, GS2D_RECON.cell),
+            "clusters_the_card_holds": cell2d.cluster_occupancy(GS2D_RECON.cell, n_gs2d,
+                                                                n_gs2d)},
+        "pg2d_persistent_kernel": {
+            **backward2d.pg_plan(n_gs2d, n_gs2d, GS2D_RECON.cell, backward2d._sm_count(dev)),
+            "blocks_an_sm_holds": backward2d.pg_occupancy(GS2D_RECON.cell, n_gs2d, n_gs2d,
+                                                          dev),
+            "sms": backward2d._sm_count(dev)}}
+    check(one_launch["rollout2d_cluster_kernel"]["clusters_the_card_holds"] >= 1
+          and one_launch["pg2d_persistent_kernel"]["blocks_an_sm_holds"] >= 1,
+          f"the card holds none of a one-launch kernel's grid: {one_launch}")
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
                             for n in sources},
-          ptxas={n: _build.PTXAS.get(n) for n in sources})
+          ptxas={n: _build.PTXAS.get(n) for n in sources}, one_launch=one_launch)
 
     cfg, isg_cfg = GS2D_RECON.cell, GS2D_RECON.isg
     with np.load(GOLDEN) as z:
@@ -489,13 +515,50 @@ def main() -> int:
     got_final = cell2d.fused_rollout_final_2d(params["cell"], h0, cfg, CHECK_STEPS)
     want_final = cell2d.fused_rollout_final_2d_plain(packed, h0, cfg, CHECK_STEPS)
     torch.cuda.synchronize()
-    err = {"rollout2d_kernel": max_abs(got, want), "final2d_kernel": max_abs(got_final, want_final)}
+    err = {"rollout2d_cluster_kernel": max_abs(got, want),
+           "final2d_kernel": max_abs(got_final, want_final)}
     check(allclose(got, want, rtol=2e-4, atol=1e-5),
-          f"rollout2d_kernel vs plain: max |diff| {err['rollout2d_kernel']}")
+          f"rollout2d_cluster_kernel vs plain: max |diff| {err['rollout2d_cluster_kernel']}")
     check(allclose(got_final, want_final, rtol=2e-4, atol=1e-5),
           f"final2d_kernel vs plain: max |diff| {err['final2d_kernel']}")
+    # the frames rollout's two routes: rollout_plan takes the cluster at
+    # 100 x 100; the per-step kernel runs the same step arithmetic, so the
+    # two agree to the bit
+    check(cell2d.rollout_plan(*h0.shape[:2], cfg)["route"] == "cluster",
+          f"rollout_plan at {tuple(h0.shape)}: {cell2d.rollout_plan(*h0.shape[:2], cfg)}")
+    got_steps = cell2d._rollout_steps_cuda(packed, h0, cfg, CHECK_STEPS)
+    torch.cuda.synchronize()
+    err["rollout2d_kernel[per_step]"] = max_abs(got_steps, want)
+    check(allclose(got_steps, want, rtol=2e-4, atol=1e-5),
+          f"rollout2d_kernel vs plain: max |diff| {err['rollout2d_kernel[per_step]']}")
+    check(torch.equal(got, got_steps),
+          f"rollout2d_cluster_kernel vs rollout2d_kernel: max |diff| {max_abs(got, got_steps)}")
+    del got_steps
+    # the cluster on 17 rows (8 CTAs, strips of 3 and 2 rows: the smallest
+    # the plan makes, where a cell is in both halos it feeds) and the
+    # per-step route past the cluster's capacity (449 x 449), random fields
+    route_checks = {}
+    for shape, steps_, route in (((17, 9), 30, "cluster"), ((449, 449), 20, "per_step")):
+        x = torch.as_tensor(0.5 + 0.1 * np.random.RandomState(5).standard_normal(shape + (2,)),
+                            dtype=torch.float32, device=dev)
+        plan = cell2d.rollout_plan(*shape, cfg)
+        check(plan["route"] == route, f"rollout_plan at {shape}: {plan}, expected {route}")
+        zero = (cell2d.fused_rollout_2d.launches, cell2d.fused_rollout_2d.steps)
+        g_ = cell2d.fused_rollout_2d(params["cell"], x, cfg, steps_)
+        w_ = cell2d.fused_rollout_2d_plain(packed, x, cfg, steps_)
+        torch.cuda.synchronize()
+        moved = (cell2d.fused_rollout_2d.launches - zero[0], cell2d.fused_rollout_2d.steps - zero[1])
+        check(moved == ((1 if route == "cluster" else steps_), steps_),
+              f"rollout at {shape}: (launches, steps) {moved}")
+        route_checks[f"{shape[0]}x{shape[1]}"] = {"route": route, "steps": steps_,
+                                                  "launches": moved[0],
+                                                  "max_abs_err": max_abs(g_, w_)}
+        check(allclose(g_, w_, rtol=2e-4, atol=1e-5),
+              f"rollout at {shape} ({route}) vs plain: max |diff| {max_abs(g_, w_)}")
+    del g_, w_, x
     phase("kernels", shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2], steps=CHECK_STEPS,
-          max_abs_err=err, rtol=2e-4, atol=1e-5)
+          max_abs_err=err, rtol=2e-4, atol=1e-5,
+          cluster_vs_per_step="equal to the bit", route_checks=route_checks)
 
     # grads: the backward kernel and the fused gradients at full width
     def data_term(frames, meas, exp=GS2D_RECON):
@@ -531,8 +594,58 @@ def main() -> int:
                           float(sums_p[start:start + n].abs().max()))
     for name, (e, scale) in leaf_err.items():
         check(e <= 2e-4 * scale + 2e-6,
-              f"pg2d_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
-    err["pg2d_kernel"] = max(e for e, _ in leaf_err.values())
+              f"pg2d_persistent_kernel vs plain, {name}: max |diff| {e} over "
+              f"2e-4 * {scale} + 2e-6")
+    err["pg2d_persistent_kernel"] = max(e for e, _ in leaf_err.values())
+
+    def pg_leaf_errs(g0_a, acc_a, g0_b, acc_b):
+        """Per leaf: (max |diff| of a from b, max |b|)."""
+        sa, sb = acc_a.sum((1, 2)), acc_b.sum((1, 2))
+        out = {"g0": (max_abs(g0_a, g0_b), float(g0_b.abs().max()))}
+        for name, (start, n) in groups.items():
+            out[name] = (max_abs(sa[start:start + n], sb[start:start + n]),
+                         float(sb[start:start + n].abs().max()))
+        return out
+
+    # the sweep's two routes at 100 x 100: pg_plan takes the persistent
+    # kernel; the per-step kernel sums the Jacobian's transpose in another
+    # order (branch by branch over (o, c), against per (o, c) and then over
+    # them), so the two agree to rounding, held at the kernel's bar
+    check(backward2d.pg_plan(*h0.shape[:2], cfg, backward2d._sm_count(dev))["route"]
+          == "persistent", "pg_plan does not take the persistent sweep at 100 x 100")
+    g0_s, acc_s = backward2d._pg_steps_cuda(packed, frames, fbar, cfg)
+    torch.cuda.synchronize()
+    steps_err = pg_leaf_errs(g0_s, acc_s, g0_p, acc_p)
+    routes_err = pg_leaf_errs(g0_k, acc_k, g0_s, acc_s)
+    for label, errs in (("pg2d_kernel vs plain", steps_err),
+                        ("pg2d_persistent_kernel vs pg2d_kernel", routes_err)):
+        for name, (e, scale) in errs.items():
+            check(e <= 2e-4 * scale + 2e-6,
+                  f"{label}, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+    err["pg2d_kernel[per_step]"] = max(e for e, _ in steps_err.values())
+    routes_rel = max(e / sc for e, sc in routes_err.values() if sc > 0)
+    del g0_s, acc_s
+    # past the persistent sweep's capacity: 195 x 195 by pg_plan's rule
+    # takes pg2d_kernel (a random field and cotangent, 10 steps)
+    rng_pg = np.random.RandomState(6)
+    x_pg = torch.as_tensor(0.5 + 0.1 * rng_pg.standard_normal((195, 195, 2)),
+                           dtype=torch.float32, device=dev)
+    check(backward2d.pg_plan(195, 195, cfg, backward2d._sm_count(dev))["route"] == "per_step",
+          "pg_plan takes the persistent sweep at 195 x 195")
+    fr_pg = cell2d._rollout_cuda(packed, x_pg, cfg, 10)
+    fb_pg = torch.as_tensor(rng_pg.standard_normal(tuple(fr_pg.shape)), dtype=torch.float32,
+                            device=dev)
+    zero = (backward2d.fused_rollout_tp_2d_pg.launches, backward2d.fused_rollout_tp_2d_pg.steps)
+    big_err = pg_leaf_errs(*backward2d.fused_phase1_pg_2d(packed, fr_pg, fb_pg, cfg),
+                           *backward2d.fused_phase1_pg_2d_plain(packed, fr_pg, fb_pg, cfg))
+    moved = (backward2d.fused_rollout_tp_2d_pg.launches - zero[0],
+             backward2d.fused_rollout_tp_2d_pg.steps - zero[1])
+    check(moved == (10, 10), f"sweep at 195 x 195: (launches, steps) {moved}")
+    for name, (e, scale) in big_err.items():
+        check(e <= 2e-4 * scale + 2e-6,
+              f"pg2d_kernel vs plain at 195 x 195, {name}: max |diff| {e} over "
+              f"2e-4 * {scale} + 2e-6")
+    del x_pg, fr_pg, fb_pg
 
     def rel_errs_vs_f64(cell_np, x0, steps, loss, cfg=cfg, routes=None):
         """Worst |g - g64| / max|g64| per leaf (cell leaves and dh0) of each
@@ -582,7 +695,15 @@ def main() -> int:
           f"fused gradients vs f64 autograd on the trained cell: {worst_gold['fused']} over "
           f"2 x plain f32 autograd's {worst_gold['autograd_f32']}")
     phase("grads", shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2], steps=CHECK_STEPS,
-          pg2d_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in leaf_err.items()},
+          pg2d_persistent_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                     in leaf_err.items()},
+          pg2d_per_step_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                   in steps_err.items()},
+          persistent_vs_per_step_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                   in routes_err.items()},
+          persistent_vs_per_step_worst_rel=routes_rel,
+          per_step_195x195_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                      in big_err.items()},
           pg2d_bar="2e-4 * max|leaf| + 2e-6",
           f64_random_cell_12_steps={"worst_leaf": worst_ref, "bar": 1e-4, **rel_ref},
           f64_trained_cell_200_steps={"worst": worst_gold, "bar": "2 x autograd_f32",
@@ -810,7 +931,8 @@ def main() -> int:
             (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED,
              backward2d.YS_PATH_ENABLED) = saved
 
-    counters = [(cell2d.fused_rollout_2d, "launches"), (cell2d.fused_rollout_2d, "launches_kxk"),
+    counters = [(cell2d.fused_rollout_2d, "launches"), (cell2d.fused_rollout_2d, "steps"),
+                (cell2d.fused_rollout_2d, "launches_kxk"),
                 (cell2d.fused_rollout_final_2d, "launches_kxk"),
                 (cell2d.fused_rollout_kxk_2d, "launches"), (cell3d.fused_rollout_3d, "launches"),
                 (backward2d.fused_rollout_tp_2d, "launches"),
@@ -818,6 +940,7 @@ def main() -> int:
                 (backward2d.fused_phase1_ys_2d, "launches"),
                 (backward3d.fused_phase1_3d, "launches"),
                 (backward2d.fused_rollout_tp_2d_pg, "launches"),
+                (backward2d.fused_rollout_tp_2d_pg, "steps"),
                 (batched2d.fused_rollout_2d_batched, "launches"),
                 (batched2d.fused_rollout_2d_batched, "launches_kxk"),
                 (batched2d.fused_phase1_2d_batched, "launches"),
@@ -852,7 +975,9 @@ def main() -> int:
         referee[label] = {"launches": counts, "switches": flags,
                           **{kind: rel[kind] for kind in routes}}
 
-    hold_to_f64("gs2d", {"fused_rollout_2d.launches": 12, "fused_phase1_2d.launches": 12},
+    # one rollout2d_cluster_kernel launch of 12 steps, then 12 of adj2d_kernel
+    hold_to_f64("gs2d", {"fused_rollout_2d.launches": 1, "fused_rollout_2d.steps": 12,
+                         "fused_phase1_2d.launches": 12},
                 ref_cell, x_ref, lambda fr: ((fr - tgt.to(fr.dtype)) ** 2).mean(), cfg,
                 {"fused": backward2d.fused_rollout_tp_2d, "two_phase": two_phase})
     hold_to_f64("gs3d", {"fused_rollout_3d.launches": 12, "fused_phase1_3d.launches": 12},
@@ -1019,8 +1144,10 @@ def main() -> int:
     # 6 x 10 block narrower than the k x k tile) for the golden GS2D (k = 1)
     # and Burgers (k = 5) cells against its plain version; then the
     # decomposed rollout of impl="pallas", the slice's main path with its
-    # launches counted, against the single-device rollout2d_kernel (the same
-    # step on the periodic field) and against impl="jnp" (the eager step)
+    # launches counted, against the single-device frames rollout
+    # (cell2d._rollout_cuda: rollout2d_cluster_kernel at k = 1,
+    # rollout2d_kernel at k = 5; the same step on the periodic field) and
+    # against impl="jnp" (the eager step)
     axes2 = ("x", "y")
     mesh = make_mesh(axes2, shape=(2, 2), devices=[dev] * 4)
 
@@ -1057,7 +1184,7 @@ def main() -> int:
             eager = sharded_rollout_nd(cell_, x0, cfg_, CHECK_STEPS, mesh, impl="jnp")
             torch.cuda.synchronize()
             bar = 2e-5 * torch.arange(CHECK_STEPS + 1, device=dev)
-            for other, ref_frames in (("single_rollout2d_kernel", single), ("jnp", eager)):
+            for other, ref_frames in (("single_device", single), ("jnp", eager)):
                 per_step = (got - ref_frames).abs().flatten(1).amax(1)
                 worst = int((per_step - bar).argmax())
                 check(bool((per_step <= bar).all()),
@@ -1142,6 +1269,7 @@ def main() -> int:
         torch.cuda.synchronize()
         warmup_s.append(time.perf_counter() - t)
     cell2d.fused_rollout_2d.launches = 0
+    cell2d.fused_rollout_2d.steps = 0
     cell2d.fused_rollout_final_2d.launches = 0
     answers, request_s, enqueue_s = [], [], []
 
@@ -1155,8 +1283,9 @@ def main() -> int:
 
     answers = [timed(serve, req) for req in requests]
     final = timed(serve_final, requests[0])
-    launches = {"rollout2d_kernel": cell2d.fused_rollout_2d.launches,
+    launches = {"rollout2d_cluster_kernel": cell2d.fused_rollout_2d.launches,
                 "final2d_kernel": cell2d.fused_rollout_final_2d.launches}
+    serve_steps = {"rollout2d_cluster_kernel": cell2d.fused_rollout_2d.steps}
     n = GS2D_RECON.grid
     for a in answers:
         check(tuple(a.shape) == (SERVE_STEPS + 1, n, n, 2), f"frames shape {tuple(a.shape)}")
@@ -1166,9 +1295,12 @@ def main() -> int:
     final_err = max_abs(final, answers[0][-1])
     check(allclose(final, answers[0][-1], rtol=1e-6, atol=1e-7),
           f"final-state request vs last frame: max |diff| {final_err}")
-    check(launches == {"rollout2d_kernel": len(SEEDS) * SERVE_STEPS,
-                       "final2d_kernel": SERVE_STEPS}, f"launch counts {launches}")
+    # one cluster launch a frames request; final2d_kernel one launch a step
+    check(launches == {"rollout2d_cluster_kernel": len(SEEDS), "final2d_kernel": SERVE_STEPS}
+          and serve_steps == {"rollout2d_cluster_kernel": len(SEEDS) * SERVE_STEPS},
+          f"launch counts {launches}, step counts {serve_steps}")
     phase("serve", requests=len(requests) + 1, steps=SERVE_STEPS, launches=launches,
+          steps_run=serve_steps,
           request_seconds=request_s, enqueue_seconds=enqueue_s,
           request_order="frames x 3, then final-state",
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmup_s)),
@@ -1178,25 +1310,32 @@ def main() -> int:
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     truth_cache2d = tempfile.mkdtemp(prefix="chip_smoke_truth2d_")   # train_ensemble reuses it
     try:
-        cell2d.fused_rollout_2d.launches = 0
-        backward2d.fused_rollout_tp_2d_pg.launches = 0
+        cell2d.fused_rollout_2d.launches = cell2d.fused_rollout_2d.steps = 0
+        backward2d.fused_rollout_tp_2d_pg.launches = backward2d.fused_rollout_tp_2d_pg.steps = 0
         with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
             res = runner.run_experiment(GS2D_RECON, device=dev, out_dir=out_dir,
                                         cache_dir=truth_cache2d,
                                         n_iters_override=TRAIN_ITERS,
                                         isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
-        train_launches = {"rollout2d_kernel": cell2d.fused_rollout_2d.launches,
-                          "pg2d_kernel": backward2d.fused_rollout_tp_2d_pg.launches}
+        train_launches = {"rollout2d_cluster_kernel": cell2d.fused_rollout_2d.launches,
+                          "pg2d_persistent_kernel": backward2d.fused_rollout_tp_2d_pg.launches}
+        train_steps = {"rollout2d_cluster_kernel": cell2d.fused_rollout_2d.steps,
+                       "pg2d_persistent_kernel": backward2d.fused_rollout_tp_2d_pg.steps}
         ckpt, meta = load_checkpoint_tree(os.path.join(out_dir, f"{GS2D_RECON.name}.ckpt.npz"))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     stages = list(GS2D_RECON.curriculum) + [GS2D_RECON.train_steps]
     per_stage = TRAIN_ITERS // len(stages)
-    want = {"pg2d_kernel": per_stage * sum(stages),
-            "rollout2d_kernel": per_stage * sum(stages) + GS2D_RECON.infer_steps}
+    # one launch of each a training iteration, and one cluster launch for the
+    # evaluation; the steps as the per-step kernels' launches were
+    want = {"pg2d_persistent_kernel": TRAIN_ITERS, "rollout2d_cluster_kernel": TRAIN_ITERS + 1}
+    want_steps = {"pg2d_persistent_kernel": per_stage * sum(stages),
+                  "rollout2d_cluster_kernel": per_stage * sum(stages) + GS2D_RECON.infer_steps}
     hist = res["history"]
     check(len(hist) == TRAIN_ITERS and bool(np.isfinite(hist).all()), f"training losses {hist}")
-    check(train_launches == want, f"training launch counts {train_launches}, expected {want}")
+    check(train_launches == want and train_steps == want_steps,
+          f"training launch counts {train_launches}, expected {want}; step counts "
+          f"{train_steps}, expected {want_steps}")
     check(bool(np.isfinite(res["rel_l2"])) and not res["diverged"],
           f"evaluation rel_l2 {res['rel_l2']}, diverged {res['diverged']}")
     check(meta.get("iteration") == per_stage and meta.get("stage") == len(stages) - 1
@@ -1205,6 +1344,7 @@ def main() -> int:
           f"latest checkpoint meta {meta}")
     sec = res["seconds"]
     phase("train", experiment=GS2D_RECON.name, grid=GS2D_RECON.grid, launches=train_launches,
+          steps_run=train_steps,
           truth_frames=GS2D_RECON.infer_steps, truth_s=sec["truth"],
           isg_pretrain_iters=ISG_PRETRAIN_ITERS, isg_pretrain_s=sec["isg_pretrain"],
           stages=[{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]} for st in sec["stages"]],
@@ -1460,7 +1600,7 @@ def main() -> int:
     # calls, every launch counted: run_experiment(BURGERS_STAGE1) with the
     # MXU switches off (rollout2d_kernel at k = 5, adj2d_ys_kernel) on
     # train_burgers' cached truth; build_loss_fn(bptt="fused") and train for
-    # GS2D at T = 800 (rollout2d_kernel, adj2d_kernel), GS3D at T = 300
+    # GS2D at T = 800 (rollout2d_cluster_kernel, adj2d_kernel), GS3D at T = 300
     # (rollout3d_kernel, adj3d_kernel) and Burgers with YS_PATH_ENABLED off
     # too (rollout2d_kernel and adj2d_kernel at k = 5), from seeded random
     # inits, on served frames as the data
@@ -1508,7 +1648,8 @@ def main() -> int:
 
     t2, t3 = GS2D_RECON.train_steps, GS3D_RECON.train_steps
     train_fused("gs2d_fused", GS2D_RECON, answers[0], t2, FALLBACK_ITERS, (True, True, True),
-                {"fused_rollout_2d.launches": FALLBACK_ITERS * t2,
+                {"fused_rollout_2d.launches": FALLBACK_ITERS,
+                 "fused_rollout_2d.steps": FALLBACK_ITERS * t2,
                  "fused_phase1_2d.launches": FALLBACK_ITERS * t2})
     train_fused("gs3d_fused", GS3D_RECON, answer3, t3, FALLBACK_ITERS, (True, True, True),
                 {"fused_rollout_3d.launches": FALLBACK_ITERS * t3,
@@ -1533,8 +1674,9 @@ def main() -> int:
     # train_ensemble: the ensemble's main path through the entry point a user
     # calls, at full width: run_ensemble(GS2D_RECON, 4) in the batched modes
     # (rows 11-13) and "auto" (on the card the per-member loop of
-    # rollout2d_kernel and pg2d_kernel), each with its members' evaluation
-    # (rollout2d_kernel); then run_ensemble(BURGERS_STAGE1, 2) in "batched"
+    # rollout2d_cluster_kernel and pg2d_persistent_kernel), each with its
+    # members' evaluation (rollout2d_cluster_kernel); then
+    # run_ensemble(BURGERS_STAGE1, 2) in "batched"
     # (rows 11-12 at k = 5; the evaluation by rollout2d_kxk_kernel).  The
     # truths come from the train and train_burgers phases' caches.
     per_ens = ENS_ITERS // len(stages)
@@ -1543,12 +1685,17 @@ def main() -> int:
     ens_want = {
         "batched_pg": {"fused_rollout_2d_batched.launches": ens_steps,
                        "fused_phase1_pg_2d_batched.launches": ens_steps,
-                       "fused_rollout_2d.launches": ens_eval},
+                       "fused_rollout_2d.launches": ENS_MEMBERS,
+                       "fused_rollout_2d.steps": ens_eval},
         "batched": {"fused_rollout_2d_batched.launches": ens_steps,
                     "fused_phase1_2d_batched.launches": ens_steps,
-                    "fused_rollout_2d.launches": ens_eval},
-        "auto": {"fused_rollout_2d.launches": ENS_MEMBERS * ens_steps + ens_eval,
-                 "fused_rollout_tp_2d_pg.launches": ENS_MEMBERS * ens_steps},
+                    "fused_rollout_2d.launches": ENS_MEMBERS,
+                    "fused_rollout_2d.steps": ens_eval},
+        # a member's iteration: one launch of each one-launch kernel
+        "auto": {"fused_rollout_2d.launches": ENS_MEMBERS * ENS_ITERS + ENS_MEMBERS,
+                 "fused_rollout_2d.steps": ENS_MEMBERS * ens_steps + ens_eval,
+                 "fused_rollout_tp_2d_pg.launches": ENS_MEMBERS * ENS_ITERS,
+                 "fused_rollout_tp_2d_pg.steps": ENS_MEMBERS * ens_steps},
         "burgers_batched": {
             "fused_rollout_2d_batched.launches_kxk": ENS_BURGERS_ITERS * stepsb,
             "fused_phase1_2d_batched.launches_kxk": 2 * ENS_BURGERS_ITERS * stepsb,
@@ -1614,9 +1761,12 @@ def main() -> int:
     # tests/test_parallel.py holds percnn_tpu's first five
     per_mesh = MESH_ITERS // len(stages)
     mesh_want = {
-        "single": {"fused_rollout_2d.launches": per_mesh * sum(stages) + GS2D_RECON.infer_steps,
-                   "fused_rollout_tp_2d_pg.launches": per_mesh * sum(stages)},
-        "mesh": {"fused_rollout_2d.launches": GS2D_RECON.infer_steps},
+        "single": {"fused_rollout_2d.launches": MESH_ITERS + 1,
+                   "fused_rollout_2d.steps": per_mesh * sum(stages) + GS2D_RECON.infer_steps,
+                   "fused_rollout_tp_2d_pg.launches": MESH_ITERS,
+                   "fused_rollout_tp_2d_pg.steps": per_mesh * sum(stages)},
+        "mesh": {"fused_rollout_2d.launches": 1,
+                 "fused_rollout_2d.steps": GS2D_RECON.infer_steps},
     }
     mesh_res, mesh_launches = {}, {}
     try:
@@ -1775,7 +1925,8 @@ def main() -> int:
     bprob = runner.setup_problem(GS2D_RECON, answers[0].cpu().numpy(), device=dev)
     phase("step_breakdown", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
           rows=breakdown(GS2D_RECON, bprob, res["params"], stages,
-                         pg_kernel(backward2d._pg_cuda, cfg), "pg2d_kernel"), note=note)
+                         pg_kernel(backward2d._pg_cuda, cfg), "pg2d_persistent_kernel"),
+          note=note)
     bprob3 = runner.setup_problem(GS3D_RECON, answer3.cpu().numpy(), device=dev)
     phase("step_breakdown3d", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
           rows=breakdown(GS3D_RECON, bprob3, res3["params"], stages3,
@@ -1839,24 +1990,35 @@ def main() -> int:
     cells = h0.shape[0] * h0.shape[1]
     flops = SERVE_STEPS * cells * flops_per_cell_step(cfg)
     state_bytes, param_bytes = 8 * cells, 4 * packed.numel()
+    # rows 1 and 7 run their T steps in one launch; beside each, its per-step
+    # route (rollout2d_kernel, pg2d_kernel) at the same shape, timed in turns
+    # (per-step, one-launch, one-launch, per-step) in this call
+    def turns(one_launch, per_step, reps):
+        a1, b1 = cuda_ms(torch, per_step, reps), cuda_ms(torch, one_launch, reps)
+        b2, a2 = cuda_ms(torch, one_launch, reps), cuda_ms(torch, per_step, reps)
+        return (b1 + b2) / 2, (a1 + a2) / 2, {"per_step": [a1, a2], "one_launch": [b1, b2]}
+
+    row1_ms, row1_steps_ms, row1_turns = turns(
+        lambda: cell2d._rollout_cluster_cuda(packed, h0, cfg, SERVE_STEPS),
+        lambda: cell2d._rollout_steps_cuda(packed, h0, cfg, SERVE_STEPS), reps=5)
     runs = {
-        "rollout2d_kernel": (
-            lambda: cell2d._rollout_cuda(packed, h0, cfg, SERVE_STEPS),
+        "rollout2d_cluster_kernel": (
+            row1_ms,
             lambda: cell2d.fused_rollout_2d_plain(packed, h0, cfg, SERVE_STEPS),
             param_bytes + state_bytes + (SERVE_STEPS + 1) * state_bytes,
             "cell2d._rollout_kernel", "percnn_tpu/ops/pallas/cell2d.py:332"),
         "final2d_kernel": (
-            lambda: cell2d._final_cuda(packed, h0, cfg, SERVE_STEPS),
+            cuda_ms(torch, lambda: cell2d._final_cuda(packed, h0, cfg, SERVE_STEPS), reps=5),
             lambda: cell2d.fused_rollout_final_2d_plain(packed, h0, cfg, SERVE_STEPS),
             param_bytes + 2 * state_bytes,
             "cell2d._final_kernel", "percnn_tpu/ops/pallas/cell2d.py:384"),
     }
-    # rollout2d_kernel in the ensemble: the members' evaluations, and the
-    # per-member loop of "auto"
-    ens_row1 = {"rollout2d_kernel": sum(c.get("fused_rollout_2d.launches", 0)
-                                        for c in ens_launches.values())}
+    # row 1 in the ensemble: the members' evaluations, and the per-member
+    # loop of "auto"
+    ens_row1 = {"rollout2d_cluster_kernel": sum(c.get("fused_rollout_2d.launches", 0)
+                                                for c in ens_launches.values())}
     kernels = []
-    for name, (kernel, plain, nbytes, jax_name, replaces) in runs.items():
+    for name, (ms, plain, nbytes, jax_name, replaces) in runs.items():
         b_ms, b_by = bound_ms(nbytes, flops)
         kernels.append({
             "name": name, "jax_kernel": jax_name, "route": "cuda",
@@ -1866,10 +2028,16 @@ def main() -> int:
             "launches_by_path": {"serve": launches[name],
                                  "train": train_launches.get(name, 0),
                                  "ensemble": ens_row1.get(name, 0)},
-            "max_abs_err": err[name], "ms": cuda_ms(torch, kernel, reps=5),
+            "max_abs_err": err[name], "ms": ms,
             "plain_ms": cuda_ms(torch, plain, reps=1), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         })
+    kernels[0].update({
+        "steps": SERVE_STEPS, "launches_per_call": 1, "us_per_step": 1e3 * row1_ms / SERVE_STEPS,
+        "per_step_route": {"name": "rollout2d_kernel", "launches_per_call": SERVE_STEPS,
+                           "ms": row1_steps_ms, "us_per_step": 1e3 * row1_steps_ms / SERVE_STEPS,
+                           "max_abs_err": err["rollout2d_kernel[per_step]"]},
+        "turns_ms": row1_turns, "plan": one_launch["rollout2d_cluster_kernel"]})
     # the backward at the longest training stage: trained cell, data-loss cotangent
     frames = cell2d._rollout_cuda(packed, h0, cfg, TIME_BACKWARD_STEPS)
     fbar = cotangent(frames)[1].contiguous()
@@ -1877,19 +2045,28 @@ def main() -> int:
     bw_bytes = (param_bytes + 2 * TIME_BACKWARD_STEPS * state_bytes + state_bytes
                 + 4 * lay["A"] * cells)
     b_ms, b_by = bound_ms(bw_bytes, bw_flops)
+    row7_ms, row7_steps_ms, row7_turns = turns(
+        lambda: backward2d._pg_persistent_cuda(packed, frames, fbar, cfg),
+        lambda: backward2d._pg_steps_cuda(packed, frames, fbar, cfg), reps=5)
     kernels.append({
-        "name": "pg2d_kernel", "jax_kernel": "backward2d._phase1_pg_kernel", "route": "cuda",
-        "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d.cu",
+        "name": "pg2d_persistent_kernel", "jax_kernel": "backward2d._phase1_pg_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d.cu",
         "replaces": "percnn_tpu/ops/pallas/backward2d.py:902",
-        "launches": train_launches["pg2d_kernel"]
+        "launches": train_launches["pg2d_persistent_kernel"]
         + ens_launches["auto"]["fused_rollout_tp_2d_pg.launches"],
-        "launches_by_path": {"serve": 0, "train": train_launches["pg2d_kernel"],
+        "launches_by_path": {"serve": 0, "train": train_launches["pg2d_persistent_kernel"],
                              "ensemble": ens_launches["auto"]["fused_rollout_tp_2d_pg.launches"]},
-        "max_abs_err": err["pg2d_kernel"],
-        "ms": cuda_ms(torch, lambda: backward2d._pg_cuda(packed, frames, fbar, cfg), reps=5),
+        "max_abs_err": err["pg2d_persistent_kernel"], "ms": row7_ms,
         "plain_ms": cuda_ms(torch, lambda: backward2d.fused_phase1_pg_2d_plain(
             packed, frames, fbar, cfg), reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "steps": TIME_BACKWARD_STEPS, "launches_per_call": 1,
+        "us_per_step": 1e3 * row7_ms / TIME_BACKWARD_STEPS,
+        "per_step_route": {"name": "pg2d_kernel", "launches_per_call": TIME_BACKWARD_STEPS,
+                           "ms": row7_steps_ms,
+                           "us_per_step": 1e3 * row7_steps_ms / TIME_BACKWARD_STEPS,
+                           "max_abs_err": err["pg2d_kernel[per_step]"]},
+        "turns_ms": row7_turns, "plan": one_launch["pg2d_persistent_kernel"],
     })
     # GS3D at 48^3: a rollout over the inference horizon, frames and final
     # state, and the backward at the longest training stage; golden cell,

@@ -318,17 +318,28 @@ def build_isg_pretrain_loss(prob: Problem):
 
 def inference_rollout(params: dict, exp: ExperimentConfig, x, n_steps: int, *,
                       device: str | torch.device = "cuda") -> torch.Tensor:
-    """ISG (if the model has one), then the fused rollout (2D or 3D):
-    [n_steps+1, *spatial, 2] f32 frames on `device`.
+    """ISG (if the model has one), then the rollout: [n_steps+1, *spatial, 2]
+    frames on `device`, in the dtype of `x`.
 
     x: the low-res IC [*spatial/s, 2] when ``exp.isg`` is set, else the IC.
-    A cell the fused kernels do not take raises; nothing falls back.
+    The dispatch is by dtype, as in percnn_tpu: an f32 input takes the
+    fused rollout (2D or 3D), and a cell the fused kernels do not take
+    raises; any other floating input (an f64 run's problem) takes the eager
+    ``core.rollout`` of the cell's step in that dtype, with the parameters
+    cast to it, since no kernel takes f64.
     """
     dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    roll = fused_rollout_2d if exp.cell.ndim == 2 else fused_rollout_3d
+    x = torch.as_tensor(x, device=dev)
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
     with torch.inference_mode(), full_f32():
+        if x.dtype != torch.float32:
+            params = params_from_numpy(params, device=dev, dtype=x.dtype)
         h0 = isg_apply(params["isg"], x[None], exp.isg)[0] if exp.isg else x
+        if x.dtype != torch.float32:
+            return rollout(lambda h: pi_cell_step(params["cell"], h, exp.cell), h0, n_steps,
+                           remat=False)
+        roll = fused_rollout_2d if exp.cell.ndim == 2 else fused_rollout_3d
         return roll(params["cell"], h0, exp.cell, n_steps)
 
 
@@ -359,8 +370,9 @@ def select_stable_candidate(params: dict, ckpt_path: str, probe) -> tuple[dict, 
     and the probe's '.stable' checkpoint ('stable'), keep the one with the
     lowest finite probe score; if none probes finite, keep the trainer's.
 
-    Checkpointed candidates are loaded onto the device of `params`.  The
-    JAX package's signature also takes the Problem, which it does not read.
+    Checkpointed candidates are loaded onto the device of `params`, in the
+    dtype they were saved in (an f64 run's stay f64).  The JAX package's
+    signature also takes the Problem, which it does not read.
     Returns (chosen params, {'candidate', 'probe_scores'}).
     """
     first = flatten_with_paths(params)[0][1]
@@ -373,7 +385,7 @@ def select_stable_candidate(params: dict, ckpt_path: str, probe) -> tuple[dict, 
                 tree = load_checkpoint_tree(path)[0]["params"]
             except (OSError, KeyError, ValueError, zipfile.BadZipFile):
                 continue   # an unreadable candidate is no candidate
-            candidates[tag] = params_from_numpy(tree, device=dev, dtype=torch.float32)
+            candidates[tag] = params_from_numpy(tree, device=dev)
     scores = {tag: float(probe(p)) for tag, p in candidates.items()}
     stable = {t: s for t, s in scores.items() if np.isfinite(s)}
     choice = min(stable, key=stable.get) if stable else "best"

@@ -35,11 +35,14 @@ as percnn_tpu's ``_fused_tp_bwd`` does:
 
 **1x1 cells** (GS2D), the fused-pg half.
 ``fused_rollout_tp_2d_pg`` is a differentiable rollout whose forward is
-``rollout2d_kernel`` (ops/kernels/cell2d.py) and whose backward is
-``pg2d_kernel`` (csrc/backward2d.cu, in place of ``_phase1_pg_kernel``): one
-reverse sweep that carries the adjoint g_t from frame T down to frame 0 and,
-in the same pass, accumulates every parameter gradient into [A, H, W]
-planes, one plane per scalar parameter.  For t = T-1 .. 0 and every cell:
+cell2d's frames rollout (``rollout2d_cluster_kernel``, or
+``rollout2d_kernel`` past its capacity: ``cell2d.rollout_plan``) and whose
+backward is ``pg2d_persistent_kernel`` (csrc/backward2d.cu, in place of
+``_phase1_pg_kernel``; ``pg2d_kernel``, one launch a step, past its
+capacity: ``pg_plan``): one reverse sweep that carries the adjoint g_t from
+frame T down to frame 0 and, in the same pass, accumulates every parameter
+gradient into [A, H, W] planes, one plane per scalar parameter.  For
+t = T-1 .. 0 and every cell:
 
     g_in  = g_{t+1} + fbar_{t+1}
     diff planes += g_in * Lap(h_t);   b_out planes += g_in
@@ -57,8 +60,10 @@ the gradient on through the reparametrisation to the parameter tree.
 A CPU tensor takes the plain versions (``fused_phase1_kxk_2d_plain``,
 ``fused_phase1_2d_plain``, ``fused_phase1_ys_2d_plain``,
 ``fused_phase1_pg_2d_plain``); a CUDA tensor launches the kernel or
-raises.  Launch counters: ``fused_rollout_tp_2d_pg.launches`` (pg2d_kernel,
-one a reverse step), ``fused_rollout_tp_2d.launches`` (adj2d_kxk_kernel,
+raises.  Launch counters: ``fused_rollout_tp_2d_pg.launches`` (one a sweep
+by pg2d_persistent_kernel, one a reverse step by pg2d_kernel) beside
+``fused_rollout_tp_2d_pg.steps`` (the reverse steps run on the card),
+``fused_rollout_tp_2d.launches`` (adj2d_kxk_kernel,
 two a reverse step), ``fused_phase1_2d.launches`` (adj2d_kernel, one a
 reverse step at k = 1, two at k > 1) and ``fused_phase1_ys_2d.launches``
 (adj2d_ys_kernel, two a reverse step).
@@ -80,6 +85,7 @@ from percnn_tpu_torch.ops.kernels import _build, cell2d
 from percnn_tpu_torch.ops.kernels.cell2d import (
     _KXK_SIZES,
     _MAX_PARAMS,
+    _MAX_SMEM,
     _check_fusable,
     _check_kxk_inputs,
     _kxk_smem_bytes,
@@ -105,6 +111,11 @@ _F = ctypes.c_float
 # params, n_params, frames, frames_bar, g0, scratch, acc, n_steps, H, W,
 # hidden, n_branches, dt, inv_dx2, stream
 _SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P]
+# the same, then blocks, stream, blocks an SM (out)
+_PERSISTENT_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+                         ctypes.POINTER(_I)]
+# n_params, H, W, hidden, n_branches, blocks, blocks an SM (out)
+_OCCUPANCY_SIGNATURE = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
 # wmat, tail, frames, frames_bar, g, g_ins, ys, zw, n_steps, H, W, hidden,
 # n_branches, kernel_size, dt, inv_dx2, stream
 _KXK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -214,11 +225,37 @@ def _pg_unpack(acc_sums: torch.Tensor, packed: torch.Tensor,
     return cfg.dt * torch.cat(parts)
 
 
-def _kernel_fn():
-    fn = _build.load_library("backward2d").backward2d_pg
-    fn.argtypes = _SIGNATURE
+def _kernel_fn(name: str = "backward2d_pg", signature: list = _SIGNATURE):
+    fn = getattr(_build.load_library("backward2d"), name)
+    fn.argtypes = signature
     fn.restype = ctypes.c_int
     return fn
+
+
+def persistent_smem_bytes(cfg: PiCellConfig, H: int, W: int, blocks: int) -> int:
+    """Shared memory of a block of pg2d_persistent_kernel: the packed
+    parameters rounded up to 4 floats, then for each of the most cells a
+    block owns its A accumulators, 6 floats of its state and 2 x 2 C shares
+    of the Jacobian's transpose (csrc: persistent_smem_bytes)."""
+    cap = -(-(H * W) // blocks)
+    n_params = 2 + 2 * _param_block(cfg)
+    return 4 * (_round_up(n_params, 4) + (_pg_layout(cfg)["A"] + 6 + 4 * cfg.hidden) * cap)
+
+
+def pg_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the fused reverse sweep of an H x W field on a card of
+    n_sm SMs, by a rule on the shape and the card's limits: one block an SM
+    (min(n_sm, H W) blocks, each owning split_evenly's share of the cells)
+    whose accumulators fit a block's shared memory takes
+    pg2d_persistent_kernel, one cooperative launch a sweep ('persistent',
+    with blocks and smem); else pg2d_kernel, one launch a step
+    ('per_step').  At 100 x 100 on 132 SMs: 132 blocks of 75 or 76 cells,
+    62 064 bytes each; the largest square field that fits is 194 x 194."""
+    blocks = min(n_sm, H * W)
+    smem = persistent_smem_bytes(cfg, H, W, blocks)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    return {"route": "persistent", "blocks": blocks, "smem": smem}
 
 
 def _check_pg_inputs(packed: torch.Tensor, frames: torch.Tensor,
@@ -246,8 +283,8 @@ def _check_pg_inputs(packed: torch.Tensor, frames: torch.Tensor,
     return frames_bar.to(torch.float32).contiguous()
 
 
-def _pg_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
-             cfg: PiCellConfig):
+def _pg_steps_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+                   cfg: PiCellConfig):
     """pg2d_kernel: one launch per reverse step, the loop in C."""
     fn = _kernel_fn()
     frames_bar = _check_pg_inputs(packed, frames, frames_bar, cfg)
@@ -264,13 +301,71 @@ def _pg_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tenso
                            acc.data_ptr(), n_steps, H, W, cfg.hidden, cfg.n_branches,
                            cfg.dt, 1.0 / (cfg.dx * cfg.dx), stream), "backward2d_pg")
     fused_rollout_tp_2d_pg.launches += n_steps
+    fused_rollout_tp_2d_pg.steps += n_steps
     return g0, acc
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _pg_persistent_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+                        cfg: PiCellConfig):
+    """pg2d_persistent_kernel: the whole sweep in one cooperative launch, by
+    pg_plan's configuration.  Raises if the card cannot hold the grid."""
+    fn = _kernel_fn("backward2d_pg_persistent", _PERSISTENT_SIGNATURE)
+    frames_bar = _check_pg_inputs(packed, frames, frames_bar, cfg)
+    n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    plan = pg_plan(H, W, cfg, _sm_count(frames.device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"the accumulators of a {H} x {W} field do not fit the "
+                         "persistent sweep's shared memory")
+    g0 = torch.zeros((H, W, 2), dtype=torch.float32, device=frames.device)
+    scratch = torch.zeros_like(g0)
+    acc = torch.empty((_pg_layout(cfg)["A"], H, W), dtype=torch.float32,
+                      device=frames.device)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.numel(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g0.data_ptr(), scratch.data_ptr(),
+                           acc.data_ptr(), n_steps, H, W, cfg.hidden, cfg.n_branches,
+                           cfg.dt, 1.0 / (cfg.dx * cfg.dx), plan["blocks"], stream,
+                           ctypes.byref(per_sm)), "backward2d_pg_persistent")
+    fused_rollout_tp_2d_pg.launches += 1
+    fused_rollout_tp_2d_pg.steps += n_steps
+    return g0, acc
+
+
+def pg_occupancy(cfg: PiCellConfig, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of pg_plan's configuration an SM of the card holds."""
+    plan = pg_plan(H, W, cfg, _sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field takes no persistent sweep")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(_kernel_fn("backward2d_pg_occupancy", _OCCUPANCY_SIGNATURE)(
+            2 + 2 * _param_block(cfg), H, W, cfg.hidden, cfg.n_branches, plan["blocks"],
+            ctypes.byref(per_sm)), "backward2d_pg_occupancy")
+    return per_sm.value
+
+
+def _pg_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+             cfg: PiCellConfig):
+    """The fused reverse sweep on CUDA by pg_plan's route: one cooperative
+    launch of pg2d_persistent_kernel ('persistent') or one pg2d_kernel
+    launch a step ('per_step')."""
+    if frames.dim() == 4 and frames.device.type == "cuda" and pg_plan(
+            frames.shape[1], frames.shape[2], cfg,
+            _sm_count(frames.device))["route"] == "persistent":
+        return _pg_persistent_cuda(packed, frames, frames_bar, cfg)
+    return _pg_steps_cuda(packed, frames, frames_bar, cfg)
 
 
 def fused_phase1_pg_2d(packed: torch.Tensor, frames: torch.Tensor,
                        frames_bar: torch.Tensor, cfg: PiCellConfig):
-    """(g0 [H, W, 2], acc [A, H, W]): pg2d_kernel on CUDA, the plain version
-    on the CPU."""
+    """(g0 [H, W, 2], acc [A, H, W]): pg_plan's kernel on CUDA, the plain
+    version on the CPU."""
     if frames.device.type == "cpu":
         return fused_phase1_pg_2d_plain(packed, frames, frames_bar.to(torch.float32), cfg)
     return _pg_cuda(packed, frames, frames_bar, cfg)
@@ -301,8 +396,10 @@ class FusedRolloutTP2dPG(torch.autograd.Function):
 def fused_rollout_tp_2d_pg(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
                            n_steps: int) -> torch.Tensor:
     """Differentiable rollout of a 1x1 Pi cell: [H, W, 2] -> [n_steps+1, H, W, 2]
-    f32.  Forward by rollout2d_kernel, backward by pg2d_kernel on CUDA; the
-    plain versions of both on the CPU."""
+    f32.  On CUDA the forward by cell2d's frames rollout and the backward by
+    pg2d_persistent_kernel (or, past their capacity, by one rollout2d_kernel
+    and one pg2d_kernel launch a step); the plain versions of both on the
+    CPU."""
     if cfg.ndim != 2 or cfg.kernel_size != 1:
         raise NotImplementedError(
             "fused_rollout_tp_2d_pg requires ndim=2, kernel_size=1 "
@@ -313,6 +410,7 @@ def fused_rollout_tp_2d_pg(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 
 
 fused_rollout_tp_2d_pg.launches = 0
+fused_rollout_tp_2d_pg.steps = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,14 @@
 """Fused 2D Pi-cell rollout: CUDA kernels for Hopper and their plain versions.
 
 Counterpart of percnn_tpu/ops/pallas/cell2d.py.  ``fused_rollout_2d``
-streams every frame through ``rollout2d_kernel`` (in place of
-``_rollout_kernel``), which takes the packed parameters and any odd
-kernel_size <= 5: a 1x1 cell (the GS2D model) one thread a cell, a k x k
+streams every frame of a 1x1 cell (the GS2D model) through
+``rollout2d_cluster_kernel`` (in place of ``_rollout_kernel``): the whole
+rollout in one launch of one thread-block cluster that holds the field in
+shared memory, as the TPU kernel holds it on chip, for any field that fits
+(``rollout_plan``; the kernel is compiled for the GS2D cell's widths).  Any
+other field or cell takes ``rollout2d_kernel``, one launch a step, which
+takes the packed parameters and any odd kernel_size <= 5: a 1x1 cell one
+thread a cell, a k x k
 cell (k = 3 or 5: the Burgers and lambda-omega Stage-1 models) from a
 block's staged tile, its branch convs tap by tap.  With ``MXU_FWD_ENABLED``
 on (the default) a k x k cell goes instead to ``fused_rollout_kxk_2d`` and
@@ -16,9 +21,11 @@ csrc/cell2d_kxk.cu, with their bound on the card and their design.
 A CPU tensor takes the plain PyTorch version of the same arithmetic
 (``fused_rollout_2d_plain``, ``fused_rollout_final_2d_plain``,
 ``fused_rollout_kxk_2d_plain``); a CUDA tensor launches the kernel or
-raises.  Each public wrapper counts the kernel launches it makes, one per
-time step: ``launches`` for a 1x1 cell, ``launches_kxk`` for the k x k
-contract of rollout2d_kernel and final2d_kernel.
+raises.  Each public wrapper counts the kernel launches it makes:
+``launches`` for a 1x1 cell (one a rollout by the cluster, one a step
+otherwise) beside ``fused_rollout_2d.steps``, the 1x1 steps run on the
+card; ``launches_kxk`` for the k x k contract of rollout2d_kernel and
+final2d_kernel, one a step.
 """
 
 from __future__ import annotations
@@ -52,11 +59,74 @@ _SIGNATURES = {
     # wmat, tail, h0, frames, n_steps, H, W, hidden, n_branches, kernel_size,
     # dt, inv_dx2, stream
     "cell2d_kxk_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # params, n_params, h0, frames, n_steps, H, W, hidden, n_branches, dt,
+    # inv_dx2, n_cta, threads, stream, clusters (out)
+    "cell2d_rollout_cluster": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P,
+                               ctypes.POINTER(_I)],
+    # H, W, n_cta, threads, clusters (out)
+    "cell2d_cluster_occupancy": [_I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 # rollout2d_kernel and final2d_kernel stage the packed parameters in shared
 # memory, at most 48 KB of them (4932 floats for the Burgers cell); the
 # branch-matrix kernels stage the matrix instead (_kxk_smem_bytes).
 _MAX_PARAMS = 48 * 1024 // 4
+
+
+# A block's dynamic shared memory on an H100 (cudaFuncSetAttribute's ceiling).
+_MAX_SMEM = 227 * 1024
+# rollout2d_cluster_kernel (csrc/cell2d.cu): the most CTAs of one cluster on
+# an H100 (16, a non-portable size), the most threads of a CTA, the cells a
+# thread takes at once, and the cell widths (hidden, n_branches) it is
+# compiled for, the GS2D cell's.
+_CLUSTER_MAX = 16
+_CLUSTER_THREADS = 512
+_CLUSTER_CELLS = 2
+_CLUSTER_WIDTHS = (8, 3)
+
+
+def split_evenly(n: int, parts: int) -> list[tuple[int, int]]:
+    """(start, count) of each of `parts` consecutive runs that cover
+    range(n) once, the first n % parts one longer: the rows each CTA of
+    rollout2d_cluster_kernel owns, and the cells each block of
+    pg2d_persistent_kernel owns (csrc: strip_of, the persistent kernel's
+    split)."""
+    if n < 0 or parts < 1:
+        raise ValueError(f"cannot split {n} into {parts} parts")
+    q, m = divmod(n, parts)
+    return [(r * q + min(r, m), q + (1 if r < m else 0)) for r in range(parts)]
+
+
+def cluster_smem_bytes(cfg: PiCellConfig, H: int, W: int, n_cta: int) -> int:
+    """Shared memory of a CTA of rollout2d_cluster_kernel: the packed
+    parameters staged with each equation's block at a 16-byte boundary
+    (4 + 2 round_up(block, 4) floats: 172 for the GS2D cell) and two
+    [rows_max + 4, W] float2 buffers of its strip and the 2-row halos
+    (csrc: cluster_smem_bytes)."""
+    rows_max = -(-H // n_cta)
+    return 4 * (4 + 2 * _round_up(_param_block(cfg), 4)) + 2 * (rows_max + 4) * W * 8
+
+
+def rollout_plan(H: int, W: int, cfg: PiCellConfig) -> dict:
+    """The route of a frames rollout of an H x W field on CUDA, by a rule on
+    the cell, the shape and the card's limits: a 1x1 cell of the widths the
+    cluster kernel is compiled for (C = 8, 3 branches: GS2D's) whose strips
+    fit the shared memory of one cluster of min(16, H // 2) CTAs (so that
+    every strip has the 2 rows a neighbour's halo takes) takes
+    rollout2d_cluster_kernel, one launch a rollout ('cluster', with n_cta,
+    threads and smem); any other cell or field, one row high included,
+    takes rollout2d_kernel, one launch a step ('per_step').  A thread takes
+    two cells of its strip at once.  At 100 x 100 the cluster is 16 CTAs
+    of 6 or 7 rows, 18 288 bytes and 352 threads each; the largest square
+    field that fits is 448 x 448."""
+    if cfg.kernel_size != 1 or (cfg.hidden, cfg.n_branches) != _CLUSTER_WIDTHS or H < 2:
+        return {"route": "per_step"}
+    n_cta = min(_CLUSTER_MAX, H // 2)
+    smem = cluster_smem_bytes(cfg, H, W, n_cta)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    strip_cells = -(-H // n_cta) * W
+    threads = min(_CLUSTER_THREADS, _round_up(-(-strip_cells // _CLUSTER_CELLS), 32))
+    return {"route": "cluster", "n_cta": n_cta, "threads": threads, "smem": smem}
 
 
 def _param_block(cfg: PiCellConfig) -> int:
@@ -273,7 +343,7 @@ def _count(wrapper, cfg: PiCellConfig, n: int) -> None:
         wrapper.launches_kxk += n
 
 
-def _rollout_cuda(packed, h0, cfg, n_steps):
+def _rollout_steps_cuda(packed, h0, cfg, n_steps):
     """rollout2d_kernel: one launch per step, the loop in C."""
     fn = _kernel_fn("cell2d_rollout")
     p_ptr, n_params, h_ptr, n, H, W, C, nb, k, dt, inv_dx2 = _launch_args(
@@ -284,7 +354,53 @@ def _rollout_cuda(packed, h0, cfg, n_steps):
         _raise_on_error(fn(p_ptr, n_params, h_ptr, frames.data_ptr(), n, H, W,
                            C, nb, k, dt, inv_dx2, stream), "cell2d_rollout")
     _count(fused_rollout_2d, cfg, n)
+    if k == 1:
+        fused_rollout_2d.steps += n
     return frames
+
+
+def _rollout_cluster_cuda(packed, h0, cfg, n_steps):
+    """rollout2d_cluster_kernel: the whole rollout of a 1x1 cell in one
+    launch of one cluster, by rollout_plan's configuration.  Raises if the
+    card cannot hold the cluster."""
+    fn = _kernel_fn("cell2d_rollout_cluster")
+    p_ptr, n_params, h_ptr, n, H, W, C, nb, k, dt, inv_dx2 = _launch_args(
+        packed, h0, cfg, n_steps)
+    plan = rollout_plan(H, W, cfg)
+    if plan["route"] != "cluster":
+        raise ValueError(f"a {H} x {W} field of this cell takes no cluster: {cfg}")
+    frames = torch.empty((n + 1, H, W, 2), dtype=torch.float32, device=h0.device)
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(p_ptr, n_params, h_ptr, frames.data_ptr(), n, H, W, C, nb, dt,
+                           inv_dx2, plan["n_cta"], plan["threads"], stream,
+                           ctypes.byref(clusters)), "cell2d_rollout_cluster")
+    fused_rollout_2d.launches += 1
+    fused_rollout_2d.steps += n
+    return frames
+
+
+def cluster_occupancy(cfg: PiCellConfig, H: int, W: int) -> int:
+    """How many clusters of rollout_plan's configuration the current card
+    holds at once (0: none, and the launch is refused)."""
+    plan = rollout_plan(H, W, cfg)
+    if plan["route"] != "cluster":
+        raise ValueError(f"a {H} x {W} field takes no cluster")
+    clusters = ctypes.c_int(0)
+    _raise_on_error(_kernel_fn("cell2d_cluster_occupancy")(
+        H, W, plan["n_cta"], plan["threads"], ctypes.byref(clusters)),
+        "cell2d_cluster_occupancy")
+    return clusters.value
+
+
+def _rollout_cuda(packed, h0, cfg, n_steps):
+    """The frames rollout on CUDA by rollout_plan's route: one launch of
+    rollout2d_cluster_kernel ('cluster') or one rollout2d_kernel launch a
+    step ('per_step')."""
+    if h0.dim() == 3 and rollout_plan(h0.shape[0], h0.shape[1], cfg)["route"] == "cluster":
+        return _rollout_cluster_cuda(packed, h0, cfg, n_steps)
+    return _rollout_steps_cuda(packed, h0, cfg, n_steps)
 
 
 def _kxk_smem_bytes(cfg: PiCellConfig) -> int:
@@ -294,8 +410,6 @@ def _kxk_smem_bytes(cfg: PiCellConfig) -> int:
     return 4 * (mxu_rows(cfg) * K + _round_up(2 * cfg.hidden + 4, 4)) + 8 * 12 * 20
 
 
-# A block's dynamic shared memory on an H100 (cudaFuncSetAttribute's ceiling).
-_MAX_SMEM = 227 * 1024
 # The k x k kernels are compiled for 1 to 4 branches and kernel_size 3 or 5.
 _KXK_BRANCHES = (1, 2, 3, 4)
 _KXK_SIZES = (3, 5)
@@ -383,8 +497,9 @@ def fused_rollout_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
     """Full rollout: [H, W, 2] -> [n_steps+1, H, W, 2] f32 (frame 0 = h0).
 
     A k x k cell with MXU_FWD_ENABLED goes to fused_rollout_kxk_2d; any
-    other cell, on CUDA, takes one rollout2d_kernel launch per step and, on
-    the CPU, the plain version.
+    other cell, on CUDA, takes rollout_plan's route (one
+    rollout2d_cluster_kernel launch a rollout, or one rollout2d_kernel
+    launch a step) and, on the CPU, the plain version.
     """
     _check_fusable(cfg)
     if cfg.kernel_size > 1 and MXU_FWD_ENABLED:
@@ -413,6 +528,7 @@ def fused_rollout_final_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 
 
 fused_rollout_2d.launches = 0
+fused_rollout_2d.steps = 0
 fused_rollout_2d.launches_kxk = 0
 fused_rollout_final_2d.launches = 0
 fused_rollout_final_2d.launches_kxk = 0

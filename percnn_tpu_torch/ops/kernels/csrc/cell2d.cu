@@ -14,11 +14,17 @@
 // b_i [C]), then w_out [C], b_out [1]: 164 floats for the GS2D cell (C = 8,
 // 3 branches, k = 1), 4932 for the Burgers cell (C = 16, 3 branches, k = 5).
 //
-// rollout2d_kernel replaces percnn_tpu/ops/pallas/cell2d.py:_rollout_kernel
-// (pallas_call in _fused_rollout_padded) and final2d_kernel replaces
-// _final_kernel (pallas_call in _fused_final_padded), both at any odd
-// k <= 5.  Both run the same step: euler_step at k = 1, euler_step_kxk at
-// k = 3, 5 (cell2d_step.cuh, shared with the ensemble's batched2d.cu).
+// rollout2d_cluster_kernel replaces percnn_tpu/ops/pallas/cell2d.py:
+// _rollout_kernel (pallas_call in _fused_rollout_padded) for the 1x1 GS2D
+// cell on any field whose strips fit one cluster's shared memory (448 x 448
+// at most; rollout_plan in ../cell2d.py); rollout2d_kernel replaces it for
+// any other field and for k = 3, 5, and final2d_kernel replaces
+// _final_kernel (pallas_call in _fused_final_padded) at any odd k <= 5.
+// All three run the same step: euler_step at k = 1 (two cells at a time,
+// euler_cellsN, in the cluster kernel), euler_step_kxk at k = 3, 5
+// (cell2d_step.cuh, shared with the ensemble's batched2d.cu and the
+// decomposition's sharded_step2d.cu), so the cluster kernel's frames equal
+// rollout2d_kernel's to the bit.
 //
 // Bound on an H100 SXM at its 700 W power limit (published peaks: 3.35 TB/s,
 // 67 TFLOP/s f32 outside the tensor cores), GS2D serving shape 100 x 100,
@@ -27,17 +33,21 @@
 //          is 60 us; the final-state path moves 160 KB;
 //   operations: about 290 flops per cell and step, 2.9 MFLOP per step,
 //          7.3 GFLOP per rollout, which is 108 us.
-// Neither is what limits this design: every step depends on the whole field
-// of the step before, so a rollout is a chain of T dependent steps, and with
-// one launch per step each link costs at least one kernel launch.  Measured
-// by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W: 13.4 ms per
-// rollout, 5.3 us per step, for either kernel.
-// What the design does about it: each step is one launch over H*W threads
-// (40 blocks of 256 for 100 x 100), the packed parameters sit in shared
-// memory, and the whole T-step loop of launches runs here in C on the
-// caller's stream, so a rollout is one call from Python and not T.  There is
-// no halo in the state: the kernel wraps its indices.  Cutting the launches
-// (a persistent kernel, clusters with DSMEM halos) is later work.
+// Neither is what limits these designs: every step depends on the whole
+// field of the step before, so a rollout is a chain of T dependent steps.
+// With one launch a step (rollout2d_kernel, final2d_kernel: 40 blocks of
+// 256 threads for 100 x 100, the T-step loop of launches here in C on the
+// caller's stream) each link costs a launch and a round trip of the state
+// through global memory.  rollout2d_cluster_kernel runs the whole chain in
+// one launch of one 16-CTA cluster, the field in shared memory, the halo
+// rows pushed to the neighbouring CTAs through distributed shared memory
+// and one cluster barrier a step (the design is described at the kernel).
+// Its step is then paced by the step's own instructions on 16 SMs (about
+// 300 a cell) and the barrier.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, per
+// 2500-step rollout at 100 x 100: rollout2d_cluster_kernel 5.157 ms, one
+// launch, 2.06 us a step; rollout2d_kernel 13.296 ms in the same call (5.3
+// us a step), final2d_kernel 13.177 ms.
 //
 // At k = 5 (the Burgers cell, 100 x 100, C = 16, 3 branches) the step is
 // the direct form of the TPU kernel's unrolled VPU FMAs: per cell and
@@ -58,15 +68,190 @@
 // count gave a wrong Pi for the second equation on the card when built at
 // -O3, and the right one when built with -G.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "cell2d_step.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using step2d::Launch;
 using step2d::launch_shape;
 using step2d::step;
+
+// The most threads a CTA of rollout2d_cluster_kernel runs (two cells of its
+// strip a thread, up to this many): 512 leaves a thread 128 registers.
+constexpr int kClusterThreads = 512;
+// Cells a thread of rollout2d_cluster_kernel takes at once.
+constexpr int kClusterCells = 2;
+
+// Rows [start, start + rows) of the H rows that CTA r of n owns: the
+// balanced split, the first H % n CTAs one row more (split_evenly in
+// ../cell2d.py, which the CPU tests hold).
+__device__ __forceinline__ void strip_of(int r, int n, int H, int& start, int& rows) {
+  const int q = H / n, m = H % n;
+  rows = q + (r < m ? 1 : 0);
+  start = r * q + (r < m ? r : m);
+}
+
+// The whole frames rollout of a 1x1 cell in one launch of one cluster of n
+// CTAs, every strip at least 2 rows (rollout_plan in ../cell2d.py: n =
+// min(16, H / 2)).  CTA r keeps its strip of rows (strip_of) in shared
+// memory, in two buffers of [rows_max + 4, W] that the steps ping-pong
+// between (the strip, and 2 halo rows above and below), and the packed
+// parameters before them.  A step: each thread takes cells of the strip
+// (euler_cellsN on the Strip grid, the per-step kernel's arithmetic, from
+// the current buffer) and puts the new state into the other buffer, into
+// the other buffer's halo of the CTA above (a cell of the strip's first
+// two rows) or below (of its last two: periodic in rows, so the first and
+// last CTAs are neighbours) through distributed shared memory, and into
+// frame t + 1, a coalesced store that no step waits on; then one
+// cluster.sync(), whose release/acquire at cluster scope publishes the new
+// strips and halos.  With two buffers that one barrier a step is enough:
+// step t reads buffer t & 1 and writes buffer (t + 1) & 1 alone, here and
+// in the neighbours, so no write of a step can meet a read of the same
+// step, and each crosses the barrier before it is read.  The last step's
+// writes into a neighbour come before the barrier that ends it, so no CTA
+// exits while a peer still writes to it.
+// The hidden width C and the branch count NB are fixed at compile time (the
+// GS2D cell: 8, 3), and a thread takes kClusterCells cells at once, k,
+// k + blockDim, ..., each weight read once for all of them from 16-byte
+// aligned rows (AlignedParams): at one cell a thread, with the widths read
+// at run time, the step's weight reads from shared memory were what it
+// waited on.  A thread's first cells are the same at every step, so their
+// indices are worked out once, before the steps.
+template <int C, int NB>
+__global__ void __launch_bounds__(kClusterThreads)
+    rollout2d_cluster_kernel(const float* __restrict__ params,
+                             const float2* __restrict__ h0, float2* __restrict__ frames,
+                             int n_steps, int H, int W, float dt, float inv_dx2) {
+  using Params = step2d::AlignedParams<C, NB>;
+  constexpr int kCells = kClusterCells;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = static_cast<int>(cluster.num_blocks());
+  const int r = static_cast<int>(cluster.block_rank());
+  int start, rows, up_start, up_rows;
+  strip_of(r, n, H, start, rows);
+  strip_of((r + n - 1) % n, n, H, up_start, up_rows);
+  (void)up_start;
+  const int buf_len = ((H + n - 1) / n + 4) * W;
+  extern __shared__ float4 smem_cluster[];
+  float* sp = reinterpret_cast<float*>(smem_cluster);
+  Params::stage(sp, params);
+  float2* bufs = reinterpret_cast<float2*>(sp + Params::kFloats);
+  float2* up = cluster.map_shared_rank(bufs, (r + n - 1) % n);
+  float2* down = cluster.map_shared_rank(bufs, (r + 1) % n);
+
+  // cell (i, j) of the strip into buffer `off` here, and into the halo of
+  // the same buffer of the CTA above (its rows up_rows + 2, up_rows + 3 are
+  // this strip's rows 0, 1) or below (its rows 0, 1 are this strip's last
+  // two)
+  auto put = [&](int off, int i, int j, float2 v) {
+    bufs[off + (i + 2) * W + j] = v;
+    if (i < 2) up[off + (up_rows + 2 + i) * W + j] = v;
+    if (i >= rows - 2) down[off + (i - rows + 2) * W + j] = v;
+  };
+  const size_t cells = static_cast<size_t>(H) * W;
+  const int own = rows * W;
+  const size_t first = static_cast<size_t>(start) * W;
+  for (int k = threadIdx.x; k < own; k += blockDim.x) {
+    const float2 v = h0[first + k];
+    const int i = k / W;
+    put(0, i, k - i * W, v);
+    frames[first + k] = v;
+  }
+  const step2d::Strip grid{rows, W};
+  // the row, column and cross of cell k of the strip (cell 0 stands in for
+  // a cell past the strip, whose result is not stored)
+  auto at = [&](int k, int& i, int& j) {
+    const int kk = k < own ? k : 0;
+    i = kk / W;
+    j = kk - i * W;
+    return grid.cross(kk, i, j);
+  };
+  const int B = blockDim.x, k0 = threadIdx.x;
+  int i0[kCells], j0[kCells];
+  step2d::Cross x0[kCells];
+#pragma unroll
+  for (int m = 0; m < kCells; ++m) x0[m] = at(k0 + m * B, i0[m], j0[m]);
+  cluster.sync();
+
+  for (int t = 0; t < n_steps; ++t) {
+    const float2* cur = bufs + (t & 1) * buf_len;
+    const int next = ((t + 1) & 1) * buf_len;
+    float2* out = frames + static_cast<size_t>(t + 1) * cells + first;
+    for (int k = k0; k < own; k += kCells * B) {
+      int i[kCells], j[kCells];
+      step2d::Cross x[kCells];
+#pragma unroll
+      for (int m = 0; m < kCells; ++m) {
+        if (k == k0) {
+          i[m] = i0[m];
+          j[m] = j0[m];
+          x[m] = x0[m];
+        } else {
+          x[m] = at(k + m * B, i[m], j[m]);
+        }
+      }
+      float2 v[kCells];
+      step2d::euler_cellsN<C, NB, kCells>(sp, cur, x, dt, inv_dx2, v);
+#pragma unroll
+      for (int m = 0; m < kCells; ++m) {
+        if (k + m * B < own) {
+          put(next, i[m], j[m], v[m]);
+          out[k + m * B] = v[m];
+        }
+      }
+    }
+    cluster.sync();
+  }
+}
+
+// The cell widths (C, NB) rollout2d_cluster_kernel is compiled for: the
+// GS2D cell's (rollout_plan in ../cell2d.py takes no other).
+constexpr int kClusterC = 8, kClusterNB = 3;
+using ClusterParams = step2d::AlignedParams<kClusterC, kClusterNB>;
+
+// Dynamic shared memory of rollout2d_cluster_kernel: the staged parameters
+// (AlignedParams: 172 floats), then two [rows_max + 4, W] float2 buffers
+// (cluster_smem_bytes in ../cell2d.py).
+size_t cluster_smem_bytes(int H, int W, int n_cta) {
+  const size_t rows_max = (H + n_cta - 1) / n_cta;
+  return ClusterParams::kFloats * sizeof(float) + 2 * (rows_max + 4) * W * sizeof(float2);
+}
+
+using ClusterKernel = void (*)(const float*, const float2*, float2*, int, int, int, float,
+                              float);
+constexpr ClusterKernel kClusterKernel = rollout2d_cluster_kernel<kClusterC, kClusterNB>;
+
+// The launch configuration of one n_cta-CTA cluster, its shared memory
+// allowed; `attr` must outlive the configuration.
+cudaError_t cluster_config(ClusterKernel kernel, int H, int W, int n_cta, int threads,
+                           cudaStream_t stream, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* config) {
+  const size_t smem = cluster_smem_bytes(H, W, n_cta);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // a cluster of more than 8 CTAs is a non-portable size (16 on an H100)
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             n_cta > 8 ? 1 : 0);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = n_cta;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *config = cudaLaunchConfig_t{};
+  config->gridDim = dim3(n_cta);
+  config->blockDim = dim3(threads);
+  config->dynamicSmemBytes = smem;
+  config->stream = stream;
+  config->attrs = attr;
+  config->numAttrs = 1;
+  return cudaSuccess;
+}
 
 // One step of the frames path: `in` is frame t and `out` frame t + 1 of the
 // output, which thereby holds the state.
@@ -155,6 +340,16 @@ cudaError_t final_state(const float* params, int n_params, const void* h0, void*
   return cudaGetLastError();
 }
 
+// How many n_cta-CTA clusters of rollout2d_cluster_kernel the card can hold
+// at once (0: none, and the launch would be refused).
+cudaError_t cluster_occupancy(int H, int W, int n_cta, int threads, int* clusters) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+  cudaError_t err = cluster_config(kClusterKernel, H, W, n_cta, threads, nullptr, &attr, &config);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, kClusterKernel, &config);
+}
+
 #define PERCNN_NB_CASES(CALL) \
   case 1: return CALL(1);     \
   case 2: return CALL(2);     \
@@ -204,4 +399,34 @@ extern "C" int cell2d_final(const void* params, int n_params, const void* h0,
 #undef F
 #undef F3
 #undef F5
+}
+
+// The frames rollout of a 1x1 cell in one launch: frames [n_steps + 1, H, W, 2]
+// (frame 0 = h0), one cluster of n_cta CTAs of `threads` threads.  A card
+// that cannot hold the cluster returns cudaErrorLaunchOutOfResources before
+// anything is launched; `clusters` gets the occupancy query's count.
+extern "C" int cell2d_rollout_cluster(const void* params, int n_params, const void* h0,
+                                      void* frames, int n_steps, int H, int W, int hidden,
+                                      int n_branches, float dt, float inv_dx2, int n_cta,
+                                      int threads, void* stream, int* clusters) {
+  if (hidden != kClusterC || n_branches != kClusterNB ||
+      n_params != 2 + 2 * ClusterParams::kBlock || n_cta < 1 || 2 * n_cta > H ||
+      threads < 32 || threads > kClusterThreads)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cluster_occupancy(H, W, n_cta, threads, clusters);
+  if (err != cudaSuccess) return err;
+  if (*clusters < 1) return cudaErrorLaunchOutOfResources;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config;
+  err = cluster_config(kClusterKernel, H, W, n_cta, threads, static_cast<cudaStream_t>(stream),
+                       &attr, &config);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&config, kClusterKernel, static_cast<const float*>(params),
+                           static_cast<const float2*>(h0), static_cast<float2*>(frames), n_steps,
+                           H, W, dt, inv_dx2);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+extern "C" int cell2d_cluster_occupancy(int H, int W, int n_cta, int threads, int* clusters) {
+  return cluster_occupancy(H, W, n_cta, threads, clusters);
 }

@@ -10,7 +10,11 @@
 // H x W field with no halo, indices wrapped (those three kernels); Haloed,
 // one block of a domain-decomposed field with a 2-cell halo,
 // [H + 4, W + 4], whose H x W interior is the output, read without a wrap
-// (step2d_haloed_kernel, sharded_step2d.cu).  The arithmetic is the same.
+// (step2d_haloed_kernel, sharded_step2d.cu); Strip, a strip of whole rows
+// with a 2-row halo above and below, columns wrapped
+// (rollout2d_cluster_kernel, cell2d.cu).  The arithmetic is the same:
+// euler_step's at k = 1, which the cluster kernel runs for several cells
+// at a time (euler_cellsN).
 
 #pragma once
 
@@ -69,6 +73,20 @@ struct Haloed {
   }
 };
 
+// A strip of H whole rows of a field W wide, with a 2-row halo, [H + 4, W];
+// output cell (i, j) is input cell (i + 2, j), and columns wrap.
+struct Strip {
+  int H, W;
+
+  __device__ __forceinline__ Cross cross(int, int i, int j) const {
+    const int r = (i + 2) * W;
+    const int c = r + j;
+    const int jm1 = (j + W - 1) % W, jp1 = (j + 1) % W;
+    const int jm2 = (j + 2 * W - 2) % W, jp2 = (j + 2) % W;
+    return {c, c + W, c - W, r + jp1, r + jm1, c + 2 * W, c - 2 * W, r + jp2, r + jm2};
+  }
+};
+
 // Pi-block output for one equation; `p` points at that equation's block.
 __device__ __forceinline__ float pi_poly(const float* p, float u, float v,
                                          int hidden, int n_branches) {
@@ -87,6 +105,96 @@ __device__ __forceinline__ float pi_poly(const float* p, float u, float v,
   return acc + w_out[hidden];
 }
 
+// The two Laplacians of a cell from its cross x in `in`, and its state.
+__device__ __forceinline__ float2 cross_laplacian(const float2* __restrict__ in, const Cross& x,
+                                                  float inv_dx2, float2& c) {
+  c = in[x.c];
+  const float2 a1 = in[x.a1], a2 = in[x.a2];
+  const float2 a3 = in[x.a3], a4 = in[x.a4];
+  const float2 b1 = in[x.b1], b2 = in[x.b2];
+  const float2 b3 = in[x.b3], b4 = in[x.b4];
+  const float s1u = a1.x + a2.x + a3.x + a4.x, s1v = a1.y + a2.y + a3.y + a4.y;
+  const float s2u = b1.x + b2.x + b3.x + b4.x, s2v = b1.y + b2.y + b3.y + b4.y;
+  const float lap_u = (-5.0f * c.x + (4.0f / 3.0f) * s1u - (1.0f / 12.0f) * s2u) * inv_dx2;
+  const float lap_v = (-5.0f * c.y + (4.0f / 3.0f) * s1v - (1.0f / 12.0f) * s2v) * inv_dx2;
+  return make_float2(lap_u, lap_v);
+}
+
+// The shared-memory layout of the packed parameters for euler_cellsN<C,
+// NB, N>: [Du, Dv] at 0, 1 and each equation's block (pack_pi_params_2d's) at
+// a 16-byte boundary, 4 and 4 + kEqStride, so that each row of C weights is
+// read as whole float4s.
+template <int C, int NB>
+struct AlignedParams {
+  static constexpr int kBlock = NB * 3 * C + C + 1;
+  static constexpr int kEqStride = (kBlock + 3) / 4 * 4;
+  static constexpr int kFloats = 4 + 2 * kEqStride;
+
+  // Stage the packed vector (2 + 2 kBlock floats) at `sp`.
+  __device__ __forceinline__ static void stage(float* sp, const float* __restrict__ params) {
+    for (int k = threadIdx.x; k < 2 + 2 * kBlock; k += blockDim.x) {
+      const int o = (k - 2) / kBlock;
+      sp[k < 2 ? k : 4 + o * kEqStride + (k - 2 - o * kBlock)] = params[k];
+    }
+  }
+};
+
+// pi_poly at N cells (u[m], v[m]) with the hidden width C and the branch
+// count NB fixed at compile time, each weight read once for all N: the same
+// expressions in the same order for each cell.
+template <int C, int NB, int N>
+__device__ __forceinline__ void pi_polyN(const float* p, const float (&u)[N],
+                                         const float (&v)[N], float (&pi)[N]) {
+  constexpr int stride = 3 * C;  // w_i [2, C] then b_i [C]
+  const float* w_out = p + NB * stride;
+  float acc[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) acc[m] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float prod[N];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float* w = p + i * stride;
+      const float wu = w[c], wv = w[C + c], b = w[2 * C + c];
+#pragma unroll
+      for (int m = 0; m < N; ++m) {
+        const float y = wu * u[m] + wv * v[m] + b;
+        prod[m] = (i == 0) ? y : prod[m] * y;
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < N; ++m) acc[m] += w_out[c] * prod[m];
+  }
+#pragma unroll
+  for (int m = 0; m < N; ++m) pi[m] = acc[m] + w_out[C];
+}
+
+// euler_step's arithmetic at N cells, from their crosses x[m] in `in` and
+// the parameters staged by AlignedParams<C, NB>: each cell's is
+// euler_step's, expression for expression.
+template <int C, int NB, int N>
+__device__ __forceinline__ void euler_cellsN(const float* sp, const float2* __restrict__ in,
+                                             const Cross (&x)[N], float dt, float inv_dx2,
+                                             float2 (&out)[N]) {
+  using L = AlignedParams<C, NB>;
+  float u[N], v[N], pi_u[N], pi_v[N];
+  float2 lap[N];
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    float2 c;
+    lap[m] = cross_laplacian(in, x[m], inv_dx2, c);
+    u[m] = c.x;
+    v[m] = c.y;
+  }
+  pi_polyN<C, NB, N>(sp + 4, u, v, pi_u);
+  pi_polyN<C, NB, N>(sp + 4 + L::kEqStride, u, v, pi_v);
+#pragma unroll
+  for (int m = 0; m < N; ++m)
+    out[m] = make_float2(u[m] + dt * (sp[0] * lap[m].x + pi_u[m]),
+                         v[m] + dt * (sp[1] * lap[m].y + pi_v[m]));
+}
+
 template <class Grid>
 __device__ __forceinline__ void euler_step(const float* __restrict__ params,
                                            int n_params,
@@ -102,23 +210,13 @@ __device__ __forceinline__ void euler_step(const float* __restrict__ params,
   if (idx >= g.H * g.W) return;
   const int i = idx / g.W;
   const int j = idx - i * g.W;
-  const Cross x = g.cross(idx, i, j);
-
-  const float2 c = in[x.c];
-  const float2 a1 = in[x.a1], a2 = in[x.a2];
-  const float2 a3 = in[x.a3], a4 = in[x.a4];
-  const float2 b1 = in[x.b1], b2 = in[x.b2];
-  const float2 b3 = in[x.b3], b4 = in[x.b4];
-  const float s1u = a1.x + a2.x + a3.x + a4.x, s1v = a1.y + a2.y + a3.y + a4.y;
-  const float s2u = b1.x + b2.x + b3.x + b4.x, s2v = b1.y + b2.y + b3.y + b4.y;
-  const float lap_u = (-5.0f * c.x + (4.0f / 3.0f) * s1u - (1.0f / 12.0f) * s2u) * inv_dx2;
-  const float lap_v = (-5.0f * c.y + (4.0f / 3.0f) * s1v - (1.0f / 12.0f) * s2v) * inv_dx2;
-
+  float2 c;
+  const float2 lap = cross_laplacian(in, g.cross(idx, i, j), inv_dx2, c);
   const int block = n_branches * 3 * hidden + hidden + 1;
   const float pi_u = pi_poly(sp + 2, c.x, c.y, hidden, n_branches);
   const float pi_v = pi_poly(sp + 2 + block, c.x, c.y, hidden, n_branches);
-  out[idx] = make_float2(c.x + dt * (sp[0] * lap_u + pi_u),
-                         c.y + dt * (sp[1] * lap_v + pi_v));
+  out[idx] = make_float2(c.x + dt * (sp[0] * lap.x + pi_u),
+                         c.y + dt * (sp[1] * lap.y + pi_v));
 }
 
 // One step of a k x k cell (k = 3, 5) at one cell of the block's tile and
