@@ -22,12 +22,12 @@ since start:
   env          card name and power limit (nvidia-smi), torch and CUDA versions
   build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel,
                ptxas's registers and spills, and the one-launch kernels'
-               plans at GS2D's shape (cluster size, co-resident grid) beside
-               what the card holds of them
+               plans at GS2D's and Burgers' shapes (cluster size, co-resident
+               grid, threads, bytes) beside what the card holds of them
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_kernel against tests/golden/pt_gs3d.npz
-  golden_burgers  the Burgers ISG and rollout2d_kxk_kernel against
-               tests/golden/pt_burgers_s1.npz
+  golden_burgers  the Burgers ISG and rollout2d_kxk_persistent_kernel (one
+               launch, 8 steps) against tests/golden/pt_burgers_s1.npz
   kernels      the forward kernels against their plain versions, 100 x 100,
                T = 200: rollout2d_cluster_kernel (the frames rollout's route
                at that shape) also against rollout2d_kernel, the per-step
@@ -44,12 +44,18 @@ since start:
                sweep (T = 50, golden cell, data-loss cotangent), and the
                fused 3D gradients against f64 autograd (random-init cell,
                random target, 12 steps)
-  kernels_kxk  rollout2d_kxk_kernel against its plain version at 100 x 100,
-               C = 16, k = 5, T = 200, golden Burgers cell, Burgers IC
-  grads_kxk    adj2d_kxk_kernel against its plain sweep (the same, a
-               standard-normal cotangent), and the fused k x k gradients
-               and those of remat (eager autograd) against f64 autograd
-               (random-init cell, random target, 12 steps, 100 x 100)
+  kernels_kxk  rollout2d_kxk_persistent_kernel (kxk_plan's route at
+               100 x 100) and rollout2d_kxk_kernel (the per-step route)
+               against their plain version and each other at 100 x 100,
+               C = 16, k = 5, T = 200, golden Burgers cell, Burgers IC; both
+               routes through the entry point on 17 x 9 and past the plan's
+               capacity (1453 x 1453), launches and steps counted
+  grads_kxk    adj2d_kxk_persistent_kernel and adj2d_kxk_kernel against
+               their plain sweep and each other (the same, a standard-normal
+               cotangent), on 17 x 9 and past the plan's capacity (846 x
+               846), counted; the fused k x k gradients (counted) and those
+               of remat (eager autograd) against f64 autograd (random-init
+               cell, random target, 12 steps, 100 x 100)
   kernels_fallback  rollout2d_kernel (T = 200) and final2d_kernel (1200
                steps) at k = 5, adj2d_ys_kernel and adj2d_kernel at k = 5
                (T = 200) on the golden Burgers cell, adj2d_kernel at k = 1
@@ -98,7 +104,8 @@ since start:
                forward, losses, backward (and pg2d_kernel in it), Adam, and
                the device's idle share from a torch.profiler trace
   step_breakdown3d  the same for GS3D at T = 150, 300 (pg3d_kernel)
-  step_breakdown_kxk  the same for Burgers at T = 200 (adj2d_kxk_kernel)
+  step_breakdown_kxk  the same for Burgers at T = 200
+               (adj2d_kxk_persistent_kernel)
   kernels_batched  the ensemble's kernels (rollout2d_batched_kernel,
                adj2d_batched_kernel, pg2d_batched_kernel) against their plain
                versions at M = 4, 100 x 100, T = 200 (the golden GS2D cell
@@ -141,14 +148,17 @@ since start:
                device ms, enqueue, and the device's idle share from a
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
-               shapes, beside the card's bound for the same work (rows 1
-               and 7 also by their per-step routes, in the same call), one
+               shapes, beside the card's bound for the same work (rows 1,
+               3, 6 and 7 also by their per-step routes, in turns in the same
+               call; rows 3 and 6 with the bound in 3xTF32 and all in FFMA),
+               one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (19 entries: the 14 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (21 entries: the 14 ported TPU kernels,
 with the k = 5 contracts of rollout2d_kernel, final2d_kernel, adj2d_kernel,
-rollout2d_batched_kernel and adj2d_batched_kernel listed apart), the
+rollout2d_batched_kernel and adj2d_batched_kernel and the per-step routes of
+rows 3 and 6, rollout2d_kxk_kernel and adj2d_kxk_kernel, listed apart), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
@@ -160,6 +170,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -176,9 +187,11 @@ GOLDEN3D = os.path.join(ROOT, "tests", "golden", "pt_gs3d.npz")
 GOLDEN_BURGERS = os.path.join(ROOT, "tests", "golden", "pt_burgers_s1.npz")
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# HBM3 bandwidth and float32 outside the tensor cores (an FMA counts as 2).
+# HBM3 bandwidth, float32 outside the tensor cores (an FMA counts as 2) and
+# dense TF32 on them.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12   # dense, on the tensor cores
 
 SERVE_STEPS = 2500
 CHECK_STEPS = 200
@@ -201,6 +214,7 @@ ENS_ITERS = 6             # 2 at each of T = 200, 400, 800
 ENS_BURGERS_ITERS = 2     # at T = 200
 MESH_ITERS = 3            # train_mesh: 1 at each of T = 200, 400, 800
 SHARDED3D_STEPS = 50      # the GS3D decomposed rollout on a (2, 2, 2) mesh
+GRID_BARRIERS = 1000      # grid.sync()s of the empty cooperative kernel timed in times
 
 
 class CheckFailed(Exception):
@@ -296,9 +310,24 @@ def adj_flops_per_cell_step_1x1(cfg) -> int:
     return pi + 2 * points + 2 * (4 * cfg.ndim + 4) + 8
 
 
+def kxk_product_flops_per_cell_step(cfg) -> int:
+    """Flops of one branch-matrix product at one cell and step, the part of
+    flops_per_cell_step_kxk (once) and adj_flops_per_cell_step_kxk (twice: y
+    and zw) that the one-launch kernels run on the tensor cores."""
+    return 2 * cfg.kernel_size ** 2 * 2 * 2 * cfg.n_branches * cfg.hidden
+
+
 def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_3xtf32_ms(bytes_moved: float, mma_flops: float, other_flops: float) -> tuple:
+    """bound_ms with mma_flops run on the tensor cores in 3xTF32 (three
+    passes at the dense TF32 peak) and other_flops at the f32 peak."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S
+    t_ops = 3 * mma_flops / PEAK_TF32_FLOP_PER_S + other_flops / PEAK_F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -349,7 +378,8 @@ def profile_busy(torch, fn) -> dict:
                for name in ("rollout2d_cluster_kernel", "pg2d_persistent_kernel",
                             "rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
                             "pg3d_kernel", "rollout2d_kxk_kernel", "adj2d_kxk_act_kernel",
-                            "adj2d_kxk_gather_kernel", "rollout2d_batched_kernel",
+                            "adj2d_kxk_gather_kernel", "rollout2d_kxk_persistent_kernel",
+                            "adj2d_kxk_persistent_kernel", "rollout2d_batched_kernel",
                             "adj2d_batched_kernel", "pg2d_batched_kernel",
                             "step2d_haloed_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
@@ -428,9 +458,21 @@ def main() -> int:
             **backward2d.pg_plan(n_gs2d, n_gs2d, GS2D_RECON.cell, backward2d._sm_count(dev)),
             "blocks_an_sm_holds": backward2d.pg_occupancy(GS2D_RECON.cell, n_gs2d, n_gs2d,
                                                           dev),
-            "sms": backward2d._sm_count(dev)}}
+            "sms": backward2d._sm_count(dev)},
+        "rollout2d_kxk_persistent_kernel": {
+            **cell2d.kxk_plan(BURGERS_STAGE1.grid, BURGERS_STAGE1.grid, BURGERS_STAGE1.cell,
+                              cell2d._sm_count(dev)),
+            "blocks_an_sm_holds": cell2d.kxk_occupancy(BURGERS_STAGE1.cell, BURGERS_STAGE1.grid,
+                                                       BURGERS_STAGE1.grid, dev)},
+        "adj2d_kxk_persistent_kernel": {
+            **backward2d.kxk_adj_plan(BURGERS_STAGE1.grid, BURGERS_STAGE1.grid,
+                                      BURGERS_STAGE1.cell, cell2d._sm_count(dev)),
+            "blocks_an_sm_holds": backward2d.kxk_adj_occupancy(
+                BURGERS_STAGE1.cell, BURGERS_STAGE1.grid, BURGERS_STAGE1.grid, dev)}}
     check(one_launch["rollout2d_cluster_kernel"]["clusters_the_card_holds"] >= 1
-          and one_launch["pg2d_persistent_kernel"]["blocks_an_sm_holds"] >= 1,
+          and all(one_launch[k]["blocks_an_sm_holds"] >= 1
+                  for k in ("pg2d_persistent_kernel", "rollout2d_kxk_persistent_kernel",
+                            "adj2d_kxk_persistent_kernel")),
           f"the card holds none of a one-launch kernel's grid: {one_launch}")
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
                             for n in sources},
@@ -481,7 +523,8 @@ def main() -> int:
           rollout_max_abs_err_per_step=step3_err, rollout_bar="2e-5 * t")
 
     # golden_burgers: the reference's trained Burgers Stage-1 model (5x5 Pi
-    # cell, C = 16), ISG 32^2 -> 64^2, 8 steps through rollout2d_kxk_kernel
+    # cell, C = 16), ISG 32^2 -> 64^2, 8 steps through the frames rollout's
+    # route at 64 x 64, rollout2d_kxk_persistent_kernel
     cfgb, isgb = BURGERS_STAGE1.cell, BURGERS_STAGE1.isg
     with np.load(GOLDEN_BURGERS) as z:
         goldenb = {k: z[k] for k in z.files}
@@ -494,16 +537,19 @@ def main() -> int:
           f"golden Burgers ISG: max |diff| {isgb_err} over atol 2e-6")
     framesb_want = torch.as_tensor(goldenb["frames"], device=dev)
     n_goldenb = framesb_want.shape[0] - 1
-    cell2d.fused_rollout_kxk_2d.launches = 0
+    cell2d.fused_rollout_kxk_2d.launches = cell2d.fused_rollout_kxk_2d.steps = 0
     framesb = cell2d.fused_rollout_2d(paramsb["cell"], framesb_want[0], cfgb, n_goldenb)
     torch.cuda.synchronize()
-    check(cell2d.fused_rollout_kxk_2d.launches == n_goldenb,
-          f"golden Burgers rollout: {cell2d.fused_rollout_kxk_2d.launches} kernel launches")
+    goldenb_counts = (cell2d.fused_rollout_kxk_2d.launches, cell2d.fused_rollout_kxk_2d.steps)
+    check(goldenb_counts == (1, n_goldenb),
+          f"golden Burgers rollout: (launches, steps) {goldenb_counts}, expected "
+          f"(1, {n_goldenb}) of rollout2d_kxk_persistent_kernel")
     stepb_err = [max_abs(framesb[k], framesb_want[k]) for k in range(1, n_goldenb + 1)]
     for k, e in enumerate(stepb_err, start=1):
         check(e <= 2e-5 * k, f"golden Burgers rollout step {k}: max |diff| {e} over {2e-5 * k}")
     phase("golden_burgers", isg_max_abs_err=isgb_err, isg_atol=2e-6,
-          shape=list(framesb.shape[1:]), rollout_max_abs_err_per_step=stepb_err,
+          shape=list(framesb.shape[1:]), launches_and_steps=goldenb_counts,
+          rollout_max_abs_err_per_step=stepb_err,
           rollout_bar="2e-5 * t")
 
     # kernels: full width, trained weights, against the plain versions
@@ -777,37 +823,153 @@ def main() -> int:
           pg3d_bar="2e-4 * max|leaf| + 2e-6",
           f64_random_cell_12_steps={"worst_leaf": worst3, "bar": 1e-4, **rel3})
 
-    # kernels_kxk: rollout2d_kxk_kernel at Burgers' full width, golden cell,
-    # against its plain version
+    # every launch and step counter of the port's kernels
+    counters = [(cell2d.fused_rollout_2d, "launches"), (cell2d.fused_rollout_2d, "steps"),
+                (cell2d.fused_rollout_2d, "launches_kxk"),
+                (cell2d.fused_rollout_final_2d, "launches_kxk"),
+                (cell2d.fused_rollout_kxk_2d, "launches"), (cell2d.fused_rollout_kxk_2d, "steps"),
+                (cell3d.fused_rollout_3d, "launches"),
+                (backward2d.fused_rollout_tp_2d, "launches"),
+                (backward2d.fused_rollout_tp_2d, "steps"),
+                (backward2d.fused_phase1_2d, "launches"),
+                (backward2d.fused_phase1_ys_2d, "launches"),
+                (backward3d.fused_phase1_3d, "launches"),
+                (backward2d.fused_rollout_tp_2d_pg, "launches"),
+                (backward2d.fused_rollout_tp_2d_pg, "steps"),
+                (batched2d.fused_rollout_2d_batched, "launches"),
+                (batched2d.fused_rollout_2d_batched, "launches_kxk"),
+                (batched2d.fused_phase1_2d_batched, "launches"),
+                (batched2d.fused_phase1_2d_batched, "launches_kxk"),
+                (batched2d.fused_phase1_pg_2d_batched, "launches"),
+                (sharded_step2d.step_haloed_2d, "launches")]
+
+    def zero_counts():
+        for obj, attr in counters:
+            setattr(obj, attr, 0)
+
+    def read_counts():
+        return {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in counters
+                if getattr(obj, attr)}
+
+    # kernels_kxk: the k x k forward at Burgers' full width (golden cell,
+    # Burgers IC, T = 200): rollout2d_kxk_persistent_kernel (kxk_plan's route
+    # at 100 x 100) and rollout2d_kxk_kernel (the per-step route) against the
+    # plain version, and against each other at the same bar (3xTF32 on the
+    # tensor cores against FFMA: not bitwise); then through the entry point
+    # on a 17 x 9 field (the one-launch route) and on one past the plan's
+    # capacity (1453 x 1453, the per-step route), launches and steps counted
     nb_grid = BURGERS_STAGE1.grid
+    n_sm = cell2d._sm_count(dev)
     h0b = torch.as_tensor(default_ic("burgers", nb_grid), dtype=torch.float32, device=dev)
     wmatb = cell2d.pack_pi_matrix_2d(paramsb["cell"], cfgb).contiguous()
     tailb = cell2d.pi_tail_2d(paramsb["cell"], cfgb)
-    got = cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb, CHECK_KXK_STEPS)
+    check(cell2d.kxk_plan(nb_grid, nb_grid, cfgb, n_sm)["route"] == "persistent",
+          f"kxk_plan at {nb_grid}: {cell2d.kxk_plan(nb_grid, nb_grid, cfgb, n_sm)}")
+    got = cell2d._rollout_kxk_persistent_cuda(wmatb, tailb, h0b, cfgb, CHECK_KXK_STEPS)
+    got_steps = cell2d._rollout_kxk_steps_cuda(wmatb, tailb, h0b, cfgb, CHECK_KXK_STEPS)
     want = cell2d.fused_rollout_kxk_2d_plain(wmatb, tailb, h0b, cfgb, CHECK_KXK_STEPS)
     torch.cuda.synchronize()
-    err["rollout2d_kxk_kernel"] = max_abs(got, want)
-    check(allclose(got, want, rtol=2e-4, atol=1e-5),
-          f"rollout2d_kxk_kernel vs plain: max |diff| {err['rollout2d_kxk_kernel']}")
+    err["rollout2d_kxk_persistent_kernel"] = max_abs(got, want)
+    err["rollout2d_kxk_kernel"] = max_abs(got_steps, want)
+    kxk_fwd_routes_err = max_abs(got, got_steps)
+    for label, a, b in (("rollout2d_kxk_persistent_kernel vs plain", got, want),
+                        ("rollout2d_kxk_kernel vs plain", got_steps, want),
+                        ("rollout2d_kxk_persistent_kernel vs rollout2d_kxk_kernel", got,
+                         got_steps)):
+        check(allclose(a, b, rtol=2e-4, atol=1e-5), f"{label}: max |diff| {max_abs(a, b)}")
+    del got_steps
+    kxk_fwd_checks, kxk_steps_launches = {}, {}
+    for shape, steps_, route in (((17, 9), 30, "persistent"), ((1453, 1453), 3, "per_step")):
+        x = torch.as_tensor(0.5 * np.random.RandomState(5).standard_normal(shape + (2,)),
+                            dtype=torch.float32, device=dev)
+        plan = cell2d.kxk_plan(*shape, cfgb, n_sm)
+        check(plan["route"] == route, f"kxk_plan at {shape}: {plan}, expected {route}")
+        zero_counts()
+        g_ = cell2d.fused_rollout_2d(paramsb["cell"], x, cfgb, steps_)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_rollout_kxk_2d.launches": 1 if route == "persistent" else steps_,
+                       "fused_rollout_kxk_2d.steps": steps_}
+        check(counts == want_counts, f"k x k rollout at {shape}: counts {counts}, "
+                                     f"expected {want_counts}")
+        w_ = cell2d.fused_rollout_kxk_2d_plain(wmatb, tailb, x, cfgb, steps_)
+        torch.cuda.synchronize()
+        kxk_fwd_checks[f"{shape[0]}x{shape[1]}"] = {"route": route, "steps": steps_,
+                                                   "launches": counts, "plan": plan,
+                                                   "max_abs_err": max_abs(g_, w_)}
+        check(allclose(g_, w_, rtol=2e-4, atol=1e-5),
+              f"k x k rollout at {shape} ({route}) vs plain: max |diff| {max_abs(g_, w_)}")
+        if route == "per_step":
+            kxk_steps_launches["kernels_kxk"] = counts["fused_rollout_kxk_2d.launches"]
+        del g_, w_, x
     phase("kernels_kxk", shape=[nb_grid, nb_grid, 2], hidden=cfgb.hidden,
           kernel_size=cfgb.kernel_size, steps=CHECK_KXK_STEPS,
-          max_abs_err=err["rollout2d_kxk_kernel"], max_abs_frame=float(want.abs().max()),
-          rtol=2e-4, atol=1e-5)
+          max_abs_err={k: err[k] for k in ("rollout2d_kxk_persistent_kernel",
+                                           "rollout2d_kxk_kernel")},
+          persistent_vs_per_step_max_abs_err=kxk_fwd_routes_err,
+          max_abs_frame=float(want.abs().max()), rtol=2e-4, atol=1e-5,
+          route_checks=kxk_fwd_checks)
 
-    # grads_kxk: adj2d_kxk_kernel against its plain sweep on those frames, and
-    # the fused k x k gradients against f64 autograd
+    # grads_kxk: the k x k sweep on those frames (a standard-normal
+    # cotangent): adj2d_kxk_persistent_kernel (kxk_adj_plan's route at
+    # 100 x 100) and adj2d_kxk_kernel (the per-step route) against the plain
+    # sweep and against each other, each output at the backward bar; both
+    # routes through the wrapper on 17 x 9 and past the plan's capacity
+    # (846 x 846), counted; and the fused k x k gradients against f64 autograd
+    def sweep_leaf_errs(a_out, b_out):
+        """Per output (g_ins, g0, ys): (max |diff| of a from b, max |b|)."""
+        return {name: (max_abs(a, b), float(b.abs().max()))
+                for name, a, b in zip(("g_ins", "g0", "ys"), a_out, b_out)}
+
+    def hold_sweep(label, errs):
+        for name, (e, scale) in errs.items():
+            check(e <= 2e-4 * scale + 2e-6,
+                  f"{label}, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+
     fbarb = torch.as_tensor(np.random.RandomState(4).standard_normal(tuple(got.shape)),
                             dtype=torch.float32, device=dev)
-    out_k = backward2d._phase1_kxk_cuda(wmatb, tailb, got, fbarb, cfgb)
+    check(backward2d.kxk_adj_plan(nb_grid, nb_grid, cfgb, n_sm)["route"] == "persistent",
+          f"kxk_adj_plan at {nb_grid}: {backward2d.kxk_adj_plan(nb_grid, nb_grid, cfgb, n_sm)}")
+    out_k = backward2d._phase1_kxk_persistent_cuda(wmatb, tailb, got, fbarb, cfgb)
+    out_s = backward2d._phase1_kxk_steps_cuda(wmatb, tailb, got, fbarb, cfgb)
     out_p = backward2d.fused_phase1_kxk_2d_plain(wmatb, tailb, got, fbarb, cfgb)
     torch.cuda.synchronize()
-    kxk_err = {name: (max_abs(a, b), float(b.abs().max()))
-               for name, a, b in zip(("g_ins", "g0", "ys"), out_k, out_p)}
-    for name, (e, scale) in kxk_err.items():
-        check(e <= 2e-4 * scale + 2e-6,
-              f"adj2d_kxk_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
-    err["adj2d_kxk_kernel"] = max(e for e, _ in kxk_err.values())
-    del got, want, out_k, out_p
+    kxk_err = sweep_leaf_errs(out_k, out_p)
+    kxk_steps_err = sweep_leaf_errs(out_s, out_p)
+    kxk_routes_err = sweep_leaf_errs(out_k, out_s)
+    hold_sweep("adj2d_kxk_persistent_kernel vs plain", kxk_err)
+    hold_sweep("adj2d_kxk_kernel vs plain", kxk_steps_err)
+    hold_sweep("adj2d_kxk_persistent_kernel vs adj2d_kxk_kernel", kxk_routes_err)
+    err["adj2d_kxk_persistent_kernel"] = max(e for e, _ in kxk_err.values())
+    err["adj2d_kxk_kernel"] = max(e for e, _ in kxk_steps_err.values())
+    del got, want, out_k, out_s, out_p
+    kxk_adj_checks = {}
+    for shape, steps_, route in (((17, 9), 30, "persistent"), ((846, 846), 3, "per_step")):
+        x = torch.as_tensor(0.5 * np.random.RandomState(5).standard_normal(shape + (2,)),
+                            dtype=torch.float32, device=dev)
+        plan = backward2d.kxk_adj_plan(*shape, cfgb, n_sm)
+        check(plan["route"] == route, f"kxk_adj_plan at {shape}: {plan}, expected {route}")
+        fr_ = cell2d._rollout_kxk_cuda(wmatb, tailb, x, cfgb, steps_)
+        fb_ = torch.as_tensor(np.random.RandomState(6).standard_normal(tuple(fr_.shape)),
+                              dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        zero_counts()
+        a_out = backward2d.fused_phase1_kxk_2d(wmatb, tailb, fr_, fb_, cfgb)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_rollout_tp_2d.launches": 1 if route == "persistent" else 2 * steps_,
+                       "fused_rollout_tp_2d.steps": steps_}
+        check(counts == want_counts, f"k x k sweep at {shape}: counts {counts}, "
+                                     f"expected {want_counts}")
+        errs = sweep_leaf_errs(a_out, backward2d.fused_phase1_kxk_2d_plain(wmatb, tailb, fr_,
+                                                                           fb_, cfgb))
+        hold_sweep(f"k x k sweep at {shape} ({route}) vs plain", errs)
+        kxk_adj_checks[f"{shape[0]}x{shape[1]}"] = {
+            "route": route, "steps": steps_, "launches": counts, "plan": plan,
+            "err_and_max": {k: list(v) for k, v in errs.items()}}
+        if route == "per_step":
+            kxk_steps_launches["grads_kxk"] = counts["fused_rollout_tp_2d.launches"]
+        del x, fr_, fb_, a_out
     # the measure of the gradient referee at Burgers' shape: random-init
     # cell, random target, 12 steps, 100 x 100, held to 1e-4
     rngb = np.random.RandomState(5)
@@ -816,9 +978,16 @@ def main() -> int:
     xb_ref = torch.as_tensor(0.5 * rngb.standard_normal((nb_grid,) * 2 + (2,)),
                              dtype=torch.float32, device=dev)
     tgtb = torch.as_tensor(rngb.standard_normal((13,) + tuple(xb_ref.shape)), device=dev)
+    zero_counts()
     relb = rel_errs_vs_f64(refb_cell, xb_ref, 12,
                            lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean(), cfg=cfgb,
                            routes={"fused": backward2d.fused_rollout_tp_2d})
+    torch.cuda.synchronize()
+    relb_counts = read_counts()
+    relb_want = {"fused_rollout_kxk_2d.launches": 1, "fused_rollout_kxk_2d.steps": 12,
+                 "fused_rollout_tp_2d.launches": 1, "fused_rollout_tp_2d.steps": 12}
+    check(relb_counts == relb_want,
+          f"fused k x k gradients: counts {relb_counts}, expected {relb_want}")
     worstb = {kind: max(v, key=v.get) for kind, v in relb.items()}
     check(relb["fused"][worstb["fused"]] <= 1e-4,
           f"fused k x k gradients vs f64 autograd: {worstb['fused']} at "
@@ -831,9 +1000,15 @@ def main() -> int:
           f"{relb['autograd_f32'][worstb['autograd_f32']]} over 1e-4")
     phase("grads_kxk", shape=[nb_grid, nb_grid, 2], steps=CHECK_KXK_STEPS,
           cotangent="standard normal, seed 4",
-          adj_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in kxk_err.items()},
-          adj_bar="2e-4 * max|leaf| + 2e-6",
-          f64_random_cell_12_steps={"worst_leaf": worstb, "bar": 1e-4, **relb})
+          adj_persistent_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                    in kxk_err.items()},
+          adj_per_step_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                  in kxk_steps_err.items()},
+          persistent_vs_per_step_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                   in kxk_routes_err.items()},
+          adj_bar="2e-4 * max|leaf| + 2e-6", route_checks=kxk_adj_checks,
+          f64_random_cell_12_steps={"worst_leaf": worstb, "bar": 1e-4, "launches": relb_counts,
+                                    **relb})
 
     # kernels_fallback: the fallback slice's kernels at full width against
     # their plain versions
@@ -930,31 +1105,6 @@ def main() -> int:
         finally:
             (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED,
              backward2d.YS_PATH_ENABLED) = saved
-
-    counters = [(cell2d.fused_rollout_2d, "launches"), (cell2d.fused_rollout_2d, "steps"),
-                (cell2d.fused_rollout_2d, "launches_kxk"),
-                (cell2d.fused_rollout_final_2d, "launches_kxk"),
-                (cell2d.fused_rollout_kxk_2d, "launches"), (cell3d.fused_rollout_3d, "launches"),
-                (backward2d.fused_rollout_tp_2d, "launches"),
-                (backward2d.fused_phase1_2d, "launches"),
-                (backward2d.fused_phase1_ys_2d, "launches"),
-                (backward3d.fused_phase1_3d, "launches"),
-                (backward2d.fused_rollout_tp_2d_pg, "launches"),
-                (backward2d.fused_rollout_tp_2d_pg, "steps"),
-                (batched2d.fused_rollout_2d_batched, "launches"),
-                (batched2d.fused_rollout_2d_batched, "launches_kxk"),
-                (batched2d.fused_phase1_2d_batched, "launches"),
-                (batched2d.fused_phase1_2d_batched, "launches_kxk"),
-                (batched2d.fused_phase1_pg_2d_batched, "launches"),
-                (sharded_step2d.step_haloed_2d, "launches")]
-
-    def zero_counts():
-        for obj, attr in counters:
-            setattr(obj, attr, 0)
-
-    def read_counts():
-        return {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in counters
-                if getattr(obj, attr)}
 
     def two_phase(p, x, cfg_, steps):
         return rollout_tp(runner._cell_step_for(cfg_), p, x, steps)
@@ -1486,7 +1636,7 @@ def main() -> int:
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmup3_s)),
           final_vs_last_frame_max_abs_err=final3_err)
 
-    # serve_burgers: the golden Burgers model's frames (rollout2d_kxk_kernel)
+    # serve_burgers: the golden Burgers model's frames (rollout2d_kxk_persistent_kernel)
     # and its final state (final2d_kernel at k = 5), through the entry point
     # a user calls
     serveb = build_serving_fn(modelb, cfgb, BURGERS_STAGE1.infer_steps, isg_cfg=isgb,
@@ -1502,13 +1652,13 @@ def main() -> int:
         fn(requestsb[-1])
         torch.cuda.synchronize()
         warmupb_s.append(time.perf_counter() - t)
-    cell2d.fused_rollout_kxk_2d.launches = 0
-    cell2d.fused_rollout_final_2d.launches_kxk = 0
+    zero_counts()
     request_s, enqueue_s = [], []
     answersb = [timed(serveb, req) for req in requestsb]
     finalb = timed(serveb_final, requestsb[0])
-    serveb_launches = {"rollout2d_kxk_kernel": cell2d.fused_rollout_kxk_2d.launches,
+    serveb_launches = {"rollout2d_kxk_persistent_kernel": cell2d.fused_rollout_kxk_2d.launches,
                        "final2d_kernel[k=5]": cell2d.fused_rollout_final_2d.launches_kxk}
+    serveb_steps = cell2d.fused_rollout_kxk_2d.steps
     for a in answersb:
         check(tuple(a.shape) == (BURGERS_STAGE1.infer_steps + 1, nb_grid, nb_grid, 2)
               and bool(torch.isfinite(a).all()), "Burgers frames not finite or misshapen")
@@ -1519,11 +1669,13 @@ def main() -> int:
     finalb_err = max_abs(finalb, answersb[0][-1])
     check(allclose(finalb, answersb[0][-1], rtol=2e-4, atol=1e-5),
           f"Burgers final-state request vs last frame: max |diff| {finalb_err}")
-    check(serveb_launches == {"rollout2d_kxk_kernel": len(SEEDS) * BURGERS_STAGE1.infer_steps,
-                              "final2d_kernel[k=5]": BURGERS_STAGE1.infer_steps},
-          f"Burgers serving launch counts {serveb_launches}")
+    check(serveb_launches == {"rollout2d_kxk_persistent_kernel": len(SEEDS),
+                              "final2d_kernel[k=5]": BURGERS_STAGE1.infer_steps}
+          and serveb_steps == len(SEEDS) * BURGERS_STAGE1.infer_steps,
+          f"Burgers serving launch counts {serveb_launches}, steps {serveb_steps}")
     phase("serve_burgers", requests=len(requestsb) + 1, steps=BURGERS_STAGE1.infer_steps,
-          launches=serveb_launches, request_seconds=request_s, enqueue_seconds=enqueue_s,
+          launches=serveb_launches, kxk_steps=serveb_steps, request_seconds=request_s,
+          enqueue_seconds=enqueue_s,
           request_order="frames x 3, then final-state",
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmupb_s)),
           final_vs_last_frame_max_abs_err=finalb_err,
@@ -1535,27 +1687,33 @@ def main() -> int:
     # train_fallback and train_ensemble reuse it
     truth_cache = tempfile.mkdtemp(prefix="chip_smoke_truth_")
     try:
-        cell2d.fused_rollout_kxk_2d.launches = 0
-        backward2d.fused_rollout_tp_2d.launches = 0
+        zero_counts()
         with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
             resb = runner.run_experiment(BURGERS_STAGE1, device=dev, out_dir=out_dir,
                                          cache_dir=truth_cache,
                                          n_iters_override=TRAIN_BURGERS_ITERS,
                                          isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
-        trainb_launches = {"rollout2d_kxk_kernel": cell2d.fused_rollout_kxk_2d.launches,
-                           "adj2d_kxk_kernel": backward2d.fused_rollout_tp_2d.launches}
+        torch.cuda.synchronize()
+        trainb_counts = read_counts()
+        trainb_launches = {
+            "rollout2d_kxk_persistent_kernel": trainb_counts.get("fused_rollout_kxk_2d.launches"),
+            "adj2d_kxk_persistent_kernel": trainb_counts.get("fused_rollout_tp_2d.launches")}
         best_tree, best_meta = load_checkpoint_tree(
             os.path.join(out_dir, f"{BURGERS_STAGE1.name}.ckpt.npz.best"))
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     stepsb = BURGERS_STAGE1.train_steps
-    wantb = {"rollout2d_kxk_kernel": TRAIN_BURGERS_ITERS * stepsb + BURGERS_STAGE1.infer_steps,
-             "adj2d_kxk_kernel": 2 * TRAIN_BURGERS_ITERS * stepsb}
+    # one launch of each one-launch kernel an iteration, one for the evaluation
+    wantb = {"fused_rollout_kxk_2d.launches": TRAIN_BURGERS_ITERS + 1,
+             "fused_rollout_kxk_2d.steps": TRAIN_BURGERS_ITERS * stepsb
+             + BURGERS_STAGE1.infer_steps,
+             "fused_rollout_tp_2d.launches": TRAIN_BURGERS_ITERS,
+             "fused_rollout_tp_2d.steps": TRAIN_BURGERS_ITERS * stepsb}
     histb = resb["history"]
     check(len(histb) == TRAIN_BURGERS_ITERS and bool(np.isfinite(histb).all()),
           f"Burgers training losses {histb}")
-    check(trainb_launches == wantb,
-          f"Burgers training launch counts {trainb_launches}, expected {wantb}")
+    check(trainb_counts == wantb,
+          f"Burgers training launch counts {trainb_counts}, expected {wantb}")
     check(bool(np.isfinite(resb["rel_l2"])) and not resb["diverged"],
           f"Burgers evaluation rel_l2 {resb['rel_l2']}, diverged {resb['diverged']}")
     # best_val: the evaluated params are the .best checkpoint's
@@ -1565,7 +1723,7 @@ def main() -> int:
               f"Burgers evaluated params differ from the best-val checkpoint at {path}")
     secb = resb["seconds"]
     phase("train_burgers", experiment=BURGERS_STAGE1.name, grid=nb_grid,
-          launches=trainb_launches, expected_launches=wantb,
+          launches=trainb_counts, expected_launches=wantb,
           truth_frames=BURGERS_STAGE1.infer_steps, truth_s=secb["truth"],
           isg_pretrain_iters=ISG_PRETRAIN_ITERS, isg_pretrain_s=secb["isg_pretrain"],
           stages=[{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]}
@@ -1677,7 +1835,7 @@ def main() -> int:
     # rollout2d_cluster_kernel and pg2d_persistent_kernel), each with its
     # members' evaluation (rollout2d_cluster_kernel); then
     # run_ensemble(BURGERS_STAGE1, 2) in "batched"
-    # (rows 11-12 at k = 5; the evaluation by rollout2d_kxk_kernel).  The
+    # (rows 11-12 at k = 5; the evaluation by rollout2d_kxk_persistent_kernel).  The
     # truths come from the train and train_burgers phases' caches.
     per_ens = ENS_ITERS // len(stages)
     ens_steps = per_ens * sum(stages)
@@ -1699,7 +1857,8 @@ def main() -> int:
         "burgers_batched": {
             "fused_rollout_2d_batched.launches_kxk": ENS_BURGERS_ITERS * stepsb,
             "fused_phase1_2d_batched.launches_kxk": 2 * ENS_BURGERS_ITERS * stepsb,
-            "fused_rollout_kxk_2d.launches": ENS_KXK_MEMBERS * BURGERS_STAGE1.infer_steps},
+            "fused_rollout_kxk_2d.launches": ENS_KXK_MEMBERS,
+            "fused_rollout_kxk_2d.steps": ENS_KXK_MEMBERS * BURGERS_STAGE1.infer_steps},
     }
     ens_res, ens_launches, ens_s = {}, {}, {}
     try:
@@ -1935,7 +2094,7 @@ def main() -> int:
     bprobb = runner.setup_problem(BURGERS_STAGE1, answersb[0].cpu().numpy(), device=dev)
     phase("step_breakdown_kxk", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
           rows=breakdown(BURGERS_STAGE1, bprobb, resb["params"], [BURGERS_STAGE1.train_steps],
-                         adj_kxk_kernel, "adj2d_kxk_kernel"), note=note)
+                         adj_kxk_kernel, "adj2d_kxk_persistent_kernel"), note=note)
     del bprobb, answersb
 
     # step_breakdown_ensemble: one ensemble iteration at T = 800, M = 4, by
@@ -2081,21 +2240,21 @@ def main() -> int:
                 "train": train3_launches["rollout3d_kernel"]}
     # the two forms in turns (frames, final, final, frames), before the
     # plain versions load the host
-    turns = [cuda_ms(torch, lambda: cell3d._rollout_cuda(expanded3, h03, steps3,
-                                                         final_only=final_only), reps=5)
-             for final_only in (False, True, True, False)]
+    turns3 = [cuda_ms(torch, lambda: cell3d._rollout_cuda(expanded3, h03, steps3,
+                                                          final_only=final_only), reps=5)
+              for final_only in (False, True, True, False)]
     kernels.append({
         "name": "rollout3d_kernel", "jax_kernel": "cell3d._rollout3d_kernel", "route": "cuda",
         "source": "percnn_tpu_torch/ops/kernels/csrc/cell3d.cu",
         "replaces": "percnn_tpu/ops/pallas/cell3d.py:225",
         "launches": sum(by_path3.values()), "launches_by_path": by_path3,
-        "max_abs_err": err["rollout3d_kernel"], "ms": (turns[0] + turns[3]) / 2,
-        "ms_turns": {"frames": [turns[0], turns[3]], "final_only": [turns[1], turns[2]]},
+        "max_abs_err": err["rollout3d_kernel"], "ms": (turns3[0] + turns3[3]) / 2,
+        "ms_turns": {"frames": [turns3[0], turns3[3]], "final_only": [turns3[1], turns3[2]]},
         "plain_ms": cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
             expanded3, h03, steps3), reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "final_only": {
-            "ms": (turns[1] + turns[2]) / 2,
+            "ms": (turns3[1] + turns3[2]) / 2,
             "plain_ms": cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
                 expanded3, h03, steps3, final_only=True), reps=1),
             "bound_ms": bf_ms, "bound_by": bf_by},
@@ -2118,55 +2277,115 @@ def main() -> int:
             packed3, frames3, fbar3, cfg3), reps=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
-    # Burgers at 100 x 100, golden cell: the forward and the backward at the
-    # training T = 200 (data-loss cotangent), and the forward over the
-    # 1200-step serving and evaluation horizon
+    # Burgers at 100 x 100, golden cell: rows 3 and 6 at the training T = 200
+    # (the backward with the data-loss cotangent), row 3 also over the
+    # 1200-step serving and evaluation horizon; each one-launch kernel beside
+    # its per-step route, timed in turns, and the bound both with the branch
+    # products on the tensor cores in 3xTF32 (the row's) and all in FFMA
     cellsb, stateb_bytes = nb_grid ** 2, 8 * nb_grid ** 2
     mat_bytes = 4 * (wmatb.numel() + tailb.numel())
-    fwdb_flops = stepsb * cellsb * flops_per_cell_step_kxk(cfgb)
-    b_ms, b_by = bound_ms(mat_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes, fwdb_flops)
     horizon = BURGERS_STAGE1.infer_steps
-    hb_ms, hb_by = bound_ms(mat_bytes + stateb_bytes + (horizon + 1) * stateb_bytes,
-                            horizon * cellsb * flops_per_cell_step_kxk(cfgb))
-    by_pathb = {"serve": serveb_launches["rollout2d_kxk_kernel"],
-                "train": trainb_launches["rollout2d_kxk_kernel"],
+
+    def kxk_bounds(nbytes, steps, flops_fn, products):
+        """(3xTF32 bound, its side, FFMA-only bound, its side) of `steps`
+        steps at 100 x 100."""
+        flops = steps * cellsb * flops_fn(cfgb)
+        mma = steps * cellsb * products * kxk_product_flops_per_cell_step(cfgb)
+        return bound_3xtf32_ms(nbytes, mma, flops - mma) + bound_ms(nbytes, flops)
+
+    fwdb_flops = stepsb * cellsb * flops_per_cell_step_kxk(cfgb)
+    fwdb_bytes = mat_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes
+    b3_ms, b3_by, bf3_ms, bf3_by = kxk_bounds(fwdb_bytes, stepsb, flops_per_cell_step_kxk, 1)
+    hb3_ms, hb3_by, hbf3_ms, hbf3_by = kxk_bounds(
+        mat_bytes + stateb_bytes + (horizon + 1) * stateb_bytes, horizon,
+        flops_per_cell_step_kxk, 1)
+    row3_ms, row3_steps_ms, row3_turns = turns(
+        lambda: cell2d._rollout_kxk_persistent_cuda(wmatb, tailb, h0b, cfgb, stepsb),
+        lambda: cell2d._rollout_kxk_steps_cuda(wmatb, tailb, h0b, cfgb, stepsb), reps=5)
+    row3h_ms, row3h_steps_ms, row3h_turns = turns(
+        lambda: cell2d._rollout_kxk_persistent_cuda(wmatb, tailb, h0b, cfgb, horizon),
+        lambda: cell2d._rollout_kxk_steps_cuda(wmatb, tailb, h0b, cfgb, horizon), reps=3)
+    row3_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_kxk_2d_plain(
+        wmatb, tailb, h0b, cfgb, stepsb), reps=1)
+    by_pathb = {"serve": serveb_launches["rollout2d_kxk_persistent_kernel"],
+                "train": trainb_counts["fused_rollout_kxk_2d.launches"],
                 "ensemble": ens_launches["burgers_batched"]["fused_rollout_kxk_2d.launches"]}
     kernels.append({
-        "name": "rollout2d_kxk_kernel", "jax_kernel": "cell2d._rollout_kernel_mxu",
+        "name": "rollout2d_kxk_persistent_kernel", "jax_kernel": "cell2d._rollout_kernel_mxu",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",
         "replaces": "percnn_tpu/ops/pallas/cell2d.py:193",
         "launches": sum(by_pathb.values()), "launches_by_path": by_pathb,
-        "max_abs_err": err["rollout2d_kxk_kernel"], "steps": stepsb,
-        "ms": cuda_ms(torch, lambda: cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb, stepsb),
-                      reps=5),
-        "plain_ms": cuda_ms(torch, lambda: cell2d.fused_rollout_kxk_2d_plain(
-            wmatb, tailb, h0b, cfgb, stepsb), reps=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "horizon": {
-            "steps": horizon,
-            "ms": cuda_ms(torch, lambda: cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb,
-                                                                  horizon), reps=3),
-            "bound_ms": hb_ms, "bound_by": hb_by},
+        "max_abs_err": err["rollout2d_kxk_persistent_kernel"], "steps": stepsb,
+        "ms": row3_ms, "plain_ms": row3_plain_ms, "bound_ms": b3_ms, "bound_by": b3_by,
+        "bound_precision": "3xTF32 products at 495 TFLOP/s, the rest at 67",
+        "bound_ms_ffma": bf3_ms, "bound_by_ffma": bf3_by, "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * row3_ms / stepsb,
+        "per_step_route": {"name": "rollout2d_kxk_kernel", "launches_per_call": stepsb,
+                           "ms": row3_steps_ms, "us_per_step": 1e3 * row3_steps_ms / stepsb,
+                           "max_abs_err": err["rollout2d_kxk_kernel"]},
+        "turns_ms": row3_turns, "plan": one_launch["rollout2d_kxk_persistent_kernel"],
+        "horizon": {"steps": horizon, "ms": row3h_ms, "us_per_step": 1e3 * row3h_ms / horizon,
+                    "per_step_ms": row3h_steps_ms, "turns_ms": row3h_turns,
+                    "bound_ms": hb3_ms, "bound_by": hb3_by, "bound_ms_ffma": hbf3_ms,
+                    "bound_by_ffma": hbf3_by},
     })
     framesb = cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb, stepsb)
     fbarb = cotangent(framesb, BURGERS_STAGE1)[1].contiguous()
     bwb_flops = stepsb * cellsb * adj_flops_per_cell_step_kxk(cfgb)
     bwb_bytes = (mat_bytes + 2 * stepsb * stateb_bytes + stepsb * stateb_bytes + stateb_bytes
                  + 4 * stepsb * cell2d.mxu_rows(cfgb) * cellsb)
-    b_ms, b_by = bound_ms(bwb_bytes, bwb_flops)
+    b6_ms, b6_by, bf6_ms, bf6_by = kxk_bounds(bwb_bytes, stepsb, adj_flops_per_cell_step_kxk, 2)
+    row6_ms, row6_steps_ms, row6_turns = turns(
+        lambda: backward2d._phase1_kxk_persistent_cuda(wmatb, tailb, framesb, fbarb, cfgb),
+        lambda: backward2d._phase1_kxk_steps_cuda(wmatb, tailb, framesb, fbarb, cfgb), reps=5)
+    row6_plain_ms = cuda_ms(torch, lambda: backward2d.fused_phase1_kxk_2d_plain(
+        wmatb, tailb, framesb, fbarb, cfgb), reps=1)
     kernels.append({
-        "name": "adj2d_kxk_kernel", "jax_kernel": "backward2d._phase1_mxu_kernel",
+        "name": "adj2d_kxk_persistent_kernel", "jax_kernel": "backward2d._phase1_mxu_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d_kxk.cu",
         "replaces": "percnn_tpu/ops/pallas/backward2d.py:370",
-        "launches": trainb_launches["adj2d_kxk_kernel"],
-        "launches_by_path": {"serve": 0, "train": trainb_launches["adj2d_kxk_kernel"]},
-        "max_abs_err": err["adj2d_kxk_kernel"], "steps": stepsb,
-        "ms": cuda_ms(torch, lambda: backward2d._phase1_kxk_cuda(wmatb, tailb, framesb, fbarb,
-                                                                 cfgb), reps=5),
-        "plain_ms": cuda_ms(torch, lambda: backward2d.fused_phase1_kxk_2d_plain(
-            wmatb, tailb, framesb, fbarb, cfgb), reps=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "launches": trainb_counts["fused_rollout_tp_2d.launches"],
+        "launches_by_path": {"serve": 0, "train": trainb_counts["fused_rollout_tp_2d.launches"]},
+        "max_abs_err": err["adj2d_kxk_persistent_kernel"], "steps": stepsb,
+        "ms": row6_ms, "plain_ms": row6_plain_ms, "bound_ms": b6_ms, "bound_by": b6_by,
+        "bound_precision": "3xTF32 products at 495 TFLOP/s, the rest at 67",
+        "bound_ms_ffma": bf6_ms, "bound_by_ffma": bf6_by, "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * row6_ms / stepsb,
+        "per_step_route": {"name": "adj2d_kxk_kernel", "launches_per_call": 2 * stepsb,
+                           "ms": row6_steps_ms, "us_per_step": 1e3 * row6_steps_ms / stepsb,
+                           "max_abs_err": err["adj2d_kxk_kernel"]},
+        "turns_ms": row6_turns, "plan": one_launch["adj2d_kxk_persistent_kernel"],
     })
+    # the per-step kernels of rows 3 and 6, the route past the plans'
+    # capacity: their launches are kernels_kxk's and grads_kxk's runs past
+    # it, their ms the turns above at 100 x 100, their bound all in FFMA
+    for name, jax_name, source, replaces, ms, plain_ms, (b_ms, b_by), n_launches, where in (
+            ("rollout2d_kxk_kernel", "cell2d._rollout_kernel_mxu", "cell2d_kxk.cu",
+             "percnn_tpu/ops/pallas/cell2d.py:193", row3_steps_ms, row3_plain_ms,
+             (bf3_ms, bf3_by), kxk_steps_launches["kernels_kxk"], "kernels_kxk (1453 x 1453)"),
+            ("adj2d_kxk_kernel", "backward2d._phase1_mxu_kernel", "backward2d_kxk.cu",
+             "percnn_tpu/ops/pallas/backward2d.py:370", row6_steps_ms, row6_plain_ms,
+             (bf6_ms, bf6_by), kxk_steps_launches["grads_kxk"], "grads_kxk (846 x 846)")):
+        kernels.append({
+            "name": name, "jax_kernel": jax_name, "route": "cuda",
+            "source": f"percnn_tpu_torch/ops/kernels/csrc/{source}", "replaces": replaces,
+            "launches": n_launches, "launches_by_path": {where: n_launches},
+            "max_abs_err": err[name], "steps": stepsb, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100"})
+    # one grid barrier alone: an empty cooperative kernel of one block an SM
+    # doing GRID_BARRIERS grid.sync()s, at the k x k kernels' 320 threads and
+    # pg2d_persistent_kernel's 512
+    barrier_fn = _build.load_library("cell2d_kxk").kxk_grid_barrier
+    barrier_fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    barrier_fn.restype = ctypes.c_int
+    grid_barrier = {"barriers": GRID_BARRIERS, "blocks": n_sm, "us_per_barrier": {}}
+    for threads in (one_launch["rollout2d_kxk_persistent_kernel"]["threads"], 512):
+        def barriers(threads=threads):
+            check(barrier_fn(GRID_BARRIERS, n_sm, threads,
+                             torch.cuda.current_stream().cuda_stream) == 0,
+                  "grid_barrier_kernel failed")
+        grid_barrier["us_per_barrier"][threads] = 1e3 * cuda_ms(torch, barriers, 5) / GRID_BARRIERS
     # the fallback slice at its main paths' shapes: rollout2d_kernel and
     # final2d_kernel at k = 5 (golden Burgers cell; T = 200 frames from the
     # Burgers IC as row 3, the final state over the 1200-step serving horizon
@@ -2387,7 +2606,7 @@ def main() -> int:
           flops_per_backward3d=bw3_flops, bytes_per_backward3d=bw3_bytes,
           burgers_shape=list(h0b.shape), burgers_steps=stepsb, flops_per_rollout_kxk=fwdb_flops,
           flops_per_backward_kxk=bwb_flops, bytes_per_backward_kxk=bwb_bytes,
-          fallback_work=fallback_work, batched_work=batched_work,
+          fallback_work=fallback_work, batched_work=batched_work, grid_barrier=grid_barrier,
           two_phase_gs2d_t800=two_phase_ms[-1], nvidia_smi=smi)
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -5,7 +5,7 @@ Counterpart of percnn_tpu/ops/pallas/backward2d.py, in two parts.
 
 **The streaming adjoints.** ``fused_rollout_tp_2d`` is a differentiable
 rollout of any odd kernel_size <= 5, percnn_tpu's ``fused_rollout_tp_2d``.
-Its forward is ``rollout2d_kxk_kernel`` for a k x k cell with
+Its forward is cell2d.kxk_plan's k x k kernel for a k x k cell with
 cell2d.MXU_FWD_ENABLED, else ``rollout2d_kernel`` (ops/kernels/cell2d.py).
 Its backward is a reverse sweep that streams the adjoint out, then the
 parameter gradients outside any kernel, as the JAX package leaves them to
@@ -21,10 +21,14 @@ XLA.  For t = T-1 .. 0 the sweep computes
 and returns g_ins [T, H, W, 2] and g_0.  ``backward_route`` picks the sweep
 as percnn_tpu's ``_fused_tp_bwd`` does:
 
-- 'mxu', a k x k cell with MXU_BWD_ENABLED: ``adj2d_kxk_kernel``
-  (csrc/backward2d_kxk.cu, in place of ``_phase1_mxu_kernel``), y as a
-  product with the branch matrix, streamed out as ys [T, M, H, W]; then
-  ``_param_grads_stream``, time-batched contractions of the cotangents;
+- 'mxu', a k x k cell with MXU_BWD_ENABLED: the branch-matrix sweep (in
+  place of ``_phase1_mxu_kernel``, csrc/backward2d_kxk.cu), y as a product
+  with the branch matrix, streamed out as ys [T, M, H, W]:
+  ``adj2d_kxk_persistent_kernel``, the whole sweep in one cooperative
+  launch with both products on the tensor cores in 3xTF32, for any field
+  and cell ``kxk_adj_plan`` admits, else ``adj2d_kxk_kernel``, two
+  launches a step in FFMA; then ``_param_grads_stream``, time-batched
+  contractions of the cotangents;
 - 'ys', a k x k cell otherwise: ``_precompute_ys`` (time-batched convs),
   then ``adj2d_ys_kernel`` (csrc/adj2d.cu, in place of
   ``_phase1_ys_kernel``), which reads y from it; then
@@ -63,8 +67,10 @@ A CPU tensor takes the plain versions (``fused_phase1_kxk_2d_plain``,
 raises.  Launch counters: ``fused_rollout_tp_2d_pg.launches`` (one a sweep
 by pg2d_persistent_kernel, one a reverse step by pg2d_kernel) beside
 ``fused_rollout_tp_2d_pg.steps`` (the reverse steps run on the card),
-``fused_rollout_tp_2d.launches`` (adj2d_kxk_kernel,
-two a reverse step), ``fused_phase1_2d.launches`` (adj2d_kernel, one a
+``fused_rollout_tp_2d.launches`` (the k x k sweep: one a sweep by
+adj2d_kxk_persistent_kernel, two a reverse step by adj2d_kxk_kernel) beside
+``fused_rollout_tp_2d.steps`` (its reverse steps run on the card),
+``fused_phase1_2d.launches`` (adj2d_kernel, one a
 reverse step at k = 1, two at k > 1) and ``fused_phase1_ys_2d.launches``
 (adj2d_ys_kernel, two a reverse step).
 """
@@ -89,16 +95,23 @@ from percnn_tpu_torch.ops.kernels.cell2d import (
     _check_fusable,
     _check_kxk_inputs,
     _kxk_smem_bytes,
+    _mma_shape,
+    _mma_widths_ok,
     _packed_equation,
     _param_block,
     _raise_on_error,
     _rollout_cuda,
     _rollout_kxk_cuda,
     _round_up,
+    _sm_count,
     fused_rollout_2d_plain,
     fused_rollout_kxk_2d_plain,
     im2col_2d,
+    kxk_grid,
+    kxk_occupancy,
     mxu_rows,
+    pack_mma_adj_2d,
+    pack_mma_fwd_2d,
     pack_pi_matrix_2d,
     pack_pi_params_2d,
     pi_tail_2d,
@@ -119,6 +132,11 @@ _OCCUPANCY_SIGNATURE = [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
 # wmat, tail, frames, frames_bar, g, g_ins, ys, zw, n_steps, H, W, hidden,
 # n_branches, kernel_size, dt, inv_dx2, stream
 _KXK_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+# bfwd, badj, tail, frames, frames_bar, g, g_ins, ys, zw, n_steps, H, W,
+# hidden, n_branches, kernel_size, ch, dt, inv_dx2, blocks, threads, smem,
+# stream, blocks an SM (out)
+_KXK_PERSISTENT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _F, _F, _I, _I, _I, _P, ctypes.POINTER(_I)]
 # params, n_params, frames, frames_bar, g, scratch, g_ins, zw, n_steps, H, W,
 # hidden, n_branches, kernel_size, dt, inv_dx2, stream
 _ADJ_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -303,10 +321,6 @@ def _pg_steps_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch
     fused_rollout_tp_2d_pg.launches += n_steps
     fused_rollout_tp_2d_pg.steps += n_steps
     return g0, acc
-
-
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _pg_persistent_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
@@ -627,17 +641,92 @@ def _kxk_bwd_smem_bytes(cfg: PiCellConfig) -> int:
     return _kxk_smem_bytes(cfg) + 4 * cfg.kernel_size ** 2 * 2 * 128
 
 
-def _phase1_kxk_cuda(wmat, tail, frames, frames_bar, cfg):
-    """adj2d_kxk_kernel: two launches per reverse step, the loop in C."""
-    n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
-    _check_kxk_inputs(wmat, tail, frames[0], cfg, n_steps, _kxk_bwd_smem_bytes(cfg))
+def _check_kxk_sweep(wmat, tail, frames, frames_bar, cfg, smem_bytes):
+    """Check the k x k sweeps' inputs; return frames_bar as contiguous f32."""
     if frames.dim() != 4 or frames_bar.shape != frames.shape or not frames.is_contiguous():
         raise ValueError(f"frames and frames_bar must be [T+1, H, W, 2] and frames "
                          f"contiguous, got {tuple(frames.shape)} and {tuple(frames_bar.shape)}")
+    _check_kxk_inputs(wmat, tail, frames[0], cfg, frames.shape[0] - 1, smem_bytes)
     if frames_bar.device != frames.device:
         raise ValueError(f"frames_bar on {frames_bar.device}, frames on {frames.device}")
     # the cotangent of a strided slice arrives sparse, expanded or strided
-    frames_bar = frames_bar.to(torch.float32).contiguous()
+    return frames_bar.to(torch.float32).contiguous()
+
+
+def kxk_adj_smem_bytes(cfg: PiCellConfig, H: int, W: int, n_sm: int) -> int:
+    """Shared memory of a block of adj2d_kxk_persistent_kernel: both operands
+    split into hi and lo (16 bytes a fragment pair), the padded tail, g_in of
+    the most cells a block owns (2 floats a cell), the zw exchange of each
+    warp pair (Q / 8 x 4 x 32 floats) and kxk_grid's staged rows (csrc:
+    persistent_smem)."""
+    m, grid = _mma_shape(cfg), kxk_grid(H, W, n_sm)
+    return (16 * (m["k8"] + m["qt"]) * m["nt2"] * 32 + 4 * m["tail"] + 8 * grid["cap"]
+            + 4 * (grid["threads"] // 64) * m["qt"] * 4 * 32 + grid["tile_bytes"])
+
+
+def kxk_adj_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the k x k reverse sweep of an H x W field on a card of
+    n_sm SMs, as cell2d.kxk_plan picks the forward's: the widths the
+    one-launch kernels are built for and a block that fits shared memory
+    take adj2d_kxk_persistent_kernel, one cooperative launch a sweep
+    ('persistent', with blocks, threads and smem, the forward's grid); else
+    adj2d_kxk_kernel, two launches a step ('per_step').  At 100 x 100, C =
+    16, 3 branches, k = 5 on 132 SMs: 132 blocks of 320 threads, 109 680
+    bytes."""
+    if not _mma_widths_ok(cfg):
+        return {"route": "per_step"}
+    smem = kxk_adj_smem_bytes(cfg, H, W, n_sm)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    grid = kxk_grid(H, W, n_sm)
+    return {"route": "persistent", "blocks": grid["blocks"], "threads": grid["threads"],
+            "smem": smem}
+
+
+def kxk_adj_occupancy(cfg: PiCellConfig, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of kxk_adj_plan's configuration an SM of the card holds."""
+    return kxk_occupancy(cfg, H, W, device, plan=kxk_adj_plan(H, W, cfg, _sm_count(device)),
+                         library="backward2d_kxk", fn_name="backward2d_kxk_occupancy")
+
+
+def _phase1_kxk_persistent_cuda(wmat, tail, frames, frames_bar, cfg):
+    """adj2d_kxk_persistent_kernel: the whole sweep in one cooperative launch,
+    by kxk_adj_plan's configuration.  Raises if the card cannot hold the
+    grid."""
+    n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    plan = kxk_adj_plan(H, W, cfg, _sm_count(frames.device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field of this cell takes no one-launch sweep: {cfg}")
+    frames_bar = _check_kxk_sweep(wmat, tail, frames, frames_bar, cfg, plan["smem"])
+    fn = _build.load_library("backward2d_kxk").backward2d_kxk_persistent
+    fn.argtypes = _KXK_PERSISTENT_SIGNATURE
+    fn.restype = ctypes.c_int
+    dev = frames.device
+    bfwd, badj = pack_mma_fwd_2d(wmat, cfg), pack_mma_adj_2d(wmat, cfg)
+    g = torch.zeros((H, W, 2), dtype=torch.float32, device=dev)
+    g_ins = torch.empty((n_steps, H, W, 2), dtype=torch.float32, device=dev)
+    ys = torch.empty((n_steps, mxu_rows(cfg), H, W), dtype=torch.float32, device=dev)
+    zw = torch.empty((2, cfg.kernel_size ** 2 * 2, H, W), dtype=torch.float32, device=dev)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(bfwd.data_ptr(), badj.data_ptr(), tail.data_ptr(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g.data_ptr(), g_ins.data_ptr(), ys.data_ptr(),
+                           zw.data_ptr(), n_steps, H, W, cfg.hidden, cfg.n_branches,
+                           cfg.kernel_size, _mma_shape(cfg)["ch"], cfg.dt,
+                           1.0 / (cfg.dx * cfg.dx), plan["blocks"], plan["threads"],
+                           plan["smem"], stream, ctypes.byref(per_sm)),
+                        "backward2d_kxk_persistent")
+    if n_steps:
+        fused_rollout_tp_2d.launches += 1
+        fused_rollout_tp_2d.steps += n_steps
+    return g_ins, g, ys
+
+
+def _phase1_kxk_steps_cuda(wmat, tail, frames, frames_bar, cfg):
+    """adj2d_kxk_kernel: two launches per reverse step, the loop in C."""
+    n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    frames_bar = _check_kxk_sweep(wmat, tail, frames, frames_bar, cfg, _kxk_bwd_smem_bytes(cfg))
     fn = _build.load_library("backward2d_kxk").backward2d_kxk
     fn.argtypes = _KXK_SIGNATURE
     fn.restype = ctypes.c_int
@@ -654,11 +743,24 @@ def _phase1_kxk_cuda(wmat, tail, frames, frames_bar, cfg):
                            cfg.n_branches, cfg.kernel_size, cfg.dt, 1.0 / (cfg.dx * cfg.dx),
                            stream), "backward2d_kxk")
     fused_rollout_tp_2d.launches += 2 * n_steps
+    fused_rollout_tp_2d.steps += n_steps
     return g_ins, g, ys
 
 
+def _phase1_kxk_cuda(wmat, tail, frames, frames_bar, cfg):
+    """The k x k reverse sweep on CUDA by kxk_adj_plan's route: one launch of
+    adj2d_kxk_persistent_kernel ('persistent') or two adj2d_kxk_kernel
+    launches a step ('per_step')."""
+    if frames.dim() == 4 and frames.device.type == "cuda" and kxk_adj_plan(
+            frames.shape[1], frames.shape[2], cfg,
+            _sm_count(frames.device))["route"] == "persistent":
+        return _phase1_kxk_persistent_cuda(wmat, tail, frames, frames_bar, cfg)
+    return _phase1_kxk_steps_cuda(wmat, tail, frames, frames_bar, cfg)
+
+
 def fused_phase1_kxk_2d(wmat, tail, frames, frames_bar, cfg):
-    """(g_ins, g0, ys): adj2d_kxk_kernel on CUDA, the plain version on the CPU."""
+    """(g_ins, g0, ys): kxk_adj_plan's kernel on CUDA, the plain version on
+    the CPU."""
     if frames.device.type == "cpu":
         return fused_phase1_kxk_2d_plain(wmat, tail, frames, frames_bar.to(torch.float32), cfg)
     return _phase1_kxk_cuda(wmat, tail, frames, frames_bar, cfg)
@@ -783,8 +885,8 @@ def _cell_tree(like: dict, leaves) -> dict:
 
 
 class FusedRolloutTP2d(torch.autograd.Function):
-    """frames = the rollout of a 2D cell from h0, by rollout2d_kxk_kernel (a
-    k x k cell with MXU_FWD_ENABLED) or rollout2d_kernel; backward by the
+    """frames = the rollout of a 2D cell from h0, by kxk_plan's k x k kernel
+    (a k x k cell with MXU_FWD_ENABLED) or rollout2d_kernel; backward by the
     sweep of backward_route, then the parameter gradients."""
 
     @staticmethod
@@ -840,5 +942,6 @@ def fused_rollout_tp_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 
 
 fused_rollout_tp_2d.launches = 0
+fused_rollout_tp_2d.steps = 0
 fused_phase1_2d.launches = 0
 fused_phase1_ys_2d.launches = 0

@@ -11,12 +11,16 @@ takes the packed parameters and any odd kernel_size <= 5: a 1x1 cell one
 thread a cell, a k x k
 cell (k = 3 or 5: the Burgers and lambda-omega Stage-1 models) from a
 block's staged tile, its branch convs tap by tap.  With ``MXU_FWD_ENABLED``
-on (the default) a k x k cell goes instead to ``fused_rollout_kxk_2d`` and
-``rollout2d_kxk_kernel`` (in place of ``_rollout_kernel_mxu``), the branch
-convs as one product with the branch matrix.  ``fused_rollout_final_2d``
-returns the final state of any cell through ``final2d_kernel`` (in place
-of ``_final_kernel``).  The kernels are in csrc/cell2d.cu and
-csrc/cell2d_kxk.cu, with their bound on the card and their design.
+on (the default) a k x k cell goes instead to ``fused_rollout_kxk_2d``, the
+branch convs as one product with the branch matrix (in place of
+``_rollout_kernel_mxu``): ``rollout2d_kxk_persistent_kernel``, the whole
+rollout in one cooperative launch with the product on the tensor cores in
+3xTF32, for any field and cell ``kxk_plan`` admits, else
+``rollout2d_kxk_kernel``, one launch a step in FFMA.
+``fused_rollout_final_2d`` returns the final state of any cell through
+``final2d_kernel`` (in place of ``_final_kernel``).  The kernels are in
+csrc/cell2d.cu and csrc/cell2d_kxk.cu (+ csrc/kxk_mma.cuh), with their
+bound on the card and their design.
 
 A CPU tensor takes the plain PyTorch version of the same arithmetic
 (``fused_rollout_2d_plain``, ``fused_rollout_final_2d_plain``,
@@ -25,7 +29,9 @@ raises.  Each public wrapper counts the kernel launches it makes:
 ``launches`` for a 1x1 cell (one a rollout by the cluster, one a step
 otherwise) beside ``fused_rollout_2d.steps``, the 1x1 steps run on the
 card; ``launches_kxk`` for the k x k contract of rollout2d_kernel and
-final2d_kernel, one a step.
+final2d_kernel, one a step; ``fused_rollout_kxk_2d.launches`` (one a
+rollout by the persistent kernel, one a step otherwise) beside
+``fused_rollout_kxk_2d.steps``.
 """
 
 from __future__ import annotations
@@ -65,6 +71,12 @@ _SIGNATURES = {
                                ctypes.POINTER(_I)],
     # H, W, n_cta, threads, clusters (out)
     "cell2d_cluster_occupancy": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    # bfrag, tail, h0, frames, n_steps, H, W, hidden, n_branches, kernel_size,
+    # ch, dt, inv_dx2, blocks, threads, smem, stream, blocks an SM (out)
+    "cell2d_kxk_rollout_persistent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                                      _I, _I, _P, ctypes.POINTER(_I)],
+    # n_branches, kernel_size, ch, threads, smem, blocks an SM (out)
+    "cell2d_kxk_occupancy": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 # rollout2d_kernel and final2d_kernel stage the packed parameters in shared
 # memory, at most 48 KB of them (4932 floats for the Burgers cell); the
@@ -198,6 +210,46 @@ def pack_pi_matrix_2d(params: dict, cfg: PiCellConfig) -> torch.Tensor:
             pad = torch.zeros((C, K - k * k * 2 - 1), dtype=torch.float32, device=w.device)
             blocks.append(torch.cat([w.movedim(-1, 0).reshape(C, k * k * 2), b, pad], dim=1))
     return torch.cat(blocks, dim=0)
+
+
+def _padded_matrix(wmat: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """[2 nb C8, K]: wmat's rows with C padded to C8 = 8 ceil(C / 8) by zero
+    rows, row (o nb + i) C8 + c."""
+    C, nb = cfg.hidden, cfg.n_branches
+    C8 = _round_up(C, 8)
+    w = wmat.reshape(2 * nb, C, wmat.shape[-1])
+    return torch.cat([w, w.new_zeros((2 * nb, C8 - C, wmat.shape[-1]))], dim=1).reshape(
+        2 * nb * C8, wmat.shape[-1])
+
+
+def pack_mma_fwd_2d(wmat: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """The branch matrix as the B operand of the forward's m16n8k8 product
+    y^T = im2col^T Wm^T (csrc/kxk_mma.cuh), in fragment order: [K / 8,
+    2 nb C8 / 8, 32, 2] f32, entry [ks, n, lane, h] = Wm_pad[8 n + lane // 4,
+    8 ks + lane % 4 + 4 h] (Wm_pad: _padded_matrix, K = wmat's columns).
+    A permutation of pack_pi_matrix_2d's entries and zeros."""
+    w = _padded_matrix(wmat, cfg)                    # [J, K], j = 8 n + g, k = 8 ks + 4 h + t
+    J, K = w.shape
+    return w.reshape(J // 8, 8, K // 8, 2, 4).permute(2, 0, 1, 4, 3).reshape(
+        K // 8, J // 8, 32, 2).contiguous()
+
+
+def pack_mma_adj_2d(wmat: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """The tap columns of the branch matrix as the B operand of the adjoint's
+    product zw^T = z^T Wm_taps, in fragment order: [2 nb C8 / 8, Q / 8, 32, 2]
+    f32 (Q the k*k*2 taps padded to 8), entry [js, n, lane, h] =
+    Wm_pad[8 js + 2 (lane % 4) + h, 8 n + lane // 4]: within each group of 8
+    rows the order 0, 2, 4, 6, 1, 3, 5, 7, so that the A operand is z^T as
+    the forward product's accumulator holds it (A's column t is the
+    accumulator's column 2 t, column t + 4 its 2 t + 1)."""
+    taps = cfg.kernel_size ** 2 * 2
+    Q = _round_up(taps, 8)
+    w = _padded_matrix(wmat, cfg)[:, :taps]
+    w = torch.cat([w, w.new_zeros((w.shape[0], Q - taps))], dim=1)   # [J, Q]
+    J = w.shape[0]
+    # j = 8 js + 2 t + h, q = 8 n + g
+    return w.reshape(J // 8, 4, 2, Q // 8, 8).permute(0, 3, 4, 1, 2).reshape(
+        J // 8, Q // 8, 32, 2).contiguous()
 
 
 def pi_tail_2d(params: dict, cfg: PiCellConfig) -> torch.Tensor:
@@ -443,7 +495,7 @@ def _check_kxk_inputs(wmat: torch.Tensor, tail: torch.Tensor, h0: torch.Tensor,
         raise ValueError(f"n_steps must be >= 0, got {n_steps}")
 
 
-def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
+def _rollout_kxk_steps_cuda(wmat, tail, h0, cfg, n_steps):
     """rollout2d_kxk_kernel: one launch per step, the loop in C."""
     _check_kxk_inputs(wmat, tail, h0, cfg, n_steps, _kxk_smem_bytes(cfg))
     fn = _kernel_fn("cell2d_kxk_rollout", "cell2d_kxk")
@@ -455,7 +507,132 @@ def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
                            n_steps, H, W, cfg.hidden, cfg.n_branches, cfg.kernel_size, cfg.dt,
                            1.0 / (cfg.dx * cfg.dx), stream), "cell2d_kxk_rollout")
     fused_rollout_kxk_2d.launches += n_steps
+    fused_rollout_kxk_2d.steps += n_steps
     return frames
+
+
+# The one-launch k x k kernels (csrc/kxk_mma.cuh): at most 6 warp pairs a
+# block, a pair to a 16-cell tile, and built for C up to 16 (ch = C8 / 8 of
+# 1 or 2: the accumulators of nb ch n-tiles an equation stay in registers).
+_KXK_MMA_PAIRS = 6
+_KXK_MMA_CH = (1, 2)
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kxk_grid(H: int, W: int, n_sm: int) -> dict:
+    """The one-launch k x k kernels' grid on a card of n_sm SMs: one block an
+    SM (min(n_sm, H W) blocks, each owning split_evenly's run of at most cap
+    cells), two warps (one an equation) for each 16-cell tile, at most
+    _KXK_MMA_PAIRS pairs, and the bytes of the most rows a block stages (the
+    rows its cells span, 2 halo rows on each side, W + 4 float2 a row;
+    csrc: tile_bytes)."""
+    blocks = min(n_sm, H * W)
+    cap = -(-(H * W) // blocks)
+    threads = 64 * min(-(-cap // 16), _KXK_MMA_PAIRS)
+    rows = (cap + W - 2) // W + 1 + 4
+    return {"blocks": blocks, "cap": cap, "threads": threads, "tile_bytes": 8 * rows * (W + 4)}
+
+
+def _mma_shape(cfg: PiCellConfig) -> dict:
+    """Fragment counts of the one-launch kernels: ch = C8 / 8, the forward's
+    k-steps K / 8 and n-tiles 2 nb ch, the adjoint's n-tiles Q / 8, and the
+    padded tail (Du, Dv, w_out 2 x C8, b_out) rounded to 4 floats."""
+    ch = _round_up(cfg.hidden, 8) // 8
+    return {"ch": ch, "k8": _round_up(n_taps(cfg), 8) // 8, "nt2": 2 * cfg.n_branches * ch,
+            "qt": _round_up(cfg.kernel_size ** 2 * 2, 8) // 8,
+            "tail": _round_up(4 + 16 * ch, 4)}
+
+
+def _mma_widths_ok(cfg: PiCellConfig) -> bool:
+    return (cfg.ndim == 2 and cfg.channels == 2 and cfg.kernel_size in _KXK_SIZES
+            and cfg.n_branches in _KXK_BRANCHES
+            and _round_up(cfg.hidden, 8) // 8 in _KXK_MMA_CH)
+
+
+def kxk_smem_bytes(cfg: PiCellConfig, H: int, W: int, n_sm: int) -> int:
+    """Shared memory of a block of rollout2d_kxk_persistent_kernel: the
+    forward operand split into hi and lo (16 bytes a fragment pair), the
+    padded tail and kxk_grid's staged rows (csrc: persistent_smem)."""
+    m = _mma_shape(cfg)
+    return 16 * m["k8"] * m["nt2"] * 32 + 4 * m["tail"] + kxk_grid(H, W, n_sm)["tile_bytes"]
+
+
+def kxk_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of a k x k frames rollout of an H x W field on a card of
+    n_sm SMs, by a rule on the cell, the shape and the card's limits: a cell
+    of the widths the one-launch kernel is built for (k = 3 or 5, 1 to 4
+    branches, C <= 16) whose block fits a block's shared memory takes
+    rollout2d_kxk_persistent_kernel, one cooperative launch a rollout
+    ('persistent', with blocks, threads and smem); else rollout2d_kxk_kernel,
+    one launch a step ('per_step').  At 100 x 100, C = 16, 3 branches, k = 5
+    on 132 SMs: 132 blocks of 75 or 76 cells, 320 threads, 48 144 bytes."""
+    if not _mma_widths_ok(cfg):
+        return {"route": "per_step"}
+    smem = kxk_smem_bytes(cfg, H, W, n_sm)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    grid = kxk_grid(H, W, n_sm)
+    return {"route": "persistent", "blocks": grid["blocks"], "threads": grid["threads"],
+            "smem": smem}
+
+
+def kxk_occupancy(cfg: PiCellConfig, H: int, W: int, device: torch.device,
+                  plan: dict | None = None, library: str = "cell2d_kxk",
+                  fn_name: str = "cell2d_kxk_occupancy") -> int:
+    """How many blocks of kxk_plan's one-launch forward (or of another plan
+    of the same widths, from another library: backward2d.kxk_adj_occupancy)
+    an SM of the card holds, at the plan's threads and bytes (0: none, and
+    the launch is refused)."""
+    plan = plan or kxk_plan(H, W, cfg, _sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field takes no one-launch k x k kernel: {cfg}")
+    fn = getattr(_build.load_library(library), fn_name)
+    fn.argtypes = _SIGNATURES["cell2d_kxk_occupancy"]
+    fn.restype = ctypes.c_int
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(fn(cfg.n_branches, cfg.kernel_size, _mma_shape(cfg)["ch"],
+                           plan["threads"], plan["smem"], ctypes.byref(per_sm)), fn_name)
+    return per_sm.value
+
+
+def _rollout_kxk_persistent_cuda(wmat, tail, h0, cfg, n_steps):
+    """rollout2d_kxk_persistent_kernel: the whole rollout in one cooperative
+    launch, by kxk_plan's configuration.  Raises if the card cannot hold the
+    grid."""
+    H, W = h0.shape[0], h0.shape[1]
+    plan = kxk_plan(H, W, cfg, _sm_count(h0.device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field of this cell takes no one-launch rollout: {cfg}")
+    _check_kxk_inputs(wmat, tail, h0, cfg, n_steps, plan["smem"])
+    fn = _kernel_fn("cell2d_kxk_rollout_persistent", "cell2d_kxk")
+    bfrag = pack_mma_fwd_2d(wmat, cfg)
+    frames = torch.empty((n_steps + 1, H, W, 2), dtype=torch.float32, device=h0.device)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(bfrag.data_ptr(), tail.data_ptr(), h0.data_ptr(), frames.data_ptr(),
+                           n_steps, H, W, cfg.hidden, cfg.n_branches, cfg.kernel_size,
+                           _mma_shape(cfg)["ch"], cfg.dt, 1.0 / (cfg.dx * cfg.dx),
+                           plan["blocks"], plan["threads"], plan["smem"], stream,
+                           ctypes.byref(per_sm)), "cell2d_kxk_rollout_persistent")
+    if n_steps:
+        fused_rollout_kxk_2d.launches += 1
+        fused_rollout_kxk_2d.steps += n_steps
+    return frames
+
+
+def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
+    """The k x k frames rollout on CUDA by kxk_plan's route: one launch of
+    rollout2d_kxk_persistent_kernel ('persistent') or one rollout2d_kxk_kernel
+    launch a step ('per_step')."""
+    if h0.dim() == 3 and h0.device.type == "cuda" and kxk_plan(
+            h0.shape[0], h0.shape[1], cfg, _sm_count(h0.device))["route"] == "persistent":
+        return _rollout_kxk_persistent_cuda(wmat, tail, h0, cfg, n_steps)
+    return _rollout_kxk_steps_cuda(wmat, tail, h0, cfg, n_steps)
 
 
 def _final_cuda(packed, h0, cfg, n_steps):
@@ -478,7 +655,8 @@ def fused_rollout_kxk_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
                          n_steps: int) -> torch.Tensor:
     """Full rollout of a k x k cell: [H, W, 2] -> [n_steps+1, H, W, 2] f32.
 
-    On CUDA, one rollout2d_kxk_kernel launch per step; on the CPU, the
+    On CUDA, kxk_plan's route (one rollout2d_kxk_persistent_kernel launch a
+    rollout, or one rollout2d_kxk_kernel launch a step); on the CPU, the
     plain version.
     """
     _check_fusable(cfg)
@@ -533,3 +711,4 @@ fused_rollout_2d.launches_kxk = 0
 fused_rollout_final_2d.launches = 0
 fused_rollout_final_2d.launches_kxk = 0
 fused_rollout_kxk_2d.launches = 0
+fused_rollout_kxk_2d.steps = 0

@@ -31,13 +31,26 @@
 // registers while it walks its rows of Wm in shared memory, read as float4
 // broadcasts.  Each row's dot product keeps four partial sums and the
 // branch loop is unrolled, so 12 FMA chains are in flight a thread.  The
-// T-step loop of launches runs here in C on the caller's stream.  Cutting
-// the launches (a persistent kernel) and the tensor cores (3xTF32) are
-// later work.
+// T-step loop of launches runs here in C on the caller's stream.
+//
+// rollout2d_kxk_persistent_kernel replaces the same TPU kernel on every
+// field whose staged rows fit a block's shared memory (kxk_plan in
+// ../cell2d.py; the per-step kernel above runs past it): the whole rollout
+// in one cooperative launch, one block an SM, each block owning a fixed
+// run of cells for every step, the branch product on the tensor cores in
+// 3xTF32 (kxk_mma.cuh).  Bound on the same card with the product at the
+// tensor cores' 495 TFLOP/s dense TF32 (three passes) and the rest at the
+// f32 peak: about 0.6 us a step at 100 x 100, C = 16 (chip_smoke.py counts
+// both bounds).  Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3,
+// 700.00 W, per T = 200 at 100 x 100: 0.848 ms, one launch, 4.24 us a step
+// (a grid barrier alone is 1.12 us); rollout2d_kxk_kernel 2.264 ms in the
+// same call.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "kxk_common.cuh"
+#include "kxk_mma.cuh"
 
 namespace {
 
@@ -114,6 +127,124 @@ cudaError_t rollout_nb(const float* wm, const float* tail, const float2* h0, flo
   }
 }
 
+namespace cg = cooperative_groups;
+
+// The whole rollout in one cooperative launch.  Block b owns the cells of
+// share_of (kxk_mma.cuh) for every step; warp w takes equation o = w % 2 of
+// the 16-cell tiles w / 2, w / 2 + pairs, ...  Before the loop the block
+// stages the forward operand (pack_mma_fwd_2d, split into hi and lo) and the
+// tail.  A step t: stage frame t's rows that the block's cells touch, then
+// per tile and equation the 3xTF32 branch product into registers, the
+// branch product and the w_out sum in registers (two shfl_xor), and lanes
+// t = 0 and 1 of each group write equation o of frame t + 1 at cells g and
+// g + 8.  One grid.sync() a step makes frame t + 1 visible.
+template <int KS, int NB, int CH>
+__global__ void __launch_bounds__(kxk_mma::kMaxThreads, 1)
+    rollout2d_kxk_persistent_kernel(const float* __restrict__ bfrag,
+                                    const float* __restrict__ tail, float2* frames,
+                                    int n_steps, int H, int W, int hidden, float dt,
+                                    float inv_dx2) {
+  using namespace kxk_mma;
+  using D = Dims<KS, NB, CH>;
+  cg::grid_group grid = cg::this_grid();
+  const int cells = H * W;
+  const Share sh = share_of(cells, W);
+  extern __shared__ uint4 smem_fwd[];
+  uint4* sb = smem_fwd;                                                // [K8][2 NT][32]
+  float* st = reinterpret_cast<float*>(sb + D::kK8 * 2 * D::kNT * 32);  // [kTail]
+  float2* tile = reinterpret_cast<float2*>(st + D::kTail);             // [rows][W + 4]
+  stage_fragments(sb, bfrag, D::kK8 * 2 * D::kNT * 32);
+  stage_tail<D::kC8>(st, tail, hidden);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o = warp & 1, pair = warp >> 1, pairs = blockDim.x >> 6;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int n_tiles = (sh.n_own + kTile - 1) / kTile;
+  int off[D::kK8][2];
+  tap_offsets<KS>(W, t4, off);
+  const float* tf = reinterpret_cast<const float*>(tile);
+
+  for (int s = 0; s < n_steps; ++s) {
+    stage_rows(tile, frames + static_cast<size_t>(s) * cells, H, W, sh);
+    __syncthreads();
+    float* out = reinterpret_cast<float*>(frames + static_cast<size_t>(s + 1) * cells);
+    for (int tl = pair; tl < n_tiles; tl += pairs) {
+      const int r0 = tl * kTile + g, r1 = r0 + 8;
+      const int idx0 = sh.first + min(r0, sh.n_own - 1);
+      const int idx1 = sh.first + min(r1, sh.n_own - 1);
+      float acc[D::kNT][4];
+      branch_product<KS, NB, CH>(sb, tf, tap_base<KS>(idx0, W, sh.row0),
+                                 tap_base<KS>(idx1, W, sh.row0), off, o, lane, acc);
+      // Pi_o = sum_c w_out[c] prod_i y_i + b_out: this lane's 2 CH channels
+      // of cells g (p0) and g + 8 (p1), then the 4 lanes of the group
+      float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < CH; ++ch) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float prod = acc[ch][e];
+#pragma unroll
+          for (int i = 1; i < NB; ++i) prod *= acc[i * CH + ch][e];
+          const float w = st[2 + o * D::kC8 + 8 * ch + 2 * t4 + (e & 1)];
+          if (e < 2) p0 = fmaf(w, prod, p0);
+          else p1 = fmaf(w, prod, p1);
+        }
+      }
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 1);
+      p1 += __shfl_xor_sync(0xffffffffu, p1, 2);
+      const int r = t4 == 0 ? r0 : r1;
+      if (t4 < 2 && r < sh.n_own) {
+        const int idx = sh.first + r;
+        const int ctr = centre(idx, W, sh.row0) + o;
+        const float pi = (t4 == 0 ? p0 : p1) + st[2 + 2 * D::kC8 + o];
+        out[idx * 2 + o] = tf[ctr] + dt * (st[o] * lap_at(tf, ctr, W, inv_dx2) + pi);
+      }
+    }
+    grid.sync();
+  }
+}
+
+// Shared memory of rollout2d_kxk_persistent_kernel<KS, NB, CH> on `blocks`
+// blocks: the split operand, the tail and the most staged rows of a block
+// (kxk_plan in ../cell2d.py computes the same).
+template <int KS, int NB, int CH>
+size_t persistent_smem(int H, int W, int blocks) {
+  using D = kxk_mma::Dims<KS, NB, CH>;
+  return 16 * D::kK8 * 2 * D::kNT * 32 + 4 * D::kTail + kxk_mma::tile_bytes(H, W, blocks);
+}
+
+template <int KS, int NB, int CH>
+cudaError_t persistent_occupancy(size_t smem, int threads, int* per_sm) {
+  auto kernel = rollout2d_kxk_persistent_kernel<KS, NB, CH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+}
+
+template <int KS, int NB, int CH>
+cudaError_t persistent_rollout(const float* bfrag, const float* tail, const float2* h0,
+                               float2* frames, int n_steps, int H, int W, int hidden, float dt,
+                               float inv_dx2, int blocks, int threads, size_t smem,
+                               cudaStream_t stream, int* per_sm) {
+  // the plan's bytes must be the kernel's
+  if (smem != persistent_smem<KS, NB, CH>(H, W, blocks)) return cudaErrorInvalidValue;
+  cudaError_t err = persistent_occupancy<KS, NB, CH>(smem, threads, per_sm);
+  if (err != cudaSuccess) return err;
+  err = kxk_mma::check_coresident(blocks, *per_sm);
+  if (err != cudaSuccess) return err;
+  const size_t cells = static_cast<size_t>(H) * W;
+  err = cudaMemcpyAsync(frames, h0, cells * sizeof(float2), cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess || n_steps == 0) return err;
+  void* args[] = {&bfrag, &tail, &frames, &n_steps, &H, &W, &hidden, &dt, &inv_dx2};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(rollout2d_kxk_persistent_kernel<KS, NB, CH>),
+      dim3(blocks), dim3(threads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 // frames [n_steps + 1, H, W, 2]: frame 0 is a copy of h0 and step t reads
@@ -132,4 +263,55 @@ extern "C" int cell2d_kxk_rollout(const void* wm, const void* tail, const void* 
     case 5: return rollout_nb<5>(w, t, h, f, n_steps, H, W, hidden, n_branches, dt, inv_dx2, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The same rollout in one cooperative launch of rollout2d_kxk_persistent_kernel
+// on `blocks` blocks of `threads` threads with `smem` bytes (kxk_plan: at
+// most the card's co-resident count, else cudaErrorCooperativeLaunchTooLarge
+// before anything is launched; bytes other than the kernel's own,
+// cudaErrorInvalidValue).  bfrag is pack_mma_fwd_2d's [kRow / 8, 2 nb ch, 32,
+// 2] operand, ch = ceil(C / 8), 1 or 2.  `per_sm` gets the occupancy
+// query's blocks an SM.
+extern "C" int cell2d_kxk_rollout_persistent(const void* bfrag, const void* tail,
+                                             const void* h0, void* frames, int n_steps, int H,
+                                             int W, int hidden, int n_branches, int kernel_size,
+                                             int ch, float dt, float inv_dx2, int blocks,
+                                             int threads, int smem, void* stream, int* per_sm) {
+  const float* b = static_cast<const float*>(bfrag);
+  const float* t = static_cast<const float*>(tail);
+  const float2* h = static_cast<const float2*>(h0);
+  float2* f = static_cast<float2*>(frames);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!kxk_mma::valid_grid(blocks, threads, H * W)) return cudaErrorInvalidValue;
+  const size_t bytes = static_cast<size_t>(smem);
+  KXK_MMA_DISPATCH(persistent_rollout, b, t, h, f, n_steps, H, W, hidden, dt, inv_dx2, blocks,
+                   threads, bytes, s, per_sm)
+}
+
+// How many blocks of rollout2d_kxk_persistent_kernel an SM holds at once,
+// `threads` threads and `smem` bytes a block.
+extern "C" int cell2d_kxk_occupancy(int n_branches, int kernel_size, int ch, int threads,
+                                    int smem, int* per_sm) {
+  const size_t bytes = static_cast<size_t>(smem);
+  KXK_MMA_DISPATCH(persistent_occupancy, bytes, threads, per_sm)
+}
+
+namespace {
+
+// A measurement kernel, on no path: n grid.sync()s of an empty cooperative
+// grid, the barrier a step of the one-launch kernels alone.
+__global__ void grid_barrier_kernel(int n) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int s = 0; s < n; ++s) grid.sync();
+}
+
+}  // namespace
+
+// n grid barriers of `blocks` blocks of `threads` threads in one cooperative launch.
+extern "C" int kxk_grid_barrier(int n, int blocks, int threads, void* stream) {
+  void* args[] = {&n};
+  cudaError_t err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(grid_barrier_kernel),
+                                                dim3(blocks), dim3(threads), args, 0,
+                                                static_cast<cudaStream_t>(stream));
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
