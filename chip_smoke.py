@@ -22,10 +22,12 @@ since start:
   env          card name and power limit (nvidia-smi), torch and CUDA versions
   build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel,
                ptxas's registers and spills, and the one-launch kernels'
-               plans at GS2D's and Burgers' shapes (cluster size, co-resident
-               grid, threads, bytes) beside what the card holds of them
+               plans at GS2D's, GS3D's and Burgers' shapes (cluster size,
+               co-resident grid, threads, bytes) beside what the card holds
+               of them
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
-  golden3d     the 3D ISG and rollout3d_kernel against tests/golden/pt_gs3d.npz
+  golden3d     the 3D ISG and rollout3d_persistent_kernel (one launch, 6
+               steps) against tests/golden/pt_gs3d.npz
   golden_burgers  the Burgers ISG and rollout2d_kxk_persistent_kernel (one
                launch, 8 steps) against tests/golden/pt_burgers_s1.npz
   kernels      the forward kernels against their plain versions, 100 x 100,
@@ -39,11 +41,17 @@ since start:
                per-step route (T = 200, golden cell, data-loss cotangent),
                on a field past its capacity (195 x 195, pg2d_kernel by the
                rule), and the fused gradients against f64 autograd
-  kernels3d    at 48^3: rollout3d_kernel against its plain version (frames
-               and final state, T = 300), pg3d_kernel against its plain
-               sweep (T = 50, golden cell, data-loss cotangent), and the
-               fused 3D gradients against f64 autograd (random-init cell,
-               random target, 12 steps)
+  kernels3d    at 48^3: rollout3d_persistent_kernel (rollout3d_plan's
+               route) and rollout3d_kernel (the per-step route) against
+               their plain version (frames and final state, T = 300) and
+               each other (to the bit), pg3d_persistent_kernel (pg3d_plan's
+               route) and pg3d_kernel against their plain sweep and each
+               other (T = 50, golden cell, a standard-normal cotangent), both
+               per-step routes through the entry points past the plans'
+               capacity (92^3 forward, 52^3 sweep) and the forward on 60^3
+               (more cells a block than threads), launches and steps
+               counted, and the fused 3D gradients against f64 autograd
+               (random-init cell, random target, 12 steps)
   kernels_kxk  rollout2d_kxk_persistent_kernel (kxk_plan's route at
                100 x 100) and rollout2d_kxk_kernel (the per-step route)
                against their plain version and each other at 100 x 100,
@@ -103,7 +111,9 @@ since start:
                and device ms of the whole, the same split into ISG and
                forward, losses, backward (and pg2d_kernel in it), Adam, and
                the device's idle share from a torch.profiler trace
-  step_breakdown3d  the same for GS3D at T = 150, 300 (pg3d_kernel)
+  step_breakdown3d  the same for GS3D at T = 150, 300
+               (pg3d_persistent_kernel); each step_breakdown* also counts
+               the launches and steps of one iteration
   step_breakdown_kxk  the same for Burgers at T = 200
                (adj2d_kxk_persistent_kernel)
   kernels_batched  the ensemble's kernels (rollout2d_batched_kernel,
@@ -127,7 +137,7 @@ since start:
                "jnp", against f64 autograd on the referee setup (k = 1 and
                k = 5, 12 steps, full width), launches counted
   sharded3d    GS3D's sharded_rollout_nd on a (2, 2, 2) mesh of cuda:0 at
-               48^3, T = 50, against rollout3d_kernel
+               48^3, T = 50, against rollout3d_persistent_kernel
   train_ensemble  run_ensemble(GS2D_RECON, 4) in "batched_pg", "batched" and
                "auto": ISG pretrain, 2 iterations at each of T = 200, 400,
                800, each member's 2500-step evaluation, on the train phase's
@@ -149,16 +159,18 @@ since start:
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work (rows 1,
-               3, 6 and 7 also by their per-step routes, in turns in the same
-               call; rows 3 and 6 with the bound in 3xTF32 and all in FFMA),
+               3, 6, 7, 8 and 10 also by their per-step routes, in turns in
+               the same call; rows 3 and 6 with the bound in 3xTF32 and all
+               in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (21 entries: the 14 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (23 entries: the 14 ported TPU kernels,
 with the k = 5 contracts of rollout2d_kernel, final2d_kernel, adj2d_kernel,
 rollout2d_batched_kernel and adj2d_batched_kernel and the per-step routes of
-rows 3 and 6, rollout2d_kxk_kernel and adj2d_kxk_kernel, listed apart), the
+rows 3, 6, 8 and 10, rollout2d_kxk_kernel, adj2d_kxk_kernel,
+rollout3d_kernel and pg3d_kernel, listed apart), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
@@ -200,8 +212,8 @@ TRAIN_ITERS = 30          # 10 at each of T = 200, 400, 800
 ISG_PRETRAIN_ITERS = 200
 TIME_BACKWARD_STEPS = 800
 BREAKDOWN_REPS = 5
-CHECK3D_STEPS = 300       # rollout3d_kernel against its plain version
-PG3D_CHECK_STEPS = 50     # pg3d_kernel against its plain sweep
+CHECK3D_STEPS = 300       # both routes of row 8 against their plain version
+PG3D_CHECK_STEPS = 50     # both routes of row 10 against their plain sweep
 TRAIN3D_ITERS = 20        # 10 at each of T = 150, 300
 TIME_BACKWARD3D_STEPS = 300
 CHECK_KXK_STEPS = 200     # the k x k kernels against their plain versions
@@ -250,7 +262,8 @@ def flops_per_cell_step(cfg) -> int:
 
 
 def flops_per_cell_step_3d() -> int:
-    """Flops of one expanded-cubic Euler step (rollout3d_kernel) at one
+    """Flops of one expanded-cubic Euler step (rollout3d_kernel and
+    rollout3d_persistent_kernel) at one
     cell: 5 adds for each of the four neighbour sums (s1, s2 of u and v), 7
     multiplies for the shared monomials, and per equation 11 multiplies and
     12 adds for the update."""
@@ -377,7 +390,9 @@ def profile_busy(torch, fn) -> dict:
                       if e.get("cat") == "kernel" and name in e.get("name", "")]
                for name in ("rollout2d_cluster_kernel", "pg2d_persistent_kernel",
                             "rollout2d_kernel", "pg2d_kernel", "rollout3d_kernel",
-                            "pg3d_kernel", "rollout2d_kxk_kernel", "adj2d_kxk_act_kernel",
+                            "pg3d_kernel", "rollout3d_persistent_kernel",
+                            "pg3d_persistent_kernel", "rollout2d_kxk_kernel",
+                            "adj2d_kxk_act_kernel",
                             "adj2d_kxk_gather_kernel", "rollout2d_kxk_persistent_kernel",
                             "adj2d_kxk_persistent_kernel", "rollout2d_batched_kernel",
                             "adj2d_batched_kernel", "pg2d_batched_kernel",
@@ -468,11 +483,20 @@ def main() -> int:
             **backward2d.kxk_adj_plan(BURGERS_STAGE1.grid, BURGERS_STAGE1.grid,
                                       BURGERS_STAGE1.cell, cell2d._sm_count(dev)),
             "blocks_an_sm_holds": backward2d.kxk_adj_occupancy(
-                BURGERS_STAGE1.cell, BURGERS_STAGE1.grid, BURGERS_STAGE1.grid, dev)}}
+                BURGERS_STAGE1.cell, BURGERS_STAGE1.grid, BURGERS_STAGE1.grid, dev)},
+        "rollout3d_persistent_kernel": {
+            **cell3d.rollout3d_plan(*(GS3D_RECON.grid,) * 3, cell2d._sm_count(dev)),
+            "blocks_an_sm_holds": cell3d.rollout3d_occupancy(*(GS3D_RECON.grid,) * 3, dev)},
+        "pg3d_persistent_kernel": {
+            **backward3d.pg3d_plan(*(GS3D_RECON.grid,) * 3, GS3D_RECON.cell,
+                                   cell2d._sm_count(dev)),
+            "blocks_an_sm_holds": backward3d.pg3d_occupancy(GS3D_RECON.cell,
+                                                            *(GS3D_RECON.grid,) * 3, dev)}}
     check(one_launch["rollout2d_cluster_kernel"]["clusters_the_card_holds"] >= 1
           and all(one_launch[k]["blocks_an_sm_holds"] >= 1
                   for k in ("pg2d_persistent_kernel", "rollout2d_kxk_persistent_kernel",
-                            "adj2d_kxk_persistent_kernel")),
+                            "adj2d_kxk_persistent_kernel", "rollout3d_persistent_kernel",
+                            "pg3d_persistent_kernel")),
           f"the card holds none of a one-launch kernel's grid: {one_launch}")
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
                             for n in sources},
@@ -514,13 +538,19 @@ def main() -> int:
           f"golden 3D ISG: max |diff| {isg3_err} over atol 2e-6")
     frames3_want = torch.as_tensor(golden3["frames"], device=dev)
     n_golden3 = frames3_want.shape[0] - 1
+    cell3d.fused_rollout_3d.launches = cell3d.fused_rollout_3d.steps = 0
     frames3 = cell3d.fused_rollout_3d(params3["cell"], frames3_want[0], cfg3, n_golden3)
     torch.cuda.synchronize()
+    golden3_counts = (cell3d.fused_rollout_3d.launches, cell3d.fused_rollout_3d.steps)
+    check(golden3_counts == (1, n_golden3),
+          f"golden 3D rollout: (launches, steps) {golden3_counts}, expected "
+          f"(1, {n_golden3}) of rollout3d_persistent_kernel")
     step3_err = [max_abs(frames3[k], frames3_want[k]) for k in range(1, n_golden3 + 1)]
     for k, e in enumerate(step3_err, start=1):
         check(e <= 2e-5 * k, f"golden 3D rollout step {k}: max |diff| {e} over {2e-5 * k}")
     phase("golden3d", isg_max_abs_err=isg3_err, isg_atol=2e-6, shape=list(frames3.shape[1:]),
-          rollout_max_abs_err_per_step=step3_err, rollout_bar="2e-5 * t")
+          launches_and_steps=golden3_counts, rollout_max_abs_err_per_step=step3_err,
+          rollout_bar="2e-5 * t")
 
     # golden_burgers: the reference's trained Burgers Stage-1 model (5x5 Pi
     # cell, C = 16), ISG 32^2 -> 64^2, 8 steps through the frames rollout's
@@ -755,31 +785,74 @@ def main() -> int:
           f64_trained_cell_200_steps={"worst": worst_gold, "bar": "2 x autograd_f32",
                                       **rel_gold})
 
-    # kernels3d: the 3D kernels at full width against their plain versions
+    # kernels3d: the 3D kernels at full width against their plain versions,
+    # both routes of rows 8 and 10 at 48^3 (the plans' one-launch kernels and
+    # the per-step kernels) against each other too, and the per-step routes
+    # through the entry points past the plans' capacity
     n3 = GS3D_RECON.grid
+    n_sm = cell2d._sm_count(dev)
     h03 = torch.as_tensor(default_ic("gray_scott_3d", n3), dtype=torch.float32, device=dev)
     expanded3 = cell3d.pack_pi_expanded_3d(params3["cell"], cfg3).contiguous()
     packed3 = cell3d.pack_pi_params_3d(params3["cell"], cfg3)
-    got = cell3d._rollout_cuda(expanded3, h03, CHECK3D_STEPS)
-    want = cell3d.fused_rollout_3d_plain(expanded3, h03, CHECK3D_STEPS)
-    got_final = cell3d._rollout_cuda(expanded3, h03, CHECK3D_STEPS, final_only=True)
-    want_final = cell3d.fused_rollout_3d_plain(expanded3, h03, CHECK3D_STEPS, final_only=True)
-    torch.cuda.synchronize()
-    err["rollout3d_kernel"] = max(max_abs(got, want), max_abs(got_final, want_final))
-    check(allclose(got, want, rtol=2e-4, atol=1e-5),
-          f"rollout3d_kernel vs plain, frames: max |diff| {max_abs(got, want)}")
-    check(allclose(got_final, want_final, rtol=2e-4, atol=1e-5),
-          f"rollout3d_kernel vs plain, final state: max |diff| {max_abs(got_final, want_final)}")
-    del got, want
+    check(cell3d.rollout3d_plan(n3, n3, n3, n_sm)["route"] == "persistent",
+          f"rollout3d_plan at {n3}^3: {cell3d.rollout3d_plan(n3, n3, n3, n_sm)}")
+    check(backward3d.pg3d_plan(n3, n3, n3, cfg3, n_sm)["route"] == "persistent",
+          f"pg3d_plan at {n3}^3: {backward3d.pg3d_plan(n3, n3, n3, cfg3, n_sm)}")
+    fwd3_err = {}
+    for final_only in (False, True):
+        form = "final_state" if final_only else "frames"
+        got = cell3d._rollout_persistent_cuda(expanded3, h03, CHECK3D_STEPS, final_only=final_only)
+        got_steps = cell3d._rollout_steps_cuda(expanded3, h03, CHECK3D_STEPS,
+                                               final_only=final_only)
+        want = cell3d.fused_rollout_3d_plain(expanded3, h03, CHECK3D_STEPS, final_only=final_only)
+        torch.cuda.synchronize()
+        fwd3_err[form] = {"persistent_vs_plain": max_abs(got, want),
+                          "per_step_vs_plain": max_abs(got_steps, want),
+                          "persistent_vs_per_step": max_abs(got, got_steps)}
+        for label, a, b in (("rollout3d_persistent_kernel vs plain", got, want),
+                            ("rollout3d_kernel vs plain", got_steps, want),
+                            ("rollout3d_persistent_kernel vs rollout3d_kernel", got, got_steps)):
+            check(allclose(a, b, rtol=2e-4, atol=1e-5),
+                  f"{label}, {form}: max |diff| {max_abs(a, b)}")
+    del got, got_steps, want
+    err["rollout3d_persistent_kernel"] = max(v["persistent_vs_plain"] for v in fwd3_err.values())
+    err["rollout3d_kernel"] = max(v["per_step_vs_plain"] for v in fwd3_err.values())
+    # through the entry point: a field whose blocks own more cells than the
+    # one-launch kernel's 896 threads (60^3, 1637 a block) and one past the
+    # forward's capacity (92^3, rollout3d_kernel by the rule); random fields,
+    # 3 steps, launches and steps counted
+    rng3k = np.random.RandomState(7)
+    big3_err, steps3d_launches = {}, {}
+    for n_, route in ((60, "persistent"), (92, "per_step")):
+        x_ = torch.as_tensor(0.5 + 0.1 * rng3k.standard_normal((n_,) * 3 + (2,)),
+                             dtype=torch.float32, device=dev)
+        check(cell3d.rollout3d_plan(n_, n_, n_, n_sm)["route"] == route,
+              f"rollout3d_plan at {n_}^3: expected {route}")
+        zero = (cell3d.fused_rollout_3d.launches, cell3d.fused_rollout_3d.steps)
+        g_ = cell3d.fused_rollout_3d(params3["cell"], x_, cfg3, 3)
+        torch.cuda.synchronize()
+        moved = (cell3d.fused_rollout_3d.launches - zero[0],
+                 cell3d.fused_rollout_3d.steps - zero[1])
+        want_moved = (1 if route == "persistent" else 3, 3)
+        check(moved == want_moved, f"rollout at {n_}^3: (launches, steps) {moved}, "
+                                   f"expected {want_moved}")
+        w_ = cell3d.fused_rollout_3d_plain(expanded3, x_, 3)
+        big3_err[f"{n_}^3 ({route})"] = max_abs(g_, w_)
+        check(allclose(g_, w_, rtol=2e-4, atol=1e-5),
+              f"rollout at {n_}^3 ({route}) vs plain: max |diff| {max_abs(g_, w_)}")
+        if route == "per_step":
+            steps3d_launches["rollout3d_kernel"] = moved[0]
+    del x_, g_, w_
     frames3 = cell3d._rollout_cuda(expanded3, h03, PG3D_CHECK_STEPS)
     # a cotangent of O(1) in every cell (GS3D's data-loss cotangent is near
     # 5e-7 a cell, which would put every leaf under the bar's 2e-6 floor)
     fbar3 = torch.as_tensor(np.random.RandomState(3).standard_normal(tuple(frames3.shape)),
                             dtype=torch.float32, device=dev)
-    g0_k, acc_k = backward3d._pg_cuda(packed3, frames3, fbar3, cfg3)
-    g0_p, acc_p = backward3d.fused_phase1_pg_3d_plain(packed3, frames3, fbar3.contiguous(), cfg3)
+    pg3 = {"persistent": backward3d._pg_persistent_cuda(packed3, frames3, fbar3, cfg3),
+           "per_step": backward3d._pg_steps_cuda(packed3, frames3, fbar3, cfg3),
+           "plain": backward3d.fused_phase1_pg_3d_plain(packed3, frames3, fbar3.contiguous(),
+                                                        cfg3)}
     torch.cuda.synchronize()
-    sums_k, sums_p = acc_k.sum((1, 2, 3)), acc_p.sum((1, 2, 3))
     lay3 = backward2d._pg_layout(cfg3)
     groups3 = {"diff": (lay3["diff"], 2)}
     for o in range(2):
@@ -790,17 +863,51 @@ def main() -> int:
                                         cfg3.hidden)
         groups3[f"pi[{o}].w_out"] = (lay3["wout"] + o * cfg3.hidden, cfg3.hidden)
         groups3[f"pi[{o}].b_out"] = (lay3["bout"] + o, 1)
-    leaf3_err = {"g0": (max_abs(g0_k, g0_p), float(g0_p.abs().max()))}
-    for name, (start, n) in groups3.items():
-        leaf3_err[name] = (max_abs(sums_k[start:start + n], sums_p[start:start + n]),
-                           float(sums_p[start:start + n].abs().max()))
+
+    def pg3_leaf_errs(g0_a, acc_a, g0_b, acc_b):
+        """Per leaf: (max |diff| of a from b, max |b|)."""
+        sa, sb = acc_a.sum((1, 2, 3)), acc_b.sum((1, 2, 3))
+        out = {"g0": (max_abs(g0_a, g0_b), float(g0_b.abs().max()))}
+        for name, (start, n) in groups3.items():
+            out[name] = (max_abs(sa[start:start + n], sb[start:start + n]),
+                         float(sb[start:start + n].abs().max()))
+        return out
+
+    leaf3_err = pg3_leaf_errs(*pg3["persistent"], *pg3["plain"])
+    steps3_err = pg3_leaf_errs(*pg3["per_step"], *pg3["plain"])
+    routes3_err = pg3_leaf_errs(*pg3["persistent"], *pg3["per_step"])
     for name, (e, scale) in leaf3_err.items():
         check(2e-6 <= 0.01 * 2e-4 * scale,
-              f"pg3d_kernel vs plain, {name}: the floor 2e-6 sets the bar (max|leaf| {scale})")
+              f"pg3d vs plain, {name}: the floor 2e-6 sets the bar (max|leaf| {scale})")
+    for label, errs in (("pg3d_persistent_kernel vs plain", leaf3_err),
+                        ("pg3d_kernel vs plain", steps3_err),
+                        ("pg3d_persistent_kernel vs pg3d_kernel", routes3_err)):
+        for name, (e, scale) in errs.items():
+            check(e <= 2e-4 * scale + 2e-6,
+                  f"{label}, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+    err["pg3d_persistent_kernel"] = max(e for e, _ in leaf3_err.values())
+    err["pg3d_kernel"] = max(e for e, _ in steps3_err.values())
+    del pg3
+    # past the sweep's capacity: 52^3 by pg3d_plan's rule takes pg3d_kernel
+    # (a random field and cotangent, 5 steps, through the entry point)
+    check(backward3d.pg3d_plan(52, 52, 52, cfg3, n_sm)["route"] == "per_step",
+          "pg3d_plan takes the persistent sweep at 52^3")
+    x52 = torch.as_tensor(0.5 + 0.1 * rng3k.standard_normal((52, 52, 52, 2)),
+                          dtype=torch.float32, device=dev)
+    fr52 = cell3d._rollout_cuda(expanded3, x52, 5)
+    fb52 = torch.as_tensor(rng3k.standard_normal(tuple(fr52.shape)), dtype=torch.float32,
+                           device=dev)
+    zero = (backward3d.fused_rollout_tp_3d_pg.launches, backward3d.fused_rollout_tp_3d_pg.steps)
+    big3_pg = pg3_leaf_errs(*backward3d.fused_phase1_pg_3d(packed3, fr52, fb52, cfg3),
+                            *backward3d.fused_phase1_pg_3d_plain(packed3, fr52, fb52, cfg3))
+    moved = (backward3d.fused_rollout_tp_3d_pg.launches - zero[0],
+             backward3d.fused_rollout_tp_3d_pg.steps - zero[1])
+    check(moved == (5, 5), f"sweep at 52^3: (launches, steps) {moved}")
+    for name, (e, scale) in big3_pg.items():
         check(e <= 2e-4 * scale + 2e-6,
-              f"pg3d_kernel vs plain, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
-    err["pg3d_kernel"] = max(e for e, _ in leaf3_err.values())
-    del acc_k, acc_p
+              f"pg3d_kernel vs plain at 52^3, {name}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+    steps3d_launches["pg3d_kernel"] = moved[0]
+    del x52, fr52, fb52
     # the measure of the gradient referee at GS3D's shape: random-init cell,
     # random target, 12 steps, 48^3, held to 1e-4
     rng3 = np.random.RandomState(2)
@@ -816,11 +923,19 @@ def main() -> int:
     check(rel3["fused"][worst3] <= 1e-4,
           f"fused 3D gradients vs f64 autograd: {worst3} at {rel3['fused'][worst3]} over 1e-4")
     phase("kernels3d", shape=[n3, n3, n3, 2], rollout_steps=CHECK3D_STEPS,
-          rollout3d_max_abs_err=err["rollout3d_kernel"], rollout_rtol=2e-4, rollout_atol=1e-5,
+          rollout3d_max_abs_err=fwd3_err, rollout_rtol=2e-4, rollout_atol=1e-5,
+          persistent_vs_per_step_expected=0.0, entry_point_3_steps=big3_err,
           pg_steps=PG3D_CHECK_STEPS,
           pg3d_cotangent="standard normal, seed 3",
-          pg3d_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc) in leaf3_err.items()},
-          pg3d_bar="2e-4 * max|leaf| + 2e-6",
+          pg3d_persistent_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                     in leaf3_err.items()},
+          pg3d_per_step_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                   in steps3_err.items()},
+          pg3d_persistent_vs_per_step_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                        in routes3_err.items()},
+          pg3d_per_step_52_cubed_vs_plain_err_and_max_leaf={k: [e, sc] for k, (e, sc)
+                                                            in big3_pg.items()},
+          pg3d_bar="2e-4 * max|leaf| + 2e-6", per_step_launches=steps3d_launches,
           f64_random_cell_12_steps={"worst_leaf": worst3, "bar": 1e-4, **rel3})
 
     # every launch and step counter of the port's kernels
@@ -828,7 +943,9 @@ def main() -> int:
                 (cell2d.fused_rollout_2d, "launches_kxk"),
                 (cell2d.fused_rollout_final_2d, "launches_kxk"),
                 (cell2d.fused_rollout_kxk_2d, "launches"), (cell2d.fused_rollout_kxk_2d, "steps"),
-                (cell3d.fused_rollout_3d, "launches"),
+                (cell3d.fused_rollout_3d, "launches"), (cell3d.fused_rollout_3d, "steps"),
+                (backward3d.fused_rollout_tp_3d_pg, "launches"),
+                (backward3d.fused_rollout_tp_3d_pg, "steps"),
                 (backward2d.fused_rollout_tp_2d, "launches"),
                 (backward2d.fused_rollout_tp_2d, "steps"),
                 (backward2d.fused_phase1_2d, "launches"),
@@ -1071,7 +1188,7 @@ def main() -> int:
         "adj2d_kernel", backward2d._phase1_cuda(packed, frames1, fbar1, cfg),
         backward2d.fused_phase1_2d_plain(packed, frames1, fbar1, cfg))
     # adj3d_kernel on the golden GS3D cell at 48^3, a standard-normal
-    # cotangent (as pg3d_kernel's check)
+    # cotangent (as row 10's check)
     frames3 = cell3d._rollout_cuda(expanded3, h03, PG3D_CHECK_STEPS)
     fbar3 = torch.as_tensor(np.random.RandomState(3).standard_normal(tuple(frames3.shape)),
                             dtype=torch.float32, device=dev)
@@ -1130,7 +1247,9 @@ def main() -> int:
                          "fused_phase1_2d.launches": 12},
                 ref_cell, x_ref, lambda fr: ((fr - tgt.to(fr.dtype)) ** 2).mean(), cfg,
                 {"fused": backward2d.fused_rollout_tp_2d, "two_phase": two_phase})
-    hold_to_f64("gs3d", {"fused_rollout_3d.launches": 12, "fused_phase1_3d.launches": 12},
+    # one rollout3d_persistent_kernel launch of 12 steps, then 12 of adj3d_kernel
+    hold_to_f64("gs3d", {"fused_rollout_3d.launches": 1, "fused_rollout_3d.steps": 12,
+                         "fused_phase1_3d.launches": 12},
                 ref3_cell, x3_ref, lambda fr: ((fr - tgt3.to(fr.dtype)) ** 2).mean(), cfg3,
                 {"fused": backward3d.fused_rollout_tp_3d, "two_phase": two_phase})
     lossb = lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean()   # noqa: E731
@@ -1385,7 +1504,7 @@ def main() -> int:
           launches=sharded_launches["grads_sharded"], **rel_sh)
 
     # sharded3d: GS3D's decomposed rollout (eager, the only 3D route) on a
-    # (2, 2, 2) mesh of cuda:0 at 48^3, golden cell, against rollout3d_kernel
+    # (2, 2, 2) mesh of cuda:0 at 48^3, golden cell, against rollout3d_persistent_kernel
     mesh3 = make_mesh(("x", "y", "z"), shape=(2, 2, 2), devices=[dev] * 8)
     t = time.perf_counter()
     with torch.no_grad():
@@ -1396,7 +1515,8 @@ def main() -> int:
     per_step3 = (got3 - want3).abs().flatten(1).amax(1)
     bar3 = 2e-5 * torch.arange(SHARDED3D_STEPS + 1, device=dev)
     check(bool((per_step3 <= bar3).all()),
-          f"sharded 3D rollout vs rollout3d_kernel: max |diff| per step {per_step3.tolist()}")
+          f"sharded 3D rollout vs rollout3d_persistent_kernel: max |diff| per step "
+          f"{per_step3.tolist()}")
     del got3, want3
     phase("sharded3d", mesh=mesh3.shape, shape=[n3, n3, n3, 2], steps=SHARDED3D_STEPS,
           max_abs_err=float(per_step3.max()),
@@ -1527,14 +1647,13 @@ def main() -> int:
     # calls: the whole robustness family and the probe are on
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_train3d_")
     try:
-        cell3d.fused_rollout_3d.launches = 0
-        backward3d.fused_rollout_tp_3d_pg.launches = 0
+        zero_counts()
         with contextlib.redirect_stdout(sys.stderr):   # the trainer's log echo
             res3 = runner.run_experiment(GS3D_RECON, device=dev, out_dir=out_dir, cache_dir=None,
                                          n_iters_override=TRAIN3D_ITERS,
                                          isg_pretrain_override=ISG_PRETRAIN_ITERS, seed=0)
-        train3_launches = {"rollout3d_kernel": cell3d.fused_rollout_3d.launches,
-                           "pg3d_kernel": backward3d.fused_rollout_tp_3d_pg.launches}
+        torch.cuda.synchronize()
+        train3_counts = read_counts()
         with open(os.path.join(out_dir, f"{GS3D_RECON.name}.metrics.jsonl")) as f:
             records3 = [json.loads(line) for line in f]
     finally:
@@ -1556,18 +1675,28 @@ def main() -> int:
             iters_run[stage] += min(spc, per_stage3 - int(r["step"]))
         elif "loss" in r and int(r["step"]) == per_stage3 - 1:
             stage += 1
+    # one launch of each kernel a call: a forward and a backward an
+    # iteration, a forward over the inference horizon a probe, candidate and
+    # evaluation
     ran3 = sum(n * steps for n, steps in zip(iters_run, stages3))
-    want3 = {"pg3d_kernel": ran3,
-             "rollout3d_kernel": ran3 + GS3D_RECON.infer_steps * (len(stages3) + len(scores3) + 1)}
+    horizons3 = len(stages3) + len(scores3) + 1
+    want3 = {"fused_rollout_3d.launches": sum(iters_run) + horizons3,
+             "fused_rollout_3d.steps": ran3 + GS3D_RECON.infer_steps * horizons3,
+             "fused_rollout_tp_3d_pg.launches": sum(iters_run),
+             "fused_rollout_tp_3d_pg.steps": ran3}
+    train3_launches = {"rollout3d_persistent_kernel": train3_counts.get(
+                           "fused_rollout_3d.launches", 0),
+                       "pg3d_persistent_kernel": train3_counts.get(
+                           "fused_rollout_tp_3d_pg.launches", 0)}
     check(len(hist3) == TRAIN3D_ITERS and bool(np.isfinite(hist3).all()),
           f"GS3D training losses {hist3}")
     check(any(np.isfinite(v) for v in scores3.values()), f"GS3D probe scores {scores3}")
     check(bool(np.isfinite(res3["rel_l2"])), f"GS3D evaluation rel_l2 {res3['rel_l2']}")
-    check(train3_launches == want3,
-          f"GS3D training launch counts {train3_launches}, expected {want3}")
+    check(train3_counts == want3,
+          f"GS3D training launch and step counts {train3_counts}, expected {want3}")
     sec3 = res3["seconds"]
-    phase("train3d", experiment=GS3D_RECON.name, grid=GS3D_RECON.grid, launches=train3_launches,
-          expected_launches=want3, iterations_run=iters_run, events=events3,
+    phase("train3d", experiment=GS3D_RECON.name, grid=GS3D_RECON.grid, counts=train3_counts,
+          expected_counts=want3, iterations_run=iters_run, events=events3,
           truth_frames=GS3D_RECON.infer_steps, truth_s=sec3["truth"],
           isg_pretrain_iters=ISG_PRETRAIN_ITERS, isg_pretrain_s=sec3["isg_pretrain"],
           stages=[{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]}
@@ -1616,11 +1745,12 @@ def main() -> int:
         fn(request3)
         torch.cuda.synchronize()
         warmup3_s.append(time.perf_counter() - t)
-    cell3d.fused_rollout_3d.launches = 0
+    cell3d.fused_rollout_3d.launches = cell3d.fused_rollout_3d.steps = 0
     request_s, enqueue_s = [], []
     answer3 = timed(serve3, request3)
     final3 = timed(serve3_final, request3)
-    serve3_launches = {"rollout3d_kernel": cell3d.fused_rollout_3d.launches}
+    serve3_counts = (cell3d.fused_rollout_3d.launches, cell3d.fused_rollout_3d.steps)
+    serve3_launches = {"rollout3d_persistent_kernel": serve3_counts[0]}
     check(tuple(answer3.shape) == (GS3D_RECON.infer_steps + 1, n3, n3, n3, 2)
           and bool(torch.isfinite(answer3).all()), "GS3D frames not finite or misshapen")
     check(tuple(final3.shape) == (n3, n3, n3, 2) and bool(torch.isfinite(final3).all()),
@@ -1628,9 +1758,11 @@ def main() -> int:
     final3_err = max_abs(final3, answer3[-1])
     check(allclose(final3, answer3[-1], rtol=1e-6, atol=1e-7),
           f"GS3D final-state request vs last frame: max |diff| {final3_err}")
-    check(serve3_launches == {"rollout3d_kernel": 2 * GS3D_RECON.infer_steps},
-          f"GS3D serving launch counts {serve3_launches}")
+    # one launch a request
+    check(serve3_counts == (2, 2 * GS3D_RECON.infer_steps),
+          f"GS3D serving (launches, steps) {serve3_counts}")
     phase("serve3d", requests=2, steps=GS3D_RECON.infer_steps, launches=serve3_launches,
+          launches_and_steps=serve3_counts,
           request_seconds=request_s, enqueue_seconds=enqueue_s,
           request_order="frames, then final-state",
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmup3_s)),
@@ -1759,7 +1891,7 @@ def main() -> int:
     # MXU switches off (rollout2d_kernel at k = 5, adj2d_ys_kernel) on
     # train_burgers' cached truth; build_loss_fn(bptt="fused") and train for
     # GS2D at T = 800 (rollout2d_cluster_kernel, adj2d_kernel), GS3D at T = 300
-    # (rollout3d_kernel, adj3d_kernel) and Burgers with YS_PATH_ENABLED off
+    # (rollout3d_persistent_kernel, adj3d_kernel) and Burgers with YS_PATH_ENABLED off
     # too (rollout2d_kernel and adj2d_kernel at k = 5), from seeded random
     # inits, on served frames as the data
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_fallback_")
@@ -1810,7 +1942,8 @@ def main() -> int:
                  "fused_rollout_2d.steps": FALLBACK_ITERS * t2,
                  "fused_phase1_2d.launches": FALLBACK_ITERS * t2})
     train_fused("gs3d_fused", GS3D_RECON, answer3, t3, FALLBACK_ITERS, (True, True, True),
-                {"fused_rollout_3d.launches": FALLBACK_ITERS * t3,
+                {"fused_rollout_3d.launches": FALLBACK_ITERS,
+                 "fused_rollout_3d.steps": FALLBACK_ITERS * t3,
                  "fused_phase1_3d.launches": FALLBACK_ITERS * t3})
     train_fused("burgers_ys_off", BURGERS_STAGE1, answersb[0], stepsb, FALLBACK_YS_OFF_ITERS,
                 (False, False, False),
@@ -2009,9 +2142,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, start.elapsed_time(end)
 
-    def breakdown(exp, bprob, trained, stages, bwd_kernel, pg_name):
+    def breakdown(exp, bprob, trained, stages, bwd_kernel, pg_name, want_counts):
         """bwd_kernel(cell params) -> run(frames, cotangent): the backward
-        kernel alone, its parameters packed beforehand."""
+        kernel alone, its parameters packed beforehand; want_counts(T): the
+        launch and step counts of one iteration at T, checked on the
+        warm-up."""
         rows_out = []
         for steps in stages:
             tp = params_from_numpy(trained, device=dev, dtype=torch.float32)
@@ -2025,7 +2160,13 @@ def main() -> int:
                 total.backward()
                 opt.step()
 
-            iteration()   # warm-up, not counted
+            zero_counts()
+            iteration()   # warm-up, not timed: its launches and steps are counted
+            torch.cuda.synchronize()
+            counts = read_counts()
+            check(counts == want_counts(steps),
+                  f"{exp.name} iteration at T = {steps}: counts {counts}, expected "
+                  f"{want_counts(steps)}")
             rows = []
             for _ in range(BREAKDOWN_REPS):
                 torch.cuda.synchronize()
@@ -2056,7 +2197,7 @@ def main() -> int:
             rows_out.append({**dict(zip(
                 ["steps", "iteration_ms", "enqueue_ms", "device_span_ms", "isg_and_forward_ms",
                  "losses_ms", "backward_ms", f"{pg_name}_ms", "adam_ms"], [steps] + med)),
-                "profiled": profile_busy(torch, iteration)})
+                "counts_per_iteration": counts, "profiled": profile_busy(torch, iteration)})
             # the profiled busy time over the unprofiled device span
             rows_out[-1]["device_idle_share_of_span"] = (
                 1.0 - rows_out[-1]["profiled"]["device_busy_ms"]
@@ -2081,20 +2222,31 @@ def main() -> int:
         tl = cell2d.pi_tail_2d(cell_params, cfgb).detach()
         return lambda fr, fb: backward2d._phase1_kxk_cuda(wm, tl, fr, fb, cfgb)
 
+    def one_launch_each(fwd, bwd):
+        """An iteration's counts when its forward and backward run one launch
+        of T steps each."""
+        return lambda steps: {f"{fwd}.launches": 1, f"{fwd}.steps": steps,
+                              f"{bwd}.launches": 1, f"{bwd}.steps": steps}
+
     bprob = runner.setup_problem(GS2D_RECON, answers[0].cpu().numpy(), device=dev)
     phase("step_breakdown", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
           rows=breakdown(GS2D_RECON, bprob, res["params"], stages,
-                         pg_kernel(backward2d._pg_cuda, cfg), "pg2d_persistent_kernel"),
+                         pg_kernel(backward2d._pg_cuda, cfg), "pg2d_persistent_kernel",
+                         one_launch_each("fused_rollout_2d", "fused_rollout_tp_2d_pg")),
           note=note)
     bprob3 = runner.setup_problem(GS3D_RECON, answer3.cpu().numpy(), device=dev)
     phase("step_breakdown3d", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
           rows=breakdown(GS3D_RECON, bprob3, res3["params"], stages3,
-                         pg_kernel(backward3d._pg_cuda, cfg3), "pg3d_kernel"), note=note)
+                         pg_kernel(backward3d._pg_cuda, cfg3), "pg3d_persistent_kernel",
+                         one_launch_each("fused_rollout_3d", "fused_rollout_tp_3d_pg")),
+          note=note)
     del bprob3, answer3, final3
     bprobb = runner.setup_problem(BURGERS_STAGE1, answersb[0].cpu().numpy(), device=dev)
     phase("step_breakdown_kxk", reps=BREAKDOWN_REPS, statistic="median, after one warm-up",
           rows=breakdown(BURGERS_STAGE1, bprobb, resb["params"], [BURGERS_STAGE1.train_steps],
-                         adj_kxk_kernel, "adj2d_kxk_persistent_kernel"), note=note)
+                         adj_kxk_kernel, "adj2d_kxk_persistent_kernel",
+                         one_launch_each("fused_rollout_kxk_2d", "fused_rollout_tp_2d")),
+          note=note)
     del bprobb, answersb
 
     # step_breakdown_ensemble: one ensemble iteration at T = 800, M = 4, by
@@ -2236,47 +2388,85 @@ def main() -> int:
     coef_bytes = 4 * expanded3.numel()
     b_ms, b_by = bound_ms(coef_bytes + state3_bytes + (steps3 + 1) * state3_bytes, flops3)
     bf_ms, bf_by = bound_ms(coef_bytes + 2 * state3_bytes, flops3)
-    by_path3 = {"serve": serve3_launches["rollout3d_kernel"],
-                "train": train3_launches["rollout3d_kernel"]}
-    # the two forms in turns (frames, final, final, frames), before the
-    # plain versions load the host
-    turns3 = [cuda_ms(torch, lambda: cell3d._rollout_cuda(expanded3, h03, steps3,
-                                                          final_only=final_only), reps=5)
-              for final_only in (False, True, True, False)]
+    by_path3 = {"serve": serve3_launches["rollout3d_persistent_kernel"],
+                "train": train3_launches["rollout3d_persistent_kernel"]}
+    # rows 8 and 10 run their T steps in one launch; beside each, its
+    # per-step route (rollout3d_kernel, pg3d_kernel) at the same shape, timed
+    # in turns, before the plain versions load the host
+    row8_ms, row8_steps_ms, row8_turns = turns(
+        lambda: cell3d._rollout_persistent_cuda(expanded3, h03, steps3),
+        lambda: cell3d._rollout_steps_cuda(expanded3, h03, steps3), reps=5)
+    row8f_ms, row8f_steps_ms, row8f_turns = turns(
+        lambda: cell3d._rollout_persistent_cuda(expanded3, h03, steps3, final_only=True),
+        lambda: cell3d._rollout_steps_cuda(expanded3, h03, steps3, final_only=True), reps=5)
+    row8_plain_ms = cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
+        expanded3, h03, steps3), reps=1)
+    row8f_plain_ms = cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
+        expanded3, h03, steps3, final_only=True), reps=1)
+    kernels.append({
+        "name": "rollout3d_persistent_kernel", "jax_kernel": "cell3d._rollout3d_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell3d.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell3d.py:225",
+        "launches": sum(by_path3.values()), "launches_by_path": by_path3,
+        "max_abs_err": err["rollout3d_persistent_kernel"], "steps": steps3, "ms": row8_ms,
+        "plain_ms": row8_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * row8_ms / steps3,
+        "per_step_route": {"name": "rollout3d_kernel", "launches_per_call": steps3,
+                           "ms": row8_steps_ms, "us_per_step": 1e3 * row8_steps_ms / steps3,
+                           "max_abs_err": err["rollout3d_kernel"]},
+        "turns_ms": row8_turns, "plan": one_launch["rollout3d_persistent_kernel"],
+        "final_only": {"ms": row8f_ms, "us_per_step": 1e3 * row8f_ms / steps3,
+                       "per_step_ms": row8f_steps_ms, "turns_ms": row8f_turns,
+                       "plain_ms": row8f_plain_ms, "bound_ms": bf_ms, "bound_by": bf_by},
+    })
     kernels.append({
         "name": "rollout3d_kernel", "jax_kernel": "cell3d._rollout3d_kernel", "route": "cuda",
         "source": "percnn_tpu_torch/ops/kernels/csrc/cell3d.cu",
         "replaces": "percnn_tpu/ops/pallas/cell3d.py:225",
-        "launches": sum(by_path3.values()), "launches_by_path": by_path3,
-        "max_abs_err": err["rollout3d_kernel"], "ms": (turns3[0] + turns3[3]) / 2,
-        "ms_turns": {"frames": [turns3[0], turns3[3]], "final_only": [turns3[1], turns3[2]]},
-        "plain_ms": cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
-            expanded3, h03, steps3), reps=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "final_only": {
-            "ms": (turns3[1] + turns3[2]) / 2,
-            "plain_ms": cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
-                expanded3, h03, steps3, final_only=True), reps=1),
-            "bound_ms": bf_ms, "bound_by": bf_by},
-    })
+        "launches": steps3d_launches["rollout3d_kernel"],
+        "launches_by_path": {"kernels3d (92^3)": steps3d_launches["rollout3d_kernel"]},
+        "max_abs_err": err["rollout3d_kernel"], "steps": steps3, "ms": row8_steps_ms,
+        "plain_ms": row8_plain_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "final_only": {"ms": row8f_steps_ms, "plain_ms": row8f_plain_ms, "bound_ms": bf_ms,
+                       "bound_by": bf_by},
+        "note": "the per-step route past the one-launch plan's capacity; ms at 48^3"})
     frames3 = cell3d._rollout_cuda(expanded3, h03, TIME_BACKWARD3D_STEPS)
     fbar3 = cotangent(frames3, GS3D_RECON)[1].contiguous()
     bw3_flops = TIME_BACKWARD3D_STEPS * cells3 * pg_flops_per_cell_step(cfg3)
     bw3_bytes = (4 * packed3.numel() + 2 * TIME_BACKWARD3D_STEPS * state3_bytes + state3_bytes
                  + 4 * lay3["A"] * cells3)
     b_ms, b_by = bound_ms(bw3_bytes, bw3_flops)
+    row10_ms, row10_steps_ms, row10_turns = turns(
+        lambda: backward3d._pg_persistent_cuda(packed3, frames3, fbar3, cfg3),
+        lambda: backward3d._pg_steps_cuda(packed3, frames3, fbar3, cfg3), reps=5)
+    row10_plain_ms = cuda_ms(torch, lambda: backward3d.fused_phase1_pg_3d_plain(
+        packed3, frames3, fbar3, cfg3), reps=1)
+    kernels.append({
+        "name": "pg3d_persistent_kernel", "jax_kernel": "backward3d._phase1_pg_kernel3d",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward3d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward3d.py:227",
+        "launches": train3_launches["pg3d_persistent_kernel"],
+        "launches_by_path": {"serve": 0, "train": train3_launches["pg3d_persistent_kernel"]},
+        "max_abs_err": err["pg3d_persistent_kernel"], "steps": TIME_BACKWARD3D_STEPS,
+        "ms": row10_ms, "plain_ms": row10_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "launches_per_call": 1,
+        "us_per_step": 1e3 * row10_ms / TIME_BACKWARD3D_STEPS,
+        "per_step_route": {"name": "pg3d_kernel", "launches_per_call": TIME_BACKWARD3D_STEPS,
+                           "ms": row10_steps_ms,
+                           "us_per_step": 1e3 * row10_steps_ms / TIME_BACKWARD3D_STEPS,
+                           "max_abs_err": err["pg3d_kernel"]},
+        "turns_ms": row10_turns, "plan": one_launch["pg3d_persistent_kernel"],
+    })
     kernels.append({
         "name": "pg3d_kernel", "jax_kernel": "backward3d._phase1_pg_kernel3d", "route": "cuda",
         "source": "percnn_tpu_torch/ops/kernels/csrc/backward3d.cu",
         "replaces": "percnn_tpu/ops/pallas/backward3d.py:227",
-        "launches": train3_launches["pg3d_kernel"],
-        "launches_by_path": {"serve": 0, "train": train3_launches["pg3d_kernel"]},
-        "max_abs_err": err["pg3d_kernel"],
-        "ms": cuda_ms(torch, lambda: backward3d._pg_cuda(packed3, frames3, fbar3, cfg3), reps=5),
-        "plain_ms": cuda_ms(torch, lambda: backward3d.fused_phase1_pg_3d_plain(
-            packed3, frames3, fbar3, cfg3), reps=1),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    })
+        "launches": steps3d_launches["pg3d_kernel"],
+        "launches_by_path": {"kernels3d (52^3)": steps3d_launches["pg3d_kernel"]},
+        "max_abs_err": err["pg3d_kernel"], "steps": TIME_BACKWARD3D_STEPS,
+        "ms": row10_steps_ms, "plain_ms": row10_plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "note": "the per-step route past the one-launch plan's capacity; ms at 48^3"})
     # Burgers at 100 x 100, golden cell: rows 3 and 6 at the training T = 200
     # (the backward with the data-loss cotangent), row 3 also over the
     # 1200-step serving and evaluation horizon; each one-launch kernel beside

@@ -3,7 +3,7 @@ plain versions.
 
 Counterpart of percnn_tpu/ops/pallas/backward3d.py.  Its streaming half:
 ``fused_rollout_tp_3d`` is a differentiable rollout whose forward is
-``rollout3d_kernel`` and whose backward is ``adj3d_kernel``
+cell3d.rollout3d_plan's kernel and whose backward is ``adj3d_kernel``
 (csrc/backward3d.cu, in place of ``_phase1_kernel3d``), a reverse sweep
 that streams g_in out, then ``core.rollout.chunked_param_grads`` over
 chunks of 16 steps.  The sweep is the 2D one of ops/kernels/backward2d.py
@@ -11,11 +11,16 @@ at k = 1 with the 13-point 3D Laplacian.  ``fused_phase1_3d.launches``
 counts its launches, one a reverse step.
 
 The fused-pg half: ``fused_rollout_tp_3d_pg`` is a differentiable rollout whose forward is
-``rollout3d_kernel`` (ops/kernels/cell3d.py, the expanded cubic) and whose
-backward is ``pg3d_kernel`` (csrc/backward3d.cu, in place of
-``_phase1_pg_kernel3d``): one reverse sweep that carries the adjoint from
-frame T down to frame 0 and accumulates every parameter gradient into
-[A, D, H, W] planes, A = 44 for the GS3D cell.  The sweep is the 2D one
+cell3d.rollout3d_plan's kernel (ops/kernels/cell3d.py, the expanded cubic)
+and whose backward is one reverse sweep that carries the adjoint from frame
+T down to frame 0 and accumulates every parameter gradient into
+[A, D, H, W] planes, A = 44 for the GS3D cell, in place of
+``_phase1_pg_kernel3d``.  ``pg3d_plan`` picks its kernel from the shape:
+``pg3d_persistent_kernel``, the whole sweep in one cooperative launch with
+each block's accumulators in its shared memory, for the GS3D cell's widths
+on any field that fits (51^3 at most on 132 SMs), else ``pg3d_kernel``,
+one launch a reverse step
+(both in csrc/backward3d.cu).  The sweep is the 2D one
 (ops/kernels/backward2d.py) with the 13-point 3D Laplacian; the plane
 layout and the unpacking are shared with it, as in percnn_tpu.
 
@@ -26,8 +31,10 @@ expanded coefficients from it without a gradient.
 
 A CPU tensor takes the plain versions (``fused_rollout_3d_plain``,
 ``fused_phase1_3d_plain``, ``fused_phase1_pg_3d_plain``); a CUDA tensor
-launches the kernels or raises.  ``fused_rollout_tp_3d_pg.launches`` counts the reverse steps
-launched.
+launches the kernels or raises.  ``fused_rollout_tp_3d_pg.launches`` counts the
+sweep's launches (one a sweep on the persistent route, one a reverse step
+on the per-step route) and ``fused_rollout_tp_3d_pg.steps`` its reverse
+steps run on the card.
 """
 
 from __future__ import annotations
@@ -48,7 +55,14 @@ from percnn_tpu_torch.ops.kernels.backward2d import (
     _pg_sweep_plain,
     _pg_unpack,
 )
-from percnn_tpu_torch.ops.kernels.cell2d import _MAX_PARAMS, _param_block, _raise_on_error
+from percnn_tpu_torch.ops.kernels.cell2d import (
+    _MAX_PARAMS,
+    _MAX_SMEM,
+    _param_block,
+    _raise_on_error,
+    _round_up,
+    _sm_count,
+)
 from percnn_tpu_torch.ops.kernels.cell3d import (
     _check_fusable,
     _rollout_cuda,
@@ -68,6 +82,14 @@ _SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 # params, n_params, frames, frames_bar, g0, scratch, g_ins, n_steps, D, H, W,
 # hidden, n_branches, dt, inv_dx2, stream
 _ADJ_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+# the same as _SIGNATURE, then blocks, stream, blocks an SM (out)
+_PERSISTENT_SIGNATURE = _SIGNATURE[:-1] + [_I, _P, ctypes.POINTER(_I)]
+# n_params, D, H, W, hidden, n_branches, blocks, blocks an SM (out)
+_OCCUPANCY_SIGNATURE = [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+# pg3d_persistent_kernel (csrc/backward3d.cu): its threads a block, and the
+# cell widths (hidden, n_branches) it is compiled for, the GS3D cell's
+_PG3D_THREADS = 512
+_PG3D_WIDTHS = (2, 3)
 
 
 def _lap3d(cfg: PiCellConfig):
@@ -120,8 +142,38 @@ def _check_pg_inputs(packed: torch.Tensor, frames: torch.Tensor,
     return frames_bar.to(torch.float32).contiguous()
 
 
-def _pg_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
-             cfg: PiCellConfig):
+def pg3d_smem_bytes(cfg: PiCellConfig, D: int, H: int, W: int, blocks: int) -> int:
+    """Shared memory of a block of pg3d_persistent_kernel: the packed
+    parameters rounded up to 4 floats, the A accumulators of each of the
+    most cells a block owns (cap), and g's window, its run with two rows of
+    W cells on each side, cap + 4 W float2 (csrc: persistent_smem_bytes)."""
+    cap = -(-(D * H * W) // blocks)
+    n_params = 2 + 2 * _param_block(cfg)
+    return 4 * (_round_up(n_params, 4) + _pg_layout(cfg)["A"] * cap) + 8 * (cap + 4 * W)
+
+
+def pg3d_plan(D: int, H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the fused reverse sweep of a D x H x W field on a card of
+    n_sm SMs, by a rule on the cell, the shape and the card's limits: a cell
+    of the widths the kernel is compiled for (C = 2, 3 branches: GS3D's) on
+    one block an SM (min(n_sm, D H W) blocks of 512 threads, each owning
+    split_evenly's share of the cells, at most two a thread) whose
+    accumulators fit a block's shared memory takes pg3d_persistent_kernel,
+    one cooperative launch a sweep ('persistent', with blocks and smem);
+    else pg3d_kernel, one launch a step ('per_step').  At 48^3 on 132 SMs:
+    132 blocks of 837 or 838 cells, 155 904 bytes each; the largest cube it
+    takes is 51^3 (1005 cells a block)."""
+    if (cfg.hidden, cfg.n_branches) != _PG3D_WIDTHS:
+        return {"route": "per_step"}
+    blocks = min(n_sm, D * H * W)
+    smem = pg3d_smem_bytes(cfg, D, H, W, blocks)
+    if smem > _MAX_SMEM or -(-(D * H * W) // blocks) > 2 * _PG3D_THREADS:
+        return {"route": "per_step"}
+    return {"route": "persistent", "blocks": blocks, "smem": smem}
+
+
+def _pg_steps_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+                   cfg: PiCellConfig):
     """pg3d_kernel: one launch per reverse step, the loop in C."""
     fn = _kernel_fn()
     frames_bar = _check_pg_inputs(packed, frames, frames_bar, cfg)
@@ -138,13 +190,66 @@ def _pg_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tenso
                            acc.data_ptr(), n_steps, D, H, W, cfg.hidden, cfg.n_branches,
                            cfg.dt, 1.0 / (cfg.dx * cfg.dx), stream), "backward3d_pg")
     fused_rollout_tp_3d_pg.launches += n_steps
+    fused_rollout_tp_3d_pg.steps += n_steps
     return g0, acc
+
+
+def _pg_persistent_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+                        cfg: PiCellConfig):
+    """pg3d_persistent_kernel: the whole sweep in one cooperative launch, by
+    pg3d_plan's configuration.  Raises if the card cannot hold the grid."""
+    frames_bar = _check_pg_inputs(packed, frames, frames_bar, cfg)
+    n_steps = frames.shape[0] - 1
+    D, H, W = frames.shape[1:4]
+    plan = pg3d_plan(D, H, W, cfg, _sm_count(frames.device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {D} x {H} x {W} field takes no persistent sweep (pg3d_plan)")
+    fn = _kernel_fn("backward3d_pg_persistent", _PERSISTENT_SIGNATURE)
+    g0 = torch.zeros((D, H, W, 2), dtype=torch.float32, device=frames.device)
+    scratch = torch.zeros_like(g0)
+    acc = torch.empty((_pg_layout(cfg)["A"], D, H, W), dtype=torch.float32,
+                      device=frames.device)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.numel(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g0.data_ptr(), scratch.data_ptr(),
+                           acc.data_ptr(), n_steps, D, H, W, cfg.hidden, cfg.n_branches,
+                           cfg.dt, 1.0 / (cfg.dx * cfg.dx), plan["blocks"], stream,
+                           ctypes.byref(per_sm)), "backward3d_pg_persistent")
+    fused_rollout_tp_3d_pg.launches += 1
+    fused_rollout_tp_3d_pg.steps += n_steps
+    return g0, acc
+
+
+def pg3d_occupancy(cfg: PiCellConfig, D: int, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of pg3d_plan's configuration an SM of the card holds."""
+    plan = pg3d_plan(D, H, W, cfg, _sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {D} x {H} x {W} field takes no persistent sweep")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(_kernel_fn("backward3d_pg_occupancy", _OCCUPANCY_SIGNATURE)(
+            2 + 2 * _param_block(cfg), D, H, W, cfg.hidden, cfg.n_branches, plan["blocks"],
+            ctypes.byref(per_sm)), "backward3d_pg_occupancy")
+    return per_sm.value
+
+
+def _pg_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+             cfg: PiCellConfig):
+    """The fused reverse sweep on CUDA by pg3d_plan's route: one cooperative
+    launch of pg3d_persistent_kernel ('persistent') or one pg3d_kernel
+    launch a step ('per_step')."""
+    if frames.dim() == 5 and frames.device.type == "cuda" and pg3d_plan(
+            *frames.shape[1:4], cfg, _sm_count(frames.device))["route"] == "persistent":
+        return _pg_persistent_cuda(packed, frames, frames_bar, cfg)
+    return _pg_steps_cuda(packed, frames, frames_bar, cfg)
 
 
 def fused_phase1_pg_3d(packed: torch.Tensor, frames: torch.Tensor,
                        frames_bar: torch.Tensor, cfg: PiCellConfig):
-    """(g0 [D, H, W, 2], acc [A, D, H, W]): pg3d_kernel on CUDA, the plain
-    version on the CPU."""
+    """(g0 [D, H, W, 2], acc [A, D, H, W]): pg3d_plan's kernel on CUDA, the
+    plain version on the CPU."""
     if frames.device.type == "cpu":
         return fused_phase1_pg_3d_plain(packed, frames, frames_bar.to(torch.float32), cfg)
     return _pg_cuda(packed, frames, frames_bar, cfg)
@@ -176,14 +281,16 @@ class FusedRolloutTP3dPG(torch.autograd.Function):
 def fused_rollout_tp_3d_pg(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
                            n_steps: int) -> torch.Tensor:
     """Differentiable rollout of a 3D 1x1 Pi cell: [D, H, W, 2] ->
-    [n_steps+1, D, H, W, 2] f32.  Forward by rollout3d_kernel, backward by
-    pg3d_kernel on CUDA; the plain versions of both on the CPU."""
+    [n_steps+1, D, H, W, 2] f32.  Forward and backward by the kernels that
+    cell3d.rollout3d_plan and pg3d_plan pick on CUDA; the plain versions of
+    both on the CPU."""
     _check_fusable(cfg)
     packed = pack_pi_params_3d(params, cfg)
     return FusedRolloutTP3dPG.apply(packed, h0.to(torch.float32).contiguous(), cfg, n_steps)
 
 
 fused_rollout_tp_3d_pg.launches = 0
+fused_rollout_tp_3d_pg.steps = 0
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +336,7 @@ def fused_phase1_3d(packed: torch.Tensor, frames: torch.Tensor,
 
 
 class FusedRolloutTP3d(torch.autograd.Function):
-    """frames = the rollout of a 3D 1x1 cell from h0 by rollout3d_kernel;
+    """frames = the rollout of a 3D 1x1 cell from h0 by rollout3d_plan's kernel;
     backward by adj3d_kernel, then chunked_param_grads."""
 
     @staticmethod
@@ -259,7 +366,7 @@ def fused_rollout_tp_3d(params: dict, h0: torch.Tensor, cfg: PiCellConfig, n_ste
                         pgrad_chunk: int = 16) -> torch.Tensor:
     """Differentiable rollout of a 3D 1x1 Pi cell: [D, H, W, 2] ->
     [n_steps+1, D, H, W, 2] f32, percnn_tpu's ``fused_rollout_tp_3d``.
-    Forward by rollout3d_kernel, backward by adj3d_kernel on CUDA and
+    Forward by rollout3d_plan's kernel, backward by adj3d_kernel on CUDA and
     chunked_param_grads over pgrad_chunk steps a batch; the plain versions
     on the CPU.  Any D, H, W >= 5: the TPU kernels' tile alignment has no
     counterpart here."""

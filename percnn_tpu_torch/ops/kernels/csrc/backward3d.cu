@@ -17,8 +17,11 @@
 // packed parameters are the literal form, pack_pi_params_3d (cell3d.py);
 // the forward ran the expanded form of the same cell.
 //
-// pg3d_kernel replaces percnn_tpu/ops/pallas/backward3d.py:_phase1_pg_kernel3d
-// (pallas_call in _fused_phase1_pg_3d).  adj3d_kernel, at the end, replaces
+// pg3d_persistent_kernel replaces percnn_tpu/ops/pallas/backward3d.py:
+// _phase1_pg_kernel3d (pallas_call in _fused_phase1_pg_3d) on any field whose
+// accumulators fit the co-resident blocks' shared memory, two cells a
+// thread at most (51^3 at most on 132 SMs; pg3d_plan in ../backward3d.py);
+// pg3d_kernel replaces it past that.  adj3d_kernel, at the end, replaces
 // _phase1_kernel3d (pallas_call in _fused_phase1_3d): the same sweep without
 // the accumulators, streaming g_ins[t] = g_in [D, H, W, 2] out for the
 // time-batched parameter gradients (chunked_param_grads, ../backward3d.py).
@@ -34,19 +37,24 @@
 //   bytes: h_t and fbar_{t+1} once per step, 2 x 885 KB x 300 = 531 MB, plus
 //          19.5 MB of accumulator planes and g0 written once: 165 us.
 // So it is bound by bytes on paper, closely followed by operations.  What
-// limits this design is, as in 2D, the chain of T dependent steps, one launch
-// each, and each step's read-modify-write of the 44 accumulator planes
-// (19.5 MB read and written a step at 48^3, held in the 50 MB L2).
-// What the design does about it: each reverse step is one launch over
-// D*H*W threads (432 blocks of 256 at 48^3), one cell per thread; the loop
-// runs here in C on the caller's stream.  With no grid-wide barrier inside a
-// launch, each thread forms g_in itself at its 12 stencil neighbours and g
-// ping-pongs between two [D, H, W, 2] buffers.  Each thread owns its cell's
-// entry of every plane, plane-major: no atomics, a deterministic result,
-// coalesced plane accesses; each (equation, hidden channel) group of planes
-// is loaded before it is stored (pg_common.cuh).  The packed parameters sit
-// in shared memory.  Cutting the launches is later work, as for the others.
+// limits a design is, as in 2D, the chain of T dependent steps.
+// pg3d_kernel takes one launch a reverse step over D*H*W threads (432 blocks
+// of 256 at 48^3), one cell a thread, the loop here in C on the caller's
+// stream.  With no grid-wide barrier inside a launch, each thread forms g_in
+// itself at its 12 stencil neighbours and g ping-pongs between two
+// [D, H, W, 2] buffers.  Each thread owns its cell's entry of every plane,
+// plane-major: no atomics, a deterministic result, coalesced plane
+// accesses; each (equation, hidden channel) group of planes is loaded
+// before it is stored (pg_common.cuh).  The packed parameters sit in shared
+// memory.  That design reads and writes all 44 planes every step (19.5 MB
+// each way a step at 48^3, held in the 50 MB L2).
+// pg3d_persistent_kernel runs the whole sweep in one cooperative launch,
+// one block an SM, each block's cells' accumulators in its shared memory
+// from the first step to the last (written to the planes once, at the end),
+// and one grid barrier a step: pg2d_persistent_kernel's design
+// (backward2d.cu) with the 13-point stencil (described at the kernel).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "pg_common.cuh"
@@ -125,6 +133,243 @@ cudaError_t sweep(const float* params, int n_params, const float2* frames,
     if (err != cudaSuccess) return err;
   }
   return cudaGetLastError();
+}
+
+namespace cg = cooperative_groups;
+
+// Threads a block of pg3d_persistent_kernel, and the staging loads a
+// thread has in flight at once.
+constexpr int kPersistentThreads = 512;
+constexpr int kBatch = 4;
+
+// The whole reverse sweep in one cooperative launch: block b owns the cells
+// [first, first + n_own) of the flat D H W field (split_evenly in
+// ../cell2d.py) for every step, a thread cells k0 = threadIdx.x and, where
+// the block owns more than blockDim.x, k1 = k0 + blockDim.x (the plan keeps
+// a block within 2 blockDim.x cells).  The block keeps its cells' A
+// accumulators in its shared memory, plane-major ([A][cap], cap the most
+// cells a block owns), from the first step to the last; they reach the
+// [A, D, H, W] planes once, at the end.  A reverse step t:
+//   - g_{t+1}'s window that the block's stencils read along height and width
+//     (the owned run with two rows of W cells on each side) is staged into
+//     shared memory with __ldcg (L2, not the SM's L1, which may hold a stale
+//     line of a buffer written during the launch) and coalesced, as
+//     rollout3d_persistent_kernel stages its state;
+//   - each thread takes its cells one after the other, each as pg3d_kernel
+//     takes its cell: g_in = g_{t+1} + fbar_{t+1} and the Laplacians, then
+//     pg_accumulate (pg_common.cuh) on the cell's column of the shared
+//     planes, then g_t written to global memory.  The depth neighbours of
+//     g_{t+1}, and a height neighbour that wraps around its plane, come
+//     from L2 (staging them as well, in 27 KB more a block at 48^3, made
+//     no difference on the card).
+// Then one grid.sync() makes g_t visible to every block's next step; g
+// ping-pongs between g0 and scratch, in the order that makes the last step
+// (t = 0) write g0.  h_t and fbar_{t+1} do not depend on g, so a cell's 13
+// points of each are loaded ahead, into registers: k0's after step t + 1,
+// in flight across the barrier; k1's while k0's accumulation runs.  Each
+// is reduced to the centre values and the Laplacians of h and fbar as it
+// is used: Lap is linear, so Lap g_in = Lap g_{t+1} + Lap fbar_{t+1}, which
+// rounds otherwise than pg3d_kernel's Lap(g_{t+1} + fbar_{t+1}).  All else
+// is pg3d_kernel's arithmetic, expression for expression.  The kernel is
+// compiled for the GS3D cell's widths, NB = 3 branches and C = 2 hidden
+// channels (pg_accumulate's channel loop then unrolls: about 9% of the
+// sweep's time at 48^3 on the card); other cells take pg3d_kernel.
+template <int NB, int C>
+__global__ void __launch_bounds__(kPersistentThreads)
+    pg3d_persistent_kernel(const float* __restrict__ params, int n_params,
+                           const float2* __restrict__ frames,
+                           const float2* __restrict__ frames_bar, float2* g0, float2* scratch,
+                           float* __restrict__ acc, int n_steps, int D, int H, int W,
+                           float dt, float inv_dx2) {
+  cg::grid_group grid = cg::this_grid();
+  const int HW = H * W, cells = D * HW;
+  const int nblk = gridDim.x, b = blockIdx.x;
+  const int q = cells / nblk, m = cells % nblk;
+  const int n_own = q + (b < m ? 1 : 0);
+  const int first = b * q + (b < m ? b : m);
+  const int cap = (cells + nblk - 1) / nblk;
+  const int halo = 2 * W, n_mid = n_own + 2 * halo;
+  const int n_planes = 2 * NB * C * 3 + 2 * C + 4;  // A (backward2d.py: _pg_layout)
+
+  extern __shared__ float4 smem_pg3[];
+  float* sp = reinterpret_cast<float*>(smem_pg3);
+  float* sacc = sp + (n_params + 3) / 4 * 4;                         // [n_planes][cap]
+  float2* gmid = reinterpret_cast<float2*>(sacc + n_planes * cap);  // [cap + 4 W]
+  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sp[k] = params[k];
+  for (int k = threadIdx.x; k < n_planes * cap; k += blockDim.x) sacc[k] = 0.0f;
+
+  // h_t and fbar_{t+1} at the 13 stencil points of own cell k, loaded into
+  // hx, fx, then reduced to r: u, v, Lap h (u, v), fbar (u, v), Lap fbar (u, v)
+  float2 hx[kPoints], fx[kPoints];
+  auto prefetch = [&](int t, int k) {
+    int nbr[kPoints];
+    stencil13(first + k, D, H, W, nbr);
+    const float2* h = frames + static_cast<size_t>(t) * cells;
+    const float2* fbar = frames_bar + static_cast<size_t>(t + 1) * cells;
+#pragma unroll
+    for (int e = 0; e < kPoints; ++e) {
+      hx[e] = h[nbr[e]];
+      fx[e] = fbar[nbr[e]];
+    }
+  };
+  auto reduce = [&](float (&r)[8]) {
+    float hu[kPoints], hv[kPoints], fu[kPoints], fv[kPoints];
+#pragma unroll
+    for (int e = 0; e < kPoints; ++e) {
+      hu[e] = hx[e].x;
+      hv[e] = hx[e].y;
+      fu[e] = fx[e].x;
+      fv[e] = fx[e].y;
+    }
+    r[0] = hu[0];
+    r[1] = hv[0];
+    r[2] = lap13(hu, inv_dx2);
+    r[3] = lap13(hv, inv_dx2);
+    r[4] = fu[0];
+    r[5] = fv[0];
+    r[6] = lap13(fu, inv_dx2);
+    r[7] = lap13(fv, inv_dx2);
+  };
+  // g_in and Lap g_in of own cell k from g_{t+1} in src: the centre and the
+  // height and width neighbours from gmid, the rest from L2
+  auto gather = [&](const float2* src, int k, const float (&r)[8], float (&gin)[2],
+                    float& lap_gu, float& lap_gv) {
+    const int idx = first + k;
+    const int d = idx / HW;
+    const int rr = idx - d * HW;
+    const int i = rr / W;
+    const int j = rr - i * W;
+    const int c = k + halo;
+    auto plane = [&](int shift) {
+      const int g = idx + shift;
+      return __ldcg(src + (g < 0 ? g + cells : (g >= cells ? g - cells : g)));
+    };
+    float2 x[kPoints];
+    x[0] = gmid[c];
+    x[1] = plane(HW);
+    x[2] = plane(-HW);
+    x[3] = i + 1 < H ? gmid[c + W] : __ldcg(src + idx + W - HW);
+    x[4] = i >= 1 ? gmid[c - W] : __ldcg(src + idx - W + HW);
+    x[5] = gmid[c + (j + 1 < W ? 1 : 1 - W)];
+    x[6] = gmid[c + (j >= 1 ? -1 : W - 1)];
+    x[7] = plane(2 * HW);
+    x[8] = plane(-2 * HW);
+    x[9] = i + 2 < H ? gmid[c + 2 * W] : __ldcg(src + idx + 2 * W - HW);
+    x[10] = i >= 2 ? gmid[c - 2 * W] : __ldcg(src + idx - 2 * W + HW);
+    x[11] = gmid[c + (j + 2 < W ? 2 : 2 - W)];
+    x[12] = gmid[c + (j >= 2 ? -2 : W - 2)];
+    float gu[kPoints], gv[kPoints];
+#pragma unroll
+    for (int e = 0; e < kPoints; ++e) {
+      gu[e] = x[e].x;
+      gv[e] = x[e].y;
+    }
+    gin[0] = gu[0] + r[4];
+    gin[1] = gv[0] + r[5];
+    lap_gu = lap13(gu, inv_dx2) + r[6];
+    lap_gv = lap13(gv, inv_dx2) + r[7];
+  };
+  auto finish = [&](float2* dst, int k, const float (&r)[8], const float (&gin)[2],
+                    float lap_gu, float lap_gv) {
+    float du, dv;
+    pg_accumulate<NB>(sp, r[0], r[1], gin, r[2], r[3], sacc + k, cap, C, du, dv);
+    dst[first + k] = make_float2(gin[0] + dt * (sp[0] * lap_gu + du),
+                                 gin[1] + dt * (sp[1] * lap_gv + dv));
+  };
+
+  const int k0 = threadIdx.x, k1 = k0 + blockDim.x;
+  if (k0 < n_own) prefetch(n_steps - 1, k0);
+  __syncthreads();
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = n_steps - 1 - s;
+    float2* dst = (t % 2 == 0) ? g0 : scratch;
+    const float2* src = (t % 2 == 0) ? scratch : g0;
+    // g_{t+1}'s window into gmid, kBatch loads in flight a thread
+    for (int base = threadIdx.x; base < n_mid; base += kBatch * blockDim.x) {
+      float2 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * blockDim.x;
+        int g = first - halo + i;
+        g = g < 0 ? g + cells : (g >= cells ? g - cells : g);
+        if (i < n_mid) v[u] = __ldcg(src + g);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int i = base + u * blockDim.x;
+        if (i < n_mid) gmid[i] = v[u];
+      }
+    }
+    float r0[8];
+    if (k0 < n_own) reduce(r0);
+    __syncthreads();
+    if (k0 < n_own) {
+      float gin[2], lap_gu, lap_gv;
+      gather(src, k0, r0, gin, lap_gu, lap_gv);
+      if (k1 < n_own) prefetch(t, k1);
+      finish(dst, k0, r0, gin, lap_gu, lap_gv);
+    }
+    if (k1 < n_own) {
+      float r1[8], gin[2], lap_gu, lap_gv;
+      reduce(r1);
+      gather(src, k1, r1, gin, lap_gu, lap_gv);
+      finish(dst, k1, r1, gin, lap_gu, lap_gv);
+    }
+    if (k0 < n_own && t > 0) prefetch(t - 1, k0);
+    if (s + 1 < n_steps) grid.sync();
+  }
+  for (int pl = 0; pl < n_planes; ++pl)
+    for (int k = threadIdx.x; k < n_own; k += blockDim.x)
+      acc[static_cast<size_t>(pl) * cells + first + k] = sacc[pl * cap + k];
+}
+
+// Dynamic shared memory of pg3d_persistent_kernel on `blocks` blocks: the
+// packed parameters rounded up to 4 floats, then [A][cap] floats, then g's
+// window, cap + 4 W float2 (pg3d_smem_bytes in ../backward3d.py).
+size_t persistent_smem_bytes(int n_params, int D, int H, int W, int hidden, int n_branches,
+                             int blocks) {
+  const size_t cap = (static_cast<size_t>(D) * H * W + blocks - 1) / blocks;
+  const size_t planes = 2 * n_branches * hidden * 3 + 2 * hidden + 4;
+  return ((n_params + 3) / 4 * 4 + planes * cap) * sizeof(float) +
+         (cap + 4 * static_cast<size_t>(W)) * sizeof(float2);
+}
+
+// The widths pg3d_persistent_kernel is compiled for.
+constexpr int kPersistentBranches = 3, kPersistentHidden = 2;
+const auto pg3d_persistent = pg3d_persistent_kernel<kPersistentBranches, kPersistentHidden>;
+
+// How many blocks of pg3d_persistent_kernel an SM holds at once, its shared
+// memory allowed.
+cudaError_t persistent_occupancy(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(pg3d_persistent,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, pg3d_persistent,
+                                                       kPersistentThreads, smem);
+}
+
+cudaError_t persistent_sweep(const float* params, int n_params, const float2* frames,
+                             const float2* frames_bar, float2* g0, float2* scratch, float* acc,
+                             int n_steps, int D, int H, int W, float dt, float inv_dx2,
+                             int blocks, cudaStream_t stream, int* per_sm) {
+  const size_t smem = persistent_smem_bytes(n_params, D, H, W, kPersistentHidden,
+                                            kPersistentBranches, blocks);
+  cudaError_t err = persistent_occupancy(smem, per_sm);
+  if (err != cudaSuccess) return err;
+  int device, sms;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // a cooperative grid must be co-resident; one past it would be refused
+  if (blocks > *per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&params, &n_params, &frames, &frames_bar, &g0, &scratch, &acc, &n_steps,
+                  &D, &H, &W, &dt, &inv_dx2};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(pg3d_persistent),
+                                    dim3(blocks), dim3(kPersistentThreads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 // The streaming sweep: one reverse step of pg3d_kernel's arithmetic without
@@ -227,4 +472,35 @@ extern "C" int backward3d_adj(const void* params, int n_params, const void* fram
                       static_cast<float2*>(g0), static_cast<float2*>(scratch),
                       static_cast<float2*>(g_ins), n_steps, D, H, W, hidden, dt, inv_dx2,
                       static_cast<cudaStream_t>(stream));
+}
+
+// The fused sweep in one cooperative launch of pg3d_persistent_kernel on
+// `blocks` blocks (at most the card's co-resident count: else
+// cudaErrorCooperativeLaunchTooLarge, before anything is launched); g0 and
+// scratch zeroed, acc [A, D, H, W] written whole.  `per_sm` gets the
+// occupancy query's blocks an SM.
+extern "C" int backward3d_pg_persistent(const void* params, int n_params, const void* frames,
+                                        const void* frames_bar, void* g0, void* scratch,
+                                        void* acc, int n_steps, int D, int H, int W, int hidden,
+                                        int n_branches, float dt, float inv_dx2, int blocks,
+                                        void* stream, int* per_sm) {
+  const long long cells = 1LL * D * H * W;
+  if (n_branches != kPersistentBranches || hidden != kPersistentHidden || blocks < 1 ||
+      blocks > cells || (cells + blocks - 1) / blocks > 2 * kPersistentThreads)
+    return cudaErrorInvalidValue;
+  return persistent_sweep(static_cast<const float*>(params), n_params,
+                          static_cast<const float2*>(frames),
+                          static_cast<const float2*>(frames_bar), static_cast<float2*>(g0),
+                          static_cast<float2*>(scratch), static_cast<float*>(acc), n_steps, D,
+                          H, W, dt, inv_dx2, blocks, static_cast<cudaStream_t>(stream), per_sm);
+}
+
+// How many blocks of pg3d_persistent_kernel an SM holds at once, on
+// `blocks` blocks.
+extern "C" int backward3d_pg_occupancy(int n_params, int D, int H, int W, int hidden,
+                                       int n_branches, int blocks, int* per_sm) {
+  if (n_branches != kPersistentBranches || hidden != kPersistentHidden || blocks < 1)
+    return cudaErrorInvalidValue;
+  return persistent_occupancy(
+      persistent_smem_bytes(n_params, D, H, W, hidden, n_branches, blocks), per_sm);
 }
