@@ -33,9 +33,12 @@ since start:
   kernels      the forward kernels against their plain versions, 100 x 100,
                T = 200: rollout2d_cluster_kernel (the frames rollout's route
                at that shape) also against rollout2d_kernel, the per-step
-               route, to the bit, and on a field of 17 rows (strips of 2 and
-               3) and one past the cluster's capacity (449 x 449, the
-               per-step route by the rule)
+               route, to the bit; its final-state mode (the final state's
+               route) against the frames' last frame (to the bit) and
+               final2d_kernel; both through the entry points on a field of
+               17 rows (strips of 2 and 3) and one past the cluster's
+               capacity (449 x 449, the per-step routes by the rule),
+               launches and steps counted
   grads        pg2d_persistent_kernel (the sweep's route at 100 x 100)
                against its plain version and against pg2d_kernel, the
                per-step route (T = 200, golden cell, data-loss cotangent),
@@ -57,7 +60,11 @@ since start:
                against their plain version and each other at 100 x 100,
                C = 16, k = 5, T = 200, golden Burgers cell, Burgers IC; both
                routes through the entry point on 17 x 9 and past the plan's
-               capacity (1453 x 1453), launches and steps counted
+               capacity (1453 x 1453), launches and steps counted; its
+               final-state mode over the 1200-step serving horizon from the
+               ISG's answer to a request against plain and the frames' last
+               frame (to the bit), and through the entry point on 17 x 9
+               and 1453 x 1453 (final2d_kernel<5>), counted
   grads_kxk    adj2d_kxk_persistent_kernel and adj2d_kxk_kernel against
                their plain sweep and each other (the same, a standard-normal
                cotangent), on 17 x 9 and past the plan's capacity (846 x
@@ -65,7 +72,8 @@ since start:
                of remat (eager autograd) against f64 autograd (random-init
                cell, random target, 12 steps, 100 x 100)
   kernels_fallback  rollout2d_kernel (T = 200) and final2d_kernel (1200
-               steps) at k = 5, adj2d_ys_kernel and adj2d_kernel at k = 5
+               steps, through the entry point with the MXU switch off,
+               counted) at k = 5, adj2d_ys_kernel and adj2d_kernel at k = 5
                (T = 200) on the golden Burgers cell, adj2d_kernel at k = 1
                (T = 200, golden GS2D cell, data-loss cotangent) and
                adj3d_kernel (48^3, T = 50, golden GS3D cell) against their
@@ -75,8 +83,9 @@ since start:
                of bptt="two_phase" (the three cells) against f64 autograd on
                the referee setup, each route's launches counted
   serve        one uncounted warm-up request of each kind, then three frames
-               requests and one final-state request, 2500 steps, with the
-               kernels' launch and step counters set to 0 just before
+               requests and one final-state request, 2500 steps, one launch
+               a request, with the kernels' launch and step counters set to
+               0 just before
   train        run_experiment(GS2D_RECON): truth, ISG pretrain, 10 iterations
                at each of T = 200, 400, 800, a 2500-step evaluation, with the
                launch counters set to 0 just before
@@ -93,8 +102,8 @@ since start:
                request and one final-state request, 1000 steps, on the
                trained GS3D model, with the launch counter set to 0 just before
   serve_burgers  one uncounted warm-up request of each kind, then three
-               frames requests and one final-state request (final2d_kernel
-               at k = 5), 1200 steps, on the golden Burgers model, with the
+               frames requests and one final-state request, 1200 steps, one
+               launch a request, on the golden Burgers model, with the
                launch counters set to 0 just before
   train_burgers  run_experiment(BURGERS_STAGE1): the 1200-frame truth (kept
                in a temp cache for train_fallback), ISG pretrain, 10
@@ -159,18 +168,20 @@ since start:
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work (rows 1,
-               3, 6, 7, 8 and 10 also by their per-step routes, in turns in
-               the same call; rows 3 and 6 with the bound in 3xTF32 and all
-               in FFMA),
+               2 (k = 1 and 5), 3, 6, 7, 8 and 10 also by their per-step
+               routes, in turns in the same call; rows 2 at k = 5, 3 and 6
+               with the bound in 3xTF32 and all in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (23 entries: the 14 ported TPU kernels,
-with the k = 5 contracts of rollout2d_kernel, final2d_kernel, adj2d_kernel,
-rollout2d_batched_kernel and adj2d_batched_kernel and the per-step routes of
-rows 3, 6, 8 and 10, rollout2d_kxk_kernel, adj2d_kxk_kernel,
-rollout3d_kernel and pg3d_kernel, listed apart), the
+Then a ``{"kernels": [...]}`` line (25 entries: the 14 ported TPU kernels,
+row 2 by its two one-launch routes, rollout2d_cluster_kernel[final] and
+rollout2d_kxk_persistent_kernel[final], with the k = 5 contracts of
+rollout2d_kernel, adj2d_kernel, rollout2d_batched_kernel and
+adj2d_batched_kernel and the per-step routes of rows 2 (final2d_kernel,
+final2d_kernel[k=5]), 3, 6, 8 and 10 (rollout2d_kxk_kernel,
+adj2d_kxk_kernel, rollout3d_kernel, pg3d_kernel) listed apart), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
@@ -588,15 +599,38 @@ def main() -> int:
     packed = cell2d.pack_pi_params_2d(params["cell"], cfg)
     got = cell2d.fused_rollout_2d(params["cell"], h0, cfg, CHECK_STEPS)
     want = cell2d.fused_rollout_2d_plain(packed, h0, cfg, CHECK_STEPS)
-    got_final = cell2d.fused_rollout_final_2d(params["cell"], h0, cfg, CHECK_STEPS)
+    # row 2 at k = 1: final_plan takes the cluster kernel's final-state mode
+    # at 100 x 100, one launch; it runs the frames path's arithmetic, so it
+    # equals the last frame from the same h0 to the bit.  Beside it the
+    # per-step route, final2d_kernel
+    final_fn = cell2d.fused_rollout_final_2d
+    check(cell2d.final_plan(*h0.shape[:2], cfg, cell2d._sm_count(dev))["route"] == "cluster",
+          f"final_plan at {tuple(h0.shape)}: {cell2d.final_plan(*h0.shape[:2], cfg, 0)}")
+    zero = (final_fn.launches, final_fn.steps)
+    got_final = final_fn(params["cell"], h0, cfg, CHECK_STEPS)
+    torch.cuda.synchronize()
+    final_counts = (final_fn.launches - zero[0], final_fn.steps - zero[1])
+    check(final_counts == (1, CHECK_STEPS),
+          f"final state at 100 x 100: (launches, steps) {final_counts}, expected "
+          f"(1, {CHECK_STEPS}) of rollout2d_cluster_kernel")
     want_final = cell2d.fused_rollout_final_2d_plain(packed, h0, cfg, CHECK_STEPS)
+    got_final_steps = cell2d._final_steps_cuda(packed, h0, cfg, CHECK_STEPS)
     torch.cuda.synchronize()
     err = {"rollout2d_cluster_kernel": max_abs(got, want),
-           "final2d_kernel": max_abs(got_final, want_final)}
+           "rollout2d_cluster_kernel[final]": max_abs(got_final, want_final),
+           "final2d_kernel": max_abs(got_final_steps, want_final)}
     check(allclose(got, want, rtol=2e-4, atol=1e-5),
           f"rollout2d_cluster_kernel vs plain: max |diff| {err['rollout2d_cluster_kernel']}")
-    check(allclose(got_final, want_final, rtol=2e-4, atol=1e-5),
-          f"final2d_kernel vs plain: max |diff| {err['final2d_kernel']}")
+    for label, a, b in (("rollout2d_cluster_kernel[final] vs plain", got_final, want_final),
+                        ("final2d_kernel vs plain", got_final_steps, want_final),
+                        ("rollout2d_cluster_kernel[final] vs final2d_kernel", got_final,
+                         got_final_steps)):
+        check(allclose(a, b, rtol=2e-4, atol=1e-5), f"{label}: max |diff| {max_abs(a, b)}")
+    final_vs_frame = max_abs(got_final, got[-1])
+    final_routes_err = max_abs(got_final, got_final_steps)
+    check(torch.equal(got_final, got[-1]),
+          f"rollout2d_cluster_kernel[final] vs the frames' last frame: max |diff| {final_vs_frame}")
+    del got_final_steps
     # the frames rollout's two routes: rollout_plan takes the cluster at
     # 100 x 100; the per-step kernel runs the same step arithmetic, so the
     # two agree to the bit
@@ -613,28 +647,45 @@ def main() -> int:
     # the cluster on 17 rows (8 CTAs, strips of 3 and 2 rows: the smallest
     # the plan makes, where a cell is in both halos it feeds) and the
     # per-step route past the cluster's capacity (449 x 449), random fields
-    route_checks = {}
+    # the same for the final state (final_plan: the cluster's final-state
+    # mode, or final2d_kernel past the cluster's capacity), counted
+    route_checks, final_steps_launches = {}, {}
     for shape, steps_, route in (((17, 9), 30, "cluster"), ((449, 449), 20, "per_step")):
         x = torch.as_tensor(0.5 + 0.1 * np.random.RandomState(5).standard_normal(shape + (2,)),
                             dtype=torch.float32, device=dev)
         plan = cell2d.rollout_plan(*shape, cfg)
         check(plan["route"] == route, f"rollout_plan at {shape}: {plan}, expected {route}")
-        zero = (cell2d.fused_rollout_2d.launches, cell2d.fused_rollout_2d.steps)
+        check(cell2d.final_plan(*shape, cfg, cell2d._sm_count(dev)) == plan,
+              f"final_plan at {shape}: {cell2d.final_plan(*shape, cfg, 0)}, expected {plan}")
+        zero = (cell2d.fused_rollout_2d.launches, cell2d.fused_rollout_2d.steps,
+                final_fn.launches, final_fn.steps)
         g_ = cell2d.fused_rollout_2d(params["cell"], x, cfg, steps_)
+        f_ = final_fn(params["cell"], x, cfg, steps_)
         w_ = cell2d.fused_rollout_2d_plain(packed, x, cfg, steps_)
         torch.cuda.synchronize()
-        moved = (cell2d.fused_rollout_2d.launches - zero[0], cell2d.fused_rollout_2d.steps - zero[1])
-        check(moved == ((1 if route == "cluster" else steps_), steps_),
-              f"rollout at {shape}: (launches, steps) {moved}")
-        route_checks[f"{shape[0]}x{shape[1]}"] = {"route": route, "steps": steps_,
-                                                  "launches": moved[0],
-                                                  "max_abs_err": max_abs(g_, w_)}
+        moved = (cell2d.fused_rollout_2d.launches - zero[0],
+                 cell2d.fused_rollout_2d.steps - zero[1],
+                 final_fn.launches - zero[2], final_fn.steps - zero[3])
+        n_launch = 1 if route == "cluster" else steps_
+        check(moved == (n_launch, steps_, n_launch, steps_),
+              f"rollout and final state at {shape}: (launches, steps) {moved}")
+        route_checks[f"{shape[0]}x{shape[1]}"] = {
+            "route": route, "steps": steps_, "launches": moved[0],
+            "max_abs_err": max_abs(g_, w_),
+            "final": {"launches": moved[2], "max_abs_err": max_abs(f_, w_[-1]),
+                      "vs_last_frame": max_abs(f_, g_[-1])}}
+        if route == "per_step":
+            final_steps_launches["kernels (449 x 449)"] = moved[2]
         check(allclose(g_, w_, rtol=2e-4, atol=1e-5),
               f"rollout at {shape} ({route}) vs plain: max |diff| {max_abs(g_, w_)}")
-    del g_, w_, x
+        check(allclose(f_, w_[-1], rtol=2e-4, atol=1e-5),
+              f"final state at {shape} ({route}) vs plain: max |diff| {max_abs(f_, w_[-1])}")
+    del g_, f_, w_, x
     phase("kernels", shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2], steps=CHECK_STEPS,
           max_abs_err=err, rtol=2e-4, atol=1e-5,
-          cluster_vs_per_step="equal to the bit", route_checks=route_checks)
+          cluster_vs_per_step="equal to the bit", final_launches_and_steps=final_counts,
+          final_vs_last_frame_max_abs_err=final_vs_frame,
+          final_cluster_vs_final2d_max_abs_err=final_routes_err, route_checks=route_checks)
 
     # grads: the backward kernel and the fused gradients at full width
     def data_term(frames, meas, exp=GS2D_RECON):
@@ -941,7 +992,10 @@ def main() -> int:
     # every launch and step counter of the port's kernels
     counters = [(cell2d.fused_rollout_2d, "launches"), (cell2d.fused_rollout_2d, "steps"),
                 (cell2d.fused_rollout_2d, "launches_kxk"),
+                (cell2d.fused_rollout_final_2d, "launches"),
+                (cell2d.fused_rollout_final_2d, "steps"),
                 (cell2d.fused_rollout_final_2d, "launches_kxk"),
+                (cell2d.fused_rollout_final_2d, "steps_kxk"),
                 (cell2d.fused_rollout_kxk_2d, "launches"), (cell2d.fused_rollout_kxk_2d, "steps"),
                 (cell3d.fused_rollout_3d, "launches"), (cell3d.fused_rollout_3d, "steps"),
                 (backward3d.fused_rollout_tp_3d_pg, "launches"),
@@ -1019,13 +1073,82 @@ def main() -> int:
         if route == "per_step":
             kxk_steps_launches["kernels_kxk"] = counts["fused_rollout_kxk_2d.launches"]
         del g_, w_, x
+    # row 2 at k = 5: final_plan takes the persistent kernel's final-state
+    # mode at 100 x 100, one launch, the branch product in 3xTF32 as row 3's.
+    # Over the 1200-step serving horizon from what serving rolls out, the
+    # ISG's answer to a Burgers request: against plain (the tap-by-tap FFMA
+    # final state) at the forward bar, and to the bit against the frames
+    # route's last frame from the same h0 (the same arithmetic); then through
+    # the entry point on 17 x 9 and past the plan's capacity (1453 x 1453,
+    # final2d_kernel<5>), counted
+    horizon = BURGERS_STAGE1.infer_steps
+    requestb = add_noise(default_ic("burgers", nb_grid, seed=SEEDS[0])[None],
+                         BURGERS_STAGE1.noise_pct, seed=SEEDS[0])[0][::isgb.scale, ::isgb.scale]
+    with torch.inference_mode():
+        h0s = isg_apply(paramsb["isg"], torch.as_tensor(requestb, dtype=torch.float32,
+                                                        device=dev)[None], isgb)[0].contiguous()
+    packedb = cell2d.pack_pi_params_2d(paramsb["cell"], cfgb)
+    check(cell2d.final_plan(nb_grid, nb_grid, cfgb, n_sm)["route"] == "persistent",
+          f"final_plan at {nb_grid}: {cell2d.final_plan(nb_grid, nb_grid, cfgb, n_sm)}")
+    zero_counts()
+    final5 = cell2d.fused_rollout_final_2d(paramsb["cell"], h0s, cfgb, horizon)
+    torch.cuda.synchronize()
+    final5_counts = read_counts()
+    final5_want_counts = {"fused_rollout_final_2d.launches_kxk": 1,
+                          "fused_rollout_final_2d.steps_kxk": horizon}
+    check(final5_counts == final5_want_counts,
+          f"k x k final state: counts {final5_counts}, expected {final5_want_counts}")
+    final5_want = cell2d.fused_rollout_final_2d_plain(packedb, h0s, cfgb, horizon)
+    final5_frame = cell2d._rollout_kxk_persistent_cuda(wmatb, tailb, h0s, cfgb, horizon)[-1]
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(final5).all() and torch.isfinite(final5_want).all()),
+          f"k x k final state over {horizon} steps: finite {bool(torch.isfinite(final5).all())}, "
+          f"plain finite {bool(torch.isfinite(final5_want).all())}")
+    err["rollout2d_kxk_persistent_kernel[final]"] = max_abs(final5, final5_want)
+    check(allclose(final5, final5_want, rtol=2e-4, atol=1e-5),
+          f"rollout2d_kxk_persistent_kernel[final] vs plain: max |diff| "
+          f"{err['rollout2d_kxk_persistent_kernel[final]']}")
+    final5_vs_frame = max_abs(final5, final5_frame)
+    check(torch.equal(final5, final5_frame),
+          f"rollout2d_kxk_persistent_kernel[final] vs the frames' last frame: max |diff| "
+          f"{final5_vs_frame}")
+    del final5_frame
+    kxk_final_checks = {}
+    for shape, steps_, route in (((17, 9), 30, "persistent"), ((1453, 1453), 3, "per_step")):
+        x = torch.as_tensor(0.5 * np.random.RandomState(5).standard_normal(shape + (2,)),
+                            dtype=torch.float32, device=dev)
+        plan = cell2d.final_plan(*shape, cfgb, n_sm)
+        check(plan["route"] == route, f"final_plan at {shape}: {plan}, expected {route}")
+        zero_counts()
+        f_ = cell2d.fused_rollout_final_2d(paramsb["cell"], x, cfgb, steps_)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_rollout_final_2d.launches_kxk":
+                           1 if route == "persistent" else steps_,
+                       "fused_rollout_final_2d.steps_kxk": steps_}
+        check(counts == want_counts, f"k x k final state at {shape}: counts {counts}, "
+                                     f"expected {want_counts}")
+        w_ = cell2d.fused_rollout_final_2d_plain(packedb, x, cfgb, steps_)
+        torch.cuda.synchronize()
+        kxk_final_checks[f"{shape[0]}x{shape[1]}"] = {"route": route, "steps": steps_,
+                                                     "launches": counts, "plan": plan,
+                                                     "max_abs_err": max_abs(f_, w_)}
+        check(allclose(f_, w_, rtol=2e-4, atol=1e-5),
+              f"k x k final state at {shape} ({route}) vs plain: max |diff| {max_abs(f_, w_)}")
+        if route == "per_step":
+            final_steps_launches["kernels_kxk (1453 x 1453)"] = counts[
+                "fused_rollout_final_2d.launches_kxk"]
+        del f_, w_, x
     phase("kernels_kxk", shape=[nb_grid, nb_grid, 2], hidden=cfgb.hidden,
           kernel_size=cfgb.kernel_size, steps=CHECK_KXK_STEPS,
           max_abs_err={k: err[k] for k in ("rollout2d_kxk_persistent_kernel",
                                            "rollout2d_kxk_kernel")},
           persistent_vs_per_step_max_abs_err=kxk_fwd_routes_err,
           max_abs_frame=float(want.abs().max()), rtol=2e-4, atol=1e-5,
-          route_checks=kxk_fwd_checks)
+          route_checks=kxk_fwd_checks, final_steps=horizon,
+          final_max_abs_err=err["rollout2d_kxk_persistent_kernel[final]"],
+          final_counts=final5_counts, final_vs_last_frame_max_abs_err=final5_vs_frame,
+          max_abs_final=float(final5_want.abs().max()), final_route_checks=kxk_final_checks)
 
     # grads_kxk: the k x k sweep on those frames (a standard-normal
     # cotangent): adj2d_kxk_persistent_kernel (kxk_adj_plan's route at
@@ -1143,24 +1266,27 @@ def main() -> int:
 
     # rollout2d_kernel and final2d_kernel at k = 5 on the golden Burgers cell:
     # frames from the Burgers IC, as rollout2d_kxk_kernel's check; the final
-    # state over the serving horizon from what serving rolls out, the ISG's
-    # answer to a Burgers request
-    packedb = cell2d.pack_pi_params_2d(paramsb["cell"], cfgb)
+    # state over the serving horizon from kernels_kxk's h0 (the ISG's answer
+    # to a Burgers request), through the entry point with the MXU switch off
+    # (PERCNN_DISABLE_MXU=1's route), counted
     framesb = cell2d._rollout_cuda(packedb, h0b, cfgb, CHECK_KXK_STEPS)
     want = cell2d.fused_rollout_2d_plain(packedb, h0b, cfgb, CHECK_KXK_STEPS)
-    requestb = add_noise(default_ic("burgers", nb_grid, seed=SEEDS[0])[None],
-                         BURGERS_STAGE1.noise_pct, seed=SEEDS[0])[0][::isgb.scale, ::isgb.scale]
-    with torch.inference_mode():
-        h0s = isg_apply(paramsb["isg"], torch.as_tensor(requestb, dtype=torch.float32,
-                                                        device=dev)[None], isgb)[0].contiguous()
-    final5 = cell2d._final_cuda(packedb, h0s, cfgb, BURGERS_STAGE1.infer_steps)
-    final5_want = cell2d.fused_rollout_final_2d_plain(packedb, h0s, cfgb,
-                                                      BURGERS_STAGE1.infer_steps)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(final5).all() and torch.isfinite(final5_want).all()),
-          f"final2d_kernel k = 5 over {BURGERS_STAGE1.infer_steps} steps: finite "
-          f"{bool(torch.isfinite(final5).all())}, plain finite "
-          f"{bool(torch.isfinite(final5_want).all())}")
+    check(cell2d.final_plan(nb_grid, nb_grid, cfgb, n_sm, mxu=False)["route"] == "per_step",
+          "final_plan with the MXU switch off takes a one-launch route")
+    mxu_saved, cell2d.MXU_FWD_ENABLED = cell2d.MXU_FWD_ENABLED, False
+    try:
+        zero_counts()
+        final5 = cell2d.fused_rollout_final_2d(paramsb["cell"], h0s, cfgb, horizon)
+        torch.cuda.synchronize()
+        final5_off_counts = read_counts()
+    finally:
+        cell2d.MXU_FWD_ENABLED = mxu_saved
+    check(final5_off_counts == {"fused_rollout_final_2d.launches_kxk": horizon,
+                                "fused_rollout_final_2d.steps_kxk": horizon},
+          f"final2d_kernel k = 5 with the MXU switch off: counts {final5_off_counts}")
+    final_steps_launches["kernels_fallback (MXU off)"] = horizon
+    check(bool(torch.isfinite(final5).all()),
+          f"final2d_kernel k = 5 over {horizon} steps: finite {bool(torch.isfinite(final5).all())}")
     err["rollout2d_kernel[k=5]"] = max_abs(framesb, want)
     err["final2d_kernel[k=5]"] = max_abs(final5, final5_want)
     check(allclose(framesb, want, rtol=2e-4, atol=1e-5),
@@ -1198,7 +1324,8 @@ def main() -> int:
     torch.cuda.synchronize()
     del frames1, frames3, fbar1, fbar3
     phase("kernels_fallback", burgers_steps=CHECK_KXK_STEPS,
-          burgers_final_steps=BURGERS_STAGE1.infer_steps, gs2d_steps=CHECK_STEPS,
+          burgers_final_steps=horizon, burgers_final_counts=final5_off_counts,
+          gs2d_steps=CHECK_STEPS,
           gs3d_steps=PG3D_CHECK_STEPS, shape3d=[n3, n3, n3, 2],
           forward_max_abs_err={k: err[k] for k in ("rollout2d_kernel[k=5]",
                                                    "final2d_kernel[k=5]")},
@@ -1541,6 +1668,7 @@ def main() -> int:
     cell2d.fused_rollout_2d.launches = 0
     cell2d.fused_rollout_2d.steps = 0
     cell2d.fused_rollout_final_2d.launches = 0
+    cell2d.fused_rollout_final_2d.steps = 0
     answers, request_s, enqueue_s = [], [], []
 
     def timed(fn, req):
@@ -1554,8 +1682,9 @@ def main() -> int:
     answers = [timed(serve, req) for req in requests]
     final = timed(serve_final, requests[0])
     launches = {"rollout2d_cluster_kernel": cell2d.fused_rollout_2d.launches,
-                "final2d_kernel": cell2d.fused_rollout_final_2d.launches}
-    serve_steps = {"rollout2d_cluster_kernel": cell2d.fused_rollout_2d.steps}
+                "rollout2d_cluster_kernel[final]": cell2d.fused_rollout_final_2d.launches}
+    serve_steps = {"rollout2d_cluster_kernel": cell2d.fused_rollout_2d.steps,
+                   "rollout2d_cluster_kernel[final]": cell2d.fused_rollout_final_2d.steps}
     n = GS2D_RECON.grid
     for a in answers:
         check(tuple(a.shape) == (SERVE_STEPS + 1, n, n, 2), f"frames shape {tuple(a.shape)}")
@@ -1565,9 +1694,11 @@ def main() -> int:
     final_err = max_abs(final, answers[0][-1])
     check(allclose(final, answers[0][-1], rtol=1e-6, atol=1e-7),
           f"final-state request vs last frame: max |diff| {final_err}")
-    # one cluster launch a frames request; final2d_kernel one launch a step
-    check(launches == {"rollout2d_cluster_kernel": len(SEEDS), "final2d_kernel": SERVE_STEPS}
-          and serve_steps == {"rollout2d_cluster_kernel": len(SEEDS) * SERVE_STEPS},
+    # one cluster launch a request, frames or final state
+    check(launches == {"rollout2d_cluster_kernel": len(SEEDS),
+                       "rollout2d_cluster_kernel[final]": 1}
+          and serve_steps == {"rollout2d_cluster_kernel": len(SEEDS) * SERVE_STEPS,
+                              "rollout2d_cluster_kernel[final]": SERVE_STEPS},
           f"launch counts {launches}, step counts {serve_steps}")
     phase("serve", requests=len(requests) + 1, steps=SERVE_STEPS, launches=launches,
           steps_run=serve_steps,
@@ -1768,9 +1899,9 @@ def main() -> int:
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmup3_s)),
           final_vs_last_frame_max_abs_err=final3_err)
 
-    # serve_burgers: the golden Burgers model's frames (rollout2d_kxk_persistent_kernel)
-    # and its final state (final2d_kernel at k = 5), through the entry point
-    # a user calls
+    # serve_burgers: the golden Burgers model's frames and its final state
+    # (rollout2d_kxk_persistent_kernel, and the same in its final-state
+    # mode), through the entry point a user calls
     serveb = build_serving_fn(modelb, cfgb, BURGERS_STAGE1.infer_steps, isg_cfg=isgb,
                               device=dev)
     serveb_final = build_serving_fn(modelb, cfgb, BURGERS_STAGE1.infer_steps, isg_cfg=isgb,
@@ -1789,24 +1920,31 @@ def main() -> int:
     answersb = [timed(serveb, req) for req in requestsb]
     finalb = timed(serveb_final, requestsb[0])
     serveb_launches = {"rollout2d_kxk_persistent_kernel": cell2d.fused_rollout_kxk_2d.launches,
-                       "final2d_kernel[k=5]": cell2d.fused_rollout_final_2d.launches_kxk}
-    serveb_steps = cell2d.fused_rollout_kxk_2d.steps
+                       "rollout2d_kxk_persistent_kernel[final]":
+                           cell2d.fused_rollout_final_2d.launches_kxk}
+    serveb_steps = {"rollout2d_kxk_persistent_kernel": cell2d.fused_rollout_kxk_2d.steps,
+                    "rollout2d_kxk_persistent_kernel[final]":
+                        cell2d.fused_rollout_final_2d.steps_kxk}
     for a in answersb:
         check(tuple(a.shape) == (BURGERS_STAGE1.infer_steps + 1, nb_grid, nb_grid, 2)
               and bool(torch.isfinite(a).all()), "Burgers frames not finite or misshapen")
     check(tuple(finalb.shape) == (nb_grid, nb_grid, 2) and bool(torch.isfinite(finalb).all()),
           "Burgers final state not finite or misshapen")
-    # the frames come from the branch-matrix form and the final state from
-    # the tap-by-tap form: held to each other at the forward bar
+    # the frames and the final state come from one kernel: held to each
+    # other at GS2D's bar
     finalb_err = max_abs(finalb, answersb[0][-1])
-    check(allclose(finalb, answersb[0][-1], rtol=2e-4, atol=1e-5),
+    check(allclose(finalb, answersb[0][-1], rtol=1e-6, atol=1e-7),
           f"Burgers final-state request vs last frame: max |diff| {finalb_err}")
+    # one launch a request, frames or final state
     check(serveb_launches == {"rollout2d_kxk_persistent_kernel": len(SEEDS),
-                              "final2d_kernel[k=5]": BURGERS_STAGE1.infer_steps}
-          and serveb_steps == len(SEEDS) * BURGERS_STAGE1.infer_steps,
+                              "rollout2d_kxk_persistent_kernel[final]": 1}
+          and serveb_steps == {"rollout2d_kxk_persistent_kernel":
+                                   len(SEEDS) * BURGERS_STAGE1.infer_steps,
+                               "rollout2d_kxk_persistent_kernel[final]":
+                                   BURGERS_STAGE1.infer_steps},
           f"Burgers serving launch counts {serveb_launches}, steps {serveb_steps}")
     phase("serve_burgers", requests=len(requestsb) + 1, steps=BURGERS_STAGE1.infer_steps,
-          launches=serveb_launches, kxk_steps=serveb_steps, request_seconds=request_s,
+          launches=serveb_launches, steps_run=serveb_steps, request_seconds=request_s,
           enqueue_seconds=enqueue_s,
           request_order="frames x 3, then final-state",
           warmup_request_seconds=dict(zip(("frames", "final_state"), warmupb_s)),
@@ -2312,43 +2450,56 @@ def main() -> int:
     row1_ms, row1_steps_ms, row1_turns = turns(
         lambda: cell2d._rollout_cluster_cuda(packed, h0, cfg, SERVE_STEPS),
         lambda: cell2d._rollout_steps_cuda(packed, h0, cfg, SERVE_STEPS), reps=5)
-    runs = {
-        "rollout2d_cluster_kernel": (
-            row1_ms,
-            lambda: cell2d.fused_rollout_2d_plain(packed, h0, cfg, SERVE_STEPS),
-            param_bytes + state_bytes + (SERVE_STEPS + 1) * state_bytes,
-            "cell2d._rollout_kernel", "percnn_tpu/ops/pallas/cell2d.py:332"),
-        "final2d_kernel": (
-            cuda_ms(torch, lambda: cell2d._final_cuda(packed, h0, cfg, SERVE_STEPS), reps=5),
-            lambda: cell2d.fused_rollout_final_2d_plain(packed, h0, cfg, SERVE_STEPS),
-            param_bytes + 2 * state_bytes,
-            "cell2d._final_kernel", "percnn_tpu/ops/pallas/cell2d.py:384"),
-    }
+    # row 2 at k = 1 the same way: the cluster's final-state mode against
+    # final2d_kernel
+    row2_ms, row2_steps_ms, row2_turns = turns(
+        lambda: cell2d._rollout_cluster_cuda(packed, h0, cfg, SERVE_STEPS, final_only=True),
+        lambda: cell2d._final_steps_cuda(packed, h0, cfg, SERVE_STEPS), reps=5)
+    row2_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_final_2d_plain(
+        packed, h0, cfg, SERVE_STEPS), reps=1)
+    b1_ms, b1_by = bound_ms(param_bytes + state_bytes + (SERVE_STEPS + 1) * state_bytes, flops)
+    b2_ms, b2_by = bound_ms(param_bytes + 2 * state_bytes, flops)
     # row 1 in the ensemble: the members' evaluations, and the per-member
     # loop of "auto"
-    ens_row1 = {"rollout2d_cluster_kernel": sum(c.get("fused_rollout_2d.launches", 0)
-                                                for c in ens_launches.values())}
-    kernels = []
-    for name, (ms, plain, nbytes, jax_name, replaces) in runs.items():
-        b_ms, b_by = bound_ms(nbytes, flops)
-        kernels.append({
-            "name": name, "jax_kernel": jax_name, "route": "cuda",
-            "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
-            "replaces": replaces,
-            "launches": launches[name] + train_launches.get(name, 0) + ens_row1.get(name, 0),
-            "launches_by_path": {"serve": launches[name],
-                                 "train": train_launches.get(name, 0),
-                                 "ensemble": ens_row1.get(name, 0)},
-            "max_abs_err": err[name], "ms": ms,
-            "plain_ms": cuda_ms(torch, plain, reps=1), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-        })
-    kernels[0].update({
+    ens_row1 = sum(c.get("fused_rollout_2d.launches", 0) for c in ens_launches.values())
+    by_path1 = {"serve": launches["rollout2d_cluster_kernel"],
+                "train": train_launches["rollout2d_cluster_kernel"], "ensemble": ens_row1}
+    kernels = [{
+        "name": "rollout2d_cluster_kernel", "jax_kernel": "cell2d._rollout_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell2d.py:332",
+        "launches": sum(by_path1.values()), "launches_by_path": by_path1,
+        "max_abs_err": err["rollout2d_cluster_kernel"], "ms": row1_ms,
+        "plain_ms": cuda_ms(torch, lambda: cell2d.fused_rollout_2d_plain(
+            packed, h0, cfg, SERVE_STEPS), reps=1),
+        "bound_ms": b1_ms, "bound_by": b1_by, "library_ms": None,
         "steps": SERVE_STEPS, "launches_per_call": 1, "us_per_step": 1e3 * row1_ms / SERVE_STEPS,
         "per_step_route": {"name": "rollout2d_kernel", "launches_per_call": SERVE_STEPS,
                            "ms": row1_steps_ms, "us_per_step": 1e3 * row1_steps_ms / SERVE_STEPS,
                            "max_abs_err": err["rollout2d_kernel[per_step]"]},
-        "turns_ms": row1_turns, "plan": one_launch["rollout2d_cluster_kernel"]})
+        "turns_ms": row1_turns, "plan": one_launch["rollout2d_cluster_kernel"],
+    }, {
+        "name": "rollout2d_cluster_kernel[final]", "jax_kernel": "cell2d._final_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell2d.py:384",
+        "launches": launches["rollout2d_cluster_kernel[final]"],
+        "launches_by_path": {"serve": launches["rollout2d_cluster_kernel[final]"]},
+        "max_abs_err": err["rollout2d_cluster_kernel[final]"], "ms": row2_ms,
+        "plain_ms": row2_plain_ms, "bound_ms": b2_ms, "bound_by": b2_by, "library_ms": None,
+        "steps": SERVE_STEPS, "launches_per_call": 1, "us_per_step": 1e3 * row2_ms / SERVE_STEPS,
+        "per_step_route": {"name": "final2d_kernel", "launches_per_call": SERVE_STEPS,
+                           "ms": row2_steps_ms, "us_per_step": 1e3 * row2_steps_ms / SERVE_STEPS,
+                           "max_abs_err": err["final2d_kernel"]},
+        "turns_ms": row2_turns, "plan": one_launch["rollout2d_cluster_kernel"],
+    }, {
+        "name": "final2d_kernel", "jax_kernel": "cell2d._final_kernel", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell2d.py:384",
+        "launches": final_steps_launches["kernels (449 x 449)"],
+        "launches_by_path": {"kernels (449 x 449)": final_steps_launches["kernels (449 x 449)"]},
+        "max_abs_err": err["final2d_kernel"], "steps": SERVE_STEPS, "ms": row2_steps_ms,
+        "plain_ms": row2_plain_ms, "bound_ms": b2_ms, "bound_by": b2_by, "library_ms": None,
+        "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100"}]
     # the backward at the longest training stage: trained cell, data-loss cotangent
     frames = cell2d._rollout_cuda(packed, h0, cfg, TIME_BACKWARD_STEPS)
     fbar = cotangent(frames)[1].contiguous()
@@ -2474,7 +2625,6 @@ def main() -> int:
     # products on the tensor cores in 3xTF32 (the row's) and all in FFMA
     cellsb, stateb_bytes = nb_grid ** 2, 8 * nb_grid ** 2
     mat_bytes = 4 * (wmatb.numel() + tailb.numel())
-    horizon = BURGERS_STAGE1.infer_steps
 
     def kxk_bounds(nbytes, steps, flops_fn, products):
         """(3xTF32 bound, its side, FFMA-only bound, its side) of `steps`
@@ -2519,6 +2669,46 @@ def main() -> int:
                     "bound_ms": hb3_ms, "bound_by": hb3_by, "bound_ms_ffma": hbf3_ms,
                     "bound_by_ffma": hbf3_by},
     })
+    # row 2 at k = 5 over the 1200-step serving horizon from kernels_kxk's h0
+    # (the ISG's answer to a request): the persistent kernel's final-state
+    # mode against final2d_kernel<5> (the MXU-off and past-the-plan route),
+    # in turns; the bound reads h0 and writes the final state
+    b2k_ms, b2k_by, bf2k_ms, bf2k_by = kxk_bounds(mat_bytes + 2 * stateb_bytes, horizon,
+                                                  flops_per_cell_step_kxk, 1)
+    bs2k_ms, bs2k_by = bound_ms(4 * packedb.numel() + 2 * stateb_bytes,
+                                horizon * cellsb * flops_per_cell_step_kxk(cfgb))
+    row2k_ms, row2k_steps_ms, row2k_turns = turns(
+        lambda: cell2d._rollout_kxk_persistent_cuda(wmatb, tailb, h0s, cfgb, horizon,
+                                                    final_only=True),
+        lambda: cell2d._final_steps_cuda(packedb, h0s, cfgb, horizon), reps=3)
+    row2k_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_final_2d_plain(
+        packedb, h0s, cfgb, horizon), reps=1)
+    kernels.append({
+        "name": "rollout2d_kxk_persistent_kernel[final]", "jax_kernel": "cell2d._final_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell2d.py:384",
+        "launches": serveb_launches["rollout2d_kxk_persistent_kernel[final]"],
+        "launches_by_path": {"serve": serveb_launches["rollout2d_kxk_persistent_kernel[final]"]},
+        "max_abs_err": err["rollout2d_kxk_persistent_kernel[final]"], "steps": horizon,
+        "ms": row2k_ms, "plain_ms": row2k_plain_ms, "bound_ms": b2k_ms, "bound_by": b2k_by,
+        "bound_precision": "3xTF32 products at 495 TFLOP/s, the rest at 67",
+        "bound_ms_ffma": bf2k_ms, "bound_by_ffma": bf2k_by, "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * row2k_ms / horizon,
+        "per_step_route": {"name": "final2d_kernel[k=5]", "launches_per_call": horizon,
+                           "ms": row2k_steps_ms, "us_per_step": 1e3 * row2k_steps_ms / horizon,
+                           "max_abs_err": err["final2d_kernel[k=5]"]},
+        "turns_ms": row2k_turns, "plan": one_launch["rollout2d_kxk_persistent_kernel"],
+    })
+    by_path2k = {k: v for k, v in final_steps_launches.items() if k != "kernels (449 x 449)"}
+    kernels.append({
+        "name": "final2d_kernel[k=5]", "jax_kernel": "cell2d._final_kernel", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/cell2d.py:384",
+        "launches": sum(by_path2k.values()), "launches_by_path": by_path2k,
+        "max_abs_err": err["final2d_kernel[k=5]"], "steps": horizon, "ms": row2k_steps_ms,
+        "plain_ms": row2k_plain_ms, "bound_ms": bs2k_ms, "bound_by": bs2k_by, "library_ms": None,
+        "note": "the per-step route with the MXU switch off and past the one-launch plan's "
+                "capacity; tap by tap in FFMA, as the TPU's _final_kernel; ms at 100 x 100"})
     framesb = cell2d._rollout_kxk_cuda(wmatb, tailb, h0b, cfgb, stepsb)
     fbarb = cotangent(framesb, BURGERS_STAGE1)[1].contiguous()
     bwb_flops = stepsb * cellsb * adj_flops_per_cell_step_kxk(cfgb)
@@ -2576,10 +2766,8 @@ def main() -> int:
                              torch.cuda.current_stream().cuda_stream) == 0,
                   "grid_barrier_kernel failed")
         grid_barrier["us_per_barrier"][threads] = 1e3 * cuda_ms(torch, barriers, 5) / GRID_BARRIERS
-    # the fallback slice at its main paths' shapes: rollout2d_kernel and
-    # final2d_kernel at k = 5 (golden Burgers cell; T = 200 frames from the
-    # Burgers IC as row 3, the final state over the 1200-step serving horizon
-    # from the ISG's answer to a request),
+    # the fallback slice at its main paths' shapes: rollout2d_kernel at k = 5
+    # (golden Burgers cell; T = 200 frames from the Burgers IC as row 3),
     # adj2d_kernel at k = 1 (the GS2D backward above: T = 800, data-loss
     # cotangent), adj2d_kernel at k = 5 and adj2d_ys_kernel (the Burgers
     # backward above: T = 200), adj3d_kernel (the GS3D backward above: 48^3,
@@ -2598,12 +2786,6 @@ def main() -> int:
             "cell2d._rollout_kernel", "percnn_tpu/ops/pallas/cell2d.py:332", "cell2d.cu",
             {"train": fallback_launches["burgers_mxu_off"]["fused_rollout_2d.launches_kxk"]
              + fallback_launches["burgers_ys_off"]["fused_rollout_2d.launches_kxk"]}),
-        "final2d_kernel[k=5]": (
-            lambda: cell2d._final_cuda(packedb, h0s, cfgb, horizon),
-            lambda: cell2d.fused_rollout_final_2d_plain(packedb, h0s, cfgb, horizon),
-            packedb_bytes + 2 * stateb_bytes, horizon * cellsb * flops_per_cell_step_kxk(cfgb),
-            horizon, "cell2d._final_kernel", "percnn_tpu/ops/pallas/cell2d.py:384", "cell2d.cu",
-            {"serve": serveb_launches["final2d_kernel[k=5]"]}),
         "adj2d_kernel": (
             lambda: backward2d._phase1_cuda(packed, frames, fbar, cfg),
             lambda: backward2d.fused_phase1_2d_plain(packed, frames, fbar, cfg),

@@ -17,21 +17,26 @@ branch convs as one product with the branch matrix (in place of
 rollout in one cooperative launch with the product on the tensor cores in
 3xTF32, for any field and cell ``kxk_plan`` admits, else
 ``rollout2d_kxk_kernel``, one launch a step in FFMA.
-``fused_rollout_final_2d`` returns the final state of any cell through
-``final2d_kernel`` (in place of ``_final_kernel``).  The kernels are in
+``fused_rollout_final_2d`` returns the final state of any cell (in place of
+``_final_kernel``) by ``final_plan``'s route: the same two one-launch
+kernels in their final-state mode, which stores no frame and gives the last
+frame to the bit (rollout2d_cluster_kernel for the GS2D cell's fields,
+rollout2d_kxk_persistent_kernel for a k x k cell with ``MXU_FWD_ENABLED``),
+else ``final2d_kernel``, one launch a step.  The kernels are in
 csrc/cell2d.cu and csrc/cell2d_kxk.cu (+ csrc/kxk_mma.cuh), with their
 bound on the card and their design.
 
 A CPU tensor takes the plain PyTorch version of the same arithmetic
 (``fused_rollout_2d_plain``, ``fused_rollout_final_2d_plain``,
 ``fused_rollout_kxk_2d_plain``); a CUDA tensor launches the kernel or
-raises.  Each public wrapper counts the kernel launches it makes:
-``launches`` for a 1x1 cell (one a rollout by the cluster, one a step
-otherwise) beside ``fused_rollout_2d.steps``, the 1x1 steps run on the
-card; ``launches_kxk`` for the k x k contract of rollout2d_kernel and
-final2d_kernel, one a step; ``fused_rollout_kxk_2d.launches`` (one a
-rollout by the persistent kernel, one a step otherwise) beside
-``fused_rollout_kxk_2d.steps``.
+raises.  Each public wrapper counts the kernel launches it makes, one a
+call by a one-launch kernel (none for no steps, but for the cluster's
+frames), one a step otherwise, beside the steps run on the card:
+``fused_rollout_2d.launches`` and ``.steps`` for a 1x1 cell;
+``fused_rollout_2d.launches_kxk`` for the k x k contract of
+rollout2d_kernel; ``fused_rollout_kxk_2d.launches`` and ``.steps``;
+``fused_rollout_final_2d.launches`` and ``.steps`` for a 1x1 cell,
+``.launches_kxk`` and ``.steps_kxk`` for a k x k one.
 """
 
 from __future__ import annotations
@@ -65,16 +70,17 @@ _SIGNATURES = {
     # wmat, tail, h0, frames, n_steps, H, W, hidden, n_branches, kernel_size,
     # dt, inv_dx2, stream
     "cell2d_kxk_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
-    # params, n_params, h0, frames, n_steps, H, W, hidden, n_branches, dt,
-    # inv_dx2, n_cta, threads, stream, clusters (out)
-    "cell2d_rollout_cluster": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P,
+    # params, n_params, h0, frames (or out), n_steps, final_only, H, W, hidden,
+    # n_branches, dt, inv_dx2, n_cta, threads, stream, clusters (out)
+    "cell2d_rollout_cluster": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P,
                                ctypes.POINTER(_I)],
     # H, W, n_cta, threads, clusters (out)
     "cell2d_cluster_occupancy": [_I, _I, _I, _I, ctypes.POINTER(_I)],
-    # bfrag, tail, h0, frames, n_steps, H, W, hidden, n_branches, kernel_size,
-    # ch, dt, inv_dx2, blocks, threads, smem, stream, blocks an SM (out)
-    "cell2d_kxk_rollout_persistent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I,
-                                      _I, _I, _P, ctypes.POINTER(_I)],
+    # bfrag, tail, h0, frames (or out), scratch, n_steps, final_only, H, W,
+    # hidden, n_branches, kernel_size, ch, dt, inv_dx2, blocks, threads, smem,
+    # stream, blocks an SM (out)
+    "cell2d_kxk_rollout_persistent": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                                      _F, _I, _I, _I, _P, ctypes.POINTER(_I)],
     # n_branches, kernel_size, ch, threads, smem, blocks an SM (out)
     "cell2d_kxk_occupancy": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
@@ -387,14 +393,6 @@ def _raise_on_error(err: int, fn_name: str) -> None:
         raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
 
 
-def _count(wrapper, cfg: PiCellConfig, n: int) -> None:
-    """Add n launches to the wrapper's counter of cfg's contract."""
-    if cfg.kernel_size == 1:
-        wrapper.launches += n
-    else:
-        wrapper.launches_kxk += n
-
-
 def _rollout_steps_cuda(packed, h0, cfg, n_steps):
     """rollout2d_kernel: one launch per step, the loop in C."""
     fn = _kernel_fn("cell2d_rollout")
@@ -405,32 +403,40 @@ def _rollout_steps_cuda(packed, h0, cfg, n_steps):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on_error(fn(p_ptr, n_params, h_ptr, frames.data_ptr(), n, H, W,
                            C, nb, k, dt, inv_dx2, stream), "cell2d_rollout")
-    _count(fused_rollout_2d, cfg, n)
     if k == 1:
+        fused_rollout_2d.launches += n
         fused_rollout_2d.steps += n
+    else:
+        fused_rollout_2d.launches_kxk += n
     return frames
 
 
-def _rollout_cluster_cuda(packed, h0, cfg, n_steps):
+def _rollout_cluster_cuda(packed, h0, cfg, n_steps, *, final_only=False):
     """rollout2d_cluster_kernel: the whole rollout of a 1x1 cell in one
-    launch of one cluster, by rollout_plan's configuration.  Raises if the
-    card cannot hold the cluster."""
+    launch of one cluster, by rollout_plan's configuration: the frames, or
+    with ``final_only`` the final state alone (no launch at n_steps = 0,
+    a copy of h0).  Raises if the card cannot hold the cluster."""
     fn = _kernel_fn("cell2d_rollout_cluster")
     p_ptr, n_params, h_ptr, n, H, W, C, nb, k, dt, inv_dx2 = _launch_args(
         packed, h0, cfg, n_steps)
     plan = rollout_plan(H, W, cfg)
     if plan["route"] != "cluster":
         raise ValueError(f"a {H} x {W} field of this cell takes no cluster: {cfg}")
-    frames = torch.empty((n + 1, H, W, 2), dtype=torch.float32, device=h0.device)
+    shape = (H, W, 2) if final_only else (n + 1, H, W, 2)
+    out = torch.empty(shape, dtype=torch.float32, device=h0.device)
     clusters = ctypes.c_int(0)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _raise_on_error(fn(p_ptr, n_params, h_ptr, frames.data_ptr(), n, H, W, C, nb, dt,
-                           inv_dx2, plan["n_cta"], plan["threads"], stream,
+        _raise_on_error(fn(p_ptr, n_params, h_ptr, out.data_ptr(), n, int(final_only), H, W, C,
+                           nb, dt, inv_dx2, plan["n_cta"], plan["threads"], stream,
                            ctypes.byref(clusters)), "cell2d_rollout_cluster")
-    fused_rollout_2d.launches += 1
-    fused_rollout_2d.steps += n
-    return frames
+    if final_only:
+        fused_rollout_final_2d.launches += 1 if n else 0
+        fused_rollout_final_2d.steps += n
+    else:
+        fused_rollout_2d.launches += 1
+        fused_rollout_2d.steps += n
+    return out
 
 
 def cluster_occupancy(cfg: PiCellConfig, H: int, W: int) -> int:
@@ -599,10 +605,12 @@ def kxk_occupancy(cfg: PiCellConfig, H: int, W: int, device: torch.device,
     return per_sm.value
 
 
-def _rollout_kxk_persistent_cuda(wmat, tail, h0, cfg, n_steps):
+def _rollout_kxk_persistent_cuda(wmat, tail, h0, cfg, n_steps, *, final_only=False):
     """rollout2d_kxk_persistent_kernel: the whole rollout in one cooperative
-    launch, by kxk_plan's configuration.  Raises if the card cannot hold the
-    grid."""
+    launch, by kxk_plan's configuration: the frames, or with ``final_only``
+    the final state alone, the steps ping-ponging between it and a scratch
+    buffer (final_schedule).  No launch at n_steps = 0.  Raises if the card
+    cannot hold the grid."""
     H, W = h0.shape[0], h0.shape[1]
     plan = kxk_plan(H, W, cfg, _sm_count(h0.device))
     if plan["route"] != "persistent":
@@ -610,19 +618,26 @@ def _rollout_kxk_persistent_cuda(wmat, tail, h0, cfg, n_steps):
     _check_kxk_inputs(wmat, tail, h0, cfg, n_steps, plan["smem"])
     fn = _kernel_fn("cell2d_kxk_rollout_persistent", "cell2d_kxk")
     bfrag = pack_mma_fwd_2d(wmat, cfg)
-    frames = torch.empty((n_steps + 1, H, W, 2), dtype=torch.float32, device=h0.device)
+    shape = (H, W, 2) if final_only else (n_steps + 1, H, W, 2)
+    out = torch.empty(shape, dtype=torch.float32, device=h0.device)
+    scratch = torch.empty((H, W, 2), dtype=torch.float32, device=h0.device) if (
+        final_only) else None
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _raise_on_error(fn(bfrag.data_ptr(), tail.data_ptr(), h0.data_ptr(), frames.data_ptr(),
-                           n_steps, H, W, cfg.hidden, cfg.n_branches, cfg.kernel_size,
+        _raise_on_error(fn(bfrag.data_ptr(), tail.data_ptr(), h0.data_ptr(), out.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(), n_steps,
+                           int(final_only), H, W, cfg.hidden, cfg.n_branches, cfg.kernel_size,
                            _mma_shape(cfg)["ch"], cfg.dt, 1.0 / (cfg.dx * cfg.dx),
                            plan["blocks"], plan["threads"], plan["smem"], stream,
                            ctypes.byref(per_sm)), "cell2d_kxk_rollout_persistent")
-    if n_steps:
+    if final_only:
+        fused_rollout_final_2d.launches_kxk += 1 if n_steps else 0
+        fused_rollout_final_2d.steps_kxk += n_steps
+    elif n_steps:
         fused_rollout_kxk_2d.launches += 1
         fused_rollout_kxk_2d.steps += n_steps
-    return frames
+    return out
 
 
 def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
@@ -635,7 +650,46 @@ def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
     return _rollout_kxk_steps_cuda(wmat, tail, h0, cfg, n_steps)
 
 
-def _final_cuda(packed, h0, cfg, n_steps):
+def final_schedule(n_steps: int) -> list[tuple[str, str]]:
+    """The (read, write) buffers of each step of a final-state rollout that
+    ping-pongs between two [H, W, 2] buffers, 'out' and 'scratch'
+    (final2d_kernel's loop and rollout2d_kxk_persistent_kernel's final-state
+    mode keep this order in C): step s writes 'out' when n_steps - 1 - s is
+    even, else 'scratch', and reads what step s - 1 wrote ('h0' at s = 0),
+    so the last step writes 'out' and no step writes what it reads.  No
+    steps is one copy, [('h0', 'out')], and no launch."""
+    if n_steps < 0:
+        raise ValueError(f"n_steps must be >= 0, got {n_steps}")
+    if n_steps == 0:
+        return [("h0", "out")]
+    order, src = [], "h0"
+    for s in range(n_steps):
+        dst = "out" if (n_steps - 1 - s) % 2 == 0 else "scratch"
+        order.append((src, dst))
+        src = dst
+    return order
+
+
+def final_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int, mxu: bool | None = None) -> dict:
+    """The route of a final-state rollout of an H x W field on a card of n_sm
+    SMs: a 1x1 cell takes rollout_plan's ('cluster': rollout2d_cluster_kernel
+    in its final-state mode, one launch a request, for the GS2D cell up to
+    448 x 448); a k x k cell with the MXU switch on (``mxu``, None: the
+    current MXU_FWD_ENABLED) takes kxk_plan's ('persistent':
+    rollout2d_kxk_persistent_kernel in its final-state mode, one cooperative
+    launch a request, the branch product in 3xTF32, up to 1452 x 1452 for
+    the Burgers cell on 132 SMs); any other cell or field, or a k x k cell
+    with the switch off, takes final2d_kernel, one launch a step
+    ('per_step'), the tap-by-tap form that the TPU's _final_kernel
+    computes."""
+    if cfg.kernel_size == 1:
+        return rollout_plan(H, W, cfg)
+    if MXU_FWD_ENABLED if mxu is None else mxu:
+        return kxk_plan(H, W, cfg, n_sm)
+    return {"route": "per_step"}
+
+
+def _final_steps_cuda(packed, h0, cfg, n_steps):
     """final2d_kernel: one launch per step, the loop in C."""
     fn = _kernel_fn("cell2d_final")
     p_ptr, n_params, h_ptr, n, H, W, C, nb, k, dt, inv_dx2 = _launch_args(
@@ -647,8 +701,31 @@ def _final_cuda(packed, h0, cfg, n_steps):
         _raise_on_error(fn(p_ptr, n_params, h_ptr, out.data_ptr(),
                            scratch.data_ptr(), n, H, W, C, nb, k, dt, inv_dx2,
                            stream), "cell2d_final")
-    _count(fused_rollout_final_2d, cfg, n)
+    if k == 1:
+        fused_rollout_final_2d.launches += n
+        fused_rollout_final_2d.steps += n
+    else:
+        fused_rollout_final_2d.launches_kxk += n
+        fused_rollout_final_2d.steps_kxk += n
     return out
+
+
+def _final_cuda(params, h0, cfg, n_steps):
+    """The final state on CUDA by final_plan's route: one launch of
+    rollout2d_cluster_kernel ('cluster') or of
+    rollout2d_kxk_persistent_kernel ('persistent') in its final-state mode,
+    or one final2d_kernel launch a step ('per_step')."""
+    n_sm = _sm_count(h0.device) if cfg.kernel_size > 1 and MXU_FWD_ENABLED else 0
+    route = (final_plan(h0.shape[0], h0.shape[1], cfg, n_sm)["route"] if h0.dim() == 3
+             else "per_step")
+    if route == "persistent":
+        return _rollout_kxk_persistent_cuda(pack_pi_matrix_2d(params, cfg),
+                                            pi_tail_2d(params, cfg), h0, cfg, n_steps,
+                                            final_only=True)
+    packed = pack_pi_params_2d(params, cfg)
+    if route == "cluster":
+        return _rollout_cluster_cuda(packed, h0, cfg, n_steps, final_only=True)
+    return _final_steps_cuda(packed, h0, cfg, n_steps)
 
 
 def fused_rollout_kxk_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
@@ -694,21 +771,23 @@ def fused_rollout_final_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
     """Final state only: [H, W, 2] -> [H, W, 2] f32 after n_steps, any odd
     kernel_size <= 5.
 
-    On CUDA, one final2d_kernel launch per step; on the CPU, the plain
-    version.
+    On CUDA, final_plan's route (one launch a request of the one-launch
+    frames kernel in its final-state mode, or one final2d_kernel launch a
+    step); on the CPU, the plain version.
     """
     _check_fusable(cfg)
-    packed = pack_pi_params_2d(params, cfg)
     h0 = h0.to(torch.float32).contiguous()
     if h0.device.type == "cpu":
-        return fused_rollout_final_2d_plain(packed, h0, cfg, n_steps)
-    return _final_cuda(packed, h0, cfg, n_steps)
+        return fused_rollout_final_2d_plain(pack_pi_params_2d(params, cfg), h0, cfg, n_steps)
+    return _final_cuda(params, h0, cfg, n_steps)
 
 
 fused_rollout_2d.launches = 0
 fused_rollout_2d.steps = 0
 fused_rollout_2d.launches_kxk = 0
 fused_rollout_final_2d.launches = 0
+fused_rollout_final_2d.steps = 0
 fused_rollout_final_2d.launches_kxk = 0
+fused_rollout_final_2d.steps_kxk = 0
 fused_rollout_kxk_2d.launches = 0
 fused_rollout_kxk_2d.steps = 0

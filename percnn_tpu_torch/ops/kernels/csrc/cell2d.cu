@@ -17,9 +17,12 @@
 // rollout2d_cluster_kernel replaces percnn_tpu/ops/pallas/cell2d.py:
 // _rollout_kernel (pallas_call in _fused_rollout_padded) for the 1x1 GS2D
 // cell on any field whose strips fit one cluster's shared memory (448 x 448
-// at most; rollout_plan in ../cell2d.py); rollout2d_kernel replaces it for
-// any other field and for k = 3, 5, and final2d_kernel replaces
-// _final_kernel (pallas_call in _fused_final_padded) at any odd k <= 5.
+// at most; rollout_plan in ../cell2d.py), and in its final-state mode
+// _final_kernel (pallas_call in _fused_final_padded) on the same fields
+// (final_plan); rollout2d_kernel replaces _rollout_kernel for any other
+// field and for k = 3, 5, and final2d_kernel replaces _final_kernel at any
+// odd k <= 5 past the one-launch kernels' plans (and with the MXU switch
+// off).
 // All three run the same step: euler_step at k = 1 (two cells at a time,
 // euler_cellsN, in the cluster kernel), euler_step_kxk at k = 3, 5
 // (cell2d_step.cuh, shared with the ensemble's batched2d.cu and the
@@ -47,7 +50,8 @@
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, per
 // 2500-step rollout at 100 x 100: rollout2d_cluster_kernel 5.157 ms, one
 // launch, 2.06 us a step; rollout2d_kernel 13.296 ms in the same call (5.3
-// us a step), final2d_kernel 13.177 ms.
+// us a step).  Its final-state mode 5.074 ms, one launch, 2.03 us a step,
+// against 14.012 ms for final2d_kernel, timed in turns in one call.
 //
 // At k = 5 (the Burgers cell, 100 x 100, C = 16, 3 branches) the step is
 // the direct form of the TPU kernel's unrolled VPU FMAs: per cell and
@@ -115,6 +119,13 @@ __device__ __forceinline__ void strip_of(int r, int n, int H, int& start, int& r
 // step, and each crosses the barrier before it is read.  The last step's
 // writes into a neighbour come before the barrier that ends it, so no CTA
 // exits while a peer still writes to it.
+// With final_only (the final-state request, in place of _final_kernel) the
+// kernel writes no frames: `frames` is the final state [H, W, 2], and each
+// thread stores its cells' new state there at the last step alone.  The
+// strips and halos ping-pong in shared memory as above, so the barrier and
+// its argument are the same, and the arithmetic is the frames path's: the
+// final state equals the last frame to the bit.  The flag is an argument,
+// not a template parameter, so one compiled kernel serves both requests.
 // The hidden width C and the branch count NB are fixed at compile time (the
 // GS2D cell: 8, 3), and a thread takes kClusterCells cells at once, k,
 // k + blockDim, ..., each weight read once for all of them from 16-byte
@@ -126,7 +137,8 @@ template <int C, int NB>
 __global__ void __launch_bounds__(kClusterThreads)
     rollout2d_cluster_kernel(const float* __restrict__ params,
                              const float2* __restrict__ h0, float2* __restrict__ frames,
-                             int n_steps, int H, int W, float dt, float inv_dx2) {
+                             int n_steps, int final_only, int H, int W, float dt,
+                             float inv_dx2) {
   using Params = step2d::AlignedParams<C, NB>;
   constexpr int kCells = kClusterCells;
   cg::cluster_group cluster = cg::this_cluster();
@@ -160,7 +172,7 @@ __global__ void __launch_bounds__(kClusterThreads)
     const float2 v = h0[first + k];
     const int i = k / W;
     put(0, i, k - i * W, v);
-    frames[first + k] = v;
+    if (!final_only) frames[first + k] = v;
   }
   const step2d::Strip grid{rows, W};
   // the row, column and cross of cell k of the strip (cell 0 stands in for
@@ -181,7 +193,9 @@ __global__ void __launch_bounds__(kClusterThreads)
   for (int t = 0; t < n_steps; ++t) {
     const float2* cur = bufs + (t & 1) * buf_len;
     const int next = ((t + 1) & 1) * buf_len;
-    float2* out = frames + static_cast<size_t>(t + 1) * cells + first;
+    // frame t + 1, or the final state at the last step (no store before it)
+    float2* out = frames + (final_only ? 0 : static_cast<size_t>(t + 1) * cells) + first;
+    const bool store = !final_only || t == n_steps - 1;
     for (int k = k0; k < own; k += kCells * B) {
       int i[kCells], j[kCells];
       step2d::Cross x[kCells];
@@ -201,7 +215,7 @@ __global__ void __launch_bounds__(kClusterThreads)
       for (int m = 0; m < kCells; ++m) {
         if (k + m * B < own) {
           put(next, i[m], j[m], v[m]);
-          out[k + m * B] = v[m];
+          if (store) out[k + m * B] = v[m];
         }
       }
     }
@@ -222,7 +236,7 @@ size_t cluster_smem_bytes(int H, int W, int n_cta) {
   return ClusterParams::kFloats * sizeof(float) + 2 * (rows_max + 4) * W * sizeof(float2);
 }
 
-using ClusterKernel = void (*)(const float*, const float2*, float2*, int, int, int, float,
+using ClusterKernel = void (*)(const float*, const float2*, float2*, int, int, int, int, float,
                               float);
 constexpr ClusterKernel kClusterKernel = rollout2d_cluster_kernel<kClusterC, kClusterNB>;
 
@@ -315,7 +329,10 @@ cudaError_t rollout(const float* params, int n_params, const void* h0, float2* f
 }
 
 // Final state only: the steps ping-pong between `out` and `scratch` (both
-// [H, W, 2]), in the order that makes the last step write `out`.
+// [H, W, 2]), in the order that makes the last step write `out`: step t
+// writes `out` when n_steps - 1 - t is even (final_schedule in ../cell2d.py,
+// which the CPU tests hold; rollout2d_kxk_persistent_kernel keeps the same
+// order).
 template <int KS, int NB>
 cudaError_t final_state(const float* params, int n_params, const void* h0, void* out,
                         void* scratch, int n_steps, int H, int W, int hidden,
@@ -402,13 +419,15 @@ extern "C" int cell2d_final(const void* params, int n_params, const void* h0,
 }
 
 // The frames rollout of a 1x1 cell in one launch: frames [n_steps + 1, H, W, 2]
-// (frame 0 = h0), one cluster of n_cta CTAs of `threads` threads.  A card
-// that cannot hold the cluster returns cudaErrorLaunchOutOfResources before
-// anything is launched; `clusters` gets the occupancy query's count.
+// (frame 0 = h0), one cluster of n_cta CTAs of `threads` threads; with
+// final_only, `frames` is the final state [H, W, 2] alone, and at n_steps = 0
+// h0 is copied there and nothing is launched.  A card that cannot hold the
+// cluster returns cudaErrorLaunchOutOfResources before anything is
+// launched; `clusters` gets the occupancy query's count.
 extern "C" int cell2d_rollout_cluster(const void* params, int n_params, const void* h0,
-                                      void* frames, int n_steps, int H, int W, int hidden,
-                                      int n_branches, float dt, float inv_dx2, int n_cta,
-                                      int threads, void* stream, int* clusters) {
+                                      void* frames, int n_steps, int final_only, int H, int W,
+                                      int hidden, int n_branches, float dt, float inv_dx2,
+                                      int n_cta, int threads, void* stream, int* clusters) {
   if (hidden != kClusterC || n_branches != kClusterNB ||
       n_params != 2 + 2 * ClusterParams::kBlock || n_cta < 1 || 2 * n_cta > H ||
       threads < 32 || threads > kClusterThreads)
@@ -416,6 +435,11 @@ extern "C" int cell2d_rollout_cluster(const void* params, int n_params, const vo
   cudaError_t err = cluster_occupancy(H, W, n_cta, threads, clusters);
   if (err != cudaSuccess) return err;
   if (*clusters < 1) return cudaErrorLaunchOutOfResources;
+  if (final_only && n_steps == 0) {
+    err = cudaMemcpyAsync(frames, h0, static_cast<size_t>(H) * W * sizeof(float2),
+                          cudaMemcpyDeviceToDevice, static_cast<cudaStream_t>(stream));
+    return err != cudaSuccess ? err : cudaGetLastError();
+  }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config;
   err = cluster_config(kClusterKernel, H, W, n_cta, threads, static_cast<cudaStream_t>(stream),
@@ -423,7 +447,7 @@ extern "C" int cell2d_rollout_cluster(const void* params, int n_params, const vo
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&config, kClusterKernel, static_cast<const float*>(params),
                            static_cast<const float2*>(h0), static_cast<float2*>(frames), n_steps,
-                           H, W, dt, inv_dx2);
+                           final_only ? 1 : 0, H, W, dt, inv_dx2);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 

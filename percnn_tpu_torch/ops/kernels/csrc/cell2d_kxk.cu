@@ -35,16 +35,21 @@
 //
 // rollout2d_kxk_persistent_kernel replaces the same TPU kernel on every
 // field whose staged rows fit a block's shared memory (kxk_plan in
-// ../cell2d.py; the per-step kernel above runs past it): the whole rollout
-// in one cooperative launch, one block an SM, each block owning a fixed
-// run of cells for every step, the branch product on the tensor cores in
-// 3xTF32 (kxk_mma.cuh).  Bound on the same card with the product at the
-// tensor cores' 495 TFLOP/s dense TF32 (three passes) and the rest at the
-// f32 peak: about 0.6 us a step at 100 x 100, C = 16 (chip_smoke.py counts
-// both bounds).  Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3,
-// 700.00 W, per T = 200 at 100 x 100: 0.848 ms, one launch, 4.24 us a step
-// (a grid barrier alone is 1.12 us); rollout2d_kxk_kernel 2.264 ms in the
-// same call.
+// ../cell2d.py; the per-step kernel above runs past it), and in its
+// final-state mode percnn_tpu/ops/pallas/cell2d.py:_final_kernel on the
+// same fields (final_plan; final2d_kernel in cell2d.cu past it and with the
+// MXU switch off): the whole rollout in one cooperative launch, one block
+// an SM, each block owning a fixed run of cells for every step, the branch
+// product on the tensor cores in 3xTF32 (kxk_mma.cuh).  Bound on the same
+// card with the product at the tensor cores' 495 TFLOP/s dense TF32 (three
+// passes) and the rest at the f32 peak: about 0.6 us a step at 100 x 100,
+// C = 16 (chip_smoke.py counts both bounds).  Measured by chip_smoke.py on
+// an NVIDIA H100 80GB HBM3, 700.00 W, per T = 200 at 100 x 100: 0.848 ms,
+// one launch, 4.24 us a step (a grid barrier alone is 1.12 us);
+// rollout2d_kxk_kernel 2.264 ms in the same call.  The final-state mode
+// over Burgers' 1200-step serving horizon: 5.068 ms, one launch, 4.22 us a
+// step, against 23.002 ms for final2d_kernel<5, 3> (one launch a step,
+// FFMA) in the same call.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -138,12 +143,29 @@ namespace cg = cooperative_groups;
 // branch product and the w_out sum in registers (two shfl_xor), and lanes
 // t = 0 and 1 of each group write equation o of frame t + 1 at cells g and
 // g + 8.  One grid.sync() a step makes frame t + 1 visible.
+//
+// With final_only (the final-state request, in place of _final_kernel) no
+// frame is stored: `out` is the final state [H, W, 2], and the steps
+// ping-pong between it and `scratch` ([H, W, 2]): step s reads h0 (s = 0)
+// or what step s - 1 wrote, and writes `out` when n_steps - 1 - s is even,
+// else `scratch` (final_schedule in ../cell2d.py; final_state in cell2d.cu
+// keeps the same order), so the last step writes `out`.  The arithmetic is
+// the frames path's, so the final state equals the last frame to the bit.
+// The buffers are rewritten, every other step, at the addresses that step
+// s - 2 read (the frames path never reuses an address); one grid.sync() a
+// step is still enough: step s writes only the buffer that step s - 1
+// read, and every block staged step s - 1's rows (stage_rows, then
+// __syncthreads) before the barrier that ended step s - 1, which step s's
+// writes come after.  The rows are loaded with __ldcg, through L2, and the
+// buffers take no const __restrict__, so no load can be served from a
+// stale line of an SM's L1.  The flag is an argument, not a template
+// parameter, so one compiled kernel serves both requests.
 template <int KS, int NB, int CH>
 __global__ void __launch_bounds__(kxk_mma::kMaxThreads, 1)
     rollout2d_kxk_persistent_kernel(const float* __restrict__ bfrag,
-                                    const float* __restrict__ tail, float2* frames,
-                                    int n_steps, int H, int W, int hidden, float dt,
-                                    float inv_dx2) {
+                                    const float* __restrict__ tail, const float2* h0,
+                                    float2* out, float2* scratch, int n_steps, int final_only,
+                                    int H, int W, int hidden, float dt, float inv_dx2) {
   using namespace kxk_mma;
   using D = Dims<KS, NB, CH>;
   cg::grid_group grid = cg::this_grid();
@@ -165,9 +187,18 @@ __global__ void __launch_bounds__(kxk_mma::kMaxThreads, 1)
   const float* tf = reinterpret_cast<const float*>(tile);
 
   for (int s = 0; s < n_steps; ++s) {
-    stage_rows(tile, frames + static_cast<size_t>(s) * cells, H, W, sh);
+    const float2* src;
+    float2* dst;
+    if (final_only) {
+      src = s == 0 ? h0 : ((n_steps - s) % 2 == 0 ? out : scratch);
+      dst = (n_steps - 1 - s) % 2 == 0 ? out : scratch;
+    } else {
+      src = out + static_cast<size_t>(s) * cells;
+      dst = out + static_cast<size_t>(s + 1) * cells;
+    }
+    stage_rows(tile, src, H, W, sh);
     __syncthreads();
-    float* out = reinterpret_cast<float*>(frames + static_cast<size_t>(s + 1) * cells);
+    float* next = reinterpret_cast<float*>(dst);
     for (int tl = pair; tl < n_tiles; tl += pairs) {
       const int r0 = tl * kTile + g, r1 = r0 + 8;
       const int idx0 = sh.first + min(r0, sh.n_own - 1);
@@ -199,7 +230,7 @@ __global__ void __launch_bounds__(kxk_mma::kMaxThreads, 1)
         const int idx = sh.first + r;
         const int ctr = centre(idx, W, sh.row0) + o;
         const float pi = (t4 == 0 ? p0 : p1) + st[2 + 2 * D::kC8 + o];
-        out[idx * 2 + o] = tf[ctr] + dt * (st[o] * lap_at(tf, ctr, W, inv_dx2) + pi);
+        next[idx * 2 + o] = tf[ctr] + dt * (st[o] * lap_at(tf, ctr, W, inv_dx2) + pi);
       }
     }
     grid.sync();
@@ -226,19 +257,25 @@ cudaError_t persistent_occupancy(size_t smem, int threads, int* per_sm) {
 
 template <int KS, int NB, int CH>
 cudaError_t persistent_rollout(const float* bfrag, const float* tail, const float2* h0,
-                               float2* frames, int n_steps, int H, int W, int hidden, float dt,
-                               float inv_dx2, int blocks, int threads, size_t smem,
-                               cudaStream_t stream, int* per_sm) {
+                               float2* out, float2* scratch, int n_steps, int final_only, int H,
+                               int W, int hidden, float dt, float inv_dx2, int blocks,
+                               int threads, size_t smem, cudaStream_t stream, int* per_sm) {
   // the plan's bytes must be the kernel's
   if (smem != persistent_smem<KS, NB, CH>(H, W, blocks)) return cudaErrorInvalidValue;
+  if (final_only && scratch == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = persistent_occupancy<KS, NB, CH>(smem, threads, per_sm);
   if (err != cudaSuccess) return err;
   err = kxk_mma::check_coresident(blocks, *per_sm);
   if (err != cudaSuccess) return err;
-  const size_t cells = static_cast<size_t>(H) * W;
-  err = cudaMemcpyAsync(frames, h0, cells * sizeof(float2), cudaMemcpyDeviceToDevice, stream);
-  if (err != cudaSuccess || n_steps == 0) return err;
-  void* args[] = {&bfrag, &tail, &frames, &n_steps, &H, &W, &hidden, &dt, &inv_dx2};
+  // frame 0 of the frames, or the final state of no steps: a copy of h0
+  if (!final_only || n_steps == 0) {
+    const size_t cells = static_cast<size_t>(H) * W;
+    err = cudaMemcpyAsync(out, h0, cells * sizeof(float2), cudaMemcpyDeviceToDevice, stream);
+    if (err != cudaSuccess || n_steps == 0) return err;
+  }
+  final_only = final_only ? 1 : 0;
+  void* args[] = {&bfrag, &tail, &h0, &out, &scratch, &n_steps, &final_only, &H, &W, &hidden,
+                  &dt, &inv_dx2};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(rollout2d_kxk_persistent_kernel<KS, NB, CH>),
       dim3(blocks), dim3(threads), args, smem, stream);
@@ -270,22 +307,27 @@ extern "C" int cell2d_kxk_rollout(const void* wm, const void* tail, const void* 
 // most the card's co-resident count, else cudaErrorCooperativeLaunchTooLarge
 // before anything is launched; bytes other than the kernel's own,
 // cudaErrorInvalidValue).  bfrag is pack_mma_fwd_2d's [kRow / 8, 2 nb ch, 32,
-// 2] operand, ch = ceil(C / 8), 1 or 2.  `per_sm` gets the occupancy
-// query's blocks an SM.
+// 2] operand, ch = ceil(C / 8), 1 or 2.  `out` is frames [n_steps + 1, H, W,
+// 2] (frame 0 = h0; `scratch` unused), or with final_only the final state
+// [H, W, 2], `scratch` a second [H, W, 2] buffer (h0 copied to `out`, and
+// nothing launched, at n_steps = 0).  `per_sm` gets the occupancy query's
+// blocks an SM.
 extern "C" int cell2d_kxk_rollout_persistent(const void* bfrag, const void* tail,
-                                             const void* h0, void* frames, int n_steps, int H,
-                                             int W, int hidden, int n_branches, int kernel_size,
-                                             int ch, float dt, float inv_dx2, int blocks,
-                                             int threads, int smem, void* stream, int* per_sm) {
+                                             const void* h0, void* out, void* scratch,
+                                             int n_steps, int final_only, int H, int W,
+                                             int hidden, int n_branches, int kernel_size, int ch,
+                                             float dt, float inv_dx2, int blocks, int threads,
+                                             int smem, void* stream, int* per_sm) {
   const float* b = static_cast<const float*>(bfrag);
   const float* t = static_cast<const float*>(tail);
   const float2* h = static_cast<const float2*>(h0);
-  float2* f = static_cast<float2*>(frames);
+  float2* f = static_cast<float2*>(out);
+  float2* sc = static_cast<float2*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!kxk_mma::valid_grid(blocks, threads, H * W)) return cudaErrorInvalidValue;
   const size_t bytes = static_cast<size_t>(smem);
-  KXK_MMA_DISPATCH(persistent_rollout, b, t, h, f, n_steps, H, W, hidden, dt, inv_dx2, blocks,
-                   threads, bytes, s, per_sm)
+  KXK_MMA_DISPATCH(persistent_rollout, b, t, h, f, sc, n_steps, final_only, H, W, hidden, dt,
+                   inv_dx2, blocks, threads, bytes, s, per_sm)
 }
 
 // How many blocks of rollout2d_kxk_persistent_kernel an SM holds at once,

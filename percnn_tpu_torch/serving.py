@@ -2,12 +2,16 @@
 
 Counterpart of ``build_serving_fn`` in percnn_tpu/serving.py with
 ``use_pallas=True``: the ISG upsamples the request in-graph, then the fused
-rollout runs on the card: a 2D cell through ``cell2d.fused_rollout_2d`` for
-frames (``rollout2d_kernel``, or for a k x k cell with MXU_FWD_ENABLED
-``rollout2d_kxk_kernel``) and ``fused_rollout_final_2d`` for the final
-state (``final2d_kernel``, any kernel size), a 3D cell through
-``rollout3d_kernel`` (frames, or the final state without frame writes).  For 3D the JAX package serves with its jnp rollout; the
-math is the same.  Export and load of a serialized model come later.
+rollout runs on the card, one launch a request on the models' shapes: a 2D
+cell through ``cell2d.fused_rollout_2d`` for frames and
+``cell2d.fused_rollout_final_2d`` for the final state, both by the same
+one-launch kernels (``rollout2d_cluster_kernel`` for the GS2D cell,
+``rollout2d_kxk_persistent_kernel`` for a k x k cell with MXU_FWD_ENABLED;
+the final state without frame writes, equal to the last frame), or past
+their plans one launch a step (``rollout2d_kernel``, ``final2d_kernel``); a
+3D cell through ``cell3d.fused_rollout_3d`` (frames, or the final state
+without frame writes).  For 3D the JAX package serves with its jnp rollout;
+the math is the same.  Export and load of a serialized model come later.
 """
 
 from __future__ import annotations

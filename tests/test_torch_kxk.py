@@ -213,8 +213,9 @@ def test_kernel_size_outside_the_kernels_raises(kernel_size):
         cell2d.fused_rollout_2d({}, torch.zeros(8, 8, 2), cfg, 1)
 
 
-def test_final_state_of_kxk_cell_is_queued():
-    """The final state of a 5x5 cell (final2d_kernel's k > 1 contract)
+def test_final_state_of_kxk_cell_matches_pallas():
+    """The final state of a 5x5 cell (on the card the final-state mode of
+    rollout2d_kxk_persistent_kernel, or final2d_kernel's k > 1 contract)
     against percnn_tpu's fused_rollout_final_2d in interpret mode, and
     final-state serving against the last served frame."""
     jcfg, jp, cfg, tp = _pair("k5")

@@ -23,33 +23,41 @@ from percnn_tpu_torch.serving import build_serving_fn
 
 CELL = dict(ndim=2, hidden=8, kernel_size=1, dt=0.5, dx=0.01,
             diffusion="sigmoid", mu_up=3.99e-5, init_scale=0.02)
+# a 5x5 cell (the Burgers Stage-1 model's form, narrow)
+CELL5 = dict(ndim=2, hidden=3, kernel_size=5, dt=0.05, dx=0.2, diffusion="sigmoid",
+             mu_up=0.2, init_scale=0.3)
 ISG = dict(ndim=2, hidden=8, strides=(2, 2), activation="sigmoid")
 
 
-def _model(seed=0):
+def _model(seed=0, cell=CELL):
     k1, k2 = jax.random.split(jax.random.PRNGKey(seed))
-    jm = {"cell": j_init_pi_cell(k1, JPiCellConfig(**CELL)),
+    jm = {"cell": j_init_pi_cell(k1, JPiCellConfig(**cell)),
           "isg": j_init_isg(k2, JISGConfig(**ISG))}
     return jm, jax.tree_util.tree_map(np.asarray, jm)
 
 
-def _ic_low(seed=1):
+def _ic_low(seed=1, n=8):
     rng = np.random.RandomState(seed)
-    return rng.uniform(0.0, 1.0, (8, 8, 2)).astype(np.float32)
+    return rng.uniform(0.0, 1.0, (n, n, 2)).astype(np.float32)
 
 
-@pytest.mark.parametrize("final_only", [False, True])
-def test_serving_matches_jax(final_only):
-    jm, nm = _model()
-    x = _ic_low()
+@pytest.mark.parametrize("final_only, cell, n_low, steps", [
+    pytest.param(False, CELL, 8, 6, id="False"),
+    pytest.param(True, CELL, 8, 6, id="True"),
+    pytest.param(True, CELL5, 4, 3, id="True-k5"),
+])
+def test_serving_matches_jax(final_only, cell, n_low, steps):
+    jm, nm = _model(cell=cell)
+    x = _ic_low(n=n_low)
     want = np.asarray(j_build_serving_fn(
-        jm, JPiCellConfig(**CELL), 6, isg_cfg=JISGConfig(**ISG),
+        jm, JPiCellConfig(**cell), steps, isg_cfg=JISGConfig(**ISG),
         final_only=final_only, use_pallas=True)(jnp.asarray(x)))
-    fn = build_serving_fn(nm, PiCellConfig(**CELL), 6, isg_cfg=ISGConfig(**ISG),
+    fn = build_serving_fn(nm, PiCellConfig(**cell), steps, isg_cfg=ISGConfig(**ISG),
                           final_only=final_only, device="cpu")
     got = fn(x)
+    n = 4 * n_low
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
-    assert got.shape == ((32, 32, 2) if final_only else (7, 32, 32, 2))
+    assert got.shape == ((n, n, 2) if final_only else (steps + 1, n, n, 2))
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=1e-5)
 
 
