@@ -21,10 +21,11 @@ since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
   build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel,
-               ptxas's registers and spills, and the one-launch kernels'
+               ptxas's registers and spills, the one-launch kernels'
                plans at GS2D's, GS3D's and Burgers' shapes (cluster size,
                co-resident grid, threads, bytes) beside what the card holds
-               of them
+               of them, and the k = 5 FFMA kernels' instruction mix
+               (cuobjdump: FFMA and shared-memory loads)
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_persistent_kernel (one launch, 6
                steps) against tests/golden/pt_gs3d.npz
@@ -71,10 +72,19 @@ since start:
                846), counted; the fused k x k gradients (counted) and those
                of remat (eager autograd) against f64 autograd (random-init
                cell, random target, 12 steps, 100 x 100)
-  kernels_fallback  rollout2d_kernel (T = 200) and final2d_kernel (1200
-               steps, through the entry point with the MXU switch off,
-               counted) at k = 5, adj2d_ys_kernel and adj2d_kernel at k = 5
-               (T = 200) on the golden Burgers cell, adj2d_kernel at k = 1
+  kernels_fallback  the MXU-off route of the 5x5 cell on the golden Burgers
+               cell: rollout2d_ffma_persistent_kernel (ffma_plan's route at
+               100 x 100) and rollout2d_kernel<5> (the per-step route) against
+               their plain version and each other (T = 200, Burgers IC),
+               adj2d_ys_persistent_kernel (ys_plan's) and adj2d_ys_kernel
+               against their plain sweep and each other (a standard-normal
+               cotangent); the final state over 1200 steps through the entry
+               point with the MXU switch off (one launch, the FFMA kernel's
+               final-state mode) against plain and the frames route's last
+               frame (to the bit), final2d_kernel<5> against plain; each
+               route through the entry points on 17 x 9 and past the plans
+               (1407 x 1407 forward and final state, 149 x 149 sweep), exact
+               launches and steps; adj2d_kernel at k = 5 (T = 200) and k = 1
                (T = 200, golden GS2D cell, data-loss cotangent) and
                adj3d_kernel (48^3, T = 50, golden GS3D cell) against their
                plain versions
@@ -112,7 +122,8 @@ since start:
   train_burgers_parity  as train_parity for Burgers: 32 x 32, T = 20,
                5 iterations
   train_fallback  run_experiment(BURGERS_STAGE1) with the MXU switches off
-               (10 iterations at T = 200, the cached truth, the evaluation),
+               (10 iterations at T = 200, the cached truth, the evaluation:
+               one launch a rollout and a sweep, ms per iteration),
                and build_loss_fn(bptt="fused") + train for 5 iterations of
                GS2D at T = 800 and of GS3D at T = 300 and 3 of Burgers with
                YS_PATH_ENABLED off, every launch counted
@@ -167,21 +178,25 @@ since start:
                device ms, enqueue, and the device's idle share from a
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
-               shapes, beside the card's bound for the same work (rows 1,
-               2 (k = 1 and 5), 3, 6, 7, 8 and 10 also by their per-step
-               routes, in turns in the same call; rows 2 at k = 5, 3 and 6
-               with the bound in 3xTF32 and all in FFMA),
+               shapes, beside the card's bound for the same work (rows 1
+               (k = 1 and 5), 2 (k = 1, and k = 5 by both MXU routes), 3, 5,
+               6, 7, 8 and 10 also by their per-step routes, in turns in the
+               same call; rows 2 at k = 5, 3 and 6 with the bound in 3xTF32
+               and all in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (25 entries: the 14 ported TPU kernels,
-row 2 by its two one-launch routes, rollout2d_cluster_kernel[final] and
-rollout2d_kxk_persistent_kernel[final], with the k = 5 contracts of
-rollout2d_kernel, adj2d_kernel, rollout2d_batched_kernel and
-adj2d_batched_kernel and the per-step routes of rows 2 (final2d_kernel,
-final2d_kernel[k=5]), 3, 6, 8 and 10 (rollout2d_kxk_kernel,
-adj2d_kxk_kernel, rollout3d_kernel, pg3d_kernel) listed apart), the
+Then a ``{"kernels": [...]}`` line (28 entries: the 14 ported TPU kernels,
+row 1 at k = 5 by rollout2d_ffma_persistent_kernel, row 2 by its three
+one-launch routes, rollout2d_cluster_kernel[final],
+rollout2d_kxk_persistent_kernel[final] and
+rollout2d_ffma_persistent_kernel[final], with the k = 5 contracts of
+adj2d_kernel, rollout2d_batched_kernel and adj2d_batched_kernel and the
+per-step routes of rows 1 at k = 5 (rollout2d_kernel[k=5]), 2
+(final2d_kernel, final2d_kernel[k=5]), 3, 5, 6, 8 and 10
+(rollout2d_kxk_kernel, adj2d_ys_kernel, adj2d_kxk_kernel, rollout3d_kernel,
+pg3d_kernel) listed apart), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
@@ -355,6 +370,32 @@ def bound_3xtf32_ms(bytes_moved: float, mma_flops: float, other_flops: float) ->
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sass_mix(lib_path, names) -> dict | None:
+    """Per kernel of `names` (its k = 5, 3-branch instance) in the library's
+    machine code (cuobjdump -sass): the instructions, the FFMAs and the
+    shared-memory loads (all, and 16-byte ones) as they stand in the code,
+    a loop's body once; None where the toolkit has no cuobjdump."""
+    import re
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                         check=True).stdout
+    mix = {}
+    for chunk in out.split("Function : ")[1:]:
+        fn = chunk.split(None, 1)[0]
+        name = next((n for n in names if f"{len(n)}{n}ILi5ELi3E" in fn), None)
+        if name is None:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", chunk)
+        mix[name] = {"instructions": len(ops), "FFMA": sum(o.startswith("FFMA") for o in ops),
+                     "LDS": sum(o.startswith("LDS") for o in ops),
+                     "LDS.128": sum(o.startswith("LDS.128") for o in ops)}
+    return mix
+
+
 def cuda_ms(torch, fn, reps: int) -> float:
     """Mean device ms of fn() over reps calls, by CUDA events, after one warm-up."""
     fn()
@@ -471,7 +512,7 @@ def main() -> int:
         return time.perf_counter() - t
 
     sources = ("cell2d", "backward2d", "cell3d", "backward3d", "cell2d_kxk", "backward2d_kxk",
-               "adj2d", "batched2d", "sharded_step2d")
+               "adj2d", "batched2d", "sharded_step2d", "cell2d_ffma")
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(build, sources)))
     n_gs2d = GS2D_RECON.grid
@@ -495,6 +536,16 @@ def main() -> int:
                                       BURGERS_STAGE1.cell, cell2d._sm_count(dev)),
             "blocks_an_sm_holds": backward2d.kxk_adj_occupancy(
                 BURGERS_STAGE1.cell, BURGERS_STAGE1.grid, BURGERS_STAGE1.grid, dev)},
+        "rollout2d_ffma_persistent_kernel": {
+            **cell2d.ffma_plan(BURGERS_STAGE1.grid, BURGERS_STAGE1.grid, BURGERS_STAGE1.cell,
+                               cell2d._sm_count(dev)),
+            "blocks_an_sm_holds": cell2d.ffma_occupancy(BURGERS_STAGE1.cell, BURGERS_STAGE1.grid,
+                                                        BURGERS_STAGE1.grid, dev)},
+        "adj2d_ys_persistent_kernel": {
+            **backward2d.ys_plan(BURGERS_STAGE1.grid, BURGERS_STAGE1.grid, BURGERS_STAGE1.cell,
+                                 cell2d._sm_count(dev)),
+            "blocks_an_sm_holds": backward2d.ys_occupancy(BURGERS_STAGE1.cell, BURGERS_STAGE1.grid,
+                                                          BURGERS_STAGE1.grid, dev)},
         "rollout3d_persistent_kernel": {
             **cell3d.rollout3d_plan(*(GS3D_RECON.grid,) * 3, cell2d._sm_count(dev)),
             "blocks_an_sm_holds": cell3d.rollout3d_occupancy(*(GS3D_RECON.grid,) * 3, dev)},
@@ -506,12 +557,22 @@ def main() -> int:
     check(one_launch["rollout2d_cluster_kernel"]["clusters_the_card_holds"] >= 1
           and all(one_launch[k]["blocks_an_sm_holds"] >= 1
                   for k in ("pg2d_persistent_kernel", "rollout2d_kxk_persistent_kernel",
-                            "adj2d_kxk_persistent_kernel", "rollout3d_persistent_kernel",
+                            "adj2d_kxk_persistent_kernel", "rollout2d_ffma_persistent_kernel",
+                            "adj2d_ys_persistent_kernel", "rollout3d_persistent_kernel",
                             "pg3d_persistent_kernel")),
           f"the card holds none of a one-launch kernel's grid: {one_launch}")
+    # the k = 5, 3-branch instances of the FFMA kernels on the MXU-off route,
+    # and row 3's per-step kernel beside them: FFMA and shared-memory loads
+    # in each one's machine code
+    sass = {lib: sass_mix(_build.BUILD_DIR / f"lib{lib}.so", names) for lib, names in (
+        ("cell2d", ("rollout2d_kernel", "final2d_kernel")),
+        ("cell2d_kxk", ("rollout2d_kxk_kernel",)),
+        ("cell2d_ffma", ("rollout2d_ffma_persistent_kernel",)),
+        ("adj2d", ("adj2d_act_kernel", "adj2d_ys_act_kernel", "adj2d_ys_persistent_kernel")))}
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
                             for n in sources},
-          ptxas={n: _build.PTXAS.get(n) for n in sources}, one_launch=one_launch)
+          ptxas={n: _build.PTXAS.get(n) for n in sources}, one_launch=one_launch,
+          sass_k5_nb3=sass)
 
     cfg, isg_cfg = GS2D_RECON.cell, GS2D_RECON.isg
     with np.load(GOLDEN) as z:
@@ -992,6 +1053,7 @@ def main() -> int:
     # every launch and step counter of the port's kernels
     counters = [(cell2d.fused_rollout_2d, "launches"), (cell2d.fused_rollout_2d, "steps"),
                 (cell2d.fused_rollout_2d, "launches_kxk"),
+                (cell2d.fused_rollout_2d, "steps_kxk"),
                 (cell2d.fused_rollout_final_2d, "launches"),
                 (cell2d.fused_rollout_final_2d, "steps"),
                 (cell2d.fused_rollout_final_2d, "launches_kxk"),
@@ -1004,6 +1066,7 @@ def main() -> int:
                 (backward2d.fused_rollout_tp_2d, "steps"),
                 (backward2d.fused_phase1_2d, "launches"),
                 (backward2d.fused_phase1_ys_2d, "launches"),
+                (backward2d.fused_phase1_ys_2d, "steps"),
                 (backward3d.fused_phase1_3d, "launches"),
                 (backward2d.fused_rollout_tp_2d_pg, "launches"),
                 (backward2d.fused_rollout_tp_2d_pg, "steps"),
@@ -1264,49 +1327,170 @@ def main() -> int:
         err[name] = max(e for e, _ in out.values())
         return out
 
-    # rollout2d_kernel and final2d_kernel at k = 5 on the golden Burgers cell:
-    # frames from the Burgers IC, as rollout2d_kxk_kernel's check; the final
-    # state over the serving horizon from kernels_kxk's h0 (the ISG's answer
-    # to a Burgers request), through the entry point with the MXU switch off
-    # (PERCNN_DISABLE_MXU=1's route), counted
-    framesb = cell2d._rollout_cuda(packedb, h0b, cfgb, CHECK_KXK_STEPS)
+    @contextlib.contextmanager
+    def switches(fwd, bwd, ys):
+        """cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED and
+        backward2d.YS_PATH_ENABLED for the forward and the backward inside."""
+        saved = (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED, backward2d.YS_PATH_ENABLED)
+        cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED, backward2d.YS_PATH_ENABLED = (
+            fwd, bwd, ys)
+        try:
+            yield
+        finally:
+            (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED,
+             backward2d.YS_PATH_ENABLED) = saved
+
+    # the MXU-off route of the 5x5 cell (PERCNN_DISABLE_MXU=1's) on the golden
+    # Burgers cell.  Frames from the Burgers IC (as rollout2d_kxk_kernel's
+    # check) by rollout2d_ffma_persistent_kernel (ffma_plan's route at
+    # 100 x 100) and rollout2d_kernel<5> (the per-step route), against the
+    # plain version and each other (another summation order: not bitwise)
+    check(cell2d.ffma_plan(nb_grid, nb_grid, cfgb, n_sm)["route"] == "persistent",
+          f"ffma_plan at {nb_grid}: {cell2d.ffma_plan(nb_grid, nb_grid, cfgb, n_sm)}")
+    framesb = cell2d._rollout_ffma_persistent_cuda(packedb, h0b, cfgb, CHECK_KXK_STEPS)
+    framesb_steps = cell2d._rollout_steps_cuda(packedb, h0b, cfgb, CHECK_KXK_STEPS)
     want = cell2d.fused_rollout_2d_plain(packedb, h0b, cfgb, CHECK_KXK_STEPS)
-    check(cell2d.final_plan(nb_grid, nb_grid, cfgb, n_sm, mxu=False)["route"] == "per_step",
-          "final_plan with the MXU switch off takes a one-launch route")
-    mxu_saved, cell2d.MXU_FWD_ENABLED = cell2d.MXU_FWD_ENABLED, False
-    try:
-        zero_counts()
+    torch.cuda.synchronize()
+    err["rollout2d_ffma_persistent_kernel"] = max_abs(framesb, want)
+    err["rollout2d_kernel[k=5]"] = max_abs(framesb_steps, want)
+    ffma_routes_err = max_abs(framesb, framesb_steps)
+    ffma_routes_equal = bool(torch.equal(framesb, framesb_steps))
+    for label, a, b in (("rollout2d_ffma_persistent_kernel vs plain", framesb, want),
+                        ("rollout2d_kernel k = 5 vs plain", framesb_steps, want),
+                        ("rollout2d_ffma_persistent_kernel vs rollout2d_kernel k = 5", framesb,
+                         framesb_steps)):
+        check(allclose(a, b, rtol=2e-4, atol=1e-5), f"{label}: max |diff| {max_abs(a, b)}")
+    del framesb_steps, want
+    # the final state over the serving horizon from kernels_kxk's h0 (the
+    # ISG's answer to a Burgers request) through the entry point with the MXU
+    # switch off: one launch of the FFMA kernel's final-state mode, against
+    # plain and, to the bit, the frames route's last frame from the same h0;
+    # final2d_kernel<5> (the route past the plan) against plain on that input
+    check(cell2d.final_plan(nb_grid, nb_grid, cfgb, n_sm, mxu=False)["route"] == "persistent",
+          "final_plan with the MXU switch off takes no one-launch route at "
+          f"{nb_grid}: {cell2d.final_plan(nb_grid, nb_grid, cfgb, n_sm, mxu=False)}")
+    zero_counts()
+    with switches(False, False, True):
         final5 = cell2d.fused_rollout_final_2d(paramsb["cell"], h0s, cfgb, horizon)
-        torch.cuda.synchronize()
-        final5_off_counts = read_counts()
-    finally:
-        cell2d.MXU_FWD_ENABLED = mxu_saved
-    check(final5_off_counts == {"fused_rollout_final_2d.launches_kxk": horizon,
+    torch.cuda.synchronize()
+    final5_off_counts = read_counts()
+    check(final5_off_counts == {"fused_rollout_final_2d.launches_kxk": 1,
                                 "fused_rollout_final_2d.steps_kxk": horizon},
-          f"final2d_kernel k = 5 with the MXU switch off: counts {final5_off_counts}")
-    final_steps_launches["kernels_fallback (MXU off)"] = horizon
-    check(bool(torch.isfinite(final5).all()),
-          f"final2d_kernel k = 5 over {horizon} steps: finite {bool(torch.isfinite(final5).all())}")
-    err["rollout2d_kernel[k=5]"] = max_abs(framesb, want)
-    err["final2d_kernel[k=5]"] = max_abs(final5, final5_want)
-    check(allclose(framesb, want, rtol=2e-4, atol=1e-5),
-          f"rollout2d_kernel k = 5 vs plain: max |diff| {err['rollout2d_kernel[k=5]']}")
+          f"k = 5 final state with the MXU switch off: counts {final5_off_counts}")
+    final5_frame = cell2d._rollout_ffma_persistent_cuda(packedb, h0s, cfgb, horizon)[-1]
+    final5_steps = cell2d._final_steps_cuda(packedb, h0s, cfgb, horizon)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(final5).all() and torch.isfinite(final5_steps).all()),
+          f"k = 5 final states over {horizon} steps with the MXU switch off: finite "
+          f"{bool(torch.isfinite(final5).all())}, {bool(torch.isfinite(final5_steps).all())}")
+    err["rollout2d_ffma_persistent_kernel[final]"] = max_abs(final5, final5_want)
+    err["final2d_kernel[k=5]"] = max_abs(final5_steps, final5_want)
     check(allclose(final5, final5_want, rtol=2e-4, atol=1e-5),
+          f"rollout2d_ffma_persistent_kernel[final] vs plain: max |diff| "
+          f"{err['rollout2d_ffma_persistent_kernel[final]']}")
+    check(allclose(final5_steps, final5_want, rtol=2e-4, atol=1e-5),
           f"final2d_kernel k = 5 vs plain: max |diff| {err['final2d_kernel[k=5]']}")
-    # adj2d_ys_kernel and adj2d_kernel at k = 5 on those frames, a
-    # standard-normal cotangent (as adj2d_kxk_kernel's check)
+    final5_off_vs_frame = max_abs(final5, final5_frame)
+    check(torch.equal(final5, final5_frame),
+          f"rollout2d_ffma_persistent_kernel[final] vs the frames' last frame: max |diff| "
+          f"{final5_off_vs_frame}")
+    del final5_frame, final5_steps
+    # the ys sweep on those frames, a standard-normal cotangent (as
+    # adj2d_kxk_kernel's check): adj2d_ys_persistent_kernel (ys_plan's route
+    # at 100 x 100) and adj2d_ys_kernel against the plain sweep and each
+    # other; adj2d_kernel at k = 5 against its plain sweep
     fbarb = torch.as_tensor(np.random.RandomState(4).standard_normal(tuple(framesb.shape)),
                             dtype=torch.float32, device=dev)
     ysb = backward2d._precompute_ys(paramsb["cell"], framesb[:-1], cfgb)
+    check(backward2d.ys_plan(nb_grid, nb_grid, cfgb, n_sm)["route"] == "persistent",
+          f"ys_plan at {nb_grid}: {backward2d.ys_plan(nb_grid, nb_grid, cfgb, n_sm)}")
+    ys_plain = backward2d.fused_phase1_ys_2d_plain(packedb, fbarb, ysb, cfgb)
+    ys_one = backward2d._phase1_ys_persistent_cuda(packedb, fbarb, ysb, cfgb)
+    ys_steps = backward2d._phase1_ys_steps_cuda(packedb, fbarb, ysb, cfgb)
     fallback_errs = {
-        "adj2d_ys_kernel": sweep_errs(
-            "adj2d_ys_kernel", backward2d._phase1_ys_cuda(packedb, fbarb, ysb, cfgb),
-            backward2d.fused_phase1_ys_2d_plain(packedb, fbarb, ysb, cfgb)),
+        "adj2d_ys_persistent_kernel": sweep_errs("adj2d_ys_persistent_kernel", ys_one, ys_plain),
+        "adj2d_ys_kernel": sweep_errs("adj2d_ys_kernel", ys_steps, ys_plain),
         "adj2d_kernel[k=5]": sweep_errs(
             "adj2d_kernel[k=5]", backward2d._phase1_cuda(packedb, framesb, fbarb, cfgb),
             backward2d.fused_phase1_2d_plain(packedb, framesb, fbarb, cfgb)),
     }
-    del ysb, want
+    ys_routes_err = {}
+    for key, a, b in zip(("g_ins", "g0"), ys_one, ys_steps):
+        e, scale = max_abs(a, b), float(b.abs().max())
+        check(e <= 2e-4 * scale + 2e-6, f"adj2d_ys_persistent_kernel vs adj2d_ys_kernel, {key}: "
+                                        f"max |diff| {e} over 2e-4 * {scale} + 2e-6")
+        ys_routes_err[key] = [e, scale]
+    del ysb, ys_plain, ys_one, ys_steps
+    # each MXU-off route through its entry point on 17 x 9 (the one-launch
+    # kernels) and past its plan (1407 x 1407 forward and final state,
+    # 149 x 149 sweep: the per-step kernels), launches and steps counted,
+    # against plain
+    ffma_route_checks, ffma_steps_launches = {}, {}
+    ffma_final_launches = {"kernels_fallback (100 x 100, 1200 steps)":
+                           final5_off_counts["fused_rollout_final_2d.launches_kxk"]}
+    for call, shape, steps_, route in (
+            ("frames", (17, 9), 30, "persistent"), ("frames", (1407, 1407), 3, "per_step"),
+            ("final", (17, 9), 30, "persistent"), ("final", (1407, 1407), 3, "per_step"),
+            ("ys", (17, 9), 30, "persistent"), ("ys", (149, 149), 3, "per_step")):
+        x = torch.as_tensor(0.5 * np.random.RandomState(5).standard_normal(shape + (2,)),
+                            dtype=torch.float32, device=dev)
+        where = f"kernels_fallback ({shape[0]} x {shape[1]})"
+        if call == "ys":
+            plan = backward2d.ys_plan(*shape, cfgb, n_sm)
+            fr_ = cell2d._rollout_cuda(packedb, x, cfgb, steps_)
+            fb_ = torch.as_tensor(np.random.RandomState(6).standard_normal(tuple(fr_.shape)),
+                                  dtype=torch.float32, device=dev)
+            ys_ = backward2d._precompute_ys(paramsb["cell"], fr_[:-1], cfgb)
+            torch.cuda.synchronize()
+            zero_counts()
+            got_ = backward2d.fused_phase1_ys_2d(packedb, fb_, ys_, cfgb)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want_counts = {"fused_phase1_ys_2d.launches": 1 if route == "persistent" else 2 * steps_,
+                           "fused_phase1_ys_2d.steps": steps_}
+            errs = {}
+            for key, a, b in zip(("g_ins", "g0"), got_,
+                                 backward2d.fused_phase1_ys_2d_plain(packedb, fb_, ys_, cfgb)):
+                errs[key] = [max_abs(a, b), float(b.abs().max())]
+                check(errs[key][0] <= 2e-4 * errs[key][1] + 2e-6,
+                      f"ys sweep at {shape} ({route}) vs plain, {key}: {errs[key]}")
+            del fr_, fb_, ys_
+            if route == "per_step":
+                ffma_steps_launches["adj2d_ys_kernel"] = {where: counts["fused_phase1_ys_2d.launches"]}
+        else:
+            plan = (cell2d.ffma_plan(*shape, cfgb, n_sm) if call == "frames"
+                    else cell2d.final_plan(*shape, cfgb, n_sm, mxu=False))
+            fn_, plain_ = ((cell2d.fused_rollout_2d, cell2d.fused_rollout_2d_plain)
+                           if call == "frames" else
+                           (cell2d.fused_rollout_final_2d, cell2d.fused_rollout_final_2d_plain))
+            counter = "fused_rollout_2d" if call == "frames" else "fused_rollout_final_2d"
+            zero_counts()
+            with switches(False, False, True):
+                got_ = fn_(paramsb["cell"], x, cfgb, steps_)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want_counts = {f"{counter}.launches_kxk": 1 if route == "persistent" else steps_,
+                           f"{counter}.steps_kxk": steps_}
+            w_ = plain_(packedb, x, cfgb, steps_)
+            torch.cuda.synchronize()
+            errs = max_abs(got_, w_)
+            check(allclose(got_, w_, rtol=2e-4, atol=1e-5),
+                  f"MXU-off {call} at {shape} ({route}) vs plain: max |diff| {errs}")
+            del w_
+            if route == "per_step":
+                if call == "frames":
+                    ffma_steps_launches["rollout2d_kernel[k=5]"] = {
+                        where: counts["fused_rollout_2d.launches_kxk"]}
+                else:
+                    final_steps_launches[where] = counts["fused_rollout_final_2d.launches_kxk"]
+            elif call == "final":
+                ffma_final_launches[where] = counts["fused_rollout_final_2d.launches_kxk"]
+        check(plan["route"] == route, f"{call} plan at {shape}: {plan}, expected {route}")
+        check(counts == want_counts, f"MXU-off {call} at {shape}: counts {counts}, "
+                                     f"expected {want_counts}")
+        ffma_route_checks[f"{call} {shape[0]}x{shape[1]}"] = {
+            "route": route, "steps": steps_, "launches": counts, "plan": plan, "err": errs}
+        del x, got_
     # adj2d_kernel at k = 1 on the golden GS2D cell, the data-loss cotangent
     frames1 = cell2d._rollout_cuda(packed, h0, cfg, CHECK_STEPS)
     fbar1 = cotangent(frames1)[1].contiguous()
@@ -1327,8 +1511,13 @@ def main() -> int:
           burgers_final_steps=horizon, burgers_final_counts=final5_off_counts,
           gs2d_steps=CHECK_STEPS,
           gs3d_steps=PG3D_CHECK_STEPS, shape3d=[n3, n3, n3, 2],
-          forward_max_abs_err={k: err[k] for k in ("rollout2d_kernel[k=5]",
-                                                   "final2d_kernel[k=5]")},
+          forward_max_abs_err={k: err[k] for k in (
+              "rollout2d_ffma_persistent_kernel", "rollout2d_kernel[k=5]",
+              "rollout2d_ffma_persistent_kernel[final]", "final2d_kernel[k=5]")},
+          ffma_vs_per_step_max_abs_err=ffma_routes_err,
+          ffma_vs_per_step_equal_bits=ffma_routes_equal,
+          final_vs_last_frame_max_abs_err=final5_off_vs_frame,
+          ys_persistent_vs_per_step_err_and_max=ys_routes_err, route_checks=ffma_route_checks,
           forward_rtol=2e-4, forward_atol=1e-5,
           cotangents={"Burgers": "standard normal, seed 4", "GS2D": "data loss",
                       "GS3D": "standard normal, seed 3"},
@@ -1337,19 +1526,6 @@ def main() -> int:
 
     # grads_fallback: each new route's gradients against f64 autograd on the
     # referee setup, with the launches of each route counted
-    @contextlib.contextmanager
-    def switches(fwd, bwd, ys):
-        """cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED and
-        backward2d.YS_PATH_ENABLED for the forward and the backward inside."""
-        saved = (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED, backward2d.YS_PATH_ENABLED)
-        cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED, backward2d.YS_PATH_ENABLED = (
-            fwd, bwd, ys)
-        try:
-            yield
-        finally:
-            (cell2d.MXU_FWD_ENABLED, backward2d.MXU_BWD_ENABLED,
-             backward2d.YS_PATH_ENABLED) = saved
-
     def two_phase(p, x, cfg_, steps):
         return rollout_tp(runner._cell_step_for(cfg_), p, x, steps)
 
@@ -1380,11 +1556,14 @@ def main() -> int:
                 ref3_cell, x3_ref, lambda fr: ((fr - tgt3.to(fr.dtype)) ** 2).mean(), cfg3,
                 {"fused": backward3d.fused_rollout_tp_3d, "two_phase": two_phase})
     lossb = lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean()   # noqa: E731
-    hold_to_f64("burgers_mxu_off", {"fused_rollout_2d.launches_kxk": 12,
-                                    "fused_phase1_ys_2d.launches": 24},
+    hold_to_f64("burgers_mxu_off", {"fused_rollout_2d.launches_kxk": 1,
+                                    "fused_rollout_2d.steps_kxk": 12,
+                                    "fused_phase1_ys_2d.launches": 1,
+                                    "fused_phase1_ys_2d.steps": 12},
                 refb_cell, xb_ref, lossb, cfgb, {"fused": backward2d.fused_rollout_tp_2d},
                 flags=(False, False, True))
-    hold_to_f64("burgers_ys_off", {"fused_rollout_2d.launches_kxk": 12,
+    hold_to_f64("burgers_ys_off", {"fused_rollout_2d.launches_kxk": 1,
+                                   "fused_rollout_2d.steps_kxk": 12,
                                    "fused_phase1_2d.launches": 24},
                 refb_cell, xb_ref, lossb, cfgb, {"fused": backward2d.fused_rollout_tp_2d},
                 flags=(False, False, False))
@@ -2026,11 +2205,12 @@ def main() -> int:
 
     # train_fallback: the fallback routes through the entry points a user
     # calls, every launch counted: run_experiment(BURGERS_STAGE1) with the
-    # MXU switches off (rollout2d_kernel at k = 5, adj2d_ys_kernel) on
+    # MXU switches off (rollout2d_ffma_persistent_kernel,
+    # adj2d_ys_persistent_kernel) on
     # train_burgers' cached truth; build_loss_fn(bptt="fused") and train for
     # GS2D at T = 800 (rollout2d_cluster_kernel, adj2d_kernel), GS3D at T = 300
     # (rollout3d_persistent_kernel, adj3d_kernel) and Burgers with YS_PATH_ENABLED off
-    # too (rollout2d_kernel and adj2d_kernel at k = 5), from seeded random
+    # too (rollout2d_ffma_persistent_kernel and adj2d_kernel at k = 5), from seeded random
     # inits, on served frames as the data
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_fallback_")
     try:
@@ -2044,9 +2224,12 @@ def main() -> int:
         fallback_launches = {"burgers_mxu_off": read_counts()}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    # one launch a rollout (10 iterations and the evaluation) and a sweep
     fallback_want = {"burgers_mxu_off": {
-        "fused_rollout_2d.launches_kxk": TRAIN_BURGERS_ITERS * stepsb + BURGERS_STAGE1.infer_steps,
-        "fused_phase1_ys_2d.launches": 2 * TRAIN_BURGERS_ITERS * stepsb}}
+        "fused_rollout_2d.launches_kxk": TRAIN_BURGERS_ITERS + 1,
+        "fused_rollout_2d.steps_kxk": TRAIN_BURGERS_ITERS * stepsb + BURGERS_STAGE1.infer_steps,
+        "fused_phase1_ys_2d.launches": TRAIN_BURGERS_ITERS,
+        "fused_phase1_ys_2d.steps": TRAIN_BURGERS_ITERS * stepsb}}
     histf = resf["history"]
     check(len(histf) == TRAIN_BURGERS_ITERS and bool(np.isfinite(histf).all()),
           f"Burgers training with the MXU switches off: losses {histf}")
@@ -2085,7 +2268,8 @@ def main() -> int:
                  "fused_phase1_3d.launches": FALLBACK_ITERS * t3})
     train_fused("burgers_ys_off", BURGERS_STAGE1, answersb[0], stepsb, FALLBACK_YS_OFF_ITERS,
                 (False, False, False),
-                {"fused_rollout_2d.launches_kxk": FALLBACK_YS_OFF_ITERS * stepsb,
+                {"fused_rollout_2d.launches_kxk": FALLBACK_YS_OFF_ITERS,
+                 "fused_rollout_2d.steps_kxk": FALLBACK_YS_OFF_ITERS * stepsb,
                  "fused_phase1_2d.launches": 2 * FALLBACK_YS_OFF_ITERS * stepsb})
     check(fallback_launches == fallback_want,
           f"fallback training launch counts {fallback_launches}, expected {fallback_want}")
@@ -2766,26 +2950,94 @@ def main() -> int:
                              torch.cuda.current_stream().cuda_stream) == 0,
                   "grid_barrier_kernel failed")
         grid_barrier["us_per_barrier"][threads] = 1e3 * cuda_ms(torch, barriers, 5) / GRID_BARRIERS
-    # the fallback slice at its main paths' shapes: rollout2d_kernel at k = 5
-    # (golden Burgers cell; T = 200 frames from the Burgers IC as row 3),
-    # adj2d_kernel at k = 1 (the GS2D backward above: T = 800, data-loss
-    # cotangent), adj2d_kernel at k = 5 and adj2d_ys_kernel (the Burgers
-    # backward above: T = 200), adj3d_kernel (the GS3D backward above: 48^3,
-    # T = 300); each sweep reads the T step inputs and cotangents and writes
-    # the T g_ins and g0, adj2d_ys_kernel reads the [T, 96, H, W] activations
-    # (made outside the timing, as _precompute_ys makes them) instead of the
-    # frames
+    # rows 1 (k = 5) and 5 on the MXU-off route and row 2 at k = 5 with the
+    # switch off, golden Burgers cell at 100 x 100: each one-launch FFMA
+    # kernel beside its per-step route (rollout2d_kernel<5>, adj2d_ys_kernel,
+    # final2d_kernel<5>), timed in turns; row 1 at T = 200 from the Burgers IC
+    # and over the evaluation's 1200 steps from kernels_kxk's h0 (the ISG's
+    # answer to a request), row 2 over the same 1200 steps, row 5 at T = 200
+    # on row 6's frames and cotangent (the ys made outside the timing, as
+    # _precompute_ys makes them); the bounds all in FFMA.  Then the fallback
+    # slice's other kernels at their main paths' shapes: adj2d_kernel at
+    # k = 1 (the GS2D backward above: T = 800, data-loss cotangent) and k = 5
+    # (the Burgers backward above: T = 200) and adj3d_kernel (the GS3D
+    # backward above: 48^3, T = 300); each sweep reads the T step inputs and
+    # cotangents and writes the T g_ins and g0
     packedb_bytes = 4 * packedb.numel()
     ysb = backward2d._precompute_ys(paramsb["cell"], framesb[:-1], cfgb)
     taps_rows = 2 * cfgb.kernel_size ** 2 * 2 * cell2d.mxu_rows(cfgb)
+    row1k_ms, row1k_steps_ms, row1k_turns = turns(
+        lambda: cell2d._rollout_ffma_persistent_cuda(packedb, h0b, cfgb, stepsb),
+        lambda: cell2d._rollout_steps_cuda(packedb, h0b, cfgb, stepsb), reps=5)
+    row1kh_ms, row1kh_steps_ms, row1kh_turns = turns(
+        lambda: cell2d._rollout_ffma_persistent_cuda(packedb, h0s, cfgb, horizon),
+        lambda: cell2d._rollout_steps_cuda(packedb, h0s, cfgb, horizon), reps=3)
+    row2kf_ms, row2kf_steps_ms, row2kf_turns = turns(
+        lambda: cell2d._rollout_ffma_persistent_cuda(packedb, h0s, cfgb, horizon,
+                                                     final_only=True),
+        lambda: cell2d._final_steps_cuda(packedb, h0s, cfgb, horizon), reps=3)
+    row5_ms, row5_steps_ms, row5_turns = turns(
+        lambda: backward2d._phase1_ys_persistent_cuda(packedb, fbarb, ysb, cfgb),
+        lambda: backward2d._phase1_ys_steps_cuda(packedb, fbarb, ysb, cfgb), reps=5)
+    row1k_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_2d_plain(
+        packedb, h0b, cfgb, stepsb), reps=1)
+    row5_plain_ms = cuda_ms(torch, lambda: backward2d.fused_phase1_ys_2d_plain(
+        packedb, fbarb, ysb, cfgb), reps=1)
+    b1k = bound_ms(packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes, fwdb_flops)
+    b1kh = bound_ms(packedb_bytes + stateb_bytes + (horizon + 1) * stateb_bytes,
+                    horizon * cellsb * flops_per_cell_step_kxk(cfgb))
+    b5 = bound_ms(packedb_bytes + 2 * stepsb * stateb_bytes + stateb_bytes + 4 * ysb.numel(),
+                  bwb_flops - stepsb * cellsb * taps_rows)
+    fallback_work = {"rollout2d_ffma_persistent_kernel": {"steps": stepsb, "flops": fwdb_flops},
+                     "adj2d_ys_persistent_kernel": {
+                         "steps": stepsb, "bytes": packedb_bytes + 2 * stepsb * stateb_bytes
+                         + stateb_bytes + 4 * ysb.numel(),
+                         "flops": bwb_flops - stepsb * cellsb * taps_rows}}
+    del ysb
+    train_ffma = {"train": fallback_launches["burgers_mxu_off"]["fused_rollout_2d.launches_kxk"]
+                  + fallback_launches["burgers_ys_off"]["fused_rollout_2d.launches_kxk"]}
+    train_ys = {"train": fallback_launches["burgers_mxu_off"]["fused_phase1_ys_2d.launches"]}
+    for name, route_name, replaces, source, jax_name, by_path, ms, steps_ms, turns_, plain_ms, (
+            b_ms, b_by), per_step_by_path, extra in (
+            ("rollout2d_ffma_persistent_kernel", "rollout2d_kernel[k=5]",
+             "percnn_tpu/ops/pallas/cell2d.py:332", "cell2d_ffma.cu", "cell2d._rollout_kernel",
+             train_ffma, row1k_ms, row1k_steps_ms, row1k_turns, row1k_plain_ms, b1k,
+             ffma_steps_launches["rollout2d_kernel[k=5]"],
+             {"horizon": {"steps": horizon, "ms": row1kh_ms, "us_per_step": 1e3 * row1kh_ms / horizon,
+                          "per_step_ms": row1kh_steps_ms, "turns_ms": row1kh_turns,
+                          "bound_ms": b1kh[0], "bound_by": b1kh[1]}}),
+            ("rollout2d_ffma_persistent_kernel[final]", "final2d_kernel[k=5]",
+             "percnn_tpu/ops/pallas/cell2d.py:384", "cell2d_ffma.cu", "cell2d._final_kernel",
+             ffma_final_launches, row2kf_ms, row2kf_steps_ms, row2kf_turns, row2k_plain_ms,
+             (bs2k_ms, bs2k_by), None, {}),
+            ("adj2d_ys_persistent_kernel", "adj2d_ys_kernel",
+             "percnn_tpu/ops/pallas/backward2d.py:260", "adj2d.cu", "backward2d._phase1_ys_kernel",
+             train_ys, row5_ms, row5_steps_ms, row5_turns, row5_plain_ms, b5,
+             ffma_steps_launches["adj2d_ys_kernel"], {})):
+        steps_ = horizon if name.endswith("[final]") else stepsb
+        per_call = {"rollout2d_kernel[k=5]": steps_, "final2d_kernel[k=5]": steps_,
+                    "adj2d_ys_kernel": 2 * steps_}[route_name]
+        kernels.append({
+            "name": name, "jax_kernel": jax_name, "route": "cuda",
+            "source": f"percnn_tpu_torch/ops/kernels/csrc/{source}", "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err[name], "steps": steps_, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "launches_per_call": 1,
+            "us_per_step": 1e3 * ms / steps_,
+            "per_step_route": {"name": route_name, "launches_per_call": per_call, "ms": steps_ms,
+                               "us_per_step": 1e3 * steps_ms / steps_,
+                               "max_abs_err": err[route_name]},
+            "turns_ms": turns_, "plan": one_launch[name.removesuffix("[final]")], **extra})
+        if per_step_by_path is not None:
+            step_source = "cell2d.cu" if route_name.startswith("rollout") else "adj2d.cu"
+            kernels.append({
+                "name": route_name, "jax_kernel": jax_name, "route": "cuda",
+                "source": f"percnn_tpu_torch/ops/kernels/csrc/{step_source}", "replaces": replaces, "launches": sum(per_step_by_path.values()),
+                "launches_by_path": per_step_by_path, "max_abs_err": err[route_name],
+                "steps": steps_, "ms": steps_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None,
+                "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100"})
     fallback_rows = {
-        "rollout2d_kernel[k=5]": (
-            lambda: cell2d._rollout_cuda(packedb, h0b, cfgb, stepsb),
-            lambda: cell2d.fused_rollout_2d_plain(packedb, h0b, cfgb, stepsb),
-            packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes, fwdb_flops, stepsb,
-            "cell2d._rollout_kernel", "percnn_tpu/ops/pallas/cell2d.py:332", "cell2d.cu",
-            {"train": fallback_launches["burgers_mxu_off"]["fused_rollout_2d.launches_kxk"]
-             + fallback_launches["burgers_ys_off"]["fused_rollout_2d.launches_kxk"]}),
         "adj2d_kernel": (
             lambda: backward2d._phase1_cuda(packed, frames, fbar, cfg),
             lambda: backward2d.fused_phase1_2d_plain(packed, frames, fbar, cfg),
@@ -2799,14 +3051,6 @@ def main() -> int:
             packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes, bwb_flops, stepsb,
             "backward2d._phase1_kernel", "percnn_tpu/ops/pallas/backward2d.py:184", "adj2d.cu",
             {"train": fallback_launches["burgers_ys_off"]["fused_phase1_2d.launches"]}),
-        "adj2d_ys_kernel": (
-            lambda: backward2d._phase1_ys_cuda(packedb, fbarb, ysb, cfgb),
-            lambda: backward2d.fused_phase1_ys_2d_plain(packedb, fbarb, ysb, cfgb),
-            packedb_bytes + 2 * stepsb * stateb_bytes + stateb_bytes + 4 * ysb.numel(),
-            bwb_flops - stepsb * cellsb * taps_rows, stepsb,
-            "backward2d._phase1_ys_kernel", "percnn_tpu/ops/pallas/backward2d.py:260",
-            "adj2d.cu",
-            {"train": fallback_launches["burgers_mxu_off"]["fused_phase1_ys_2d.launches"]}),
         "adj3d_kernel": (
             lambda: backward3d._phase1_cuda(packed3, frames3, fbar3, cfg3),
             lambda: backward3d.fused_phase1_3d_plain(packed3, frames3, fbar3, cfg3),
@@ -2817,7 +3061,6 @@ def main() -> int:
             "backward3d.cu",
             {"train": fallback_launches["gs3d_fused"]["fused_phase1_3d.launches"]}),
     }
-    fallback_work = {}
     for name, (kernel, plain, nbytes, nflops, steps, jax_name, replaces, source,
                by_path) in fallback_rows.items():
         b_ms, b_by = bound_ms(nbytes, nflops)
@@ -2831,7 +3074,6 @@ def main() -> int:
             "plain_ms": cuda_ms(torch, plain, reps=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    del ysb
     # the ensemble's kernels at its main paths' shapes: M = 4, 100 x 100,
     # C = 8, k = 1, T = 800 (the golden GS2D cell and its perturbations, as
     # kernels_batched; a standard-normal cotangent); pg2d_batched_kernel also

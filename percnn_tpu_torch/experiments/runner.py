@@ -156,12 +156,12 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
       'fused'    -- the streaming adjoints: a 2D cell (any odd kernel_size
                     <= 5) through backward2d.fused_rollout_tp_2d, whose
                     routes the MXU switches and the activation budget pick
-                    (rollout2d_kxk_kernel or rollout2d_kernel forward;
-                    adj2d_kxk_kernel, adj2d_ys_kernel or adj2d_kernel
-                    backward); a 3D cell through
-                    backward3d.fused_rollout_tp_3d (rollout3d_kernel,
-                    adj3d_kernel); the parameter gradients outside the
-                    kernels;
+                    (the branch-matrix kernels or the FFMA ones forward:
+                    cell2d.kxk_plan's or ffma_plan's; kxk_adj_plan's or
+                    ys_plan's sweep, or adj2d_kernel, backward); a 3D cell
+                    through backward3d.fused_rollout_tp_3d
+                    (rollout3d_kernel, adj3d_kernel); the parameter
+                    gradients outside the kernels;
       'two_phase' -- core.rollout.rollout_tp around the cell step: a reverse
                     sweep of autograd through the state, then the parameter
                     gradients batched over time;

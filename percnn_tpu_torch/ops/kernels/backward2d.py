@@ -6,7 +6,9 @@ Counterpart of percnn_tpu/ops/pallas/backward2d.py, in two parts.
 **The streaming adjoints.** ``fused_rollout_tp_2d`` is a differentiable
 rollout of any odd kernel_size <= 5, percnn_tpu's ``fused_rollout_tp_2d``.
 Its forward is cell2d.kxk_plan's k x k kernel for a k x k cell with
-cell2d.MXU_FWD_ENABLED, else ``rollout2d_kernel`` (ops/kernels/cell2d.py).
+cell2d.MXU_FWD_ENABLED, else cell2d._rollout_cuda's route
+(``rollout2d_ffma_persistent_kernel`` by cell2d.ffma_plan for a k x k cell,
+or ``rollout2d_kernel``; ops/kernels/cell2d.py).
 Its backward is a reverse sweep that streams the adjoint out, then the
 parameter gradients outside any kernel, as the JAX package leaves them to
 XLA.  For t = T-1 .. 0 the sweep computes
@@ -30,8 +32,10 @@ as percnn_tpu's ``_fused_tp_bwd`` does:
   launches a step in FFMA; then ``_param_grads_stream``, time-batched
   contractions of the cotangents;
 - 'ys', a k x k cell otherwise: ``_precompute_ys`` (time-batched convs),
-  then ``adj2d_ys_kernel`` (csrc/adj2d.cu, in place of
-  ``_phase1_ys_kernel``), which reads y from it; then
+  then the sweep that reads y from it (csrc/adj2d.cu, in place of
+  ``_phase1_ys_kernel``): ``adj2d_ys_persistent_kernel``, the whole sweep
+  in one cooperative launch in FFMA, for any field and cell ``ys_plan``
+  admits, else ``adj2d_ys_kernel``, two launches a step; then
   ``_param_grads_stream``;
 - 'adjoint', a 1x1 cell, or with YS_PATH_ENABLED off or over its 8 GiB:
   ``adj2d_kernel`` (csrc/adj2d.cu, in place of ``_phase1_kernel``), y
@@ -72,7 +76,8 @@ adj2d_kxk_persistent_kernel, two a reverse step by adj2d_kxk_kernel) beside
 ``fused_rollout_tp_2d.steps`` (its reverse steps run on the card),
 ``fused_phase1_2d.launches`` (adj2d_kernel, one a
 reverse step at k = 1, two at k > 1) and ``fused_phase1_ys_2d.launches``
-(adj2d_ys_kernel, two a reverse step).
+(one a sweep by adj2d_ys_persistent_kernel, two a reverse step by
+adj2d_ys_kernel) beside ``fused_phase1_ys_2d.steps``.
 """
 
 from __future__ import annotations
@@ -92,8 +97,11 @@ from percnn_tpu_torch.ops.kernels.cell2d import (
     _KXK_SIZES,
     _MAX_PARAMS,
     _MAX_SMEM,
+    _FFMA_TAIL,
     _check_fusable,
     _check_kxk_inputs,
+    _ffma_adj_taps,
+    _ffma_widths_ok,
     _kxk_smem_bytes,
     _mma_shape,
     _mma_widths_ok,
@@ -105,11 +113,15 @@ from percnn_tpu_torch.ops.kernels.cell2d import (
     _round_up,
     _sm_count,
     fused_rollout_2d_plain,
+    ffma_grid,
+    ffma_occupancy,
     fused_rollout_kxk_2d_plain,
     im2col_2d,
     kxk_grid,
     kxk_occupancy,
     mxu_rows,
+    pack_ffma_adj_2d,
+    pack_ffma_tail_2d,
     pack_mma_adj_2d,
     pack_mma_fwd_2d,
     pack_pi_matrix_2d,
@@ -143,6 +155,10 @@ _ADJ_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F
 # params, n_params, frames_bar, ys, g, g_ins, zw, n_steps, H, W, hidden,
 # n_branches, kernel_size, dt, inv_dx2, stream
 _YS_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+# wa, tail, frames_bar, ys, g, g_ins, zw, n_steps, H, W, hidden, n_branches,
+# kernel_size, dt, inv_dx2, blocks, threads, smem, stream, blocks an SM (out)
+_YS_PERSISTENT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                            _I, _P, ctypes.POINTER(_I)]
 # The kernels are compiled for 1 to 4 branches (csrc/backward2d.cu, csrc/adj2d.cu).
 _MAX_BRANCHES = 4
 
@@ -596,14 +612,21 @@ def _phase1_cuda(packed, frames, frames_bar, cfg):
     return g_ins, g
 
 
-def _phase1_ys_cuda(packed, frames_bar, ys, cfg):
-    """adj2d_ys_kernel: two launches per reverse step, the loop in C."""
-    frames_bar = _check_sweep_inputs("adj2d_ys_kernel", packed, frames_bar, cfg, ys)
+def _check_ys_inputs(packed, frames_bar, ys, cfg, name):
+    """Check a ys sweep's inputs; return frames_bar as contiguous f32."""
+    frames_bar = _check_sweep_inputs(name, packed, frames_bar, cfg, ys)
     n_steps, H, W = frames_bar.shape[0] - 1, frames_bar.shape[1], frames_bar.shape[2]
     if cfg.kernel_size not in _KXK_SIZES or tuple(ys.shape) != (n_steps, mxu_rows(cfg), H, W):
-        raise ValueError(f"adj2d_ys_kernel takes kernel_size {_KXK_SIZES} and ys "
+        raise ValueError(f"{name} takes kernel_size {_KXK_SIZES} and ys "
                          f"[{n_steps}, {mxu_rows(cfg)}, {H}, {W}], got {cfg.kernel_size} "
                          f"and {tuple(ys.shape)}")
+    return frames_bar
+
+
+def _phase1_ys_steps_cuda(packed, frames_bar, ys, cfg):
+    """adj2d_ys_kernel: two launches per reverse step, the loop in C."""
+    frames_bar = _check_ys_inputs(packed, frames_bar, ys, cfg, "adj2d_ys_kernel")
+    n_steps, H, W = frames_bar.shape[0] - 1, frames_bar.shape[1], frames_bar.shape[2]
     fn = _sweep_fn("adj2d_ys_sweep", _YS_SIGNATURE)
     dev = frames_bar.device
     k = cfg.kernel_size
@@ -617,7 +640,89 @@ def _phase1_ys_cuda(packed, frames_bar, ys, cfg):
                            n_steps, H, W, cfg.hidden, cfg.n_branches, k, cfg.dt,
                            1.0 / (cfg.dx * cfg.dx), stream), "adj2d_ys_sweep")
     fused_phase1_ys_2d.launches += 2 * n_steps
+    fused_phase1_ys_2d.steps += n_steps
     return g_ins, g
+
+
+def ys_smem_bytes(cfg: PiCellConfig, H: int, W: int, n_sm: int) -> int:
+    """Shared memory of a block of adj2d_ys_persistent_kernel: the adjoint
+    operand (pack_ffma_adj_2d), z of a round [M][rc] (whose place then holds
+    the round's zw [k*k*2][rc], so the larger of the two), the tail, each warp
+    pair's exchange (4 R floats a lane), g_in of the most cells a block
+    owns (2 floats a cell) and two [M][cap] buffers of ys (csrc:
+    ys_persistent_smem)."""
+    grid = ffma_grid(H, W, n_sm)
+    M, r = mxu_rows(cfg), _ffma_adj_taps(cfg)
+    tiles = grid["threads"] // 64
+    zrows = max(M, cfg.kernel_size ** 2 * 2)
+    return 4 * (M * _round_up(r, 4) * 8 + zrows * grid["rc"] + _FFMA_TAIL + tiles * 4 * r * 32
+                + 2 * grid["cap"] + 2 * M * grid["cap"])
+
+
+def ys_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the ys reverse sweep of an H x W field on a card of n_sm
+    SMs, by a rule on the cell, the shape and the card's limits: a cell of
+    the widths adj2d_ys_persistent_kernel is built for (k = 3 or 5, 1 to 4
+    branches, C <= 16) whose block fits a block's shared memory takes it, one
+    cooperative launch a sweep ('persistent', with blocks, threads and smem:
+    cell2d.ffma_grid's); else adj2d_ys_kernel, two launches a step
+    ('per_step').  At 100 x 100, C = 16, 3 branches, k = 5 on 132 SMs: 132
+    blocks of 320 threads, 132 336 bytes; the largest square field that
+    fits is 148 x 148 (the two ys buffers take 768 bytes a cell of a block)."""
+    if not _ffma_widths_ok(cfg):
+        return {"route": "per_step"}
+    smem = ys_smem_bytes(cfg, H, W, n_sm)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    grid = ffma_grid(H, W, n_sm)
+    return {"route": "persistent", "blocks": grid["blocks"], "threads": grid["threads"],
+            "smem": smem}
+
+
+def ys_occupancy(cfg: PiCellConfig, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of ys_plan's configuration an SM of the card holds."""
+    return ffma_occupancy(cfg, H, W, device, plan=ys_plan(H, W, cfg, _sm_count(device)),
+                          library="adj2d", fn_name="adj2d_ys_occupancy")
+
+
+def _phase1_ys_persistent_cuda(packed, frames_bar, ys, cfg):
+    """adj2d_ys_persistent_kernel: the whole ys sweep in one cooperative
+    launch, by ys_plan's configuration.  No launch at n_steps = 0.  Raises if
+    the card cannot hold the grid."""
+    frames_bar = _check_ys_inputs(packed, frames_bar, ys, cfg, "adj2d_ys_persistent_kernel")
+    n_steps, H, W = frames_bar.shape[0] - 1, frames_bar.shape[1], frames_bar.shape[2]
+    dev = frames_bar.device
+    plan = ys_plan(H, W, cfg, _sm_count(dev))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field of this cell takes no one-launch ys sweep: {cfg}")
+    fn = _sweep_fn("adj2d_ys_persistent", _YS_PERSISTENT_SIGNATURE)
+    wa, tail = pack_ffma_adj_2d(packed, cfg), pack_ffma_tail_2d(packed, cfg)
+    k = cfg.kernel_size
+    g = torch.zeros((H, W, 2), dtype=torch.float32, device=dev)
+    zw = torch.empty((2, k * k * 2, H, W), dtype=torch.float32, device=dev)
+    g_ins = torch.empty((n_steps, H, W, 2), dtype=torch.float32, device=dev)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(wa.data_ptr(), tail.data_ptr(), frames_bar.data_ptr(), ys.data_ptr(),
+                           g.data_ptr(), g_ins.data_ptr(), zw.data_ptr(), n_steps, H, W,
+                           cfg.hidden, cfg.n_branches, k, cfg.dt, 1.0 / (cfg.dx * cfg.dx),
+                           plan["blocks"], plan["threads"], plan["smem"], stream,
+                           ctypes.byref(per_sm)), "adj2d_ys_persistent")
+    fused_phase1_ys_2d.launches += 1 if n_steps else 0
+    fused_phase1_ys_2d.steps += n_steps
+    return g_ins, g
+
+
+def _phase1_ys_cuda(packed, frames_bar, ys, cfg):
+    """The ys reverse sweep on CUDA by ys_plan's route: one launch of
+    adj2d_ys_persistent_kernel ('persistent') or two adj2d_ys_kernel
+    launches a step ('per_step')."""
+    if frames_bar.dim() == 4 and frames_bar.device.type == "cuda" and ys_plan(
+            frames_bar.shape[1], frames_bar.shape[2], cfg,
+            _sm_count(frames_bar.device))["route"] == "persistent":
+        return _phase1_ys_persistent_cuda(packed, frames_bar, ys, cfg)
+    return _phase1_ys_steps_cuda(packed, frames_bar, ys, cfg)
 
 
 def fused_phase1_2d(packed, frames, frames_bar, cfg):
@@ -628,7 +733,7 @@ def fused_phase1_2d(packed, frames, frames_bar, cfg):
 
 
 def fused_phase1_ys_2d(packed, frames_bar, ys, cfg):
-    """(g_ins, g0): adj2d_ys_kernel on CUDA, the plain version on the CPU."""
+    """(g_ins, g0): ys_plan's kernel on CUDA, the plain version on the CPU."""
     if frames_bar.device.type == "cpu":
         return fused_phase1_ys_2d_plain(packed, frames_bar.to(torch.float32), ys, cfg)
     return _phase1_ys_cuda(packed, frames_bar, ys, cfg)
@@ -842,8 +947,8 @@ def _param_grads_stream(params: dict, h_prev: torch.Tensor, g_ins: torch.Tensor,
 
 YS_PATH_ENABLED = True
 """Route a k x k backward with MXU_BWD_ENABLED off through _precompute_ys and
-adj2d_ys_kernel; off, through adj2d_kernel and chunked_param_grads.  Looked
-up at every call."""
+ys_plan's sweep (adj2d_ys_persistent_kernel or adj2d_ys_kernel); off,
+through adj2d_kernel and chunked_param_grads.  Looked up at every call."""
 
 MXU_BWD_ENABLED = os.environ.get("PERCNN_DISABLE_MXU", "") != "1"
 """Route a k x k backward through adj2d_kxk_kernel, which forms the
@@ -862,8 +967,8 @@ def _ys_path_ok(cfg: PiCellConfig, n_steps: int, H: int, W: int) -> bool:
 def backward_route(cfg: PiCellConfig, n_steps: int, H: int, W: int) -> str:
     """The reverse sweep fused_rollout_tp_2d takes, as percnn_tpu's
     ``_fused_tp_bwd`` picks it (without its TPU memory guards):
-    'mxu' (adj2d_kxk_kernel) for a k x k cell with MXU_BWD_ENABLED and
-    _ys_path_ok; else 'ys' (adj2d_ys_kernel) for a k x k cell with
+    'mxu' (kxk_adj_plan's sweep) for a k x k cell with MXU_BWD_ENABLED and
+    _ys_path_ok; else 'ys' (ys_plan's sweep) for a k x k cell with
     _ys_path_ok; else 'adjoint' (adj2d_kernel and chunked_param_grads)."""
     if cfg.kernel_size > 1 and _ys_path_ok(cfg, n_steps, H, W):
         return "mxu" if MXU_BWD_ENABLED else "ys"
@@ -886,8 +991,8 @@ def _cell_tree(like: dict, leaves) -> dict:
 
 class FusedRolloutTP2d(torch.autograd.Function):
     """frames = the rollout of a 2D cell from h0, by kxk_plan's k x k kernel
-    (a k x k cell with MXU_FWD_ENABLED) or rollout2d_kernel; backward by the
-    sweep of backward_route, then the parameter gradients."""
+    (a k x k cell with MXU_FWD_ENABLED) or cell2d._rollout_cuda's route;
+    backward by the sweep of backward_route, then the parameter gradients."""
 
     @staticmethod
     def forward(ctx, h0, cfg, n_steps, pgrad_chunk, like, *leaves):
@@ -945,3 +1050,4 @@ fused_rollout_tp_2d.launches = 0
 fused_rollout_tp_2d.steps = 0
 fused_phase1_2d.launches = 0
 fused_phase1_ys_2d.launches = 0
+fused_phase1_ys_2d.steps = 0

@@ -5,26 +5,30 @@ streams every frame of a 1x1 cell (the GS2D model) through
 ``rollout2d_cluster_kernel`` (in place of ``_rollout_kernel``): the whole
 rollout in one launch of one thread-block cluster that holds the field in
 shared memory, as the TPU kernel holds it on chip, for any field that fits
-(``rollout_plan``; the kernel is compiled for the GS2D cell's widths).  Any
-other field or cell takes ``rollout2d_kernel``, one launch a step, which
-takes the packed parameters and any odd kernel_size <= 5: a 1x1 cell one
-thread a cell, a k x k
-cell (k = 3 or 5: the Burgers and lambda-omega Stage-1 models) from a
-block's staged tile, its branch convs tap by tap.  With ``MXU_FWD_ENABLED``
-on (the default) a k x k cell goes instead to ``fused_rollout_kxk_2d``, the
+(``rollout_plan``; the kernel is compiled for the GS2D cell's widths).  A
+k x k cell (k = 3 or 5: the Burgers and lambda-omega Stage-1 models) with
+``MXU_FWD_ENABLED`` off takes ``rollout2d_ffma_persistent_kernel``, the
+whole rollout in one cooperative launch, its branch convs tap by tap in
+FFMA from a register tile of 4 cells x 2 hidden channels a thread, for any
+field and cell ``ffma_plan`` admits.  Any other field or cell takes
+``rollout2d_kernel``, one launch a step, which takes the packed parameters
+and any odd kernel_size <= 5: a 1x1 cell one thread a cell, a k x k cell
+from a block's staged tile.  With ``MXU_FWD_ENABLED`` on (the default) a
+k x k cell goes instead to ``fused_rollout_kxk_2d``, the
 branch convs as one product with the branch matrix (in place of
 ``_rollout_kernel_mxu``): ``rollout2d_kxk_persistent_kernel``, the whole
 rollout in one cooperative launch with the product on the tensor cores in
 3xTF32, for any field and cell ``kxk_plan`` admits, else
 ``rollout2d_kxk_kernel``, one launch a step in FFMA.
 ``fused_rollout_final_2d`` returns the final state of any cell (in place of
-``_final_kernel``) by ``final_plan``'s route: the same two one-launch
+``_final_kernel``) by ``final_plan``'s route: the same three one-launch
 kernels in their final-state mode, which stores no frame and gives the last
 frame to the bit (rollout2d_cluster_kernel for the GS2D cell's fields,
-rollout2d_kxk_persistent_kernel for a k x k cell with ``MXU_FWD_ENABLED``),
-else ``final2d_kernel``, one launch a step.  The kernels are in
-csrc/cell2d.cu and csrc/cell2d_kxk.cu (+ csrc/kxk_mma.cuh), with their
-bound on the card and their design.
+rollout2d_kxk_persistent_kernel for a k x k cell with ``MXU_FWD_ENABLED``,
+rollout2d_ffma_persistent_kernel without), else ``final2d_kernel``, one
+launch a step.  The kernels are in csrc/cell2d.cu, csrc/cell2d_kxk.cu (+
+csrc/kxk_mma.cuh) and csrc/cell2d_ffma.cu, with their bound on the card and
+their design.
 
 A CPU tensor takes the plain PyTorch version of the same arithmetic
 (``fused_rollout_2d_plain``, ``fused_rollout_final_2d_plain``,
@@ -33,8 +37,10 @@ raises.  Each public wrapper counts the kernel launches it makes, one a
 call by a one-launch kernel (none for no steps, but for the cluster's
 frames), one a step otherwise, beside the steps run on the card:
 ``fused_rollout_2d.launches`` and ``.steps`` for a 1x1 cell;
-``fused_rollout_2d.launches_kxk`` for the k x k contract of
-rollout2d_kernel; ``fused_rollout_kxk_2d.launches`` and ``.steps``;
+``fused_rollout_2d.launches_kxk`` and ``.steps_kxk`` for a k x k cell from
+the packed parameters (rollout2d_ffma_persistent_kernel or the k x k
+contract of rollout2d_kernel); ``fused_rollout_kxk_2d.launches`` and
+``.steps``;
 ``fused_rollout_final_2d.launches`` and ``.steps`` for a 1x1 cell,
 ``.launches_kxk`` and ``.steps_kxk`` for a k x k one.
 """
@@ -52,8 +58,9 @@ from percnn_tpu_torch.ops.stencils import laplacian_2d
 
 MXU_FWD_ENABLED = os.environ.get("PERCNN_DISABLE_MXU", "") != "1"
 """Route a k x k rollout of ``fused_rollout_2d`` (and the forward of
-backward2d.fused_rollout_tp_2d) through rollout2d_kxk_kernel, the branch
-matrix product; off, through rollout2d_kernel's tap-by-tap form.  Read
+backward2d.fused_rollout_tp_2d, and the final state) through the branch
+matrix product (kxk_plan's kernels); off, through the tap-by-tap form
+(ffma_plan's: rollout2d_ffma_persistent_kernel, or rollout2d_kernel).  Read
 from PERCNN_DISABLE_MXU=1 at import, as percnn_tpu does, and looked up at
 every call, so a caller may set it in-process."""
 
@@ -83,6 +90,13 @@ _SIGNATURES = {
                                       _F, _I, _I, _I, _P, ctypes.POINTER(_I)],
     # n_branches, kernel_size, ch, threads, smem, blocks an SM (out)
     "cell2d_kxk_occupancy": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+    # wf, tail, h0, frames (or out), scratch, n_steps, final_only, H, W,
+    # n_branches, kernel_size, dt, inv_dx2, blocks, threads, smem, stream,
+    # blocks an SM (out)
+    "cell2d_ffma_rollout_persistent": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                                       _I, _I, _P, ctypes.POINTER(_I)],
+    # n_branches, kernel_size, threads, smem, blocks an SM (out)
+    "cell2d_ffma_occupancy": [_I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 # rollout2d_kernel and final2d_kernel stage the packed parameters in shared
 # memory, at most 48 KB of them (4932 floats for the Burgers cell); the
@@ -408,6 +422,7 @@ def _rollout_steps_cuda(packed, h0, cfg, n_steps):
         fused_rollout_2d.steps += n
     else:
         fused_rollout_2d.launches_kxk += n
+        fused_rollout_2d.steps_kxk += n
     return frames
 
 
@@ -453,11 +468,18 @@ def cluster_occupancy(cfg: PiCellConfig, H: int, W: int) -> int:
 
 
 def _rollout_cuda(packed, h0, cfg, n_steps):
-    """The frames rollout on CUDA by rollout_plan's route: one launch of
-    rollout2d_cluster_kernel ('cluster') or one rollout2d_kernel launch a
-    step ('per_step')."""
-    if h0.dim() == 3 and rollout_plan(h0.shape[0], h0.shape[1], cfg)["route"] == "cluster":
-        return _rollout_cluster_cuda(packed, h0, cfg, n_steps)
+    """The frames rollout on CUDA from the packed parameters: a 1x1 cell by
+    rollout_plan's route (one launch of rollout2d_cluster_kernel, 'cluster'),
+    a k x k cell by ffma_plan's (one launch of
+    rollout2d_ffma_persistent_kernel, 'persistent'), else one
+    rollout2d_kernel launch a step ('per_step')."""
+    if h0.dim() == 3:
+        H, W = h0.shape[0], h0.shape[1]
+        if cfg.kernel_size == 1 and rollout_plan(H, W, cfg)["route"] == "cluster":
+            return _rollout_cluster_cuda(packed, h0, cfg, n_steps)
+        if cfg.kernel_size > 1 and h0.device.type == "cuda" and ffma_plan(
+                H, W, cfg, _sm_count(h0.device))["route"] == "persistent":
+            return _rollout_ffma_persistent_cuda(packed, h0, cfg, n_steps)
     return _rollout_steps_cuda(packed, h0, cfg, n_steps)
 
 
@@ -525,6 +547,8 @@ _KXK_MMA_CH = (1, 2)
 
 
 def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        raise ValueError(f"the one-launch kernels take CUDA tensors, got a tensor on {device}")
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -650,6 +674,179 @@ def _rollout_kxk_cuda(wmat, tail, h0, cfg, n_steps):
     return _rollout_kxk_steps_cuda(wmat, tail, h0, cfg, n_steps)
 
 
+# The one-launch FFMA kernels of a k x k cell (csrc/cell2d_ffma.cu and
+# adj2d_ys_persistent_kernel in csrc/adj2d.cu): a warp pair (one an
+# equation) for each 16-cell tile of a round, at most 8 tiles; 8 lanes of a
+# warp split the hidden channels (two each: C <= 16) or the taps, 4 the
+# tile's cells (four each).
+_FFMA_TILE = 16
+_FFMA_TILES = 8
+_FFMA_LANE_GROUPS = 8
+_FFMA_MAX_HIDDEN = 16
+_FFMA_TAIL = 36
+
+
+def _ffma_widths_ok(cfg: PiCellConfig) -> bool:
+    return (cfg.ndim == 2 and cfg.channels == 2 and cfg.kernel_size in _KXK_SIZES
+            and cfg.n_branches in _KXK_BRANCHES and cfg.hidden <= _FFMA_MAX_HIDDEN)
+
+
+def ffma_grid(H: int, W: int, n_sm: int) -> dict:
+    """The one-launch FFMA kernels' grid on a card of n_sm SMs: one block an SM
+    (min(n_sm, H W) blocks, each owning split_evenly's run of at most cap
+    cells, the split of kxk_grid), a warp pair for each 16-cell tile of a
+    round of at most 8 tiles (rc cells), and the bytes of the most rows a
+    block stages (kxk_grid's)."""
+    k = kxk_grid(H, W, n_sm)
+    tiles = min(-(-k["cap"] // _FFMA_TILE), _FFMA_TILES)
+    return {"blocks": k["blocks"], "cap": k["cap"], "threads": 64 * tiles,
+            "rc": _FFMA_TILE * tiles, "tile_bytes": k["tile_bytes"]}
+
+
+def _ffma_fwd_floats(cfg: PiCellConfig) -> int:
+    """Floats of pack_ffma_fwd_2d's operand: [k*k*2 + 1, 2, W / 4, 8, 4], W
+    = 2 nb rounded up to 4."""
+    return (cfg.kernel_size ** 2 * 2 + 1) * 2 * _round_up(2 * cfg.n_branches, 4) * 8
+
+
+def _ffma_adj_taps(cfg: PiCellConfig) -> int:
+    """Taps a lane of the ys sweep's product holds: the k*k*2 taps over 8
+    lanes (7 at k = 5, 3 at k = 3)."""
+    return -(-(cfg.kernel_size ** 2 * 2) // _FFMA_LANE_GROUPS)
+
+
+def ffma_smem_bytes(cfg: PiCellConfig, H: int, W: int, n_sm: int) -> int:
+    """Shared memory of a block of rollout2d_ffma_persistent_kernel: the
+    forward operand, the tail, the im2col stack of a round [k*k*2][rc] and
+    ffma_grid's staged rows (csrc: persistent_smem)."""
+    grid = ffma_grid(H, W, n_sm)
+    return (4 * (_ffma_fwd_floats(cfg) + _FFMA_TAIL + cfg.kernel_size ** 2 * 2 * grid["rc"])
+            + grid["tile_bytes"])
+
+
+def ffma_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of a k x k frames rollout from the packed parameters (the
+    MXU switch off) of an H x W field on a card of n_sm SMs, by a rule on the
+    cell, the shape and the card's limits: a cell of the widths
+    rollout2d_ffma_persistent_kernel is built for (k = 3 or 5, 1 to 4
+    branches, C <= 16) whose block fits a block's shared memory takes it, one
+    cooperative launch a rollout ('persistent', with blocks, threads and
+    smem); else rollout2d_kernel, one launch a step ('per_step').  At
+    100 x 100, C = 16, 3 branches, k = 5 on 132 SMs: 132 blocks of 75 or 76
+    cells, 320 threads, 47 248 bytes."""
+    if not _ffma_widths_ok(cfg):
+        return {"route": "per_step"}
+    smem = ffma_smem_bytes(cfg, H, W, n_sm)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    grid = ffma_grid(H, W, n_sm)
+    return {"route": "persistent", "blocks": grid["blocks"], "threads": grid["threads"],
+            "smem": smem}
+
+
+def ffma_occupancy(cfg: PiCellConfig, H: int, W: int, device: torch.device,
+                   plan: dict | None = None, library: str = "cell2d_ffma",
+                   fn_name: str = "cell2d_ffma_occupancy") -> int:
+    """How many blocks of ffma_plan's one-launch forward (or of another plan
+    of the same widths, from another library: backward2d.ys_occupancy) an SM
+    of the card holds, at the plan's threads and bytes (0: none, and the
+    launch is refused)."""
+    plan = plan or ffma_plan(H, W, cfg, _sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field takes no one-launch FFMA kernel: {cfg}")
+    fn = getattr(_build.load_library(library), fn_name)
+    fn.argtypes = _SIGNATURES["cell2d_ffma_occupancy"]
+    fn.restype = ctypes.c_int
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(fn(cfg.n_branches, cfg.kernel_size, plan["threads"], plan["smem"],
+                           ctypes.byref(per_sm)), fn_name)
+    return per_sm.value
+
+
+def pack_ffma_fwd_2d(packed: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """The branch weights and biases of the packed vector (pack_pi_params_2d)
+    in the lane order of rollout2d_ffma_persistent_kernel: [k*k*2 + 1, 2,
+    W / 4, 8, 4] f32 (W = 2 nb rounded up to 4), entry [q, o, h, p, e] =
+    w_i^o[q, c] (q < k*k*2; at q = k*k*2 the bias b_i^o[c]) with c = 2 p +
+    f // nb, i = f % nb for f = 4 h + e < 2 nb, and zero past 2 nb and for c
+    >= C: lane pair p's weights of tap q, a float4 each h, the 8 pairs'
+    contiguous."""
+    k, C, nb = cfg.kernel_size, cfg.hidden, cfg.n_branches
+    taps, w4 = k * k * 2, _round_up(2 * nb, 4)
+    eqs = []
+    for o in range(2):
+        w, b, _, _ = _packed_equation(packed, o, cfg)                 # [nb, taps, C], [nb, C]
+        wb = torch.cat([w, b[:, None, :]], dim=1)                     # [nb, taps + 1, C]
+        wb = torch.nn.functional.pad(wb, (0, 2 * _FFMA_LANE_GROUPS - C))
+        wb = wb.reshape(nb, taps + 1, _FFMA_LANE_GROUPS, 2).permute(1, 2, 3, 0)
+        wb = torch.nn.functional.pad(wb.reshape(taps + 1, _FFMA_LANE_GROUPS, 2 * nb),
+                                     (0, w4 - 2 * nb))                # [q, p, f]
+        eqs.append(wb.reshape(taps + 1, _FFMA_LANE_GROUPS, w4 // 4, 4).permute(0, 2, 1, 3))
+    return torch.stack(eqs, dim=1).contiguous()
+
+
+def pack_ffma_tail_2d(packed: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """What the FFMA one-launch kernels read besides their operand, f32 [36]:
+    [Du, Dv], w_out of equations 0 and 1 padded to 16 with zeros, then
+    b_out of equations 0 and 1."""
+    C = cfg.hidden
+    w_out, b_out = [], []
+    for o in range(2):
+        _, _, wo, bo = _packed_equation(packed, o, cfg)
+        w_out.append(torch.nn.functional.pad(wo, (0, _FFMA_MAX_HIDDEN - C)))
+        b_out.append(bo)
+    return torch.cat([packed[:2]] + w_out + b_out).contiguous()
+
+
+def pack_ffma_adj_2d(packed: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
+    """The tap weights of the packed vector in the lane order of
+    adj2d_ys_persistent_kernel's product: [M, R4 / 4, 8, 4] f32 (M = 2 nb C,
+    R = _ffma_adj_taps, R4 = R rounded up to 4), entry [m, h, g, e] =
+    w[g R + 4 h + e, m] (w: _packed_equation's taps, row m = (o nb + i) C + c)
+    for 4 h + e < R and g R + 4 h + e < k*k*2, else zero: lane group g's
+    taps of row m, a float4 each h, the 8 groups' contiguous."""
+    taps, C, nb = cfg.kernel_size ** 2 * 2, cfg.hidden, cfg.n_branches
+    r = _ffma_adj_taps(cfg)
+    w = torch.cat([torch.cat(list(_packed_equation(packed, o, cfg)[0]), dim=1)
+                   for o in range(2)], dim=1)                         # [taps, M]
+    w = torch.nn.functional.pad(w, (0, 0, 0, _FFMA_LANE_GROUPS * r - taps))
+    w = w.T.reshape(2 * nb * C, _FFMA_LANE_GROUPS, r)
+    w = torch.nn.functional.pad(w, (0, _round_up(r, 4) - r))
+    return w.reshape(2 * nb * C, _FFMA_LANE_GROUPS, -1, 4).permute(0, 2, 1, 3).contiguous()
+
+
+def _rollout_ffma_persistent_cuda(packed, h0, cfg, n_steps, *, final_only=False):
+    """rollout2d_ffma_persistent_kernel: the whole k x k rollout in one
+    cooperative launch, by ffma_plan's configuration: the frames, or with
+    ``final_only`` the final state alone, the steps ping-ponging between it
+    and a scratch buffer (final_schedule).  No launch at n_steps = 0.
+    Raises if the card cannot hold the grid."""
+    p_ptr, n_params, h_ptr, n, H, W, C, nb, k, dt, inv_dx2 = _launch_args(
+        packed, h0, cfg, n_steps)
+    plan = ffma_plan(H, W, cfg, _sm_count(h0.device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field of this cell takes no one-launch FFMA rollout: {cfg}")
+    fn = _kernel_fn("cell2d_ffma_rollout_persistent", "cell2d_ffma")
+    wf, tail = pack_ffma_fwd_2d(packed, cfg), pack_ffma_tail_2d(packed, cfg)
+    out = torch.empty((H, W, 2) if final_only else (n + 1, H, W, 2), dtype=torch.float32,
+                      device=h0.device)
+    scratch = torch.empty((H, W, 2), dtype=torch.float32, device=h0.device) if (
+        final_only) else None
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(wf.data_ptr(), tail.data_ptr(), h_ptr, out.data_ptr(),
+                           None if scratch is None else scratch.data_ptr(), n,
+                           int(final_only), H, W, nb, k, dt, inv_dx2, plan["blocks"],
+                           plan["threads"], plan["smem"], stream, ctypes.byref(per_sm)),
+                        "cell2d_ffma_rollout_persistent")
+    f = fused_rollout_final_2d if final_only else fused_rollout_2d
+    f.launches_kxk += 1 if n else 0
+    f.steps_kxk += n
+    return out
+
+
 def final_schedule(n_steps: int) -> list[tuple[str, str]]:
     """The (read, write) buffers of each step of a final-state rollout that
     ping-pongs between two [H, W, 2] buffers, 'out' and 'scratch'
@@ -678,15 +875,16 @@ def final_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int, mxu: bool | None = 
     current MXU_FWD_ENABLED) takes kxk_plan's ('persistent':
     rollout2d_kxk_persistent_kernel in its final-state mode, one cooperative
     launch a request, the branch product in 3xTF32, up to 1452 x 1452 for
-    the Burgers cell on 132 SMs); any other cell or field, or a k x k cell
-    with the switch off, takes final2d_kernel, one launch a step
-    ('per_step'), the tap-by-tap form that the TPU's _final_kernel
-    computes."""
+    the Burgers cell on 132 SMs), with the switch off ffma_plan's
+    ('persistent': rollout2d_ffma_persistent_kernel in its final-state mode,
+    the tap-by-tap form that the TPU's _final_kernel computes, in FFMA); any
+    other cell or field takes final2d_kernel, one launch a step
+    ('per_step')."""
     if cfg.kernel_size == 1:
         return rollout_plan(H, W, cfg)
     if MXU_FWD_ENABLED if mxu is None else mxu:
         return kxk_plan(H, W, cfg, n_sm)
-    return {"route": "per_step"}
+    return ffma_plan(H, W, cfg, n_sm)
 
 
 def _final_steps_cuda(packed, h0, cfg, n_steps):
@@ -712,17 +910,21 @@ def _final_steps_cuda(packed, h0, cfg, n_steps):
 
 def _final_cuda(params, h0, cfg, n_steps):
     """The final state on CUDA by final_plan's route: one launch of
-    rollout2d_cluster_kernel ('cluster') or of
-    rollout2d_kxk_persistent_kernel ('persistent') in its final-state mode,
-    or one final2d_kernel launch a step ('per_step')."""
-    n_sm = _sm_count(h0.device) if cfg.kernel_size > 1 and MXU_FWD_ENABLED else 0
-    route = (final_plan(h0.shape[0], h0.shape[1], cfg, n_sm)["route"] if h0.dim() == 3
-             else "per_step")
-    if route == "persistent":
+    rollout2d_cluster_kernel ('cluster'), of rollout2d_kxk_persistent_kernel
+    (the MXU switch on) or of rollout2d_ffma_persistent_kernel (off)
+    ('persistent') in its final-state mode, or one final2d_kernel launch a
+    step ('per_step')."""
+    mxu = MXU_FWD_ENABLED
+    n_sm = _sm_count(h0.device) if cfg.kernel_size > 1 else 0
+    route = (final_plan(h0.shape[0], h0.shape[1], cfg, n_sm, mxu=mxu)["route"]
+             if h0.dim() == 3 else "per_step")
+    if route == "persistent" and mxu:
         return _rollout_kxk_persistent_cuda(pack_pi_matrix_2d(params, cfg),
                                             pi_tail_2d(params, cfg), h0, cfg, n_steps,
                                             final_only=True)
     packed = pack_pi_params_2d(params, cfg)
+    if route == "persistent":
+        return _rollout_ffma_persistent_cuda(packed, h0, cfg, n_steps, final_only=True)
     if route == "cluster":
         return _rollout_cluster_cuda(packed, h0, cfg, n_steps, final_only=True)
     return _final_steps_cuda(packed, h0, cfg, n_steps)
@@ -752,9 +954,9 @@ def fused_rollout_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
     """Full rollout: [H, W, 2] -> [n_steps+1, H, W, 2] f32 (frame 0 = h0).
 
     A k x k cell with MXU_FWD_ENABLED goes to fused_rollout_kxk_2d; any
-    other cell, on CUDA, takes rollout_plan's route (one
-    rollout2d_cluster_kernel launch a rollout, or one rollout2d_kernel
-    launch a step) and, on the CPU, the plain version.
+    other cell, on CUDA, takes _rollout_cuda's route (one launch a rollout
+    of rollout2d_cluster_kernel or rollout2d_ffma_persistent_kernel, or one
+    rollout2d_kernel launch a step) and, on the CPU, the plain version.
     """
     _check_fusable(cfg)
     if cfg.kernel_size > 1 and MXU_FWD_ENABLED:
@@ -785,6 +987,7 @@ def fused_rollout_final_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 fused_rollout_2d.launches = 0
 fused_rollout_2d.steps = 0
 fused_rollout_2d.launches_kxk = 0
+fused_rollout_2d.steps_kxk = 0
 fused_rollout_final_2d.launches = 0
 fused_rollout_final_2d.steps = 0
 fused_rollout_final_2d.launches_kxk = 0

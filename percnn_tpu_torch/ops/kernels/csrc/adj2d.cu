@@ -51,10 +51,22 @@
 // in C on the caller's stream.  The steps of adj2d_kernel and
 // adj2d_act_kernel are in adj2d_step.cuh, shared with the ensemble's
 // batched2d.cu.
+//
+// adj2d_ys_persistent_kernel replaces the same TPU kernel as
+// adj2d_ys_act_kernel + adj2d_gather_kernel on every field whose block fits
+// shared memory (ys_plan in ../backward2d.py; the per-step pair past it):
+// the whole sweep in one cooperative launch, one block an SM, one grid
+// barrier a step, FFMA in full f32 (the design is described at the kernel).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, per
+// T = 200 at 100 x 100, C = 16: 2.268 ms, one launch, 11.34 us a step;
+// adj2d_ys_act_kernel + adj2d_gather_kernel 7.284 ms in the same call, in
+// turns.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "adj2d_step.cuh"
+#include "kxk_mma.cuh"
 
 namespace {
 
@@ -222,6 +234,325 @@ cudaError_t sweep_ys(const float* params, int n_params, const float2* frames_bar
   return cudaGetLastError();
 }
 
+namespace cg = cooperative_groups;
+
+// adj2d_ys_persistent_kernel's layout: a warp pair (one an equation) for each
+// 16-cell tile of a round, at most 8 tiles; lane (tap group q, cell group g)
+// of a warp holds kR taps of cells 4 g .. 4 g + 3.
+constexpr int kYsTileCells = 16;
+constexpr int kYsMaxTiles = 8;
+constexpr int kYsMaxThreads = 64 * kYsMaxTiles;  // 512
+constexpr int kTapGroups = 8;
+constexpr int kYsTail = 36;  // pack_ffma_tail_2d's: D (2), w_out (2 x 16), b_out (2)
+
+template <int KS>
+struct YsDims {
+  static constexpr int kTaps = KS * KS * 2;
+  static constexpr int kR = (kTaps + kTapGroups - 1) / kTapGroups;  // taps a lane: 7 at k = 5
+  static constexpr int kHalves = (kR + 3) / 4;                      // float4s of a lane's row
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group of this thread but the last committed has landed
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The whole ys sweep in one cooperative launch, one block an SM.  Block b
+// owns the cells of share_of (kxk_mma.cuh) for every step.  Before the loop
+// the block stages the adjoint operand (pack_ffma_adj_2d: the branch
+// weights' taps, [M][kHalves][8 tap groups][4], 24.6 KB for the Burgers
+// cell) and the tail.  Iteration s covers t = T - 1 - s, the schedule of
+// adj2d_kxk_persistent_kernel (backward2d_kxk.cu):
+//   A. a thread a (channel, own cell): unless s = 0, step t + 1's gather, jt
+//      and Lap(g_in) from zw_{t+1} and g_ins[t + 1] at the neighbours (read
+//      from L2 with __ldcg), and g_{t+1} = g_in + dt (D Lap(g_in) + jt); then
+//      g_in = g_{t+1} + fbar_{t+1} into shared memory and g_ins[t];
+//   B. per round of at most 8 tiles: z[m] = w_out_o[c] g_in_o prod_{j != i}
+//      y_j of the round's cells into shared memory, Z [M][cells], from ys[t]
+//      staged there; then zw^T = Wtaps^T Z as a register-tiled FFMA product:
+//      warp 2 tl + o sums equation o's M / 2 rows for tile tl, lane (q, g)
+//      kR taps x 4 cells, one float4 of Z and kHalves float4s of weights a
+//      row for 4 kR FMAs; the o = 1 warp's sums meet the o = 0 warp's in
+//      shared memory, and the block stores zw_t a plane's run at a time;
+// then grid.sync().  zw alternates between two [k k 2][H W] buffers, as in
+// the k x k sweep.  The ys stream (768 MB at T = 200 for the Burgers cell)
+// does not fit L2: while step t runs, the block's runs of ys[t - 1] (M runs
+// of its cells) are copied into a second shared-memory buffer by cp.async,
+// so a step reads its activations from shared memory behind the barrier
+// instead of waiting for HBM.  After the loop, step 0's gather writes g_0.
+template <int KS, int NB>
+__global__ void __launch_bounds__(kYsMaxThreads, 1)
+    adj2d_ys_persistent_kernel(const float* __restrict__ wa, const float* __restrict__ tail,
+                               const float2* __restrict__ frames_bar,
+                               const float* __restrict__ ys, float2* g_out, float2* g_ins,
+                               float* zw, int n_steps, int H, int W, int hidden, float dt,
+                               float inv_dx2) {
+  using D = YsDims<KS>;
+  constexpr int kTaps = D::kTaps, kR = D::kR, R = KS / 2;
+  cg::grid_group grid = cg::this_grid();
+  const int cells = H * W;
+  const kxk_mma::Share sh = kxk_mma::share_of(cells, W);
+  const int cap = (cells + gridDim.x - 1) / gridDim.x;
+  const int tiles = blockDim.x >> 6, rc = tiles * kYsTileCells;
+  const int nwarps = blockDim.x >> 5;
+  const int M = 2 * NB * hidden, Mo = NB * hidden;
+  extern __shared__ float4 smem_ys[];
+  float4* sw = smem_ys;                                                 // [M][kHalves][8]
+  // Z [M][rc], then zw_t [kTaps][rc]
+  float* zs = reinterpret_cast<float*>(sw + M * D::kHalves * kTapGroups);
+  float* st = zs + max(M, kTaps) * rc;                                  // [kYsTail]
+  float* zred = st + kYsTail;                                           // [tiles][4 kR][32]
+  float* gin = zred + tiles * 4 * kR * 32;                              // [cap][2]
+  float* ybuf = gin + 2 * cap;                                          // [2][M][cap]
+  const float4* wa4 = reinterpret_cast<const float4*>(wa);
+  for (int e = threadIdx.x; e < M * D::kHalves * kTapGroups; e += blockDim.x) sw[e] = wa4[e];
+  for (int e = threadIdx.x; e < kYsTail; e += blockDim.x) st[e] = tail[e];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o = warp & 1, tl = warp >> 1;
+  const int tg = lane >> 2, grp = lane & 3;
+  const int rounds = (sh.n_own + rc - 1) / rc;
+
+  // the block's runs of ys[t] into buffer b, a warp a plane
+  auto prefetch = [&](int t, int b) {
+    const float* src = ys + static_cast<size_t>(t) * M * cells + sh.first;
+    float* dst = ybuf + static_cast<size_t>(b) * M * cap;
+    for (int m = warp; m < M; m += nwarps)
+      for (int k = lane; k < sh.n_own; k += 32)
+        cp_async4(dst + m * cap + k, src + static_cast<size_t>(m) * cells + k);
+  };
+
+  // g_t at own cell k, channel c: g_in_t + dt (D Lap(g_in_t) + jt), from
+  // g_ins[t] and zw_t (zsrc) at the neighbours
+  auto gather = [&](int t, const float* zsrc, int k, int c) {
+    const int idx = sh.first + k;
+    const int i = idx / W;
+    const int j = idx - i * W;
+    int col[KS];
+#pragma unroll
+    for (int kj = 0; kj < KS; ++kj) col[kj] = kxk_mma::wrap2(j + R - kj, W);
+    float jt = 0.0f;
+#pragma unroll
+    for (int ki = 0; ki < KS; ++ki) {
+      const float* zrow = zsrc + static_cast<size_t>(ki * KS * 2 + c) * cells +
+                          kxk_mma::wrap2(i + R - ki, H) * W;
+#pragma unroll
+      for (int kj = 0; kj < KS; ++kj)
+        jt += __ldcg(zrow + static_cast<size_t>(kj * 2) * cells + col[kj]);
+    }
+    const float* gi = reinterpret_cast<const float*>(g_ins + static_cast<size_t>(t) * cells);
+    auto at = [&](int di, int dj) {
+      return __ldcg(gi + 2 * (kxk_mma::wrap2(i + di, H) * W + kxk_mma::wrap2(j + dj, W)) + c);
+    };
+    const float s1 = at(1, 0) + at(-1, 0) + at(0, 1) + at(0, -1);
+    const float s2 = at(2, 0) + at(-2, 0) + at(0, 2) + at(0, -2);
+    const float ctr = gin[2 * k + c];
+    const float lap = (-5.0f * ctr + (4.0f / 3.0f) * s1 - (1.0f / 12.0f) * s2) * inv_dx2;
+    return ctr + dt * (st[c] * lap + jt);
+  };
+
+  if (n_steps > 0) prefetch(n_steps - 1, 0);
+  cp_async_commit();
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = n_steps - 1 - s;
+    float* zcur = zw + static_cast<size_t>(s & 1) * kTaps * cells;
+    const float* zprev = zw + static_cast<size_t>((s + 1) & 1) * kTaps * cells;
+    // A: g_in at the own cells, channel-major so a warp reads a plane's
+    // consecutive cells
+    const float* fb = reinterpret_cast<const float*>(frames_bar +
+                                                     static_cast<size_t>(t + 1) * cells);
+    float* gi_out = reinterpret_cast<float*>(g_ins + static_cast<size_t>(t) * cells);
+    for (int item = threadIdx.x; item < 2 * sh.n_own; item += blockDim.x) {
+      const int c = item >= sh.n_own ? 1 : 0;
+      const int k = item - c * sh.n_own;
+      const int idx = sh.first + k;
+      float v = fb[2 * idx + c];
+      if (s > 0) v += gather(t + 1, zprev, k, c);
+      gin[2 * k + c] = v;
+      gi_out[2 * idx + c] = v;
+    }
+    // ys[t - 1] into the buffer that step t + 1 read (before the last
+    // barrier), issued after the gather's loads so that they do not queue
+    // behind it; it lands while phase B and the barrier run
+    if (t > 0) prefetch(t - 1, (s + 1) & 1);
+    cp_async_commit();
+    cp_async_wait_all_but_last();  // this thread's copies of ys[t]
+    __syncthreads();
+    // B
+    const float* yb = ybuf + static_cast<size_t>(s & 1) * M * cap;
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int base = rd * rc;
+      // Z of the round's cells, a warp a (equation, channel) row, zero past
+      // the block's cells
+      for (int row = warp; row < 2 * hidden; row += nwarps) {
+        const int eo = row >= hidden ? 1 : 0;
+        const int c = row - eo * hidden;
+        const float wo = st[2 + eo * 16 + c];
+        for (int kk = lane; kk < rc; kk += 32) {
+          const int k = base + kk;
+          float z[NB];
+          if (k < sh.n_own) {
+            float y[NB], pre[NB + 1], suf[NB + 1];
+#pragma unroll
+            for (int i = 0; i < NB; ++i) y[i] = yb[((eo * NB + i) * hidden + c) * cap + k];
+            pre[0] = 1.0f;
+            suf[NB] = 1.0f;
+#pragma unroll
+            for (int i = 0; i < NB; ++i) pre[i + 1] = pre[i] * y[i];
+#pragma unroll
+            for (int i = NB - 1; i >= 0; --i) suf[i] = suf[i + 1] * y[i];
+            const float gw = wo * gin[2 * k + eo];
+#pragma unroll
+            for (int i = 0; i < NB; ++i) z[i] = gw * (pre[i] * suf[i + 1]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < NB; ++i) z[i] = 0.0f;
+          }
+#pragma unroll
+          for (int i = 0; i < NB; ++i) zs[((eo * NB + i) * hidden + c) * rc + kk] = z[i];
+        }
+      }
+      __syncthreads();
+      // zw^T of equation o's rows at tile tl: kR taps x 4 cells a lane
+      float acc[kR][4];
+#pragma unroll
+      for (int j = 0; j < kR; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+      const float4* zl = reinterpret_cast<const float4*>(zs) + tl * 4 + grp;
+      const float4* wl = sw + tg;
+      const int zstride = rc / 4;
+#pragma unroll 4
+      for (int m = o * Mo; m < (o + 1) * Mo; ++m) {
+        const float4 z = zl[m * zstride];
+        float w[4 * D::kHalves];
+#pragma unroll
+        for (int h = 0; h < D::kHalves; ++h) {
+          const float4 v = wl[(m * D::kHalves + h) * kTapGroups];
+          w[4 * h] = v.x;
+          w[4 * h + 1] = v.y;
+          w[4 * h + 2] = v.z;
+          w[4 * h + 3] = v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          acc[j][0] = fmaf(w[j], z.x, acc[j][0]);
+          acc[j][1] = fmaf(w[j], z.y, acc[j][1]);
+          acc[j][2] = fmaf(w[j], z.z, acc[j][2]);
+          acc[j][3] = fmaf(w[j], z.w, acc[j][3]);
+        }
+      }
+      float* zr = zred + tl * 4 * kR * 32 + lane;
+      if (o == 1) {
+#pragma unroll
+        for (int j = 0; j < kR; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) zr[(4 * j + e) * 32] = acc[j][e];
+      }
+      __syncthreads();
+      // the o = 0 warps add the o = 1 warps' sums into [kTaps][rc] in Z's
+      // place (read by no warp now), then every thread stores a plane's
+      // consecutive cells of zw_t
+      if (o == 0) {
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          const int q = tg * kR + j;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (q < kTaps) zs[q * rc + tl * kYsTileCells + grp * 4 + e] =
+                acc[j][e] + zr[(4 * j + e) * 32];
+        }
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < kTaps * rc; e += blockDim.x) {
+        const int q = e / rc, kk = e - q * rc;
+        if (base + kk < sh.n_own)
+          zcur[static_cast<size_t>(q) * cells + sh.first + base + kk] = zs[e];
+      }
+      __syncthreads();  // Z and the exchange free for the next round
+    }
+    grid.sync();
+  }
+  if (n_steps > 0) {
+    const float* zlast = zw + static_cast<size_t>((n_steps - 1) & 1) * kTaps * cells;
+    float* go = reinterpret_cast<float*>(g_out);
+    for (int item = threadIdx.x; item < 2 * sh.n_own; item += blockDim.x) {
+      const int c = item >= sh.n_own ? 1 : 0;
+      const int k = item - c * sh.n_own;
+      go[2 * (sh.first + k) + c] = gather(0, zlast, k, c);
+    }
+  }
+}
+
+// Shared memory of adj2d_ys_persistent_kernel<KS, NB> on `blocks` blocks of
+// `threads` threads: the operand, Z of a round (or zw_t's, if more rows),
+// the tail, the exchange of
+// each warp pair, g_in of the most cells a block owns and the two ys buffers
+// (ys_smem_bytes in ../backward2d.py computes the same).
+template <int KS>
+size_t ys_persistent_smem(int H, int W, int hidden, int n_branches, int blocks, int threads) {
+  using D = YsDims<KS>;
+  const size_t cap = (static_cast<size_t>(H) * W + blocks - 1) / blocks;
+  const size_t tiles = threads / 64, rc = tiles * kYsTileCells;
+  const size_t M = 2 * static_cast<size_t>(n_branches) * hidden;
+  const size_t zrows = M > D::kTaps ? M : D::kTaps;
+  return 4 * (M * D::kHalves * kTapGroups * 4 + zrows * rc + kYsTail + tiles * 4 * D::kR * 32 +
+              2 * cap + 2 * M * cap);
+}
+
+template <int KS, int NB>
+cudaError_t ys_persistent_occupancy(size_t smem, int threads, int* per_sm) {
+  auto kernel = adj2d_ys_persistent_kernel<KS, NB>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+}
+
+template <int KS, int NB>
+cudaError_t ys_persistent_sweep(const float* wa, const float* tail, const float2* frames_bar,
+                                const float* ys, float2* g, float2* g_ins, float* zw,
+                                int n_steps, int H, int W, int hidden, float dt, float inv_dx2,
+                                int blocks, int threads, size_t smem, cudaStream_t stream,
+                                int* per_sm) {
+  if (smem != ys_persistent_smem<KS>(H, W, hidden, NB, blocks, threads))
+    return cudaErrorInvalidValue;
+  cudaError_t err = ys_persistent_occupancy<KS, NB>(smem, threads, per_sm);
+  if (err != cudaSuccess) return err;
+  err = kxk_mma::check_coresident(blocks, *per_sm);
+  if (err != cudaSuccess || n_steps == 0) return err;
+  void* args[] = {&wa, &tail, &frames_bar, &ys, &g, &g_ins, &zw, &n_steps, &H, &W, &hidden,
+                  &dt, &inv_dx2};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(adj2d_ys_persistent_kernel<KS, NB>), dim3(blocks),
+      dim3(threads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// (kernel_size, n_branches) of the caller's scope -> return F<KS, NB>(...),
+// or cudaErrorInvalidValue for other widths (k = 3 or 5, 1 to 4 branches).
+#define YS_DISPATCH(F, ...)                      \
+  switch (kernel_size * 10 + n_branches) {       \
+    case 31: return F<3, 1>(__VA_ARGS__);        \
+    case 32: return F<3, 2>(__VA_ARGS__);        \
+    case 33: return F<3, 3>(__VA_ARGS__);        \
+    case 34: return F<3, 4>(__VA_ARGS__);        \
+    case 51: return F<5, 1>(__VA_ARGS__);        \
+    case 52: return F<5, 2>(__VA_ARGS__);        \
+    case 53: return F<5, 3>(__VA_ARGS__);        \
+    case 54: return F<5, 4>(__VA_ARGS__);        \
+    default: return cudaErrorInvalidValue;       \
+  }
+
 #define PERCNN_NB_CASES(CALL) \
   case 1: return CALL(1);     \
   case 2: return CALL(2);     \
@@ -284,4 +615,41 @@ extern "C" int adj2d_ys_sweep(const void* params, int n_params, const void* fram
   }
 #undef K3
 #undef K5
+}
+
+// The same sweep in one cooperative launch of adj2d_ys_persistent_kernel on
+// `blocks` blocks of `threads` threads with `smem` bytes (ys_plan: at most the
+// card's co-resident count, else cudaErrorCooperativeLaunchTooLarge before
+// anything is launched; bytes other than the kernel's own, or C over 16,
+// cudaErrorInvalidValue).  wa and tail are pack_ffma_adj_2d's and
+// pack_ffma_tail_2d's; zw is a [2, k k 2, H, W] scratch; g (zeroed) receives
+// g_0 and the other outputs are adj2d_ys_sweep's.  `per_sm` gets the
+// occupancy query's blocks an SM.
+extern "C" int adj2d_ys_persistent(const void* wa, const void* tail, const void* frames_bar,
+                                   const void* ys, void* g, void* g_ins, void* zw, int n_steps,
+                                   int H, int W, int hidden, int n_branches, int kernel_size,
+                                   float dt, float inv_dx2, int blocks, int threads, int smem,
+                                   void* stream, int* per_sm) {
+  const float* w = static_cast<const float*>(wa);
+  const float* t = static_cast<const float*>(tail);
+  const float2* fb = static_cast<const float2*>(frames_bar);
+  const float* y = static_cast<const float*>(ys);
+  float2* gg = static_cast<float2*>(g);
+  float2* gi = static_cast<float2*>(g_ins);
+  float* z = static_cast<float*>(zw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1 || blocks > H * W || threads < 64 || threads > kYsMaxThreads ||
+      threads % 64 != 0 || hidden < 1 || hidden > 16)
+    return cudaErrorInvalidValue;
+  const size_t bytes = static_cast<size_t>(smem);
+  YS_DISPATCH(ys_persistent_sweep, w, t, fb, y, gg, gi, z, n_steps, H, W, hidden, dt, inv_dx2,
+              blocks, threads, bytes, s, per_sm)
+}
+
+// How many blocks of adj2d_ys_persistent_kernel an SM holds at once,
+// `threads` threads and `smem` bytes a block.
+extern "C" int adj2d_ys_occupancy(int n_branches, int kernel_size, int threads, int smem,
+                                  int* per_sm) {
+  const size_t bytes = static_cast<size_t>(smem);
+  YS_DISPATCH(ys_persistent_occupancy, bytes, threads, per_sm)
 }

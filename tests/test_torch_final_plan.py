@@ -49,14 +49,18 @@ def test_kxk_cells_take_the_persistent_kernel_with_the_mxu_switch_on():
     assert cell2d.final_plan(100, 100, k3, N_SM, mxu=True)["route"] == "persistent"
     assert cell2d.final_plan(1452, 1452, BURGERS, N_SM, mxu=True)["route"] == "persistent"
     assert cell2d.final_plan(1453, 1453, BURGERS, N_SM, mxu=True) == {"route": "per_step"}
-    assert cell2d.final_plan(100, 100, BURGERS, N_SM, mxu=False) == {"route": "per_step"}
+    # with the switch off, the FFMA one-launch kernel's rule
+    assert cell2d.final_plan(100, 100, BURGERS, N_SM, mxu=False) == cell2d.ffma_plan(
+        100, 100, BURGERS, N_SM) == {"route": "persistent", "blocks": 132, "threads": 320,
+                                     "smem": 47248}
+    assert cell2d.final_plan(1407, 1407, BURGERS, N_SM, mxu=False) == {"route": "per_step"}
 
 
 def test_the_switch_is_read_at_every_call(monkeypatch):
     monkeypatch.setattr(cell2d, "MXU_FWD_ENABLED", False)
-    assert cell2d.final_plan(100, 100, BURGERS, N_SM) == {"route": "per_step"}
+    assert cell2d.final_plan(100, 100, BURGERS, N_SM) == cell2d.ffma_plan(100, 100, BURGERS, N_SM)
     monkeypatch.setattr(cell2d, "MXU_FWD_ENABLED", True)
-    assert cell2d.final_plan(100, 100, BURGERS, N_SM)["route"] == "persistent"
+    assert cell2d.final_plan(100, 100, BURGERS, N_SM) == cell2d.kxk_plan(100, 100, BURGERS, N_SM)
 
 
 @pytest.mark.parametrize("n_steps", range(1, 8))
@@ -101,16 +105,22 @@ def _meta_params(cfg, seed=0):
     return params_from_numpy(params, device="meta", dtype=torch.float32)
 
 
-ROUTES = [(GS2D, (100, 100), True, "cluster"), (GS2D, (449, 449), True, "per_step"),
-          (LO, (20, 24), True, "per_step"), (BURGERS, (100, 100), True, "persistent"),
-          (BURGERS, (17, 9), True, "persistent"), (BURGERS, (1453, 1453), True, "per_step"),
-          (BURGERS, (100, 100), False, "per_step")]
+# (cell, shape, MXU switch, final_plan's route, the launcher it calls)
+ROUTES = [(GS2D, (100, 100), True, "cluster", "cluster"),
+          (GS2D, (449, 449), True, "per_step", "per_step"),
+          (LO, (20, 24), True, "per_step", "per_step"),
+          (BURGERS, (100, 100), True, "persistent", "persistent"),
+          (BURGERS, (17, 9), True, "persistent", "persistent"),
+          (BURGERS, (1453, 1453), True, "per_step", "per_step"),
+          (BURGERS, (100, 100), False, "persistent", "ffma")]
 
 
-@pytest.mark.parametrize("cfg, shape, mxu, route", ROUTES)
-def test_a_tensor_off_the_cpu_takes_the_planned_route(monkeypatch, cfg, shape, mxu, route):
+@pytest.mark.parametrize("cfg, shape, mxu, route, launcher_name", ROUTES)
+def test_a_tensor_off_the_cpu_takes_the_planned_route(monkeypatch, cfg, shape, mxu, route,
+                                                      launcher_name):
     """fused_rollout_final_2d calls the launcher of final_plan's route, with
-    final_only for the one-launch kernels, and never the plain version."""
+    final_only for the one-launch kernels, and never the plain version: with
+    the MXU switch off, a k x k cell's one-launch route is the FFMA kernel's."""
     calls = []
 
     def launcher(name):
@@ -126,13 +136,14 @@ def test_a_tensor_off_the_cpu_takes_the_planned_route(monkeypatch, cfg, shape, m
     monkeypatch.setattr(cell2d, "_sm_count", lambda device: N_SM)
     monkeypatch.setattr(cell2d, "_rollout_cluster_cuda", launcher("cluster"))
     monkeypatch.setattr(cell2d, "_rollout_kxk_persistent_cuda", launcher("persistent"))
+    monkeypatch.setattr(cell2d, "_rollout_ffma_persistent_cuda", launcher("ffma"))
     monkeypatch.setattr(cell2d, "_final_steps_cuda", launcher("per_step"))
     monkeypatch.setattr(cell2d, "fused_rollout_final_2d_plain", no_plain)
     monkeypatch.setattr(cell2d, "fused_rollout_kxk_2d_plain", no_plain)
     assert cell2d.final_plan(*shape, cfg, N_SM)["route"] == route
     h0 = torch.empty(shape + (2,), device="meta")
     out = cell2d.fused_rollout_final_2d(_meta_params(cfg), h0, cfg, 4)
-    assert calls == [(route, {} if route == "per_step" else {"final_only": True})]
+    assert calls == [(launcher_name, {} if route == "per_step" else {"final_only": True})]
     assert tuple(out.shape) == shape + (2,)
 
 
@@ -199,7 +210,7 @@ def card(monkeypatch):
     (BURGERS, 100, 1, True, "cell2d_kxk_rollout_persistent", (0, 0, 1, 1)),
     (BURGERS, 100, 0, True, "cell2d_kxk_rollout_persistent", (0, 0, 0, 0)),
     (BURGERS, 1453, 2, True, "cell2d_final", (0, 0, 2, 2)),
-    (BURGERS, 100, 4, False, "cell2d_final", (0, 0, 4, 4)),
+    (BURGERS, 100, 4, False, "cell2d_ffma_rollout_persistent", (0, 0, 1, 4)),
 ])
 def test_cuda_final_state_takes_the_planned_route(monkeypatch, card, cfg, n, steps, mxu, entry,
                                                    counts):
@@ -216,7 +227,7 @@ def test_cuda_final_state_takes_the_planned_route(monkeypatch, card, cfg, n, ste
     args = card[0][1]
     if entry == "cell2d_rollout_cluster":
         assert args[4:6] == (steps, 1)                       # n_steps, final_only
-    elif entry == "cell2d_kxk_rollout_persistent":
+    elif entry in ("cell2d_kxk_rollout_persistent", "cell2d_ffma_rollout_persistent"):
         assert args[5:7] == (steps, 1)
         assert args[4] is not None                           # the scratch buffer
     f = cell2d.fused_rollout_final_2d
