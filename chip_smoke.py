@@ -24,7 +24,9 @@ since start:
                ptxas's registers and spills, the one-launch kernels'
                plans at GS2D's, GS3D's and Burgers' shapes (cluster size,
                co-resident grid, threads, bytes) beside what the card holds
-               of them, and the k = 5 FFMA kernels' instruction mix
+               of them (the ensemble's at M = 4 and 8, and the clusters of
+               16 and of 8 CTAs the card holds), and the k = 5 FFMA
+               kernels' instruction mix
                (cuobjdump: FFMA and shared-memory loads)
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_persistent_kernel (one launch, 6
@@ -136,17 +138,26 @@ since start:
                the launches and steps of one iteration
   step_breakdown_kxk  the same for Burgers at T = 200
                (adj2d_kxk_persistent_kernel)
-  kernels_batched  the ensemble's kernels (rollout2d_batched_kernel,
-               adj2d_batched_kernel, pg2d_batched_kernel) against their plain
-               versions at M = 4, 100 x 100, T = 200 (the golden GS2D cell
-               and three seeded perturbations of it, a standard-normal
-               cotangent), each member against the single-member kernel on
-               that member, and the k = 5 contracts of the first two on the
-               golden Burgers cell (M = 2)
+  kernels_batched  the ensemble's kernels against their plain versions at
+               M = 4 and M = 8, 100 x 100, T = 200 (the golden GS2D cell
+               and seeded perturbations of it, a standard-normal
+               cotangent): the forward by both routes,
+               rollout2d_cluster_kernel with a member axis (rollout_b_plan's
+               route: 16-CTA clusters at M = 4, 8-CTA ones at M = 8) and
+               rollout2d_batched_kernel, to the bit of each other and of the
+               single cluster kernel on each member; the fused sweep by
+               both routes, pg2d_batched_persistent_kernel (pg_b_plan's)
+               and pg2d_batched_kernel, g0 and each member's gradient sums
+               leaf by leaf against plain, each other and the single
+               model's sweep; adj2d_batched_kernel (M = 4); the k = 5
+               contracts of the forward and adj2d_batched_kernel on the
+               golden Burgers cell (M = 2); then both entry points on
+               17 x 9 (the one-launch routes) and past the plans (449 x 449,
+               and M = 8 at 156 x 156 for the sweep), counted
   grads_batched  the gradients of bptt="batched" and "batched_pg" against
                f64 autograd on the referee setup (random-init cells, random
                targets, 12 steps, full width, M = 4), and "batched" of the
-               5x5 cell (M = 2), each route's launches counted
+               5x5 cell (M = 2), each route's launches and steps counted
   kernels_sharded  step2d_haloed_kernel against its plain version on the
                haloed blocks of a 2 x 2 mesh of cuda:0 (four 50 x 50 blocks
                of 100 x 100, and a 6 x 10 block) for the golden GS2D (k = 1)
@@ -174,29 +185,32 @@ since start:
                versions), 32 x 32, T = 20, M = 2, 3 iterations, both batched
                modes
   step_breakdown_ensemble  one ensemble iteration at T = 800, M = 4, for
-               "batched_pg" and for "auto" (the per-member loop): host and
-               device ms, enqueue, and the device's idle share from a
+               "batched_pg" (one launch of each batched kernel) and for
+               "auto" (the per-member loop): host and device ms, enqueue,
+               launches and steps, and the device's idle share from a
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work (rows 1
                (k = 1 and 5), 2 (k = 1, and k = 5 by both MXU routes), 3, 5,
-               6, 7, 8 and 10 also by their per-step routes, in turns in the
-               same call; rows 2 at k = 5, 3 and 6 with the bound in 3xTF32
-               and all in FFMA),
+               6, 7, 8, 10, 11 (k = 1) and 13 also by their per-step routes,
+               in turns in the same call, rows 11 and 13 at M = 4 and 8, row
+               11 at M = 8 by both cluster sizes; rows 2 at k = 5, 3 and 6
+               with the bound in 3xTF32 and all in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (28 entries: the 14 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (30 entries: the 14 ported TPU kernels,
 row 1 at k = 5 by rollout2d_ffma_persistent_kernel, row 2 by its three
 one-launch routes, rollout2d_cluster_kernel[final],
 rollout2d_kxk_persistent_kernel[final] and
-rollout2d_ffma_persistent_kernel[final], with the k = 5 contracts of
+rollout2d_ffma_persistent_kernel[final], row 11 at k = 1 by
+rollout2d_cluster_kernel[batched], with the k = 5 contracts of
 adj2d_kernel, rollout2d_batched_kernel and adj2d_batched_kernel and the
 per-step routes of rows 1 at k = 5 (rollout2d_kernel[k=5]), 2
-(final2d_kernel, final2d_kernel[k=5]), 3, 5, 6, 8 and 10
+(final2d_kernel, final2d_kernel[k=5]), 3, 5, 6, 8, 10, 11 and 13
 (rollout2d_kxk_kernel, adj2d_ys_kernel, adj2d_kxk_kernel, rollout3d_kernel,
-pg3d_kernel) listed apart), the
+pg3d_kernel, rollout2d_batched_kernel, pg2d_batched_kernel) listed apart), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
@@ -554,6 +568,24 @@ def main() -> int:
                                    cell2d._sm_count(dev)),
             "blocks_an_sm_holds": backward3d.pg3d_occupancy(GS3D_RECON.cell,
                                                             *(GS3D_RECON.grid,) * 3, dev)}}
+    # the ensemble's one-launch kernels at M = 4 and 8: the plans, and what
+    # the card holds of clusters of 16 and of 8 CTAs and of the sweep's blocks
+    held16 = one_launch["rollout2d_cluster_kernel"]["clusters_the_card_holds"]
+    one_launch["rollout2d_cluster_kernel[batched]"] = {
+        **{f"M={n}": batched2d.rollout_b_plan(n, n_gs2d, n_gs2d, GS2D_RECON.cell, held16)
+           for n in (ENS_MEMBERS, 2 * ENS_MEMBERS)},
+        "clusters_the_card_holds": {"16": held16, "8": cell2d.cluster_occupancy(
+            GS2D_RECON.cell, n_gs2d, n_gs2d, 8)}}
+    one_launch["pg2d_batched_persistent_kernel"] = {
+        f"M={n}": {**batched2d.pg_b_plan(n, n_gs2d, n_gs2d, GS2D_RECON.cell,
+                                         backward2d._sm_count(dev)),
+                   "blocks_an_sm_holds": batched2d.pg_b_occupancy(GS2D_RECON.cell, n, n_gs2d,
+                                                                  n_gs2d, dev)}
+        for n in (ENS_MEMBERS, 2 * ENS_MEMBERS)}
+    check(min(one_launch["rollout2d_cluster_kernel[batched]"]["clusters_the_card_holds"].values())
+          >= 1 and all(v["blocks_an_sm_holds"] >= 1 for v in
+                       one_launch["pg2d_batched_persistent_kernel"].values()),
+          f"the card holds none of an ensemble's one-launch grid: {one_launch}")
     check(one_launch["rollout2d_cluster_kernel"]["clusters_the_card_holds"] >= 1
           and all(one_launch[k]["blocks_an_sm_holds"] >= 1
                   for k in ("pg2d_persistent_kernel", "rollout2d_kxk_persistent_kernel",
@@ -1071,10 +1103,12 @@ def main() -> int:
                 (backward2d.fused_rollout_tp_2d_pg, "launches"),
                 (backward2d.fused_rollout_tp_2d_pg, "steps"),
                 (batched2d.fused_rollout_2d_batched, "launches"),
+                (batched2d.fused_rollout_2d_batched, "steps"),
                 (batched2d.fused_rollout_2d_batched, "launches_kxk"),
                 (batched2d.fused_phase1_2d_batched, "launches"),
                 (batched2d.fused_phase1_2d_batched, "launches_kxk"),
                 (batched2d.fused_phase1_pg_2d_batched, "launches"),
+                (batched2d.fused_phase1_pg_2d_batched, "steps"),
                 (sharded_step2d.step_haloed_2d, "launches")]
 
     def zero_counts():
@@ -1596,67 +1630,156 @@ def main() -> int:
                                             dtype=torch.float32, device=dev)
                             for m in range(n)]).contiguous()
 
-    batched_err, vs_single = {}, {}
+    def pg_b_errs(name, g0_a, sums_a, g0_b, sums_b):
+        """g0 and each member's gradient sums of a against b, leaf by leaf:
+        {leaf: (max |diff|, max |b|)}, held to the sweep bar; the largest
+        difference goes to err[name]."""
+        out = {"g0": (max_abs(g0_a, g0_b), float(g0_b.abs().max()))}
+        for m in range(sums_b.shape[0]):
+            for leaf, (start, n) in groups.items():
+                out[f"member{m}.{leaf}"] = (
+                    max_abs(sums_a[m, start:start + n], sums_b[m, start:start + n]),
+                    float(sums_b[m, start:start + n].abs().max()))
+        for leaf, (e, scale) in out.items():
+            check(e <= 2e-4 * scale + 2e-6,
+                  f"{name}, {leaf}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+        err[name] = max(err.get(name, 0.0), max(e for e, _ in out.values()))
+        return {k: list(v) for k, v in out.items()}
+
+    batched_err, vs_single, bitwise = {}, {}, {}
     for suffix, cfg_, cell_np, exp_, n_mem in (
             ("", cfg, model["cell"], GS2D_RECON, ENS_MEMBERS),
+            ("[M=8]", cfg, model["cell"], GS2D_RECON, 2 * ENS_MEMBERS),
             ("[k=5]", cfgb, modelb["cell"], BURGERS_STAGE1, ENS_KXK_MEMBERS)):
         packed_m = batched2d.pack_pi_params_2d_batched(member_cells(cell_np, n_mem),
                                                        cfg_).contiguous()
         h0_m = member_ics(exp_.system, exp_.grid, n_mem)
+        # the forward: rollout2d_cluster_kernel with a member axis (row 11's
+        # route at k = 1, rollout_b_plan's) and rollout2d_batched_kernel,
+        # each against plain; at k = 1 the two and the single cluster kernel
+        # on each member to the bit (the same step)
         got = batched2d._rollout_b_cuda(packed_m, h0_m, cfg_, CHECK_STEPS)
+        steps_f = batched2d._rollout_b_steps_cuda(packed_m, h0_m, cfg_, CHECK_STEPS)
         want = batched2d.fused_rollout_2d_batched_plain(packed_m, h0_m, cfg_, CHECK_STEPS)
         single = [cell2d._rollout_cuda(packed_m[m].contiguous(), h0_m[m], cfg_, CHECK_STEPS)
                   for m in range(n_mem)]
         torch.cuda.synchronize()
-        name = f"rollout2d_batched_kernel{suffix}"
-        err[name] = max_abs(got, want)
-        check(bool(torch.isfinite(want).all()) and allclose(got, want, rtol=2e-4, atol=1e-5),
-              f"{name} vs plain: max |diff| {err[name]}")
-        vs_single[name] = max(max_abs(got[m], single[m]) for m in range(n_mem))
+        check(bool(torch.isfinite(want).all()), f"plain batched frames{suffix} not finite")
+        names = (("rollout2d_batched_kernel" + suffix, steps_f),) if cfg_.kernel_size > 1 else (
+            ("rollout2d_cluster_kernel[batched]" + suffix, got),
+            ("rollout2d_batched_kernel" + suffix, steps_f))
+        for name, fr in names:
+            err[name] = max_abs(fr, want)
+            check(allclose(fr, want, rtol=2e-4, atol=1e-5),
+                  f"{name} vs plain: max |diff| {err[name]}")
+            vs_single[name] = max(max_abs(fr[m], single[m]) for m in range(n_mem))
+        if cfg_.kernel_size == 1:
+            bitwise[f"frames{suffix}"] = {
+                "cluster_vs_per_step": bool(torch.equal(got, steps_f)),
+                "cluster_vs_single_cluster": all(bool(torch.equal(got[m], single[m]))
+                                                 for m in range(n_mem))}
+            check(all(bitwise[f"frames{suffix}"].values()),
+                  f"batched frames{suffix} differ in bits: {bitwise[f'frames{suffix}']}")
         fbar_m = torch.as_tensor(np.random.RandomState(9).standard_normal(tuple(got.shape)),
                                  dtype=torch.float32, device=dev)
-        name = f"adj2d_batched_kernel{suffix}"
-        out_k = batched2d._phase1_b_cuda(packed_m, got, fbar_m, cfg_)
-        batched_err[name] = sweep_errs(
-            name, out_k, batched2d.fused_phase1_2d_batched_plain(packed_m, got, fbar_m, cfg_))
-        single = [backward2d._phase1_cuda(packed_m[m].contiguous(), got[m].contiguous(),
-                                          fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
-        vs_single[name] = max(max(max_abs(out_k[0][m], single[m][0]),
-                                  max_abs(out_k[1][m], single[m][1])) for m in range(n_mem))
+        if not suffix.startswith("[M=8]"):
+            name = f"adj2d_batched_kernel{suffix}"
+            out_k = batched2d._phase1_b_cuda(packed_m, got, fbar_m, cfg_)
+            batched_err[name] = sweep_errs(
+                name, out_k, batched2d.fused_phase1_2d_batched_plain(packed_m, got, fbar_m, cfg_))
+            single = [backward2d._phase1_cuda(packed_m[m].contiguous(), got[m].contiguous(),
+                                              fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
+            vs_single[name] = max(max(max_abs(out_k[0][m], single[m][0]),
+                                      max_abs(out_k[1][m], single[m][1])) for m in range(n_mem))
+            del out_k
         if cfg_.kernel_size > 1:
             continue
-        # pg2d_batched_kernel: g0 and each member's plane sums, leaf by leaf
-        g0_k, acc_k = batched2d._pg_b_cuda(packed_m, got, fbar_m, cfg_)
+        # the fused sweep: pg2d_batched_persistent_kernel (row 13's route,
+        # pg_b_plan's) and pg2d_batched_kernel, g0 and each member's sums,
+        # leaf by leaf, against plain and against each other; each member
+        # against the single model's sweep (pg_plan's route)
+        g0_k, sums_k = batched2d._pg_b_cuda(packed_m, got, fbar_m, cfg_)
+        g0_s, acc_s = batched2d._pg_b_steps_cuda(packed_m, got, fbar_m, cfg_)
         g0_p, acc_p = batched2d.fused_phase1_pg_2d_batched_plain(packed_m, got, fbar_m, cfg_)
         single = [backward2d._pg_cuda(packed_m[m].contiguous(), got[m].contiguous(),
                                       fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
         torch.cuda.synchronize()
-        sums_k, sums_p = acc_k.sum((2, 3)), acc_p.sum((2, 3))
-        pg_err = {"g0": (max_abs(g0_k, g0_p), float(g0_p.abs().max()))}
-        for m in range(n_mem):
-            for leaf, (start, n) in groups.items():
-                pg_err[f"member{m}.{leaf}"] = (
-                    max_abs(sums_k[m, start:start + n], sums_p[m, start:start + n]),
-                    float(sums_p[m, start:start + n].abs().max()))
-        for leaf, (e, scale) in pg_err.items():
-            check(e <= 2e-4 * scale + 2e-6, f"pg2d_batched_kernel vs plain, {leaf}: max |diff| "
-                                            f"{e} over 2e-4 * {scale} + 2e-6")
-        err["pg2d_batched_kernel"] = max(e for e, _ in pg_err.values())
-        batched_err["pg2d_batched_kernel"] = {k: list(v) for k, v in pg_err.items()}
-        vs_single["pg2d_batched_kernel"] = max(max(max_abs(g0_k[m], single[m][0]),
-                                                   max_abs(acc_k[m], single[m][1]))
-                                               for m in range(n_mem))
-        del acc_k, acc_p
-    del got, want, single, out_k, fbar_m
-    phase("kernels_batched", members={"gs2d": ENS_MEMBERS, "burgers": ENS_KXK_MEMBERS},
+        sums_s, sums_p = acc_s.sum((2, 3)), acc_p.sum((2, 3))
+        del acc_s, acc_p
+        batched_err["pg2d_batched_persistent_kernel" + suffix] = pg_b_errs(
+            "pg2d_batched_persistent_kernel", g0_k, sums_k, g0_p, sums_p)
+        batched_err["pg2d_batched_kernel" + suffix] = pg_b_errs(
+            "pg2d_batched_kernel", g0_s, sums_s, g0_p, sums_p)
+        batched_err["persistent_vs_per_step" + suffix] = pg_b_errs(
+            "pg2d_batched_persistent_kernel vs pg2d_batched_kernel", g0_k, sums_k, g0_s, sums_s)
+        g0_1 = torch.stack([g for g, _ in single])
+        sums_1 = torch.stack([a.sum((1, 2)) for _, a in single])
+        batched_err["persistent_vs_single" + suffix] = pg_b_errs(
+            "pg2d_batched_persistent_kernel vs the single sweep", g0_k, sums_k, g0_1, sums_1)
+        vs_single["pg2d_batched_persistent_kernel" + suffix] = max(
+            max(max_abs(g0_k[m], g0_1[m]), max_abs(sums_k[m], sums_1[m])) for m in range(n_mem))
+        vs_single["pg2d_batched_kernel" + suffix] = max(
+            max(max_abs(g0_s[m], g0_1[m]), max_abs(sums_s[m], sums_1[m])) for m in range(n_mem))
+        # the same pass-1 and pass-3 arithmetic as pg2d_persistent_kernel
+        bitwise[f"g0_persistent_vs_single{suffix}"] = bool(torch.equal(g0_k, g0_1))
+        del single, g0_1, sums_1
+    del got, want, steps_f, fbar_m
+    # the entry points on a field of 17 x 9 (strips of 2 and 3 rows) by the
+    # one-launch routes, and past the plans by the per-step routes (449 x
+    # 449: no cluster's strips fit, nor the sweep's scratch; M = 8 at
+    # 156 x 156: 8-CTA clusters, but a sweep block's scratch passes 227 KB),
+    # launches and steps counted
+    batched_routes = {}
+    for label, n_mem, (hh, ww), steps in (("17 x 9", 3, (17, 9), 5),
+                                          ("449 x 449", 2, (449, 449), 3),
+                                          ("156 x 156", 8, (156, 156), 3)):
+        packed_m = batched2d.pack_pi_params_2d_batched(member_cells(model["cell"], n_mem),
+                                                       cfg).contiguous()
+        h0_m = torch.as_tensor(0.1 * np.random.RandomState(5).standard_normal(
+            (n_mem, hh, ww, 2)) + np.asarray([1.0, 0.0]), dtype=torch.float32,
+            device=dev).contiguous()
+        zero_counts()
+        fr = batched2d.fused_rollout_2d_batched(packed_m, h0_m, cfg, steps)
+        fb = torch.as_tensor(np.random.RandomState(9).standard_normal(tuple(fr.shape)),
+                             dtype=torch.float32, device=dev)
+        g0_k, sums_k = batched2d.fused_phase1_pg_2d_batched(packed_m, fr, fb, cfg)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        plans = {"rollout": batched2d.rollout_b_plan(n_mem, hh, ww, cfg, batched2d._clusters_held(
+                     cfg, hh, ww)) if cell2d.rollout_plan(hh, ww, cfg)["route"] == "cluster"
+                 else {"route": "per_step"},
+                 "pg": batched2d.pg_b_plan(n_mem, hh, ww, cfg, n_sm)}
+        one_f, one_b = plans["rollout"]["route"] == "cluster", plans["pg"]["route"] == "persistent"
+        want_counts = {"fused_rollout_2d_batched.launches": 1 if one_f else steps,
+                       "fused_rollout_2d_batched.steps": steps,
+                       "fused_phase1_pg_2d_batched.launches": 1 if one_b else steps,
+                       "fused_phase1_pg_2d_batched.steps": steps}
+        check(counts == want_counts and one_f == (label != "449 x 449")
+              and one_b == (label == "17 x 9"),
+              f"batched entry points on {label}: plans {plans}, counts {counts}, expected "
+              f"{want_counts}")
+        fr_p = batched2d.fused_rollout_2d_batched_plain(packed_m, h0_m, cfg, steps)
+        check(allclose(fr, fr_p, rtol=2e-4, atol=1e-5),
+              f"batched frames on {label} vs plain: max |diff| {max_abs(fr, fr_p)}")
+        g0_p, acc_p = batched2d.fused_phase1_pg_2d_batched_plain(packed_m, fr, fb, cfg)
+        route_errs = pg_b_errs(f"batched sweep on {label} vs plain", g0_k, sums_k, g0_p,
+                               acc_p.sum((2, 3)))
+        batched_routes[label] = {"members": n_mem, "steps": steps, "plans": plans,
+                                 "counts": counts,
+                                 "frames_max_abs_err": max_abs(fr, fr_p),
+                                 "sweep_max_abs_err": max(e for e, _ in route_errs.values())}
+        del fr, fb, fr_p, acc_p
+    phase("kernels_batched", members={"gs2d": [ENS_MEMBERS, 2 * ENS_MEMBERS],
+                                      "burgers": ENS_KXK_MEMBERS},
           steps=CHECK_STEPS, shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2],
           cells="golden cell and seeded 1% perturbations", ics="default_ic seeds 60..",
           cotangent="standard normal, seed 9",
-          forward_max_abs_err={k: err[k] for k in ("rollout2d_batched_kernel",
-                                                   "rollout2d_batched_kernel[k=5]")},
-          forward_rtol=2e-4, forward_atol=1e-5, sweep_err_and_max=batched_err,
-          sweep_bar="2e-4 * max|plain| + 2e-6",
-          member_vs_single_kernel_max_abs_diff=vs_single)
+          forward_max_abs_err={k: v for k, v in err.items()
+                               if k.startswith(("rollout2d_batched_kernel",
+                                                "rollout2d_cluster_kernel[batched]"))},
+          forward_rtol=2e-4, forward_atol=1e-5, bitwise=bitwise,
+          sweep_err_and_max=batched_err, sweep_bar="2e-4 * max|plain| + 2e-6",
+          member_vs_single_kernel_max_abs_diff=vs_single, entry_points=batched_routes)
 
     # grads_batched: the batched routes' gradients against f64 autograd on
     # the referee setup (random-init cells, one per member, random targets,
@@ -1702,10 +1825,13 @@ def main() -> int:
 
     grads_b = {
         "batched_pg": batched_vs_f64(cfg, ENS_MEMBERS, "batched_pg",
-                                     {"fused_rollout_2d_batched.launches": 12,
-                                      "fused_phase1_pg_2d_batched.launches": 12}, 11),
+                                     {"fused_rollout_2d_batched.launches": 1,
+                                      "fused_rollout_2d_batched.steps": 12,
+                                      "fused_phase1_pg_2d_batched.launches": 1,
+                                      "fused_phase1_pg_2d_batched.steps": 12}, 11),
         "batched": batched_vs_f64(cfg, ENS_MEMBERS, "batched",
-                                  {"fused_rollout_2d_batched.launches": 12,
+                                  {"fused_rollout_2d_batched.launches": 1,
+                                   "fused_rollout_2d_batched.steps": 12,
                                    "fused_phase1_2d_batched.launches": 12}, 11),
         "batched[k=5]": batched_vs_f64(cfgb, ENS_KXK_MEMBERS, "batched",
                                        {"fused_rollout_2d_batched.launches_kxk": 12,
@@ -2296,11 +2422,15 @@ def main() -> int:
     ens_steps = per_ens * sum(stages)
     ens_eval = ENS_MEMBERS * GS2D_RECON.infer_steps
     ens_want = {
-        "batched_pg": {"fused_rollout_2d_batched.launches": ens_steps,
-                       "fused_phase1_pg_2d_batched.launches": ens_steps,
+        # an iteration: one launch of each one-launch batched kernel
+        "batched_pg": {"fused_rollout_2d_batched.launches": ENS_ITERS,
+                       "fused_rollout_2d_batched.steps": ens_steps,
+                       "fused_phase1_pg_2d_batched.launches": ENS_ITERS,
+                       "fused_phase1_pg_2d_batched.steps": ens_steps,
                        "fused_rollout_2d.launches": ENS_MEMBERS,
                        "fused_rollout_2d.steps": ens_eval},
-        "batched": {"fused_rollout_2d_batched.launches": ens_steps,
+        "batched": {"fused_rollout_2d_batched.launches": ENS_ITERS,
+                    "fused_rollout_2d_batched.steps": ens_steps,
                     "fused_phase1_2d_batched.launches": ens_steps,
                     "fused_rollout_2d.launches": ENS_MEMBERS,
                     "fused_rollout_2d.steps": ens_eval},
@@ -2592,7 +2722,20 @@ def main() -> int:
             total.backward()
             opt.step()
 
-        ens_iteration()   # warm-up, not counted
+        zero_counts()
+        ens_iteration()   # warm-up, not timed: its launches and steps are counted
+        torch.cuda.synchronize()
+        ens_counts = read_counts()
+        t_ens = GS2D_RECON.train_steps
+        want_ens = ({"fused_rollout_2d_batched.launches": 1, "fused_rollout_2d_batched.steps": t_ens,
+                     "fused_phase1_pg_2d_batched.launches": 1,
+                     "fused_phase1_pg_2d_batched.steps": t_ens} if mode == "batched_pg" else
+                    {"fused_rollout_2d.launches": ENS_MEMBERS,
+                     "fused_rollout_2d.steps": ENS_MEMBERS * t_ens,
+                     "fused_rollout_tp_2d_pg.launches": ENS_MEMBERS,
+                     "fused_rollout_tp_2d_pg.steps": ENS_MEMBERS * t_ens})
+        check(ens_counts == want_ens, f"ensemble iteration ({mode}): counts {ens_counts}, "
+                                      f"expected {want_ens}")
         rows = []
         for _ in range(BREAKDOWN_REPS):
             torch.cuda.synchronize()
@@ -2608,7 +2751,8 @@ def main() -> int:
         med = np.median(np.asarray(rows), axis=0).tolist()
         prof = profile_busy(torch, ens_iteration)
         ens_rows[label] = {"bptt": mode, "iteration_ms": med[0], "enqueue_ms": med[1],
-                           "device_span_ms": med[2], "profiled": prof,
+                           "device_span_ms": med[2], "counts_per_iteration": ens_counts,
+                           "profiled": prof,
                            "device_idle_share_of_span": 1.0 - prof["device_busy_ms"] / med[2]}
     del eprobs
     phase("step_breakdown_ensemble", members=ENS_MEMBERS, steps=GS2D_RECON.train_steps,
@@ -3092,69 +3236,139 @@ def main() -> int:
     frames2 = batched2d._rollout_b_cuda(packed2, h02, cfgb, stepsb)
     fbar2 = torch.randn(frames2.shape, generator=gen, device=dev)
     m4, m2, t8 = ENS_MEMBERS, ENS_KXK_MEMBERS, TIME_BACKWARD_STEPS
-    pg_bytes = param_bytes + 2 * t8 * state_bytes + state_bytes + 4 * lay["A"] * cells
+    pg_in_bytes = param_bytes + 2 * t8 * state_bytes + state_bytes
+    pg_flops = lambda n: n * t8 * cells * pg_flops_per_cell_step(cfg)
+    # rows 11 (k = 1) and 13 run T steps of every member in one launch;
+    # beside each, its per-step route (rollout2d_batched_kernel,
+    # pg2d_batched_kernel) timed in turns in this call, at M = 4 and M = 8,
+    # and the forward by both cluster sizes in turns (16, 8, 8, 16)
+    batched_times = {}
+    for n_mem in (m4, 2 * m4):
+        if n_mem == m4:
+            pk, h0m, frm, fbm = packed4, h04, frames4, fbar4
+        else:
+            pk = batched2d.pack_pi_params_2d_batched(member_cells(model["cell"], n_mem),
+                                                     cfg).contiguous()
+            h0m = member_ics(GS2D_RECON.system, GS2D_RECON.grid, n_mem)
+            frm = batched2d._rollout_b_cuda(pk, h0m, cfg, t8)
+            fbm = torch.randn(frm.shape, generator=gen, device=dev)
+        fwd = dict(zip(("ms", "per_step_ms", "turns_ms"), turns(
+            lambda: batched2d._rollout_b_cluster_cuda(pk, h0m, cfg, t8),
+            lambda: batched2d._rollout_b_steps_cuda(pk, h0m, cfg, t8), reps=5)))
+        pg = dict(zip(("ms", "per_step_ms", "turns_ms"), turns(
+            lambda: batched2d._pg_b_persistent_cuda(pk, frm, fbm, cfg),
+            lambda: batched2d._pg_b_steps_cuda(pk, frm, fbm, cfg), reps=3)))
+        fwd["ms_by_cluster_size"] = {}
+        for n in (16, 8, 8, 16):
+            fwd["ms_by_cluster_size"].setdefault(f"n_cta={n}", []).append(cuda_ms(
+                torch, lambda: batched2d._rollout_b_cluster_cuda(pk, h0m, cfg, t8, n_cta=n),
+                reps=5))
+        fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+            n_mem * (param_bytes + state_bytes + (t8 + 1) * state_bytes),
+            n_mem * t8 * cells * flops_per_cell_step(cfg))
+        pg["bound_ms"], pg["bound_by"] = bound_ms(n_mem * (pg_in_bytes + 4 * lay["A"]),
+                                                  pg_flops(n_mem))
+        fwd["plan"] = one_launch["rollout2d_cluster_kernel[batched]"][f"M={n_mem}"]
+        pg["plan"] = one_launch["pg2d_batched_persistent_kernel"][f"M={n_mem}"]
+        batched_times[n_mem] = {"fwd": fwd, "pg": pg}
+        if n_mem > m4:
+            del pk, h0m, frm, fbm
+    fwd4, pg4 = batched_times[m4]["fwd"], batched_times[m4]["pg"]
+    m8 = lambda kind: {"members": 2 * m4, "steps": t8, **batched_times[2 * m4][kind]}
+    ens_fwd_launches = (ens_launches["batched_pg"]["fused_rollout_2d_batched.launches"]
+                        + ens_launches["batched"]["fused_rollout_2d_batched.launches"])
+    kernels.extend([{
+        "name": "rollout2d_cluster_kernel[batched]", "jax_kernel": "batched2d._rollout_kernel_b",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/batched2d.py:63",
+        "launches": ens_fwd_launches, "launches_by_path": {"ensemble": ens_fwd_launches},
+        "max_abs_err": err["rollout2d_cluster_kernel[batched]"], "members": m4, "steps": t8,
+        "ms": fwd4["ms"], "plain_ms": cuda_ms(
+            torch, lambda: batched2d.fused_rollout_2d_batched_plain(packed4, h04, cfg, t8), reps=1),
+        "bound_ms": fwd4["bound_ms"], "bound_by": fwd4["bound_by"], "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * fwd4["ms"] / t8,
+        "per_step_route": {"name": "rollout2d_batched_kernel", "launches_per_call": t8,
+                           "ms": fwd4["per_step_ms"], "us_per_step": 1e3 * fwd4["per_step_ms"] / t8},
+        "turns_ms": fwd4["turns_ms"], "ms_by_cluster_size": fwd4["ms_by_cluster_size"],
+        "plan": fwd4["plan"], "m8": m8("fwd"),
+    }, {
+        "name": "pg2d_batched_persistent_kernel", "jax_kernel": "batched2d._phase1_pg_kernel_b",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/batched2d.py:272",
+        "launches": ens_launches["batched_pg"]["fused_phase1_pg_2d_batched.launches"],
+        "launches_by_path": {
+            "ensemble": ens_launches["batched_pg"]["fused_phase1_pg_2d_batched.launches"]},
+        "max_abs_err": err["pg2d_batched_persistent_kernel"], "members": m4, "steps": t8,
+        "ms": pg4["ms"], "plain_ms": cuda_ms(
+            torch, lambda: batched2d.fused_phase1_pg_2d_batched_plain(packed4, frames4, fbar4,
+                                                                      cfg), reps=1),
+        "bound_ms": pg4["bound_ms"], "bound_by": pg4["bound_by"], "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * pg4["ms"] / t8,
+        "per_step_route": {"name": "pg2d_batched_kernel", "launches_per_call": t8,
+                           "ms": pg4["per_step_ms"], "us_per_step": 1e3 * pg4["per_step_ms"] / t8},
+        "turns_ms": pg4["turns_ms"], "plan": pg4["plan"], "m8": m8("pg"),
+    }])
     batched_rows = {
         "rollout2d_batched_kernel": (
-            lambda: batched2d._rollout_b_cuda(packed4, h04, cfg, t8),
-            lambda: batched2d.fused_rollout_2d_batched_plain(packed4, h04, cfg, t8),
+            None, lambda: batched2d.fused_rollout_2d_batched_plain(packed4, h04, cfg, t8),
             m4 * (param_bytes + state_bytes + (t8 + 1) * state_bytes),
             m4 * t8 * cells * flops_per_cell_step(cfg), t8, m4,
             "batched2d._rollout_kernel_b", ":63",
-            ens_launches["batched_pg"]["fused_rollout_2d_batched.launches"]
-            + ens_launches["batched"]["fused_rollout_2d_batched.launches"]),
+            {"kernels_batched (449 x 449)":
+             batched_routes["449 x 449"]["counts"]["fused_rollout_2d_batched.launches"]}),
         "adj2d_batched_kernel": (
             lambda: batched2d._phase1_b_cuda(packed4, frames4, fbar4, cfg),
             lambda: batched2d.fused_phase1_2d_batched_plain(packed4, frames4, fbar4, cfg),
             m4 * (param_bytes + 3 * t8 * state_bytes + state_bytes),
             m4 * t8 * cells * adj_flops_per_cell_step_1x1(cfg), t8, m4,
             "batched2d._phase1_kernel_b", ":117",
-            ens_launches["batched"]["fused_phase1_2d_batched.launches"]),
+            {"ensemble": ens_launches["batched"]["fused_phase1_2d_batched.launches"]}),
         "pg2d_batched_kernel": (
-            lambda: batched2d._pg_b_cuda(packed4, frames4, fbar4, cfg),
-            lambda: batched2d.fused_phase1_pg_2d_batched_plain(packed4, frames4, fbar4, cfg),
-            m4 * pg_bytes, m4 * t8 * cells * pg_flops_per_cell_step(cfg), t8, m4,
+            None, None, m4 * (pg_in_bytes + 4 * lay["A"] * cells), pg_flops(m4), t8, m4,
             "batched2d._phase1_pg_kernel_b", ":272",
-            ens_launches["batched_pg"]["fused_phase1_pg_2d_batched.launches"]),
+            {f"kernels_batched ({k})":
+             batched_routes[k]["counts"]["fused_phase1_pg_2d_batched.launches"]
+             for k in ("449 x 449", "156 x 156")}),
         "rollout2d_batched_kernel[k=5]": (
             lambda: batched2d._rollout_b_cuda(packed2, h02, cfgb, stepsb),
             lambda: batched2d.fused_rollout_2d_batched_plain(packed2, h02, cfgb, stepsb),
             m2 * (packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes), m2 * fwdb_flops,
             stepsb, m2, "batched2d._rollout_kernel_b", ":63",
-            ens_launches["burgers_batched"]["fused_rollout_2d_batched.launches_kxk"]),
+            {"ensemble": ens_launches["burgers_batched"]["fused_rollout_2d_batched.launches_kxk"]}),
         "adj2d_batched_kernel[k=5]": (
             lambda: batched2d._phase1_b_cuda(packed2, frames2, fbar2, cfgb),
             lambda: batched2d.fused_phase1_2d_batched_plain(packed2, frames2, fbar2, cfgb),
             m2 * (packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes), m2 * bwb_flops,
             stepsb, m2, "batched2d._phase1_kernel_b", ":117",
-            ens_launches["burgers_batched"]["fused_phase1_2d_batched.launches_kxk"]),
+            {"ensemble": ens_launches["burgers_batched"]["fused_phase1_2d_batched.launches_kxk"]}),
     }
+    # the per-step rows' ms are their turns above; their plain versions the
+    # one-launch rows' (the same function)
+    per_step_ms = {"rollout2d_batched_kernel": fwd4["per_step_ms"],
+                   "pg2d_batched_kernel": pg4["per_step_ms"]}
+    plain_of = {"rollout2d_batched_kernel": kernels[-2]["plain_ms"],
+                "pg2d_batched_kernel": kernels[-1]["plain_ms"]}
     batched_work = {}
     for name, (kernel, plain, nbytes, nflops, steps, n_mem, jax_name, line,
-               n_launches) in batched_rows.items():
+               by_path) in batched_rows.items():
         b_ms, b_by = bound_ms(nbytes, nflops)
         batched_work[name] = {"members": n_mem, "steps": steps, "bytes": nbytes, "flops": nflops}
-        kernels.append({
+        entry = {
             "name": name, "jax_kernel": jax_name, "route": "cuda",
             "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
             "replaces": f"percnn_tpu/ops/pallas/batched2d.py{line}",
-            "launches": n_launches, "launches_by_path": {"ensemble": n_launches},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err[name], "members": n_mem, "steps": steps,
-            "ms": cuda_ms(torch, kernel, reps=5), "plain_ms": cuda_ms(torch, plain, reps=1),
+            "ms": per_step_ms[name] if kernel is None else cuda_ms(torch, kernel, reps=5),
+            "plain_ms": plain_of[name] if plain is None else cuda_ms(torch, plain, reps=1),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+        }
+        if name in per_step_ms:
+            entry["note"] = ("the per-step route past the one-launch plan; ms at 100 x 100, "
+                             "M = 4, timed in turns with it")
+            entry["m8"] = {"ms": m8("fwd" if "rollout" in name else "pg")["per_step_ms"]}
+        kernels.append(entry)
     del frames4, fbar4, frames2, fbar2
-    # pg2d_batched_kernel at M = 8
-    m8 = 2 * ENS_MEMBERS
-    packed8 = batched2d.pack_pi_params_2d_batched(member_cells(model["cell"], m8),
-                                                  cfg).contiguous()
-    frames8 = batched2d._rollout_b_cuda(packed8, member_ics(GS2D_RECON.system, GS2D_RECON.grid,
-                                                            m8), cfg, t8)
-    fbar8 = torch.randn(frames8.shape, generator=gen, device=dev)
-    b_ms, b_by = bound_ms(m8 * pg_bytes, m8 * t8 * cells * pg_flops_per_cell_step(cfg))
-    next(k for k in kernels if k["name"] == "pg2d_batched_kernel")["m8"] = {"members": m8, "steps": t8, "bound_ms": b_ms, "bound_by": b_by,
-                         "ms": cuda_ms(torch, lambda: batched2d._pg_b_cuda(packed8, frames8,
-                                                                           fbar8, cfg), reps=3)}
-    del frames8, fbar8
     # one "two_phase" backward of GS2D at T = 800 (rollout_tp: one
     # autograd.grad a step, then the parameter gradients), trained cell,
     # data-loss cotangent: the forward and the backward by CUDA events

@@ -5,24 +5,34 @@ Counterpart of percnn_tpu/ops/pallas/batched2d.py.  An ensemble's M members
 are M independent 2D Pi cells, each with its own parameters and initial
 state.  Their parameters are stacked, a leading member axis on every leaf,
 and packed per member into one [M, P] table (``pack_pi_params_2d_batched``,
-row m = ``pack_pi_params_2d`` of member m).  Three kernels advance all M
-members at once, one launch a step (csrc/batched2d.cu):
+row m = ``pack_pi_params_2d`` of member m).  Every launch covers all M
+members:
 
-- ``rollout2d_batched_kernel`` (in place of ``_rollout_kernel_b``): the
-  forward, frames [M, T+1, H, W, 2], any odd kernel_size <= 5, each member's
-  step the step of rollout2d_kernel (the tap-by-tap form at k > 1, whatever
+- the forward (in place of ``_rollout_kernel_b``), frames [M, T+1, H, W,
+  2]: for the GS2D cell's widths, on any field ``rollout_b_plan`` admits,
+  ``rollout2d_cluster_kernel`` (csrc/cell2d.cu) with a member axis, the
+  whole rollout of every member in one launch of M clusters, one a member
+  (16 CTAs while the card holds all M at once, else 8); any other cell or
+  field, any odd kernel_size <= 5, ``rollout2d_batched_kernel``
+  (csrc/batched2d.cu), one launch a step, each member's step the step of
+  rollout2d_kernel (the tap-by-tap form at k > 1, whatever
   cell2d.MXU_FWD_ENABLED says, as percnn_tpu's batched kernels use
-  ``_pi_poly``);
+  ``_pi_poly``).  The frames are the same bits by either route;
 - ``adj2d_batched_kernel`` (in place of ``_phase1_kernel_b``): the streaming
   reverse sweep, g_ins [M, T, H, W, 2] and g0 [M, H, W, 2], each member's
   step that of adj2d_kernel (one launch a step at k = 1, the activation and
   gather pair at k > 1); the parameter gradients follow per member by
   ``core.rollout.chunked_param_grads``, as ``_fused_tp_b_bwd`` leaves them
   to XLA;
-- ``pg2d_batched_kernel`` (in place of ``_phase1_pg_kernel_b``): the fully
-  fused reverse sweep of a 1x1 cell, each member's step that of
-  pg2d_kernel, the parameter gradients in [M, A, H, W] planes, summed and
-  unpacked per member after the sweep (``_pg_unpack``).
+- the fully fused reverse sweep of a 1x1 cell (in place of
+  ``_phase1_pg_kernel_b``): on any field and cell ``pg_b_plan`` admits
+  (1 to 4 branches, C <= 8), ``pg2d_batched_persistent_kernel``, every
+  member's sweep in one cooperative launch, n_sm // M blocks a member, each
+  thread's gradient sums in registers, one partial sum a block; else
+  ``pg2d_batched_kernel``, one launch a step, each member's step that of
+  pg2d_kernel, the gradients in [M, A, H, W] planes.  Either way
+  ``fused_phase1_pg_2d_batched`` returns (g0, sums [M, A]), which
+  ``_pg_unpack`` turns into each member's gradients.
 
 ``fused_rollout_tp_2d_batched`` (forward + streaming sweep) and
 ``fused_rollout_tp_2d_batched_pg`` (forward + fused sweep) are the
@@ -33,11 +43,13 @@ A CPU tensor takes the plain versions, loops over members of the single
 model's plain sweeps (``fused_rollout_2d_batched_plain``,
 ``fused_phase1_2d_batched_plain``, ``fused_phase1_pg_2d_batched_plain``); a
 CUDA tensor launches the kernel or raises.  Launch counters, one a launch
-(each launch covers all M members): ``fused_rollout_2d_batched.launches``
-(k = 1) and ``.launches_kxk`` (k > 1), one a step;
-``fused_phase1_2d_batched.launches`` (k = 1, one a reverse step) and
-``.launches_kxk`` (k > 1, two a reverse step); and
-``fused_phase1_pg_2d_batched.launches``, one a reverse step.
+(each launch covers all M members), beside the steps run on the card:
+``fused_rollout_2d_batched.launches`` and ``.steps`` (k = 1: one launch a
+call by the clusters, none for no steps, one a step past the plan) and
+``.launches_kxk`` (k > 1, one a step); ``fused_phase1_2d_batched.launches``
+(k = 1, one a reverse step) and ``.launches_kxk`` (k > 1, two a reverse
+step); ``fused_phase1_pg_2d_batched.launches`` and ``.steps`` (one a call
+by the persistent sweep, none for no steps, one a step past the plan).
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ import torch
 from percnn_tpu_torch.bridge import _map_tree
 from percnn_tpu_torch.core.cell import PiCellConfig, pi_cell_step
 from percnn_tpu_torch.core.rollout import chunked_param_grads
-from percnn_tpu_torch.ops.kernels import _build
+from percnn_tpu_torch.ops.kernels import _build, cell2d
 from percnn_tpu_torch.ops.kernels.backward2d import (
     _MAX_BRANCHES,
     _cell_leaves,
@@ -61,6 +73,7 @@ from percnn_tpu_torch.ops.kernels.backward2d import (
 )
 from percnn_tpu_torch.ops.kernels.cell2d import (
     _MAX_PARAMS,
+    _MAX_SMEM,
     _check_fusable,
     _param_block,
     _raise_on_error,
@@ -82,7 +95,23 @@ _SIGNATURES = {
     # params, n_params, frames, frames_bar, g0, scratch, acc, M, n_steps, H,
     # W, hidden, n_branches, dt, inv_dx2, stream
     "batched2d_pg": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    # params, n_params, frames, frames_bar, g0, scratch, partial, M, n_steps,
+    # H, W, hidden, n_branches, dt, inv_dx2, per_member, threads, stream,
+    # blocks an SM (out)
+    "batched2d_pg_persistent": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I,
+                                _I, _P, ctypes.POINTER(_I)],
+    # n_params, H, W, hidden, n_branches, per_member, threads, blocks an SM (out)
+    "batched2d_pg_occupancy": [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
+# pg2d_batched_persistent_kernel (csrc/batched2d.cu): the most threads of a
+# block (16 warps), the widest cell it takes (2 C groups within 16 warps),
+# and the floats of its end's reduction scratch (16 warps x 17).
+_PG_B_THREADS = 512
+_PG_B_MAX_HIDDEN = _PG_B_THREADS // 64
+_PG_B_RED_FLOATS = 16 * (5 + 3 * _MAX_BRANCHES)
+# The cluster size rollout_b_plan takes when the card cannot hold all M
+# clusters of rollout_plan's 16 CTAs at once: the largest portable size.
+_CLUSTER_SMALL = 8
 
 
 def _member(tree, m: int):
@@ -123,6 +152,77 @@ def fused_phase1_pg_2d_batched_plain(packed: torch.Tensor, frames: torch.Tensor,
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
+def rollout_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, held: int) -> dict:
+    """The route of the member-batched frames rollout of M members on an
+    H x W field, by a rule on the cell, the shape and what the card holds:
+    where cell2d.rollout_plan takes rollout2d_cluster_kernel (the GS2D
+    cell's widths, strips that fit), all M members run in one launch of M
+    clusters, one a member ('cluster', with n_cta, threads, smem and
+    members); any other cell or field takes rollout2d_batched_kernel, one
+    launch a step for all members ('per_step').  `held` is how many
+    clusters of rollout_plan's size (16 CTAs at most) the card holds at
+    once (cell2d.cluster_occupancy).  While M <= held the plan takes that
+    size; past it, clusters of 8 CTAs (twice the rows a CTA), which the
+    card holds about twice as many of, so that no member waits a whole
+    rollout for a free GPC; a field whose strips of 8 do not fit keeps the
+    16-CTA clusters and their waves.  The rule from chip_smoke.py on an
+    NVIDIA H100 80GB HBM3, 700.00 W (it holds 7 clusters of 16 CTAs and 15
+    of 8 at 100 x 100), T = 800, the sizes in turns: M = 4, one wave of
+    16-CTA clusters 1.742 ms against 3.366 for 8-CTA ones; M = 8, 16-CTA
+    clusters (two waves) 3.456 ms against 3.363 for 8-CTA ones (one
+    wave)."""
+    base = cell2d.rollout_plan(H, W, cfg)
+    if base["route"] != "cluster" or M < 1:
+        return {"route": "per_step"}
+    if M > held and base["n_cta"] > _CLUSTER_SMALL:
+        small = cell2d.cluster_shape(cfg, H, W, _CLUSTER_SMALL)
+        if small is not None:
+            return {"route": "cluster", **small, "members": M}
+    return {**base, "members": M}
+
+
+def pg_b_threads(cfg: PiCellConfig) -> int:
+    """Threads a block of pg2d_batched_persistent_kernel: the 2 C (equation,
+    hidden channel) groups, 16 // (2 C) warps each (512 for C = 8, 4 or 2;
+    384 for C = 3)."""
+    groups = 2 * cfg.hidden
+    return 32 * groups * (_PG_B_THREADS // 32 // groups)
+
+
+def pg_b_smem_bytes(cfg: PiCellConfig, H: int, W: int, per_member: int) -> int:
+    """Shared memory of a block of pg2d_batched_persistent_kernel: the packed
+    parameters rounded up to 4 floats, then for each of the most cells a
+    block owns 6 floats of its state and 2 x 2 C shares of the Jacobian's
+    transpose, then the reduction's 272 floats (csrc: pg_b_smem_bytes).  No
+    accumulator: the sums live in registers."""
+    cap = -(-(H * W) // per_member)
+    n_params = 2 + 2 * _param_block(cfg)
+    return 4 * (-(-n_params // 4) * 4 + (6 + 4 * cfg.hidden) * cap + _PG_B_RED_FLOATS)
+
+
+def pg_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the member-batched fused reverse sweep of M members on an
+    H x W field on a card of n_sm SMs, by a rule on the cell, the shape and
+    the card's limits: a 1x1 cell of 1 to 4 branches and C <= 8 takes
+    pg2d_batched_persistent_kernel, one cooperative launch a sweep
+    ('persistent', with blocks, blocks_a_member, threads and smem), when
+    every member gets at least one block of the n_sm (n_sm // M each, at
+    most one a cell: one block an SM) and a block's scratch fits its shared
+    memory; else pg2d_batched_kernel, one launch a step ('per_step').  At
+    100 x 100 on 132 SMs: M = 1, 132 blocks of 75 or 76 cells, 13 296
+    bytes; M = 4, 33 blocks a member of 303 or 304 cells, 47 952 bytes;
+    M = 8, 16 of 625, 96 744 bytes."""
+    if (cfg.kernel_size != 1 or not 1 <= cfg.n_branches <= _MAX_BRANCHES
+            or not 1 <= cfg.hidden <= _PG_B_MAX_HIDDEN or not 1 <= M <= n_sm):
+        return {"route": "per_step"}
+    per_member = min(n_sm // M, H * W)
+    smem = pg_b_smem_bytes(cfg, H, W, per_member)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    return {"route": "persistent", "blocks": M * per_member, "blocks_a_member": per_member,
+            "threads": pg_b_threads(cfg), "smem": smem}
+
+
 def _kernel_fn(fn_name: str):
     """A C entry point of csrc/batched2d.cu, built on first use."""
     fn = getattr(_build.load_library("batched2d"), fn_name)
@@ -154,14 +254,17 @@ def _check_inputs(name: str, packed: torch.Tensor, state: torch.Tensor, cfg: PiC
         raise ValueError(f"{name} takes 1 to {_MAX_BRANCHES} branches, got {cfg.n_branches}")
 
 
-def _rollout_b_cuda(packed, h0, cfg, n_steps):
-    """rollout2d_batched_kernel: one launch a step for all members, the loop in C."""
-    fn = _kernel_fn("batched2d_rollout")
-    _check_inputs("rollout2d_batched_kernel", packed, h0, cfg,
-                  any_branches=cfg.kernel_size == 1)
+def _check_rollout_inputs(name, packed, h0, cfg, n_steps):
+    _check_inputs(name, packed, h0, cfg, any_branches=cfg.kernel_size == 1)
     if h0.dim() != 4 or n_steps < 0:
         raise ValueError(f"h0 must be [M, H, W, 2] and n_steps >= 0, got "
                          f"{tuple(h0.shape)} and {n_steps}")
+
+
+def _rollout_b_steps_cuda(packed, h0, cfg, n_steps):
+    """rollout2d_batched_kernel: one launch a step for all members, the loop in C."""
+    fn = _kernel_fn("batched2d_rollout")
+    _check_rollout_inputs("rollout2d_batched_kernel", packed, h0, cfg, n_steps)
     M, H, W = h0.shape[0], h0.shape[1], h0.shape[2]
     frames = torch.empty((M, n_steps + 1, H, W, 2), dtype=torch.float32, device=h0.device)
     with torch.cuda.device(h0.device):
@@ -171,9 +274,54 @@ def _rollout_b_cuda(packed, h0, cfg, n_steps):
                            cfg.dt, 1.0 / (cfg.dx * cfg.dx), stream), "batched2d_rollout")
     if cfg.kernel_size == 1:
         fused_rollout_2d_batched.launches += n_steps
+        fused_rollout_2d_batched.steps += n_steps
     else:
         fused_rollout_2d_batched.launches_kxk += n_steps
     return frames
+
+
+def _clusters_held(cfg, H, W) -> int:
+    """How many clusters of rollout_plan's size the current card holds at once."""
+    return cell2d.cluster_occupancy(cfg, H, W)
+
+
+def _rollout_b_cluster_cuda(packed, h0, cfg, n_steps, n_cta=None):
+    """rollout2d_cluster_kernel with a member axis: every member's rollout in
+    one launch of M clusters, by rollout_b_plan's configuration (or, given
+    n_cta, cell2d.cluster_shape's).  No launch at n_steps = 0 (frame 0 is a
+    copy of h0).  Raises if the card cannot hold one cluster."""
+    fn = cell2d._kernel_fn("cell2d_rollout_cluster")
+    _check_rollout_inputs("rollout2d_cluster_kernel", packed, h0, cfg, n_steps)
+    M, H, W = h0.shape[0], h0.shape[1], h0.shape[2]
+    plan = rollout_b_plan(M, H, W, cfg, _clusters_held(cfg, H, W))
+    if plan["route"] == "cluster" and n_cta is not None:
+        plan = {**plan, **(cell2d.cluster_shape(cfg, H, W, n_cta) or {"route": "per_step"})}
+    if plan["route"] != "cluster":
+        raise ValueError(f"a {H} x {W} field of this cell takes no cluster of "
+                         f"{n_cta or 'any'} CTAs: {cfg}")
+    frames = torch.empty((M, n_steps + 1, H, W, 2), dtype=torch.float32, device=h0.device)
+    if n_steps == 0:
+        frames[:, 0].copy_(h0)
+        return frames
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.shape[1], h0.data_ptr(), frames.data_ptr(),
+                           n_steps, 0, H, W, cfg.hidden, cfg.n_branches, cfg.dt,
+                           1.0 / (cfg.dx * cfg.dx), plan["n_cta"], plan["threads"], M, stream,
+                           ctypes.byref(clusters)), "cell2d_rollout_cluster")
+    fused_rollout_2d_batched.launches += 1
+    fused_rollout_2d_batched.steps += n_steps
+    return frames
+
+
+def _rollout_b_cuda(packed, h0, cfg, n_steps):
+    """The member-batched frames rollout on CUDA by rollout_b_plan's route:
+    one launch of M clusters of rollout2d_cluster_kernel ('cluster') or one
+    rollout2d_batched_kernel launch a step ('per_step')."""
+    if h0.dim() == 4 and cell2d.rollout_plan(h0.shape[1], h0.shape[2], cfg)["route"] == "cluster":
+        return _rollout_b_cluster_cuda(packed, h0, cfg, n_steps)
+    return _rollout_b_steps_cuda(packed, h0, cfg, n_steps)
 
 
 def _sweep_shapes(name, packed, frames, frames_bar, cfg):
@@ -215,8 +363,9 @@ def _phase1_b_cuda(packed, frames, frames_bar, cfg):
     return g_ins, g
 
 
-def _pg_b_cuda(packed, frames, frames_bar, cfg):
-    """pg2d_batched_kernel: one launch a reverse step for all members, the loop in C."""
+def _pg_b_steps_cuda(packed, frames, frames_bar, cfg):
+    """pg2d_batched_kernel: one launch a reverse step for all members, the
+    loop in C; (g0, acc [M, A, H, W] planes)."""
     fn = _kernel_fn("batched2d_pg")
     frames_bar, (M, n_steps, H, W) = _sweep_shapes("pg2d_batched_kernel", packed, frames,
                                                    frames_bar, cfg)
@@ -231,7 +380,65 @@ def _pg_b_cuda(packed, frames, frames_bar, cfg):
                            acc.data_ptr(), M, n_steps, H, W, cfg.hidden, cfg.n_branches,
                            cfg.dt, 1.0 / (cfg.dx * cfg.dx), stream), "batched2d_pg")
     fused_phase1_pg_2d_batched.launches += n_steps
+    fused_phase1_pg_2d_batched.steps += n_steps
     return g0, acc
+
+
+def _pg_b_persistent_cuda(packed, frames, frames_bar, cfg):
+    """pg2d_batched_persistent_kernel: the sweep of every member in one
+    cooperative launch, by pg_b_plan's configuration; (g0, sums [M, A]), the
+    sum of the blocks' partial sums.  No launch at n_steps = 0.  Raises if
+    the card cannot hold the grid."""
+    fn = _kernel_fn("batched2d_pg_persistent")
+    frames_bar, (M, n_steps, H, W) = _sweep_shapes("pg2d_batched_persistent_kernel", packed,
+                                                   frames, frames_bar, cfg)
+    dev = frames.device
+    plan = pg_b_plan(M, H, W, cfg, cell2d._sm_count(dev))
+    if plan["route"] != "persistent":
+        raise ValueError(f"{M} members of a {H} x {W} field take no persistent sweep: {cfg}")
+    g0 = torch.zeros((M, H, W, 2), dtype=torch.float32, device=dev)
+    scratch = torch.zeros_like(g0)
+    partial = torch.empty((M, _pg_layout(cfg)["A"], plan["blocks_a_member"]),
+                          dtype=torch.float32, device=dev)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.shape[1], frames.data_ptr(),
+                           frames_bar.data_ptr(), g0.data_ptr(), scratch.data_ptr(),
+                           partial.data_ptr(), M, n_steps, H, W, cfg.hidden, cfg.n_branches,
+                           cfg.dt, 1.0 / (cfg.dx * cfg.dx), plan["blocks_a_member"],
+                           plan["threads"], stream, ctypes.byref(per_sm)),
+                        "batched2d_pg_persistent")
+    fused_phase1_pg_2d_batched.launches += 1 if n_steps else 0
+    fused_phase1_pg_2d_batched.steps += n_steps
+    return g0, partial.sum(-1)
+
+
+def pg_b_occupancy(cfg: PiCellConfig, M: int, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of pg_b_plan's configuration an SM of the card holds."""
+    plan = pg_b_plan(M, H, W, cfg, cell2d._sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"{M} members of a {H} x {W} field take no persistent sweep")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(_kernel_fn("batched2d_pg_occupancy")(
+            2 + 2 * _param_block(cfg), H, W, cfg.hidden, cfg.n_branches,
+            plan["blocks_a_member"], plan["threads"], ctypes.byref(per_sm)),
+            "batched2d_pg_occupancy")
+    return per_sm.value
+
+
+def _pg_b_cuda(packed, frames, frames_bar, cfg):
+    """The member-batched fused sweep on CUDA by pg_b_plan's route, (g0,
+    sums [M, A]): one cooperative launch of pg2d_batched_persistent_kernel
+    ('persistent'), or one pg2d_batched_kernel launch a step ('per_step'),
+    its planes summed here."""
+    if frames.dim() == 5 and frames.device.type == "cuda" and pg_b_plan(
+            frames.shape[0], frames.shape[2], frames.shape[3], cfg,
+            cell2d._sm_count(frames.device))["route"] == "persistent":
+        return _pg_b_persistent_cuda(packed, frames, frames_bar, cfg)
+    g0, acc = _pg_b_steps_cuda(packed, frames, frames_bar, cfg)
+    return g0, acc.sum((2, 3))
 
 
 def fused_rollout_2d_batched(packed: torch.Tensor, h0: torch.Tensor, cfg: PiCellConfig,
@@ -252,10 +459,14 @@ def fused_phase1_2d_batched(packed, frames, frames_bar, cfg):
 
 
 def fused_phase1_pg_2d_batched(packed, frames, frames_bar, cfg):
-    """(g0, acc): pg2d_batched_kernel on CUDA, the plain version on the CPU."""
+    """(g0 [M, H, W, 2] without frames_bar[:, 0], sums [M, A]: each member's
+    gradient sums over its cells and steps, before _pg_unpack):
+    pg_b_plan's kernel on CUDA, the plain version's planes summed on the
+    CPU."""
     if frames.device.type == "cpu":
-        return fused_phase1_pg_2d_batched_plain(packed, frames, frames_bar.to(torch.float32),
-                                                cfg)
+        g0, acc = fused_phase1_pg_2d_batched_plain(packed, frames, frames_bar.to(torch.float32),
+                                                   cfg)
+        return g0, acc.sum((2, 3))
     return _pg_b_cuda(packed, frames, frames_bar, cfg)
 
 
@@ -303,8 +514,7 @@ class FusedRolloutTP2dBatchedPG(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, frames_bar):
         packed, frames = ctx.saved_tensors
-        g0, acc = fused_phase1_pg_2d_batched(packed, frames, frames_bar, ctx.cfg)
-        sums = acc.sum((2, 3))
+        g0, sums = fused_phase1_pg_2d_batched(packed, frames, frames_bar, ctx.cfg)
         d_packed = torch.stack([_pg_unpack(sums[m], packed[m], ctx.cfg)
                                 for m in range(packed.shape[0])])
         return d_packed, g0 + frames_bar[:, 0], None, None
@@ -339,7 +549,9 @@ def fused_rollout_tp_2d_batched_pg(params: dict, h0: torch.Tensor, cfg: PiCellCo
 
 
 fused_rollout_2d_batched.launches = 0
+fused_rollout_2d_batched.steps = 0
 fused_rollout_2d_batched.launches_kxk = 0
 fused_phase1_2d_batched.launches = 0
 fused_phase1_2d_batched.launches_kxk = 0
 fused_phase1_pg_2d_batched.launches = 0
+fused_phase1_pg_2d_batched.steps = 0

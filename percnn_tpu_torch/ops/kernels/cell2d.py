@@ -78,8 +78,8 @@ _SIGNATURES = {
     # dt, inv_dx2, stream
     "cell2d_kxk_rollout": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # params, n_params, h0, frames (or out), n_steps, final_only, H, W, hidden,
-    # n_branches, dt, inv_dx2, n_cta, threads, stream, clusters (out)
-    "cell2d_rollout_cluster": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P,
+    # n_branches, dt, inv_dx2, n_cta, threads, members, stream, clusters (out)
+    "cell2d_rollout_cluster": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P,
                                ctypes.POINTER(_I)],
     # H, W, n_cta, threads, clusters (out)
     "cell2d_cluster_occupancy": [_I, _I, _I, _I, ctypes.POINTER(_I)],
@@ -138,6 +138,21 @@ def cluster_smem_bytes(cfg: PiCellConfig, H: int, W: int, n_cta: int) -> int:
     return 4 * (4 + 2 * _round_up(_param_block(cfg), 4)) + 2 * (rows_max + 4) * W * 8
 
 
+def cluster_shape(cfg: PiCellConfig, H: int, W: int, n_cta: int) -> dict | None:
+    """A cluster of n_cta CTAs of rollout2d_cluster_kernel on an H x W
+    field: its threads (two cells of the tallest strip a thread, up to 512)
+    and bytes a CTA, or None where a strip would be under 2 rows or the
+    bytes pass a block's shared memory."""
+    if n_cta < 1 or 2 * n_cta > H:
+        return None
+    smem = cluster_smem_bytes(cfg, H, W, n_cta)
+    if smem > _MAX_SMEM:
+        return None
+    strip_cells = -(-H // n_cta) * W
+    threads = min(_CLUSTER_THREADS, _round_up(-(-strip_cells // _CLUSTER_CELLS), 32))
+    return {"n_cta": n_cta, "threads": threads, "smem": smem}
+
+
 def rollout_plan(H: int, W: int, cfg: PiCellConfig) -> dict:
     """The route of a frames rollout of an H x W field on CUDA, by a rule on
     the cell, the shape and the card's limits: a 1x1 cell of the widths the
@@ -152,13 +167,8 @@ def rollout_plan(H: int, W: int, cfg: PiCellConfig) -> dict:
     field that fits is 448 x 448."""
     if cfg.kernel_size != 1 or (cfg.hidden, cfg.n_branches) != _CLUSTER_WIDTHS or H < 2:
         return {"route": "per_step"}
-    n_cta = min(_CLUSTER_MAX, H // 2)
-    smem = cluster_smem_bytes(cfg, H, W, n_cta)
-    if smem > _MAX_SMEM:
-        return {"route": "per_step"}
-    strip_cells = -(-H // n_cta) * W
-    threads = min(_CLUSTER_THREADS, _round_up(-(-strip_cells // _CLUSTER_CELLS), 32))
-    return {"route": "cluster", "n_cta": n_cta, "threads": threads, "smem": smem}
+    shape = cluster_shape(cfg, H, W, min(_CLUSTER_MAX, H // 2))
+    return {"route": "per_step"} if shape is None else {"route": "cluster", **shape}
 
 
 def _param_block(cfg: PiCellConfig) -> int:
@@ -443,7 +453,7 @@ def _rollout_cluster_cuda(packed, h0, cfg, n_steps, *, final_only=False):
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on_error(fn(p_ptr, n_params, h_ptr, out.data_ptr(), n, int(final_only), H, W, C,
-                           nb, dt, inv_dx2, plan["n_cta"], plan["threads"], stream,
+                           nb, dt, inv_dx2, plan["n_cta"], plan["threads"], 1, stream,
                            ctypes.byref(clusters)), "cell2d_rollout_cluster")
     if final_only:
         fused_rollout_final_2d.launches += 1 if n else 0
@@ -454,12 +464,16 @@ def _rollout_cluster_cuda(packed, h0, cfg, n_steps, *, final_only=False):
     return out
 
 
-def cluster_occupancy(cfg: PiCellConfig, H: int, W: int) -> int:
-    """How many clusters of rollout_plan's configuration the current card
-    holds at once (0: none, and the launch is refused)."""
+def cluster_occupancy(cfg: PiCellConfig, H: int, W: int, n_cta: int | None = None) -> int:
+    """How many clusters of rollout_plan's configuration (or of n_cta CTAs,
+    cluster_shape's) the current card holds at once (0: none, and the
+    launch is refused)."""
     plan = rollout_plan(H, W, cfg)
-    if plan["route"] != "cluster":
-        raise ValueError(f"a {H} x {W} field takes no cluster")
+    if plan["route"] == "cluster" and n_cta is not None:
+        shape = cluster_shape(cfg, H, W, n_cta)
+        plan = plan if shape is None else {"route": "cluster", **shape}
+    if plan["route"] != "cluster" or (n_cta is not None and plan["n_cta"] != n_cta):
+        raise ValueError(f"a {H} x {W} field takes no cluster of {n_cta or 'any'} CTAs")
     clusters = ctypes.c_int(0)
     _raise_on_error(_kernel_fn("cell2d_cluster_occupancy")(
         H, W, plan["n_cta"], plan["threads"], ctypes.byref(clusters)),

@@ -22,7 +22,11 @@
 // (final_plan); rollout2d_kernel replaces _rollout_kernel for any other
 // field and for k = 3, 5, and final2d_kernel replaces _final_kernel at any
 // odd k <= 5 past the one-launch kernels' plans (and with the MXU switch
-// off).
+// off).  With a member axis, M clusters in one launch, one a member,
+// rollout2d_cluster_kernel also replaces the ensemble's
+// percnn_tpu/ops/pallas/batched2d.py:_rollout_kernel_b (pallas_call in
+// _fused_rollout_padded_b) for the GS2D cell (rollout_b_plan in
+// ../batched2d.py; rollout2d_batched_kernel of batched2d.cu past it).
 // All three run the same step: euler_step at k = 1 (two cells at a time,
 // euler_cellsN, in the cluster kernel), euler_step_kxk at k = 3, 5
 // (cell2d_step.cuh, shared with the ensemble's batched2d.cu and the
@@ -46,7 +50,15 @@
 // rows pushed to the neighbouring CTAs through distributed shared memory
 // and one cluster barrier a step (the design is described at the kernel).
 // Its step is then paced by the step's own instructions on 16 SMs (about
-// 300 a cell) and the barrier.
+// 300 a cell) and the barrier.  An ensemble's M members are M clusters of
+// one launch; no cluster waits on another, so clusters the card cannot hold
+// at once (a 16-CTA cluster takes most of a GPC) wait for a free one, and
+// past that count rollout_b_plan takes clusters of 8 CTAs.  Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, T = 800 at
+// 100 x 100: M = 4 in one
+// launch of 16-CTA clusters 1.758 ms (2.20 us a step) against 5.218 for
+// rollout2d_batched_kernel<1>, in turns; M = 8 by 8-CTA clusters 3.390 ms
+// against 6.329 (the card holds 7 clusters of 16 CTAs and 15 of 8).
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, per
 // 2500-step rollout at 100 x 100: rollout2d_cluster_kernel 5.157 ms, one
 // launch, 2.06 us a step; rollout2d_kernel 13.296 ms in the same call (5.3
@@ -133,17 +145,28 @@ __device__ __forceinline__ void strip_of(int r, int n, int H, int& start, int& r
 // at run time, the step's weight reads from shared memory were what it
 // waited on.  A thread's first cells are the same at every step, so their
 // indices are worked out once, before the steps.
-template <int C, int NB>
+// With kMembers, the grid is M clusters and cluster `mem` runs member mem
+// of an ensemble: its row of the [M, P] table, its h0 and its output,
+// out_stride float2 after the member before.  The flag is a template
+// parameter so that the single model's instance keeps the machine code it
+// had before the member axis (with the offsets in it, it ran slower).
+template <int C, int NB, bool kMembers>
 __global__ void __launch_bounds__(kClusterThreads)
     rollout2d_cluster_kernel(const float* __restrict__ params,
                              const float2* __restrict__ h0, float2* __restrict__ frames,
-                             int n_steps, int final_only, int H, int W, float dt,
-                             float inv_dx2) {
+                             size_t out_stride, int n_steps, int final_only, int H, int W,
+                             float dt, float inv_dx2) {
   using Params = step2d::AlignedParams<C, NB>;
   constexpr int kCells = kClusterCells;
   cg::cluster_group cluster = cg::this_cluster();
   const int n = static_cast<int>(cluster.num_blocks());
   const int r = static_cast<int>(cluster.block_rank());
+  if constexpr (kMembers) {
+    const int mem = blockIdx.x / n;
+    params += mem * (2 + 2 * Params::kBlock);
+    h0 += static_cast<size_t>(mem) * H * W;
+    frames += mem * out_stride;
+  }
   int start, rows, up_start, up_rows;
   strip_of(r, n, H, start, rows);
   strip_of((r + n - 1) % n, n, H, up_start, up_rows);
@@ -236,14 +259,18 @@ size_t cluster_smem_bytes(int H, int W, int n_cta) {
   return ClusterParams::kFloats * sizeof(float) + 2 * (rows_max + 4) * W * sizeof(float2);
 }
 
-using ClusterKernel = void (*)(const float*, const float2*, float2*, int, int, int, int, float,
-                              float);
-constexpr ClusterKernel kClusterKernel = rollout2d_cluster_kernel<kClusterC, kClusterNB>;
+using ClusterKernel = void (*)(const float*, const float2*, float2*, size_t, int, int, int, int,
+                              float, float);
+// one model, and M members in one launch
+constexpr ClusterKernel kClusterKernel = rollout2d_cluster_kernel<kClusterC, kClusterNB, false>;
+constexpr ClusterKernel kClusterKernelMembers =
+    rollout2d_cluster_kernel<kClusterC, kClusterNB, true>;
 
-// The launch configuration of one n_cta-CTA cluster, its shared memory
-// allowed; `attr` must outlive the configuration.
+// The launch configuration of `members` clusters of n_cta CTAs, one a
+// member, their shared memory allowed; `attr` must outlive the
+// configuration.
 cudaError_t cluster_config(ClusterKernel kernel, int H, int W, int n_cta, int threads,
-                           cudaStream_t stream, cudaLaunchAttribute* attr,
+                           int members, cudaStream_t stream, cudaLaunchAttribute* attr,
                            cudaLaunchConfig_t* config) {
   const size_t smem = cluster_smem_bytes(H, W, n_cta);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -258,7 +285,7 @@ cudaError_t cluster_config(ClusterKernel kernel, int H, int W, int n_cta, int th
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   *config = cudaLaunchConfig_t{};
-  config->gridDim = dim3(n_cta);
+  config->gridDim = dim3(n_cta * members);
   config->blockDim = dim3(threads);
   config->dynamicSmemBytes = smem;
   config->stream = stream;
@@ -359,12 +386,13 @@ cudaError_t final_state(const float* params, int n_params, const void* h0, void*
 
 // How many n_cta-CTA clusters of rollout2d_cluster_kernel the card can hold
 // at once (0: none, and the launch would be refused).
-cudaError_t cluster_occupancy(int H, int W, int n_cta, int threads, int* clusters) {
+cudaError_t cluster_occupancy(ClusterKernel kernel, int H, int W, int n_cta, int threads,
+                              int* clusters) {
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config;
-  cudaError_t err = cluster_config(kClusterKernel, H, W, n_cta, threads, nullptr, &attr, &config);
+  cudaError_t err = cluster_config(kernel, H, W, n_cta, threads, 1, nullptr, &attr, &config);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveClusters(clusters, kClusterKernel, &config);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &config);
 }
 
 #define PERCNN_NB_CASES(CALL) \
@@ -421,36 +449,45 @@ extern "C" int cell2d_final(const void* params, int n_params, const void* h0,
 // The frames rollout of a 1x1 cell in one launch: frames [n_steps + 1, H, W, 2]
 // (frame 0 = h0), one cluster of n_cta CTAs of `threads` threads; with
 // final_only, `frames` is the final state [H, W, 2] alone, and at n_steps = 0
-// h0 is copied there and nothing is launched.  A card that cannot hold the
+// h0 is copied there and nothing is launched.  With `members` M > 1 the
+// same launch runs M independent models, one cluster each (an ensemble's
+// rollout, in place of batched2d.py:_rollout_kernel_b): params [M, P], h0
+// [M, H, W, 2] and frames [M, n_steps + 1, H, W, 2] (final_only: [M, H, W,
+// 2]); clusters the card cannot hold at once wait for a free GPC, which is
+// right because no cluster waits on another.  A card that cannot hold one
 // cluster returns cudaErrorLaunchOutOfResources before anything is
 // launched; `clusters` gets the occupancy query's count.
 extern "C" int cell2d_rollout_cluster(const void* params, int n_params, const void* h0,
                                       void* frames, int n_steps, int final_only, int H, int W,
                                       int hidden, int n_branches, float dt, float inv_dx2,
-                                      int n_cta, int threads, void* stream, int* clusters) {
+                                      int n_cta, int threads, int members, void* stream,
+                                      int* clusters) {
   if (hidden != kClusterC || n_branches != kClusterNB ||
       n_params != 2 + 2 * ClusterParams::kBlock || n_cta < 1 || 2 * n_cta > H ||
-      threads < 32 || threads > kClusterThreads)
+      threads < 32 || threads > kClusterThreads || members < 1)
     return cudaErrorInvalidValue;
-  cudaError_t err = cluster_occupancy(H, W, n_cta, threads, clusters);
+  const ClusterKernel kernel = members > 1 ? kClusterKernelMembers : kClusterKernel;
+  cudaError_t err = cluster_occupancy(kernel, H, W, n_cta, threads, clusters);
   if (err != cudaSuccess) return err;
   if (*clusters < 1) return cudaErrorLaunchOutOfResources;
+  const size_t cells = static_cast<size_t>(H) * W;
   if (final_only && n_steps == 0) {
-    err = cudaMemcpyAsync(frames, h0, static_cast<size_t>(H) * W * sizeof(float2),
+    err = cudaMemcpyAsync(frames, h0, members * cells * sizeof(float2),
                           cudaMemcpyDeviceToDevice, static_cast<cudaStream_t>(stream));
     return err != cudaSuccess ? err : cudaGetLastError();
   }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config;
-  err = cluster_config(kClusterKernel, H, W, n_cta, threads, static_cast<cudaStream_t>(stream),
+  err = cluster_config(kernel, H, W, n_cta, threads, members, static_cast<cudaStream_t>(stream),
                        &attr, &config);
   if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&config, kClusterKernel, static_cast<const float*>(params),
-                           static_cast<const float2*>(h0), static_cast<float2*>(frames), n_steps,
-                           final_only ? 1 : 0, H, W, dt, inv_dx2);
+  const size_t out_stride = final_only ? cells : (static_cast<size_t>(n_steps) + 1) * cells;
+  err = cudaLaunchKernelEx(&config, kernel, static_cast<const float*>(params),
+                           static_cast<const float2*>(h0), static_cast<float2*>(frames),
+                           out_stride, n_steps, final_only ? 1 : 0, H, W, dt, inv_dx2);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 extern "C" int cell2d_cluster_occupancy(int H, int W, int n_cta, int threads, int* clusters) {
-  return cluster_occupancy(H, W, n_cta, threads, clusters);
+  return cluster_occupancy(kClusterKernel, H, W, n_cta, threads, clusters);
 }
