@@ -25,9 +25,12 @@ since start:
                plans at GS2D's, GS3D's and Burgers' shapes (cluster size,
                co-resident grid, threads, bytes) beside what the card holds
                of them (the ensemble's at M = 4 and 8, and the clusters of
-               16 and of 8 CTAs the card holds), and the k = 5 FFMA
-               kernels' instruction mix
-               (cuobjdump: FFMA and shared-memory loads)
+               16 and of 8 CTAs the card holds; the streaming sweeps'
+               adj_plan at GS2D's shape and adj_b_plan at Burgers' for
+               M = 2, 4 and 8), the k = 5 FFMA kernels' instruction mix
+               (cuobjdump: FFMA and shared-memory loads), and the registers
+               and spills of the streaming sweeps' one-launch kernels and of
+               rows 1 (k = 5), 5 and 7, the instances the main paths run
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_persistent_kernel (one launch, 6
                steps) against tests/golden/pt_gs3d.npz
@@ -86,12 +89,17 @@ since start:
                frame (to the bit), final2d_kernel<5> against plain; each
                route through the entry points on 17 x 9 and past the plans
                (1407 x 1407 forward and final state, 149 x 149 sweep), exact
-               launches and steps; adj2d_kernel at k = 5 (T = 200) and k = 1
-               (T = 200, golden GS2D cell, data-loss cotangent) and
-               adj3d_kernel (48^3, T = 50, golden GS3D cell) against their
-               plain versions
-  grads_fallback  the gradients of bptt="fused" (GS2D, GS3D, Burgers with
-               the MXU switches off, and with YS_PATH_ENABLED off too) and
+               launches and steps; adj2d_kernel at k = 5 (T = 200) and both
+               routes of row 4 at k = 1 (T = 200, golden GS2D cell, data-loss
+               cotangent): adj2d_persistent_kernel (adj_plan's route) and
+               adj2d_kernel (the per-step route) against plain and each
+               other, its g0 against pg2d_persistent_kernel's on the same
+               inputs to the bit, both through the entry point on 17 x 9
+               and past the plan (449 x 449), counted; adj3d_kernel (48^3,
+               T = 50, golden GS3D cell) against its plain version
+  grads_fallback  the gradients of bptt="fused" (GS2D: one launch of
+               adj2d_persistent_kernel; GS3D, Burgers with the MXU switches
+               off, and with YS_PATH_ENABLED off too) and
                of bptt="two_phase" (the three cells) against f64 autograd on
                the referee setup, each route's launches counted
   serve        one uncounted warm-up request of each kind, then three frames
@@ -150,14 +158,19 @@ since start:
                and pg2d_batched_kernel, g0 and each member's gradient sums
                leaf by leaf against plain, each other and the single
                model's sweep; adj2d_batched_kernel (M = 4); the k = 5
-               contracts of the forward and adj2d_batched_kernel on the
-               golden Burgers cell (M = 2); then both entry points on
-               17 x 9 (the one-launch routes) and past the plans (449 x 449,
-               and M = 8 at 156 x 156 for the sweep), counted
+               contract of the forward on the golden Burgers cell (M = 2),
+               and both routes of its streaming sweep,
+               adj2d_batched_ffma_persistent_kernel (adj_b_plan's) and
+               adj2d_batched_kernel, against plain and each other; then both
+               GS2D entry points on 17 x 9 (the one-launch routes) and past
+               the plans (449 x 449, and M = 8 at 156 x 156 for the sweep),
+               and the k = 5 sweep's on 17 x 9 (M = 3) and past its plan
+               (M = 2 at 571 x 571), counted
   grads_batched  the gradients of bptt="batched" and "batched_pg" against
                f64 autograd on the referee setup (random-init cells, random
                targets, 12 steps, full width, M = 4), and "batched" of the
-               5x5 cell (M = 2), each route's launches and steps counted
+               5x5 cell (M = 2: adj2d_batched_ffma_persistent_kernel, one
+               launch), each route's launches and steps counted
   kernels_sharded  step2d_haloed_kernel against its plain version on the
                haloed blocks of a 2 x 2 mesh of cuda:0 (four 50 x 50 blocks
                of 100 x 100, and a 6 x 10 block) for the golden GS2D (k = 1)
@@ -191,26 +204,30 @@ since start:
                torch.profiler trace
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work (rows 1
-               (k = 1 and 5), 2 (k = 1, and k = 5 by both MXU routes), 3, 5,
-               6, 7, 8, 10, 11 (k = 1) and 13 also by their per-step routes,
-               in turns in the same call, rows 11 and 13 at M = 4 and 8, row
-               11 at M = 8 by both cluster sizes; rows 2 at k = 5, 3 and 6
-               with the bound in 3xTF32 and all in FFMA),
+               (k = 1 and 5), 2 (k = 1, and k = 5 by both MXU routes), 3, 4
+               (k = 1), 5, 6, 7, 8, 10, 11 (k = 1), 12 (k = 5) and 13 also by
+               their per-step routes, in turns in the same call, rows 11 and
+               13 at M = 4 and 8, row 12 at M = 2 and 4, row 11 at M = 8 by
+               both cluster sizes; rows 2 at k = 5, 3 and 6 with the bound
+               in 3xTF32 and all in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (30 entries: the 14 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (32 entries: the 14 ported TPU kernels,
 row 1 at k = 5 by rollout2d_ffma_persistent_kernel, row 2 by its three
 one-launch routes, rollout2d_cluster_kernel[final],
 rollout2d_kxk_persistent_kernel[final] and
-rollout2d_ffma_persistent_kernel[final], row 11 at k = 1 by
-rollout2d_cluster_kernel[batched], with the k = 5 contracts of
-adj2d_kernel, rollout2d_batched_kernel and adj2d_batched_kernel and the
-per-step routes of rows 1 at k = 5 (rollout2d_kernel[k=5]), 2
-(final2d_kernel, final2d_kernel[k=5]), 3, 5, 6, 8, 10, 11 and 13
-(rollout2d_kxk_kernel, adj2d_ys_kernel, adj2d_kxk_kernel, rollout3d_kernel,
-pg3d_kernel, rollout2d_batched_kernel, pg2d_batched_kernel) listed apart), the
+rollout2d_ffma_persistent_kernel[final], row 4 at k = 1 by
+adj2d_persistent_kernel, row 11 at k = 1 by
+rollout2d_cluster_kernel[batched], row 12 at k = 5 by
+adj2d_batched_ffma_persistent_kernel, with the k = 5 contracts of
+adj2d_kernel and rollout2d_batched_kernel and the per-step routes of rows 1
+at k = 5 (rollout2d_kernel[k=5]), 2 (final2d_kernel, final2d_kernel[k=5]),
+3, 4 at k = 1, 5, 6, 8, 10, 11, 12 at k = 5 and 13 (rollout2d_kxk_kernel,
+adj2d_kernel, adj2d_ys_kernel, adj2d_kxk_kernel, rollout3d_kernel,
+pg3d_kernel, rollout2d_batched_kernel, adj2d_batched_kernel[k=5],
+pg2d_batched_kernel) listed apart), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
@@ -410,9 +427,28 @@ def sass_mix(lib_path, names) -> dict | None:
     return mix
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device ms of fn() over reps calls, by CUDA events, after one warm-up."""
-    fn()
+def ptxas_of(lines, name, targs) -> dict | None:
+    """Registers and spill-store bytes of kernel `name` at the integer
+    template arguments targs, from ptxas's report of its library (the
+    entry line, then its stack and spill line, then its registers)."""
+    import re
+
+    key = f"{len(name)}{name}I" + "".join(f"Li{a}E" for a in targs) + "E"
+    for i, line in enumerate(lines[:-2]):
+        if "entry function" in line and key in line:
+            spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            if spill and regs:
+                return {"registers": int(regs.group(1)), "spill_store_bytes": int(spill.group(1))}
+    return None
+
+
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
+    """Mean device ms of fn() over reps calls, by CUDA events, after one
+    warm-up (none for a plain version, which builds nothing and has run in
+    the checks before)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -462,6 +498,7 @@ def profile_busy(torch, fn) -> dict:
                             "adj2d_kxk_gather_kernel", "rollout2d_kxk_persistent_kernel",
                             "adj2d_kxk_persistent_kernel", "rollout2d_batched_kernel",
                             "adj2d_batched_kernel", "pg2d_batched_kernel",
+                            "adj2d_persistent_kernel", "adj2d_batched_ffma_persistent_kernel",
                             "step2d_haloed_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
             "device_idle_share": 1.0 - busy / window if device else None,
@@ -582,6 +619,22 @@ def main() -> int:
                    "blocks_an_sm_holds": batched2d.pg_b_occupancy(GS2D_RECON.cell, n, n_gs2d,
                                                                   n_gs2d, dev)}
         for n in (ENS_MEMBERS, 2 * ENS_MEMBERS)}
+    # the streaming sweeps' one-launch kernels: row 4 at k = 1 at GS2D's
+    # shape, row 12 at k = 5 at Burgers' for M = 2, 4 and 8
+    one_launch["adj2d_persistent_kernel"] = {
+        **backward2d.adj_plan(n_gs2d, n_gs2d, GS2D_RECON.cell, backward2d._sm_count(dev)),
+        "blocks_an_sm_holds": backward2d.adj_occupancy(GS2D_RECON.cell, n_gs2d, n_gs2d, dev)}
+    nb_grid = BURGERS_STAGE1.grid
+    one_launch["adj2d_batched_ffma_persistent_kernel"] = {
+        f"M={n}": {**batched2d.adj_b_plan(n, nb_grid, nb_grid, BURGERS_STAGE1.cell,
+                                          backward2d._sm_count(dev)),
+                   "blocks_an_sm_holds": batched2d.adj_b_occupancy(BURGERS_STAGE1.cell, n,
+                                                                   nb_grid, nb_grid, dev)}
+        for n in (ENS_KXK_MEMBERS, 2 * ENS_KXK_MEMBERS, 4 * ENS_KXK_MEMBERS)}
+    check(one_launch["adj2d_persistent_kernel"]["blocks_an_sm_holds"] >= 1
+          and all(v["blocks_an_sm_holds"] >= 1 for v in
+                  one_launch["adj2d_batched_ffma_persistent_kernel"].values()),
+          f"the card holds none of a streaming sweep's one-launch grid: {one_launch}")
     check(min(one_launch["rollout2d_cluster_kernel[batched]"]["clusters_the_card_holds"].values())
           >= 1 and all(v["blocks_an_sm_holds"] >= 1 for v in
                        one_launch["pg2d_batched_persistent_kernel"].values()),
@@ -601,10 +654,24 @@ def main() -> int:
         ("cell2d_kxk", ("rollout2d_kxk_kernel",)),
         ("cell2d_ffma", ("rollout2d_ffma_persistent_kernel",)),
         ("adj2d", ("adj2d_act_kernel", "adj2d_ys_act_kernel", "adj2d_ys_persistent_kernel")))}
+    # registers and spills of the instances the main paths run: the
+    # streaming sweeps' one-launch kernels (GS2D's 3 branches, the Burgers
+    # cell's k = 5 and 3 branches) and rows 1 (k = 5), 5 and 7, which share
+    # their code
+    ptxas_main = {f"{name}<{', '.join(map(str, targs))}>": ptxas_of(_build.PTXAS.get(lib, []),
+                                                                   name, targs)
+                  for lib, name, targs in (
+                      ("adj2d", "adj2d_persistent_kernel", (3,)),
+                      ("batched2d", "adj2d_batched_ffma_persistent_kernel", (5, 3)),
+                      ("backward2d", "pg2d_persistent_kernel", (3,)),
+                      ("cell2d_ffma", "rollout2d_ffma_persistent_kernel", (5, 3)),
+                      ("adj2d", "adj2d_ys_persistent_kernel", (5, 3)))}
+    check(all(v is not None for v in ptxas_main.values()),
+          f"ptxas reported no registers for {ptxas_main}")
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
                             for n in sources},
           ptxas={n: _build.PTXAS.get(n) for n in sources}, one_launch=one_launch,
-          sass_k5_nb3=sass)
+          ptxas_main_instances=ptxas_main, sass_k5_nb3=sass)
 
     cfg, isg_cfg = GS2D_RECON.cell, GS2D_RECON.isg
     with np.load(GOLDEN) as z:
@@ -1097,6 +1164,7 @@ def main() -> int:
                 (backward2d.fused_rollout_tp_2d, "launches"),
                 (backward2d.fused_rollout_tp_2d, "steps"),
                 (backward2d.fused_phase1_2d, "launches"),
+                (backward2d.fused_phase1_2d, "steps"),
                 (backward2d.fused_phase1_ys_2d, "launches"),
                 (backward2d.fused_phase1_ys_2d, "steps"),
                 (backward3d.fused_phase1_3d, "launches"),
@@ -1107,6 +1175,7 @@ def main() -> int:
                 (batched2d.fused_rollout_2d_batched, "launches_kxk"),
                 (batched2d.fused_phase1_2d_batched, "launches"),
                 (batched2d.fused_phase1_2d_batched, "launches_kxk"),
+                (batched2d.fused_phase1_2d_batched, "steps"),
                 (batched2d.fused_phase1_pg_2d_batched, "launches"),
                 (batched2d.fused_phase1_pg_2d_batched, "steps"),
                 (sharded_step2d.step_haloed_2d, "launches")]
@@ -1525,12 +1594,73 @@ def main() -> int:
         ffma_route_checks[f"{call} {shape[0]}x{shape[1]}"] = {
             "route": route, "steps": steps_, "launches": counts, "plan": plan, "err": errs}
         del x, got_
-    # adj2d_kernel at k = 1 on the golden GS2D cell, the data-loss cotangent
+    # row 4 at k = 1 on the golden GS2D cell, the data-loss cotangent:
+    # adj2d_persistent_kernel (adj_plan's route at 100 x 100) and adj2d_kernel
+    # (the per-step route) against plain and each other; g0 against
+    # pg2d_persistent_kernel's on the same inputs, to the bit (the same
+    # passes, without the accumulators)
+    check(backward2d.adj_plan(*h0.shape[:2], cfg, n_sm)["route"] == "persistent",
+          f"adj_plan at {h0.shape[0]}: {backward2d.adj_plan(*h0.shape[:2], cfg, n_sm)}")
     frames1 = cell2d._rollout_cuda(packed, h0, cfg, CHECK_STEPS)
     fbar1 = cotangent(frames1)[1].contiguous()
-    fallback_errs["adj2d_kernel"] = sweep_errs(
-        "adj2d_kernel", backward2d._phase1_cuda(packed, frames1, fbar1, cfg),
-        backward2d.fused_phase1_2d_plain(packed, frames1, fbar1, cfg))
+    plain1 = backward2d.fused_phase1_2d_plain(packed, frames1, fbar1, cfg)
+    adj_one = backward2d._phase1_persistent_cuda(packed, frames1, fbar1, cfg)
+    adj_steps = backward2d._phase1_steps_cuda(packed, frames1, fbar1, cfg)
+    g0_pg1 = backward2d._pg_persistent_cuda(packed, frames1, fbar1, cfg)[0]
+    torch.cuda.synchronize()
+    fallback_errs["adj2d_persistent_kernel"] = sweep_errs("adj2d_persistent_kernel", adj_one,
+                                                          plain1)
+    fallback_errs["adj2d_kernel"] = sweep_errs("adj2d_kernel", adj_steps, plain1)
+    adj_routes_err = {}
+    for key, a, b in zip(("g_ins", "g0"), adj_one, adj_steps):
+        e, scale = max_abs(a, b), float(b.abs().max())
+        check(e <= 2e-4 * scale + 2e-6, f"adj2d_persistent_kernel vs adj2d_kernel, {key}: "
+                                        f"max |diff| {e} over 2e-4 * {scale} + 2e-6")
+        adj_routes_err[key] = [e, scale]
+    adj_g0_vs_pg = max_abs(adj_one[1], g0_pg1)
+    check(torch.equal(adj_one[1], g0_pg1),
+          f"adj2d_persistent_kernel's g0 vs pg2d_persistent_kernel's: max |diff| {adj_g0_vs_pg}")
+    del plain1, adj_one, adj_steps, g0_pg1
+    # through the entry point on 17 x 9 (the one-launch route; g0 again
+    # against pg2d_persistent_kernel's to the bit) and past adj_plan
+    # (449 x 449: one adj2d_kernel launch a step), a random field and
+    # cotangent, launches and steps counted, against plain
+    adj_route_checks, adj_steps_launches = {}, {}
+    for shape, steps_, route in (((17, 9), 30, "persistent"), ((449, 449), 3, "per_step")):
+        rs = np.random.RandomState(8)
+        x = torch.as_tensor(0.5 + 0.1 * rs.standard_normal(shape + (2,)), dtype=torch.float32,
+                            device=dev)
+        fr_ = cell2d._rollout_cuda(packed, x, cfg, steps_)
+        fb_ = torch.as_tensor(rs.standard_normal(tuple(fr_.shape)), dtype=torch.float32,
+                              device=dev)
+        plan = backward2d.adj_plan(*shape, cfg, n_sm)
+        zero_counts()
+        got_ = backward2d.fused_phase1_2d(packed, fr_, fb_, cfg)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_phase1_2d.launches": 1 if route == "persistent" else steps_,
+                       "fused_phase1_2d.steps": steps_}
+        check(plan["route"] == route, f"adj_plan at {shape}: {plan}, expected {route}")
+        check(counts == want_counts, f"1x1 sweep at {shape}: counts {counts}, expected "
+                                     f"{want_counts}")
+        errs = {}
+        for key, a, b in zip(("g_ins", "g0"), got_,
+                             backward2d.fused_phase1_2d_plain(packed, fr_, fb_, cfg)):
+            errs[key] = [max_abs(a, b), float(b.abs().max())]
+            check(errs[key][0] <= 2e-4 * errs[key][1] + 2e-6,
+                  f"1x1 sweep at {shape} ({route}) vs plain, {key}: {errs[key]}")
+        if route == "persistent":
+            g0_pg_ = backward2d._pg_persistent_cuda(packed, fr_, fb_, cfg)[0]
+            check(torch.equal(got_[1], g0_pg_),
+                  f"adj2d_persistent_kernel's g0 at {shape} vs pg2d_persistent_kernel's: "
+                  f"max |diff| {max_abs(got_[1], g0_pg_)}")
+        else:
+            adj_steps_launches[f"kernels_fallback ({shape[0]} x {shape[1]})"] = counts[
+                "fused_phase1_2d.launches"]
+        adj_route_checks[f"{shape[0]}x{shape[1]}"] = {"route": route, "steps": steps_,
+                                                      "launches": counts, "plan": plan,
+                                                      "err": errs}
+        del x, fr_, fb_, got_
     # adj3d_kernel on the golden GS3D cell at 48^3, a standard-normal
     # cotangent (as row 10's check)
     frames3 = cell3d._rollout_cuda(expanded3, h03, PG3D_CHECK_STEPS)
@@ -1552,6 +1682,8 @@ def main() -> int:
           ffma_vs_per_step_equal_bits=ffma_routes_equal,
           final_vs_last_frame_max_abs_err=final5_off_vs_frame,
           ys_persistent_vs_per_step_err_and_max=ys_routes_err, route_checks=ffma_route_checks,
+          adj_persistent_vs_per_step_err_and_max=adj_routes_err,
+          adj_g0_vs_pg2d_persistent_max_abs_diff=adj_g0_vs_pg, adj_route_checks=adj_route_checks,
           forward_rtol=2e-4, forward_atol=1e-5,
           cotangents={"Burgers": "standard normal, seed 4", "GS2D": "data loss",
                       "GS3D": "standard normal, seed 3"},
@@ -1579,9 +1711,10 @@ def main() -> int:
         referee[label] = {"launches": counts, "switches": flags,
                           **{kind: rel[kind] for kind in routes}}
 
-    # one rollout2d_cluster_kernel launch of 12 steps, then 12 of adj2d_kernel
+    # one rollout2d_cluster_kernel launch of 12 steps, then one
+    # adj2d_persistent_kernel launch of 12
     hold_to_f64("gs2d", {"fused_rollout_2d.launches": 1, "fused_rollout_2d.steps": 12,
-                         "fused_phase1_2d.launches": 12},
+                         "fused_phase1_2d.launches": 1, "fused_phase1_2d.steps": 12},
                 ref_cell, x_ref, lambda fr: ((fr - tgt.to(fr.dtype)) ** 2).mean(), cfg,
                 {"fused": backward2d.fused_rollout_tp_2d, "two_phase": two_phase})
     # one rollout3d_persistent_kernel launch of 12 steps, then 12 of adj3d_kernel
@@ -1598,7 +1731,8 @@ def main() -> int:
                 flags=(False, False, True))
     hold_to_f64("burgers_ys_off", {"fused_rollout_2d.launches_kxk": 1,
                                    "fused_rollout_2d.steps_kxk": 12,
-                                   "fused_phase1_2d.launches": 24},
+                                   "fused_phase1_2d.launches": 24,
+                                   "fused_phase1_2d.steps": 12},
                 refb_cell, xb_ref, lossb, cfgb, {"fused": backward2d.fused_rollout_tp_2d},
                 flags=(False, False, False))
     hold_to_f64("burgers_two_phase", {}, refb_cell, xb_ref, lossb, cfgb,
@@ -1683,15 +1817,38 @@ def main() -> int:
         fbar_m = torch.as_tensor(np.random.RandomState(9).standard_normal(tuple(got.shape)),
                                  dtype=torch.float32, device=dev)
         if not suffix.startswith("[M=8]"):
-            name = f"adj2d_batched_kernel{suffix}"
-            out_k = batched2d._phase1_b_cuda(packed_m, got, fbar_m, cfg_)
-            batched_err[name] = sweep_errs(
-                name, out_k, batched2d.fused_phase1_2d_batched_plain(packed_m, got, fbar_m, cfg_))
+            # the streaming sweep: adj2d_batched_kernel (row 12's route at
+            # k = 1, one launch a step) and at k = 5 both routes,
+            # adj2d_batched_ffma_persistent_kernel (adj_b_plan's) and
+            # adj2d_batched_kernel's pair, against plain and each other; each
+            # member against the single model's sweep (_phase1_cuda's route)
+            plain_b = batched2d.fused_phase1_2d_batched_plain(packed_m, got, fbar_m, cfg_)
+            routes_b = {f"adj2d_batched_kernel{suffix}": batched2d._phase1_b_steps_cuda(
+                packed_m, got, fbar_m, cfg_)}
+            if cfg_.kernel_size > 1:
+                plan_b = batched2d.adj_b_plan(n_mem, *got.shape[2:4], cfg_, n_sm)
+                check(plan_b["route"] == "persistent", f"adj_b_plan at M = {n_mem}: {plan_b}")
+                routes_b["adj2d_batched_ffma_persistent_kernel"] = (
+                    batched2d._phase1_b_ffma_persistent_cuda(packed_m, got, fbar_m, cfg_))
             single = [backward2d._phase1_cuda(packed_m[m].contiguous(), got[m].contiguous(),
                                               fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
-            vs_single[name] = max(max(max_abs(out_k[0][m], single[m][0]),
-                                      max_abs(out_k[1][m], single[m][1])) for m in range(n_mem))
-            del out_k
+            for name, out_k in routes_b.items():
+                batched_err[name] = sweep_errs(name, out_k, plain_b)
+                vs_single[name] = max(max(max_abs(out_k[0][m], single[m][0]),
+                                          max_abs(out_k[1][m], single[m][1]))
+                                      for m in range(n_mem))
+            if cfg_.kernel_size > 1:
+                pair_err = {}
+                for key, a, b in zip(("g_ins", "g0"),
+                                     routes_b["adj2d_batched_ffma_persistent_kernel"],
+                                     routes_b[f"adj2d_batched_kernel{suffix}"]):
+                    e, scale = max_abs(a, b), float(b.abs().max())
+                    check(e <= 2e-4 * scale + 2e-6,
+                          f"adj2d_batched_ffma_persistent_kernel vs adj2d_batched_kernel, {key}: "
+                          f"max |diff| {e} over 2e-4 * {scale} + 2e-6")
+                    pair_err[key] = [e, scale]
+                batched_err["ffma_persistent_vs_per_step" + suffix] = pair_err
+            del plain_b, routes_b
         if cfg_.kernel_size > 1:
             continue
         # the fused sweep: pg2d_batched_persistent_kernel (row 13's route,
@@ -1769,6 +1926,43 @@ def main() -> int:
                                  "frames_max_abs_err": max_abs(fr, fr_p),
                                  "sweep_max_abs_err": max(e for e, _ in route_errs.values())}
         del fr, fb, fr_p, acc_p
+    # the k = 5 streaming sweep through its entry point on 17 x 9 (M = 3, the
+    # one-launch route) and past adj_b_plan (M = 2 at 571 x 571: two
+    # launches a step), members of the golden Burgers cell, a random field
+    # and cotangent, launches and steps counted, against plain
+    sweep_b_launches = {}
+    for label, n_mem, (hh, ww), steps, route in (("17 x 9", 3, (17, 9), 5, "persistent"),
+                                                 ("571 x 571", 2, (571, 571), 2, "per_step")):
+        packed_m = batched2d.pack_pi_params_2d_batched(member_cells(modelb["cell"], n_mem),
+                                                       cfgb).contiguous()
+        rs = np.random.RandomState(12)
+        h0_m = torch.as_tensor(0.5 * rs.standard_normal((n_mem, hh, ww, 2)), dtype=torch.float32,
+                               device=dev).contiguous()
+        fr = batched2d._rollout_b_cuda(packed_m, h0_m, cfgb, steps)
+        fb = torch.as_tensor(rs.standard_normal(tuple(fr.shape)), dtype=torch.float32, device=dev)
+        plan = batched2d.adj_b_plan(n_mem, hh, ww, cfgb, n_sm)
+        zero_counts()
+        got_b = batched2d.fused_phase1_2d_batched(packed_m, fr, fb, cfgb)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_phase1_2d_batched.launches_kxk":
+                       1 if route == "persistent" else 2 * steps,
+                       "fused_phase1_2d_batched.steps": steps}
+        check(plan["route"] == route and counts == want_counts,
+              f"k = 5 batched sweep on {label}: plan {plan}, counts {counts}, expected "
+              f"{route}, {want_counts}")
+        errs = {}
+        for key, a, b in zip(("g_ins", "g0"), got_b,
+                             batched2d.fused_phase1_2d_batched_plain(packed_m, fr, fb, cfgb)):
+            errs[key] = [max_abs(a, b), float(b.abs().max())]
+            check(errs[key][0] <= 2e-4 * errs[key][1] + 2e-6,
+                  f"k = 5 batched sweep on {label} ({route}) vs plain, {key}: {errs[key]}")
+        if route == "per_step":
+            sweep_b_launches[f"kernels_batched ({label})"] = counts[
+                "fused_phase1_2d_batched.launches_kxk"]
+        batched_routes[f"sweep[k=5] {label}"] = {"members": n_mem, "steps": steps, "plan": plan,
+                                                 "counts": counts, "err": errs}
+        del fr, fb, got_b
     phase("kernels_batched", members={"gs2d": [ENS_MEMBERS, 2 * ENS_MEMBERS],
                                       "burgers": ENS_KXK_MEMBERS},
           steps=CHECK_STEPS, shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2],
@@ -1832,10 +2026,12 @@ def main() -> int:
         "batched": batched_vs_f64(cfg, ENS_MEMBERS, "batched",
                                   {"fused_rollout_2d_batched.launches": 1,
                                    "fused_rollout_2d_batched.steps": 12,
-                                   "fused_phase1_2d_batched.launches": 12}, 11),
+                                   "fused_phase1_2d_batched.launches": 12,
+                                   "fused_phase1_2d_batched.steps": 12}, 11),
         "batched[k=5]": batched_vs_f64(cfgb, ENS_KXK_MEMBERS, "batched",
                                        {"fused_rollout_2d_batched.launches_kxk": 12,
-                                        "fused_phase1_2d_batched.launches_kxk": 24}, 12),
+                                        "fused_phase1_2d_batched.launches_kxk": 1,
+                                        "fused_phase1_2d_batched.steps": 12}, 12),
     }
     phase("grads_batched", setup="random-init cells (seeds 0..M-1), random targets, 12 steps, "
                                  "full width", bar=1e-4, routes=grads_b)
@@ -2334,7 +2530,7 @@ def main() -> int:
     # MXU switches off (rollout2d_ffma_persistent_kernel,
     # adj2d_ys_persistent_kernel) on
     # train_burgers' cached truth; build_loss_fn(bptt="fused") and train for
-    # GS2D at T = 800 (rollout2d_cluster_kernel, adj2d_kernel), GS3D at T = 300
+    # GS2D at T = 800 (rollout2d_cluster_kernel, adj2d_persistent_kernel), GS3D at T = 300
     # (rollout3d_persistent_kernel, adj3d_kernel) and Burgers with YS_PATH_ENABLED off
     # too (rollout2d_ffma_persistent_kernel and adj2d_kernel at k = 5), from seeded random
     # inits, on served frames as the data
@@ -2387,7 +2583,8 @@ def main() -> int:
     train_fused("gs2d_fused", GS2D_RECON, answers[0], t2, FALLBACK_ITERS, (True, True, True),
                 {"fused_rollout_2d.launches": FALLBACK_ITERS,
                  "fused_rollout_2d.steps": FALLBACK_ITERS * t2,
-                 "fused_phase1_2d.launches": FALLBACK_ITERS * t2})
+                 "fused_phase1_2d.launches": FALLBACK_ITERS,
+                 "fused_phase1_2d.steps": FALLBACK_ITERS * t2})
     train_fused("gs3d_fused", GS3D_RECON, answer3, t3, FALLBACK_ITERS, (True, True, True),
                 {"fused_rollout_3d.launches": FALLBACK_ITERS,
                  "fused_rollout_3d.steps": FALLBACK_ITERS * t3,
@@ -2396,7 +2593,8 @@ def main() -> int:
                 (False, False, False),
                 {"fused_rollout_2d.launches_kxk": FALLBACK_YS_OFF_ITERS,
                  "fused_rollout_2d.steps_kxk": FALLBACK_YS_OFF_ITERS * stepsb,
-                 "fused_phase1_2d.launches": 2 * FALLBACK_YS_OFF_ITERS * stepsb})
+                 "fused_phase1_2d.launches": 2 * FALLBACK_YS_OFF_ITERS * stepsb,
+                 "fused_phase1_2d.steps": FALLBACK_YS_OFF_ITERS * stepsb})
     check(fallback_launches == fallback_want,
           f"fallback training launch counts {fallback_launches}, expected {fallback_want}")
     secf = resf["seconds"]
@@ -2416,7 +2614,9 @@ def main() -> int:
     # rollout2d_cluster_kernel and pg2d_persistent_kernel), each with its
     # members' evaluation (rollout2d_cluster_kernel); then
     # run_ensemble(BURGERS_STAGE1, 2) in "batched"
-    # (rows 11-12 at k = 5; the evaluation by rollout2d_kxk_persistent_kernel).  The
+    # (row 11 at k = 5, one launch a step, and row 12 at k = 5 by
+    # adj2d_batched_ffma_persistent_kernel, one launch a backward; the
+    # evaluation by rollout2d_kxk_persistent_kernel).  The
     # truths come from the train and train_burgers phases' caches.
     per_ens = ENS_ITERS // len(stages)
     ens_steps = per_ens * sum(stages)
@@ -2432,6 +2632,7 @@ def main() -> int:
         "batched": {"fused_rollout_2d_batched.launches": ENS_ITERS,
                     "fused_rollout_2d_batched.steps": ens_steps,
                     "fused_phase1_2d_batched.launches": ens_steps,
+                    "fused_phase1_2d_batched.steps": ens_steps,
                     "fused_rollout_2d.launches": ENS_MEMBERS,
                     "fused_rollout_2d.steps": ens_eval},
         # a member's iteration: one launch of each one-launch kernel
@@ -2441,7 +2642,9 @@ def main() -> int:
                  "fused_rollout_tp_2d_pg.steps": ENS_MEMBERS * ens_steps},
         "burgers_batched": {
             "fused_rollout_2d_batched.launches_kxk": ENS_BURGERS_ITERS * stepsb,
-            "fused_phase1_2d_batched.launches_kxk": 2 * ENS_BURGERS_ITERS * stepsb,
+            # one adj2d_batched_ffma_persistent_kernel launch a backward
+            "fused_phase1_2d_batched.launches_kxk": ENS_BURGERS_ITERS,
+            "fused_phase1_2d_batched.steps": ENS_BURGERS_ITERS * stepsb,
             "fused_rollout_kxk_2d.launches": ENS_KXK_MEMBERS,
             "fused_rollout_kxk_2d.steps": ENS_KXK_MEMBERS * BURGERS_STAGE1.infer_steps},
     }
@@ -2784,7 +2987,7 @@ def main() -> int:
         lambda: cell2d._rollout_cluster_cuda(packed, h0, cfg, SERVE_STEPS, final_only=True),
         lambda: cell2d._final_steps_cuda(packed, h0, cfg, SERVE_STEPS), reps=5)
     row2_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_final_2d_plain(
-        packed, h0, cfg, SERVE_STEPS), reps=1)
+        packed, h0, cfg, SERVE_STEPS), reps=1, warm=False)
     b1_ms, b1_by = bound_ms(param_bytes + state_bytes + (SERVE_STEPS + 1) * state_bytes, flops)
     b2_ms, b2_by = bound_ms(param_bytes + 2 * state_bytes, flops)
     # row 1 in the ensemble: the members' evaluations, and the per-member
@@ -2799,7 +3002,7 @@ def main() -> int:
         "launches": sum(by_path1.values()), "launches_by_path": by_path1,
         "max_abs_err": err["rollout2d_cluster_kernel"], "ms": row1_ms,
         "plain_ms": cuda_ms(torch, lambda: cell2d.fused_rollout_2d_plain(
-            packed, h0, cfg, SERVE_STEPS), reps=1),
+            packed, h0, cfg, SERVE_STEPS), reps=1, warm=False),
         "bound_ms": b1_ms, "bound_by": b1_by, "library_ms": None,
         "steps": SERVE_STEPS, "launches_per_call": 1, "us_per_step": 1e3 * row1_ms / SERVE_STEPS,
         "per_step_route": {"name": "rollout2d_kernel", "launches_per_call": SERVE_STEPS,
@@ -2848,7 +3051,7 @@ def main() -> int:
                              "ensemble": ens_launches["auto"]["fused_rollout_tp_2d_pg.launches"]},
         "max_abs_err": err["pg2d_persistent_kernel"], "ms": row7_ms,
         "plain_ms": cuda_ms(torch, lambda: backward2d.fused_phase1_pg_2d_plain(
-            packed, frames, fbar, cfg), reps=1),
+            packed, frames, fbar, cfg), reps=1, warm=False),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "steps": TIME_BACKWARD_STEPS, "launches_per_call": 1,
         "us_per_step": 1e3 * row7_ms / TIME_BACKWARD_STEPS,
@@ -2858,6 +3061,43 @@ def main() -> int:
                            "max_abs_err": err["pg2d_kernel[per_step]"]},
         "turns_ms": row7_turns, "plan": one_launch["pg2d_persistent_kernel"],
     })
+    # row 4 at k = 1 on the same frames and cotangent: adj2d_persistent_kernel
+    # beside adj2d_kernel (its per-step route), timed in turns; the sweep
+    # reads the T step inputs and cotangents and writes the T g_ins and g0
+    row4_ms, row4_steps_ms, row4_turns = turns(
+        lambda: backward2d._phase1_persistent_cuda(packed, frames, fbar, cfg),
+        lambda: backward2d._phase1_steps_cuda(packed, frames, fbar, cfg), reps=5)
+    row4_plain_ms = cuda_ms(torch, lambda: backward2d.fused_phase1_2d_plain(
+        packed, frames, fbar, cfg), reps=1, warm=False)
+    row4_work = {"steps": TIME_BACKWARD_STEPS,
+                 "bytes": param_bytes + 3 * TIME_BACKWARD_STEPS * state_bytes + state_bytes,
+                 "flops": TIME_BACKWARD_STEPS * cells * adj_flops_per_cell_step_1x1(cfg)}
+    b4_ms, b4_by = bound_ms(row4_work["bytes"], row4_work["flops"])
+    row4_by_path = {"train": fallback_launches["gs2d_fused"]["fused_phase1_2d.launches"]}
+    kernels.append({
+        "name": "adj2d_persistent_kernel", "jax_kernel": "backward2d._phase1_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/adj2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward2d.py:184",
+        "launches": sum(row4_by_path.values()), "launches_by_path": row4_by_path,
+        "max_abs_err": err["adj2d_persistent_kernel"], "steps": TIME_BACKWARD_STEPS,
+        "ms": row4_ms, "plain_ms": row4_plain_ms, "bound_ms": b4_ms, "bound_by": b4_by,
+        "library_ms": None, "launches_per_call": 1,
+        "us_per_step": 1e3 * row4_ms / TIME_BACKWARD_STEPS,
+        "per_step_route": {"name": "adj2d_kernel", "launches_per_call": TIME_BACKWARD_STEPS,
+                           "ms": row4_steps_ms,
+                           "us_per_step": 1e3 * row4_steps_ms / TIME_BACKWARD_STEPS,
+                           "max_abs_err": err["adj2d_kernel"]},
+        "turns_ms": row4_turns, "plan": one_launch["adj2d_persistent_kernel"],
+    })
+    kernels.append({
+        "name": "adj2d_kernel", "jax_kernel": "backward2d._phase1_kernel", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/adj2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward2d.py:184",
+        "launches": sum(adj_steps_launches.values()), "launches_by_path": adj_steps_launches,
+        "max_abs_err": err["adj2d_kernel"], "steps": TIME_BACKWARD_STEPS, "ms": row4_steps_ms,
+        "plain_ms": row4_plain_ms, "bound_ms": b4_ms, "bound_by": b4_by, "library_ms": None,
+        "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100, "
+                "timed in turns with it"})
     # GS3D at 48^3: a rollout over the inference horizon, frames and final
     # state, and the backward at the longest training stage; golden cell,
     # data-loss cotangent
@@ -2879,9 +3119,9 @@ def main() -> int:
         lambda: cell3d._rollout_persistent_cuda(expanded3, h03, steps3, final_only=True),
         lambda: cell3d._rollout_steps_cuda(expanded3, h03, steps3, final_only=True), reps=5)
     row8_plain_ms = cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
-        expanded3, h03, steps3), reps=1)
+        expanded3, h03, steps3), reps=1, warm=False)
     row8f_plain_ms = cuda_ms(torch, lambda: cell3d.fused_rollout_3d_plain(
-        expanded3, h03, steps3, final_only=True), reps=1)
+        expanded3, h03, steps3, final_only=True), reps=1, warm=False)
     kernels.append({
         "name": "rollout3d_persistent_kernel", "jax_kernel": "cell3d._rollout3d_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell3d.cu",
@@ -2919,7 +3159,7 @@ def main() -> int:
         lambda: backward3d._pg_persistent_cuda(packed3, frames3, fbar3, cfg3),
         lambda: backward3d._pg_steps_cuda(packed3, frames3, fbar3, cfg3), reps=5)
     row10_plain_ms = cuda_ms(torch, lambda: backward3d.fused_phase1_pg_3d_plain(
-        packed3, frames3, fbar3, cfg3), reps=1)
+        packed3, frames3, fbar3, cfg3), reps=1, warm=False)
     kernels.append({
         "name": "pg3d_persistent_kernel", "jax_kernel": "backward3d._phase1_pg_kernel3d",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward3d.cu",
@@ -2974,7 +3214,7 @@ def main() -> int:
         lambda: cell2d._rollout_kxk_persistent_cuda(wmatb, tailb, h0b, cfgb, horizon),
         lambda: cell2d._rollout_kxk_steps_cuda(wmatb, tailb, h0b, cfgb, horizon), reps=3)
     row3_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_kxk_2d_plain(
-        wmatb, tailb, h0b, cfgb, stepsb), reps=1)
+        wmatb, tailb, h0b, cfgb, stepsb), reps=1, warm=False)
     by_pathb = {"serve": serveb_launches["rollout2d_kxk_persistent_kernel"],
                 "train": trainb_counts["fused_rollout_kxk_2d.launches"],
                 "ensemble": ens_launches["burgers_batched"]["fused_rollout_kxk_2d.launches"]}
@@ -3010,7 +3250,7 @@ def main() -> int:
                                                     final_only=True),
         lambda: cell2d._final_steps_cuda(packedb, h0s, cfgb, horizon), reps=3)
     row2k_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_final_2d_plain(
-        packedb, h0s, cfgb, horizon), reps=1)
+        packedb, h0s, cfgb, horizon), reps=1, warm=False)
     kernels.append({
         "name": "rollout2d_kxk_persistent_kernel[final]", "jax_kernel": "cell2d._final_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",
@@ -3047,7 +3287,7 @@ def main() -> int:
         lambda: backward2d._phase1_kxk_persistent_cuda(wmatb, tailb, framesb, fbarb, cfgb),
         lambda: backward2d._phase1_kxk_steps_cuda(wmatb, tailb, framesb, fbarb, cfgb), reps=5)
     row6_plain_ms = cuda_ms(torch, lambda: backward2d.fused_phase1_kxk_2d_plain(
-        wmatb, tailb, framesb, fbarb, cfgb), reps=1)
+        wmatb, tailb, framesb, fbarb, cfgb), reps=1, warm=False)
     kernels.append({
         "name": "adj2d_kxk_persistent_kernel", "jax_kernel": "backward2d._phase1_mxu_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d_kxk.cu",
@@ -3124,9 +3364,9 @@ def main() -> int:
         lambda: backward2d._phase1_ys_persistent_cuda(packedb, fbarb, ysb, cfgb),
         lambda: backward2d._phase1_ys_steps_cuda(packedb, fbarb, ysb, cfgb), reps=5)
     row1k_plain_ms = cuda_ms(torch, lambda: cell2d.fused_rollout_2d_plain(
-        packedb, h0b, cfgb, stepsb), reps=1)
+        packedb, h0b, cfgb, stepsb), reps=1, warm=False)
     row5_plain_ms = cuda_ms(torch, lambda: backward2d.fused_phase1_ys_2d_plain(
-        packedb, fbarb, ysb, cfgb), reps=1)
+        packedb, fbarb, ysb, cfgb), reps=1, warm=False)
     b1k = bound_ms(packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes, fwdb_flops)
     b1kh = bound_ms(packedb_bytes + stateb_bytes + (horizon + 1) * stateb_bytes,
                     horizon * cellsb * flops_per_cell_step_kxk(cfgb))
@@ -3181,14 +3421,8 @@ def main() -> int:
                 "steps": steps_, "ms": steps_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": None,
                 "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100"})
+    fallback_work["adj2d_persistent_kernel"] = row4_work
     fallback_rows = {
-        "adj2d_kernel": (
-            lambda: backward2d._phase1_cuda(packed, frames, fbar, cfg),
-            lambda: backward2d.fused_phase1_2d_plain(packed, frames, fbar, cfg),
-            param_bytes + 3 * TIME_BACKWARD_STEPS * state_bytes + state_bytes,
-            TIME_BACKWARD_STEPS * cells * adj_flops_per_cell_step_1x1(cfg), TIME_BACKWARD_STEPS,
-            "backward2d._phase1_kernel", "percnn_tpu/ops/pallas/backward2d.py:184", "adj2d.cu",
-            {"train": fallback_launches["gs2d_fused"]["fused_phase1_2d.launches"]}),
         "adj2d_kernel[k=5]": (
             lambda: backward2d._phase1_cuda(packedb, framesb, fbarb, cfgb),
             lambda: backward2d.fused_phase1_2d_plain(packedb, framesb, fbarb, cfgb),
@@ -3215,7 +3449,7 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err[name], "steps": steps,
             "ms": cuda_ms(torch, kernel, reps=3 if steps > 1000 else 5),
-            "plain_ms": cuda_ms(torch, plain, reps=1),
+            "plain_ms": cuda_ms(torch, plain, reps=1, warm=False),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
     # the ensemble's kernels at its main paths' shapes: M = 4, 100 x 100,
@@ -3284,7 +3518,7 @@ def main() -> int:
         "launches": ens_fwd_launches, "launches_by_path": {"ensemble": ens_fwd_launches},
         "max_abs_err": err["rollout2d_cluster_kernel[batched]"], "members": m4, "steps": t8,
         "ms": fwd4["ms"], "plain_ms": cuda_ms(
-            torch, lambda: batched2d.fused_rollout_2d_batched_plain(packed4, h04, cfg, t8), reps=1),
+            torch, lambda: batched2d.fused_rollout_2d_batched_plain(packed4, h04, cfg, t8), reps=1, warm=False),
         "bound_ms": fwd4["bound_ms"], "bound_by": fwd4["bound_by"], "library_ms": None,
         "launches_per_call": 1, "us_per_step": 1e3 * fwd4["ms"] / t8,
         "per_step_route": {"name": "rollout2d_batched_kernel", "launches_per_call": t8,
@@ -3301,7 +3535,7 @@ def main() -> int:
         "max_abs_err": err["pg2d_batched_persistent_kernel"], "members": m4, "steps": t8,
         "ms": pg4["ms"], "plain_ms": cuda_ms(
             torch, lambda: batched2d.fused_phase1_pg_2d_batched_plain(packed4, frames4, fbar4,
-                                                                      cfg), reps=1),
+                                                                      cfg), reps=1, warm=False),
         "bound_ms": pg4["bound_ms"], "bound_by": pg4["bound_by"], "library_ms": None,
         "launches_per_call": 1, "us_per_step": 1e3 * pg4["ms"] / t8,
         "per_step_route": {"name": "pg2d_batched_kernel", "launches_per_call": t8,
@@ -3335,12 +3569,6 @@ def main() -> int:
             m2 * (packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes), m2 * fwdb_flops,
             stepsb, m2, "batched2d._rollout_kernel_b", ":63",
             {"ensemble": ens_launches["burgers_batched"]["fused_rollout_2d_batched.launches_kxk"]}),
-        "adj2d_batched_kernel[k=5]": (
-            lambda: batched2d._phase1_b_cuda(packed2, frames2, fbar2, cfgb),
-            lambda: batched2d.fused_phase1_2d_batched_plain(packed2, frames2, fbar2, cfgb),
-            m2 * (packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes), m2 * bwb_flops,
-            stepsb, m2, "batched2d._phase1_kernel_b", ":117",
-            {"ensemble": ens_launches["burgers_batched"]["fused_phase1_2d_batched.launches_kxk"]}),
     }
     # the per-step rows' ms are their turns above; their plain versions the
     # one-launch rows' (the same function)
@@ -3360,7 +3588,7 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": err[name], "members": n_mem, "steps": steps,
             "ms": per_step_ms[name] if kernel is None else cuda_ms(torch, kernel, reps=5),
-            "plain_ms": plain_of[name] if plain is None else cuda_ms(torch, plain, reps=1),
+            "plain_ms": plain_of[name] if plain is None else cuda_ms(torch, plain, reps=1, warm=False),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         }
         if name in per_step_ms:
@@ -3368,6 +3596,68 @@ def main() -> int:
                              "M = 4, timed in turns with it")
             entry["m8"] = {"ms": m8("fwd" if "rollout" in name else "pg")["per_step_ms"]}
         kernels.append(entry)
+    # row 12 at k = 5: adj2d_batched_ffma_persistent_kernel beside
+    # adj2d_batched_kernel's pair (its per-step route), timed in turns at
+    # M = 2 (the ensemble's) and M = 4, 100 x 100, T = 200, on the golden
+    # Burgers cell's members and a standard-normal cotangent; M = 4 also
+    # against plain
+    row12 = {}
+    for n_mem in (m2, 2 * m2):
+        if n_mem == m2:
+            pk, frm, fbm = packed2, frames2, fbar2
+        else:
+            pk = batched2d.pack_pi_params_2d_batched(member_cells(modelb["cell"], n_mem),
+                                                     cfgb).contiguous()
+            frm = batched2d._rollout_b_cuda(pk, member_ics(BURGERS_STAGE1.system,
+                                                           BURGERS_STAGE1.grid, n_mem),
+                                            cfgb, stepsb)
+            fbm = torch.randn(frm.shape, generator=gen, device=dev)
+        one_ms, per_ms, tr = turns(
+            lambda: batched2d._phase1_b_ffma_persistent_cuda(pk, frm, fbm, cfgb),
+            lambda: batched2d._phase1_b_steps_cuda(pk, frm, fbm, cfgb), reps=3)
+        work = {"members": n_mem, "steps": stepsb,
+                "bytes": n_mem * (packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes),
+                "flops": n_mem * bwb_flops}
+        b_ms, b_by = bound_ms(work["bytes"], work["flops"])
+        row12[n_mem] = {"members": n_mem, "steps": stepsb, "ms": one_ms, "per_step_ms": per_ms,
+                        "us_per_step": 1e3 * one_ms / stepsb, "turns_ms": tr, "bound_ms": b_ms,
+                        "bound_by": b_by,
+                        "plan": one_launch["adj2d_batched_ffma_persistent_kernel"][f"M={n_mem}"]}
+        batched_work[f"adj2d_batched_ffma_persistent_kernel[M={n_mem}]"] = work
+        if n_mem > m2:
+            errs = sweep_errs("adj2d_batched_ffma_persistent_kernel[M=4]",
+                              batched2d._phase1_b_ffma_persistent_cuda(pk, frm, fbm, cfgb),
+                              batched2d.fused_phase1_2d_batched_plain(pk, frm, fbm, cfgb))
+            row12[n_mem]["max_abs_err"] = max(e for e, _ in errs.values())
+            del pk, frm, fbm
+    r12 = row12[m2]
+    row12_plain_ms = cuda_ms(torch, lambda: batched2d.fused_phase1_2d_batched_plain(
+        packed2, frames2, fbar2, cfgb), reps=1, warm=False)
+    row12_by_path = {
+        "ensemble": ens_launches["burgers_batched"]["fused_phase1_2d_batched.launches_kxk"]}
+    kernels.extend([{
+        "name": "adj2d_batched_ffma_persistent_kernel", "jax_kernel": "batched2d._phase1_kernel_b",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/batched2d.py:117",
+        "launches": sum(row12_by_path.values()), "launches_by_path": row12_by_path,
+        "max_abs_err": err["adj2d_batched_ffma_persistent_kernel"], "members": m2,
+        "steps": stepsb, "ms": r12["ms"], "plain_ms": row12_plain_ms,
+        "bound_ms": r12["bound_ms"], "bound_by": r12["bound_by"], "library_ms": None,
+        "launches_per_call": 1, "us_per_step": r12["us_per_step"],
+        "per_step_route": {"name": "adj2d_batched_kernel[k=5]", "launches_per_call": 2 * stepsb,
+                           "ms": r12["per_step_ms"], "us_per_step": 1e3 * r12["per_step_ms"] / stepsb,
+                           "max_abs_err": err["adj2d_batched_kernel[k=5]"]},
+        "turns_ms": r12["turns_ms"], "plan": r12["plan"], "m4": row12[2 * m2],
+    }, {
+        "name": "adj2d_batched_kernel[k=5]", "jax_kernel": "batched2d._phase1_kernel_b",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/batched2d.py:117",
+        "launches": sum(sweep_b_launches.values()), "launches_by_path": sweep_b_launches,
+        "max_abs_err": err["adj2d_batched_kernel[k=5]"], "members": m2, "steps": stepsb,
+        "ms": r12["per_step_ms"], "plain_ms": row12_plain_ms, "bound_ms": r12["bound_ms"],
+        "bound_by": r12["bound_by"], "library_ms": None,
+        "note": "the per-step route past the one-launch plan; ms at 100 x 100, M = 2, timed in "
+                "turns with it", "m4": {"ms": row12[2 * m2]["per_step_ms"]}}])
     del frames4, fbar4, frames2, fbar2
     # one "two_phase" backward of GS2D at T = 800 (rollout_tp: one
     # autograd.grad a step, then the parameter gradients), trained cell,
@@ -3415,7 +3705,7 @@ def main() -> int:
         "launches": sum(sharded_launches.values()), "launches_by_path": sharded_launches,
         "max_abs_err": err["step2d_haloed_kernel"], "steps": CHECK_STEPS, "blocks": 4,
         "ms": row14_ms,
-        "plain_ms": cuda_ms(torch, lambda: sharded_plain(packed, h0, cfg, CHECK_STEPS), reps=1),
+        "plain_ms": cuda_ms(torch, lambda: sharded_plain(packed, h0, cfg, CHECK_STEPS), reps=1, warm=False),
         "bound_ms": b14_ms, "bound_by": b14_by, "library_ms": None,
         "one_launch_ms": cuda_ms(torch, lambda: sharded_step2d._step_cuda(packed, xb14, cfg),
                                  reps=200),

@@ -38,8 +38,17 @@ as percnn_tpu's ``_fused_tp_bwd`` does:
   admits, else ``adj2d_ys_kernel``, two launches a step; then
   ``_param_grads_stream``;
 - 'adjoint', a 1x1 cell, or with YS_PATH_ENABLED off or over its 8 GiB:
-  ``adj2d_kernel`` (csrc/adj2d.cu, in place of ``_phase1_kernel``), y
-  recomputed from the frames; then ``core.rollout.chunked_param_grads``.
+  the sweep that recomputes y from the frames (csrc/adj2d.cu, in place of
+  ``_phase1_kernel``), then ``core.rollout.chunked_param_grads``.  At k = 1
+  it is ``adj2d_persistent_kernel`` for any field and cell ``adj_plan``
+  admits: the whole sweep in one cooperative launch, one block an SM, one
+  grid barrier a step, ``pg2d_persistent_kernel``'s three passes without
+  its accumulators (the same code, adj2d_step.cuh, so its g0 is the fused
+  sweep's to the bit), g_in streamed to g_ins; on an NVIDIA H100 80GB HBM3
+  at 700 W, 2.427 ms per T = 800 at 100 x 100 (3.03 us a step) against
+  4.647 for ``adj2d_kernel``, one launch a step, which runs past the plan
+  (448 x 448 at most for the GS2D cell).  At k = 3, 5 it is
+  ``adj2d_act_kernel`` + ``adj2d_gather_kernel``, two launches a step.
 
 **1x1 cells** (GS2D), the fused-pg half.
 ``fused_rollout_tp_2d_pg`` is a differentiable rollout whose forward is
@@ -74,8 +83,9 @@ by pg2d_persistent_kernel, one a reverse step by pg2d_kernel) beside
 ``fused_rollout_tp_2d.launches`` (the k x k sweep: one a sweep by
 adj2d_kxk_persistent_kernel, two a reverse step by adj2d_kxk_kernel) beside
 ``fused_rollout_tp_2d.steps`` (its reverse steps run on the card),
-``fused_phase1_2d.launches`` (adj2d_kernel, one a
-reverse step at k = 1, two at k > 1) and ``fused_phase1_ys_2d.launches``
+``fused_phase1_2d.launches`` (one a sweep by adj2d_persistent_kernel, one a
+reverse step by adj2d_kernel at k = 1, two at k > 1) beside
+``fused_phase1_2d.steps``, ``fused_phase1_ys_2d.launches``
 (one a sweep by adj2d_ys_persistent_kernel, two a reverse step by
 adj2d_ys_kernel) beside ``fused_phase1_ys_2d.steps``.
 """
@@ -152,6 +162,10 @@ _KXK_PERSISTENT_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
 # params, n_params, frames, frames_bar, g, scratch, g_ins, zw, n_steps, H, W,
 # hidden, n_branches, kernel_size, dt, inv_dx2, stream
 _ADJ_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
+# params, n_params, frames, frames_bar, g0, scratch, g_ins, n_steps, H, W,
+# hidden, n_branches, dt, inv_dx2, blocks, stream, blocks an SM (out)
+_ADJ_PERSISTENT_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P,
+                             ctypes.POINTER(_I)]
 # params, n_params, frames_bar, ys, g, g_ins, zw, n_steps, H, W, hidden,
 # n_branches, kernel_size, dt, inv_dx2, stream
 _YS_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -266,14 +280,21 @@ def _kernel_fn(name: str = "backward2d_pg", signature: list = _SIGNATURE):
     return fn
 
 
-def persistent_smem_bytes(cfg: PiCellConfig, H: int, W: int, blocks: int) -> int:
-    """Shared memory of a block of pg2d_persistent_kernel: the packed
+def adj_smem_bytes(cfg: PiCellConfig, H: int, W: int, blocks: int, n_planes: int = 0) -> int:
+    """Shared memory of a block of the 1x1 one-launch sweeps: the packed
     parameters rounded up to 4 floats, then for each of the most cells a
-    block owns its A accumulators, 6 floats of its state and 2 x 2 C shares
-    of the Jacobian's transpose (csrc: persistent_smem_bytes)."""
+    block owns its n_planes accumulators (none for adj2d_persistent_kernel),
+    6 floats of its state and 2 x 2 C shares of the Jacobian's transpose
+    (csrc: adj2d::persistent_smem)."""
     cap = -(-(H * W) // blocks)
     n_params = 2 + 2 * _param_block(cfg)
-    return 4 * (_round_up(n_params, 4) + (_pg_layout(cfg)["A"] + 6 + 4 * cfg.hidden) * cap)
+    return 4 * (_round_up(n_params, 4) + (n_planes + 6 + 4 * cfg.hidden) * cap)
+
+
+def persistent_smem_bytes(cfg: PiCellConfig, H: int, W: int, blocks: int) -> int:
+    """Shared memory of a block of pg2d_persistent_kernel: adj_smem_bytes
+    with the A accumulators of each cell (csrc: persistent_smem_bytes)."""
+    return adj_smem_bytes(cfg, H, W, blocks, _pg_layout(cfg)["A"])
 
 
 def pg_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
@@ -586,13 +607,19 @@ def _sweep_fn(name: str, signature: list):
     return fn
 
 
-def _phase1_cuda(packed, frames, frames_bar, cfg):
-    """adj2d_kernel: one launch per reverse step at k = 1, two at k > 1, the
-    loop in C."""
-    frames_bar = _check_sweep_inputs("adj2d_kernel", packed, frames_bar, cfg, frames)
+def _check_phase1_inputs(name, packed, frames, frames_bar, cfg):
+    """Check adj2d_kernel's inputs; return frames_bar as contiguous f32."""
+    frames_bar = _check_sweep_inputs(name, packed, frames_bar, cfg, frames)
     if frames.shape != frames_bar.shape:
         raise ValueError(f"frames {tuple(frames.shape)} and frames_bar "
                          f"{tuple(frames_bar.shape)} differ")
+    return frames_bar
+
+
+def _phase1_steps_cuda(packed, frames, frames_bar, cfg):
+    """adj2d_kernel: one launch per reverse step at k = 1, two at k > 1, the
+    loop in C."""
+    frames_bar = _check_phase1_inputs("adj2d_kernel", packed, frames, frames_bar, cfg)
     fn = _sweep_fn("adj2d_sweep", _ADJ_SIGNATURE)
     n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
     k, dev = cfg.kernel_size, frames.device
@@ -609,7 +636,81 @@ def _phase1_cuda(packed, frames, frames_bar, cfg):
                            cfg.n_branches, k, cfg.dt, 1.0 / (cfg.dx * cfg.dx), stream),
                         "adj2d_sweep")
     fused_phase1_2d.launches += n_steps if k == 1 else 2 * n_steps
+    fused_phase1_2d.steps += n_steps
     return g_ins, g
+
+
+def adj_plan(H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the 1x1 streaming reverse sweep of an H x W field on a
+    card of n_sm SMs, by a rule on the cell, the shape and the card's
+    limits: a 1x1 cell of 1 to 4 branches whose block (min(n_sm, H W)
+    blocks, one an SM, each owning split_evenly's share of the cells) fits
+    a block's shared memory takes adj2d_persistent_kernel, one cooperative
+    launch a sweep ('persistent', with blocks and smem); else adj2d_kernel,
+    one launch a step ('per_step').  At 100 x 100 on 132 SMs for the GS2D
+    cell (C = 8): 132 blocks of 75 or 76 cells, 152 bytes a cell, 12 208
+    bytes; the largest square field that fits is 448 x 448 (pg_plan's,
+    with the 164 accumulators a cell, 194 x 194)."""
+    if cfg.kernel_size != 1 or not 1 <= cfg.n_branches <= _MAX_BRANCHES:
+        return {"route": "per_step"}
+    blocks = min(n_sm, H * W)
+    smem = adj_smem_bytes(cfg, H, W, blocks)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    return {"route": "persistent", "blocks": blocks, "smem": smem}
+
+
+def adj_occupancy(cfg: PiCellConfig, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of adj_plan's configuration an SM of the card holds."""
+    plan = adj_plan(H, W, cfg, _sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field of this cell takes no one-launch sweep: {cfg}")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(_sweep_fn("adj2d_persistent_occupancy", _OCCUPANCY_SIGNATURE)(
+            2 + 2 * _param_block(cfg), H, W, cfg.hidden, cfg.n_branches, plan["blocks"],
+            ctypes.byref(per_sm)), "adj2d_persistent_occupancy")
+    return per_sm.value
+
+
+def _phase1_persistent_cuda(packed, frames, frames_bar, cfg):
+    """adj2d_persistent_kernel: the whole 1x1 sweep in one cooperative
+    launch, by adj_plan's configuration; (g_ins, g0).  No launch at
+    n_steps = 0.  Raises if the card cannot hold the grid."""
+    frames_bar = _check_phase1_inputs("adj2d_persistent_kernel", packed, frames, frames_bar,
+                                      cfg)
+    n_steps, H, W = frames.shape[0] - 1, frames.shape[1], frames.shape[2]
+    dev = frames.device
+    plan = adj_plan(H, W, cfg, _sm_count(dev))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {H} x {W} field of this cell takes no one-launch sweep: {cfg}")
+    fn = _sweep_fn("adj2d_persistent", _ADJ_PERSISTENT_SIGNATURE)
+    g0 = torch.zeros((H, W, 2), dtype=torch.float32, device=dev)
+    scratch = torch.zeros_like(g0)
+    g_ins = torch.empty((n_steps, H, W, 2), dtype=torch.float32, device=dev)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.numel(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g0.data_ptr(), scratch.data_ptr(),
+                           g_ins.data_ptr(), n_steps, H, W, cfg.hidden, cfg.n_branches, cfg.dt,
+                           1.0 / (cfg.dx * cfg.dx), plan["blocks"], stream,
+                           ctypes.byref(per_sm)), "adj2d_persistent")
+    fused_phase1_2d.launches += 1 if n_steps else 0
+    fused_phase1_2d.steps += n_steps
+    return g_ins, g0
+
+
+def _phase1_cuda(packed, frames, frames_bar, cfg):
+    """The streaming reverse sweep on CUDA: at k = 1 by adj_plan's route,
+    one launch of adj2d_persistent_kernel ('persistent') or one adj2d_kernel
+    launch a step ('per_step'); at k > 1 adj2d_act_kernel and
+    adj2d_gather_kernel, two launches a step."""
+    if frames.dim() == 4 and frames.device.type == "cuda" and adj_plan(
+            frames.shape[1], frames.shape[2], cfg,
+            _sm_count(frames.device))["route"] == "persistent":
+        return _phase1_persistent_cuda(packed, frames, frames_bar, cfg)
+    return _phase1_steps_cuda(packed, frames, frames_bar, cfg)
 
 
 def _check_ys_inputs(packed, frames_bar, ys, cfg, name):
@@ -726,7 +827,8 @@ def _phase1_ys_cuda(packed, frames_bar, ys, cfg):
 
 
 def fused_phase1_2d(packed, frames, frames_bar, cfg):
-    """(g_ins, g0): adj2d_kernel on CUDA, the plain version on the CPU."""
+    """(g_ins, g0): _phase1_cuda's kernel on CUDA, the plain version on the
+    CPU."""
     if frames.device.type == "cpu":
         return fused_phase1_2d_plain(packed, frames, frames_bar.to(torch.float32), cfg)
     return _phase1_cuda(packed, frames, frames_bar, cfg)
@@ -1049,5 +1151,6 @@ def fused_rollout_tp_2d(params: dict, h0: torch.Tensor, cfg: PiCellConfig,
 fused_rollout_tp_2d.launches = 0
 fused_rollout_tp_2d.steps = 0
 fused_phase1_2d.launches = 0
+fused_phase1_2d.steps = 0
 fused_phase1_ys_2d.launches = 0
 fused_phase1_ys_2d.steps = 0

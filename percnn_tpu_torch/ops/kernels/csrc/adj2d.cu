@@ -12,10 +12,11 @@
 // Outputs: g_ins[t] = g_in [H, W, 2] and, after the sweep, g_0.  The weights
 // are the packed vector of pack_pi_params_2d (../cell2d.py) in shared memory.
 //
-// adj2d_kernel (k = 1) and adj2d_act_kernel + adj2d_gather_kernel (k = 3, 5)
-// replace percnn_tpu/ops/pallas/backward2d.py:_phase1_kernel (pallas_call in
-// _fused_phase1), which recomputes the Pi Jacobian's transpose from the
-// frames; adj2d_ys_act_kernel + adj2d_gather_kernel replace
+// adj2d_persistent_kernel (k = 1, within adj_plan in ../backward2d.py),
+// adj2d_kernel (k = 1 past it) and adj2d_act_kernel + adj2d_gather_kernel
+// (k = 3, 5) replace percnn_tpu/ops/pallas/backward2d.py:_phase1_kernel
+// (pallas_call in _fused_phase1), which recomputes the Pi Jacobian's
+// transpose from the frames; adj2d_ys_act_kernel + adj2d_gather_kernel replace
 // _phase1_ys_kernel (pallas_call in _fused_phase1_ys), which reads the
 // branch activations y from ys [T, 2 nb C, H, W], precomputed outside the
 // sweep by time-batched convolutions (_precompute_ys).
@@ -34,10 +35,21 @@
 //          operations, closely followed by bytes.
 // As for every kernel of this port, what limits the design is the chain of
 // T dependent steps, one or two launches each.
-// What the design does about it: at k = 1 a step is one launch over H*W
-// threads, one cell a thread, as pg2d_kernel (backward2d.cu) without its
-// accumulators: each thread forms g_in at its 8 stencil neighbours itself
-// and g ping-pongs between two buffers, since a neighbour reads the old g.
+// What the design does about it: at k = 1, adj2d_persistent_kernel runs the
+// whole sweep in one cooperative launch, one block an SM, one grid barrier a
+// step: pg2d_persistent_kernel's design (backward2d.cu) without its
+// accumulators, the same code (adj2d::persistent_sweep, adj2d_step.cuh), so
+// a block needs only the packed parameters and 6 + 4 C floats a cell (152
+// bytes for GS2D: up to 448 x 448 on 132 SMs, against the accumulating
+// sweep's 194 x 194) and its g_0 equals pg2d_persistent_kernel's to the bit;
+// g_in goes out to g_ins[t] from the first pass, a coalesced store.  A
+// 16-CTA cluster (rollout2d_cluster_kernel's design) was not taken: the
+// adjoint's ~600 flops a cell and step would take 16 SMs longer than the
+// 1.1 us grid barrier it saves.  Past adj_plan, adj2d_kernel takes one
+// launch a step over H*W threads, one cell a thread, as pg2d_kernel without
+// its accumulators: each thread forms g_in at its 8 stencil neighbours
+// itself and g ping-pongs between two buffers, since a neighbour reads the
+// old g.
 // At k > 1, z at the neighbours within radius r depends on each neighbour's
 // own activations, so a step is two launches, as in adj2d_kxk_kernel
 // (backward2d_kxk.cu), with its layout: the activation kernel (8 x 16 tiles
@@ -60,13 +72,17 @@
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, per
 // T = 200 at 100 x 100, C = 16: 2.268 ms, one launch, 11.34 us a step;
 // adj2d_ys_act_kernel + adj2d_gather_kernel 7.284 ms in the same call, in
-// turns.
+// turns.  Its products and its gather are kxk_ffma.cuh's, shared with the
+// forward's FFMA kernel and the ensemble's k x k sweep (batched2d.cu).
+// adj2d_persistent_kernel, measured the same way per T = 800 at 100 x 100
+// for the GS2D cell: 2.427 ms, one launch, 3.03 us a step, against 4.647
+// for adj2d_kernel in turns.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "adj2d_step.cuh"
-#include "kxk_mma.cuh"
+#include "kxk_ffma.cuh"
 
 namespace {
 
@@ -85,6 +101,24 @@ __global__ void __launch_bounds__(kThreads)
                  int H, int W, int hidden, float dt, float inv_dx2) {
   adj2d::adj2d_step_1x1<NB>(params, n_params, h, fbar, g_next, g_out, g_in_out, H, W, hidden,
                             dt, inv_dx2);
+}
+
+// Threads a block of adj2d_persistent_kernel: pg2d_persistent_kernel's.
+constexpr int kPersistentThreads = 512;
+
+// k = 1: the whole streaming sweep in one cooperative launch, one block an
+// SM, one grid barrier a step: adj2d::persistent_sweep without the
+// accumulators (adj2d_step.cuh, where the design is described), so g_0
+// equals pg2d_persistent_kernel's (backward2d.cu) to the bit.
+template <int NB>
+__global__ void __launch_bounds__(kPersistentThreads)
+    adj2d_persistent_kernel(const float* __restrict__ params, int n_params,
+                            const float2* __restrict__ frames,
+                            const float2* __restrict__ frames_bar, float2* g0, float2* scratch,
+                            float2* g_ins, int n_steps, int H, int W, int hidden, float dt,
+                            float inv_dx2) {
+  adj2d::persistent_sweep<NB, false>(params, n_params, frames, frames_bar, g0, scratch,
+                                     nullptr, g_ins, n_steps, H, W, hidden, dt, inv_dx2);
 }
 
 // k > 1, first launch of a reverse step: g_in and zw at every cell of the
@@ -177,6 +211,33 @@ cudaError_t sweep_1x1(const float* params, int n_params, const float2* frames,
   return cudaGetLastError();
 }
 
+template <int NB>
+cudaError_t persistent_occupancy(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(adj2d_persistent_kernel<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, adj2d_persistent_kernel<NB>,
+                                                       kPersistentThreads, smem);
+}
+
+template <int NB>
+cudaError_t persistent_1x1(const float* params, int n_params, const float2* frames,
+                           const float2* frames_bar, float2* g0, float2* scratch, float2* g_ins,
+                           int n_steps, int H, int W, int hidden, float dt, float inv_dx2,
+                           int blocks, cudaStream_t stream, int* per_sm) {
+  const size_t smem = adj2d::persistent_smem(n_params, H, W, hidden, 0, blocks);
+  cudaError_t err = persistent_occupancy<NB>(smem, per_sm);
+  if (err != cudaSuccess) return err;
+  err = kxk_mma::check_coresident(blocks, *per_sm);
+  if (err != cudaSuccess || n_steps == 0) return err;
+  void* args[] = {&params, &n_params, &frames, &frames_bar, &g0, &scratch, &g_ins, &n_steps,
+                  &H, &W, &hidden, &dt, &inv_dx2};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(adj2d_persistent_kernel<NB>),
+                                    dim3(blocks), dim3(kPersistentThreads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <int KS, int NB>
 cudaError_t sweep_kxk(const float* params, int n_params, const float2* frames,
                       const float2* frames_bar, float2* g, float2* g_ins, float* zw,
@@ -236,21 +297,9 @@ cudaError_t sweep_ys(const float* params, int n_params, const float2* frames_bar
 
 namespace cg = cooperative_groups;
 
-// adj2d_ys_persistent_kernel's layout: a warp pair (one an equation) for each
-// 16-cell tile of a round, at most 8 tiles; lane (tap group q, cell group g)
-// of a warp holds kR taps of cells 4 g .. 4 g + 3.
-constexpr int kYsTileCells = 16;
-constexpr int kYsMaxTiles = 8;
-constexpr int kYsMaxThreads = 64 * kYsMaxTiles;  // 512
-constexpr int kTapGroups = 8;
-constexpr int kYsTail = 36;  // pack_ffma_tail_2d's: D (2), w_out (2 x 16), b_out (2)
-
-template <int KS>
-struct YsDims {
-  static constexpr int kTaps = KS * KS * 2;
-  static constexpr int kR = (kTaps + kTapGroups - 1) / kTapGroups;  // taps a lane: 7 at k = 5
-  static constexpr int kHalves = (kR + 3) / 4;                      // float4s of a lane's row
-};
+using kxk_ffma::kTail;
+using kxk_ffma::kTapGroups;
+using kxk_ffma::kTileCells;
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -290,32 +339,32 @@ __device__ __forceinline__ void cp_async_wait_all_but_last() {
 // so a step reads its activations from shared memory behind the barrier
 // instead of waiting for HBM.  After the loop, step 0's gather writes g_0.
 template <int KS, int NB>
-__global__ void __launch_bounds__(kYsMaxThreads, 1)
+__global__ void __launch_bounds__(kxk_ffma::kMaxThreads, 1)
     adj2d_ys_persistent_kernel(const float* __restrict__ wa, const float* __restrict__ tail,
                                const float2* __restrict__ frames_bar,
                                const float* __restrict__ ys, float2* g_out, float2* g_ins,
                                float* zw, int n_steps, int H, int W, int hidden, float dt,
                                float inv_dx2) {
-  using D = YsDims<KS>;
-  constexpr int kTaps = D::kTaps, kR = D::kR, R = KS / 2;
+  using D = kxk_ffma::AdjDims<KS>;
+  constexpr int kTaps = D::kTaps, kR = D::kR;
   cg::grid_group grid = cg::this_grid();
   const int cells = H * W;
   const kxk_mma::Share sh = kxk_mma::share_of(cells, W);
   const int cap = (cells + gridDim.x - 1) / gridDim.x;
-  const int tiles = blockDim.x >> 6, rc = tiles * kYsTileCells;
+  const int tiles = blockDim.x >> 6, rc = tiles * kTileCells;
   const int nwarps = blockDim.x >> 5;
   const int M = 2 * NB * hidden, Mo = NB * hidden;
   extern __shared__ float4 smem_ys[];
   float4* sw = smem_ys;                                                 // [M][kHalves][8]
   // Z [M][rc], then zw_t [kTaps][rc]
   float* zs = reinterpret_cast<float*>(sw + M * D::kHalves * kTapGroups);
-  float* st = zs + max(M, kTaps) * rc;                                  // [kYsTail]
-  float* zred = st + kYsTail;                                           // [tiles][4 kR][32]
+  float* st = zs + max(M, kTaps) * rc;                                  // [kTail]
+  float* zred = st + kTail;                                             // [tiles][4 kR][32]
   float* gin = zred + tiles * 4 * kR * 32;                              // [cap][2]
   float* ybuf = gin + 2 * cap;                                          // [2][M][cap]
   const float4* wa4 = reinterpret_cast<const float4*>(wa);
   for (int e = threadIdx.x; e < M * D::kHalves * kTapGroups; e += blockDim.x) sw[e] = wa4[e];
-  for (int e = threadIdx.x; e < kYsTail; e += blockDim.x) st[e] = tail[e];
+  for (int e = threadIdx.x; e < kTail; e += blockDim.x) st[e] = tail[e];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int o = warp & 1, tl = warp >> 1;
@@ -334,30 +383,8 @@ __global__ void __launch_bounds__(kYsMaxThreads, 1)
   // g_t at own cell k, channel c: g_in_t + dt (D Lap(g_in_t) + jt), from
   // g_ins[t] and zw_t (zsrc) at the neighbours
   auto gather = [&](int t, const float* zsrc, int k, int c) {
-    const int idx = sh.first + k;
-    const int i = idx / W;
-    const int j = idx - i * W;
-    int col[KS];
-#pragma unroll
-    for (int kj = 0; kj < KS; ++kj) col[kj] = kxk_mma::wrap2(j + R - kj, W);
-    float jt = 0.0f;
-#pragma unroll
-    for (int ki = 0; ki < KS; ++ki) {
-      const float* zrow = zsrc + static_cast<size_t>(ki * KS * 2 + c) * cells +
-                          kxk_mma::wrap2(i + R - ki, H) * W;
-#pragma unroll
-      for (int kj = 0; kj < KS; ++kj)
-        jt += __ldcg(zrow + static_cast<size_t>(kj * 2) * cells + col[kj]);
-    }
-    const float* gi = reinterpret_cast<const float*>(g_ins + static_cast<size_t>(t) * cells);
-    auto at = [&](int di, int dj) {
-      return __ldcg(gi + 2 * (kxk_mma::wrap2(i + di, H) * W + kxk_mma::wrap2(j + dj, W)) + c);
-    };
-    const float s1 = at(1, 0) + at(-1, 0) + at(0, 1) + at(0, -1);
-    const float s2 = at(2, 0) + at(-2, 0) + at(0, 2) + at(0, -2);
-    const float ctr = gin[2 * k + c];
-    const float lap = (-5.0f * ctr + (4.0f / 3.0f) * s1 - (1.0f / 12.0f) * s2) * inv_dx2;
-    return ctr + dt * (st[c] * lap + jt);
+    return kxk_ffma::g_at<KS>(zsrc, g_ins, t, gin + 2 * k + c, st + c, sh.first + k, c, H, W,
+                              dt, inv_dx2);
   };
 
   if (n_steps > 0) prefetch(n_steps - 1, 0);
@@ -424,33 +451,8 @@ __global__ void __launch_bounds__(kYsMaxThreads, 1)
       __syncthreads();
       // zw^T of equation o's rows at tile tl: kR taps x 4 cells a lane
       float acc[kR][4];
-#pragma unroll
-      for (int j = 0; j < kR; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-      const float4* zl = reinterpret_cast<const float4*>(zs) + tl * 4 + grp;
-      const float4* wl = sw + tg;
-      const int zstride = rc / 4;
-#pragma unroll 4
-      for (int m = o * Mo; m < (o + 1) * Mo; ++m) {
-        const float4 z = zl[m * zstride];
-        float w[4 * D::kHalves];
-#pragma unroll
-        for (int h = 0; h < D::kHalves; ++h) {
-          const float4 v = wl[(m * D::kHalves + h) * kTapGroups];
-          w[4 * h] = v.x;
-          w[4 * h + 1] = v.y;
-          w[4 * h + 2] = v.z;
-          w[4 * h + 3] = v.w;
-        }
-#pragma unroll
-        for (int j = 0; j < kR; ++j) {
-          acc[j][0] = fmaf(w[j], z.x, acc[j][0]);
-          acc[j][1] = fmaf(w[j], z.y, acc[j][1]);
-          acc[j][2] = fmaf(w[j], z.z, acc[j][2]);
-          acc[j][3] = fmaf(w[j], z.w, acc[j][3]);
-        }
-      }
+      kxk_ffma::adj_product<KS>(reinterpret_cast<const float4*>(zs) + tl * 4 + grp, sw + tg,
+                                rc / 4, o * Mo, (o + 1) * Mo, acc);
       float* zr = zred + tl * 4 * kR * 32 + lane;
       if (o == 1) {
 #pragma unroll
@@ -468,7 +470,7 @@ __global__ void __launch_bounds__(kYsMaxThreads, 1)
           const int q = tg * kR + j;
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (q < kTaps) zs[q * rc + tl * kYsTileCells + grp * 4 + e] =
+            if (q < kTaps) zs[q * rc + tl * kTileCells + grp * 4 + e] =
                 acc[j][e] + zr[(4 * j + e) * 32];
         }
       }
@@ -500,12 +502,12 @@ __global__ void __launch_bounds__(kYsMaxThreads, 1)
 // (ys_smem_bytes in ../backward2d.py computes the same).
 template <int KS>
 size_t ys_persistent_smem(int H, int W, int hidden, int n_branches, int blocks, int threads) {
-  using D = YsDims<KS>;
+  using D = kxk_ffma::AdjDims<KS>;
   const size_t cap = (static_cast<size_t>(H) * W + blocks - 1) / blocks;
-  const size_t tiles = threads / 64, rc = tiles * kYsTileCells;
+  const size_t tiles = threads / 64, rc = tiles * kTileCells;
   const size_t M = 2 * static_cast<size_t>(n_branches) * hidden;
   const size_t zrows = M > D::kTaps ? M : D::kTaps;
-  return 4 * (M * D::kHalves * kTapGroups * 4 + zrows * rc + kYsTail + tiles * 4 * D::kR * 32 +
+  return 4 * (M * D::kHalves * kTapGroups * 4 + zrows * rc + kTail + tiles * 4 * D::kR * 32 +
               2 * cap + 2 * M * cap);
 }
 
@@ -537,21 +539,6 @@ cudaError_t ys_persistent_sweep(const float* wa, const float* tail, const float2
       dim3(threads), args, smem, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
-
-// (kernel_size, n_branches) of the caller's scope -> return F<KS, NB>(...),
-// or cudaErrorInvalidValue for other widths (k = 3 or 5, 1 to 4 branches).
-#define YS_DISPATCH(F, ...)                      \
-  switch (kernel_size * 10 + n_branches) {       \
-    case 31: return F<3, 1>(__VA_ARGS__);        \
-    case 32: return F<3, 2>(__VA_ARGS__);        \
-    case 33: return F<3, 3>(__VA_ARGS__);        \
-    case 34: return F<3, 4>(__VA_ARGS__);        \
-    case 51: return F<5, 1>(__VA_ARGS__);        \
-    case 52: return F<5, 2>(__VA_ARGS__);        \
-    case 53: return F<5, 3>(__VA_ARGS__);        \
-    case 54: return F<5, 4>(__VA_ARGS__);        \
-    default: return cudaErrorInvalidValue;       \
-  }
 
 #define PERCNN_NB_CASES(CALL) \
   case 1: return CALL(1);     \
@@ -590,6 +577,41 @@ extern "C" int adj2d_sweep(const void* params, int n_params, const void* frames,
 #undef ONE
 #undef K3
 #undef K5
+}
+
+// The k = 1 sweep in one cooperative launch of adj2d_persistent_kernel on
+// `blocks` blocks (adj_plan: at most the card's co-resident count, else
+// cudaErrorCooperativeLaunchTooLarge before anything is launched; nothing is
+// launched at n_steps = 0).  frames, frames_bar [n_steps + 1, H, W, 2]; g0
+// and scratch [H, W, 2] zeroed; g_ins [n_steps, H, W, 2].  On return g0
+// holds the adjoint at frame 0 (without frames_bar[0]).  `per_sm` gets the
+// occupancy query's blocks an SM.
+extern "C" int adj2d_persistent(const void* params, int n_params, const void* frames,
+                                const void* frames_bar, void* g0, void* scratch, void* g_ins,
+                                int n_steps, int H, int W, int hidden, int n_branches, float dt,
+                                float inv_dx2, int blocks, void* stream, int* per_sm) {
+  const float* p = static_cast<const float*>(params);
+  const float2* f = static_cast<const float2*>(frames);
+  const float2* fb = static_cast<const float2*>(frames_bar);
+  float2* g = static_cast<float2*>(g0);
+  float2* sc = static_cast<float2*>(scratch);
+  float2* gi = static_cast<float2*>(g_ins);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks < 1 || blocks > H * W || hidden < 1) return cudaErrorInvalidValue;
+#define P(NB) persistent_1x1<NB>(p, n_params, f, fb, g, sc, gi, n_steps, H, W, hidden, dt, \
+                                 inv_dx2, blocks, s, per_sm)
+  switch (n_branches) { PERCNN_NB_CASES(P) }
+#undef P
+}
+
+// How many blocks of adj2d_persistent_kernel an SM holds at once on
+// `blocks` blocks, its shared memory allowed.
+extern "C" int adj2d_persistent_occupancy(int n_params, int H, int W, int hidden,
+                                          int n_branches, int blocks, int* per_sm) {
+  const size_t smem = adj2d::persistent_smem(n_params, H, W, hidden, 0, blocks);
+#define PO(NB) persistent_occupancy<NB>(smem, per_sm)
+  switch (n_branches) { PERCNN_NB_CASES(PO) }
+#undef PO
 }
 
 // frames_bar [n_steps + 1, H, W, 2]; ys [n_steps, 2 nb C, H, W]; g [H, W, 2]
@@ -638,11 +660,11 @@ extern "C" int adj2d_ys_persistent(const void* wa, const void* tail, const void*
   float2* gi = static_cast<float2*>(g_ins);
   float* z = static_cast<float*>(zw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (blocks < 1 || blocks > H * W || threads < 64 || threads > kYsMaxThreads ||
+  if (blocks < 1 || blocks > H * W || threads < 64 || threads > kxk_ffma::kMaxThreads ||
       threads % 64 != 0 || hidden < 1 || hidden > 16)
     return cudaErrorInvalidValue;
   const size_t bytes = static_cast<size_t>(smem);
-  YS_DISPATCH(ys_persistent_sweep, w, t, fb, y, gg, gi, z, n_steps, H, W, hidden, dt, inv_dx2,
+  KXK_FFMA_DISPATCH(ys_persistent_sweep, w, t, fb, y, gg, gi, z, n_steps, H, W, hidden, dt, inv_dx2,
               blocks, threads, bytes, s, per_sm)
 }
 
@@ -651,5 +673,5 @@ extern "C" int adj2d_ys_persistent(const void* wa, const void* tail, const void*
 extern "C" int adj2d_ys_occupancy(int n_branches, int kernel_size, int threads, int smem,
                                   int* per_sm) {
   const size_t bytes = static_cast<size_t>(smem);
-  YS_DISPATCH(ys_persistent_occupancy, bytes, threads, per_sm)
+  KXK_FFMA_DISPATCH(ys_persistent_occupancy, bytes, threads, per_sm)
 }

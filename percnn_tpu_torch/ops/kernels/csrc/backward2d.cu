@@ -52,51 +52,30 @@
 // launch, one block an SM, each block's cells' accumulators in its shared
 // memory from the first step to the last, the work of a step spread over
 // (equation, hidden channel, cell) items, and one grid barrier a step (the
-// design is described at the kernel).
+// design is described at adj2d::persistent_sweep in adj2d_step.cuh, whose
+// code without the accumulators is adj2d.cu's adj2d_persistent_kernel, the
+// streaming sweep in one launch).
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, per
 // T = 800 backward at 100 x 100: pg2d_persistent_kernel 2.931 ms, one
 // launch, 3.66 us a step; pg2d_kernel 7.203 ms in the same call (9.0 us a
 // step).
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "adj2d_step.cuh"
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 using adj2d::kThreads;
 
 // Threads a block of pg2d_persistent_kernel.
 constexpr int kPersistentThreads = 512;
 
-// The whole reverse sweep in one cooperative launch: block b owns the cells
-// [first, first + n_own) of the H W field (the balanced split of
-// split_evenly in ../cell2d.py) for every step, and keeps their A
-// accumulators in its shared memory, plane-major ([A][cap], cap the most
-// cells a block owns), from the first step to the last; they reach the
-// [A, H, W] planes once, at the end.  A reverse step t, three passes with a
-// __syncthreads between them:
-//   1. a thread a cell: g_in and h_t at its 9-point cross (g_in formed at
-//      each point, g_{t+1} + fbar_{t+1}, as pg2d_step does), the two
-//      Laplacians of each, the diffusion and b_out accumulators, and the
-//      cell's u, v, g_in and Lap g_in kept in shared memory;
-//   2. a thread a (equation o, hidden channel c, cell) item, the cell index
-//      fastest, so a warp's accumulator traffic is conflict-free: the
-//      branch activations, the full and leave-one-out products, the w_out,
-//      dw and db accumulators of (o, c), each owned by this item alone (no
-//      atomics), and the item's share of the Jacobian's transpose;
-//   3. a thread a cell: the 2 C shares summed in (o, c) order and g_t
-//      written to global memory.
-// Then one grid.sync() makes g_t visible to every block's next step; g
-// ping-pongs between g0 and scratch, in the order that makes the last step
-// (t = 0) write g0.  A thread's first cell is the same at every step: its
-// stencil indices are worked out once, and its h_{t-1} and fbar_t are
-// loaded before the barrier that ends step t.  The step's arithmetic is
-// pg2d_step's and pg_accumulate's, expression for expression, except that
-// the Jacobian's sum is taken per (o, c) and then over (o, c).
+// The whole reverse sweep in one cooperative launch, one block an SM, each
+// block's cells' A accumulators in its shared memory for the whole sweep,
+// one grid barrier a step: adj2d::persistent_sweep with kAcc
+// (adj2d_step.cuh, where the design is described; adj2d.cu's
+// adj2d_persistent_kernel is the same sweep without the accumulators).
 template <int NB>
 __global__ void __launch_bounds__(kPersistentThreads)
     pg2d_persistent_kernel(const float* __restrict__ params, int n_params,
@@ -104,174 +83,16 @@ __global__ void __launch_bounds__(kPersistentThreads)
                            const float2* __restrict__ frames_bar, float2* g0, float2* scratch,
                            float* __restrict__ acc, int n_steps, int H, int W, int hidden,
                            float dt, float inv_dx2) {
-  cg::grid_group grid = cg::this_grid();
-  const int cells = H * W;
-  const int nblk = gridDim.x, b = blockIdx.x;
-  const int q = cells / nblk, m = cells % nblk;
-  const int n_own = q + (b < m ? 1 : 0);
-  const int first = b * q + (b < m ? b : m);
-  const int cap = (cells + nblk - 1) / nblk;
-  const int C = hidden, G = 2 * hidden;
-  // plane offsets (backward2d.py: _pg_layout)
-  const int p_dw = 0;
-  const int p_db = 2 * NB * C * 2;
-  const int p_wout = p_db + 2 * NB * C;
-  const int p_bout = p_wout + 2 * C;
-  const int p_diff = p_bout + 2;
-  const int n_planes = p_diff + 2;
-  const int stride = 3 * C;               // per branch: w_i[0, :], w_i[1, :], b_i
-  const int block = NB * stride + C + 1;  // per equation, then w_out [C], b_out
-
-  extern __shared__ float4 smem_pg[];
-  float* sp = reinterpret_cast<float*>(smem_pg);
-  float* sacc = sp + (n_params + 3) / 4 * 4;  // [n_planes][cap]
-  float* st = sacc + n_planes * cap;          // [6][cap]: u, v, g_in (2), Lap g_in (2)
-  float* part = st + 6 * cap;                 // [2][G][cap]: the Jacobian's shares
-  for (int k = threadIdx.x; k < n_params; k += blockDim.x) sp[k] = params[k];
-  for (int k = threadIdx.x; k < n_planes * cap; k += blockDim.x) sacc[k] = 0.0f;
-
-  // centre, the 4 neighbours at distance 1, the 4 at distance 2 of cell idx
-  auto cross = [&](int idx, int (&nbr)[9]) {
-    const int i = idx / W;
-    const int j = idx - i * W;
-    const int im1 = (i + H - 1) % H, ip1 = (i + 1) % H;
-    const int im2 = (i + 2 * H - 2) % H, ip2 = (i + 2) % H;
-    const int jm1 = (j + W - 1) % W, jp1 = (j + 1) % W;
-    const int jm2 = (j + 2 * W - 2) % W, jp2 = (j + 2) % W;
-    nbr[0] = idx;
-    nbr[1] = ip1 * W + j;
-    nbr[2] = im1 * W + j;
-    nbr[3] = i * W + jp1;
-    nbr[4] = i * W + jm1;
-    nbr[5] = ip2 * W + j;
-    nbr[6] = im2 * W + j;
-    nbr[7] = i * W + jp2;
-    nbr[8] = i * W + jm2;
-  };
-  // A thread's first cell is the same at every step: its cross is worked
-  // out once, and its h_t and fbar_{t+1}, which do not depend on g, are
-  // loaded before the grid barrier that precedes step t.
-  const int k0 = threadIdx.x;
-  int nbr0[9];
-  cross(first + (k0 < n_own ? k0 : 0), nbr0);
-  float2 h_next[9], fb_next[9];
-  auto prefetch = [&](int t) {
-    if (k0 >= n_own || t < 0) return;
-    const float2* h = frames + static_cast<size_t>(t) * cells;
-    const float2* fbar = frames_bar + static_cast<size_t>(t + 1) * cells;
-#pragma unroll
-    for (int e = 0; e < 9; ++e) {
-      h_next[e] = h[nbr0[e]];
-      fb_next[e] = fbar[nbr0[e]];
-    }
-  };
-  prefetch(n_steps - 1);
-  __syncthreads();
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = n_steps - 1 - s;
-    float2* dst = (t % 2 == 0) ? g0 : scratch;
-    const float2* src = (t % 2 == 0) ? scratch : g0;
-    const float2* h = frames + static_cast<size_t>(t) * cells;
-    const float2* fbar = frames_bar + static_cast<size_t>(t + 1) * cells;
-    for (int k = k0; k < n_own; k += blockDim.x) {
-      int nbr[9];
-      float2 hs[9], gs[9];
-      if (k == k0) {
-#pragma unroll
-        for (int e = 0; e < 9; ++e) {
-          nbr[e] = nbr0[e];
-          hs[e] = h_next[e];
-          const float2 a = src[nbr[e]], fb = fb_next[e];
-          gs[e] = make_float2(a.x + fb.x, a.y + fb.y);
-        }
-      } else {
-        cross(first + k, nbr);
-#pragma unroll
-        for (int e = 0; e < 9; ++e) {
-          hs[e] = h[nbr[e]];
-          const float2 a = src[nbr[e]], fb = fbar[nbr[e]];
-          gs[e] = make_float2(a.x + fb.x, a.y + fb.y);
-        }
-      }
-      const float lap_hu = adj2d::lap5(hs[0].x, hs[1].x, hs[2].x, hs[3].x, hs[4].x, hs[5].x,
-                                       hs[6].x, hs[7].x, hs[8].x, inv_dx2);
-      const float lap_hv = adj2d::lap5(hs[0].y, hs[1].y, hs[2].y, hs[3].y, hs[4].y, hs[5].y,
-                                       hs[6].y, hs[7].y, hs[8].y, inv_dx2);
-      st[k] = hs[0].x;
-      st[cap + k] = hs[0].y;
-      st[2 * cap + k] = gs[0].x;
-      st[3 * cap + k] = gs[0].y;
-      st[4 * cap + k] = adj2d::lap5(gs[0].x, gs[1].x, gs[2].x, gs[3].x, gs[4].x, gs[5].x,
-                                    gs[6].x, gs[7].x, gs[8].x, inv_dx2);
-      st[5 * cap + k] = adj2d::lap5(gs[0].y, gs[1].y, gs[2].y, gs[3].y, gs[4].y, gs[5].y,
-                                    gs[6].y, gs[7].y, gs[8].y, inv_dx2);
-      sacc[p_diff * cap + k] += gs[0].x * lap_hu;
-      sacc[(p_diff + 1) * cap + k] += gs[0].y * lap_hv;
-      sacc[p_bout * cap + k] += gs[0].x;
-      sacc[(p_bout + 1) * cap + k] += gs[0].y;
-    }
-    __syncthreads();
-    for (int it = threadIdx.x; it < G * n_own; it += blockDim.x) {
-      const int grp = it / n_own;
-      const int k = it - grp * n_own;
-      const int o = grp / C, c = grp - o * C;
-      const float u = st[k], v = st[cap + k], g = st[(2 + o) * cap + k];
-      const float* p = sp + 2 + o * block;
-      float y[NB];
-#pragma unroll
-      for (int e = 0; e < NB; ++e)
-        y[e] = p[e * stride + c] * u + p[e * stride + C + c] * v + p[e * stride + 2 * C + c];
-      // prod_{j != e} y_j from prefix and suffix products
-      float pre[NB + 1], suf[NB + 1];
-      pre[0] = 1.0f;
-      suf[NB] = 1.0f;
-#pragma unroll
-      for (int e = 0; e < NB; ++e) pre[e + 1] = pre[e] * y[e];
-#pragma unroll
-      for (int e = NB - 1; e >= 0; --e) suf[e] = suf[e + 1] * y[e];
-      sacc[(p_wout + o * C + c) * cap + k] += g * pre[NB];
-      const float wo = p[NB * stride + c];
-      float du = 0.0f, dv = 0.0f;
-#pragma unroll
-      for (int e = 0; e < NB; ++e) {
-        const float zz = g * (pre[e] * suf[e + 1]);
-        const int qq = (o * NB + e) * C + c;
-        sacc[(p_dw + 2 * qq) * cap + k] += zz * u;
-        sacc[(p_dw + 2 * qq + 1) * cap + k] += zz * v;
-        sacc[(p_db + qq) * cap + k] += zz;
-        du += (p[e * stride + c] * wo) * zz;
-        dv += (p[e * stride + C + c] * wo) * zz;
-      }
-      part[grp * cap + k] = du;
-      part[(G + grp) * cap + k] = dv;
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < n_own; k += blockDim.x) {
-      float du = 0.0f, dv = 0.0f;
-      for (int grp = 0; grp < G; ++grp) {
-        du += part[grp * cap + k];
-        dv += part[(G + grp) * cap + k];
-      }
-      dst[first + k] = make_float2(st[2 * cap + k] + dt * (sp[0] * st[4 * cap + k] + du),
-                                   st[3 * cap + k] + dt * (sp[1] * st[5 * cap + k] + dv));
-    }
-    prefetch(t - 1);
-    grid.sync();
-  }
-  for (int pl = 0; pl < n_planes; ++pl)
-    for (int k = threadIdx.x; k < n_own; k += blockDim.x)
-      acc[static_cast<size_t>(pl) * cells + first + k] = sacc[pl * cap + k];
+  adj2d::persistent_sweep<NB, true>(params, n_params, frames, frames_bar, g0, scratch, acc,
+                                    nullptr, n_steps, H, W, hidden, dt, inv_dx2);
 }
 
 // Dynamic shared memory of pg2d_persistent_kernel on `blocks` blocks: the
-// packed parameters rounded up to 4 floats, then [A + 6 + 4 C][cap] floats
-// (persistent_smem_bytes in ../backward2d.py).
+// packed parameters, then [A + 6 + 4 C][cap] floats (adj2d::persistent_smem).
 size_t persistent_smem_bytes(int n_params, int H, int W, int hidden, int n_branches,
                              int blocks) {
-  const size_t cap = (static_cast<size_t>(H) * W + blocks - 1) / blocks;
   const size_t planes = 2 * n_branches * hidden * 3 + 2 * hidden + 4;
-  return ((n_params + 3) / 4 * 4 + (planes + 6 + 4 * hidden) * cap) * sizeof(float);
+  return adj2d::persistent_smem(n_params, H, W, hidden, planes, blocks);
 }
 
 // How many blocks of pg2d_persistent_kernel<NB> an SM holds at once, its

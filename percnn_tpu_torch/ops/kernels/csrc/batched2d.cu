@@ -29,7 +29,12 @@
 //     (pallas_call in _fused_phase1_b): the steps of adj2d_kernel and of
 //     adj2d_act_kernel + adj2d_gather_kernel (adj2d.cu), writing g_ins and
 //     g0 for the parameter gradients outside (chunked_param_grads in
-//     ../batched2d.py);
+//     ../batched2d.py); at k = 3, 5 adj2d_batched_ffma_persistent_kernel
+//     <KS, NB> replaces the pair on any field whose block fits shared
+//     memory (adj_b_plan in ../batched2d.py: 570 x 570 at M = 2, 300 x 300
+//     at M = 8 for the Burgers cell on 132 SMs): every member's sweep in one
+//     cooperative launch, FFMA in full f32 (the design is described at the
+//     kernel);
 //   pg2d_batched_persistent_kernel<NB> replaces _phase1_pg_kernel_b
 //     (pallas_call in _fused_phase1_pg_b) for cells of C <= 8 and 1 to 4
 //     branches on any field whose per-step scratch fits a block's shared
@@ -84,12 +89,28 @@
 // registers with 136 bytes spilled (NB = 3).  Holding the group's weights
 // in shared memory instead, or also recomputing the first cell's cross
 // each step, spilled less or nothing and ran slower (variant builds).
+// The k x k streaming sweep in one launch: the per-step pair took 46.9 us a
+// step at M = 2 for the Burgers cell, the weights read from shared memory
+// one scalar an FMA and zw [M, 50, H, W] making a round trip through global
+// memory every step.  adj2d_batched_ffma_persistent_kernel keeps a member's
+// operands in each of its n_sm // M blocks' shared memory for the whole
+// sweep and forms both products as register tiles (kxk_ffma.cuh: the
+// forward FFMA kernel's y = Wf im2col + b from frame t, whose lanes then
+// hold every branch of their channels and form z themselves, and the ys
+// sweep's zw^T = Wtaps^T Z); no activation stream exists.  A block's cells
+// go in the fewest rounds of at most 8 tiles of 16, the same number each
+// (adj_b_grid), so no round runs its products on tiles it does not own.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, T = 200
+// at 100 x 100, in turns with the per-step pair in the same call: 5.142 ms
+// at M = 2 (25.7 us a step, one launch) against 9.432, and 9.428 at M = 4
+// against 13.546; 121 registers, no spill (k = 5, 3 branches).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "adj2d_step.cuh"
 #include "cell2d_step.cuh"
+#include "kxk_ffma.cuh"
 
 namespace {
 
@@ -156,6 +177,223 @@ __global__ void __launch_bounds__(adj2d::kThreads)
   if (idx < H * W)
     kxk::gather_update<KS>(zw + m * (KS * KS * 2) * cells, g_in + m * gins_stride,
                            params + m * n_params, g + m * cells, H, W, dt, inv_dx2, idx);
+}
+
+// Row 12 at k > 1: the streaming sweep of every member in one cooperative
+// launch, FFMA in full f32.  The grid is M runs of per_member blocks, one
+// block an SM; block b of run m works on member m alone (its operands, its
+// frames, cotangents, g_ins, zw and g_0), and owns the cells of
+// kxk_mma::share_of_run(per_member, b) of that member's H W field for every
+// step.
+// Before the loop the block stages its member's forward operand
+// (pack_ffma_fwd_2d: the branch weights and biases, 26 KB for the Burgers
+// cell), adjoint operand (pack_ffma_adj_2d, 24.6 KB) and tail
+// (pack_ffma_tail_2d).  Iteration s covers t = T - 1 - s:
+//   A. a thread a (channel, own cell): unless s = 0, step t + 1's gather
+//      (kxk_ffma::g_at: jt and Lap(g_in) from zw_{t+1} and g_ins[t + 1] at
+//      the neighbours, read past L1), g_{t+1}; then g_in = g_{t+1} +
+//      fbar_{t+1} into shared memory and g_ins[t]; and frame t's rows, with
+//      the 2-cell wrapped halo, staged into shared memory;
+//   B. per round of at most 8 tiles of 16 cells: the im2col stack of the
+//      round's cells from the staged rows; y = Wf im2col + b by
+//      rollout2d_ffma_persistent_kernel's product (warp 2 tl + o, lane
+//      (pair p, group g): channels 2 p, 2 p + 1 of every branch of equation
+//      o at 4 cells, in registers), and at once, in the same lane,
+//      z = w_out_o[c] g_in_o prod_{j != i} y_j into Z [M rows][cells]; then
+//      zw^T = Wtaps^T Z by adj2d_ys_persistent_kernel's product (lane (tap
+//      group q, group g): kR taps x 4 cells over equation o's rows), the
+//      o = 1 warp's sums meeting the o = 0 warp's in shared memory (in the
+//      im2col stack's place), zw_t into Z's place and out a plane's run at
+//      a time;
+// then grid.sync().  zw alternates between two [k k 2][H W] buffers of the
+// member; after the loop step 0's gather writes g_0.  Nothing but the
+// frames and cotangents is streamed in: the activations are formed from
+// frame t in the block and never leave it.
+template <int KS, int NB>
+__global__ void __launch_bounds__(kxk_ffma::kMaxThreads, 1)
+    adj2d_batched_ffma_persistent_kernel(const float* __restrict__ wf,
+                                         const float* __restrict__ wa,
+                                         const float* __restrict__ tail,
+                                         const float2* __restrict__ frames,
+                                         const float2* __restrict__ frames_bar, float2* g_out,
+                                         float2* g_ins, float* zw, int n_steps, int H, int W,
+                                         int hidden, int per_member, float dt, float inv_dx2) {
+  using FD = kxk_ffma::FwdDims<KS, NB>;
+  using AD = kxk_ffma::AdjDims<KS>;
+  using kxk_ffma::kPairs;
+  using kxk_ffma::kTail;
+  using kxk_ffma::kTapGroups;
+  using kxk_ffma::kTileCells;
+  constexpr int kTaps = AD::kTaps, kR = AD::kR;
+  cg::grid_group grid = cg::this_grid();
+  const int cells = H * W;
+  const int mem = blockIdx.x / per_member;
+  const kxk_mma::Share sh =
+      kxk_mma::share_of_run(cells, W, per_member, blockIdx.x - mem * per_member);
+  const int cap = (cells + per_member - 1) / per_member;
+  const int tiles = blockDim.x >> 6, rc = tiles * kTileCells;
+  const int M = 2 * NB * hidden, Mo = NB * hidden;
+  // member mem's operands and state, at offsets in size_t
+  const size_t frame_stride = (static_cast<size_t>(n_steps) + 1) * cells;
+  wf += static_cast<size_t>(mem) * FD::kOperand;
+  wa += static_cast<size_t>(mem) * M * AD::kHalves * kTapGroups * 4;
+  tail += static_cast<size_t>(mem) * kTail;
+  frames += mem * frame_stride;
+  frames_bar += mem * frame_stride;
+  g_out += static_cast<size_t>(mem) * cells;
+  g_ins += static_cast<size_t>(mem) * n_steps * cells;
+  zw += static_cast<size_t>(mem) * 2 * kTaps * cells;
+
+  extern __shared__ float4 smem_bf[];
+  float4* swf = smem_bf;                                   // forward operand
+  float4* swa = swf + FD::kOperand / 4;                    // [M][kHalves][8] adjoint operand
+  float* st = reinterpret_cast<float*>(swa + M * AD::kHalves * kTapGroups);   // [kTail]
+  float* xs = st + kTail;  // im2col [kTaps][rc], then the exchange [tiles][4 kR][32]
+  float* zs = xs + max(kTaps * rc, tiles * 4 * kR * 32);  // Z [M][rc], then zw_t [kTaps][rc]
+  float* gin = zs + max(M, kTaps) * rc;                    // [cap][2]
+  float2* tile = reinterpret_cast<float2*>(gin + 2 * cap);   // [rows][W + 4]
+  {
+    const float4* wf4 = reinterpret_cast<const float4*>(wf);
+    for (int e = threadIdx.x; e < FD::kOperand / 4; e += blockDim.x) swf[e] = wf4[e];
+    const float4* wa4 = reinterpret_cast<const float4*>(wa);
+    for (int e = threadIdx.x; e < M * AD::kHalves * kTapGroups; e += blockDim.x) swa[e] = wa4[e];
+    for (int e = threadIdx.x; e < kTail; e += blockDim.x) st[e] = tail[e];
+  }
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o = warp & 1, tl = warp >> 1;
+  const int pair = lane >> 2, grp = lane & 3;  // the forward's lane; pair is the adjoint's
+                                               // tap group
+  const int rounds = (sh.n_own + rc - 1) / rc;
+  const float* tf = reinterpret_cast<const float*>(tile);
+  // the im2col entries a thread builds: cell xc of the round, taps xq0,
+  // xq0 + 4, ... (blockDim.x = 4 rc)
+  const int xc = threadIdx.x % rc, xq0 = threadIdx.x / rc;
+  const float4* wlane = swf + o * FD::kHalves * kPairs + pair;
+  const float4* xlane = reinterpret_cast<const float4*>(xs) + tl * 4 + grp;
+  const float4* zlane = reinterpret_cast<const float4*>(zs) + tl * 4 + grp;
+
+  // g_t at own cell k, channel c, from g_ins[t] and zw_t (zsrc) at the
+  // neighbours
+  auto gather = [&](int t, const float* zsrc, int k, int c) {
+    return kxk_ffma::g_at<KS>(zsrc, g_ins, t, gin + 2 * k + c, st + c, sh.first + k, c, H, W,
+                              dt, inv_dx2);
+  };
+
+  for (int s = 0; s < n_steps; ++s) {
+    const int t = n_steps - 1 - s;
+    float* zcur = zw + static_cast<size_t>(s & 1) * kTaps * cells;
+    const float* zprev = zw + static_cast<size_t>((s + 1) & 1) * kTaps * cells;
+    // A: g_in at the own cells, channel-major so a warp reads a plane's
+    // consecutive cells; frame t's rows
+    const float* fb = reinterpret_cast<const float*>(frames_bar +
+                                                     static_cast<size_t>(t + 1) * cells);
+    float* gi_out = reinterpret_cast<float*>(g_ins + static_cast<size_t>(t) * cells);
+    for (int item = threadIdx.x; item < 2 * sh.n_own; item += blockDim.x) {
+      const int c = item >= sh.n_own ? 1 : 0;
+      const int k = item - c * sh.n_own;
+      const int idx = sh.first + k;
+      float v = fb[2 * idx + c];
+      if (s > 0) v += gather(t + 1, zprev, k, c);
+      gin[2 * k + c] = v;
+      gi_out[2 * idx + c] = v;
+    }
+    kxk_mma::stage_rows(tile, frames + static_cast<size_t>(t) * cells, H, W, sh);
+    // B
+    for (int rd = 0; rd < rounds; ++rd) {
+      const int base = rd * rc;
+      __syncthreads();  // g_in and the rows written, or the last round's reads done
+      {
+        const int k = min(base + xc, sh.n_own - 1);
+        const int tb = kxk_mma::tap_base<KS>(sh.first + k, W, sh.row0);
+#pragma unroll
+        for (int u = 0; u < (kTaps + 3) / 4; ++u) {
+          const int q = xq0 + 4 * u;
+          if (q < kTaps) xs[q * rc + xc] = tf[tb + kxk_ffma::tap_offset<KS>(q, W)];
+        }
+      }
+      __syncthreads();
+      {
+        // y of 2 channels x NB branches (f = cl NB + i) at 4 cells, then z
+        // of each into Z, zero past the block's cells
+        float acc[2 * NB][4];
+        kxk_ffma::fwd_product<KS, NB>(wlane, xlane, rc / 4, acc);
+        const int k0 = base + tl * kTileCells + grp * 4;
+#pragma unroll
+        for (int cl = 0; cl < 2; ++cl) {
+          const int c = 2 * pair + cl;
+          if (c < hidden) {
+            const float wo = st[2 + o * 16 + c];
+            float z[NB][4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              if (k0 + m < sh.n_own) {
+                float pre[NB + 1], suf[NB + 1];
+                pre[0] = 1.0f;
+                suf[NB] = 1.0f;
+#pragma unroll
+                for (int i = 0; i < NB; ++i) pre[i + 1] = pre[i] * acc[cl * NB + i][m];
+#pragma unroll
+                for (int i = NB - 1; i >= 0; --i) suf[i] = suf[i + 1] * acc[cl * NB + i][m];
+                const float gw = wo * gin[2 * (k0 + m) + o];
+#pragma unroll
+                for (int i = 0; i < NB; ++i) z[i][m] = gw * (pre[i] * suf[i + 1]);
+              } else {
+#pragma unroll
+                for (int i = 0; i < NB; ++i) z[i][m] = 0.0f;
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < NB; ++i)
+              *reinterpret_cast<float4*>(zs + ((o * NB + i) * hidden + c) * rc + tl * kTileCells +
+                                         grp * 4) = make_float4(z[i][0], z[i][1], z[i][2],
+                                                                z[i][3]);
+          }
+        }
+      }
+      __syncthreads();
+      // zw^T of equation o's rows at tile tl: kR taps x 4 cells a lane
+      float acc[kR][4];
+      kxk_ffma::adj_product<KS>(zlane, swa + pair, rc / 4, o * Mo, (o + 1) * Mo, acc);
+      float* zr = xs + tl * 4 * kR * 32 + lane;
+      if (o == 1) {
+#pragma unroll
+        for (int j = 0; j < kR; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) zr[(4 * j + e) * 32] = acc[j][e];
+      }
+      __syncthreads();
+      // the o = 0 warps add the o = 1 warps' sums into [kTaps][rc] in Z's
+      // place (read by no warp now), then every thread stores a plane's
+      // consecutive cells of zw_t
+      if (o == 0) {
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          const int q = pair * kR + j;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (q < kTaps) zs[q * rc + tl * kTileCells + grp * 4 + e] =
+                acc[j][e] + zr[(4 * j + e) * 32];
+        }
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < kTaps * rc; e += blockDim.x) {
+        const int q = e / rc, kk = e - q * rc;
+        if (base + kk < sh.n_own)
+          zcur[static_cast<size_t>(q) * cells + sh.first + base + kk] = zs[e];
+      }
+    }
+    grid.sync();
+  }
+  if (n_steps > 0) {
+    const float* zlast = zw + static_cast<size_t>((n_steps - 1) & 1) * kTaps * cells;
+    float* go = reinterpret_cast<float*>(g_out);
+    for (int item = threadIdx.x; item < 2 * sh.n_own; item += blockDim.x) {
+      const int c = item >= sh.n_own ? 1 : 0;
+      const int k = item - c * sh.n_own;
+      go[2 * (sh.first + k) + c] = gather(0, zlast, k, c);
+    }
+  }
 }
 
 // Row 13: one fused reverse step of every member, member in blockIdx.y;
@@ -502,6 +740,56 @@ cudaError_t pg_b_persistent(const float* params, int n_params, const float2* fra
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// Shared memory of adj2d_batched_ffma_persistent_kernel<KS, NB> with
+// per_member blocks a member of `threads` threads: both operands, the tail,
+// the im2col stack of a round (or the exchange, if larger), Z of a round (or
+// zw_t's, if more rows), g_in of the most cells a block owns and its most
+// staged rows (adj_b_smem_bytes in ../batched2d.py computes the same).
+template <int KS, int NB>
+size_t adj_b_smem(int H, int W, int hidden, int per_member, int threads) {
+  using FD = kxk_ffma::FwdDims<KS, NB>;
+  using AD = kxk_ffma::AdjDims<KS>;
+  const size_t cap = (static_cast<size_t>(H) * W + per_member - 1) / per_member;
+  const size_t tiles = threads / 64, rc = tiles * kxk_ffma::kTileCells;
+  const size_t M = 2 * static_cast<size_t>(NB) * hidden;
+  const size_t xsize = AD::kTaps * rc > tiles * 4 * AD::kR * 32 ? AD::kTaps * rc
+                                                                 : tiles * 4 * AD::kR * 32;
+  const size_t zrows = M > AD::kTaps ? M : AD::kTaps;
+  return 4 * (FD::kOperand + M * AD::kHalves * kxk_ffma::kTapGroups * 4 + kxk_ffma::kTail +
+              xsize + zrows * rc + 2 * cap) +
+         kxk_mma::tile_bytes(H, W, per_member);
+}
+
+template <int KS, int NB>
+cudaError_t adj_b_occupancy(size_t smem, int threads, int* per_sm) {
+  auto kernel = adj2d_batched_ffma_persistent_kernel<KS, NB>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, threads, smem);
+}
+
+template <int KS, int NB>
+cudaError_t adj_b_persistent(const float* wf, const float* wa, const float* tail,
+                             const float2* frames, const float2* frames_bar, float2* g,
+                             float2* g_ins, float* zw, int M, int n_steps, int H, int W,
+                             int hidden, float dt, float inv_dx2, int per_member, int threads,
+                             size_t smem, cudaStream_t stream, int* per_sm) {
+  // the plan's bytes must be the kernel's
+  if (smem != adj_b_smem<KS, NB>(H, W, hidden, per_member, threads))
+    return cudaErrorInvalidValue;
+  cudaError_t err = adj_b_occupancy<KS, NB>(smem, threads, per_sm);
+  if (err != cudaSuccess) return err;
+  err = kxk_mma::check_coresident(M * per_member, *per_sm);
+  if (err != cudaSuccess || n_steps == 0) return err;
+  void* args[] = {&wf, &wa, &tail, &frames, &frames_bar, &g, &g_ins, &zw, &n_steps, &H, &W,
+                  &hidden, &per_member, &dt, &inv_dx2};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(adj2d_batched_ffma_persistent_kernel<KS, NB>),
+      dim3(M * per_member), dim3(threads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 template <int KS, int NB>
 cudaError_t rollout_b(const float* params, int n_params, const float2* h0, float2* f, int M,
                       int n_steps, int H, int W, int hidden, int n_branches, float dt,
@@ -735,4 +1023,47 @@ extern "C" int batched2d_pg_occupancy(int n_params, int H, int W, int hidden, in
 #define PO(NB) pg_b_occupancy<NB>(smem, threads, per_sm)
   switch (n_branches) { PERCNN_NB_CASES(PO) }
 #undef PO
+}
+
+// The k > 1 streaming sweep of every member in one cooperative launch of
+// adj2d_batched_ffma_persistent_kernel on M x per_member blocks of `threads`
+// threads (a multiple of 64, at most 512) with `smem` bytes (adj_b_plan: at
+// most the card's co-resident count, else cudaErrorCooperativeLaunchTooLarge
+// before anything is launched; bytes other than the kernel's own, or C over
+// 16, cudaErrorInvalidValue; nothing launched at n_steps = 0).  wf, wa and
+// tail are [M, ...] stacks of pack_ffma_fwd_2d's, pack_ffma_adj_2d's and
+// pack_ffma_tail_2d's operands; frames, frames_bar [M, n_steps + 1, H, W,
+// 2]; g [M, H, W, 2] zeroed, receives each member's g_0; g_ins [M, n_steps,
+// H, W, 2]; zw [M, 2, k k 2, H, W] scratch.  `per_sm` gets the occupancy
+// query's blocks an SM.
+extern "C" int batched2d_adj_ffma_persistent(const void* wf, const void* wa, const void* tail,
+                                             const void* frames, const void* frames_bar,
+                                             void* g, void* g_ins, void* zw, int M, int n_steps,
+                                             int H, int W, int hidden, int n_branches,
+                                             int kernel_size, float dt, float inv_dx2,
+                                             int per_member, int threads, int smem,
+                                             void* stream, int* per_sm) {
+  if (M < 1 || per_member < 1 || per_member > H * W || threads < 64 ||
+      threads > kxk_ffma::kMaxThreads || threads % 64 != 0 || hidden < 1 || hidden > 16)
+    return cudaErrorInvalidValue;
+  const float* f = static_cast<const float*>(wf);
+  const float* a = static_cast<const float*>(wa);
+  const float* t = static_cast<const float*>(tail);
+  const float2* fr = static_cast<const float2*>(frames);
+  const float2* fb = static_cast<const float2*>(frames_bar);
+  float2* gg = static_cast<float2*>(g);
+  float2* gi = static_cast<float2*>(g_ins);
+  float* z = static_cast<float*>(zw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = static_cast<size_t>(smem);
+  KXK_FFMA_DISPATCH(adj_b_persistent, f, a, t, fr, fb, gg, gi, z, M, n_steps, H, W, hidden, dt,
+                    inv_dx2, per_member, threads, bytes, s, per_sm)
+}
+
+// How many blocks of adj2d_batched_ffma_persistent_kernel an SM holds at
+// once, `threads` threads and `smem` bytes a block.
+extern "C" int batched2d_adj_ffma_occupancy(int n_branches, int kernel_size, int threads,
+                                            int smem, int* per_sm) {
+  const size_t bytes = static_cast<size_t>(smem);
+  KXK_FFMA_DISPATCH(adj_b_occupancy, bytes, threads, per_sm)
 }

@@ -56,37 +56,14 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "kxk_common.cuh"
-#include "kxk_mma.cuh"
+#include "kxk_ffma.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-using kxk::kHalo;
-
-constexpr int kTileCells = 16;               // cells of a warp's tile
-constexpr int kMaxTiles = 8;                 // tiles a round: one warp pair each
-constexpr int kMaxThreads = 64 * kMaxTiles;  // 512
-constexpr int kPairs = 8;                    // channel pairs: C <= 16
-constexpr int kTail = 36;                    // D (2), w_out (2 x 16), b_out (2)
-
-template <int KS, int NB>
-struct Dims {
-  static constexpr int kTaps = KS * KS * 2;
-  static constexpr int kW = (2 * NB + 3) / 4 * 4;  // floats of a (tap, equation, pair)
-  static constexpr int kHalves = kW / 4;
-  // the forward operand [kTaps + 1][2][kHalves][kPairs][4], row kTaps the biases
-  static constexpr int kOperand = (kTaps + 1) * 2 * kW * kPairs;
-};
-
-// Float offset of tap q = (ki k + kj) 2 + cin in the staged rows, from the
-// cell's first tap (kxk_mma::tap_base).
-template <int KS>
-__device__ __forceinline__ int tap_offset(int q, int W) {
-  const int tap = q >> 1;
-  const int ki = tap / KS;
-  return (ki * (W + 2 * kHalo) + tap - ki * KS) * 2 + (q & 1);
-}
+using kxk_ffma::kMaxThreads;
+using kxk_ffma::kTail;
+using kxk_ffma::kTileCells;
 
 // The whole rollout in one cooperative launch (the design above).  `wf` is
 // pack_ffma_fwd_2d's operand, `tail` pack_ffma_tail_2d's.  With final_only
@@ -103,7 +80,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
                                      const float* __restrict__ tail, const float2* h0,
                                      float2* out, float2* scratch, int n_steps, int final_only,
                                      int H, int W, float dt, float inv_dx2) {
-  using D = Dims<KS, NB>;
+  using D = kxk_ffma::FwdDims<KS, NB>;
   cg::grid_group grid = cg::this_grid();
   const int cells = H * W;
   const kxk_mma::Share sh = kxk_mma::share_of(cells, W);
@@ -126,10 +103,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // the im2col entries a thread builds: cell xc of the round, taps xq0,
   // xq0 + 4, ... (blockDim.x = 4 rc)
   const int xc = threadIdx.x % rc, xq0 = threadIdx.x / rc;
-  // this lane's operand float4s at tap 0 (stride kRowF4 a tap) and im2col
-  // float4 at tap 0 (stride rc / 4)
-  constexpr int kRowF4 = 2 * D::kHalves * kPairs;
-  const float4* wlane = sw + o * D::kHalves * kPairs + pair;
+  // this lane's operand float4s at tap 0 and im2col float4 at tap 0
+  // (stride rc / 4)
+  const float4* wlane = sw + o * D::kHalves * kxk_ffma::kPairs + pair;
   const float4* xlane = reinterpret_cast<const float4*>(xs) + tl * 4 + grp;
   const int xstride = rc / 4;
 
@@ -154,47 +130,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
         for (int u = 0; u < (D::kTaps + 3) / 4; ++u) {
           const int q = xq0 + 4 * u;
-          if (q < D::kTaps) xs[q * rc + xc] = tf[tb + tap_offset<KS>(q, W)];
+          if (q < D::kTaps) xs[q * rc + xc] = tf[tb + kxk_ffma::tap_offset<KS>(q, W)];
         }
       }
       __syncthreads();
-      // y of 2 channels x NB branches (f = cl NB + i) at 4 cells, from the biases
+      // y of 2 channels x NB branches (f = cl NB + i) at 4 cells
       float acc[2 * NB][4];
-      {
-        float w[4 * D::kHalves];
-#pragma unroll
-        for (int h = 0; h < D::kHalves; ++h) {
-          const float4 v = wlane[D::kTaps * kRowF4 + h * kPairs];
-          w[4 * h] = v.x;
-          w[4 * h + 1] = v.y;
-          w[4 * h + 2] = v.z;
-          w[4 * h + 3] = v.w;
-        }
-#pragma unroll
-        for (int f = 0; f < 2 * NB; ++f)
-#pragma unroll
-          for (int m = 0; m < 4; ++m) acc[f][m] = w[f];
-      }
-#pragma unroll
-      for (int q = 0; q < D::kTaps; ++q) {
-        const float4 x = xlane[q * xstride];
-        float w[4 * D::kHalves];
-#pragma unroll
-        for (int h = 0; h < D::kHalves; ++h) {
-          const float4 v = wlane[q * kRowF4 + h * kPairs];
-          w[4 * h] = v.x;
-          w[4 * h + 1] = v.y;
-          w[4 * h + 2] = v.z;
-          w[4 * h + 3] = v.w;
-        }
-#pragma unroll
-        for (int f = 0; f < 2 * NB; ++f) {
-          acc[f][0] = fmaf(w[f], x.x, acc[f][0]);
-          acc[f][1] = fmaf(w[f], x.y, acc[f][1]);
-          acc[f][2] = fmaf(w[f], x.z, acc[f][2]);
-          acc[f][3] = fmaf(w[f], x.w, acc[f][3]);
-        }
-      }
+      kxk_ffma::fwd_product<KS, NB>(wlane, xlane, xstride, acc);
       // Pi_o less b_out at the 4 cells: this lane's 2 channels, then the 8 pairs
       const float w0 = st[2 + o * 16 + 2 * pair], w1 = st[3 + o * 16 + 2 * pair];
       float p[4];
@@ -234,7 +176,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 // ../cell2d.py computes the same).
 template <int KS, int NB>
 size_t persistent_smem(int H, int W, int blocks, int threads) {
-  using D = Dims<KS, NB>;
+  using D = kxk_ffma::FwdDims<KS, NB>;
   const size_t rc = static_cast<size_t>(threads / 64) * kTileCells;
   return 4 * (D::kOperand + kTail + D::kTaps * rc) + kxk_mma::tile_bytes(H, W, blocks);
 }
@@ -281,22 +223,6 @@ inline bool valid_grid(int blocks, int threads, int cells) {
 
 }  // namespace
 
-// (kernel_size, n_branches) of the caller's scope -> return F<KS, NB>(...), or
-// cudaErrorInvalidValue for widths the kernel is not built for (k = 3 or 5,
-// 1 to 4 branches; C up to 16 is the operand's padding).
-#define FFMA_DISPATCH(F, ...)                     \
-  switch (kernel_size * 10 + n_branches) {        \
-    case 31: return F<3, 1>(__VA_ARGS__);         \
-    case 32: return F<3, 2>(__VA_ARGS__);         \
-    case 33: return F<3, 3>(__VA_ARGS__);         \
-    case 34: return F<3, 4>(__VA_ARGS__);         \
-    case 51: return F<5, 1>(__VA_ARGS__);         \
-    case 52: return F<5, 2>(__VA_ARGS__);         \
-    case 53: return F<5, 3>(__VA_ARGS__);         \
-    case 54: return F<5, 4>(__VA_ARGS__);         \
-    default: return cudaErrorInvalidValue;        \
-  }
-
 // The rollout in one cooperative launch of rollout2d_ffma_persistent_kernel on
 // `blocks` blocks of `threads` threads with `smem` bytes (ffma_plan: at most
 // the card's co-resident count, else cudaErrorCooperativeLaunchTooLarge
@@ -320,7 +246,7 @@ extern "C" int cell2d_ffma_rollout_persistent(const void* wf, const void* tail, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!valid_grid(blocks, threads, H * W)) return cudaErrorInvalidValue;
   const size_t bytes = static_cast<size_t>(smem);
-  FFMA_DISPATCH(persistent_rollout, w, t, h, f, sc, n_steps, final_only, H, W, dt, inv_dx2,
+  KXK_FFMA_DISPATCH(persistent_rollout, w, t, h, f, sc, n_steps, final_only, H, W, dt, inv_dx2,
                 blocks, threads, bytes, s, per_sm)
 }
 
@@ -329,5 +255,5 @@ extern "C" int cell2d_ffma_rollout_persistent(const void* wf, const void* tail, 
 extern "C" int cell2d_ffma_occupancy(int n_branches, int kernel_size, int threads, int smem,
                                      int* per_sm) {
   const size_t bytes = static_cast<size_t>(smem);
-  FFMA_DISPATCH(persistent_occupancy, bytes, threads, per_sm)
+  KXK_FFMA_DISPATCH(persistent_occupancy, bytes, threads, per_sm)
 }

@@ -159,6 +159,20 @@ __device__ __forceinline__ Share share_of(int cells, int W) {
   return s;
 }
 
+// The same share for block b of a run of nblk blocks (the ensemble's
+// kernels split the grid into runs, one a member).  share_of keeps its own
+// body: written as a call of this one, it changed the machine code of every
+// kernel that calls it.
+__device__ __forceinline__ Share share_of_run(int cells, int W, int nblk, int b) {
+  const int q = cells / nblk, m = cells % nblk;
+  Share s;
+  s.n_own = q + (b < m ? 1 : 0);
+  s.first = b * q + (b < m ? b : m);
+  s.row0 = s.first / W;
+  s.rows = (s.first + s.n_own - 1) / W - s.row0 + 1 + 2 * kHalo;
+  return s;
+}
+
 // The staged rows of `frame` ([H, W] float2) into tile [s.rows][W + 4],
 // wrapped (rows row0 - 2 .. at most H + 1, columns -2 .. W + 1).  The
 // caller synchronises.
