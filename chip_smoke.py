@@ -27,7 +27,9 @@ since start:
                of them (the ensemble's at M = 4 and 8, and the clusters of
                16 and of 8 CTAs the card holds; the streaming sweeps'
                adj_plan at GS2D's shape and adj_b_plan at Burgers' for
-               M = 2, 4 and 8), the k = 5 FFMA kernels' instruction mix
+               M = 1 (the single model's k x k sweep), 2, 4 and 8,
+               adj1_b_plan at GS2D's for M = 4 and 8), the k = 5 FFMA
+               kernels' instruction mix
                (cuobjdump: FFMA and shared-memory loads), and the registers
                and spills of the streaming sweeps' one-launch kernels and of
                rows 1 (k = 5), 5 and 7, the instances the main paths run
@@ -89,7 +91,13 @@ since start:
                frame (to the bit), final2d_kernel<5> against plain; each
                route through the entry points on 17 x 9 and past the plans
                (1407 x 1407 forward and final state, 149 x 149 sweep), exact
-               launches and steps; adj2d_kernel at k = 5 (T = 200) and both
+               launches and steps; both routes of row 4 at k = 5 (T = 200):
+               adj2d_batched_ffma_persistent_kernel on a one-member batch
+               (adj_b_plan's route at M = 1, backward2d's wrapper) and
+               adj2d_kernel's pair against plain and each other, the
+               wrapper's outputs against the ensemble wrapper's at M = 1 to
+               the bit, through the entry point on 17 x 9 and past the plan
+               (769 x 769), counted; both
                routes of row 4 at k = 1 (T = 200, golden GS2D cell, data-loss
                cotangent): adj2d_persistent_kernel (adj_plan's route) and
                adj2d_kernel (the per-step route) against plain and each
@@ -99,7 +107,8 @@ since start:
                T = 50, golden GS3D cell) against its plain version
   grads_fallback  the gradients of bptt="fused" (GS2D: one launch of
                adj2d_persistent_kernel; GS3D, Burgers with the MXU switches
-               off, and with YS_PATH_ENABLED off too) and
+               off, and with YS_PATH_ENABLED off too: one launch of
+               adj2d_batched_ffma_persistent_kernel on a one-member batch) and
                of bptt="two_phase" (the three cells) against f64 autograd on
                the referee setup, each route's launches counted
   serve        one uncounted warm-up request of each kind, then three frames
@@ -157,18 +166,23 @@ since start:
                both routes, pg2d_batched_persistent_kernel (pg_b_plan's)
                and pg2d_batched_kernel, g0 and each member's gradient sums
                leaf by leaf against plain, each other and the single
-               model's sweep; adj2d_batched_kernel (M = 4); the k = 5
-               contract of the forward on the golden Burgers cell (M = 2),
-               and both routes of its streaming sweep,
-               adj2d_batched_ffma_persistent_kernel (adj_b_plan's) and
-               adj2d_batched_kernel, against plain and each other; then both
-               GS2D entry points on 17 x 9 (the one-launch routes) and past
-               the plans (449 x 449, and M = 8 at 156 x 156 for the sweep),
-               and the k = 5 sweep's on 17 x 9 (M = 3) and past its plan
-               (M = 2 at 571 x 571), counted
+               model's sweep; the streaming sweep by both routes,
+               adj2d_batched_persistent_kernel (adj1_b_plan's) and
+               adj2d_batched_kernel, against plain and each other, each
+               member's g0 and g_ins against adj2d_persistent_kernel's to
+               the bit (M = 4 and 8); the k = 5 contract of the forward on
+               the golden Burgers cell (M = 2), and both routes of its
+               streaming sweep, adj2d_batched_ffma_persistent_kernel
+               (adj_b_plan's) and adj2d_batched_kernel, against plain and
+               each other; then both GS2D entry points on 17 x 9 (the
+               one-launch routes) and past the plans (449 x 449, and M = 8
+               at 156 x 156 for the sweep), and the streaming sweep's on
+               17 x 9 (M = 3, k = 1 and 5) and past its plans (M = 4 at
+               225 x 225 for k = 1, M = 2 at 571 x 571 for k = 5), counted
   grads_batched  the gradients of bptt="batched" and "batched_pg" against
                f64 autograd on the referee setup (random-init cells, random
-               targets, 12 steps, full width, M = 4), and "batched" of the
+               targets, 12 steps, full width, M = 4; "batched" by one launch
+               of adj2d_batched_persistent_kernel), and "batched" of the
                5x5 cell (M = 2: adj2d_batched_ffma_persistent_kernel, one
                launch), each route's launches and steps counted
   kernels_sharded  step2d_haloed_kernel against its plain version on the
@@ -205,29 +219,33 @@ since start:
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work (rows 1
                (k = 1 and 5), 2 (k = 1, and k = 5 by both MXU routes), 3, 4
-               (k = 1), 5, 6, 7, 8, 10, 11 (k = 1), 12 (k = 5) and 13 also by
-               their per-step routes, in turns in the same call, rows 11 and
-               13 at M = 4 and 8, row 12 at M = 2 and 4, row 11 at M = 8 by
+               (k = 1 and 5), 5, 6, 7, 8, 10, 11 (k = 1), 12 (k = 1 and 5)
+               and 13 also by their per-step routes, in turns in the same
+               call, rows 11, 13 and 12 at k = 1 at M = 4 and 8, row 12 at
+               k = 5 at M = 2 and 4, row 11 at M = 8 by
                both cluster sizes; rows 2 at k = 5, 3 and 6 with the bound
                in 3xTF32 and all in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (32 entries: the 14 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (34 entries: the 14 ported TPU kernels,
 row 1 at k = 5 by rollout2d_ffma_persistent_kernel, row 2 by its three
 one-launch routes, rollout2d_cluster_kernel[final],
 rollout2d_kxk_persistent_kernel[final] and
 rollout2d_ffma_persistent_kernel[final], row 4 at k = 1 by
-adj2d_persistent_kernel, row 11 at k = 1 by
-rollout2d_cluster_kernel[batched], row 12 at k = 5 by
-adj2d_batched_ffma_persistent_kernel, with the k = 5 contracts of
-adj2d_kernel and rollout2d_batched_kernel and the per-step routes of rows 1
-at k = 5 (rollout2d_kernel[k=5]), 2 (final2d_kernel, final2d_kernel[k=5]),
-3, 4 at k = 1, 5, 6, 8, 10, 11, 12 at k = 5 and 13 (rollout2d_kxk_kernel,
-adj2d_kernel, adj2d_ys_kernel, adj2d_kxk_kernel, rollout3d_kernel,
-pg3d_kernel, rollout2d_batched_kernel, adj2d_batched_kernel[k=5],
-pg2d_batched_kernel) listed apart), the
+adj2d_persistent_kernel and at k = 5 by
+adj2d_batched_ffma_persistent_kernel[M=1], row
+11 at k = 1 by rollout2d_cluster_kernel[batched], row 12 at k = 1 by
+adj2d_batched_persistent_kernel and at k = 5 by
+adj2d_batched_ffma_persistent_kernel, with the k = 5 contract of
+rollout2d_batched_kernel and the per-step routes of rows 1 at k = 5
+(rollout2d_kernel[k=5]), 2 (final2d_kernel, final2d_kernel[k=5]), 3, 4 at
+k = 1 and 5, 5, 6, 8, 10, 11, 12 at k = 1 and 5 and 13
+(rollout2d_kxk_kernel, adj2d_kernel, adj2d_kernel[k=5], adj2d_ys_kernel,
+adj2d_kxk_kernel, rollout3d_kernel, pg3d_kernel, rollout2d_batched_kernel,
+adj2d_batched_kernel, adj2d_batched_kernel[k=5], pg2d_batched_kernel) listed
+apart), the
 nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check ends the run with a
 non-zero exit and no last line; so does a machine without a CUDA device, or
@@ -276,7 +294,7 @@ TIME_BACKWARD3D_STEPS = 300
 CHECK_KXK_STEPS = 200     # the k x k kernels against their plain versions
 TRAIN_BURGERS_ITERS = 10  # of BURGERS_STAGE1's 10000, at T = 200
 FALLBACK_ITERS = 5        # GS2D at T = 800 and GS3D at T = 300 through bptt="fused"
-FALLBACK_YS_OFF_ITERS = 3  # Burgers at T = 200 through adj2d_kernel at k = 5
+FALLBACK_YS_OFF_ITERS = 3  # Burgers at T = 200, the k x k sweep in one launch
 ENS_MEMBERS = 4           # the ensemble's M, the CLI's default
 ENS_KXK_MEMBERS = 2       # the 5x5 cell's ensemble (kernels_batched, grads_batched)
 ENS_ITERS = 6             # 2 at each of T = 200, 400, 800
@@ -499,7 +517,7 @@ def profile_busy(torch, fn) -> dict:
                             "adj2d_kxk_persistent_kernel", "rollout2d_batched_kernel",
                             "adj2d_batched_kernel", "pg2d_batched_kernel",
                             "adj2d_persistent_kernel", "adj2d_batched_ffma_persistent_kernel",
-                            "step2d_haloed_kernel")}
+                            "adj2d_batched_persistent_kernel", "step2d_haloed_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
             "device_idle_share": 1.0 - busy / window if device else None,
             "device_events": len(device),
@@ -620,7 +638,8 @@ def main() -> int:
                                                                   n_gs2d, dev)}
         for n in (ENS_MEMBERS, 2 * ENS_MEMBERS)}
     # the streaming sweeps' one-launch kernels: row 4 at k = 1 at GS2D's
-    # shape, row 12 at k = 5 at Burgers' for M = 2, 4 and 8
+    # shape, rows 4 and 12 at k = 5 at Burgers' for M = 1 (row 4) and
+    # M = 2, 4 and 8 (row 12)
     one_launch["adj2d_persistent_kernel"] = {
         **backward2d.adj_plan(n_gs2d, n_gs2d, GS2D_RECON.cell, backward2d._sm_count(dev)),
         "blocks_an_sm_holds": backward2d.adj_occupancy(GS2D_RECON.cell, n_gs2d, n_gs2d, dev)}
@@ -630,10 +649,18 @@ def main() -> int:
                                           backward2d._sm_count(dev)),
                    "blocks_an_sm_holds": batched2d.adj_b_occupancy(BURGERS_STAGE1.cell, n,
                                                                    nb_grid, nb_grid, dev)}
-        for n in (ENS_KXK_MEMBERS, 2 * ENS_KXK_MEMBERS, 4 * ENS_KXK_MEMBERS)}
+        for n in (1, ENS_KXK_MEMBERS, 2 * ENS_KXK_MEMBERS, 4 * ENS_KXK_MEMBERS)}
+    # row 12 at k = 1 at GS2D's shape for M = 4 and 8
+    one_launch["adj2d_batched_persistent_kernel"] = {
+        f"M={n}": {**batched2d.adj1_b_plan(n, n_gs2d, n_gs2d, GS2D_RECON.cell,
+                                           backward2d._sm_count(dev)),
+                   "blocks_an_sm_holds": batched2d.adj1_b_occupancy(GS2D_RECON.cell, n, n_gs2d,
+                                                                    n_gs2d, dev)}
+        for n in (ENS_MEMBERS, 2 * ENS_MEMBERS)}
     check(one_launch["adj2d_persistent_kernel"]["blocks_an_sm_holds"] >= 1
-          and all(v["blocks_an_sm_holds"] >= 1 for v in
-                  one_launch["adj2d_batched_ffma_persistent_kernel"].values()),
+          and all(v["blocks_an_sm_holds"] >= 1 for name in (
+              "adj2d_batched_ffma_persistent_kernel", "adj2d_batched_persistent_kernel")
+              for v in one_launch[name].values()),
           f"the card holds none of a streaming sweep's one-launch grid: {one_launch}")
     check(min(one_launch["rollout2d_cluster_kernel[batched]"]["clusters_the_card_holds"].values())
           >= 1 and all(v["blocks_an_sm_holds"] >= 1 for v in
@@ -653,7 +680,8 @@ def main() -> int:
         ("cell2d", ("rollout2d_kernel", "final2d_kernel")),
         ("cell2d_kxk", ("rollout2d_kxk_kernel",)),
         ("cell2d_ffma", ("rollout2d_ffma_persistent_kernel",)),
-        ("adj2d", ("adj2d_act_kernel", "adj2d_ys_act_kernel", "adj2d_ys_persistent_kernel")))}
+        ("adj2d", ("adj2d_act_kernel", "adj2d_ys_act_kernel", "adj2d_ys_persistent_kernel")),
+        ("batched2d", ("adj2d_batched_ffma_persistent_kernel",)))}
     # registers and spills of the instances the main paths run: the
     # streaming sweeps' one-launch kernels (GS2D's 3 branches, the Burgers
     # cell's k = 5 and 3 branches) and rows 1 (k = 5), 5 and 7, which share
@@ -662,6 +690,7 @@ def main() -> int:
                                                                    name, targs)
                   for lib, name, targs in (
                       ("adj2d", "adj2d_persistent_kernel", (3,)),
+                      ("batched2d", "adj2d_batched_persistent_kernel", (3,)),
                       ("batched2d", "adj2d_batched_ffma_persistent_kernel", (5, 3)),
                       ("backward2d", "pg2d_persistent_kernel", (3,)),
                       ("cell2d_ffma", "rollout2d_ffma_persistent_kernel", (5, 3)),
@@ -1510,20 +1539,42 @@ def main() -> int:
     ys_plain = backward2d.fused_phase1_ys_2d_plain(packedb, fbarb, ysb, cfgb)
     ys_one = backward2d._phase1_ys_persistent_cuda(packedb, fbarb, ysb, cfgb)
     ys_steps = backward2d._phase1_ys_steps_cuda(packedb, fbarb, ysb, cfgb)
+    # row 4 at k = 5 on the same frames and cotangent:
+    # adj2d_batched_ffma_persistent_kernel on a one-member batch (adj_b_plan's
+    # route at M = 1 and 100 x 100, through backward2d's wrapper) and
+    # adj2d_kernel's pair (the per-step route) against the plain sweep and
+    # each other; the wrapper's outputs against the ensemble wrapper's on
+    # the one-member batch, to the bit (the same kernel on the same operands)
+    plan4k = backward2d.adj_b_plan(1, nb_grid, nb_grid, cfgb, n_sm)
+    check(plan4k["route"] == "persistent", f"adj_b_plan at M = 1, {nb_grid}: {plan4k}")
+    adjk_plain = backward2d.fused_phase1_2d_plain(packedb, framesb, fbarb, cfgb)
+    adjk_one = backward2d._phase1_ffma_cuda(packedb, framesb, fbarb, cfgb)
+    adjk_steps = backward2d._phase1_steps_cuda(packedb, framesb, fbarb, cfgb)
+    adjk_b1 = batched2d._phase1_b_ffma_persistent_cuda(
+        packedb[None].contiguous(), framesb[None].contiguous(), fbarb[None].contiguous(), cfgb)
+    torch.cuda.synchronize()
     fallback_errs = {
         "adj2d_ys_persistent_kernel": sweep_errs("adj2d_ys_persistent_kernel", ys_one, ys_plain),
         "adj2d_ys_kernel": sweep_errs("adj2d_ys_kernel", ys_steps, ys_plain),
-        "adj2d_kernel[k=5]": sweep_errs(
-            "adj2d_kernel[k=5]", backward2d._phase1_cuda(packedb, framesb, fbarb, cfgb),
-            backward2d.fused_phase1_2d_plain(packedb, framesb, fbarb, cfgb)),
+        "adj2d_batched_ffma_persistent_kernel[M=1]": sweep_errs("adj2d_batched_ffma_persistent_kernel[M=1]", adjk_one, adjk_plain),
+        "adj2d_kernel[k=5]": sweep_errs("adj2d_kernel[k=5]", adjk_steps, adjk_plain),
     }
-    ys_routes_err = {}
-    for key, a, b in zip(("g_ins", "g0"), ys_one, ys_steps):
-        e, scale = max_abs(a, b), float(b.abs().max())
-        check(e <= 2e-4 * scale + 2e-6, f"adj2d_ys_persistent_kernel vs adj2d_ys_kernel, {key}: "
-                                        f"max |diff| {e} over 2e-4 * {scale} + 2e-6")
-        ys_routes_err[key] = [e, scale]
-    del ysb, ys_plain, ys_one, ys_steps
+    ys_routes_err, adjk_routes_err = {}, {}
+    for label, errs_, one_, steps_ in (("adj2d_ys_persistent_kernel vs adj2d_ys_kernel",
+                                        ys_routes_err, ys_one, ys_steps),
+                                       ("adj2d_batched_ffma_persistent_kernel[M=1] vs adj2d_kernel k = 5",
+                                        adjk_routes_err, adjk_one, adjk_steps)):
+        for key, a, b in zip(("g_ins", "g0"), one_, steps_):
+            e, scale = max_abs(a, b), float(b.abs().max())
+            check(e <= 2e-4 * scale + 2e-6, f"{label}, {key}: max |diff| {e} over 2e-4 * "
+                                            f"{scale} + 2e-6")
+            errs_[key] = [e, scale]
+    adjk_vs_batched = {key: max_abs(a, b[0]) for key, a, b in zip(("g_ins", "g0"), adjk_one,
+                                                                   adjk_b1)}
+    check(all(torch.equal(a, b[0]) for a, b in zip(adjk_one, adjk_b1)),
+          "the single model's k x k sweep vs the ensemble's at M = 1: max "
+          f"|diff| {adjk_vs_batched}")
+    del ysb, ys_plain, ys_one, ys_steps, adjk_plain, adjk_one, adjk_steps, adjk_b1
     # each MXU-off route through its entry point on 17 x 9 (the one-launch
     # kernels) and past its plan (1407 x 1407 forward and final state,
     # 149 x 149 sweep: the per-step kernels), launches and steps counted,
@@ -1625,7 +1676,7 @@ def main() -> int:
     # against pg2d_persistent_kernel's to the bit) and past adj_plan
     # (449 x 449: one adj2d_kernel launch a step), a random field and
     # cotangent, launches and steps counted, against plain
-    adj_route_checks, adj_steps_launches = {}, {}
+    adj_route_checks, adj_steps_launches, adjk_steps_launches = {}, {}, {}
     for shape, steps_, route in (((17, 9), 30, "persistent"), ((449, 449), 3, "per_step")):
         rs = np.random.RandomState(8)
         x = torch.as_tensor(0.5 + 0.1 * rs.standard_normal(shape + (2,)), dtype=torch.float32,
@@ -1661,6 +1712,46 @@ def main() -> int:
                                                       "launches": counts, "plan": plan,
                                                       "err": errs}
         del x, fr_, fb_, got_
+    # row 4 at k = 5 through the entry point on 17 x 9 (the one-launch
+    # route; its outputs again against the one-member batched kernel's to the
+    # bit) and past adj_b_plan at M = 1 (769 x 769: two launches a step), members
+    # of the golden Burgers cell, a random field and cotangent, launches and
+    # steps counted, against plain
+    for shape, steps_, route in (((17, 9), 30, "persistent"), ((769, 769), 1, "per_step")):
+        rs = np.random.RandomState(14)
+        x = torch.as_tensor(0.5 * rs.standard_normal(shape + (2,)), dtype=torch.float32,
+                            device=dev)
+        fr_ = cell2d._rollout_cuda(packedb, x, cfgb, steps_)
+        fb_ = torch.as_tensor(rs.standard_normal(tuple(fr_.shape)), dtype=torch.float32,
+                              device=dev)
+        plan = backward2d.adj_b_plan(1, *shape, cfgb, n_sm)
+        zero_counts()
+        got_ = backward2d.fused_phase1_2d(packedb, fr_, fb_, cfgb)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_phase1_2d.launches": 1 if route == "persistent" else 2 * steps_,
+                       "fused_phase1_2d.steps": steps_}
+        check(plan["route"] == route, f"adj_b_plan at M = 1, {shape}: {plan}, expected {route}")
+        check(counts == want_counts, f"k = 5 sweep at {shape}: counts {counts}, expected "
+                                     f"{want_counts}")
+        errs = {}
+        for key, a, b in zip(("g_ins", "g0"), got_,
+                             backward2d.fused_phase1_2d_plain(packedb, fr_, fb_, cfgb)):
+            errs[key] = [max_abs(a, b), float(b.abs().max())]
+            check(errs[key][0] <= 2e-4 * errs[key][1] + 2e-6,
+                  f"k = 5 sweep at {shape} ({route}) vs plain, {key}: {errs[key]}")
+        if route == "persistent":
+            b1_ = batched2d._phase1_b_ffma_persistent_cuda(
+                packedb[None].contiguous(), fr_[None].contiguous(), fb_[None].contiguous(), cfgb)
+            check(all(torch.equal(a, b[0]) for a, b in zip(got_, b1_)),
+                  f"the single model's k x k sweep at {shape} vs the ensemble's at M = 1")
+        else:
+            adjk_steps_launches[f"kernels_fallback ({shape[0]} x {shape[1]})"] = counts[
+                "fused_phase1_2d.launches"]
+        adj_route_checks[f"k=5 {shape[0]}x{shape[1]}"] = {"route": route, "steps": steps_,
+                                                          "launches": counts, "plan": plan,
+                                                          "err": errs}
+        del x, fr_, fb_, got_
     # adj3d_kernel on the golden GS3D cell at 48^3, a standard-normal
     # cotangent (as row 10's check)
     frames3 = cell3d._rollout_cuda(expanded3, h03, PG3D_CHECK_STEPS)
@@ -1683,6 +1774,8 @@ def main() -> int:
           final_vs_last_frame_max_abs_err=final5_off_vs_frame,
           ys_persistent_vs_per_step_err_and_max=ys_routes_err, route_checks=ffma_route_checks,
           adj_persistent_vs_per_step_err_and_max=adj_routes_err,
+          adj_ffma_persistent_vs_per_step_err_and_max=adjk_routes_err,
+          adj_ffma_vs_batched_m1_max_abs_diff=adjk_vs_batched,
           adj_g0_vs_pg2d_persistent_max_abs_diff=adj_g0_vs_pg, adj_route_checks=adj_route_checks,
           forward_rtol=2e-4, forward_atol=1e-5,
           cotangents={"Burgers": "standard normal, seed 4", "GS2D": "data loss",
@@ -1729,9 +1822,11 @@ def main() -> int:
                                     "fused_phase1_ys_2d.steps": 12},
                 refb_cell, xb_ref, lossb, cfgb, {"fused": backward2d.fused_rollout_tp_2d},
                 flags=(False, False, True))
+    # one rollout2d_ffma_persistent_kernel launch of 12 steps, then one
+    # adj2d_batched_ffma_persistent_kernel launch of 12 on a one-member batch
     hold_to_f64("burgers_ys_off", {"fused_rollout_2d.launches_kxk": 1,
                                    "fused_rollout_2d.steps_kxk": 12,
-                                   "fused_phase1_2d.launches": 24,
+                                   "fused_phase1_2d.launches": 1,
                                    "fused_phase1_2d.steps": 12},
                 refb_cell, xb_ref, lossb, cfgb, {"fused": backward2d.fused_rollout_tp_2d},
                 flags=(False, False, False))
@@ -1816,39 +1911,49 @@ def main() -> int:
                   f"batched frames{suffix} differ in bits: {bitwise[f'frames{suffix}']}")
         fbar_m = torch.as_tensor(np.random.RandomState(9).standard_normal(tuple(got.shape)),
                                  dtype=torch.float32, device=dev)
-        if not suffix.startswith("[M=8]"):
-            # the streaming sweep: adj2d_batched_kernel (row 12's route at
-            # k = 1, one launch a step) and at k = 5 both routes,
-            # adj2d_batched_ffma_persistent_kernel (adj_b_plan's) and
-            # adj2d_batched_kernel's pair, against plain and each other; each
-            # member against the single model's sweep (_phase1_cuda's route)
-            plain_b = batched2d.fused_phase1_2d_batched_plain(packed_m, got, fbar_m, cfg_)
-            routes_b = {f"adj2d_batched_kernel{suffix}": batched2d._phase1_b_steps_cuda(
-                packed_m, got, fbar_m, cfg_)}
-            if cfg_.kernel_size > 1:
-                plan_b = batched2d.adj_b_plan(n_mem, *got.shape[2:4], cfg_, n_sm)
-                check(plan_b["route"] == "persistent", f"adj_b_plan at M = {n_mem}: {plan_b}")
-                routes_b["adj2d_batched_ffma_persistent_kernel"] = (
-                    batched2d._phase1_b_ffma_persistent_cuda(packed_m, got, fbar_m, cfg_))
-            single = [backward2d._phase1_cuda(packed_m[m].contiguous(), got[m].contiguous(),
-                                              fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
-            for name, out_k in routes_b.items():
-                batched_err[name] = sweep_errs(name, out_k, plain_b)
-                vs_single[name] = max(max(max_abs(out_k[0][m], single[m][0]),
-                                          max_abs(out_k[1][m], single[m][1]))
-                                      for m in range(n_mem))
-            if cfg_.kernel_size > 1:
-                pair_err = {}
-                for key, a, b in zip(("g_ins", "g0"),
-                                     routes_b["adj2d_batched_ffma_persistent_kernel"],
-                                     routes_b[f"adj2d_batched_kernel{suffix}"]):
-                    e, scale = max_abs(a, b), float(b.abs().max())
-                    check(e <= 2e-4 * scale + 2e-6,
-                          f"adj2d_batched_ffma_persistent_kernel vs adj2d_batched_kernel, {key}: "
-                          f"max |diff| {e} over 2e-4 * {scale} + 2e-6")
-                    pair_err[key] = [e, scale]
-                batched_err["ffma_persistent_vs_per_step" + suffix] = pair_err
-            del plain_b, routes_b
+        # the streaming sweep by both routes, against plain and each other:
+        # at k = 1 (M = 4 and 8) adj2d_batched_persistent_kernel
+        # (adj1_b_plan's) and adj2d_batched_kernel (one launch a step), each
+        # member's g0 and g_ins also against the single model's sweep
+        # (adj2d_persistent_kernel at 100 x 100) to the bit; at k = 5
+        # adj2d_batched_ffma_persistent_kernel (adj_b_plan's) and
+        # adj2d_batched_kernel's pair, each member against the single model's
+        # sweep (the same kernel on a one-member batch)
+        plain_b = batched2d.fused_phase1_2d_batched_plain(packed_m, got, fbar_m, cfg_)
+        routes_b = {f"adj2d_batched_kernel{suffix}": batched2d._phase1_b_steps_cuda(
+            packed_m, got, fbar_m, cfg_)}
+        one_name = ("adj2d_batched_ffma_persistent_kernel" if cfg_.kernel_size > 1
+                    else "adj2d_batched_persistent_kernel" + suffix)
+        plan_b = (batched2d.adj_b_plan if cfg_.kernel_size > 1 else batched2d.adj1_b_plan)(
+            n_mem, *got.shape[2:4], cfg_, n_sm)
+        check(plan_b["route"] == "persistent", f"{one_name}'s plan at M = {n_mem}: {plan_b}")
+        routes_b[one_name] = batched2d._phase1_b_cuda(packed_m, got, fbar_m, cfg_)
+        single = [backward2d._phase1_cuda(packed_m[m].contiguous(), got[m].contiguous(),
+                                          fbar_m[m].contiguous(), cfg_) for m in range(n_mem)]
+        for name, out_k in routes_b.items():
+            batched_err[name] = sweep_errs(name, out_k, plain_b)
+            vs_single[name] = max(max(max_abs(out_k[0][m], single[m][0]),
+                                      max_abs(out_k[1][m], single[m][1]))
+                                  for m in range(n_mem))
+        if cfg_.kernel_size == 1:
+            bitwise[f"sweep_persistent_vs_single{suffix}"] = all(
+                bool(torch.equal(routes_b[one_name][0][m], single[m][0]))
+                and bool(torch.equal(routes_b[one_name][1][m], single[m][1]))
+                for m in range(n_mem))
+            check(bitwise[f"sweep_persistent_vs_single{suffix}"],
+                  f"{one_name} vs adj2d_persistent_kernel on each member: max |diff| "
+                  f"{vs_single[one_name]}")
+        pair_err = {}
+        for key, a, b in zip(("g_ins", "g0"), routes_b[one_name],
+                             routes_b[f"adj2d_batched_kernel{suffix}"]):
+            e, scale = max_abs(a, b), float(b.abs().max())
+            check(e <= 2e-4 * scale + 2e-6,
+                  f"{one_name} vs adj2d_batched_kernel{suffix}, {key}: "
+                  f"max |diff| {e} over 2e-4 * {scale} + 2e-6")
+            pair_err[key] = [e, scale]
+        batched_err[("ffma_persistent_vs_per_step" if cfg_.kernel_size > 1
+                     else "sweep_persistent_vs_per_step") + suffix] = pair_err
+        del plain_b, routes_b, single
         if cfg_.kernel_size > 1:
             continue
         # the fused sweep: pg2d_batched_persistent_kernel (row 13's route,
@@ -1926,42 +2031,57 @@ def main() -> int:
                                  "frames_max_abs_err": max_abs(fr, fr_p),
                                  "sweep_max_abs_err": max(e for e, _ in route_errs.values())}
         del fr, fb, fr_p, acc_p
-    # the k = 5 streaming sweep through its entry point on 17 x 9 (M = 3, the
-    # one-launch route) and past adj_b_plan (M = 2 at 571 x 571: two
-    # launches a step), members of the golden Burgers cell, a random field
-    # and cotangent, launches and steps counted, against plain
-    sweep_b_launches = {}
-    for label, n_mem, (hh, ww), steps, route in (("17 x 9", 3, (17, 9), 5, "persistent"),
-                                                 ("571 x 571", 2, (571, 571), 2, "per_step")):
-        packed_m = batched2d.pack_pi_params_2d_batched(member_cells(modelb["cell"], n_mem),
-                                                       cfgb).contiguous()
+    # the streaming sweep through its entry point, members of the golden
+    # cell, a random field and cotangent, launches and steps counted, against
+    # plain: at k = 1 on 17 x 9 (M = 3, the one-launch route; each member's
+    # outputs also against adj2d_persistent_kernel's to the bit) and past
+    # adj1_b_plan (M = 4 at 225 x 225: one launch a step); at k = 5 on 17 x 9
+    # (M = 3) and past adj_b_plan (M = 2 at 571 x 571: two launches a step)
+    sweep_b_launches, sweep1_b_launches = {}, {}
+    for k_, label, n_mem, (hh, ww), steps, route in (
+            (1, "17 x 9", 3, (17, 9), 5, "persistent"),
+            (1, "225 x 225", 4, (225, 225), 2, "per_step"),
+            (5, "17 x 9", 3, (17, 9), 5, "persistent"),
+            (5, "571 x 571", 2, (571, 571), 2, "per_step")):
+        cfg_, cell_np = (cfg, model["cell"]) if k_ == 1 else (cfgb, modelb["cell"])
+        packed_m = batched2d.pack_pi_params_2d_batched(member_cells(cell_np, n_mem),
+                                                       cfg_).contiguous()
         rs = np.random.RandomState(12)
-        h0_m = torch.as_tensor(0.5 * rs.standard_normal((n_mem, hh, ww, 2)), dtype=torch.float32,
-                               device=dev).contiguous()
-        fr = batched2d._rollout_b_cuda(packed_m, h0_m, cfgb, steps)
+        h0_m = torch.as_tensor(0.5 * rs.standard_normal((n_mem, hh, ww, 2))
+                               + (np.asarray([1.0, 0.0]) if k_ == 1 else 0.0),
+                               dtype=torch.float32, device=dev).contiguous()
+        fr = batched2d._rollout_b_cuda(packed_m, h0_m, cfg_, steps)
         fb = torch.as_tensor(rs.standard_normal(tuple(fr.shape)), dtype=torch.float32, device=dev)
-        plan = batched2d.adj_b_plan(n_mem, hh, ww, cfgb, n_sm)
+        plan = (batched2d.adj1_b_plan if k_ == 1 else batched2d.adj_b_plan)(n_mem, hh, ww, cfg_,
+                                                                             n_sm)
         zero_counts()
-        got_b = batched2d.fused_phase1_2d_batched(packed_m, fr, fb, cfgb)
+        got_b = batched2d.fused_phase1_2d_batched(packed_m, fr, fb, cfg_)
         torch.cuda.synchronize()
         counts = read_counts()
-        want_counts = {"fused_phase1_2d_batched.launches_kxk":
-                       1 if route == "persistent" else 2 * steps,
+        counter = "fused_phase1_2d_batched.launches" + ("" if k_ == 1 else "_kxk")
+        want_counts = {counter: 1 if route == "persistent" else (1 if k_ == 1 else 2) * steps,
                        "fused_phase1_2d_batched.steps": steps}
         check(plan["route"] == route and counts == want_counts,
-              f"k = 5 batched sweep on {label}: plan {plan}, counts {counts}, expected "
+              f"k = {k_} batched sweep on {label}: plan {plan}, counts {counts}, expected "
               f"{route}, {want_counts}")
         errs = {}
         for key, a, b in zip(("g_ins", "g0"), got_b,
-                             batched2d.fused_phase1_2d_batched_plain(packed_m, fr, fb, cfgb)):
+                             batched2d.fused_phase1_2d_batched_plain(packed_m, fr, fb, cfg_)):
             errs[key] = [max_abs(a, b), float(b.abs().max())]
             check(errs[key][0] <= 2e-4 * errs[key][1] + 2e-6,
-                  f"k = 5 batched sweep on {label} ({route}) vs plain, {key}: {errs[key]}")
+                  f"k = {k_} batched sweep on {label} ({route}) vs plain, {key}: {errs[key]}")
         if route == "per_step":
-            sweep_b_launches[f"kernels_batched ({label})"] = counts[
-                "fused_phase1_2d_batched.launches_kxk"]
-        batched_routes[f"sweep[k=5] {label}"] = {"members": n_mem, "steps": steps, "plan": plan,
-                                                 "counts": counts, "err": errs}
+            (sweep1_b_launches if k_ == 1 else sweep_b_launches)[
+                f"kernels_batched ({label})"] = counts[counter]
+        elif k_ == 1:
+            for m in range(n_mem):
+                one_ = backward2d._phase1_persistent_cuda(
+                    packed_m[m].contiguous(), fr[m].contiguous(), fb[m].contiguous(), cfg_)
+                check(torch.equal(got_b[0][m], one_[0]) and torch.equal(got_b[1][m], one_[1]),
+                      f"adj2d_batched_persistent_kernel on {label}, member {m}, vs "
+                      "adj2d_persistent_kernel")
+        batched_routes[f"sweep[k={k_}] {label}"] = {"members": n_mem, "steps": steps,
+                                                    "plan": plan, "counts": counts, "err": errs}
         del fr, fb, got_b
     phase("kernels_batched", members={"gs2d": [ENS_MEMBERS, 2 * ENS_MEMBERS],
                                       "burgers": ENS_KXK_MEMBERS},
@@ -2026,7 +2146,7 @@ def main() -> int:
         "batched": batched_vs_f64(cfg, ENS_MEMBERS, "batched",
                                   {"fused_rollout_2d_batched.launches": 1,
                                    "fused_rollout_2d_batched.steps": 12,
-                                   "fused_phase1_2d_batched.launches": 12,
+                                   "fused_phase1_2d_batched.launches": 1,
                                    "fused_phase1_2d_batched.steps": 12}, 11),
         "batched[k=5]": batched_vs_f64(cfgb, ENS_KXK_MEMBERS, "batched",
                                        {"fused_rollout_2d_batched.launches_kxk": 12,
@@ -2593,7 +2713,7 @@ def main() -> int:
                 (False, False, False),
                 {"fused_rollout_2d.launches_kxk": FALLBACK_YS_OFF_ITERS,
                  "fused_rollout_2d.steps_kxk": FALLBACK_YS_OFF_ITERS * stepsb,
-                 "fused_phase1_2d.launches": 2 * FALLBACK_YS_OFF_ITERS * stepsb,
+                 "fused_phase1_2d.launches": FALLBACK_YS_OFF_ITERS,
                  "fused_phase1_2d.steps": FALLBACK_YS_OFF_ITERS * stepsb})
     check(fallback_launches == fallback_want,
           f"fallback training launch counts {fallback_launches}, expected {fallback_want}")
@@ -2631,7 +2751,7 @@ def main() -> int:
                        "fused_rollout_2d.steps": ens_eval},
         "batched": {"fused_rollout_2d_batched.launches": ENS_ITERS,
                     "fused_rollout_2d_batched.steps": ens_steps,
-                    "fused_phase1_2d_batched.launches": ens_steps,
+                    "fused_phase1_2d_batched.launches": ENS_ITERS,
                     "fused_phase1_2d_batched.steps": ens_steps,
                     "fused_rollout_2d.launches": ENS_MEMBERS,
                     "fused_rollout_2d.steps": ens_eval},
@@ -3422,13 +3542,43 @@ def main() -> int:
                 "bound_by": b_by, "library_ms": None,
                 "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100"})
     fallback_work["adj2d_persistent_kernel"] = row4_work
+    # row 4 at k = 5 on row 6's frames and cotangent (T = 200):
+    # adj2d_batched_ffma_persistent_kernel on a one-member batch beside
+    # adj2d_kernel's pair (its per-step route), timed in turns; the sweep
+    # reads the T step inputs and cotangents and writes the T g_ins and g0
+    row4k_ms, row4k_steps_ms, row4k_turns = turns(
+        lambda: backward2d._phase1_ffma_cuda(packedb, framesb, fbarb, cfgb),
+        lambda: backward2d._phase1_steps_cuda(packedb, framesb, fbarb, cfgb), reps=5)
+    row4k_plain_ms = cuda_ms(torch, lambda: backward2d.fused_phase1_2d_plain(
+        packedb, framesb, fbarb, cfgb), reps=1, warm=False)
+    fallback_work["adj2d_batched_ffma_persistent_kernel[M=1]"] = {
+        "steps": stepsb, "bytes": packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes,
+        "flops": bwb_flops}
+    b4k_ms, b4k_by = bound_ms(fallback_work["adj2d_batched_ffma_persistent_kernel[M=1]"]["bytes"], bwb_flops)
+    row4k_by_path = {"train": fallback_launches["burgers_ys_off"]["fused_phase1_2d.launches"]}
+    kernels.extend([{
+        "name": "adj2d_batched_ffma_persistent_kernel[M=1]", "jax_kernel": "backward2d._phase1_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward2d.py:184",
+        "launches": sum(row4k_by_path.values()), "launches_by_path": row4k_by_path,
+        "max_abs_err": err["adj2d_batched_ffma_persistent_kernel[M=1]"], "steps": stepsb, "ms": row4k_ms,
+        "plain_ms": row4k_plain_ms, "bound_ms": b4k_ms, "bound_by": b4k_by, "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * row4k_ms / stepsb,
+        "per_step_route": {"name": "adj2d_kernel[k=5]", "launches_per_call": 2 * stepsb,
+                           "ms": row4k_steps_ms, "us_per_step": 1e3 * row4k_steps_ms / stepsb,
+                           "max_abs_err": err["adj2d_kernel[k=5]"]},
+        "turns_ms": row4k_turns,
+        "plan": one_launch["adj2d_batched_ffma_persistent_kernel"]["M=1"],
+    }, {
+        "name": "adj2d_kernel[k=5]", "jax_kernel": "backward2d._phase1_kernel", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/adj2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward2d.py:184",
+        "launches": sum(adjk_steps_launches.values()), "launches_by_path": adjk_steps_launches,
+        "max_abs_err": err["adj2d_kernel[k=5]"], "steps": stepsb, "ms": row4k_steps_ms,
+        "plain_ms": row4k_plain_ms, "bound_ms": b4k_ms, "bound_by": b4k_by, "library_ms": None,
+        "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100, "
+                "timed in turns with it"}])
     fallback_rows = {
-        "adj2d_kernel[k=5]": (
-            lambda: backward2d._phase1_cuda(packedb, framesb, fbarb, cfgb),
-            lambda: backward2d.fused_phase1_2d_plain(packedb, framesb, fbarb, cfgb),
-            packedb_bytes + 3 * stepsb * stateb_bytes + stateb_bytes, bwb_flops, stepsb,
-            "backward2d._phase1_kernel", "percnn_tpu/ops/pallas/backward2d.py:184", "adj2d.cu",
-            {"train": fallback_launches["burgers_ys_off"]["fused_phase1_2d.launches"]}),
         "adj3d_kernel": (
             lambda: backward3d._phase1_cuda(packed3, frames3, fbar3, cfg3),
             lambda: backward3d.fused_phase1_3d_plain(packed3, frames3, fbar3, cfg3),
@@ -3492,6 +3642,9 @@ def main() -> int:
         pg = dict(zip(("ms", "per_step_ms", "turns_ms"), turns(
             lambda: batched2d._pg_b_persistent_cuda(pk, frm, fbm, cfg),
             lambda: batched2d._pg_b_steps_cuda(pk, frm, fbm, cfg), reps=3)))
+        adj = dict(zip(("ms", "per_step_ms", "turns_ms"), turns(
+            lambda: batched2d._phase1_b_persistent_cuda(pk, frm, fbm, cfg),
+            lambda: batched2d._phase1_b_steps_cuda(pk, frm, fbm, cfg), reps=5)))
         fwd["ms_by_cluster_size"] = {}
         for n in (16, 8, 8, 16):
             fwd["ms_by_cluster_size"].setdefault(f"n_cta={n}", []).append(cuda_ms(
@@ -3502,12 +3655,16 @@ def main() -> int:
             n_mem * t8 * cells * flops_per_cell_step(cfg))
         pg["bound_ms"], pg["bound_by"] = bound_ms(n_mem * (pg_in_bytes + 4 * lay["A"]),
                                                   pg_flops(n_mem))
+        adj["bound_ms"], adj["bound_by"] = bound_ms(
+            n_mem * (param_bytes + 3 * t8 * state_bytes + state_bytes),
+            n_mem * t8 * cells * adj_flops_per_cell_step_1x1(cfg))
         fwd["plan"] = one_launch["rollout2d_cluster_kernel[batched]"][f"M={n_mem}"]
         pg["plan"] = one_launch["pg2d_batched_persistent_kernel"][f"M={n_mem}"]
-        batched_times[n_mem] = {"fwd": fwd, "pg": pg}
+        adj["plan"] = one_launch["adj2d_batched_persistent_kernel"][f"M={n_mem}"]
+        batched_times[n_mem] = {"fwd": fwd, "pg": pg, "adj": adj}
         if n_mem > m4:
             del pk, h0m, frm, fbm
-    fwd4, pg4 = batched_times[m4]["fwd"], batched_times[m4]["pg"]
+    fwd4, pg4, adj4 = (batched_times[m4][kind] for kind in ("fwd", "pg", "adj"))
     m8 = lambda kind: {"members": 2 * m4, "steps": t8, **batched_times[2 * m4][kind]}
     ens_fwd_launches = (ens_launches["batched_pg"]["fused_rollout_2d_batched.launches"]
                         + ens_launches["batched"]["fused_rollout_2d_batched.launches"])
@@ -3541,6 +3698,24 @@ def main() -> int:
         "per_step_route": {"name": "pg2d_batched_kernel", "launches_per_call": t8,
                            "ms": pg4["per_step_ms"], "us_per_step": 1e3 * pg4["per_step_ms"] / t8},
         "turns_ms": pg4["turns_ms"], "plan": pg4["plan"], "m8": m8("pg"),
+    }, {
+        "name": "adj2d_batched_persistent_kernel", "jax_kernel": "batched2d._phase1_kernel_b",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/batched2d.py:117",
+        "launches": ens_launches["batched"]["fused_phase1_2d_batched.launches"],
+        "launches_by_path": {
+            "ensemble": ens_launches["batched"]["fused_phase1_2d_batched.launches"]},
+        "max_abs_err": err["adj2d_batched_persistent_kernel"], "members": m4, "steps": t8,
+        "ms": adj4["ms"], "plain_ms": cuda_ms(
+            torch, lambda: batched2d.fused_phase1_2d_batched_plain(packed4, frames4, fbar4, cfg),
+            reps=1, warm=False),
+        "bound_ms": adj4["bound_ms"], "bound_by": adj4["bound_by"], "library_ms": None,
+        "launches_per_call": 1, "us_per_step": 1e3 * adj4["ms"] / t8,
+        "per_step_route": {"name": "adj2d_batched_kernel", "launches_per_call": t8,
+                           "ms": adj4["per_step_ms"],
+                           "us_per_step": 1e3 * adj4["per_step_ms"] / t8,
+                           "max_abs_err": err["adj2d_batched_kernel"]},
+        "turns_ms": adj4["turns_ms"], "plan": adj4["plan"], "m8": m8("adj"),
     }])
     batched_rows = {
         "rollout2d_batched_kernel": (
@@ -3551,12 +3726,9 @@ def main() -> int:
             {"kernels_batched (449 x 449)":
              batched_routes["449 x 449"]["counts"]["fused_rollout_2d_batched.launches"]}),
         "adj2d_batched_kernel": (
-            lambda: batched2d._phase1_b_cuda(packed4, frames4, fbar4, cfg),
-            lambda: batched2d.fused_phase1_2d_batched_plain(packed4, frames4, fbar4, cfg),
-            m4 * (param_bytes + 3 * t8 * state_bytes + state_bytes),
+            None, None, m4 * (param_bytes + 3 * t8 * state_bytes + state_bytes),
             m4 * t8 * cells * adj_flops_per_cell_step_1x1(cfg), t8, m4,
-            "batched2d._phase1_kernel_b", ":117",
-            {"ensemble": ens_launches["batched"]["fused_phase1_2d_batched.launches"]}),
+            "batched2d._phase1_kernel_b", ":117", sweep1_b_launches),
         "pg2d_batched_kernel": (
             None, None, m4 * (pg_in_bytes + 4 * lay["A"] * cells), pg_flops(m4), t8, m4,
             "batched2d._phase1_pg_kernel_b", ":272",
@@ -3573,9 +3745,14 @@ def main() -> int:
     # the per-step rows' ms are their turns above; their plain versions the
     # one-launch rows' (the same function)
     per_step_ms = {"rollout2d_batched_kernel": fwd4["per_step_ms"],
-                   "pg2d_batched_kernel": pg4["per_step_ms"]}
-    plain_of = {"rollout2d_batched_kernel": kernels[-2]["plain_ms"],
-                "pg2d_batched_kernel": kernels[-1]["plain_ms"]}
+                   "pg2d_batched_kernel": pg4["per_step_ms"],
+                   "adj2d_batched_kernel": adj4["per_step_ms"]}
+    plain_of = {name: next(k["plain_ms"] for k in kernels if k["name"] == one)
+                for name, one in (("rollout2d_batched_kernel", "rollout2d_cluster_kernel[batched]"),
+                                  ("pg2d_batched_kernel", "pg2d_batched_persistent_kernel"),
+                                  ("adj2d_batched_kernel", "adj2d_batched_persistent_kernel"))}
+    kind_of = {"rollout2d_batched_kernel": "fwd", "pg2d_batched_kernel": "pg",
+               "adj2d_batched_kernel": "adj"}
     batched_work = {}
     for name, (kernel, plain, nbytes, nflops, steps, n_mem, jax_name, line,
                by_path) in batched_rows.items():
@@ -3594,7 +3771,7 @@ def main() -> int:
         if name in per_step_ms:
             entry["note"] = ("the per-step route past the one-launch plan; ms at 100 x 100, "
                              "M = 4, timed in turns with it")
-            entry["m8"] = {"ms": m8("fwd" if "rollout" in name else "pg")["per_step_ms"]}
+            entry["m8"] = {"ms": m8(kind_of[name])["per_step_ms"]}
         kernels.append(entry)
     # row 12 at k = 5: adj2d_batched_ffma_persistent_kernel beside
     # adj2d_batched_kernel's pair (its per-step route), timed in turns at

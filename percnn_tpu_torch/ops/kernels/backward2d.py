@@ -48,7 +48,13 @@ as percnn_tpu's ``_fused_tp_bwd`` does:
   at 700 W, 2.427 ms per T = 800 at 100 x 100 (3.03 us a step) against
   4.647 for ``adj2d_kernel``, one launch a step, which runs past the plan
   (448 x 448 at most for the GS2D cell).  At k = 3, 5 it is
-  ``adj2d_act_kernel`` + ``adj2d_gather_kernel``, two launches a step.
+  the ensemble's ``adj2d_batched_ffma_persistent_kernel``
+  (csrc/batched2d.cu) on a one-member batch, for any field and cell
+  ``adj_b_plan`` admits at M = 1: the whole sweep in one cooperative
+  launch, one block an SM, full f32 FFMA, the activations formed from frame
+  t in the block, no ys stream, one grid barrier a step; past the plan
+  (768 x 768 at most for the Burgers cell) ``adj2d_act_kernel`` +
+  ``adj2d_gather_kernel``, two launches a step.
 
 **1x1 cells** (GS2D), the fused-pg half.
 ``fused_rollout_tp_2d_pg`` is a differentiable rollout whose forward is
@@ -83,8 +89,9 @@ by pg2d_persistent_kernel, one a reverse step by pg2d_kernel) beside
 ``fused_rollout_tp_2d.launches`` (the k x k sweep: one a sweep by
 adj2d_kxk_persistent_kernel, two a reverse step by adj2d_kxk_kernel) beside
 ``fused_rollout_tp_2d.steps`` (its reverse steps run on the card),
-``fused_phase1_2d.launches`` (one a sweep by adj2d_persistent_kernel, one a
-reverse step by adj2d_kernel at k = 1, two at k > 1) beside
+``fused_phase1_2d.launches`` (one a sweep by adj2d_persistent_kernel or
+adj2d_batched_ffma_persistent_kernel, none for no steps; one a reverse step by
+adj2d_kernel at k = 1, two at k > 1) beside
 ``fused_phase1_2d.steps``, ``fused_phase1_ys_2d.launches``
 (one a sweep by adj2d_ys_persistent_kernel, two a reverse step by
 adj2d_ys_kernel) beside ``fused_phase1_ys_2d.steps``.
@@ -108,9 +115,12 @@ from percnn_tpu_torch.ops.kernels.cell2d import (
     _MAX_PARAMS,
     _MAX_SMEM,
     _FFMA_TAIL,
+    _FFMA_TILE,
+    _FFMA_TILES,
     _check_fusable,
     _check_kxk_inputs,
     _ffma_adj_taps,
+    _ffma_fwd_floats,
     _ffma_widths_ok,
     _kxk_smem_bytes,
     _mma_shape,
@@ -131,6 +141,7 @@ from percnn_tpu_torch.ops.kernels.cell2d import (
     kxk_occupancy,
     mxu_rows,
     pack_ffma_adj_2d,
+    pack_ffma_fwd_2d,
     pack_ffma_tail_2d,
     pack_mma_adj_2d,
     pack_mma_fwd_2d,
@@ -166,6 +177,12 @@ _ADJ_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F
 # hidden, n_branches, dt, inv_dx2, blocks, stream, blocks an SM (out)
 _ADJ_PERSISTENT_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P,
                              ctypes.POINTER(_I)]
+# batched2d_adj_ffma_persistent (csrc/batched2d.cu): wf, wa, tail, frames,
+# frames_bar, g, g_ins, zw, M, n_steps, H, W, hidden, n_branches,
+# kernel_size, dt, inv_dx2, per_member, threads, smem, stream, blocks an SM
+# (out)
+_ADJ_B_FFMA_SIGNATURE = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+                         _I, _I, _I, _P, ctypes.POINTER(_I)]
 # params, n_params, frames_bar, ys, g, g_ins, zw, n_steps, H, W, hidden,
 # n_branches, kernel_size, dt, inv_dx2, stream
 _YS_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
@@ -701,15 +718,129 @@ def _phase1_persistent_cuda(packed, frames, frames_bar, cfg):
     return g_ins, g0
 
 
+def adj_b_grid(H: int, W: int, per_member: int) -> dict:
+    """The grid of adj2d_batched_ffma_persistent_kernel with per_member
+    blocks a member: cell2d.ffma_grid's split on per_member blocks (each
+    owning split_evenly's run of at most cap cells), its rounds balanced:
+    the cap / 16 tiles (rounded up) go in the fewest rounds of at most 8
+    tiles, the same number each, a warp pair a tile, so that no round runs
+    its products on a whole tile of cells the block does not own (152 cells
+    a block: 2 rounds of 5 tiles, 320 threads, not 8 + 8 tiles of which 6
+    hold none of its cells)."""
+    grid = ffma_grid(H, W, per_member)
+    n16 = -(-grid["cap"] // _FFMA_TILE)
+    tiles = -(-n16 // -(-n16 // _FFMA_TILES))
+    return {**grid, "threads": 64 * tiles, "rc": _FFMA_TILE * tiles}
+
+
+def adj_b_smem_bytes(cfg: PiCellConfig, H: int, W: int, per_member: int) -> int:
+    """Shared memory of a block of adj2d_batched_ffma_persistent_kernel with
+    per_member blocks a member (adj_b_grid's layout): the forward operand
+    (pack_ffma_fwd_2d), the adjoint operand (pack_ffma_adj_2d), the tail,
+    the round's im2col stack [k*k*2][rc] (whose place then holds the warp
+    pairs' exchange, 4 R floats a lane: the larger of the two), Z of a round
+    [M][rc] (whose place then holds zw [k*k*2][rc]: the larger), g_in of the
+    most cells a block owns (2 floats a cell) and its most staged rows
+    (csrc/batched2d.cu: adj_b_smem)."""
+    grid = adj_b_grid(H, W, per_member)
+    M, r, taps = mxu_rows(cfg), _ffma_adj_taps(cfg), cfg.kernel_size ** 2 * 2
+    tiles = grid["threads"] // 64
+    return (4 * (_ffma_fwd_floats(cfg) + M * _round_up(r, 4) * 8 + _FFMA_TAIL
+                 + max(taps * grid["rc"], tiles * 4 * r * 32) + max(M, taps) * grid["rc"]
+                 + 2 * grid["cap"]) + grid["tile_bytes"])
+
+
+def adj_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the member-batched k x k streaming sweep of M members on
+    an H x W field on a card of n_sm SMs (at M = 1 the single model's), by a
+    rule on the cell, the shape and the card's limits: a cell of the widths
+    adj2d_batched_ffma_persistent_kernel is built for (k = 3 or 5, 1 to 4
+    branches, C <= 16) takes it, one cooperative launch a sweep for all
+    members ('persistent', with blocks, blocks_a_member, threads and smem),
+    when every member gets at least one block of the n_sm (n_sm // M each,
+    at most one a cell: one block an SM) and a block fits its shared
+    memory; else adj2d_batched_act_kernel and adj2d_batched_gather_kernel
+    (at M = 1 adj2d_act_kernel and adj2d_gather_kernel), two launches a step
+    ('per_step').  For the Burgers cell (k = 5, C = 16, 3 branches) at
+    100 x 100 on 132 SMs: M = 1, 132 blocks of 75 or 76 cells, one round of
+    5 tiles (320 threads), 105 072 bytes; M = 2, 66 blocks a member of 151
+    or 152 cells, 2 rounds of 5 tiles (320 threads), 106 512 bytes; M = 4,
+    33 of 303 or 304 cells, 3 rounds of 7 tiles (448 threads), 128 848
+    bytes; M = 8, 16 of 625, 5 rounds of 8 (512 threads), 143 640 bytes;
+    the largest square fields it admits are 768 x 768 at M = 1, 570 x 570
+    at M = 2, 419 x 419 at M = 4 and 300 x 300 at M = 8."""
+    if not _ffma_widths_ok(cfg) or not 1 <= M <= n_sm:
+        return {"route": "per_step"}
+    per_member = min(n_sm // M, H * W)
+    smem = adj_b_smem_bytes(cfg, H, W, per_member)
+    if smem > _MAX_SMEM:
+        return {"route": "per_step"}
+    return {"route": "persistent", "blocks": M * per_member, "blocks_a_member": per_member,
+            "threads": adj_b_grid(H, W, per_member)["threads"], "smem": smem}
+
+
+def _ffma_sweep_b(packed, frames, frames_bar, cfg):
+    """One cooperative launch of adj2d_batched_ffma_persistent_kernel
+    (csrc/batched2d.cu) on checked inputs, packed [M, P], frames and
+    frames_bar [M, T+1, H, W, 2] contiguous f32 on the card, by adj_b_plan's
+    configuration, full f32 FFMA whatever the MXU switches say; (g_ins
+    [M, T, H, W, 2], g0 [M, H, W, 2]).  Nothing is launched at T = 0; the
+    caller counts the launch.  Raises if the plan refuses the shape or the
+    card cannot hold the grid."""
+    M, n_steps, H, W = frames.shape[0], frames.shape[1] - 1, frames.shape[2], frames.shape[3]
+    dev = frames.device
+    plan = adj_b_plan(M, H, W, cfg, _sm_count(dev))
+    if plan["route"] != "persistent":
+        raise ValueError(f"{M} members of a {H} x {W} field take no one-launch sweep: {cfg}")
+    fn = getattr(_build.load_library("batched2d"), "batched2d_adj_ffma_persistent")
+    fn.argtypes, fn.restype = _ADJ_B_FFMA_SIGNATURE, ctypes.c_int
+    members = [packed[m] for m in range(M)]
+    wf = torch.stack([pack_ffma_fwd_2d(p, cfg) for p in members]).contiguous()
+    wa = torch.stack([pack_ffma_adj_2d(p, cfg) for p in members]).contiguous()
+    tail = torch.stack([pack_ffma_tail_2d(p, cfg) for p in members]).contiguous()
+    k = cfg.kernel_size
+    g = torch.zeros((M, H, W, 2), dtype=torch.float32, device=dev)
+    g_ins = torch.empty((M, n_steps, H, W, 2), dtype=torch.float32, device=dev)
+    zw = torch.empty((M, 2, k * k * 2, H, W), dtype=torch.float32, device=dev)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(wf.data_ptr(), wa.data_ptr(), tail.data_ptr(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g.data_ptr(), g_ins.data_ptr(), zw.data_ptr(),
+                           M, n_steps, H, W, cfg.hidden, cfg.n_branches, k, cfg.dt,
+                           1.0 / (cfg.dx * cfg.dx), plan["blocks_a_member"], plan["threads"],
+                           plan["smem"], stream, ctypes.byref(per_sm)),
+                        "batched2d_adj_ffma_persistent")
+    return g_ins, g
+
+
+def _phase1_ffma_cuda(packed, frames, frames_bar, cfg):
+    """The k x k streaming sweep of one model in one cooperative launch:
+    adj2d_batched_ffma_persistent_kernel on a one-member batch, by
+    adj_b_plan's configuration at M = 1; (g_ins, g0).  No launch at
+    n_steps = 0."""
+    frames_bar = _check_phase1_inputs("adj2d_batched_ffma_persistent_kernel", packed, frames,
+                                      frames_bar, cfg)
+    g_ins, g = _ffma_sweep_b(packed[None], frames[None], frames_bar[None], cfg)
+    n_steps = frames.shape[0] - 1
+    fused_phase1_2d.launches += 1 if n_steps else 0
+    fused_phase1_2d.steps += n_steps
+    return g_ins[0], g[0]
+
+
 def _phase1_cuda(packed, frames, frames_bar, cfg):
     """The streaming reverse sweep on CUDA: at k = 1 by adj_plan's route,
     one launch of adj2d_persistent_kernel ('persistent') or one adj2d_kernel
-    launch a step ('per_step'); at k > 1 adj2d_act_kernel and
-    adj2d_gather_kernel, two launches a step."""
-    if frames.dim() == 4 and frames.device.type == "cuda" and adj_plan(
-            frames.shape[1], frames.shape[2], cfg,
-            _sm_count(frames.device))["route"] == "persistent":
-        return _phase1_persistent_cuda(packed, frames, frames_bar, cfg)
+    launch a step ('per_step'); at k > 1 by adj_b_plan's at M = 1, one
+    launch of adj2d_batched_ffma_persistent_kernel on a one-member batch
+    ('persistent') or two, adj2d_act_kernel and adj2d_gather_kernel, a step
+    ('per_step')."""
+    if frames.dim() == 4 and frames.device.type == "cuda":
+        H, W, n_sm = frames.shape[1], frames.shape[2], _sm_count(frames.device)
+        if cfg.kernel_size == 1 and adj_plan(H, W, cfg, n_sm)["route"] == "persistent":
+            return _phase1_persistent_cuda(packed, frames, frames_bar, cfg)
+        if cfg.kernel_size > 1 and adj_b_plan(1, H, W, cfg, n_sm)["route"] == "persistent":
+            return _phase1_ffma_cuda(packed, frames, frames_bar, cfg)
     return _phase1_steps_cuda(packed, frames, frames_bar, cfg)
 
 

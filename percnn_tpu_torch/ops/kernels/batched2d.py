@@ -19,17 +19,21 @@ members:
   cell2d.MXU_FWD_ENABLED says, as percnn_tpu's batched kernels use
   ``_pi_poly``).  The frames are the same bits by either route;
 - the streaming reverse sweep (in place of ``_phase1_kernel_b``), g_ins
-  [M, T, H, W, 2] and g0 [M, H, W, 2]: for a k x k cell of the widths
-  built (k = 3 or 5, 1 to 4 branches, C <= 16) on any field ``adj_b_plan``
-  admits, ``adj2d_batched_ffma_persistent_kernel``, every member's sweep in
-  one cooperative launch, n_sm // M blocks a member, full f32 FFMA (the
-  forward's register-tiled product recomputes the activations from frame
-  t in the block, the ys sweep's product forms zw from them, one grid
-  barrier a step; on an NVIDIA H100 80GB HBM3 at 700 W, 5.142 ms per
-  T = 200 for the Burgers cell at M = 2, 100 x 100, against 9.432 for the
-  per-step pair); else ``adj2d_batched_kernel``, each member's step that
-  of adj2d_kernel (one launch a step at k = 1, the activation and gather
-  pair at k > 1); the parameter gradients follow per member by
+  [M, T, H, W, 2] and g0 [M, H, W, 2], every member's sweep in one
+  cooperative launch, n_sm // M blocks a member, one grid barrier a step:
+  for a 1x1 cell of 1 to 4 branches on any field ``adj1_b_plan`` admits,
+  ``adj2d_batched_persistent_kernel`` (adj2d_persistent_kernel's three
+  passes with a member axis, each member's outputs that kernel's on the
+  member to the bit); for a k x k cell of the widths built (k = 3 or 5, 1
+  to 4 branches, C <= 16) on any field ``adj_b_plan`` admits,
+  ``adj2d_batched_ffma_persistent_kernel``, full f32 FFMA (the forward's
+  register-tiled product recomputes the activations from frame t in the
+  block, the ys sweep's product forms zw from them; on an NVIDIA H100 80GB
+  HBM3 at 700 W, 5.142 ms per T = 200 for the Burgers cell at M = 2,
+  100 x 100, against 9.432 for the per-step pair); past the plans
+  ``adj2d_batched_kernel``, each member's step that of adj2d_kernel (one
+  launch a step at k = 1, the activation and gather pair at k > 1); the
+  parameter gradients follow per member by
   ``core.rollout.chunked_param_grads``, as ``_fused_tp_b_bwd`` leaves them
   to XLA;
 - the fully fused reverse sweep of a 1x1 cell (in place of
@@ -55,8 +59,9 @@ CUDA tensor launches the kernel or raises.  Launch counters, one a launch
 ``fused_rollout_2d_batched.launches`` and ``.steps`` (k = 1: one launch a
 call by the clusters, none for no steps, one a step past the plan) and
 ``.launches_kxk`` (k > 1, one a step); ``fused_phase1_2d_batched.launches``
-(k = 1, one a reverse step) and ``.launches_kxk`` (k > 1, one a sweep by the
-persistent kernel, two a reverse step past its plan) beside ``.steps``;
+(k = 1) and ``.launches_kxk`` (k > 1), one a sweep by the persistent
+kernels (none for no steps), one (k = 1) or two (k > 1) a reverse step past
+their plans, beside ``.steps``;
 ``fused_phase1_pg_2d_batched.launches`` and ``.steps`` (one a call
 by the persistent sweep, none for no steps, one a step past the plan).
 """
@@ -76,29 +81,20 @@ from percnn_tpu_torch.ops.kernels.backward2d import (
     _cell_leaves,
     _cell_tree,
     _pg_layout,
+    _ffma_sweep_b,
     _pg_unpack,
+    adj_b_plan,
+    adj_smem_bytes,
     fused_phase1_2d_plain,
     fused_phase1_pg_2d_plain,
 )
 from percnn_tpu_torch.ops.kernels.cell2d import (
-    _FFMA_TAIL,
-    _FFMA_TILE,
-    _FFMA_TILES,
     _MAX_PARAMS,
     _MAX_SMEM,
     _check_fusable,
-    _ffma_adj_taps,
-    _ffma_fwd_floats,
-    _ffma_widths_ok,
     _param_block,
     _raise_on_error,
-    _round_up,
-    ffma_grid,
     fused_rollout_2d_plain,
-    mxu_rows,
-    pack_ffma_adj_2d,
-    pack_ffma_fwd_2d,
-    pack_ffma_tail_2d,
     pack_pi_params_2d,
 )
 
@@ -123,13 +119,14 @@ _SIGNATURES = {
                                 _I, _P, ctypes.POINTER(_I)],
     # n_params, H, W, hidden, n_branches, per_member, threads, blocks an SM (out)
     "batched2d_pg_occupancy": [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
-    # wf, wa, tail, frames, frames_bar, g, g_ins, zw, M, n_steps, H, W, hidden,
-    # n_branches, kernel_size, dt, inv_dx2, per_member, threads, smem, stream,
-    # blocks an SM (out)
-    "batched2d_adj_ffma_persistent": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      _I, _F, _F, _I, _I, _I, _P, ctypes.POINTER(_I)],
     # n_branches, kernel_size, threads, smem, blocks an SM (out)
     "batched2d_adj_ffma_occupancy": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    # params, n_params, frames, frames_bar, g0, scratch, g_ins, M, n_steps, H,
+    # W, hidden, n_branches, dt, inv_dx2, per_member, stream, blocks an SM (out)
+    "batched2d_adj_persistent": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                                 _I, _P, ctypes.POINTER(_I)],
+    # n_params, H, W, hidden, n_branches, per_member, blocks an SM (out)
+    "batched2d_adj_persistent_occupancy": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 # pg2d_batched_persistent_kernel (csrc/batched2d.cu): the most threads of a
 # block (16 warps), the widest cell it takes (2 C groups within 16 warps),
@@ -137,6 +134,9 @@ _SIGNATURES = {
 _PG_B_THREADS = 512
 _PG_B_MAX_HIDDEN = _PG_B_THREADS // 64
 _PG_B_RED_FLOATS = 16 * (5 + 3 * _MAX_BRANCHES)
+# adj2d_batched_persistent_kernel (csrc/batched2d.cu): adj2d_persistent_kernel's
+# threads a block.
+_ADJ1_B_THREADS = 512
 # The cluster size rollout_b_plan takes when the card cannot hold all M
 # clusters of rollout_plan's 16 CTAs at once: the largest portable size.
 _CLUSTER_SMALL = 8
@@ -251,64 +251,30 @@ def pg_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
             "threads": pg_b_threads(cfg), "smem": smem}
 
 
-def adj_b_grid(H: int, W: int, per_member: int) -> dict:
-    """The grid of adj2d_batched_ffma_persistent_kernel with per_member
-    blocks a member: cell2d.ffma_grid's split on per_member blocks (each
-    owning split_evenly's run of at most cap cells), its rounds balanced:
-    the cap / 16 tiles (rounded up) go in the fewest rounds of at most 8
-    tiles, the same number each, a warp pair a tile, so that no round runs
-    its products on a whole tile of cells the block does not own (152 cells
-    a block: 2 rounds of 5 tiles, 320 threads, not 8 + 8 tiles of which 6
-    hold none of its cells)."""
-    grid = ffma_grid(H, W, per_member)
-    n16 = -(-grid["cap"] // _FFMA_TILE)
-    tiles = -(-n16 // -(-n16 // _FFMA_TILES))
-    return {**grid, "threads": 64 * tiles, "rc": _FFMA_TILE * tiles}
-
-
-def adj_b_smem_bytes(cfg: PiCellConfig, H: int, W: int, per_member: int) -> int:
-    """Shared memory of a block of adj2d_batched_ffma_persistent_kernel with
-    per_member blocks a member (adj_b_grid's layout): the forward operand
-    (pack_ffma_fwd_2d), the adjoint operand
-    (pack_ffma_adj_2d), the tail, the round's im2col stack [k*k*2][rc] (whose
-    place then holds the warp pairs' exchange, 4 R floats a lane: the larger
-    of the two), Z of a round [M][rc] (whose place then holds zw [k*k*2][rc]:
-    the larger), g_in of the most cells a block owns (2 floats a cell) and
-    its most staged rows (csrc: adj_b_smem)."""
-    grid = adj_b_grid(H, W, per_member)
-    M, r, taps = mxu_rows(cfg), _ffma_adj_taps(cfg), cfg.kernel_size ** 2 * 2
-    tiles = grid["threads"] // 64
-    return (4 * (_ffma_fwd_floats(cfg) + M * _round_up(r, 4) * 8 + _FFMA_TAIL
-                 + max(taps * grid["rc"], tiles * 4 * r * 32) + max(M, taps) * grid["rc"]
-                 + 2 * grid["cap"]) + grid["tile_bytes"])
-
-
-def adj_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
-    """The route of the member-batched k x k streaming sweep of M members on
+def adj1_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the member-batched 1x1 streaming sweep of M members on
     an H x W field on a card of n_sm SMs, by a rule on the cell, the shape
-    and the card's limits: a cell of the widths
-    adj2d_batched_ffma_persistent_kernel is built for (k = 3 or 5, 1 to 4
-    branches, C <= 16) takes it, one cooperative launch a sweep for all
+    and the card's limits: a 1x1 cell of 1 to 4 branches and at most 256
+    hidden channels (a thread for each of the 2 C groups of a block's 512)
+    takes adj2d_batched_persistent_kernel, one cooperative launch a sweep for all
     members ('persistent', with blocks, blocks_a_member, threads and smem),
     when every member gets at least one block of the n_sm (n_sm // M each,
-    at most one a cell: one block an SM) and a block fits its shared
-    memory; else adj2d_batched_act_kernel and adj2d_batched_gather_kernel,
-    two launches a step ('per_step').  For the Burgers cell (k = 5, C = 16,
-    3 branches) at 100 x 100 on 132 SMs: M = 2, 66 blocks a member of 151
-    or 152 cells, 2 rounds of 5 tiles (320 threads), 106 512 bytes; M = 4,
-    33 of 303 or 304 cells, 3 rounds of 7 tiles (448 threads), 128 848
-    bytes; M = 8, 16 of 625, 5 rounds of 8 (512 threads), 143 640 bytes;
-    the largest square fields it
-    admits are 570 x 570 at M = 2, 419 x 419 at M = 4 and 300 x 300 at
-    M = 8."""
-    if not _ffma_widths_ok(cfg) or not 1 <= M <= n_sm:
+    at most one a cell: one block an SM) and a block (the packed parameters
+    and 6 + 4 C floats a cell of its share: backward2d.adj_smem_bytes) fits
+    its shared memory; else adj2d_batched_kernel, one launch a step
+    ('per_step').  For the GS2D cell (C = 8) at 100 x 100 on 132 SMs: M = 4,
+    33 blocks a member of 303 or 304 cells, 46 864 bytes; M = 8, 16 of 625,
+    95 656 bytes; the largest square fields it admits are 224 x 224 at M = 4
+    and 156 x 156 at M = 8."""
+    if (cfg.kernel_size != 1 or not 1 <= cfg.n_branches <= _MAX_BRANCHES
+            or not 1 <= 2 * cfg.hidden <= _ADJ1_B_THREADS or not 1 <= M <= n_sm):
         return {"route": "per_step"}
     per_member = min(n_sm // M, H * W)
-    smem = adj_b_smem_bytes(cfg, H, W, per_member)
+    smem = adj_smem_bytes(cfg, H, W, per_member)
     if smem > _MAX_SMEM:
         return {"route": "per_step"}
     return {"route": "persistent", "blocks": M * per_member, "blocks_a_member": per_member,
-            "threads": adj_b_grid(H, W, per_member)["threads"], "smem": smem}
+            "threads": _ADJ1_B_THREADS, "smem": smem}
 
 
 def _kernel_fn(fn_name: str):
@@ -452,35 +418,54 @@ def _phase1_b_steps_cuda(packed, frames, frames_bar, cfg):
     return g_ins, g
 
 
-def _phase1_b_ffma_persistent_cuda(packed, frames, frames_bar, cfg):
-    """adj2d_batched_ffma_persistent_kernel: the k x k streaming sweep of
-    every member in one cooperative launch, by adj_b_plan's configuration,
-    full f32 FFMA whatever the MXU switches say; (g_ins, g0).  No launch at
-    n_steps = 0.  Raises if the card cannot hold the grid."""
-    frames_bar, (M, n_steps, H, W) = _sweep_shapes("adj2d_batched_ffma_persistent_kernel",
-                                                   packed, frames, frames_bar, cfg)
+def _phase1_b_persistent_cuda(packed, frames, frames_bar, cfg):
+    """adj2d_batched_persistent_kernel: the 1x1 streaming sweep of every
+    member in one cooperative launch, by adj1_b_plan's configuration;
+    (g_ins, g0).  No launch at n_steps = 0.  Raises if the card cannot hold
+    the grid."""
+    frames_bar, (M, n_steps, H, W) = _sweep_shapes("adj2d_batched_persistent_kernel", packed,
+                                                   frames, frames_bar, cfg)
     dev = frames.device
-    plan = adj_b_plan(M, H, W, cfg, cell2d._sm_count(dev))
+    plan = adj1_b_plan(M, H, W, cfg, cell2d._sm_count(dev))
     if plan["route"] != "persistent":
         raise ValueError(f"{M} members of a {H} x {W} field take no one-launch sweep: {cfg}")
-    fn = _kernel_fn("batched2d_adj_ffma_persistent")
-    members = [packed[m] for m in range(M)]
-    wf = torch.stack([pack_ffma_fwd_2d(p, cfg) for p in members]).contiguous()
-    wa = torch.stack([pack_ffma_adj_2d(p, cfg) for p in members]).contiguous()
-    tail = torch.stack([pack_ffma_tail_2d(p, cfg) for p in members]).contiguous()
-    k = cfg.kernel_size
-    g = torch.zeros((M, H, W, 2), dtype=torch.float32, device=dev)
+    fn = _kernel_fn("batched2d_adj_persistent")
+    g0 = torch.zeros((M, H, W, 2), dtype=torch.float32, device=dev)
+    scratch = torch.zeros_like(g0)
     g_ins = torch.empty((M, n_steps, H, W, 2), dtype=torch.float32, device=dev)
-    zw = torch.empty((M, 2, k * k * 2, H, W), dtype=torch.float32, device=dev)
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        _raise_on_error(fn(wf.data_ptr(), wa.data_ptr(), tail.data_ptr(), frames.data_ptr(),
-                           frames_bar.data_ptr(), g.data_ptr(), g_ins.data_ptr(), zw.data_ptr(),
-                           M, n_steps, H, W, cfg.hidden, cfg.n_branches, k, cfg.dt,
-                           1.0 / (cfg.dx * cfg.dx), plan["blocks_a_member"], plan["threads"],
-                           plan["smem"], stream, ctypes.byref(per_sm)),
-                        "batched2d_adj_ffma_persistent")
+        _raise_on_error(fn(packed.data_ptr(), packed.shape[1], frames.data_ptr(),
+                           frames_bar.data_ptr(), g0.data_ptr(), scratch.data_ptr(),
+                           g_ins.data_ptr(), M, n_steps, H, W, cfg.hidden, cfg.n_branches,
+                           cfg.dt, 1.0 / (cfg.dx * cfg.dx), plan["blocks_a_member"], stream,
+                           ctypes.byref(per_sm)), "batched2d_adj_persistent")
+    fused_phase1_2d_batched.launches += 1 if n_steps else 0
+    fused_phase1_2d_batched.steps += n_steps
+    return g_ins, g0
+
+
+def adj1_b_occupancy(cfg: PiCellConfig, M: int, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of adj1_b_plan's configuration an SM of the card holds."""
+    plan = adj1_b_plan(M, H, W, cfg, cell2d._sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"{M} members of a {H} x {W} field take no one-launch sweep: {cfg}")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(_kernel_fn("batched2d_adj_persistent_occupancy")(
+            2 + 2 * _param_block(cfg), H, W, cfg.hidden, cfg.n_branches,
+            plan["blocks_a_member"], ctypes.byref(per_sm)), "batched2d_adj_persistent_occupancy")
+    return per_sm.value
+
+
+def _phase1_b_ffma_persistent_cuda(packed, frames, frames_bar, cfg):
+    """adj2d_batched_ffma_persistent_kernel: the k x k streaming sweep of
+    every member in one cooperative launch (backward2d._ffma_sweep_b, by
+    adj_b_plan's configuration); (g_ins, g0).  No launch at n_steps = 0."""
+    frames_bar, (M, n_steps, H, W) = _sweep_shapes("adj2d_batched_ffma_persistent_kernel",
+                                                   packed, frames, frames_bar, cfg)
+    g_ins, g = _ffma_sweep_b(packed, frames, frames_bar, cfg)
     fused_phase1_2d_batched.launches_kxk += 1 if n_steps else 0
     fused_phase1_2d_batched.steps += n_steps
     return g_ins, g
@@ -500,14 +485,19 @@ def adj_b_occupancy(cfg: PiCellConfig, M: int, H: int, W: int, device: torch.dev
 
 
 def _phase1_b_cuda(packed, frames, frames_bar, cfg):
-    """The member-batched streaming sweep on CUDA: at k > 1 by adj_b_plan's
-    route, one launch of adj2d_batched_ffma_persistent_kernel ('persistent')
-    or two adj2d_batched_act_kernel / adj2d_batched_gather_kernel launches a
-    step ('per_step'); at k = 1 adj2d_batched_kernel, one launch a step."""
-    if frames.dim() == 5 and frames.device.type == "cuda" and adj_b_plan(
-            frames.shape[0], frames.shape[2], frames.shape[3], cfg,
-            cell2d._sm_count(frames.device))["route"] == "persistent":
-        return _phase1_b_ffma_persistent_cuda(packed, frames, frames_bar, cfg)
+    """The member-batched streaming sweep on CUDA: at k = 1 by adj1_b_plan's
+    route, one launch of adj2d_batched_persistent_kernel ('persistent') or
+    one adj2d_batched_kernel launch a step ('per_step'); at k > 1 by
+    adj_b_plan's, one launch of adj2d_batched_ffma_persistent_kernel
+    ('persistent') or two, adj2d_batched_act_kernel and
+    adj2d_batched_gather_kernel, a step ('per_step')."""
+    if frames.dim() == 5 and frames.device.type == "cuda":
+        M, H, W = frames.shape[0], frames.shape[2], frames.shape[3]
+        n_sm = cell2d._sm_count(frames.device)
+        if cfg.kernel_size == 1 and adj1_b_plan(M, H, W, cfg, n_sm)["route"] == "persistent":
+            return _phase1_b_persistent_cuda(packed, frames, frames_bar, cfg)
+        if adj_b_plan(M, H, W, cfg, n_sm)["route"] == "persistent":
+            return _phase1_b_ffma_persistent_cuda(packed, frames, frames_bar, cfg)
     return _phase1_b_steps_cuda(packed, frames, frames_bar, cfg)
 
 
@@ -673,9 +663,10 @@ def fused_rollout_tp_2d_batched(params: dict, h0: torch.Tensor, cfg: PiCellConfi
                                 n_steps: int, pgrad_chunk: int = 64) -> torch.Tensor:
     """Differentiable member-batched rollout of a 2D cell, any odd
     kernel_size <= 5: stacked params (a leading member axis M on every leaf)
-    and h0 [M, H, W, 2] -> [M, n_steps+1, H, W, 2] f32.  The forward and
-    the streaming sweep in one launch a step (two for a k x k sweep) for all
-    members on CUDA, their plain versions on the CPU; pgrad_chunk is
+    and h0 [M, H, W, 2] -> [M, n_steps+1, H, W, 2] f32.  The forward
+    (_rollout_b_cuda's route) and the streaming sweep (_phase1_b_cuda's: one
+    launch a call within the plans) for all members on CUDA, their plain
+    versions on the CPU; pgrad_chunk is
     chunked_param_grads' steps a batch.  Gradients reach every leaf and h0."""
     _check_fusable(cfg)
     return FusedRolloutTP2dBatched.apply(h0.to(torch.float32).contiguous(), cfg, n_steps,

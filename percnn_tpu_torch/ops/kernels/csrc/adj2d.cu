@@ -14,7 +14,10 @@
 //
 // adj2d_persistent_kernel (k = 1, within adj_plan in ../backward2d.py),
 // adj2d_kernel (k = 1 past it) and adj2d_act_kernel + adj2d_gather_kernel
-// (k = 3, 5) replace percnn_tpu/ops/pallas/backward2d.py:_phase1_kernel
+// (k = 3, 5 past adj_b_plan at one member; within it the ensemble's
+// adj2d_batched_ffma_persistent_kernel of batched2d.cu runs the sweep on a
+// one-member batch, one cooperative launch a call) replace
+// percnn_tpu/ops/pallas/backward2d.py:_phase1_kernel
 // (pallas_call in _fused_phase1), which recomputes the Pi Jacobian's
 // transpose from the frames; adj2d_ys_act_kernel + adj2d_gather_kernel replace
 // _phase1_ys_kernel (pallas_call in _fused_phase1_ys), which reads the
@@ -50,8 +53,9 @@
 // its accumulators: each thread forms g_in at its 8 stencil neighbours
 // itself and g ping-pongs between two buffers, since a neighbour reads the
 // old g.
-// At k > 1, z at the neighbours within radius r depends on each neighbour's
-// own activations, so a step is two launches, as in adj2d_kxk_kernel
+// At k > 1 past adj_b_plan (768 x 768 for the Burgers cell on 132 SMs), z
+// at the neighbours within radius r depends on each neighbour's own
+// activations, so a step is two launches, as in adj2d_kxk_kernel
 // (backward2d_kxk.cu), with its layout: the activation kernel (8 x 16 tiles
 // staged with their halo, two threads a cell, one per equation, each with
 // the 50 taps and its equation's 50 partial sums of zw[q] = sum_m w[q, m]

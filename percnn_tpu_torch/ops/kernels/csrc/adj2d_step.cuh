@@ -8,7 +8,8 @@
 // end, persistent_sweep: the whole 1x1 reverse sweep in one cooperative
 // launch, with the parameter gradients accumulated (pg2d_persistent_kernel,
 // backward2d.cu) or the adjoint streamed out (adj2d_persistent_kernel,
-// adj2d.cu), the same code and the same arithmetic.  The steps, the layouts
+// adj2d.cu; every member's at once, adj2d_batched_persistent_kernel,
+// batched2d.cu), the same code and the same arithmetic.  The steps, the layouts
 // and the designs are described in backward2d.cu and adj2d.cu.
 
 #pragma once
@@ -271,17 +272,46 @@ __device__ __forceinline__ void adj2d_act(const float* __restrict__ params, int 
 // expression for expression, except that the Jacobian's sum is taken per
 // (o, c) and then over (o, c); passes 2 and 3 are the same code with and
 // without kAcc, so the two kernels' g0 agree to the bit.
-template <int NB, bool kAcc>
+// With kMembers (an ensemble's M members, without kAcc) the grid is M runs of
+// per_member blocks: block (mem, b) = (blockIdx.x / per_member, blockIdx.x %
+// per_member) owns split_evenly's share of per_member on member mem's field,
+// reads its row of the [M, P] parameter table, its frames and cotangents and
+// writes its g0, scratch and g_ins, each at mem times its member stride in
+// size_t; one grid.sync() a step serves every member.  A member's block
+// owns n_sm // M times the cells of the single model's, so pass 2 takes
+// pg2d_batched_persistent_kernel's mapping (batched2d.cu): thread tid keeps
+// the (o, c) group tid / L (L = blockDim.x / (2 C) threads a group; the
+// last blockDim.x % (2 C) threads idle) and its cells li, li + L, ... (li =
+// tid % L) for the whole sweep, its group's 3 NB + 1 weights in registers,
+// in place of 3 NB + 1 shared-memory loads and a division an item.  The
+// expressions are the same, so a cell's arithmetic does not depend on the
+// split or the mapping, and member m's g0 and g_ins equal the single
+// model's on member m to the bit.  The flag is a template parameter so that
+// the single model's instances keep their machine code.
+template <int NB, bool kAcc, bool kMembers = false>
 __device__ __forceinline__ void persistent_sweep(const float* __restrict__ params, int n_params,
                                                  const float2* __restrict__ frames,
                                                  const float2* __restrict__ frames_bar,
                                                  float2* g0, float2* scratch,
                                                  float* __restrict__ acc, float2* g_ins,
                                                  int n_steps, int H, int W, int hidden,
-                                                 float dt, float inv_dx2) {
+                                                 float dt, float inv_dx2, int per_member = 0) {
+  static_assert(!(kAcc && kMembers), "the member axis streams the adjoint out");
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int cells = H * W;
-  const int nblk = gridDim.x, b = blockIdx.x;
+  const int mem = kMembers ? static_cast<int>(blockIdx.x) / per_member : 0;
+  const int nblk = kMembers ? per_member : static_cast<int>(gridDim.x);
+  const int b = kMembers ? static_cast<int>(blockIdx.x) - mem * per_member
+                         : static_cast<int>(blockIdx.x);
+  if constexpr (kMembers) {
+    const size_t frame_stride = (static_cast<size_t>(n_steps) + 1) * cells;
+    params += static_cast<size_t>(mem) * n_params;
+    frames += mem * frame_stride;
+    frames_bar += mem * frame_stride;
+    g0 += static_cast<size_t>(mem) * cells;
+    scratch += static_cast<size_t>(mem) * cells;
+    g_ins += static_cast<size_t>(mem) * n_steps * cells;
+  }
   const int q = cells / nblk, m = cells % nblk;
   const int n_own = q + (b < m ? 1 : 0);
   const int first = b * q + (b < m ? b : m);
@@ -354,6 +384,24 @@ __device__ __forceinline__ void persistent_sweep(const float* __restrict__ param
   };
   prefetch(n_steps - 1);
   __syncthreads();
+  // with kMembers, this thread's pass-2 group and its weights for the sweep
+  const int L = kMembers ? static_cast<int>(blockDim.x) / G : 1;
+  const int grp_m = kMembers ? static_cast<int>(threadIdx.x) / L : 0;
+  const int li = static_cast<int>(threadIdx.x) - grp_m * L;
+  const int o_m = grp_m / C, c_m = grp_m - o_m * C;
+  float wu[NB], wv[NB], wb[NB], wo_m = 0.0f;
+  if constexpr (kMembers) {
+    if (grp_m < G) {
+      const float* p = sp + 2 + o_m * block;
+      wo_m = p[NB * stride + c_m];
+#pragma unroll
+      for (int e = 0; e < NB; ++e) {
+        wu[e] = p[e * stride + c_m];
+        wv[e] = p[e * stride + C + c_m];
+        wb[e] = p[e * stride + 2 * C + c_m];
+      }
+    }
+  }
 
   for (int s = 0; s < n_steps; ++s) {
     const int t = n_steps - 1 - s;
@@ -406,41 +454,66 @@ __device__ __forceinline__ void persistent_sweep(const float* __restrict__ param
       }
     }
     __syncthreads();
-    for (int it = threadIdx.x; it < G * n_own; it += blockDim.x) {
-      const int grp = it / n_own;
-      const int k = it - grp * n_own;
-      const int o = grp / C, c = grp - o * C;
-      const float u = st[k], v = st[cap + k], g = st[(2 + o) * cap + k];
-      const float* p = sp + 2 + o * block;
-      float y[NB];
+    if constexpr (kMembers) {
+      for (int k = li; grp_m < G && k < n_own; k += L) {
+        const float u = st[k], v = st[cap + k], g = st[(2 + o_m) * cap + k];
+        float y[NB];
 #pragma unroll
-      for (int e = 0; e < NB; ++e)
-        y[e] = p[e * stride + c] * u + p[e * stride + C + c] * v + p[e * stride + 2 * C + c];
-      // prod_{j != e} y_j from prefix and suffix products
-      float pre[NB + 1], suf[NB + 1];
-      pre[0] = 1.0f;
-      suf[NB] = 1.0f;
+        for (int e = 0; e < NB; ++e) y[e] = wu[e] * u + wv[e] * v + wb[e];
+        float pre[NB + 1], suf[NB + 1];
+        pre[0] = 1.0f;
+        suf[NB] = 1.0f;
 #pragma unroll
-      for (int e = 0; e < NB; ++e) pre[e + 1] = pre[e] * y[e];
+        for (int e = 0; e < NB; ++e) pre[e + 1] = pre[e] * y[e];
 #pragma unroll
-      for (int e = NB - 1; e >= 0; --e) suf[e] = suf[e + 1] * y[e];
-      if constexpr (kAcc) sacc[(p_wout + o * C + c) * cap + k] += g * pre[NB];
-      const float wo = p[NB * stride + c];
-      float du = 0.0f, dv = 0.0f;
+        for (int e = NB - 1; e >= 0; --e) suf[e] = suf[e + 1] * y[e];
+        float du = 0.0f, dv = 0.0f;
 #pragma unroll
-      for (int e = 0; e < NB; ++e) {
-        const float zz = g * (pre[e] * suf[e + 1]);
-        if constexpr (kAcc) {
-          const int qq = (o * NB + e) * C + c;
-          sacc[(p_dw + 2 * qq) * cap + k] += zz * u;
-          sacc[(p_dw + 2 * qq + 1) * cap + k] += zz * v;
-          sacc[(p_db + qq) * cap + k] += zz;
+        for (int e = 0; e < NB; ++e) {
+          const float zz = g * (pre[e] * suf[e + 1]);
+          du += (wu[e] * wo_m) * zz;
+          dv += (wv[e] * wo_m) * zz;
         }
-        du += (p[e * stride + c] * wo) * zz;
-        dv += (p[e * stride + C + c] * wo) * zz;
+        part[grp_m * cap + k] = du;
+        part[(G + grp_m) * cap + k] = dv;
       }
-      part[grp * cap + k] = du;
-      part[(G + grp) * cap + k] = dv;
+    } else {
+      for (int it = threadIdx.x; it < G * n_own; it += blockDim.x) {
+        const int grp = it / n_own;
+        const int k = it - grp * n_own;
+        const int o = grp / C, c = grp - o * C;
+        const float u = st[k], v = st[cap + k], g = st[(2 + o) * cap + k];
+        const float* p = sp + 2 + o * block;
+        float y[NB];
+#pragma unroll
+        for (int e = 0; e < NB; ++e)
+          y[e] = p[e * stride + c] * u + p[e * stride + C + c] * v + p[e * stride + 2 * C + c];
+        // prod_{j != e} y_j from prefix and suffix products
+        float pre[NB + 1], suf[NB + 1];
+        pre[0] = 1.0f;
+        suf[NB] = 1.0f;
+#pragma unroll
+        for (int e = 0; e < NB; ++e) pre[e + 1] = pre[e] * y[e];
+#pragma unroll
+        for (int e = NB - 1; e >= 0; --e) suf[e] = suf[e + 1] * y[e];
+        if constexpr (kAcc) sacc[(p_wout + o * C + c) * cap + k] += g * pre[NB];
+        const float wo = p[NB * stride + c];
+        float du = 0.0f, dv = 0.0f;
+#pragma unroll
+        for (int e = 0; e < NB; ++e) {
+          const float zz = g * (pre[e] * suf[e + 1]);
+          if constexpr (kAcc) {
+            const int qq = (o * NB + e) * C + c;
+            sacc[(p_dw + 2 * qq) * cap + k] += zz * u;
+            sacc[(p_dw + 2 * qq + 1) * cap + k] += zz * v;
+            sacc[(p_db + qq) * cap + k] += zz;
+          }
+          du += (p[e * stride + c] * wo) * zz;
+          dv += (p[e * stride + C + c] * wo) * zz;
+        }
+        part[grp * cap + k] = du;
+        part[(G + grp) * cap + k] = dv;
+      }
     }
     __syncthreads();
     for (int k = threadIdx.x; k < n_own; k += blockDim.x) {

@@ -1,10 +1,12 @@
 // Member-batched forward and reverse sweeps of the 2D Pi-cell rollout: M
 // independent models (an ensemble), each with its own row of an [M, P]
 // table of packed parameters (pack_pi_params_2d in ../cell2d.py) and its own
-// state, advanced together: the fused sweep of the GS2D-sized cells in one
-// cooperative launch for all M members, the other kernels here one launch a
-// step for all M.  (The forward of the GS2D cell takes one launch a call too:
-// rollout2d_cluster_kernel of cell2d.cu, M clusters, one a member.)
+// state, advanced together: the reverse sweeps (fused, and streaming at
+// k = 1, 3 and 5) in one cooperative launch for all M members, the per-step
+// kernels here, which run past the one-launch kernels' plans and for the k x k
+// forward, one launch a step for all M.  (The forward of the GS2D cell takes
+// one launch a call too: rollout2d_cluster_kernel of cell2d.cu, M clusters,
+// one a member.)
 //
 // Layouts (channels-last, f32, member-major):
 //   params     [M, P]
@@ -29,12 +31,19 @@
 //     (pallas_call in _fused_phase1_b): the steps of adj2d_kernel and of
 //     adj2d_act_kernel + adj2d_gather_kernel (adj2d.cu), writing g_ins and
 //     g0 for the parameter gradients outside (chunked_param_grads in
-//     ../batched2d.py); at k = 3, 5 adj2d_batched_ffma_persistent_kernel
-//     <KS, NB> replaces the pair on any field whose block fits shared
-//     memory (adj_b_plan in ../batched2d.py: 570 x 570 at M = 2, 300 x 300
-//     at M = 8 for the Burgers cell on 132 SMs): every member's sweep in one
-//     cooperative launch, FFMA in full f32 (the design is described at the
-//     kernel);
+//     ../batched2d.py); at k = 1 adj2d_batched_persistent_kernel<NB>
+//     replaces adj2d_batched_kernel on any field whose block fits shared
+//     memory (adj1_b_plan in ../batched2d.py: 224 x 224 at M = 4, 156 x 156
+//     at M = 8 for the GS2D cell on 132 SMs): every member's sweep in one
+//     cooperative launch, adj2d_persistent_kernel's three passes with a
+//     member axis (adj2d_step.cuh); at k = 3, 5
+//     adj2d_batched_ffma_persistent_kernel<KS, NB> replaces the pair on any
+//     field whose block fits shared memory (adj_b_plan in ../backward2d.py:
+//     570 x 570 at M = 2, 300 x 300 at M = 8 for the Burgers cell): every
+//     member's sweep in one cooperative launch, FFMA in full f32 (the design
+//     is described at the kernel); at M = 1 it is also the single model's
+//     k x k streaming sweep (row 4 at k = 3, 5: ../backward2d.py's
+//     _phase1_cuda calls it on a one-member batch, 768 x 768 at most);
 //   pg2d_batched_persistent_kernel<NB> replaces _phase1_pg_kernel_b
 //     (pallas_call in _fused_phase1_pg_b) for cells of C <= 8 and 1 to 4
 //     branches on any field whose per-step scratch fits a block's shared
@@ -60,9 +69,9 @@
 // shape (M = 4, 100 x 100, C = 8, k = 1, T = 800) the forward is about
 // 0.14 ms, the streaming sweep 0.26 ms and the fused sweep 0.41 ms, all
 // bound by operations; at the 5x5 Burgers cell (M = 2, C = 16, T = 200)
-// 0.58 ms forward and 1.2 ms sweep, by operations.  As for every kernel of
-// this port, what limits the design is the chain of T dependent steps, one
-// launch each (two a step for the k x k sweep).  Measured by chip_smoke.py
+// 0.58 ms forward and 1.2 ms sweep, by operations.  What limits the
+// per-step kernels is the chain of T dependent steps, one launch each (two
+// a step for the k x k sweep).  Measured by chip_smoke.py
 // on an NVIDIA H100 80GB HBM3 at 700 W, M = 4, T = 800: 5.1, 4.6 and 12.2 ms
 // (6.4, 5.8 and 15.2 us a step), against 17.2, 15.7 and 28.9 ms for four
 // runs of the single kernels; the fused sweep at M = 8 took 56 ms, its 52 MB
@@ -104,6 +113,17 @@
 // at 100 x 100, in turns with the per-step pair in the same call: 5.142 ms
 // at M = 2 (25.7 us a step, one launch) against 9.432, and 9.428 at M = 4
 // against 13.546; 121 registers, no spill (k = 5, 3 branches).
+// The 1x1 streaming sweep in one launch: adj2d_batched_kernel took one
+// launch a step (5.98 us a step at M = 4).  adj2d_batched_persistent_kernel
+// runs the single model's one-launch sweep with n_sm // M blocks a member, a
+// member's block owning M times the single model's cells; its pass 2 keeps
+// each thread's (equation, hidden channel) group and its weights in
+// registers for the whole sweep, as pg2d_batched_persistent_kernel does,
+// since the single model's mapping (weights from shared memory, a division
+// an item) ran slower than one launch a step in a variant build.  Measured
+// by chip_smoke.py as above, T = 800: 3.040 ms at M = 4
+// (3.80 us a step) against 4.782 for adj2d_batched_kernel in turns, and
+// 5.051 at M = 8 against 5.899; 128 registers, 4 bytes spilled (NB = 3).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -177,6 +197,27 @@ __global__ void __launch_bounds__(adj2d::kThreads)
   if (idx < H * W)
     kxk::gather_update<KS>(zw + m * (KS * KS * 2) * cells, g_in + m * gins_stride,
                            params + m * n_params, g + m * cells, H, W, dt, inv_dx2, idx);
+}
+
+// Threads a block of adj2d_batched_persistent_kernel: adj2d_persistent_kernel's.
+constexpr int kAdjThreads = 512;
+
+// Row 12 at k = 1: the streaming sweep of every member in one cooperative
+// launch, one block an SM, one grid barrier a step: adj2d::persistent_sweep
+// with the member axis (adj2d_step.cuh, where the design is described), the
+// grid M runs of per_member blocks, block b of run m on member m's field.
+// Each member's g0 and g_ins equal adj2d_persistent_kernel's (adj2d.cu) on
+// that member alone to the bit.
+template <int NB>
+__global__ void __launch_bounds__(kAdjThreads)
+    adj2d_batched_persistent_kernel(const float* __restrict__ params, int n_params,
+                                    const float2* __restrict__ frames,
+                                    const float2* __restrict__ frames_bar, float2* g0,
+                                    float2* scratch, float2* g_ins, int n_steps, int H, int W,
+                                    int hidden, int per_member, float dt, float inv_dx2) {
+  adj2d::persistent_sweep<NB, false, true>(params, n_params, frames, frames_bar, g0, scratch,
+                                           nullptr, g_ins, n_steps, H, W, hidden, dt, inv_dx2,
+                                           per_member);
 }
 
 // Row 12 at k > 1: the streaming sweep of every member in one cooperative
@@ -744,7 +785,7 @@ cudaError_t pg_b_persistent(const float* params, int n_params, const float2* fra
 // per_member blocks a member of `threads` threads: both operands, the tail,
 // the im2col stack of a round (or the exchange, if larger), Z of a round (or
 // zw_t's, if more rows), g_in of the most cells a block owns and its most
-// staged rows (adj_b_smem_bytes in ../batched2d.py computes the same).
+// staged rows (adj_b_smem_bytes in ../backward2d.py computes the same).
 template <int KS, int NB>
 size_t adj_b_smem(int H, int W, int hidden, int per_member, int threads) {
   using FD = kxk_ffma::FwdDims<KS, NB>;
@@ -787,6 +828,38 @@ cudaError_t adj_b_persistent(const float* wf, const float* wa, const float* tail
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(adj2d_batched_ffma_persistent_kernel<KS, NB>),
       dim3(M * per_member), dim3(threads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// How many blocks of adj2d_batched_persistent_kernel<NB> an SM holds at
+// once, its shared memory allowed (adj2d::persistent_smem on per_member
+// blocks, the single model's bytes for a member's share).
+template <int NB>
+cudaError_t adj1_b_occupancy(size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(adj2d_batched_persistent_kernel<NB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, adj2d_batched_persistent_kernel<NB>, kAdjThreads, smem);
+}
+
+template <int NB>
+cudaError_t adj1_b_persistent(const float* params, int n_params, const float2* frames,
+                              const float2* frames_bar, float2* g0, float2* scratch,
+                              float2* g_ins, int M, int n_steps, int H, int W, int hidden,
+                              float dt, float inv_dx2, int per_member, cudaStream_t stream,
+                              int* per_sm) {
+  const size_t smem = adj2d::persistent_smem(n_params, H, W, hidden, 0, per_member);
+  cudaError_t err = adj1_b_occupancy<NB>(smem, per_sm);
+  if (err != cudaSuccess) return err;
+  err = kxk_mma::check_coresident(M * per_member, *per_sm);
+  if (err != cudaSuccess || n_steps == 0) return err;
+  void* args[] = {&params, &n_params, &frames, &frames_bar, &g0, &scratch, &g_ins, &n_steps,
+                  &H, &W, &hidden, &per_member, &dt, &inv_dx2};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(adj2d_batched_persistent_kernel<NB>), dim3(M * per_member),
+      dim3(kAdjThreads), args, smem, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1066,4 +1139,44 @@ extern "C" int batched2d_adj_ffma_occupancy(int n_branches, int kernel_size, int
                                             int smem, int* per_sm) {
   const size_t bytes = static_cast<size_t>(smem);
   KXK_FFMA_DISPATCH(adj_b_occupancy, bytes, threads, per_sm)
+}
+
+// The k = 1 sweep of every member in one cooperative launch of
+// adj2d_batched_persistent_kernel on M x per_member blocks (adj1_b_plan in
+// ../batched2d.py: at most the card's co-resident count, else
+// cudaErrorCooperativeLaunchTooLarge before anything is launched; nothing is
+// launched at n_steps = 0; C over 256, cudaErrorInvalidValue).  frames,
+// frames_bar [M, n_steps + 1, H, W, 2];
+// g0 and scratch [M, H, W, 2] zeroed; g_ins [M, n_steps, H, W, 2].  On
+// return g0 holds each member's adjoint at frame 0 (without
+// frames_bar[:, 0]).  `per_sm` gets the occupancy query's blocks an SM.
+extern "C" int batched2d_adj_persistent(const void* params, int n_params, const void* frames,
+                                        const void* frames_bar, void* g0, void* scratch,
+                                        void* g_ins, int M, int n_steps, int H, int W,
+                                        int hidden, int n_branches, float dt, float inv_dx2,
+                                        int per_member, void* stream, int* per_sm) {
+  if (M < 1 || per_member < 1 || per_member > H * W || hidden < 1 || 2 * hidden > kAdjThreads)
+    return cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(params);
+  const float2* f = static_cast<const float2*>(frames);
+  const float2* fb = static_cast<const float2*>(frames_bar);
+  float2* g = static_cast<float2*>(g0);
+  float2* sc = static_cast<float2*>(scratch);
+  float2* gi = static_cast<float2*>(g_ins);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define AP(NB) adj1_b_persistent<NB>(p, n_params, f, fb, g, sc, gi, M, n_steps, H, W, hidden, \
+                                     dt, inv_dx2, per_member, s, per_sm)
+  switch (n_branches) { PERCNN_NB_CASES(AP) }
+#undef AP
+}
+
+// How many blocks of adj2d_batched_persistent_kernel an SM holds at once
+// with per_member blocks a member, its shared memory allowed.
+extern "C" int batched2d_adj_persistent_occupancy(int n_params, int H, int W, int hidden,
+                                                  int n_branches, int per_member,
+                                                  int* per_sm) {
+  const size_t smem = adj2d::persistent_smem(n_params, H, W, hidden, 0, per_member);
+#define AO(NB) adj1_b_occupancy<NB>(smem, per_sm)
+  switch (n_branches) { PERCNN_NB_CASES(AO) }
+#undef AO
 }

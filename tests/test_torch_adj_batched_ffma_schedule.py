@@ -58,7 +58,7 @@ def batched_ffma_model(packed, frames, frames_bar, cfg, n_sm, order=1):
     plan = batched2d.adj_b_plan(n_mem, H, W, cfg, n_sm)
     assert plan["route"] == "persistent"
     per = plan["blocks_a_member"]
-    grid = batched2d.adj_b_grid(H, W, per)
+    grid = backward2d.adj_b_grid(H, W, per)
     rc, tiles = grid["rc"], grid["threads"] // 64
     assert grid["threads"] == plan["threads"]
     k, nb, C = cfg.kernel_size, cfg.n_branches, cfg.hidden

@@ -1,10 +1,12 @@
-"""The pure-Python side of the two streaming sweeps that take one launch a
+"""The pure-Python side of the streaming sweeps that take one launch a
 call, on the CPU: the rules that pick adj2d_persistent_kernel
 (backward2d.adj_plan, the 1x1 sweep) and adj2d_batched_ffma_persistent_kernel
-(batched2d.adj_b_plan, the ensemble's k x k sweep), their grids and
-shared-memory bytes (each written out here as its csrc counterpart adds it
-up), the routes a tensor on the card takes, the counters the wrappers move,
-and that a CPU tensor takes the plain versions.  The kernels themselves run
+(backward2d.adj_b_plan, the ensemble's k x k sweep, and at one member the
+single model's), their grids and shared-memory bytes (each written out here
+as its csrc counterpart adds it up), the routes a tensor on the card takes
+(also that of adj2d_batched_persistent_kernel, whose plan
+test_torch_adj_one_launch_plans.py holds), the counters the wrappers
+move, and that a CPU tensor takes the plain versions.  The kernels themselves run
 only on the card: ``python3 chip_smoke.py`` holds them to the plain
 versions and to the per-step kernels there.  No JAX here."""
 
@@ -94,14 +96,14 @@ def test_adj_b_plan_at_burgers_shape(M, per, cap, rounds, tiles):
                 + 2 * cap) + 8 * rows * (100 + 4)
     assert plan == {"route": "persistent", "blocks": M * per, "blocks_a_member": per,
                     "threads": 64 * tiles, "smem": smem}
-    assert batched2d.adj_b_smem_bytes(BURGERS, 100, 100, per) == smem
+    assert backward2d.adj_b_smem_bytes(BURGERS, 100, 100, per) == smem
 
 
 @pytest.mark.parametrize("cap", [1, 15, 16, 17, 76, 128, 129, 152, 304, 625, 1000, 4000])
 def test_adj_b_rounds_waste_under_a_tile_each(cap):
     """The rounds cover the block's cells, no round is empty, and the tiles
     that hold none of its cells are fewer than the rounds."""
-    g = batched2d.adj_b_grid(cap, 1, 1)
+    g = backward2d.adj_b_grid(cap, 1, 1)
     tiles, rc = g["threads"] // 64, g["rc"]
     assert g["cap"] == cap and 1 <= tiles <= 8 and rc == 16 * tiles
     rounds = -(-cap // rc)
@@ -119,7 +121,7 @@ def test_adj_b_capacity(M, n, route):
     if route == "persistent":
         assert plan["smem"] <= cell2d._MAX_SMEM and plan["blocks"] <= N_SM
     elif M <= N_SM:
-        assert batched2d.adj_b_smem_bytes(BURGERS, n, n, N_SM // M) > cell2d._MAX_SMEM
+        assert backward2d.adj_b_smem_bytes(BURGERS, n, n, N_SM // M) > cell2d._MAX_SMEM
 
 
 @pytest.mark.parametrize("k", [3, 5])
@@ -216,21 +218,34 @@ def _packed(cfg, M=None):
      {"fused_phase1_2d.launches": 1, "fused_phase1_2d.steps": 3}),
     (GS2D, 100, 0, "adj2d_persistent", {}),
     (GS2D, 449, 2, "adj2d_sweep", {"fused_phase1_2d.launches": 2, "fused_phase1_2d.steps": 2}),
-    (BURGERS, 100, 3, "adj2d_sweep",
-     {"fused_phase1_2d.launches": 6, "fused_phase1_2d.steps": 3}),
+    (BURGERS, 100, 3, "batched2d_adj_ffma_persistent",
+     {"fused_phase1_2d.launches": 1, "fused_phase1_2d.steps": 3}),
+    (BURGERS, 17, 2, "batched2d_adj_ffma_persistent",
+     {"fused_phase1_2d.launches": 1, "fused_phase1_2d.steps": 2}),
+    (BURGERS, 100, 0, "batched2d_adj_ffma_persistent", {}),
+    (BURGERS, 769, 1, "adj2d_sweep",
+     {"fused_phase1_2d.launches": 2, "fused_phase1_2d.steps": 1}),
 ])
 def test_the_1x1_sweep_takes_the_planned_route(card, cfg, n, steps, entry, counts):
     """At k = 1 one adj2d_persistent_kernel launch a sweep within adj_plan
     (none for no steps), one adj2d_kernel launch a step past it; at k = 5
-    the activation and gather kernels, two a step."""
+    one adj2d_batched_ffma_persistent_kernel launch a sweep on a one-member
+    batch within adj_b_plan at M = 1 (none for no steps), with the operands
+    packed in lane order, and the activation and gather kernels, two a
+    step, past it."""
+    packed = _packed(cfg)
     frames = torch.zeros(steps + 1, n, n, 2).as_subclass(_OnCard)
-    g_ins, g0 = backward2d.fused_phase1_2d(_packed(cfg), frames, frames, cfg)
+    g_ins, g0 = backward2d.fused_phase1_2d(packed, frames, frames, cfg)
     assert [name for name, _ in card] == [entry]
     assert tuple(g_ins.shape) == (steps, n, n, 2) and tuple(g0.shape) == (n, n, 2)
+    args = card[0][1]
     if entry == "adj2d_persistent":
-        args = card[0][1]
         assert args[7:12] == (steps, n, n, cfg.hidden, cfg.n_branches)
         assert args[14] == backward2d.adj_plan(n, n, cfg, N_SM)["blocks"]
+    elif entry == "batched2d_adj_ffma_persistent":
+        plan = backward2d.adj_b_plan(1, n, n, cfg, N_SM)
+        assert args[8:15] == (1, steps, n, n, cfg.hidden, cfg.n_branches, cfg.kernel_size)
+        assert args[17:20] == (plan["blocks_a_member"], plan["threads"], plan["smem"])
     assert _counts() == counts
 
 
@@ -242,24 +257,38 @@ def test_the_1x1_sweep_takes_the_planned_route(card, cfg, n, steps, entry, count
     (BURGERS, 2, 100, 0, "batched2d_adj_ffma_persistent", {}),
     (BURGERS, 2, 571, 1, "batched2d_adj_sweep",
      {"fused_phase1_2d_batched.launches_kxk": 2, "fused_phase1_2d_batched.steps": 1}),
-    (GS2D, 4, 100, 3, "batched2d_adj_sweep",
-     {"fused_phase1_2d_batched.launches": 3, "fused_phase1_2d_batched.steps": 3}),
+    (GS2D, 4, 100, 3, "batched2d_adj_persistent",
+     {"fused_phase1_2d_batched.launches": 1, "fused_phase1_2d_batched.steps": 3}),
+    (GS2D, 3, 17, 4, "batched2d_adj_persistent",
+     {"fused_phase1_2d_batched.launches": 1, "fused_phase1_2d_batched.steps": 4}),
+    (GS2D, 8, 100, 0, "batched2d_adj_persistent", {}),
+    (GS2D, 4, 225, 2, "batched2d_adj_sweep",
+     {"fused_phase1_2d_batched.launches": 2, "fused_phase1_2d_batched.steps": 2}),
+    (GS2D, 133, 3, 1, "batched2d_adj_sweep",
+     {"fused_phase1_2d_batched.launches": 1, "fused_phase1_2d_batched.steps": 1}),
 ])
 def test_the_batched_sweep_takes_the_planned_route(card, cfg, M, n, steps, entry, counts):
     """At k > 1 one adj2d_batched_ffma_persistent_kernel launch a sweep for
     every member within adj_b_plan (none for no steps), with each member's
     operands packed in lane order; two launches a step past it; at k = 1
-    adj2d_batched_kernel, one a step."""
+    one adj2d_batched_persistent_kernel launch a sweep for every member
+    within adj1_b_plan (none for no steps), and adj2d_batched_kernel, one a
+    step, past it (a field over 224 x 224 at M = 4, more members than SMs)."""
     packed = _packed(cfg, M)
     frames = torch.zeros(M, steps + 1, n, n, 2).as_subclass(_OnCard)
     g_ins, g0 = batched2d.fused_phase1_2d_batched(packed, frames, frames, cfg)
     assert [name for name, _ in card] == [entry]
     assert tuple(g_ins.shape) == (M, steps, n, n, 2) and tuple(g0.shape) == (M, n, n, 2)
+    args = card[0][1]
     if entry == "batched2d_adj_ffma_persistent":
-        args = card[0][1]
         plan = batched2d.adj_b_plan(M, n, n, cfg, N_SM)
         assert args[8:15] == (M, steps, n, n, cfg.hidden, cfg.n_branches, cfg.kernel_size)
         assert args[17:20] == (plan["blocks_a_member"], plan["threads"], plan["smem"])
+    elif entry == "batched2d_adj_persistent":
+        plan = batched2d.adj1_b_plan(M, n, n, cfg, N_SM)
+        assert args[1] == packed.shape[1]
+        assert args[7:13] == (M, steps, n, n, cfg.hidden, cfg.n_branches)
+        assert args[15] == plan["blocks_a_member"]
     assert _counts() == counts
 
 
@@ -307,7 +336,9 @@ def test_cpu_calls_move_no_counter(monkeypatch):
     assert _counts() == {}
 
 
-@pytest.mark.parametrize("call", ["adj", "adj_past_plan", "batched", "batched_past_plan"])
+@pytest.mark.parametrize("call", ["adj", "adj_past_plan", "batched", "batched_past_plan",
+                                  "adj_k5", "adj_k5_past_plan", "batched_k1",
+                                  "batched_k1_past_plan"])
 def test_a_loader_error_propagates(monkeypatch, card, call):
     """Whatever the route, a kernel that cannot be loaded raises; nothing
     gives way to another route or to the plain version."""
@@ -315,13 +346,22 @@ def test_a_loader_error_propagates(monkeypatch, card, call):
         raise RuntimeError(f"loader disabled ({name})")
 
     monkeypatch.setattr(_build, "load_library", fail_load)
+    past = call.endswith("plan")
     with pytest.raises(RuntimeError, match="loader disabled"):
-        if call.startswith("adj"):
-            n = 449 if call.endswith("plan") else 100
+        if call.startswith("adj_k5"):
+            n = 769 if past else 100
+            frames = torch.zeros(2, n, n, 2).as_subclass(_OnCard)
+            backward2d.fused_phase1_2d(_packed(BURGERS), frames, frames, BURGERS)
+        elif call.startswith("adj"):
+            n = 449 if past else 100
             frames = torch.zeros(3, n, n, 2).as_subclass(_OnCard)
             backward2d.fused_phase1_2d(_packed(GS2D), frames, frames, GS2D)
+        elif call.startswith("batched_k1"):
+            n = 225 if past else 100
+            frames = torch.zeros(4, 2, n, n, 2).as_subclass(_OnCard)
+            batched2d.fused_phase1_2d_batched(_packed(GS2D, 4), frames, frames, GS2D)
         else:
-            n = 571 if call.endswith("plan") else 100
+            n = 571 if past else 100
             frames = torch.zeros(2, 2, n, n, 2).as_subclass(_OnCard)
             batched2d.fused_phase1_2d_batched(_packed(BURGERS, 2), frames, frames, BURGERS)
     assert card == [] and _counts() == {}
