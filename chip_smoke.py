@@ -5,7 +5,7 @@ decomposed training, once on one NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--sass-against CSRC_DIR]
 
 It builds the port's CUDA kernels from the checkout's sources with nvcc,
 holds them against the committed golden models, against their plain PyTorch
@@ -32,7 +32,16 @@ since start:
                kernels' instruction mix
                (cuobjdump: FFMA and shared-memory loads), and the registers
                and spills of the streaming sweeps' one-launch kernels and of
-               rows 1 (k = 5), 5 and 7, the instances the main paths run
+               rows 1 (k = 5), 5 and 7, the instances the main paths run;
+               row 11's k x k plan (rollout_b_plan at Burgers' shape for
+               M = 1, 2, 4, 8) and row 9's (adj3d_plan at GS3D's) beside what
+               the card holds, the registers and spills of their kernels
+               (rollout2d_ffma_persistent_kernel<5, 3, true>,
+               adj3d_persistent_kernel<3, 2>) and of their siblings; with
+               --sass-against CSRC_DIR, every kernel of the libraries that
+               share their code (cell2d_ffma, backward3d, backward2d,
+               batched2d, adj2d) against a build of CSRC_DIR's sources (the
+               parent commit's csrc/), instruction for instruction
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_persistent_kernel (one launch, 6
                steps) against tests/golden/pt_gs3d.npz
@@ -103,10 +112,15 @@ since start:
                adj2d_kernel (the per-step route) against plain and each
                other, its g0 against pg2d_persistent_kernel's on the same
                inputs to the bit, both through the entry point on 17 x 9
-               and past the plan (449 x 449), counted; adj3d_kernel (48^3,
-               T = 50, golden GS3D cell) against its plain version
+               and past the plan (449 x 449), counted; both routes of row 9
+               (48^3, T = 50, golden GS3D cell, a standard-normal
+               cotangent): adj3d_persistent_kernel (adj3d_plan's route) and
+               adj3d_kernel against plain and each other, its g0 against
+               pg3d_persistent_kernel's on the same inputs to the bit, the
+               entry point at 48^3 and past the plan (52^3), counted
   grads_fallback  the gradients of bptt="fused" (GS2D: one launch of
-               adj2d_persistent_kernel; GS3D, Burgers with the MXU switches
+               adj2d_persistent_kernel; GS3D: one launch of
+               adj3d_persistent_kernel; Burgers with the MXU switches
                off, and with YS_PATH_ENABLED off too: one launch of
                adj2d_batched_ffma_persistent_kernel on a one-member batch) and
                of bptt="two_phase" (the three cells) against f64 autograd on
@@ -170,11 +184,18 @@ since start:
                adj2d_batched_persistent_kernel (adj1_b_plan's) and
                adj2d_batched_kernel, against plain and each other, each
                member's g0 and g_ins against adj2d_persistent_kernel's to
-               the bit (M = 4 and 8); the k = 5 contract of the forward on
-               the golden Burgers cell (M = 2), and both routes of its
-               streaming sweep, adj2d_batched_ffma_persistent_kernel
-               (adj_b_plan's) and adj2d_batched_kernel, against plain and
-               each other; then both GS2D entry points on 17 x 9 (the
+               the bit (M = 4 and 8); on the golden Burgers cell both routes
+               of the k = 5 forward (M = 2 and 4),
+               rollout2d_ffma_persistent_kernel with the member axis
+               (rollout_b_plan's) and rollout2d_batched_kernel, against
+               plain and each other, each member against the single model's
+               rollout2d_ffma_persistent_kernel to the bit, and both routes
+               of its streaming sweep (M = 2),
+               adj2d_batched_ffma_persistent_kernel (adj_b_plan's) and
+               adj2d_batched_kernel, against plain and each other; the k = 5
+               forward's entry point on 17 x 9 (M = 3) and past its plan
+               (M = 2 at 1057 x 1057), counted; then both GS2D entry points
+               on 17 x 9 (the
                one-launch routes) and past the plans (449 x 449, and M = 8
                at 156 x 156 for the sweep), and the streaming sweep's on
                17 x 9 (M = 3, k = 1 and 5) and past its plans (M = 4 at
@@ -183,8 +204,10 @@ since start:
                f64 autograd on the referee setup (random-init cells, random
                targets, 12 steps, full width, M = 4; "batched" by one launch
                of adj2d_batched_persistent_kernel), and "batched" of the
-               5x5 cell (M = 2: adj2d_batched_ffma_persistent_kernel, one
-               launch), each route's launches and steps counted
+               5x5 cell (M = 2: one launch of
+               rollout2d_ffma_persistent_kernel[batched] and one of
+               adj2d_batched_ffma_persistent_kernel), each route's launches
+               and steps counted
   kernels_sharded  step2d_haloed_kernel against its plain version on the
                haloed blocks of a 2 x 2 mesh of cuda:0 (four 50 x 50 blocks
                of 100 x 100, and a 6 x 10 block) for the golden GS2D (k = 1)
@@ -219,17 +242,18 @@ since start:
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work (rows 1
                (k = 1 and 5), 2 (k = 1, and k = 5 by both MXU routes), 3, 4
-               (k = 1 and 5), 5, 6, 7, 8, 10, 11 (k = 1), 12 (k = 1 and 5)
-               and 13 also by their per-step routes, in turns in the same
-               call, rows 11, 13 and 12 at k = 1 at M = 4 and 8, row 12 at
-               k = 5 at M = 2 and 4, row 11 at M = 8 by
+               (k = 1 and 5), 5, 6, 7, 8, 9, 10, 11 (k = 1 and 5), 12 (k = 1
+               and 5) and 13 also by their per-step routes, in turns in the
+               same call, rows 11, 13 and 12 at k = 1 at M = 4 and 8, rows 11
+               and 12 at k = 5 at M = 2 and 4, row 9 also built for two
+               blocks an SM (__launch_bounds__(512, 2), 264 blocks), row 11 at M = 8 by
                both cluster sizes; rows 2 at k = 5, 3 and 6 with the bound
                in 3xTF32 and all in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
                decomposed rollout through row 14 with its profiler trace
 
-Then a ``{"kernels": [...]}`` line (34 entries: the 14 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (36 entries: the 14 ported TPU kernels,
 row 1 at k = 5 by rollout2d_ffma_persistent_kernel, row 2 by its three
 one-launch routes, rollout2d_cluster_kernel[final],
 rollout2d_kxk_persistent_kernel[final] and
@@ -238,12 +262,14 @@ adj2d_persistent_kernel and at k = 5 by
 adj2d_batched_ffma_persistent_kernel[M=1], row
 11 at k = 1 by rollout2d_cluster_kernel[batched], row 12 at k = 1 by
 adj2d_batched_persistent_kernel and at k = 5 by
-adj2d_batched_ffma_persistent_kernel, with the k = 5 contract of
-rollout2d_batched_kernel and the per-step routes of rows 1 at k = 5
+adj2d_batched_ffma_persistent_kernel, row 11 at k = 5 by
+rollout2d_ffma_persistent_kernel[batched], row 9 by
+adj3d_persistent_kernel, and the per-step routes of rows 1 at k = 5
 (rollout2d_kernel[k=5]), 2 (final2d_kernel, final2d_kernel[k=5]), 3, 4 at
-k = 1 and 5, 5, 6, 8, 10, 11, 12 at k = 1 and 5 and 13
+k = 1 and 5, 5, 6, 8, 9, 10, 11 at k = 1 and 5, 12 at k = 1 and 5 and 13
 (rollout2d_kxk_kernel, adj2d_kernel, adj2d_kernel[k=5], adj2d_ys_kernel,
-adj2d_kxk_kernel, rollout3d_kernel, pg3d_kernel, rollout2d_batched_kernel,
+adj2d_kxk_kernel, rollout3d_kernel, adj3d_kernel, pg3d_kernel,
+rollout2d_batched_kernel, rollout2d_batched_kernel[k=5],
 adj2d_batched_kernel, adj2d_batched_kernel[k=5], pg2d_batched_kernel) listed
 apart), the
 nvidia-smi line, and last
@@ -419,39 +445,123 @@ def bound_3xtf32_ms(bytes_moved: float, mma_flops: float, other_flops: float) ->
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sass_mix(lib_path, names) -> dict | None:
-    """Per kernel of `names` (its k = 5, 3-branch instance) in the library's
-    machine code (cuobjdump -sass): the instructions, the FFMAs and the
-    shared-memory loads (all, and 16-byte ones) as they stand in the code,
-    a loop's body once; None where the toolkit has no cuobjdump."""
-    import re
-
+def _cuobjdump():
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    return tool if os.path.exists(tool) else None
+
+
+def sass_functions(lib_path) -> dict | None:
+    """The library's machine code (cuobjdump -sass) by kernel, each keyed
+    by its name and integer template arguments (a `false` member flag
+    dropped: the single model's instance keeps its key) and holding its
+    instructions' text without addresses or encodings; None where the
+    toolkit has no cuobjdump."""
+    import re
+
+    tool = _cuobjdump()
+    if tool is None:
         return None
     out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                          check=True).stdout
-    mix = {}
+    fns = {}
     for chunk in out.split("Function : ")[1:]:
-        fn = chunk.split(None, 1)[0]
-        name = next((n for n in names if f"{len(n)}{n}ILi5ELi3E" in fn), None)
-        if name is None:
-            continue
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", chunk)
-        mix[name] = {"instructions": len(ops), "FFMA": sum(o.startswith("FFMA") for o in ops),
-                     "LDS": sum(o.startswith("LDS") for o in ops),
-                     "LDS.128": sum(o.startswith("LDS.128") for o in ops)}
+        mangled = chunk.split(None, 1)[0]
+        key = mangled
+        for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+            start = m.start() + len(m.group(1))
+            name = mangled[start:start + int(m.group(1))]
+            if name.endswith("_kernel") and name.isidentifier():
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[start + len(name):])
+                targs = re.findall(r"L([ib])(\d+)E", args.group(1)) if args else []
+                key = name + "<" + ", ".join(
+                    {"b": lambda v: "true" if v == "1" else "", "i": str}[t](v)
+                    for t, v in targs if not (t == "b" and v == "0")) + ">"
+                break
+        fns[key] = [" ".join(i.split()) for i in
+                    re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", chunk)]
+    return fns
+
+
+def sass_mix(lib_path, names) -> dict | None:
+    """Per kernel of `names` (its k = 5, 3-branch instance, and the
+    member-axis instance as name[batched]) in the library's machine code:
+    the instructions, the FFMAs and the shared-memory loads (all, and
+    16-byte ones) as they stand in the code, a loop's body once; None where
+    the toolkit has no cuobjdump."""
+    import re
+
+    fns = sass_functions(lib_path)
+    if fns is None:
+        return None
+    mix = {}
+    for key, ins in fns.items():
+        for n in names:
+            label = {f"{n}<5, 3>": n, f"{n}<5, 3, true>": f"{n}[batched]"}.get(key)
+            if label is None:
+                continue
+            ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0] for i in ins if i]
+            mix[label] = {"instructions": len(ops),
+                          "FFMA": sum(o.startswith("FFMA") for o in ops),
+                          "LDS": sum(o.startswith("LDS") for o in ops),
+                          "LDS.128": sum(o.startswith("LDS.128") for o in ops)}
     return mix
 
 
-def ptxas_of(lines, name, targs) -> dict | None:
-    """Registers and spill-store bytes of kernel `name` at the integer
-    template arguments targs, from ptxas's report of its library (the
-    entry line, then its stack and spill line, then its registers)."""
+def _without_registers(ins):
+    """Instructions with register and predicate numbers and reuse flags
+    taken out: what is left when only the register assignment differs."""
     import re
 
-    key = f"{len(name)}{name}I" + "".join(f"Li{a}E" for a in targs) + "E"
+    return [re.sub(r"\bU?P\d\b", "P", re.sub(r"\bU?R\d+\b", "R", i.replace(".reuse", "")))
+            for i in ins]
+
+
+def sass_against(parent_csrc, libs, out_dir) -> tuple[dict, dict]:
+    """Build `libs` from the sources in parent_csrc (another checkout's
+    csrc/, say the parent commit's) into out_dir with the port's nvcc
+    flags, in parallel, and compare every kernel of each with this
+    checkout's build: per library the kernels the same instruction for
+    instruction, those the same but for the register assignment, those
+    that differ otherwise, those missing here and those new here; and the
+    paths of the libraries built."""
+    from percnn_tpu_torch.ops.kernels import _build
+
+    def build(name):
+        path = os.path.join(out_dir, f"lib{name}.so")
+        subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", path,
+                        os.path.join(parent_csrc, f"{name}.cu")], check=True,
+                       capture_output=True)
+        return path
+
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        paths = dict(zip(libs, pool.map(build, libs)))
+    result = {}
+    for name in libs:
+        new = sass_functions(_build.BUILD_DIR / f"lib{name}.so")
+        old = sass_functions(paths[name])
+        common = [k for k in old if k in new]
+        result[name] = {
+            "same": sorted(k for k in common if new[k] == old[k]),
+            "registers_only": sorted(k for k in common if new[k] != old[k] and
+                                     _without_registers(new[k]) == _without_registers(old[k])),
+            "differ": sorted(k for k in common
+                             if _without_registers(new[k]) != _without_registers(old[k])),
+            "missing": sorted(k for k in old if k not in new),
+            "new": sorted(k for k in new if k not in old)}
+    return result, paths
+
+
+def ptxas_of(lines, name, targs) -> dict | None:
+    """Registers and spill-store bytes of kernel `name` at the template
+    arguments targs (ints, or bools for a flag), from ptxas's report of its
+    library (the entry line, then its stack and spill line, then its
+    registers)."""
+    import re
+
+    key = f"{len(name)}{name}I" + "".join(
+        f"Lb{int(a)}E" if isinstance(a, bool) else f"Li{a}E" for a in targs) + "E"
     for i, line in enumerate(lines[:-2]):
         if "entry function" in line and key in line:
             spill = re.search(r"(\d+) bytes spill stores", lines[i + 1])
@@ -530,6 +640,14 @@ def main() -> int:
     import numpy as np
     import torch
 
+    args = sys.argv[1:]
+    sass_parent = None
+    if args[:1] == ["--sass-against"] and len(args) == 2:
+        sass_parent = os.path.abspath(args[1])
+    elif args:
+        print("usage: python3 chip_smoke.py [--sass-against CSRC_DIR]", file=sys.stderr)
+        return 2
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
@@ -582,8 +700,33 @@ def main() -> int:
 
     sources = ("cell2d", "backward2d", "cell3d", "backward3d", "cell2d_kxk", "backward2d_kxk",
                "adj2d", "batched2d", "sharded_step2d", "cell2d_ffma")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+    def build_adj3d_two_blocks():
+        """backward3d.cu with adj3d_persistent_kernel's __launch_bounds__
+        asking for two blocks an SM (at most 64 registers a thread), built
+        into a temp dir for row 9's timing at 2 n_sm blocks in times:
+        (dir, library path, ptxas's lines of that kernel)."""
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_adj3d_")
+        shutil.copytree(str(_build.CSRC), tmp, dirs_exist_ok=True)
+        path = os.path.join(tmp, "backward3d.cu")
+        with open(path) as f:
+            src = f.read()
+        key = "__launch_bounds__(kPersistentThreads)\n    adj3d_persistent_kernel("
+        check(key in src, "backward3d.cu: adj3d_persistent_kernel's launch bounds not found")
+        with open(path, "w") as f:
+            f.write(src.replace(key, key.replace("Threads)", "Threads, 2)")))
+        lib = os.path.join(tmp, "libbackward3d_two_blocks.so")
+        proc = subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", lib, path],
+                              capture_output=True, text=True)
+        check(proc.returncode == 0, f"nvcc failed on the two-blocks build: {proc.stderr}")
+        lines = [line.split(":", 1)[-1].strip() for line in proc.stderr.splitlines()
+                 if "entry function" in line or "registers" in line or "spill" in line]
+        return tmp, lib, ptxas_of(lines, "adj3d_persistent_kernel", (3, 2))
+
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + 1) as pool:
+        two_blocks = pool.submit(build_adj3d_two_blocks)
         build_s = dict(zip(sources, pool.map(build, sources)))
+        adj3d_two_dir, adj3d_two_lib, adj3d_two_ptxas = two_blocks.result()
     n_gs2d = GS2D_RECON.grid
     one_launch = {
         "rollout2d_cluster_kernel": {
@@ -657,6 +800,22 @@ def main() -> int:
                    "blocks_an_sm_holds": batched2d.adj1_b_occupancy(GS2D_RECON.cell, n, n_gs2d,
                                                                     n_gs2d, dev)}
         for n in (ENS_MEMBERS, 2 * ENS_MEMBERS)}
+    # row 11 at k = 5 at Burgers' shape for M = 1, 2, 4 and 8, and row 9 at
+    # GS3D's: the one-launch routes this slice adds
+    one_launch["rollout2d_ffma_persistent_kernel[batched]"] = {
+        f"M={n}": {**batched2d.rollout_b_plan(n, nb_grid, nb_grid, BURGERS_STAGE1.cell,
+                                              n_sm=cell2d._sm_count(dev)),
+                   "blocks_an_sm_holds": batched2d.rollout_b_occupancy(
+                       BURGERS_STAGE1.cell, n, nb_grid, nb_grid, dev)}
+        for n in (1, ENS_KXK_MEMBERS, 2 * ENS_KXK_MEMBERS, 4 * ENS_KXK_MEMBERS)}
+    one_launch["adj3d_persistent_kernel"] = {
+        **backward3d.adj3d_plan(*(GS3D_RECON.grid,) * 3, GS3D_RECON.cell, cell2d._sm_count(dev)),
+        "blocks_an_sm_holds": backward3d.adj3d_occupancy(GS3D_RECON.cell,
+                                                         *(GS3D_RECON.grid,) * 3, dev)}
+    check(one_launch["adj3d_persistent_kernel"]["blocks_an_sm_holds"] >= 1
+          and all(v["route"] == "persistent" and v["blocks_an_sm_holds"] >= 1 for v in
+                  one_launch["rollout2d_ffma_persistent_kernel[batched]"].values()),
+          f"the card holds none of rows 9's and 11's one-launch grids: {one_launch}")
     check(one_launch["adj2d_persistent_kernel"]["blocks_an_sm_holds"] >= 1
           and all(v["blocks_an_sm_holds"] >= 1 for name in (
               "adj2d_batched_ffma_persistent_kernel", "adj2d_batched_persistent_kernel")
@@ -693,14 +852,73 @@ def main() -> int:
                       ("batched2d", "adj2d_batched_persistent_kernel", (3,)),
                       ("batched2d", "adj2d_batched_ffma_persistent_kernel", (5, 3)),
                       ("backward2d", "pg2d_persistent_kernel", (3,)),
-                      ("cell2d_ffma", "rollout2d_ffma_persistent_kernel", (5, 3)),
-                      ("adj2d", "adj2d_ys_persistent_kernel", (5, 3)))}
+                      ("cell2d_ffma", "rollout2d_ffma_persistent_kernel", (5, 3, False)),
+                      ("cell2d_ffma", "rollout2d_ffma_persistent_kernel", (5, 3, True)),
+                      ("adj2d", "adj2d_ys_persistent_kernel", (5, 3)),
+                      ("backward3d", "adj3d_persistent_kernel", (3, 2)),
+                      ("backward3d", "pg3d_persistent_kernel", (3, 2)))}
     check(all(v is not None for v in ptxas_main.values()),
           f"ptxas reported no registers for {ptxas_main}")
+    # the siblings of this slice's kernels, which share their code or
+    # headers (the single model's FFMA forward, pg3d_persistent_kernel and
+    # every kernel that includes pg_common.cuh): with --sass-against DIR,
+    # their machine code against a build of DIR's sources (the parent
+    # commit's csrc/), every kernel instruction for instruction
+    sass_libs = ("cell2d_ffma", "backward3d", "backward2d", "batched2d", "adj2d")
+    sass_vs_parent = None
+    if sass_parent is not None and _cuobjdump() is not None:
+        parent_dir = tempfile.mkdtemp(prefix="chip_smoke_parent_")
+        try:
+            sass_vs_parent, parent_libs = sass_against(sass_parent, sass_libs, parent_dir)
+            check(all(not v["differ"] and not v["missing"] for v in sass_vs_parent.values()),
+                  f"the siblings' machine code differs from {sass_parent}'s: "
+                  f"{ {k: (v['differ'], v['missing']) for k, v in sass_vs_parent.items()} }")
+            # pg3d_persistent_kernel (its body now shared with
+            # adj3d_persistent_kernel) against the parent build's on the same
+            # random inputs (a random-init GS3D cell, 48^3, 20 steps): g0 and
+            # the accumulator planes to the bit
+            cfg3_, n3_, t3_ = GS3D_RECON.cell, GS3D_RECON.grid, 20
+            rs = np.random.RandomState(0)
+            packed3_ = cell3d.pack_pi_params_3d(init_pi_cell(
+                torch.Generator().manual_seed(0), cfg3_, device="cpu"), cfg3_).detach().to(
+                    dev).contiguous()
+            frames3_ = torch.as_tensor(rs.uniform(0.0, 1.0, (t3_ + 1, n3_, n3_, n3_, 2)),
+                                       dtype=torch.float32, device=dev)
+            fbar3_ = torch.as_tensor(rs.standard_normal(tuple(frames3_.shape)),
+                                     dtype=torch.float32, device=dev)
+            counts_ = (backward3d.fused_rollout_tp_3d_pg.launches,
+                       backward3d.fused_rollout_tp_3d_pg.steps)
+            new_ = backward3d._pg_persistent_cuda(packed3_, frames3_, fbar3_, cfg3_)
+            (backward3d.fused_rollout_tp_3d_pg.launches,
+             backward3d.fused_rollout_tp_3d_pg.steps) = counts_
+            fn_ = ctypes.CDLL(parent_libs["backward3d"]).backward3d_pg_persistent
+            fn_.argtypes, fn_.restype = backward3d._PERSISTENT_SIGNATURE, ctypes.c_int
+            old_ = (torch.zeros_like(new_[0]), torch.empty_like(new_[1]))
+            scratch_ = torch.zeros_like(new_[0])
+            check(fn_(packed3_.data_ptr(), packed3_.numel(), frames3_.data_ptr(),
+                      fbar3_.data_ptr(), old_[0].data_ptr(), scratch_.data_ptr(),
+                      old_[1].data_ptr(), t3_, n3_, n3_, n3_, cfg3_.hidden, cfg3_.n_branches,
+                      cfg3_.dt, 1.0 / (cfg3_.dx * cfg3_.dx),
+                      backward3d.pg3d_plan(n3_, n3_, n3_, cfg3_, cell2d._sm_count(dev))["blocks"],
+                      torch.cuda.current_stream().cuda_stream,
+                      ctypes.byref(ctypes.c_int(0))) == 0, "the parent's pg3d_persistent_kernel")
+            torch.cuda.synchronize()
+            pg3d_bits = {"g0": bool(torch.equal(new_[0], old_[0])),
+                         "planes": bool(torch.equal(new_[1], old_[1]))}
+            check(all(pg3d_bits.values()),
+                  f"pg3d_persistent_kernel's outputs vs the parent build's: {pg3d_bits}")
+            del packed3_, frames3_, fbar3_, new_, old_, scratch_
+        finally:
+            shutil.rmtree(parent_dir, ignore_errors=True)
+        sass_vs_parent = {k: {"same": len(v["same"]), "registers_only": v["registers_only"],
+                              "differ": v["differ"], "missing": v["missing"], "new": v["new"]}
+                          for k, v in sass_vs_parent.items()}
+        sass_vs_parent["pg3d_persistent_kernel_outputs_vs_parent_build_equal_bits"] = pg3d_bits
     phase("build", sources={f"percnn_tpu_torch/ops/kernels/csrc/{n}.cu": round(build_s[n], 3)
                             for n in sources},
           ptxas={n: _build.PTXAS.get(n) for n in sources}, one_launch=one_launch,
-          ptxas_main_instances=ptxas_main, sass_k5_nb3=sass)
+          ptxas_main_instances=ptxas_main, sass_k5_nb3=sass,
+          sass_vs_parent=sass_vs_parent or "not asked (--sass-against DIR)")
 
     cfg, isg_cfg = GS2D_RECON.cell, GS2D_RECON.isg
     with np.load(GOLDEN) as z:
@@ -1197,11 +1415,13 @@ def main() -> int:
                 (backward2d.fused_phase1_ys_2d, "launches"),
                 (backward2d.fused_phase1_ys_2d, "steps"),
                 (backward3d.fused_phase1_3d, "launches"),
+                (backward3d.fused_phase1_3d, "steps"),
                 (backward2d.fused_rollout_tp_2d_pg, "launches"),
                 (backward2d.fused_rollout_tp_2d_pg, "steps"),
                 (batched2d.fused_rollout_2d_batched, "launches"),
                 (batched2d.fused_rollout_2d_batched, "steps"),
                 (batched2d.fused_rollout_2d_batched, "launches_kxk"),
+                (batched2d.fused_rollout_2d_batched, "steps_kxk"),
                 (batched2d.fused_phase1_2d_batched, "launches"),
                 (batched2d.fused_phase1_2d_batched, "launches_kxk"),
                 (batched2d.fused_phase1_2d_batched, "steps"),
@@ -1752,15 +1972,64 @@ def main() -> int:
                                                           "launches": counts, "plan": plan,
                                                           "err": errs}
         del x, fr_, fb_, got_
-    # adj3d_kernel on the golden GS3D cell at 48^3, a standard-normal
-    # cotangent (as row 10's check)
+    # row 9 on the golden GS3D cell at 48^3, T = 50, a standard-normal
+    # cotangent (as row 10's check): adj3d_persistent_kernel (adj3d_plan's
+    # route) and adj3d_kernel (the per-step route) against plain and each
+    # other, the one-launch g0 against pg3d_persistent_kernel's on the same
+    # inputs to the bit (the same body, with and without accumulators); then
+    # the entry point within the plan and past it (52^3: adj3d_kernel),
+    # launches and steps counted
     frames3 = cell3d._rollout_cuda(expanded3, h03, PG3D_CHECK_STEPS)
     fbar3 = torch.as_tensor(np.random.RandomState(3).standard_normal(tuple(frames3.shape)),
                             dtype=torch.float32, device=dev)
-    fallback_errs["adj3d_kernel"] = sweep_errs(
-        "adj3d_kernel", backward3d._phase1_cuda(packed3, frames3, fbar3, cfg3),
-        backward3d.fused_phase1_3d_plain(packed3, frames3, fbar3, cfg3))
+    check(backward3d.adj3d_plan(n3, n3, n3, cfg3, n_sm)["route"] == "persistent",
+          f"adj3d_plan at {n3}^3: {backward3d.adj3d_plan(n3, n3, n3, cfg3, n_sm)}")
+    adj3_one = backward3d._phase1_persistent_cuda(packed3, frames3, fbar3, cfg3)
+    adj3_steps = backward3d._phase1_steps_cuda(packed3, frames3, fbar3, cfg3)
+    plain3 = backward3d.fused_phase1_3d_plain(packed3, frames3, fbar3, cfg3)
+    g0_pg3 = backward3d._pg_persistent_cuda(packed3, frames3, fbar3, cfg3)[0]
     torch.cuda.synchronize()
+    fallback_errs["adj3d_persistent_kernel"] = sweep_errs("adj3d_persistent_kernel", adj3_one,
+                                                          plain3)
+    fallback_errs["adj3d_kernel"] = sweep_errs("adj3d_kernel", adj3_steps, plain3)
+    adj3_routes_err = {}
+    for key, a, b in zip(("g_ins", "g0"), adj3_one, adj3_steps):
+        e, scale = max_abs(a, b), float(b.abs().max())
+        check(e <= 2e-4 * scale + 2e-6, f"adj3d_persistent_kernel vs adj3d_kernel, {key}: "
+                                        f"max |diff| {e} over 2e-4 * {scale} + 2e-6")
+        adj3_routes_err[key] = [e, scale]
+    adj3_g0_vs_pg = max_abs(adj3_one[1], g0_pg3)
+    check(torch.equal(adj3_one[1], g0_pg3),
+          f"adj3d_persistent_kernel's g0 vs pg3d_persistent_kernel's: max |diff| {adj3_g0_vs_pg}")
+    del adj3_one, adj3_steps, plain3, g0_pg3
+    adj3_steps_launches, adj3_route_checks = {}, {}
+    for label, n_, steps_, route in (("48^3", n3, 4, "persistent"), ("52^3", 52, 3, "per_step")):
+        h0_ = h03 if n_ == n3 else torch.as_tensor(default_ic("gray_scott_3d", n_),
+                                                   dtype=torch.float32, device=dev)
+        fr_ = cell3d._rollout_cuda(expanded3, h0_, steps_)
+        fb_ = torch.as_tensor(np.random.RandomState(6).standard_normal(tuple(fr_.shape)),
+                              dtype=torch.float32, device=dev)
+        plan = backward3d.adj3d_plan(n_, n_, n_, cfg3, n_sm)
+        zero_counts()
+        got_ = backward3d.fused_phase1_3d(packed3, fr_, fb_, cfg3)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_phase1_3d.launches": 1 if route == "persistent" else steps_,
+                       "fused_phase1_3d.steps": steps_}
+        check(plan["route"] == route and counts == want_counts,
+              f"GS3D streaming sweep at {label}: plan {plan}, counts {counts}, expected "
+              f"{route}, {want_counts}")
+        errs = {}
+        for key, a, b in zip(("g_ins", "g0"), got_,
+                             backward3d.fused_phase1_3d_plain(packed3, fr_, fb_, cfg3)):
+            errs[key] = [max_abs(a, b), float(b.abs().max())]
+            check(errs[key][0] <= 2e-4 * errs[key][1] + 2e-6,
+                  f"GS3D streaming sweep at {label} ({route}) vs plain, {key}: {errs[key]}")
+        if route == "per_step":
+            adj3_steps_launches[f"kernels_fallback ({label})"] = counts["fused_phase1_3d.launches"]
+        adj3_route_checks[label] = {"route": route, "steps": steps_, "launches": counts,
+                                    "plan": plan, "err": errs}
+        del h0_, fr_, fb_, got_
     del frames1, frames3, fbar1, fbar3
     phase("kernels_fallback", burgers_steps=CHECK_KXK_STEPS,
           burgers_final_steps=horizon, burgers_final_counts=final5_off_counts,
@@ -1777,6 +2046,9 @@ def main() -> int:
           adj_ffma_persistent_vs_per_step_err_and_max=adjk_routes_err,
           adj_ffma_vs_batched_m1_max_abs_diff=adjk_vs_batched,
           adj_g0_vs_pg2d_persistent_max_abs_diff=adj_g0_vs_pg, adj_route_checks=adj_route_checks,
+          adj3d_persistent_vs_per_step_err_and_max=adj3_routes_err,
+          adj3d_g0_vs_pg3d_persistent_max_abs_diff=adj3_g0_vs_pg,
+          adj3d_route_checks=adj3_route_checks,
           forward_rtol=2e-4, forward_atol=1e-5,
           cotangents={"Burgers": "standard normal, seed 4", "GS2D": "data loss",
                       "GS3D": "standard normal, seed 3"},
@@ -1810,9 +2082,10 @@ def main() -> int:
                          "fused_phase1_2d.launches": 1, "fused_phase1_2d.steps": 12},
                 ref_cell, x_ref, lambda fr: ((fr - tgt.to(fr.dtype)) ** 2).mean(), cfg,
                 {"fused": backward2d.fused_rollout_tp_2d, "two_phase": two_phase})
-    # one rollout3d_persistent_kernel launch of 12 steps, then 12 of adj3d_kernel
+    # one rollout3d_persistent_kernel launch of 12 steps, then one
+    # adj3d_persistent_kernel launch of 12
     hold_to_f64("gs3d", {"fused_rollout_3d.launches": 1, "fused_rollout_3d.steps": 12,
-                         "fused_phase1_3d.launches": 12},
+                         "fused_phase1_3d.launches": 1, "fused_phase1_3d.steps": 12},
                 ref3_cell, x3_ref, lambda fr: ((fr - tgt3.to(fr.dtype)) ** 2).mean(), cfg3,
                 {"fused": backward3d.fused_rollout_tp_3d, "two_phase": two_phase})
     lossb = lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean()   # noqa: E731
@@ -1879,14 +2152,19 @@ def main() -> int:
     for suffix, cfg_, cell_np, exp_, n_mem in (
             ("", cfg, model["cell"], GS2D_RECON, ENS_MEMBERS),
             ("[M=8]", cfg, model["cell"], GS2D_RECON, 2 * ENS_MEMBERS),
-            ("[k=5]", cfgb, modelb["cell"], BURGERS_STAGE1, ENS_KXK_MEMBERS)):
+            ("[k=5]", cfgb, modelb["cell"], BURGERS_STAGE1, ENS_KXK_MEMBERS),
+            ("[k=5,M=4]", cfgb, modelb["cell"], BURGERS_STAGE1, 2 * ENS_KXK_MEMBERS)):
         packed_m = batched2d.pack_pi_params_2d_batched(member_cells(cell_np, n_mem),
                                                        cfg_).contiguous()
         h0_m = member_ics(exp_.system, exp_.grid, n_mem)
-        # the forward: rollout2d_cluster_kernel with a member axis (row 11's
-        # route at k = 1, rollout_b_plan's) and rollout2d_batched_kernel,
-        # each against plain; at k = 1 the two and the single cluster kernel
-        # on each member to the bit (the same step)
+        # the forward by both routes, each against plain: at k = 1
+        # rollout2d_cluster_kernel with a member axis (row 11's route,
+        # rollout_b_plan's) and rollout2d_batched_kernel, the two and the
+        # single cluster kernel on each member to the bit (the same step);
+        # at k = 5 (M = 2 and 4) rollout2d_ffma_persistent_kernel with the
+        # member axis (rollout_b_plan's route) and rollout2d_batched_kernel
+        # against plain and each other, each member the single model's
+        # rollout2d_ffma_persistent_kernel's to the bit
         got = batched2d._rollout_b_cuda(packed_m, h0_m, cfg_, CHECK_STEPS)
         steps_f = batched2d._rollout_b_steps_cuda(packed_m, h0_m, cfg_, CHECK_STEPS)
         want = batched2d.fused_rollout_2d_batched_plain(packed_m, h0_m, cfg_, CHECK_STEPS)
@@ -1894,9 +2172,15 @@ def main() -> int:
                   for m in range(n_mem)]
         torch.cuda.synchronize()
         check(bool(torch.isfinite(want).all()), f"plain batched frames{suffix} not finite")
-        names = (("rollout2d_batched_kernel" + suffix, steps_f),) if cfg_.kernel_size > 1 else (
-            ("rollout2d_cluster_kernel[batched]" + suffix, got),
-            ("rollout2d_batched_kernel" + suffix, steps_f))
+        if cfg_.kernel_size > 1:
+            ffma_name = "rollout2d_ffma_persistent_kernel[batched]" + (
+                "" if n_mem == ENS_KXK_MEMBERS else f"[M={n_mem}]")
+            plan_f = batched2d.rollout_b_plan(n_mem, *h0_m.shape[1:3], cfg_, n_sm=n_sm)
+            check(plan_f["route"] == "persistent", f"{ffma_name}'s plan: {plan_f}")
+            names = ((ffma_name, got), ("rollout2d_batched_kernel" + suffix, steps_f))
+        else:
+            names = (("rollout2d_cluster_kernel[batched]" + suffix, got),
+                     ("rollout2d_batched_kernel" + suffix, steps_f))
         for name, fr in names:
             err[name] = max_abs(fr, want)
             check(allclose(fr, want, rtol=2e-4, atol=1e-5),
@@ -1909,6 +2193,18 @@ def main() -> int:
                                                  for m in range(n_mem))}
             check(all(bitwise[f"frames{suffix}"].values()),
                   f"batched frames{suffix} differ in bits: {bitwise[f'frames{suffix}']}")
+        else:
+            err[f"ffma_vs_per_step{suffix}"] = max_abs(got, steps_f)
+            check(allclose(got, steps_f, rtol=2e-4, atol=1e-5),
+                  f"{ffma_name} vs rollout2d_batched_kernel{suffix}: max |diff| "
+                  f"{err[f'ffma_vs_per_step{suffix}']}")
+            bitwise[f"frames{suffix}"] = {"ffma_members_vs_single_ffma": all(
+                bool(torch.equal(got[m], single[m])) for m in range(n_mem))}
+            check(all(bitwise[f"frames{suffix}"].values()),
+                  f"{ffma_name}'s members vs rollout2d_ffma_persistent_kernel: max |diff| "
+                  f"{vs_single[ffma_name]}")
+            if n_mem != ENS_KXK_MEMBERS:   # M = 4: the forward alone
+                continue
         fbar_m = torch.as_tensor(np.random.RandomState(9).standard_normal(tuple(got.shape)),
                                  dtype=torch.float32, device=dev)
         # the streaming sweep by both routes, against plain and each other:
@@ -2083,14 +2379,57 @@ def main() -> int:
         batched_routes[f"sweep[k={k_}] {label}"] = {"members": n_mem, "steps": steps,
                                                     "plan": plan, "counts": counts, "err": errs}
         del fr, fb, got_b
+    # the k = 5 forward through its entry point, members of the golden
+    # Burgers cell, a random field, against plain: on 17 x 9 (M = 3, the
+    # one-launch route, each member also against the single model's
+    # rollout2d_ffma_persistent_kernel to the bit) and past rollout_b_plan
+    # (M = 2 at 1057 x 1057: one rollout2d_batched_kernel launch a step),
+    # launches and steps counted
+    fwd5_steps_launches = {}
+    for label, n_mem, (hh, ww), steps, route in (
+            ("17 x 9", 3, (17, 9), 5, "persistent"),
+            ("1057 x 1057", 2, (1057, 1057), 2, "per_step")):
+        packed_m = batched2d.pack_pi_params_2d_batched(member_cells(modelb["cell"], n_mem),
+                                                       cfgb).contiguous()
+        h0_m = torch.as_tensor(0.5 * np.random.RandomState(13).standard_normal(
+            (n_mem, hh, ww, 2)), dtype=torch.float32, device=dev).contiguous()
+        plan = batched2d.rollout_b_plan(n_mem, hh, ww, cfgb, n_sm=n_sm)
+        zero_counts()
+        fr = batched2d.fused_rollout_2d_batched(packed_m, h0_m, cfgb, steps)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want_counts = {"fused_rollout_2d_batched.launches_kxk": 1 if route == "persistent"
+                       else steps, "fused_rollout_2d_batched.steps_kxk": steps}
+        check(plan["route"] == route and counts == want_counts,
+              f"k = 5 batched forward on {label}: plan {plan}, counts {counts}, expected "
+              f"{route}, {want_counts}")
+        fr_p = batched2d.fused_rollout_2d_batched_plain(packed_m, h0_m, cfgb, steps)
+        e = max_abs(fr, fr_p)
+        check(allclose(fr, fr_p, rtol=2e-4, atol=1e-5),
+              f"k = 5 batched forward on {label} ({route}) vs plain: max |diff| {e}")
+        if route == "per_step":
+            fwd5_steps_launches[f"kernels_batched ({label})"] = counts[
+                "fused_rollout_2d_batched.launches_kxk"]
+        else:
+            for m in range(n_mem):
+                one_ = cell2d._rollout_ffma_persistent_cuda(packed_m[m].contiguous(),
+                                                            h0_m[m].contiguous(), cfgb, steps)
+                check(torch.equal(fr[m], one_),
+                      f"rollout2d_ffma_persistent_kernel[batched] on {label}, member {m}, vs "
+                      "rollout2d_ffma_persistent_kernel")
+        batched_routes[f"forward[k=5] {label}"] = {"members": n_mem, "steps": steps,
+                                                   "plan": plan, "counts": counts, "err": e}
+        del fr, fr_p
     phase("kernels_batched", members={"gs2d": [ENS_MEMBERS, 2 * ENS_MEMBERS],
-                                      "burgers": ENS_KXK_MEMBERS},
+                                      "burgers": [ENS_KXK_MEMBERS, 2 * ENS_KXK_MEMBERS]},
           steps=CHECK_STEPS, shape=[GS2D_RECON.grid, GS2D_RECON.grid, 2],
           cells="golden cell and seeded 1% perturbations", ics="default_ic seeds 60..",
           cotangent="standard normal, seed 9",
           forward_max_abs_err={k: v for k, v in err.items()
                                if k.startswith(("rollout2d_batched_kernel",
-                                                "rollout2d_cluster_kernel[batched]"))},
+                                                "rollout2d_cluster_kernel[batched]",
+                                                "rollout2d_ffma_persistent_kernel[batched]",
+                                                "ffma_vs_per_step"))},
           forward_rtol=2e-4, forward_atol=1e-5, bitwise=bitwise,
           sweep_err_and_max=batched_err, sweep_bar="2e-4 * max|plain| + 2e-6",
           member_vs_single_kernel_max_abs_diff=vs_single, entry_points=batched_routes)
@@ -2149,7 +2488,8 @@ def main() -> int:
                                    "fused_phase1_2d_batched.launches": 1,
                                    "fused_phase1_2d_batched.steps": 12}, 11),
         "batched[k=5]": batched_vs_f64(cfgb, ENS_KXK_MEMBERS, "batched",
-                                       {"fused_rollout_2d_batched.launches_kxk": 12,
+                                       {"fused_rollout_2d_batched.launches_kxk": 1,
+                                        "fused_rollout_2d_batched.steps_kxk": 12,
                                         "fused_phase1_2d_batched.launches_kxk": 1,
                                         "fused_phase1_2d_batched.steps": 12}, 12),
     }
@@ -2708,7 +3048,8 @@ def main() -> int:
     train_fused("gs3d_fused", GS3D_RECON, answer3, t3, FALLBACK_ITERS, (True, True, True),
                 {"fused_rollout_3d.launches": FALLBACK_ITERS,
                  "fused_rollout_3d.steps": FALLBACK_ITERS * t3,
-                 "fused_phase1_3d.launches": FALLBACK_ITERS * t3})
+                 "fused_phase1_3d.launches": FALLBACK_ITERS,
+                 "fused_phase1_3d.steps": FALLBACK_ITERS * t3})
     train_fused("burgers_ys_off", BURGERS_STAGE1, answersb[0], stepsb, FALLBACK_YS_OFF_ITERS,
                 (False, False, False),
                 {"fused_rollout_2d.launches_kxk": FALLBACK_YS_OFF_ITERS,
@@ -2734,8 +3075,9 @@ def main() -> int:
     # rollout2d_cluster_kernel and pg2d_persistent_kernel), each with its
     # members' evaluation (rollout2d_cluster_kernel); then
     # run_ensemble(BURGERS_STAGE1, 2) in "batched"
-    # (row 11 at k = 5, one launch a step, and row 12 at k = 5 by
-    # adj2d_batched_ffma_persistent_kernel, one launch a backward; the
+    # (row 11 at k = 5 by rollout2d_ffma_persistent_kernel[batched] and row
+    # 12 at k = 5 by adj2d_batched_ffma_persistent_kernel, one launch each a
+    # call; the
     # evaluation by rollout2d_kxk_persistent_kernel).  The
     # truths come from the train and train_burgers phases' caches.
     per_ens = ENS_ITERS // len(stages)
@@ -2761,7 +3103,9 @@ def main() -> int:
                  "fused_rollout_tp_2d_pg.launches": ENS_MEMBERS * ENS_ITERS,
                  "fused_rollout_tp_2d_pg.steps": ENS_MEMBERS * ens_steps},
         "burgers_batched": {
-            "fused_rollout_2d_batched.launches_kxk": ENS_BURGERS_ITERS * stepsb,
+            # one rollout2d_ffma_persistent_kernel[batched] launch a forward
+            "fused_rollout_2d_batched.launches_kxk": ENS_BURGERS_ITERS,
+            "fused_rollout_2d_batched.steps_kxk": ENS_BURGERS_ITERS * stepsb,
             # one adj2d_batched_ffma_persistent_kernel launch a backward
             "fused_phase1_2d_batched.launches_kxk": ENS_BURGERS_ITERS,
             "fused_phase1_2d_batched.steps": ENS_BURGERS_ITERS * stepsb,
@@ -3578,30 +3922,82 @@ def main() -> int:
         "plain_ms": row4k_plain_ms, "bound_ms": b4k_ms, "bound_by": b4k_by, "library_ms": None,
         "note": "the per-step route past the one-launch plan's capacity; ms at 100 x 100, "
                 "timed in turns with it"}])
-    fallback_rows = {
-        "adj3d_kernel": (
-            lambda: backward3d._phase1_cuda(packed3, frames3, fbar3, cfg3),
-            lambda: backward3d.fused_phase1_3d_plain(packed3, frames3, fbar3, cfg3),
-            4 * packed3.numel() + 3 * TIME_BACKWARD3D_STEPS * state3_bytes + state3_bytes,
-            TIME_BACKWARD3D_STEPS * cells3 * adj_flops_per_cell_step_1x1(cfg3),
-            TIME_BACKWARD3D_STEPS,
-            "backward3d._phase1_kernel3d", "percnn_tpu/ops/pallas/backward3d.py:60",
-            "backward3d.cu",
-            {"train": fallback_launches["gs3d_fused"]["fused_phase1_3d.launches"]}),
-    }
-    for name, (kernel, plain, nbytes, nflops, steps, jax_name, replaces, source,
-               by_path) in fallback_rows.items():
-        b_ms, b_by = bound_ms(nbytes, nflops)
-        fallback_work[name] = {"steps": steps, "bytes": nbytes, "flops": nflops}
-        kernels.append({
-            "name": name, "jax_kernel": jax_name, "route": "cuda",
-            "source": f"percnn_tpu_torch/ops/kernels/csrc/{source}", "replaces": replaces,
-            "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": err[name], "steps": steps,
-            "ms": cuda_ms(torch, kernel, reps=3 if steps > 1000 else 5),
-            "plain_ms": cuda_ms(torch, plain, reps=1, warm=False),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        })
+    # row 9 at 48^3, T = 300 (the GS3D backward above): adj3d_persistent_kernel
+    # beside adj3d_kernel, its per-step route, timed in turns; each sweep
+    # reads the T step inputs and cotangents and writes the T g_ins and g0
+    row9_ms, row9_steps_ms, row9_turns = turns(
+        lambda: backward3d._phase1_persistent_cuda(packed3, frames3, fbar3, cfg3),
+        lambda: backward3d._phase1_steps_cuda(packed3, frames3, fbar3, cfg3), reps=5)
+    row9_plain_ms = cuda_ms(torch, lambda: backward3d.fused_phase1_3d_plain(
+        packed3, frames3, fbar3, cfg3), reps=1, warm=False)
+    # the same kernel built for two blocks an SM (build_adj3d_two_blocks), on
+    # 2 n_sm blocks of half the cells, in turns with the plan's one block an
+    # SM; its outputs held to the plan's at the backward bar
+    fn_two = ctypes.CDLL(adj3d_two_lib).backward3d_adj_persistent
+    fn_two.argtypes, fn_two.restype = backward3d._ADJ_PERSISTENT_SIGNATURE, ctypes.c_int
+    per_sm_two = ctypes.c_int(0)
+
+    def adj3d_two_blocks():
+        g0_ = torch.zeros(frames3.shape[1:], dtype=torch.float32, device=dev)
+        scratch_ = torch.zeros_like(g0_)
+        g_ins_ = torch.empty((TIME_BACKWARD3D_STEPS,) + tuple(frames3.shape[1:]),
+                             dtype=torch.float32, device=dev)
+        check(fn_two(packed3.data_ptr(), packed3.numel(), frames3.data_ptr(), fbar3.data_ptr(),
+                     g0_.data_ptr(), scratch_.data_ptr(), g_ins_.data_ptr(),
+                     TIME_BACKWARD3D_STEPS, n3, n3, n3, cfg3.hidden, cfg3.n_branches, cfg3.dt,
+                     1.0 / (cfg3.dx * cfg3.dx), 2 * n_sm,
+                     torch.cuda.current_stream().cuda_stream, ctypes.byref(per_sm_two)) == 0,
+              f"adj3d_persistent_kernel on {2 * n_sm} blocks failed ({per_sm_two.value} an SM)")
+        return g_ins_, g0_
+
+    two_out = adj3d_two_blocks()
+    one_out = backward3d._phase1_persistent_cuda(packed3, frames3, fbar3, cfg3)
+    two_err = {key: [max_abs(a, b), float(b.abs().max())]
+               for key, a, b in zip(("g_ins", "g0"), two_out, one_out)}
+    for key, (e, scale) in two_err.items():
+        check(e <= 2e-4 * scale + 2e-6, f"adj3d_persistent_kernel on two blocks an SM vs one, "
+                                        f"{key}: max |diff| {e} over 2e-4 * {scale} + 2e-6")
+    del two_out, one_out
+    row9_two_ms, row9_one_ms, row9_two_turns = turns(
+        adj3d_two_blocks,
+        lambda: backward3d._phase1_persistent_cuda(packed3, frames3, fbar3, cfg3), reps=5)
+    shutil.rmtree(adj3d_two_dir, ignore_errors=True)
+    row9_two_blocks = {"blocks": 2 * n_sm, "blocks_an_sm_holds": per_sm_two.value,
+                       "ptxas": adj3d_two_ptxas, "ms": row9_two_ms,
+                       "one_block_an_sm_ms": row9_one_ms, "turns_ms": row9_two_turns,
+                       "err_and_max_vs_one_block_an_sm": two_err}
+    row9_work = {"steps": TIME_BACKWARD3D_STEPS,
+                 "bytes": 4 * packed3.numel() + 3 * TIME_BACKWARD3D_STEPS * state3_bytes
+                 + state3_bytes,
+                 "flops": TIME_BACKWARD3D_STEPS * cells3 * adj_flops_per_cell_step_1x1(cfg3)}
+    fallback_work["adj3d_persistent_kernel"] = row9_work
+    b9_ms, b9_by = bound_ms(row9_work["bytes"], row9_work["flops"])
+    row9_by_path = {"train": fallback_launches["gs3d_fused"]["fused_phase1_3d.launches"]}
+    kernels.extend([{
+        "name": "adj3d_persistent_kernel", "jax_kernel": "backward3d._phase1_kernel3d",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward3d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward3d.py:60",
+        "launches": sum(row9_by_path.values()), "launches_by_path": row9_by_path,
+        "max_abs_err": err["adj3d_persistent_kernel"], "steps": TIME_BACKWARD3D_STEPS,
+        "ms": row9_ms, "plain_ms": row9_plain_ms, "bound_ms": b9_ms, "bound_by": b9_by,
+        "library_ms": None, "launches_per_call": 1,
+        "us_per_step": 1e3 * row9_ms / TIME_BACKWARD3D_STEPS,
+        "per_step_route": {"name": "adj3d_kernel", "launches_per_call": TIME_BACKWARD3D_STEPS,
+                           "ms": row9_steps_ms,
+                           "us_per_step": 1e3 * row9_steps_ms / TIME_BACKWARD3D_STEPS,
+                           "max_abs_err": err["adj3d_kernel"]},
+        "turns_ms": row9_turns, "plan": one_launch["adj3d_persistent_kernel"],
+        "two_blocks_an_sm": row9_two_blocks,
+    }, {
+        "name": "adj3d_kernel", "jax_kernel": "backward3d._phase1_kernel3d", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/backward3d.cu",
+        "replaces": "percnn_tpu/ops/pallas/backward3d.py:60",
+        "launches": sum(adj3_steps_launches.values()), "launches_by_path": adj3_steps_launches,
+        "max_abs_err": err["adj3d_kernel"], "steps": TIME_BACKWARD3D_STEPS,
+        "ms": row9_steps_ms, "plain_ms": row9_plain_ms, "bound_ms": b9_ms, "bound_by": b9_by,
+        "library_ms": None,
+        "note": "the per-step route past the one-launch plan's capacity; ms at 48^3, timed in "
+                "turns with it"}])
     # the ensemble's kernels at its main paths' shapes: M = 4, 100 x 100,
     # C = 8, k = 1, T = 800 (the golden GS2D cell and its perturbations, as
     # kernels_batched; a standard-normal cotangent); pg2d_batched_kernel also
@@ -3735,12 +4131,6 @@ def main() -> int:
             {f"kernels_batched ({k})":
              batched_routes[k]["counts"]["fused_phase1_pg_2d_batched.launches"]
              for k in ("449 x 449", "156 x 156")}),
-        "rollout2d_batched_kernel[k=5]": (
-            lambda: batched2d._rollout_b_cuda(packed2, h02, cfgb, stepsb),
-            lambda: batched2d.fused_rollout_2d_batched_plain(packed2, h02, cfgb, stepsb),
-            m2 * (packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes), m2 * fwdb_flops,
-            stepsb, m2, "batched2d._rollout_kernel_b", ":63",
-            {"ensemble": ens_launches["burgers_batched"]["fused_rollout_2d_batched.launches_kxk"]}),
     }
     # the per-step rows' ms are their turns above; their plain versions the
     # one-launch rows' (the same function)
@@ -3773,6 +4163,64 @@ def main() -> int:
                              "M = 4, timed in turns with it")
             entry["m8"] = {"ms": m8(kind_of[name])["per_step_ms"]}
         kernels.append(entry)
+    # row 11 at k = 5: rollout2d_ffma_persistent_kernel with the member axis
+    # beside rollout2d_batched_kernel (its per-step route), timed in turns at
+    # M = 2 (the ensemble's) and M = 4, 100 x 100, T = 200, on the golden
+    # Burgers cell's members and their Burgers ICs
+    row11k = {}
+    for n_mem in (m2, 2 * m2):
+        if n_mem == m2:
+            pk, h0m = packed2, h02
+        else:
+            pk = batched2d.pack_pi_params_2d_batched(member_cells(modelb["cell"], n_mem),
+                                                     cfgb).contiguous()
+            h0m = member_ics(BURGERS_STAGE1.system, BURGERS_STAGE1.grid, n_mem)
+        one_ms, per_ms, tr = turns(
+            lambda: batched2d._rollout_b_ffma_cuda(pk, h0m, cfgb, stepsb),
+            lambda: batched2d._rollout_b_steps_cuda(pk, h0m, cfgb, stepsb), reps=5)
+        work = {"members": n_mem, "steps": stepsb,
+                "bytes": n_mem * (packedb_bytes + stateb_bytes + (stepsb + 1) * stateb_bytes),
+                "flops": n_mem * fwdb_flops}
+        b_ms, b_by = bound_ms(work["bytes"], work["flops"])
+        row11k[n_mem] = {"members": n_mem, "steps": stepsb, "ms": one_ms, "per_step_ms": per_ms,
+                         "us_per_step": 1e3 * one_ms / stepsb, "turns_ms": tr,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "plan": one_launch["rollout2d_ffma_persistent_kernel[batched]"][
+                             f"M={n_mem}"]}
+        batched_work[f"rollout2d_ffma_persistent_kernel[batched][M={n_mem}]"] = work
+        if n_mem > m2:
+            row11k[n_mem]["max_abs_err"] = err["rollout2d_ffma_persistent_kernel[batched][M=4]"]
+            del pk, h0m
+    r11 = row11k[m2]
+    row11k_plain_ms = cuda_ms(torch, lambda: batched2d.fused_rollout_2d_batched_plain(
+        packed2, h02, cfgb, stepsb), reps=1, warm=False)
+    row11k_by_path = {
+        "ensemble": ens_launches["burgers_batched"]["fused_rollout_2d_batched.launches_kxk"]}
+    kernels.extend([{
+        "name": "rollout2d_ffma_persistent_kernel[batched]",
+        "jax_kernel": "batched2d._rollout_kernel_b", "route": "cuda",
+        "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_ffma.cu",
+        "replaces": "percnn_tpu/ops/pallas/batched2d.py:63",
+        "launches": sum(row11k_by_path.values()), "launches_by_path": row11k_by_path,
+        "max_abs_err": err["rollout2d_ffma_persistent_kernel[batched]"], "members": m2,
+        "steps": stepsb, "ms": r11["ms"], "plain_ms": row11k_plain_ms,
+        "bound_ms": r11["bound_ms"], "bound_by": r11["bound_by"], "library_ms": None,
+        "launches_per_call": 1, "us_per_step": r11["us_per_step"],
+        "per_step_route": {"name": "rollout2d_batched_kernel[k=5]", "launches_per_call": stepsb,
+                           "ms": r11["per_step_ms"],
+                           "us_per_step": 1e3 * r11["per_step_ms"] / stepsb,
+                           "max_abs_err": err["rollout2d_batched_kernel[k=5]"]},
+        "turns_ms": r11["turns_ms"], "plan": r11["plan"], "m4": row11k[2 * m2],
+    }, {
+        "name": "rollout2d_batched_kernel[k=5]", "jax_kernel": "batched2d._rollout_kernel_b",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/batched2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/batched2d.py:63",
+        "launches": sum(fwd5_steps_launches.values()), "launches_by_path": fwd5_steps_launches,
+        "max_abs_err": err["rollout2d_batched_kernel[k=5]"], "members": m2, "steps": stepsb,
+        "ms": r11["per_step_ms"], "plain_ms": row11k_plain_ms, "bound_ms": r11["bound_ms"],
+        "bound_by": r11["bound_by"], "library_ms": None,
+        "note": "the per-step route past the one-launch plan; ms at 100 x 100, M = 2, timed in "
+                "turns with it", "m4": {"ms": row11k[2 * m2]["per_step_ms"]}}])
     # row 12 at k = 5: adj2d_batched_ffma_persistent_kernel beside
     # adj2d_batched_kernel's pair (its per-step route), timed in turns at
     # M = 2 (the ensemble's) and M = 4, 100 x 100, T = 200, on the golden

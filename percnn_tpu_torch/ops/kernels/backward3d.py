@@ -3,12 +3,19 @@ plain versions.
 
 Counterpart of percnn_tpu/ops/pallas/backward3d.py.  Its streaming half:
 ``fused_rollout_tp_3d`` is a differentiable rollout whose forward is
-cell3d.rollout3d_plan's kernel and whose backward is ``adj3d_kernel``
-(csrc/backward3d.cu, in place of ``_phase1_kernel3d``), a reverse sweep
-that streams g_in out, then ``core.rollout.chunked_param_grads`` over
-chunks of 16 steps.  The sweep is the 2D one of ops/kernels/backward2d.py
-at k = 1 with the 13-point 3D Laplacian.  ``fused_phase1_3d.launches``
-counts its launches, one a reverse step.
+cell3d.rollout3d_plan's kernel and whose backward is a reverse sweep that
+streams g_in out (in place of ``_phase1_kernel3d``), then
+``core.rollout.chunked_param_grads`` over chunks of 16 steps.
+``adj3d_plan`` picks the sweep's kernel from the shape:
+``adj3d_persistent_kernel``, the whole sweep in one cooperative launch
+(pg3d_persistent_kernel's body without the accumulators, its g0 that
+kernel's to the bit), for the GS3D cell's widths on any field that fits
+(51^3 at most on 132 SMs), else ``adj3d_kernel``, one launch a reverse step
+(both in csrc/backward3d.cu).  The sweep is the 2D one of
+ops/kernels/backward2d.py at k = 1 with the 13-point 3D Laplacian.
+``fused_phase1_3d.launches`` counts its launches (one a sweep on the
+one-launch route, none for no steps; one a reverse step on the per-step
+route) and ``fused_phase1_3d.steps`` its reverse steps run on the card.
 
 The fused-pg half: ``fused_rollout_tp_3d_pg`` is a differentiable rollout whose forward is
 cell3d.rollout3d_plan's kernel (ops/kernels/cell3d.py, the expanded cubic)
@@ -84,10 +91,13 @@ _SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 _ADJ_SIGNATURE = [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P]
 # the same as _SIGNATURE, then blocks, stream, blocks an SM (out)
 _PERSISTENT_SIGNATURE = _SIGNATURE[:-1] + [_I, _P, ctypes.POINTER(_I)]
+# the same as _ADJ_SIGNATURE, then blocks, stream, blocks an SM (out)
+_ADJ_PERSISTENT_SIGNATURE = _ADJ_SIGNATURE[:-1] + [_I, _P, ctypes.POINTER(_I)]
 # n_params, D, H, W, hidden, n_branches, blocks, blocks an SM (out)
 _OCCUPANCY_SIGNATURE = [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)]
-# pg3d_persistent_kernel (csrc/backward3d.cu): its threads a block, and the
-# cell widths (hidden, n_branches) it is compiled for, the GS3D cell's
+# pg3d_persistent_kernel and adj3d_persistent_kernel (csrc/backward3d.cu):
+# their threads a block, and the cell widths (hidden, n_branches) they are
+# compiled for, the GS3D cell's
 _PG3D_THREADS = 512
 _PG3D_WIDTHS = (2, 3)
 
@@ -307,8 +317,8 @@ def fused_phase1_3d_plain(packed: torch.Tensor, frames: torch.Tensor,
     return _adjoint_sweep_plain(w, b, w_out, packed[:2], frames, frames_bar, cfg, _lap3d(cfg))
 
 
-def _phase1_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
-                 cfg: PiCellConfig):
+def _phase1_steps_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+                       cfg: PiCellConfig):
     """adj3d_kernel: one launch per reverse step, the loop in C."""
     frames_bar = _check_pg_inputs(packed, frames, frames_bar, cfg, "adj3d_kernel")
     fn = _kernel_fn("backward3d_adj", _ADJ_SIGNATURE)
@@ -324,12 +334,98 @@ def _phase1_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.T
                            g_ins.data_ptr(), n_steps, D, H, W, cfg.hidden, cfg.n_branches,
                            cfg.dt, 1.0 / (cfg.dx * cfg.dx), stream), "backward3d_adj")
     fused_phase1_3d.launches += n_steps
+    fused_phase1_3d.steps += n_steps
     return g_ins, g0
+
+
+def adj3d_smem_bytes(cfg: PiCellConfig, D: int, H: int, W: int, blocks: int) -> int:
+    """Shared memory of a block of adj3d_persistent_kernel: the packed
+    parameters rounded up to 4 floats and g's window, the run of the most
+    cells a block owns (cap) with two rows of W cells on each side, cap +
+    4 W float2; no accumulator (csrc: persistent_smem_bytes with no
+    planes)."""
+    cap = -(-(D * H * W) // blocks)
+    return 4 * _round_up(2 + 2 * _param_block(cfg), 4) + 8 * (cap + 4 * W)
+
+
+def adj3d_plan(D: int, H: int, W: int, cfg: PiCellConfig, n_sm: int) -> dict:
+    """The route of the streaming reverse sweep of a D x H x W field on a
+    card of n_sm SMs, by a rule on the cell, the shape and the card's
+    limits: a cell of the widths the kernel is compiled for (C = 2, 3
+    branches: GS3D's) on one block an SM (min(n_sm, D H W) blocks of 512
+    threads, each owning split_evenly's share of the cells, at most two a
+    thread) whose window fits a block's shared memory takes
+    adj3d_persistent_kernel, one cooperative launch a sweep ('persistent',
+    with blocks and smem); else adj3d_kernel, one launch a step
+    ('per_step').  At 48^3 on 132 SMs: 132 blocks of 837 or 838 cells,
+    8 416 bytes each (pg3d_plan's blocks, without the 147 488 bytes of
+    accumulators); the largest cube it takes is 51^3 (1005 cells a block,
+    two a thread: the same rule as pg3d_plan's, which the bytes no longer
+    bind)."""
+    if (cfg.hidden, cfg.n_branches) != _PG3D_WIDTHS:
+        return {"route": "per_step"}
+    blocks = min(n_sm, D * H * W)
+    smem = adj3d_smem_bytes(cfg, D, H, W, blocks)
+    if smem > _MAX_SMEM or -(-(D * H * W) // blocks) > 2 * _PG3D_THREADS:
+        return {"route": "per_step"}
+    return {"route": "persistent", "blocks": blocks, "smem": smem}
+
+
+def _phase1_persistent_cuda(packed: torch.Tensor, frames: torch.Tensor,
+                            frames_bar: torch.Tensor, cfg: PiCellConfig):
+    """adj3d_persistent_kernel: the whole streaming sweep in one cooperative
+    launch, by adj3d_plan's configuration; (g_ins, g0).  No launch at
+    n_steps = 0.  Raises if the card cannot hold the grid."""
+    frames_bar = _check_pg_inputs(packed, frames, frames_bar, cfg, "adj3d_persistent_kernel")
+    n_steps = frames.shape[0] - 1
+    D, H, W = frames.shape[1:4]
+    plan = adj3d_plan(D, H, W, cfg, _sm_count(frames.device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {D} x {H} x {W} field takes no one-launch sweep (adj3d_plan)")
+    fn = _kernel_fn("backward3d_adj_persistent", _ADJ_PERSISTENT_SIGNATURE)
+    g0 = torch.zeros((D, H, W, 2), dtype=torch.float32, device=frames.device)
+    scratch = torch.zeros_like(g0)
+    g_ins = torch.empty((n_steps, D, H, W, 2), dtype=torch.float32, device=frames.device)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(packed.data_ptr(), packed.numel(), frames.data_ptr(),
+                           frames_bar.data_ptr(), g0.data_ptr(), scratch.data_ptr(),
+                           g_ins.data_ptr(), n_steps, D, H, W, cfg.hidden, cfg.n_branches,
+                           cfg.dt, 1.0 / (cfg.dx * cfg.dx), plan["blocks"], stream,
+                           ctypes.byref(per_sm)), "backward3d_adj_persistent")
+    fused_phase1_3d.launches += 1 if n_steps else 0
+    fused_phase1_3d.steps += n_steps
+    return g_ins, g0
+
+
+def adj3d_occupancy(cfg: PiCellConfig, D: int, H: int, W: int, device: torch.device) -> int:
+    """How many blocks of adj3d_plan's configuration an SM of the card holds."""
+    plan = adj3d_plan(D, H, W, cfg, _sm_count(device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"a {D} x {H} x {W} field takes no one-launch sweep")
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise_on_error(_kernel_fn("backward3d_adj_occupancy", _OCCUPANCY_SIGNATURE)(
+            2 + 2 * _param_block(cfg), D, H, W, cfg.hidden, cfg.n_branches, plan["blocks"],
+            ctypes.byref(per_sm)), "backward3d_adj_occupancy")
+    return per_sm.value
+
+
+def _phase1_cuda(packed: torch.Tensor, frames: torch.Tensor, frames_bar: torch.Tensor,
+                 cfg: PiCellConfig):
+    """The streaming reverse sweep on CUDA by adj3d_plan's route: one
+    cooperative launch of adj3d_persistent_kernel ('persistent') or one
+    adj3d_kernel launch a step ('per_step'); (g_ins, g0)."""
+    if frames.dim() == 5 and frames.device.type == "cuda" and adj3d_plan(
+            *frames.shape[1:4], cfg, _sm_count(frames.device))["route"] == "persistent":
+        return _phase1_persistent_cuda(packed, frames, frames_bar, cfg)
+    return _phase1_steps_cuda(packed, frames, frames_bar, cfg)
 
 
 def fused_phase1_3d(packed: torch.Tensor, frames: torch.Tensor,
                     frames_bar: torch.Tensor, cfg: PiCellConfig):
-    """(g_ins, g0): adj3d_kernel on CUDA, the plain version on the CPU."""
+    """(g_ins, g0): adj3d_plan's kernel on CUDA, the plain version on the CPU."""
     if frames.device.type == "cpu":
         return fused_phase1_3d_plain(packed, frames, frames_bar.to(torch.float32), cfg)
     return _phase1_cuda(packed, frames, frames_bar, cfg)
@@ -337,7 +433,7 @@ def fused_phase1_3d(packed: torch.Tensor, frames: torch.Tensor,
 
 class FusedRolloutTP3d(torch.autograd.Function):
     """frames = the rollout of a 3D 1x1 cell from h0 by rollout3d_plan's kernel;
-    backward by adj3d_kernel, then chunked_param_grads."""
+    backward by adj3d_plan's sweep, then chunked_param_grads."""
 
     @staticmethod
     def forward(ctx, h0, cfg, n_steps, pgrad_chunk, like, *leaves):
@@ -366,7 +462,7 @@ def fused_rollout_tp_3d(params: dict, h0: torch.Tensor, cfg: PiCellConfig, n_ste
                         pgrad_chunk: int = 16) -> torch.Tensor:
     """Differentiable rollout of a 3D 1x1 Pi cell: [D, H, W, 2] ->
     [n_steps+1, D, H, W, 2] f32, percnn_tpu's ``fused_rollout_tp_3d``.
-    Forward by rollout3d_plan's kernel, backward by adj3d_kernel on CUDA and
+    Forward by rollout3d_plan's kernel, backward by adj3d_plan's sweep on CUDA and
     chunked_param_grads over pgrad_chunk steps a batch; the plain versions
     on the CPU.  Any D, H, W >= 5: the TPU kernels' tile alignment has no
     counterpart here."""
@@ -376,3 +472,4 @@ def fused_rollout_tp_3d(params: dict, h0: torch.Tensor, cfg: PiCellConfig, n_ste
 
 
 fused_phase1_3d.launches = 0
+fused_phase1_3d.steps = 0

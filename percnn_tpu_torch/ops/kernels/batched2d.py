@@ -9,15 +9,23 @@ row m = ``pack_pi_params_2d`` of member m).  Every launch covers all M
 members:
 
 - the forward (in place of ``_rollout_kernel_b``), frames [M, T+1, H, W,
-  2]: for the GS2D cell's widths, on any field ``rollout_b_plan`` admits,
+  2], by ``rollout_b_plan``: for the GS2D cell's widths
   ``rollout2d_cluster_kernel`` (csrc/cell2d.cu) with a member axis, the
   whole rollout of every member in one launch of M clusters, one a member
-  (16 CTAs while the card holds all M at once, else 8); any other cell or
-  field, any odd kernel_size <= 5, ``rollout2d_batched_kernel``
-  (csrc/batched2d.cu), one launch a step, each member's step the step of
-  rollout2d_kernel (the tap-by-tap form at k > 1, whatever
+  (16 CTAs while the card holds all M at once, else 8); for a k x k cell
+  of the widths built (k = 3 or 5, 1 to 4 branches, C <= 16)
+  ``rollout2d_ffma_persistent_kernel`` (csrc/cell2d_ffma.cu) with a member
+  axis, every member's rollout in one cooperative launch, n_sm // M blocks
+  a member, one grid barrier a step; any other cell or field, any odd
+  kernel_size <= 5, ``rollout2d_batched_kernel`` (csrc/batched2d.cu), one
+  launch a step, each member's step the step of rollout2d_kernel.  At
+  k > 1 every route takes the tap-by-tap form in full f32 FFMA, whatever
   cell2d.MXU_FWD_ENABLED says, as percnn_tpu's batched kernels use
-  ``_pi_poly``).  The frames are the same bits by either route;
+  ``_pi_poly``.  At k = 1 the frames are the same bits by either route;
+  at k > 1 each member's frames by the one-launch route are the single
+  model's rollout2d_ffma_persistent_kernel's on that member to the bit,
+  and the two routes sum in other orders (both held to the plain version
+  at the forward bars);
 - the streaming reverse sweep (in place of ``_phase1_kernel_b``), g_ins
   [M, T, H, W, 2] and g0 [M, H, W, 2], every member's sweep in one
   cooperative launch, n_sm // M blocks a member, one grid barrier a step:
@@ -58,7 +66,8 @@ CUDA tensor launches the kernel or raises.  Launch counters, one a launch
 (each launch covers all M members), beside the steps run on the card:
 ``fused_rollout_2d_batched.launches`` and ``.steps`` (k = 1: one launch a
 call by the clusters, none for no steps, one a step past the plan) and
-``.launches_kxk`` (k > 1, one a step); ``fused_phase1_2d_batched.launches``
+``.launches_kxk`` and ``.steps_kxk`` (k > 1: the same by the one-launch
+FFMA kernel and rollout2d_batched_kernel); ``fused_phase1_2d_batched.launches``
 (k = 1) and ``.launches_kxk`` (k > 1), one a sweep by the persistent
 kernels (none for no steps), one (k = 1) or two (k > 1) a reverse step past
 their plans, beside ``.steps``;
@@ -83,6 +92,7 @@ from percnn_tpu_torch.ops.kernels.backward2d import (
     _pg_layout,
     _ffma_sweep_b,
     _pg_unpack,
+    adj_b_grid,
     adj_b_plan,
     adj_smem_bytes,
     fused_phase1_2d_plain,
@@ -180,25 +190,64 @@ def fused_phase1_pg_2d_batched_plain(packed: torch.Tensor, frames: torch.Tensor,
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
 
 
-def rollout_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, held: int) -> dict:
+def rollout_b_smem_bytes(cfg: PiCellConfig, H: int, W: int, per_member: int) -> int:
+    """Shared memory of a block of rollout2d_ffma_persistent_kernel with the
+    member axis and per_member blocks a member (backward2d.adj_b_grid's
+    layout): the member's forward operand (pack_ffma_fwd_2d), the tail, the
+    round's im2col stack [k*k*2][rc] and the most rows a block stages (csrc
+    cell2d_ffma.cu: persistent_smem on per_member blocks)."""
+    grid = adj_b_grid(H, W, per_member)
+    return (4 * (cell2d._ffma_fwd_floats(cfg) + cell2d._FFMA_TAIL
+                 + cfg.kernel_size ** 2 * 2 * grid["rc"]) + grid["tile_bytes"])
+
+
+def rollout_b_plan(M: int, H: int, W: int, cfg: PiCellConfig, held: int = 0,
+                   n_sm: int = 0) -> dict:
     """The route of the member-batched frames rollout of M members on an
-    H x W field, by a rule on the cell, the shape and what the card holds:
-    where cell2d.rollout_plan takes rollout2d_cluster_kernel (the GS2D
-    cell's widths, strips that fit), all M members run in one launch of M
-    clusters, one a member ('cluster', with n_cta, threads, smem and
-    members); any other cell or field takes rollout2d_batched_kernel, one
-    launch a step for all members ('per_step').  `held` is how many
-    clusters of rollout_plan's size (16 CTAs at most) the card holds at
-    once (cell2d.cluster_occupancy).  While M <= held the plan takes that
-    size; past it, clusters of 8 CTAs (twice the rows a CTA), which the
-    card holds about twice as many of, so that no member waits a whole
-    rollout for a free GPC; a field whose strips of 8 do not fit keeps the
-    16-CTA clusters and their waves.  The rule from chip_smoke.py on an
-    NVIDIA H100 80GB HBM3, 700.00 W (it holds 7 clusters of 16 CTAs and 15
-    of 8 at 100 x 100), T = 800, the sizes in turns: M = 4, one wave of
-    16-CTA clusters 1.742 ms against 3.366 for 8-CTA ones; M = 8, 16-CTA
-    clusters (two waves) 3.456 ms against 3.363 for 8-CTA ones (one
-    wave)."""
+    H x W field, by a rule on the cell, the shape and what the card holds.
+
+    A 1x1 cell: where cell2d.rollout_plan takes rollout2d_cluster_kernel
+    (the GS2D cell's widths, strips that fit), all M members run in one
+    launch of M clusters, one a member ('cluster', with n_cta, threads, smem
+    and members).  `held` is how many clusters of rollout_plan's size (16
+    CTAs at most) the card holds at once (cell2d.cluster_occupancy).  While
+    M <= held the plan takes that size; past it, clusters of 8 CTAs (twice
+    the rows a CTA), which the card holds about twice as many of, so that
+    no member waits a whole rollout for a free GPC; a field whose strips of
+    8 do not fit keeps the 16-CTA clusters and their waves.  The rule from
+    chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W (it holds 7
+    clusters of 16 CTAs and 15 of 8 at 100 x 100), T = 800, the sizes in
+    turns: M = 4, one wave of 16-CTA clusters 1.742 ms against 3.366 for
+    8-CTA ones; M = 8, 16-CTA clusters (two waves) 3.456 ms against 3.363
+    for 8-CTA ones (one wave).
+
+    A k x k cell of the widths the FFMA kernels are built for (k = 3 or 5,
+    1 to 4 branches, C <= 16) on a card of n_sm SMs: all M members in one
+    cooperative launch of rollout2d_ffma_persistent_kernel with the member
+    axis ('persistent', with blocks, blocks_a_member, threads and smem),
+    when every member gets at least one block (n_sm // M each, at most one
+    a cell: one block an SM) and a block fits its shared memory; a block's
+    cells go in the fewest rounds of at most 8 tiles of 16, the same
+    number each (backward2d.adj_b_grid).  For the Burgers cell (k = 5,
+    C = 16, 3 branches) at 100 x 100 on 132 SMs: M = 1, 132 blocks of 75 or
+    76 cells, one round of 5 tiles (320 threads), 47 248 bytes (ffma_plan's
+    grid); M = 2, 66 blocks a member of 151 or 152 cells, 2 rounds of 5
+    tiles (320 threads), 48 080 bytes; M = 4, 33 of 303 or 304 cells, 3
+    rounds of 7 tiles (448 threads), 56 144 bytes; M = 8, 16 of 625 (128
+    blocks), 5 rounds of 8 (512 threads), 61 840 bytes; the largest square
+    fields it admits are 1056 x 1056 at M = 2 and 774 x 774 at M = 4.
+
+    Any other cell or field takes rollout2d_batched_kernel, one launch a
+    step for all members ('per_step')."""
+    if cfg.kernel_size > 1:
+        if not cell2d._ffma_widths_ok(cfg) or not 1 <= M <= n_sm:
+            return {"route": "per_step"}
+        per_member = min(n_sm // M, H * W)
+        smem = rollout_b_smem_bytes(cfg, H, W, per_member)
+        if smem > _MAX_SMEM:
+            return {"route": "per_step"}
+        return {"route": "persistent", "blocks": M * per_member, "blocks_a_member": per_member,
+                "threads": adj_b_grid(H, W, per_member)["threads"], "smem": smem}
     base = cell2d.rollout_plan(H, W, cfg)
     if base["route"] != "cluster" or M < 1:
         return {"route": "per_step"}
@@ -331,7 +380,46 @@ def _rollout_b_steps_cuda(packed, h0, cfg, n_steps):
         fused_rollout_2d_batched.steps += n_steps
     else:
         fused_rollout_2d_batched.launches_kxk += n_steps
+        fused_rollout_2d_batched.steps_kxk += n_steps
     return frames
+
+
+def _rollout_b_ffma_cuda(packed, h0, cfg, n_steps):
+    """rollout2d_ffma_persistent_kernel with the member axis: every member's
+    k x k rollout in one cooperative launch, by rollout_b_plan's
+    configuration, full f32 FFMA whatever cell2d.MXU_FWD_ENABLED says.  No
+    launch at n_steps = 0 (frame 0 is a copy of h0).  Raises if the plan
+    refuses the shape or the card cannot hold the grid."""
+    _check_rollout_inputs("rollout2d_ffma_persistent_kernel", packed, h0, cfg, n_steps)
+    M, H, W = h0.shape[0], h0.shape[1], h0.shape[2]
+    plan = rollout_b_plan(M, H, W, cfg, n_sm=cell2d._sm_count(h0.device))
+    if plan["route"] != "persistent":
+        raise ValueError(f"{M} members of a {H} x {W} field take no one-launch rollout: {cfg}")
+    fn = cell2d._kernel_fn("cell2d_ffma_rollout_members", "cell2d_ffma")
+    members = [packed[m] for m in range(M)]
+    wf = torch.stack([cell2d.pack_ffma_fwd_2d(p, cfg) for p in members]).contiguous()
+    tail = torch.stack([cell2d.pack_ffma_tail_2d(p, cfg) for p in members]).contiguous()
+    frames = torch.empty((M, n_steps + 1, H, W, 2), dtype=torch.float32, device=h0.device)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_on_error(fn(wf.data_ptr(), tail.data_ptr(), h0.data_ptr(), frames.data_ptr(), M,
+                           n_steps, H, W, cfg.n_branches, cfg.kernel_size, cfg.dt,
+                           1.0 / (cfg.dx * cfg.dx), plan["blocks_a_member"], plan["threads"],
+                           plan["smem"], stream, ctypes.byref(per_sm)),
+                        "cell2d_ffma_rollout_members")
+    fused_rollout_2d_batched.launches_kxk += 1 if n_steps else 0
+    fused_rollout_2d_batched.steps_kxk += n_steps
+    return frames
+
+
+def rollout_b_occupancy(cfg: PiCellConfig, M: int, H: int, W: int,
+                        device: torch.device) -> int:
+    """How many blocks of rollout_b_plan's k x k configuration an SM of the
+    card holds."""
+    return cell2d.ffma_occupancy(
+        cfg, H, W, device, plan=rollout_b_plan(M, H, W, cfg, n_sm=cell2d._sm_count(device)),
+        fn_name="cell2d_ffma_members_occupancy")
 
 
 def _clusters_held(cfg, H, W) -> int:
@@ -371,10 +459,17 @@ def _rollout_b_cluster_cuda(packed, h0, cfg, n_steps, n_cta=None):
 
 def _rollout_b_cuda(packed, h0, cfg, n_steps):
     """The member-batched frames rollout on CUDA by rollout_b_plan's route:
-    one launch of M clusters of rollout2d_cluster_kernel ('cluster') or one
-    rollout2d_batched_kernel launch a step ('per_step')."""
-    if h0.dim() == 4 and cell2d.rollout_plan(h0.shape[1], h0.shape[2], cfg)["route"] == "cluster":
-        return _rollout_b_cluster_cuda(packed, h0, cfg, n_steps)
+    at k = 1 one launch of M clusters of rollout2d_cluster_kernel
+    ('cluster'), at k > 1 one cooperative launch of
+    rollout2d_ffma_persistent_kernel with the member axis ('persistent'),
+    else one rollout2d_batched_kernel launch a step ('per_step')."""
+    if h0.dim() == 4:
+        M, H, W = h0.shape[0], h0.shape[1], h0.shape[2]
+        if cfg.kernel_size == 1 and cell2d.rollout_plan(H, W, cfg)["route"] == "cluster":
+            return _rollout_b_cluster_cuda(packed, h0, cfg, n_steps)
+        if cfg.kernel_size > 1 and h0.device.type == "cuda" and rollout_b_plan(
+                M, H, W, cfg, n_sm=cell2d._sm_count(h0.device))["route"] == "persistent":
+            return _rollout_b_ffma_cuda(packed, h0, cfg, n_steps)
     return _rollout_b_steps_cuda(packed, h0, cfg, n_steps)
 
 
@@ -582,7 +677,7 @@ def _pg_b_cuda(packed, frames, frames_bar, cfg):
 def fused_rollout_2d_batched(packed: torch.Tensor, h0: torch.Tensor, cfg: PiCellConfig,
                              n_steps: int) -> torch.Tensor:
     """Frames [M, n_steps+1, H, W, 2] of every member from packed [M, P] and
-    h0 [M, H, W, 2]: rollout2d_batched_kernel on CUDA, the plain version on
+    h0 [M, H, W, 2]: _rollout_b_cuda's kernel on CUDA, the plain version on
     the CPU."""
     if h0.device.type == "cpu":
         return fused_rollout_2d_batched_plain(packed, h0, cfg, n_steps)
@@ -610,8 +705,8 @@ def fused_phase1_pg_2d_batched(packed, frames, frames_bar, cfg):
 
 
 class FusedRolloutTP2dBatched(torch.autograd.Function):
-    """frames = every member's rollout by rollout2d_batched_kernel; backward
-    by adj2d_batched_kernel, then each member's parameter gradients by
+    """frames = every member's rollout by _rollout_b_cuda's route; backward
+    by _phase1_b_cuda's sweep, then each member's parameter gradients by
     chunked_param_grads (percnn_tpu's ``_fused_tp_b_bwd``)."""
 
     @staticmethod
@@ -691,6 +786,7 @@ def fused_rollout_tp_2d_batched_pg(params: dict, h0: torch.Tensor, cfg: PiCellCo
 fused_rollout_2d_batched.launches = 0
 fused_rollout_2d_batched.steps = 0
 fused_rollout_2d_batched.launches_kxk = 0
+fused_rollout_2d_batched.steps_kxk = 0
 fused_phase1_2d_batched.launches = 0
 fused_phase1_2d_batched.launches_kxk = 0
 fused_phase1_2d_batched.steps = 0

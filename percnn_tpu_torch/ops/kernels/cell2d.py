@@ -97,7 +97,12 @@ _SIGNATURES = {
                                        _I, _I, _P, ctypes.POINTER(_I)],
     # n_branches, kernel_size, threads, smem, blocks an SM (out)
     "cell2d_ffma_occupancy": [_I, _I, _I, _I, ctypes.POINTER(_I)],
+    # wf [M, ...], tail [M, 36], h0, frames, M, n_steps, H, W, n_branches,
+    # kernel_size, dt, inv_dx2, per_member, threads, smem, stream, blocks an SM (out)
+    "cell2d_ffma_rollout_members": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                                    _P, ctypes.POINTER(_I)],
 }
+_SIGNATURES["cell2d_ffma_members_occupancy"] = _SIGNATURES["cell2d_ffma_occupancy"]
 # rollout2d_kernel and final2d_kernel stage the packed parameters in shared
 # memory, at most 48 KB of them (4932 floats for the Burgers cell); the
 # branch-matrix kernels stage the matrix instead (_kxk_smem_bytes).

@@ -21,10 +21,13 @@
 // _phase1_pg_kernel3d (pallas_call in _fused_phase1_pg_3d) on any field whose
 // accumulators fit the co-resident blocks' shared memory, two cells a
 // thread at most (51^3 at most on 132 SMs; pg3d_plan in ../backward3d.py);
-// pg3d_kernel replaces it past that.  adj3d_kernel, at the end, replaces
-// _phase1_kernel3d (pallas_call in _fused_phase1_3d): the same sweep without
-// the accumulators, streaming g_ins[t] = g_in [D, H, W, 2] out for the
-// time-batched parameter gradients (chunked_param_grads, ../backward3d.py).
+// pg3d_kernel replaces it past that.  adj3d_persistent_kernel replaces
+// _phase1_kernel3d (pallas_call in _fused_phase1_3d) for the same widths on
+// the same fields (adj3d_plan in ../backward3d.py: 51^3 at most on 132 SMs),
+// adj3d_kernel, at the end, past that and for other widths: the same sweep
+// without the accumulators, streaming g_ins[t] = g_in [D, H, W, 2] out for
+// the time-batched parameter gradients (chunked_param_grads,
+// ../backward3d.py).
 //
 // Bound on an H100 SXM at its 700 W power limit (published peaks: 3.35 TB/s,
 // 67 TFLOP/s f32 outside the tensor cores), GS3D training shape 48^3,
@@ -52,7 +55,18 @@
 // one block an SM, each block's cells' accumulators in its shared memory
 // from the first step to the last (written to the planes once, at the end),
 // and one grid barrier a step: pg2d_persistent_kernel's design
-// (backward2d.cu) with the 13-point stencil (described at the kernel).
+// (backward2d.cu) with the 13-point stencil (described at persistent_sweep3d).
+// adj3d_persistent_kernel is the same body without the accumulators (a
+// template flag): a block needs the packed parameters and g's window alone,
+// 8 416 bytes at 48^3 against 155 904, and its g0 is pg3d_persistent_kernel's
+// to the bit.  adj3d_kernel took one launch a reverse step, 6.16 us a step
+// at 48^3; the one-launch sweep's bound is adj3d_kernel's below (0.238 ms
+// per T = 300, bytes).  Measured by chip_smoke.py on an NVIDIA H100 80GB
+// HBM3, 700.00 W, per T = 300 at 48^3, in turns: 1.431 ms (4.77 us a step,
+// one launch) against 1.848 for adj3d_kernel; 128 registers, no spill.  A
+// build for two blocks an SM (__launch_bounds__(512, 2): 64 registers, 264
+// bytes spilled) on 264 blocks took 2.047 ms against 1.435 in turns, so
+// the plan keeps one block an SM.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -142,14 +156,17 @@ namespace cg = cooperative_groups;
 constexpr int kPersistentThreads = 512;
 constexpr int kBatch = 4;
 
-// The whole reverse sweep in one cooperative launch: block b owns the cells
+// The whole reverse sweep in one cooperative launch (pg3d_persistent_kernel
+// with kAcc, adj3d_persistent_kernel without): block b owns the cells
 // [first, first + n_own) of the flat D H W field (split_evenly in
 // ../cell2d.py) for every step, a thread cells k0 = threadIdx.x and, where
-// the block owns more than blockDim.x, k1 = k0 + blockDim.x (the plan keeps
-// a block within 2 blockDim.x cells).  The block keeps its cells' A
-// accumulators in its shared memory, plane-major ([A][cap], cap the most
+// the block owns more than blockDim.x, k1 = k0 + blockDim.x (the plans keep
+// a block within 2 blockDim.x cells).  With kAcc the block keeps its cells'
+// A accumulators in its shared memory, plane-major ([A][cap], cap the most
 // cells a block owns), from the first step to the last; they reach the
-// [A, D, H, W] planes once, at the end.  A reverse step t:
+// [A, D, H, W] planes once, at the end.  Without it there is no
+// accumulator: g_in of every step goes to g_ins[t], and a block needs only
+// the packed parameters and g's window.  A reverse step t:
 //   - g_{t+1}'s window that the block's stencils read along height and width
 //     (the owned run with two rows of W cells on each side) is staged into
 //     shared memory with __ldcg (L2, not the SM's L1, which may hold a stale
@@ -158,29 +175,35 @@ constexpr int kBatch = 4;
 //   - each thread takes its cells one after the other, each as pg3d_kernel
 //     takes its cell: g_in = g_{t+1} + fbar_{t+1} and the Laplacians, then
 //     pg_accumulate (pg_common.cuh) on the cell's column of the shared
-//     planes, then g_t written to global memory.  The depth neighbours of
-//     g_{t+1}, and a height neighbour that wraps around its plane, come
-//     from L2 (staging them as well, in 27 KB more a block at 48^3, made
-//     no difference on the card).
+//     planes (without kAcc the same function with the planes compiled out,
+//     and g_in stored to g_ins[t]), then g_t written to global memory.  The
+//     depth neighbours of g_{t+1}, and a height neighbour that wraps around
+//     its plane, come from L2 (staging them as well, in 27 KB more a block
+//     at 48^3, made no difference on the card).
 // Then one grid.sync() makes g_t visible to every block's next step; g
 // ping-pongs between g0 and scratch, in the order that makes the last step
 // (t = 0) write g0.  h_t and fbar_{t+1} do not depend on g, so a cell's 13
-// points of each are loaded ahead, into registers: k0's after step t + 1,
-// in flight across the barrier; k1's while k0's accumulation runs.  Each
-// is reduced to the centre values and the Laplacians of h and fbar as it
-// is used: Lap is linear, so Lap g_in = Lap g_{t+1} + Lap fbar_{t+1}, which
-// rounds otherwise than pg3d_kernel's Lap(g_{t+1} + fbar_{t+1}).  All else
-// is pg3d_kernel's arithmetic, expression for expression.  The kernel is
-// compiled for the GS3D cell's widths, NB = 3 branches and C = 2 hidden
-// channels (pg_accumulate's channel loop then unrolls: about 9% of the
-// sweep's time at 48^3 on the card); other cells take pg3d_kernel.
-template <int NB, int C>
-__global__ void __launch_bounds__(kPersistentThreads)
-    pg3d_persistent_kernel(const float* __restrict__ params, int n_params,
-                           const float2* __restrict__ frames,
-                           const float2* __restrict__ frames_bar, float2* g0, float2* scratch,
-                           float* __restrict__ acc, int n_steps, int D, int H, int W,
-                           float dt, float inv_dx2) {
+// points of each (of h the centre alone without kAcc) are loaded ahead,
+// into registers: k0's after step t + 1, in flight across the barrier;
+// k1's while k0's accumulation runs.  Each is reduced to the centre values
+// and the Laplacians of h and fbar as it is used: Lap is linear, so
+// Lap g_in = Lap g_{t+1} + Lap fbar_{t+1}, which rounds otherwise than
+// pg3d_kernel's and adj3d_kernel's Lap(g_{t+1} + fbar_{t+1}).  All else is
+// pg3d_kernel's arithmetic, expression for expression, and (du, dv) come
+// from the same code with and without kAcc, so the two kernels' g0 agree to
+// the bit.  The body is compiled for the GS3D cell's widths, NB = 3
+// branches and C = 2 hidden channels (pg_accumulate's channel loop then
+// unrolls: about 9% of the sweep's time at 48^3 on the card); other cells
+// take pg3d_kernel and adj3d_kernel.  The flag is a template parameter so
+// that pg3d_persistent_kernel keeps its machine code.
+template <int NB, int C, bool kAcc>
+__device__ __forceinline__ void persistent_sweep3d(const float* __restrict__ params, int n_params,
+                                                   const float2* __restrict__ frames,
+                                                   const float2* __restrict__ frames_bar,
+                                                   float2* g0, float2* scratch,
+                                                   float* __restrict__ acc, float2* g_ins,
+                                                   int n_steps, int D, int H, int W, float dt,
+                                                   float inv_dx2) {
   cg::grid_group grid = cg::this_grid();
   const int HW = H * W, cells = D * HW;
   const int nblk = gridDim.x, b = blockIdx.x;
@@ -189,7 +212,8 @@ __global__ void __launch_bounds__(kPersistentThreads)
   const int first = b * q + (b < m ? b : m);
   const int cap = (cells + nblk - 1) / nblk;
   const int halo = 2 * W, n_mid = n_own + 2 * halo;
-  const int n_planes = 2 * NB * C * 3 + 2 * C + 4;  // A (backward2d.py: _pg_layout)
+  // A (backward2d.py: _pg_layout) with kAcc, else none
+  const int n_planes = kAcc ? 2 * NB * C * 3 + 2 * C + 4 : 0;
 
   extern __shared__ float4 smem_pg3[];
   float* sp = reinterpret_cast<float*>(smem_pg3);
@@ -198,8 +222,9 @@ __global__ void __launch_bounds__(kPersistentThreads)
   for (int k = threadIdx.x; k < n_params; k += blockDim.x) sp[k] = params[k];
   for (int k = threadIdx.x; k < n_planes * cap; k += blockDim.x) sacc[k] = 0.0f;
 
-  // h_t and fbar_{t+1} at the 13 stencil points of own cell k, loaded into
-  // hx, fx, then reduced to r: u, v, Lap h (u, v), fbar (u, v), Lap fbar (u, v)
+  // h_t and fbar_{t+1} at the 13 stencil points of own cell k (of h the
+  // centre alone without kAcc), loaded into hx, fx, then reduced to r: u, v,
+  // Lap h (u, v; without kAcc unused), fbar (u, v), Lap fbar (u, v)
   float2 hx[kPoints], fx[kPoints];
   auto prefetch = [&](int t, int k) {
     int nbr[kPoints];
@@ -208,7 +233,11 @@ __global__ void __launch_bounds__(kPersistentThreads)
     const float2* fbar = frames_bar + static_cast<size_t>(t + 1) * cells;
 #pragma unroll
     for (int e = 0; e < kPoints; ++e) {
-      hx[e] = h[nbr[e]];
+      if constexpr (kAcc) {
+        hx[e] = h[nbr[e]];
+      } else {
+        if (e == 0) hx[e] = h[nbr[e]];
+      }
       fx[e] = fbar[nbr[e]];
     }
   };
@@ -272,7 +301,11 @@ __global__ void __launch_bounds__(kPersistentThreads)
   auto finish = [&](float2* dst, int k, const float (&r)[8], const float (&gin)[2],
                     float lap_gu, float lap_gv) {
     float du, dv;
-    pg_accumulate<NB>(sp, r[0], r[1], gin, r[2], r[3], sacc + k, cap, C, du, dv);
+    if constexpr (kAcc) {
+      pg_accumulate<NB>(sp, r[0], r[1], gin, r[2], r[3], sacc + k, cap, C, du, dv);
+    } else {
+      jacobian_t_1x1<NB>(sp, r[0], r[1], gin, C, du, dv);
+    }
     dst[first + k] = make_float2(gin[0] + dt * (sp[0] * lap_gu + du),
                                  gin[1] + dt * (sp[1] * lap_gv + dv));
   };
@@ -309,12 +342,18 @@ __global__ void __launch_bounds__(kPersistentThreads)
       gather(src, k0, r0, gin, lap_gu, lap_gv);
       if (k1 < n_own) prefetch(t, k1);
       finish(dst, k0, r0, gin, lap_gu, lap_gv);
+      if constexpr (!kAcc) {
+        g_ins[static_cast<size_t>(t) * cells + first + k0] = make_float2(gin[0], gin[1]);
+      }
     }
     if (k1 < n_own) {
       float r1[8], gin[2], lap_gu, lap_gv;
       reduce(r1);
       gather(src, k1, r1, gin, lap_gu, lap_gv);
       finish(dst, k1, r1, gin, lap_gu, lap_gv);
+      if constexpr (!kAcc) {
+        g_ins[static_cast<size_t>(t) * cells + first + k1] = make_float2(gin[0], gin[1]);
+      }
     }
     if (k0 < n_own && t > 0) prefetch(t - 1, k0);
     if (s + 1 < n_steps) grid.sync();
@@ -324,52 +363,101 @@ __global__ void __launch_bounds__(kPersistentThreads)
       acc[static_cast<size_t>(pl) * cells + first + k] = sacc[pl * cap + k];
 }
 
-// Dynamic shared memory of pg3d_persistent_kernel on `blocks` blocks: the
-// packed parameters rounded up to 4 floats, then [A][cap] floats, then g's
-// window, cap + 4 W float2 (pg3d_smem_bytes in ../backward3d.py).
-size_t persistent_smem_bytes(int n_params, int D, int H, int W, int hidden, int n_branches,
-                             int blocks) {
+// Row 10: the fused sweep in one cooperative launch (persistent_sweep3d
+// with the accumulators).
+template <int NB, int C>
+__global__ void __launch_bounds__(kPersistentThreads)
+    pg3d_persistent_kernel(const float* __restrict__ params, int n_params,
+                           const float2* __restrict__ frames,
+                           const float2* __restrict__ frames_bar, float2* g0, float2* scratch,
+                           float* __restrict__ acc, int n_steps, int D, int H, int W,
+                           float dt, float inv_dx2) {
+  persistent_sweep3d<NB, C, true>(params, n_params, frames, frames_bar, g0, scratch, acc,
+                                  nullptr, n_steps, D, H, W, dt, inv_dx2);
+}
+
+// Row 9: the streaming sweep in one cooperative launch (persistent_sweep3d
+// without the accumulators): g_ins[t] = g_in [D, H, W, 2] streamed out for
+// the time-batched parameter gradients, g0 pg3d_persistent_kernel's to the
+// bit.
+template <int NB, int C>
+__global__ void __launch_bounds__(kPersistentThreads)
+    adj3d_persistent_kernel(const float* __restrict__ params, int n_params,
+                            const float2* __restrict__ frames,
+                            const float2* __restrict__ frames_bar, float2* g0, float2* scratch,
+                            float2* g_ins, int n_steps, int D, int H, int W, float dt,
+                            float inv_dx2) {
+  persistent_sweep3d<NB, C, false>(params, n_params, frames, frames_bar, g0, scratch, nullptr,
+                                   g_ins, n_steps, D, H, W, dt, inv_dx2);
+}
+
+// Dynamic shared memory of persistent_sweep3d on `blocks` blocks: the
+// packed parameters rounded up to 4 floats, then [n_planes][cap] floats
+// (the A accumulators of pg3d_persistent_kernel, none for
+// adj3d_persistent_kernel), then g's window, cap + 4 W float2
+// (pg3d_smem_bytes and adj3d_smem_bytes in ../backward3d.py).
+size_t persistent_smem_bytes(int n_params, int D, int H, int W, size_t n_planes, int blocks) {
   const size_t cap = (static_cast<size_t>(D) * H * W + blocks - 1) / blocks;
-  const size_t planes = 2 * n_branches * hidden * 3 + 2 * hidden + 4;
-  return ((n_params + 3) / 4 * 4 + planes * cap) * sizeof(float) +
+  return ((n_params + 3) / 4 * 4 + n_planes * cap) * sizeof(float) +
          (cap + 4 * static_cast<size_t>(W)) * sizeof(float2);
 }
 
-// The widths pg3d_persistent_kernel is compiled for.
+// The widths the one-launch sweeps are compiled for, and pg3d_persistent_kernel's A.
 constexpr int kPersistentBranches = 3, kPersistentHidden = 2;
+constexpr size_t kPersistentPlanes =
+    2 * kPersistentBranches * kPersistentHidden * 3 + 2 * kPersistentHidden + 4;
 const auto pg3d_persistent = pg3d_persistent_kernel<kPersistentBranches, kPersistentHidden>;
+const auto adj3d_persistent = adj3d_persistent_kernel<kPersistentBranches, kPersistentHidden>;
 
-// How many blocks of pg3d_persistent_kernel an SM holds at once, its shared
-// memory allowed.
-cudaError_t persistent_occupancy(size_t smem, int* per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(pg3d_persistent,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+// How many blocks of a one-launch sweep kernel an SM holds at once, its
+// shared memory allowed.
+template <typename Kernel>
+cudaError_t persistent_occupancy(Kernel kernel, size_t smem, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, pg3d_persistent,
-                                                       kPersistentThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kPersistentThreads, smem);
 }
 
-cudaError_t persistent_sweep(const float* params, int n_params, const float2* frames,
-                             const float2* frames_bar, float2* g0, float2* scratch, float* acc,
-                             int n_steps, int D, int H, int W, float dt, float inv_dx2,
-                             int blocks, cudaStream_t stream, int* per_sm) {
-  const size_t smem = persistent_smem_bytes(n_params, D, H, W, kPersistentHidden,
-                                            kPersistentBranches, blocks);
-  cudaError_t err = persistent_occupancy(smem, per_sm);
+// One cooperative launch of `kernel` on `blocks` blocks with the arguments
+// `args`, after the occupancy query: a cooperative grid must be
+// co-resident, and one past it would be refused.
+template <typename Kernel>
+cudaError_t launch_persistent(Kernel kernel, void** args, size_t smem, int blocks,
+                              cudaStream_t stream, int* per_sm) {
+  cudaError_t err = persistent_occupancy(kernel, smem, per_sm);
   if (err != cudaSuccess) return err;
   int device, sms;
   err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  // a cooperative grid must be co-resident; one past it would be refused
   if (blocks > *per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
+                                    dim3(kPersistentThreads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+cudaError_t persistent_sweep(const float* params, int n_params, const float2* frames,
+                             const float2* frames_bar, float2* g0, float2* scratch, float* acc,
+                             int n_steps, int D, int H, int W, float dt, float inv_dx2,
+                             int blocks, cudaStream_t stream, int* per_sm) {
+  const size_t smem = persistent_smem_bytes(n_params, D, H, W, kPersistentPlanes, blocks);
   void* args[] = {&params, &n_params, &frames, &frames_bar, &g0, &scratch, &acc, &n_steps,
                   &D, &H, &W, &dt, &inv_dx2};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(pg3d_persistent),
-                                    dim3(blocks), dim3(kPersistentThreads), args, smem, stream);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_persistent(pg3d_persistent, args, smem, blocks, stream, per_sm);
+}
+
+cudaError_t adj_persistent_sweep(const float* params, int n_params, const float2* frames,
+                                 const float2* frames_bar, float2* g0, float2* scratch,
+                                 float2* g_ins, int n_steps, int D, int H, int W, float dt,
+                                 float inv_dx2, int blocks, cudaStream_t stream, int* per_sm) {
+  const size_t smem = persistent_smem_bytes(n_params, D, H, W, 0, blocks);
+  cudaError_t err = persistent_occupancy(adj3d_persistent, smem, per_sm);
+  if (err != cudaSuccess || n_steps == 0) return err;   // no step: g0 stays as zeroed
+  void* args[] = {&params, &n_params, &frames, &frames_bar, &g0, &scratch, &g_ins, &n_steps,
+                  &D, &H, &W, &dt, &inv_dx2};
+  return launch_persistent(adj3d_persistent, args, smem, blocks, stream, per_sm);
 }
 
 // The streaming sweep: one reverse step of pg3d_kernel's arithmetic without
@@ -502,5 +590,41 @@ extern "C" int backward3d_pg_occupancy(int n_params, int D, int H, int W, int hi
   if (n_branches != kPersistentBranches || hidden != kPersistentHidden || blocks < 1)
     return cudaErrorInvalidValue;
   return persistent_occupancy(
-      persistent_smem_bytes(n_params, D, H, W, hidden, n_branches, blocks), per_sm);
+      pg3d_persistent, persistent_smem_bytes(n_params, D, H, W, kPersistentPlanes, blocks),
+      per_sm);
+}
+
+// The streaming sweep in one cooperative launch of adj3d_persistent_kernel
+// on `blocks` blocks (adj3d_plan in ../backward3d.py: at most the card's
+// co-resident count, else cudaErrorCooperativeLaunchTooLarge, before
+// anything is launched; nothing is launched at n_steps = 0); frames,
+// frames_bar [n_steps + 1, D, H, W, 2]; g0 and scratch [D, H, W, 2]
+// zeroed; g_ins [n_steps, D, H, W, 2].  On return g0 holds the adjoint at
+// frame 0 (without frames_bar[0]).  `per_sm` gets the occupancy query's
+// blocks an SM.
+extern "C" int backward3d_adj_persistent(const void* params, int n_params, const void* frames,
+                                         const void* frames_bar, void* g0, void* scratch,
+                                         void* g_ins, int n_steps, int D, int H, int W,
+                                         int hidden, int n_branches, float dt, float inv_dx2,
+                                         int blocks, void* stream, int* per_sm) {
+  const long long cells = 1LL * D * H * W;
+  if (n_branches != kPersistentBranches || hidden != kPersistentHidden || blocks < 1 ||
+      blocks > cells || (cells + blocks - 1) / blocks > 2 * kPersistentThreads)
+    return cudaErrorInvalidValue;
+  return adj_persistent_sweep(static_cast<const float*>(params), n_params,
+                              static_cast<const float2*>(frames),
+                              static_cast<const float2*>(frames_bar), static_cast<float2*>(g0),
+                              static_cast<float2*>(scratch), static_cast<float2*>(g_ins),
+                              n_steps, D, H, W, dt, inv_dx2, blocks,
+                              static_cast<cudaStream_t>(stream), per_sm);
+}
+
+// How many blocks of adj3d_persistent_kernel an SM holds at once, on
+// `blocks` blocks.
+extern "C" int backward3d_adj_occupancy(int n_params, int D, int H, int W, int hidden,
+                                        int n_branches, int blocks, int* per_sm) {
+  if (n_branches != kPersistentBranches || hidden != kPersistentHidden || blocks < 1)
+    return cudaErrorInvalidValue;
+  return persistent_occupancy(adj3d_persistent,
+                              persistent_smem_bytes(n_params, D, H, W, 0, blocks), per_sm);
 }

@@ -3,10 +3,11 @@
 // table of packed parameters (pack_pi_params_2d in ../cell2d.py) and its own
 // state, advanced together: the reverse sweeps (fused, and streaming at
 // k = 1, 3 and 5) in one cooperative launch for all M members, the per-step
-// kernels here, which run past the one-launch kernels' plans and for the k x k
-// forward, one launch a step for all M.  (The forward of the GS2D cell takes
-// one launch a call too: rollout2d_cluster_kernel of cell2d.cu, M clusters,
-// one a member.)
+// kernels here, which run past the one-launch kernels' plans, one launch a
+// step for all M.  (The forwards take one launch a call too:
+// rollout2d_cluster_kernel of cell2d.cu for the GS2D cell, M clusters, one
+// a member, and rollout2d_ffma_persistent_kernel of cell2d_ffma.cu with a
+// member axis for a k x k cell.)
 //
 // Layouts (channels-last, f32, member-major):
 //   params     [M, P]
@@ -24,8 +25,10 @@
 // A member's step is the single model's step, the same code:
 //   rollout2d_batched_kernel<KS, NB> replaces
 //     percnn_tpu/ops/pallas/batched2d.py:_rollout_kernel_b (pallas_call in
-//     _fused_rollout_padded_b): step2d::step of cell2d_step.cuh, the step of
-//     rollout2d_kernel (cell2d.cu), any odd k <= 5;
+//     _fused_rollout_padded_b) past rollout_b_plan's one-launch forwards
+//     (../batched2d.py) and for the widths they are not built for:
+//     step2d::step of cell2d_step.cuh, the step of rollout2d_kernel
+//     (cell2d.cu), any odd k <= 5;
 //   adj2d_batched_kernel<NB> (k = 1) and adj2d_batched_act_kernel<KS, NB> +
 //     adj2d_batched_gather_kernel<KS> (k = 3, 5) replace _phase1_kernel_b
 //     (pallas_call in _fused_phase1_b): the steps of adj2d_kernel and of

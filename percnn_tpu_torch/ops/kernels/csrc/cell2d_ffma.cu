@@ -52,6 +52,30 @@
 // alone is 1.12 us); rollout2d_kernel<5, 3> 3.867 ms in the same call, in
 // turns.  The final-state mode over 1200 steps: 6.256 ms against 23.133 for
 // final2d_kernel<5, 3>.
+//
+// With the member axis (kMembers) the same kernel is an ensemble's k x k
+// forward: it replaces percnn_tpu/ops/pallas/batched2d.py:_rollout_kernel_b
+// (pallas_call in _fused_rollout_padded_b) for the FFMA widths on any field
+// whose block fits shared memory (rollout_b_plan in ../batched2d.py: 1056 x
+// 1056 at M = 2, 774 x 774 at M = 4 for the Burgers cell on 132 SMs;
+// rollout2d_batched_kernel<k> of batched2d.cu, one launch a step, past it).
+// The grid is M runs of per_member = n_sm // M blocks; block b of run m
+// owns kxk_mma::share_of_run(per_member, b) of member m's field for every
+// step, stages member m's operand and tail ([M, ...] stacks of
+// pack_ffma_fwd_2d and pack_ffma_tail_2d) and writes its frames at
+// frames[m]; one grid barrier a step serves every member.  A block owns
+// n_sm // M times the single model's cells, in the fewest rounds of at
+// most 8 tiles, the same number each (backward2d.adj_b_grid: 152 cells are
+// 2 rounds of 5 tiles).  A cell's arithmetic does not depend on the block
+// that owns it, so each member's frames are the single model's on that
+// member to the bit.  The flag is a template parameter so that the single
+// model's instances keep their machine code (chip_smoke.py --sass-against
+// compares them with a build of the parent's sources).  Bound: M times the
+// single model's, 0.58 ms at M = 2, T = 200, by operations.  Measured by
+// chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W, per T = 200 at
+// 100 x 100, in turns with rollout2d_batched_kernel<5, 3>: 2.140 ms at M = 2
+// (10.7 us a step, one launch) against 5.533, and 3.526 at M = 4 against
+// 7.695; 121 registers, no spill (k = 5, 3 branches).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,7 +90,10 @@ using kxk_ffma::kTail;
 using kxk_ffma::kTileCells;
 
 // The whole rollout in one cooperative launch (the design above).  `wf` is
-// pack_ffma_fwd_2d's operand, `tail` pack_ffma_tail_2d's.  With final_only
+// pack_ffma_fwd_2d's operand, `tail` pack_ffma_tail_2d's.  With kMembers
+// they are [M, ...] stacks, `out` the frames [M, n_steps + 1, H, W, 2],
+// block b of the grid on member b / per_member (final_only is 0; h0 is not
+// read).  With final_only
 // (the final-state request) no frame is stored: `out` is the final state
 // [H, W, 2], and the steps ping-pong between it and `scratch` in
 // final_schedule's order (rollout2d_kxk_persistent_kernel's argument holds:
@@ -74,16 +101,30 @@ using kxk_ffma::kTileCells;
 // s - 1's rows before the barrier that ended it, the rows are loaded with
 // __ldcg and the buffers take no const __restrict__).  The arithmetic is the
 // frames path's, so the final state equals the last frame to the bit.
-template <int KS, int NB>
+template <int KS, int NB, bool kMembers = false>
 __global__ void __launch_bounds__(kMaxThreads, 1)
     rollout2d_ffma_persistent_kernel(const float* __restrict__ wf,
                                      const float* __restrict__ tail, const float2* h0,
                                      float2* out, float2* scratch, int n_steps, int final_only,
-                                     int H, int W, float dt, float inv_dx2) {
+                                     int H, int W, float dt, float inv_dx2, int per_member) {
   using D = kxk_ffma::FwdDims<KS, NB>;
   cg::grid_group grid = cg::this_grid();
   const int cells = H * W;
-  const kxk_mma::Share sh = kxk_mma::share_of(cells, W);
+  int mem = 0;
+  if constexpr (kMembers) {
+    mem = static_cast<int>(blockIdx.x) / per_member;
+    wf += static_cast<size_t>(mem) * D::kOperand;
+    tail += static_cast<size_t>(mem) * kTail;
+    out += static_cast<size_t>(mem) * (static_cast<size_t>(n_steps) + 1) * cells;
+  }
+  const kxk_mma::Share sh = [&] {
+    if constexpr (kMembers) {
+      return kxk_mma::share_of_run(cells, W, per_member, static_cast<int>(blockIdx.x) -
+                                                             mem * per_member);
+    } else {
+      return kxk_mma::share_of(cells, W);
+    }
+  }();
   const int tiles = blockDim.x >> 6;
   const int rc = tiles * kTileCells;  // cells of a round
   extern __shared__ float4 smem_ffma[];
@@ -181,9 +222,9 @@ size_t persistent_smem(int H, int W, int blocks, int threads) {
   return 4 * (D::kOperand + kTail + D::kTaps * rc) + kxk_mma::tile_bytes(H, W, blocks);
 }
 
-template <int KS, int NB>
+template <int KS, int NB, bool kMembers = false>
 cudaError_t persistent_occupancy(size_t smem, int threads, int* per_sm) {
-  auto kernel = rollout2d_ffma_persistent_kernel<KS, NB>;
+  auto kernel = rollout2d_ffma_persistent_kernel<KS, NB, kMembers>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -209,11 +250,45 @@ cudaError_t persistent_rollout(const float* wf, const float* tail, const float2*
     if (err != cudaSuccess || n_steps == 0) return err;
   }
   final_only = final_only ? 1 : 0;
-  void* args[] = {&wf, &tail, &h0, &out, &scratch, &n_steps, &final_only, &H, &W, &dt, &inv_dx2};
+  int per_member = 0;
+  void* args[] = {&wf,        &tail, &h0, &out, &scratch,  &n_steps,
+                  &final_only, &H,   &W,  &dt,  &inv_dx2, &per_member};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(rollout2d_ffma_persistent_kernel<KS, NB>), dim3(blocks),
       dim3(threads), args, smem, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The members' rollouts in one launch: M runs of per_member blocks, frame 0
+// of every member a copy of its h0 (one strided copy).
+template <int KS, int NB>
+cudaError_t members_rollout(const float* wf, const float* tail, const float2* h0, float2* frames,
+                            int M, int n_steps, int H, int W, float dt, float inv_dx2,
+                            int per_member, int threads, size_t smem, cudaStream_t stream,
+                            int* per_sm) {
+  // the plan's bytes must be the kernel's: a member's field on per_member blocks
+  if (smem != persistent_smem<KS, NB>(H, W, per_member, threads)) return cudaErrorInvalidValue;
+  cudaError_t err = persistent_occupancy<KS, NB, true>(smem, threads, per_sm);
+  if (err != cudaSuccess) return err;
+  err = kxk_mma::check_coresident(M * per_member, *per_sm);
+  if (err != cudaSuccess) return err;
+  const size_t frame = static_cast<size_t>(H) * W * sizeof(float2);
+  err = cudaMemcpy2DAsync(frames, (static_cast<size_t>(n_steps) + 1) * frame, h0, frame, frame,
+                          M, cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess || n_steps == 0) return err;
+  float2* scratch = nullptr;
+  int final_only = 0;
+  void* args[] = {&wf,        &tail, &h0, &frames, &scratch,  &n_steps,
+                  &final_only, &H,   &W,  &dt,     &inv_dx2, &per_member};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(rollout2d_ffma_persistent_kernel<KS, NB, true>),
+      dim3(M * per_member), dim3(threads), args, smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int KS, int NB>
+cudaError_t members_occupancy(size_t smem, int threads, int* per_sm) {
+  return persistent_occupancy<KS, NB, true>(smem, threads, per_sm);
 }
 
 inline bool valid_grid(int blocks, int threads, int cells) {
@@ -256,4 +331,39 @@ extern "C" int cell2d_ffma_occupancy(int n_branches, int kernel_size, int thread
                                      int* per_sm) {
   const size_t bytes = static_cast<size_t>(smem);
   KXK_FFMA_DISPATCH(persistent_occupancy, bytes, threads, per_sm)
+}
+
+// Every member's rollout in one cooperative launch of
+// rollout2d_ffma_persistent_kernel with the member axis, on M x per_member
+// blocks of `threads` threads with `smem` bytes (rollout_b_plan in
+// ../batched2d.py: at most the card's co-resident count, else
+// cudaErrorCooperativeLaunchTooLarge before anything is launched; bytes
+// other than the kernel's own, cudaErrorInvalidValue).  wf and tail are
+// [M, ...] stacks of pack_ffma_fwd_2d's and pack_ffma_tail_2d's operands;
+// h0 [M, H, W, 2]; frames [M, n_steps + 1, H, W, 2], frame 0 of member m
+// its h0 (copied, and nothing launched, at n_steps = 0).  `per_sm` gets the
+// occupancy query's blocks an SM.
+extern "C" int cell2d_ffma_rollout_members(const void* wf, const void* tail, const void* h0,
+                                           void* frames, int M, int n_steps, int H, int W,
+                                           int n_branches, int kernel_size, float dt,
+                                           float inv_dx2, int per_member, int threads, int smem,
+                                           void* stream, int* per_sm) {
+  if (M < 1 || n_steps < 0 || !valid_grid(per_member, threads, H * W))
+    return cudaErrorInvalidValue;
+  const float* w = static_cast<const float*>(wf);
+  const float* t = static_cast<const float*>(tail);
+  const float2* h = static_cast<const float2*>(h0);
+  float2* f = static_cast<float2*>(frames);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = static_cast<size_t>(smem);
+  KXK_FFMA_DISPATCH(members_rollout, w, t, h, f, M, n_steps, H, W, dt, inv_dx2, per_member,
+                    threads, bytes, s, per_sm)
+}
+
+// How many blocks of the member-axis rollout2d_ffma_persistent_kernel an SM
+// holds at once, `threads` threads and `smem` bytes a block.
+extern "C" int cell2d_ffma_members_occupancy(int n_branches, int kernel_size, int threads,
+                                             int smem, int* per_sm) {
+  const size_t bytes = static_cast<size_t>(smem);
+  KXK_FFMA_DISPATCH(members_occupancy, bytes, threads, per_sm)
 }

@@ -96,9 +96,13 @@ def test_pg_threads_spread_groups_over_whole_warps(hidden, threads):
 
 
 @pytest.mark.parametrize("cfg", [_cfg(hidden=4), _cfg(hidden=16), _cfg(n_branches=2),
-                                 _cfg(kernel_size=3), _cfg(kernel_size=5)])
+                                 _cfg(kernel_size=3, n_branches=5),
+                                 _cfg(kernel_size=5, hidden=17)])
 def test_other_widths_take_the_per_step_forward(cfg):
-    assert batched2d.rollout_b_plan(4, 100, 100, cfg, HELD16) == {"route": "per_step"}
+    """1x1 cells of other widths than the cluster kernel's, and k x k cells
+    past the FFMA kernels' (1 to 4 branches, C <= 16; the k x k widths within
+    them take the one-launch FFMA forward: test_torch_batched_ffma_forward_schedule.py)."""
+    assert batched2d.rollout_b_plan(4, 100, 100, cfg, HELD16, n_sm=N_SM) == {"route": "per_step"}
 
 
 @pytest.mark.parametrize("cfg", [_cfg(hidden=9), _cfg(hidden=16), _cfg(n_branches=5),
