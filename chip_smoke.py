@@ -37,11 +37,16 @@ since start:
                M = 1, 2, 4, 8) and row 9's (adj3d_plan at GS3D's) beside what
                the card holds, the registers and spills of their kernels
                (rollout2d_ffma_persistent_kernel<5, 3, true>,
-               adj3d_persistent_kernel<3, 2>) and of their siblings; with
-               --sass-against CSRC_DIR, every kernel of the libraries that
-               share their code (cell2d_ffma, backward3d, backward2d,
-               batched2d, adj2d) against a build of CSRC_DIR's sources (the
-               parent commit's csrc/), instruction for instruction
+               adj3d_persistent_kernel<3, 2>) and of their siblings; row
+               14's one-launch plan (blocks_plan for four 50 x 50 blocks of
+               the GS2D and Burgers cells) beside what the card holds, the
+               registers and spills of step2d_blocks_kernel and
+               rollout2d_blocks_kernel at k = 1 and 5; with --sass-against
+               CSRC_DIR, every kernel of the libraries that share their code
+               (cell2d, sharded_step2d and batched2d, which include
+               cell2d_step.cuh; cell2d_ffma, backward3d, backward2d, adj2d)
+               against a build of CSRC_DIR's sources (the parent commit's
+               csrc/), instruction for instruction
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
   golden3d     the 3D ISG and rollout3d_persistent_kernel (one launch, 6
                steps) against tests/golden/pt_gs3d.npz
@@ -211,12 +216,23 @@ since start:
   kernels_sharded  step2d_haloed_kernel against its plain version on the
                haloed blocks of a 2 x 2 mesh of cuda:0 (four 50 x 50 blocks
                of 100 x 100, and a 6 x 10 block) for the golden GS2D (k = 1)
-               and Burgers (k = 5) cells; then sharded_rollout_nd
-               (impl="pallas", T = 200, launches counted) against the
-               single-device frames rollout and against impl="jnp"
-  grads_sharded  the gradients of sharded_rollout_nd, impl="pallas" and
-               "jnp", against f64 autograd on the referee setup (k = 1 and
-               k = 5, 12 steps, full width), launches counted
+               and Burgers (k = 5) cells, and its entry point
+               (step_haloed_2d) on the four blocks, counted; at the same
+               shapes (four 50 x 50 and four 6 x 10 blocks)
+               step2d_blocks_kernel against its plain version with all
+               blocks one device's state and with every block its own
+               device (the strip path), the two to the bit, and
+               rollout2d_blocks_kernel against its plain version (20 steps)
+               and its first step against step2d_blocks_kernel's to the bit;
+               then sharded_rollout_nd (impl="pallas", T = 200, no
+               gradient: one launch a call, counted) against the
+               single-device frames rollout, against impl="jnp" and, to the
+               bit, against one launch a step in both groupings, and on a
+               field past blocks_plan (400 x 400: one launch a step)
+  grads_sharded  the gradients of sharded_rollout_nd, impl="pallas" (one
+               launch of step2d_blocks_kernel a step, 48 in all) and "jnp",
+               against f64 autograd on the referee setup (k = 1 and k = 5,
+               12 steps, full width), launches counted
   sharded3d    GS3D's sharded_rollout_nd on a (2, 2, 2) mesh of cuda:0 at
                48^3, T = 50, against rollout3d_persistent_kernel
   train_ensemble  run_ensemble(GS2D_RECON, 4) in "batched_pg", "batched" and
@@ -251,9 +267,12 @@ since start:
                in 3xTF32 and all in FFMA),
                one grid barrier of an empty cooperative kernel alone, one
                bptt="two_phase" GS2D backward at T = 800, and a T = 200
-               decomposed rollout through row 14 with its profiler trace
+               decomposed rollout (four 50 x 50 blocks) by row 14's three
+               routes in turns (rollout2d_blocks_kernel, step2d_blocks_kernel
+               a step, PR 10's step_haloed_2d a block and step), each with
+               its profiler trace
 
-Then a ``{"kernels": [...]}`` line (36 entries: the 14 ported TPU kernels,
+Then a ``{"kernels": [...]}`` line (38 entries: the 14 ported TPU kernels,
 row 1 at k = 5 by rollout2d_ffma_persistent_kernel, row 2 by its three
 one-launch routes, rollout2d_cluster_kernel[final],
 rollout2d_kxk_persistent_kernel[final] and
@@ -264,7 +283,9 @@ adj2d_batched_ffma_persistent_kernel[M=1], row
 adj2d_batched_persistent_kernel and at k = 5 by
 adj2d_batched_ffma_persistent_kernel, row 11 at k = 5 by
 rollout2d_ffma_persistent_kernel[batched], row 9 by
-adj3d_persistent_kernel, and the per-step routes of rows 1 at k = 5
+adj3d_persistent_kernel, row 14 by rollout2d_blocks_kernel and
+step2d_blocks_kernel (step2d_haloed_kernel, PR 10's, its entry for the
+one-block step), and the per-step routes of rows 1 at k = 5
 (rollout2d_kernel[k=5]), 2 (final2d_kernel, final2d_kernel[k=5]), 3, 4 at
 k = 1 and 5, 5, 6, 8, 9, 10, 11 at k = 1 and 5, 12 at k = 1 and 5 and 13
 (rollout2d_kxk_kernel, adj2d_kernel, adj2d_kernel[k=5], adj2d_ys_kernel,
@@ -627,7 +648,8 @@ def profile_busy(torch, fn) -> dict:
                             "adj2d_kxk_persistent_kernel", "rollout2d_batched_kernel",
                             "adj2d_batched_kernel", "pg2d_batched_kernel",
                             "adj2d_persistent_kernel", "adj2d_batched_ffma_persistent_kernel",
-                            "adj2d_batched_persistent_kernel", "step2d_haloed_kernel")}
+                            "adj2d_batched_persistent_kernel", "step2d_haloed_kernel",
+                            "step2d_blocks_kernel", "rollout2d_blocks_kernel")}
     return {"window_ms": 1e-3 * window, "device_busy_ms": 1e-3 * busy,
             "device_idle_share": 1.0 - busy / window if device else None,
             "device_events": len(device),
@@ -676,7 +698,7 @@ def main() -> int:
     from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1, GS2D_RECON, GS3D_RECON
     from percnn_tpu_torch.ops.kernels import (_build, backward2d, backward3d, batched2d, cell2d,
                                               cell3d, sharded_step2d)
-    from percnn_tpu_torch.parallel import halo_exchange, make_mesh, sharded_rollout_nd
+    from percnn_tpu_torch.parallel import halo_exchange, make_mesh, sharded, sharded_rollout_nd
     from percnn_tpu_torch.parallel.halo import object_grid
     from percnn_tpu_torch.serving import build_serving_fn
 
@@ -812,6 +834,17 @@ def main() -> int:
         **backward3d.adj3d_plan(*(GS3D_RECON.grid,) * 3, GS3D_RECON.cell, cell2d._sm_count(dev)),
         "blocks_an_sm_holds": backward3d.adj3d_occupancy(GS3D_RECON.cell,
                                                          *(GS3D_RECON.grid,) * 3, dev)}
+    # row 14's one-launch route at GS2D's and Burgers' shapes on a 2 x 2 mesh
+    # (four 50 x 50 blocks): blocks_plan beside what the card holds
+    one_launch["rollout2d_blocks_kernel"] = {
+        label: {**sharded_step2d.blocks_plan(4, n_ // 2, n_ // 2, cell_, cell2d._sm_count(dev)),
+                **sharded_step2d.blocks_occupancy(4, n_ // 2, n_ // 2, cell_, dev)}
+        for label, cell_, n_ in (("gs2d", GS2D_RECON.cell, n_gs2d),
+                                 ("burgers", BURGERS_STAGE1.cell, BURGERS_STAGE1.grid))}
+    check(all(v["route"] == "one_launch" and v["fits"]
+              for v in one_launch["rollout2d_blocks_kernel"].values()),
+          f"the card holds none of row 14's one-launch grids: "
+          f"{one_launch['rollout2d_blocks_kernel']}")
     check(one_launch["adj3d_persistent_kernel"]["blocks_an_sm_holds"] >= 1
           and all(v["route"] == "persistent" and v["blocks_an_sm_holds"] >= 1 for v in
                   one_launch["rollout2d_ffma_persistent_kernel[batched]"].values()),
@@ -856,15 +889,22 @@ def main() -> int:
                       ("cell2d_ffma", "rollout2d_ffma_persistent_kernel", (5, 3, True)),
                       ("adj2d", "adj2d_ys_persistent_kernel", (5, 3)),
                       ("backward3d", "adj3d_persistent_kernel", (3, 2)),
-                      ("backward3d", "pg3d_persistent_kernel", (3, 2)))}
+                      ("backward3d", "pg3d_persistent_kernel", (3, 2)),
+                      ("sharded_step2d", "step2d_blocks_kernel", (1, 0)),
+                      ("sharded_step2d", "step2d_blocks_kernel", (5, 3)),
+                      ("sharded_step2d", "rollout2d_blocks_kernel", (1, 0)),
+                      ("sharded_step2d", "rollout2d_blocks_kernel", (5, 3)))}
     check(all(v is not None for v in ptxas_main.values()),
           f"ptxas reported no registers for {ptxas_main}")
-    # the siblings of this slice's kernels, which share their code or
-    # headers (the single model's FFMA forward, pg3d_persistent_kernel and
-    # every kernel that includes pg_common.cuh): with --sass-against DIR,
-    # their machine code against a build of DIR's sources (the parent
-    # commit's csrc/), every kernel instruction for instruction
-    sass_libs = ("cell2d_ffma", "backward3d", "backward2d", "batched2d", "adj2d")
+    # the siblings of the one-launch kernels, which share their code or
+    # headers (every kernel that includes cell2d_step.cuh: rows 1, 2, 11 and
+    # 14's step2d_haloed_kernel; the single model's FFMA forward,
+    # pg3d_persistent_kernel and every kernel that includes pg_common.cuh):
+    # with --sass-against DIR, their machine code against a build of DIR's
+    # sources (the parent commit's csrc/), every kernel instruction for
+    # instruction
+    sass_libs = ("cell2d", "sharded_step2d", "cell2d_ffma", "backward3d", "backward2d",
+                 "batched2d", "adj2d")
     sass_vs_parent = None
     if sass_parent is not None and _cuobjdump() is not None:
         parent_dir = tempfile.mkdtemp(prefix="chip_smoke_parent_")
@@ -1427,7 +1467,9 @@ def main() -> int:
                 (batched2d.fused_phase1_2d_batched, "steps"),
                 (batched2d.fused_phase1_pg_2d_batched, "launches"),
                 (batched2d.fused_phase1_pg_2d_batched, "steps"),
-                (sharded_step2d.step_haloed_2d, "launches")]
+                (sharded_step2d.step_haloed_2d, "launches"),
+                (sharded_step2d.step_blocks_2d, "launches"),
+                (sharded_step2d.rollout_blocks_2d, "launches")]
 
     def zero_counts():
         for obj, attr in counters:
@@ -2496,15 +2538,23 @@ def main() -> int:
     phase("grads_batched", setup="random-init cells (seeds 0..M-1), random targets, 12 steps, "
                                  "full width", bar=1e-4, routes=grads_b)
 
-    # kernels_sharded: row 14 on the haloed blocks of a 2 x 2 mesh that
-    # repeats cuda:0 (four 50 x 50 blocks of the 100 x 100 field, and a
-    # 6 x 10 block narrower than the k x k tile) for the golden GS2D (k = 1)
-    # and Burgers (k = 5) cells against its plain version; then the
-    # decomposed rollout of impl="pallas", the slice's main path with its
-    # launches counted, against the single-device frames rollout
+    # kernels_sharded: row 14.  PR 10's step2d_haloed_kernel on the haloed
+    # blocks of a 2 x 2 mesh that repeats cuda:0 (four 50 x 50 blocks of the
+    # 100 x 100 field, and 6 x 10 blocks, narrower than the k x k tile) for
+    # the golden GS2D (k = 1) and Burgers (k = 5) cells against its plain
+    # version, then through its entry point (step_haloed_2d) on the four
+    # blocks, counted.  The blocks kernels at the same shapes:
+    # step2d_blocks_kernel against its plain version in both groupings (all
+    # blocks one device's state; every block its own device, its halo from
+    # strips), the two equal to the bit; rollout2d_blocks_kernel against its
+    # plain version (20 steps).  Then the slice's main path, the decomposed
+    # rollout of impl="pallas" (T = 200, no gradient: one launch a call),
+    # with its launches counted, against the single-device frames rollout
     # (cell2d._rollout_cuda: rollout2d_cluster_kernel at k = 1,
     # rollout2d_kernel at k = 5; the same step on the periodic field) and
-    # against impl="jnp" (the eager step)
+    # against impl="jnp" (the eager step), and against route 1 (one launch a
+    # step) in both groupings to the bit; and a field past blocks_plan
+    # (400 x 400 on the 2 x 2 mesh), route 1 with no gradient
     axes2 = ("x", "y")
     mesh = make_mesh(axes2, shape=(2, 2), devices=[dev] * 4)
 
@@ -2516,10 +2566,28 @@ def main() -> int:
     def haloed(grid):
         return halo_exchange(grid, mesh=mesh, axis_names=axes2, array_axes=(0, 1))
 
+    def own_device(devices):
+        """Every block its own group: the strip path on one card."""
+        return [(devices[idx], [idx]) for idx in np.ndindex(devices.shape)]
+
+    @contextlib.contextmanager
+    def replaced(name, fn):
+        """sharded.<name> replaced by fn inside the block."""
+        old = getattr(sharded, name)
+        setattr(sharded, name, fn)
+        try:
+            yield
+        finally:
+            setattr(sharded, name, old)
+
+    def route1():
+        return replaced("_one_launch", lambda *args: False)
+
     packedb = cell2d.pack_pi_params_2d(paramsb["cell"], cfgb)
     sharded_cells = {"gs2d_k1": (cfg, params["cell"], h0, packed),
                      "burgers_k5": (cfgb, paramsb["cell"], h0b, packedb)}
-    block_err = {}
+    block_err, blocks_err, rollout_err = {}, {}, {}
+    devs22 = object_grid((2, 2), [dev] * 4)
     for label, (cfg_, _, x0, pk) in sharded_cells.items():
         narrow = (0.3 * torch.randn((10, 14, 2), generator=torch.Generator(device=dev)
                                     .manual_seed(10), device=dev) + x0[:1, :1])
@@ -2531,15 +2599,84 @@ def main() -> int:
             block_err[f"{label}.{name}"] = max_abs(a, b)
             check(allclose(a, b, rtol=2e-4, atol=1e-5),
                   f"step2d_haloed_kernel vs plain, {label} {name}: max |diff| {max_abs(a, b)}")
+        small = (0.3 * torch.randn((12, 20, 2), generator=torch.Generator(device=dev)
+                                   .manual_seed(11), device=dev) + x0[:1, :1])
+        for name, field in (("4_blocks_50x50", x0), ("4_blocks_6x10", small)):
+            h_, w_ = field.shape[0] // 2, field.shape[1] // 2
+            steps_by = {}
+            for grouping, groups in (("one_device", sharded._group_blocks(devs22)),
+                                     ("own_device", own_device(devs22))):
+                layouts = sharded._group_layouts(groups, (2, 2), h_, w_)
+                states = sharded._states(field, layouts, (2, 2), h_, w_)
+                outs = []
+                for g, st in zip(layouts, states):
+                    strips = sharded._strips(states, g).contiguous()
+                    a = sharded_step2d._step_blocks_cuda(pk, st, strips, g.layout, cfg_)
+                    b = sharded_step2d.step_blocks_2d_plain(pk, st, strips, g.layout, cfg_)
+                    torch.cuda.synchronize()
+                    key = f"{label}.{name}.{grouping}"
+                    blocks_err[key] = max(blocks_err.get(key, 0.0), max_abs(a, b))
+                    check(allclose(a, b, rtol=2e-4, atol=1e-5),
+                          f"step2d_blocks_kernel vs plain, {key}: max |diff| {max_abs(a, b)}")
+                    outs.append(a)
+                steps_by[grouping] = torch.cat(outs)
+            check(torch.equal(steps_by["one_device"], steps_by["own_device"]),
+                  f"step2d_blocks_kernel, {label} {name}: the groupings differ by "
+                  f"{max_abs(steps_by['one_device'], steps_by['own_device'])}")
+            layout = sharded._field_layout((2, 2), h_, w_)
+            a = sharded_step2d._rollout_blocks_cuda(pk, field, layout, cfg_, 20)
+            b = sharded_step2d.rollout_blocks_2d_plain(pk, field, layout, cfg_, 20)
+            torch.cuda.synchronize()
+            rollout_err[f"{label}.{name}"] = max_abs(a, b)
+            check(allclose(a, b, rtol=2e-4, atol=1e-5),
+                  f"rollout2d_blocks_kernel vs plain, {label} {name}: max |diff| {max_abs(a, b)}")
+            check(torch.equal(a[1], steps_by["one_device"].reshape(2, 2, h_, w_, 2).transpose(1, 2)
+                              .reshape(field.shape)),
+                  f"rollout2d_blocks_kernel's first step vs step2d_blocks_kernel's, {label} {name}")
     err["step2d_haloed_kernel"] = max(block_err.values())
-    sharded_step2d.step_haloed_2d.launches = 0
+    err["step2d_blocks_kernel"] = max(blocks_err.values())
+    err["rollout2d_blocks_kernel"] = max(rollout_err.values())
+    sharded_counters = [(sharded_step2d.step_haloed_2d, "launches"),
+                        (sharded_step2d.step_blocks_2d, "launches"),
+                        (sharded_step2d.rollout_blocks_2d, "launches")]
+
+    def zero_sharded():
+        for obj, attr in sharded_counters:
+            setattr(obj, attr, 0)
+
+    def read_sharded():
+        return {f"{obj.__name__}.{attr}": getattr(obj, attr) for obj, attr in sharded_counters}
+
+    # step_haloed_2d, the one-block entry point, on the four haloed blocks
+    zero_sharded()
+    with torch.no_grad():
+        for label, (cfg_, cell_, x0, _) in sharded_cells.items():
+            for b in haloed(mesh_blocks(x0)).flat:
+                sharded_step2d.step_haloed_2d(cell_, b.contiguous(), cfg_)
+    sharded_launches = {"kernels_sharded.step_haloed_2d": read_sharded()}
+    check(sharded_launches["kernels_sharded.step_haloed_2d"] == {
+        "step_haloed_2d.launches": 4 * len(sharded_cells), "step_blocks_2d.launches": 0,
+        "rollout_blocks_2d.launches": 0},
+          f"step_haloed_2d through its entry point: {sharded_launches}")
     sharded_roll = {}
     with torch.no_grad():
         for label, (cfg_, cell_, x0, pk) in sharded_cells.items():
+            zero_sharded()
             got = sharded_rollout_nd(cell_, x0, cfg_, CHECK_STEPS, mesh, impl="pallas")
+            sharded_launches[f"kernels_sharded.{label}"] = read_sharded()
             single = cell2d._rollout_cuda(pk, x0, cfg_, CHECK_STEPS)
             eager = sharded_rollout_nd(cell_, x0, cfg_, CHECK_STEPS, mesh, impl="jnp")
+            zero_sharded()
+            with route1():
+                one_dev = sharded_rollout_nd(cell_, x0, cfg_, CHECK_STEPS, mesh, impl="pallas")
+                with replaced("_group_blocks", own_device):
+                    strips = sharded_rollout_nd(cell_, x0, cfg_, CHECK_STEPS, mesh,
+                                                impl="pallas")
+            sharded_launches[f"kernels_sharded.{label}.route1"] = read_sharded()
             torch.cuda.synchronize()
+            check(torch.equal(got, one_dev) and torch.equal(one_dev, strips),
+                  f"sharded pallas rollout, {label}: the routes and groupings differ: "
+                  f"{max_abs(got, one_dev)}, {max_abs(one_dev, strips)}")
             bar = 2e-5 * torch.arange(CHECK_STEPS + 1, device=dev)
             for other, ref_frames in (("single_device", single), ("jnp", eager)):
                 per_step = (got - ref_frames).abs().flatten(1).amax(1)
@@ -2549,25 +2686,52 @@ def main() -> int:
                       f"{float(per_step[worst])} over {float(bar[worst])}")
                 sharded_roll[f"{label}.vs_{other}"] = {
                     "max_abs_err": float(per_step.max()),
-                    "worst_step_over_bar": float((per_step[1:] / bar[1:]).max())}
-            del got, single, eager
-    sharded_launches = {"kernels_sharded": sharded_step2d.step_haloed_2d.launches}
-    check(sharded_launches["kernels_sharded"] == len(sharded_cells) * 4 * CHECK_STEPS,
-          f"sharded rollouts: {sharded_launches} launches of step2d_haloed_kernel")
+                    "worst_step_over_bar": float((per_step[1:] / bar[1:]).max()),
+                    "equal_bits": bool(torch.equal(got, ref_frames))}
+            del got, single, eager, one_dev, strips
+        # past blocks_plan: 400 x 400 (four 200 x 200 blocks), route 1
+        big = torch.as_tensor(default_ic("gray_scott_2d", 400), dtype=torch.float32, device=dev)
+        past_plan = sharded_step2d.blocks_plan(4, 200, 200, cfg, n_sm)
+        zero_sharded()
+        got = sharded_rollout_nd(params["cell"], big, cfg, 10, mesh, impl="pallas")
+        sharded_launches["kernels_sharded.400x400"] = read_sharded()
+        single = cell2d._rollout_cuda(packed, big, cfg, 10)
+        torch.cuda.synchronize()
+        per_step = (got - single).abs().flatten(1).amax(1)
+        check(past_plan["route"] == "per_step" and
+              bool((per_step <= 2e-5 * torch.arange(11, device=dev)).all()),
+              f"sharded pallas rollout past the plan, 400 x 400: {past_plan}, max |diff| per "
+              f"step {per_step.tolist()}")
+        sharded_roll["gs2d_k1.400x400.vs_single_device"] = {
+            "max_abs_err": float(per_step.max()), "plan": past_plan["route"]}
+        del got, single, big
+    want_counts = {f"kernels_sharded.{label}": {
+        "step_haloed_2d.launches": 0, "step_blocks_2d.launches": 0,
+        "rollout_blocks_2d.launches": 1} for label in sharded_cells}
+    want_counts.update({f"kernels_sharded.{label}.route1": {
+        "step_haloed_2d.launches": 0, "step_blocks_2d.launches": 5 * CHECK_STEPS,
+        "rollout_blocks_2d.launches": 0} for label in sharded_cells})
+    want_counts["kernels_sharded.400x400"] = {
+        "step_haloed_2d.launches": 0, "step_blocks_2d.launches": 10,
+        "rollout_blocks_2d.launches": 0}
+    check(all(sharded_launches[k] == v for k, v in want_counts.items()),
+          f"sharded rollouts' launches: {sharded_launches}, expected {want_counts}")
     phase("kernels_sharded", mesh=mesh.shape, devices=[str(d) for d in mesh.devices.flat],
           block=[50, 50], steps=CHECK_STEPS, step_vs_plain_max_abs_err=block_err,
-          rtol=2e-4, atol=1e-5, rollouts=sharded_roll, rollout_bar="2e-5 * t",
-          launches=sharded_launches["kernels_sharded"])
+          blocks_step_vs_plain_max_abs_err=blocks_err,
+          blocks_rollout_vs_plain_max_abs_err=rollout_err, rtol=2e-4, atol=1e-5,
+          rollouts=sharded_roll, rollout_bar="2e-5 * t", launches=sharded_launches)
 
-    # grads_sharded: the gradients through the exchange, impl="pallas" (row
-    # 14 forward, eager adjoint) and "jnp", against f64 autograd on the
-    # referee setup of grads and grads_kxk (random-init cell, random target,
-    # 12 steps, full width), launches counted: with remat each checkpointed
-    # segment runs its forward twice
+    # grads_sharded: the gradients through the strips, impl="pallas" (row
+    # 14's step2d_blocks_kernel forward, eager adjoint) and "jnp", against
+    # f64 autograd on the referee setup of grads and grads_kxk (random-init
+    # cell, random target, 12 steps, full width), launches counted: one a
+    # step on the one device, and with remat each checkpointed segment runs
+    # its forward twice
     def sharded_route(impl):
         return lambda p, x, cfg_, steps: sharded_rollout_nd(p, x, cfg_, steps, mesh, impl=impl)
 
-    sharded_step2d.step_haloed_2d.launches = 0
+    zero_sharded()
     routes_sh = {"pallas": sharded_route("pallas"), "jnp": sharded_route("jnp")}
     rel_sh = {
         "gs2d_k1": rel_errs_vs_f64(ref_cell, x_ref, 12,
@@ -2577,8 +2741,10 @@ def main() -> int:
                                       lambda fr: ((fr - tgtb.to(fr.dtype)) ** 2).mean(),
                                       cfg=cfgb, routes=routes_sh),
     }
-    sharded_launches["grads_sharded"] = sharded_step2d.step_haloed_2d.launches
-    check(sharded_launches["grads_sharded"] == 2 * len(rel_sh) * 4 * 12,
+    sharded_launches["grads_sharded"] = read_sharded()
+    check(sharded_launches["grads_sharded"] == {
+        "step_haloed_2d.launches": 0, "step_blocks_2d.launches": 2 * len(rel_sh) * 12,
+        "rollout_blocks_2d.launches": 0},
           f"sharded gradients: {sharded_launches['grads_sharded']} launches")
     worst_sh = {}
     for label, rel in rel_sh.items():
@@ -4299,12 +4465,18 @@ def main() -> int:
         two_phase_ms.append({"forward_ms": fwd2_ms, "backward_ms": bwd2_ms})
     del fr2
     # row 14: a T = 200 decomposed rollout of the golden GS2D cell on the
-    # 2 x 2 mesh (impl="pallas", four 50 x 50 blocks, 4 launches a step) by
-    # CUDA events, beside the same rollout with the plain version in the
-    # kernel's place, one launch alone, and a profiler trace of the rollout
-    # for the kernel's device time and the time outside it (the exchange:
-    # slices, copies and cats, and the host's enqueue); the bound is the
-    # kernel's work, per step 4 haloed 54^2 blocks in and 4 50^2 out
+    # 2 x 2 mesh (four 50 x 50 blocks) by CUDA events, three ways in turns:
+    # route 2, impl="pallas" as a user calls it (rollout2d_blocks_kernel, one
+    # launch); route 1 (step2d_blocks_kernel, one launch a step); and PR
+    # 10's per-block route (the exchange by halo_exchange, then
+    # step_haloed_2d on each block, 4 launches a step, the blocks stacked
+    # and joined at the end).  Beside them the plain versions (the blocks
+    # rollout's, and PR 10's with step_haloed_2d_plain in the kernel's
+    # place), one launch alone of each step kernel, and a profiler trace of
+    # each route for its kernels' device time and the time outside them.
+    # The bounds: the rollout's work counted once, as row 1's (h0 and the
+    # parameters in, T + 1 frames out); a route 1 step reads and writes the
+    # state; PR 10's step reads 4 haloed 54^2 blocks and writes 4 50^2 ones
     def sharded_plain(pk, x0, cfg_, steps):
         grid = mesh_blocks(x0)
         for _ in range(steps):
@@ -4312,36 +4484,121 @@ def main() -> int:
                                         for b in haloed(grid).flat])
         return grid
 
+    def per_block_rollout(cell_, x0, cfg_, steps):
+        """PR 10's decomposed rollout: a halo exchange and a step_haloed_2d
+        launch a block and step, the frames stacked a block and joined."""
+        grid = mesh_blocks(x0)
+        frames = [[b[None]] for b in grid.flat]
+        for _ in range(steps):
+            grid = object_grid((2, 2), [sharded_step2d.step_haloed_2d(cell_, b, cfg_)
+                                        for b in haloed(grid).flat])
+            for k, b in enumerate(grid.flat):
+                frames[k].append(b[None])
+        rows = [torch.cat([torch.cat(frames[2 * i + j]) for j in range(2)], dim=2)
+                for i in range(2)]
+        return torch.cat(rows, dim=1)
+
     blk = GS2D_RECON.grid // 2
+    field_layout = sharded._field_layout((2, 2), blk, blk)
     b14_ms, b14_by = bound_ms(
         CHECK_STEPS * 4 * (param_bytes + 8 * (blk + 4) ** 2 + 8 * blk ** 2),
         CHECK_STEPS * 4 * blk ** 2 * flops_per_cell_step(cfg))
+    b14r_ms, b14r_by = bound_ms(param_bytes + (CHECK_STEPS + 2) * state_bytes,
+                                CHECK_STEPS * cells * flops_per_cell_step(cfg))
+    b14s_ms, b14s_by = bound_ms(CHECK_STEPS * (param_bytes + 2 * state_bytes),
+                                CHECK_STEPS * cells * flops_per_cell_step(cfg))
+    row14 = {}
     with torch.no_grad():
-        sharded_fn = lambda: sharded_rollout_nd(params["cell"], h0, cfg, CHECK_STEPS, mesh,
-                                                impl="pallas")
-        row14_ms = cuda_ms(torch, sharded_fn, reps=3)
-        row14_trace = profile_busy(torch, sharded_fn)
+        old14 = per_block_rollout(params["cell"], h0, cfg, 20)
+        new14 = sharded_rollout_nd(params["cell"], h0, cfg, 20, mesh, impl="pallas")
+        per_block_vs_route2 = {"max_abs_err": max_abs(old14, new14),
+                               "equal_bits": bool(torch.equal(old14, new14))}
+        check(bool(((old14 - new14).abs().flatten(1).amax(1)
+                    <= 2e-5 * torch.arange(21, device=dev)).all()),
+              f"PR 10's per-block route vs the blocks rollout: {per_block_vs_route2}")
+        del old14, new14
+        route2_fn = lambda: sharded_rollout_nd(params["cell"], h0, cfg, CHECK_STEPS, mesh,
+                                               impl="pallas")
+        per_block_fn = lambda: per_block_rollout(params["cell"], h0, cfg, CHECK_STEPS)
+
+        def route1_fn():
+            with route1():
+                return sharded_rollout_nd(params["cell"], h0, cfg, CHECK_STEPS, mesh,
+                                          impl="pallas")
+
+        # in turns: PR 10's, route 2, route 1, route 1, route 2, PR 10's
+        order = (("per_block", per_block_fn, 3), ("route2", route2_fn, 20),
+                 ("route1", route1_fn, 5))
+        for name, fn, reps in order + order[::-1]:
+            row14.setdefault(name, []).append(cuda_ms(torch, fn, reps=reps))
+        traces = {name: profile_busy(torch, fn) for name, fn, _ in order}
+    group14 = sharded._group_layouts(sharded._group_blocks(devs22), (2, 2), blk, blk)[0]
+    state14 = sharded._states(h0, [group14], (2, 2), blk, blk)[0]
+    none14, layout14 = group14.no_strips, group14.layout
     xb14 = haloed(mesh_blocks(h0))[0, 0].contiguous()
-    kernel14_ms = row14_trace["kernel_ms"]["step2d_haloed_kernel"]
-    kernels.append({
+    kernel_of = {"per_block": "step2d_haloed_kernel", "route2": "rollout2d_blocks_kernel",
+                 "route1": "step2d_blocks_kernel"}
+
+    def trace14(name):
+        tr = traces[name]
+        k_ms = tr["kernel_ms"][kernel_of[name]]
+        return {"window_ms": tr["window_ms"], "device_busy_ms": tr["device_busy_ms"],
+                "kernel_ms": k_ms, "kernel_us_per_launch": tr["kernel_us_per_launch"][kernel_of[name]],
+                "outside_kernel_share": 1.0 - k_ms / tr["window_ms"],
+                "device_idle_share": tr["device_idle_share"]}
+
+    def mean(v):
+        return sum(v) / len(v)
+
+    row14_launches = {k: v for k, v in sharded_launches.items()}
+    blocks_plain_ms = cuda_ms(torch, lambda: sharded_step2d.rollout_blocks_2d_plain(
+        packed, h0, field_layout, cfg, CHECK_STEPS), reps=1, warm=False)
+    kernels.extend([{
         "name": "step2d_haloed_kernel", "jax_kernel": "sharded_step2d._step_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/sharded_step2d.cu",
         "replaces": "percnn_tpu/ops/pallas/sharded_step2d.py:37",
-        "launches": sum(sharded_launches.values()), "launches_by_path": sharded_launches,
+        "launches": sum(v["step_haloed_2d.launches"] for v in row14_launches.values()),
+        "launches_by_path": {k: v["step_haloed_2d.launches"] for k, v in row14_launches.items()},
         "max_abs_err": err["step2d_haloed_kernel"], "steps": CHECK_STEPS, "blocks": 4,
-        "ms": row14_ms,
+        "ms": mean(row14["per_block"]), "turns_ms": row14["per_block"],
         "plain_ms": cuda_ms(torch, lambda: sharded_plain(packed, h0, cfg, CHECK_STEPS), reps=1, warm=False),
         "bound_ms": b14_ms, "bound_by": b14_by, "library_ms": None,
         "one_launch_ms": cuda_ms(torch, lambda: sharded_step2d._step_cuda(packed, xb14, cfg),
                                  reps=200),
-        "trace": {"window_ms": row14_trace["window_ms"],
-                  "device_busy_ms": row14_trace["device_busy_ms"],
-                  "kernel_ms": kernel14_ms,
-                  "kernel_us_per_launch": row14_trace["kernel_us_per_launch"][
-                      "step2d_haloed_kernel"],
-                  "outside_kernel_share": 1.0 - kernel14_ms / row14_trace["window_ms"],
-                  "device_idle_share": row14_trace["device_idle_share"]},
-    })
+        "trace": trace14("per_block"), "vs_route2_20_steps": per_block_vs_route2,
+        "note": "PR 10's per-block route (step_haloed_2d a block and step, the exchange on the "
+                "host), timed in turns with the blocks kernels' routes; launches from "
+                "step_haloed_2d's entry point",
+    }, {
+        "name": "rollout2d_blocks_kernel", "jax_kernel": "sharded_step2d._step_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/sharded_step2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/sharded_step2d.py:37",
+        "launches": sum(v["rollout_blocks_2d.launches"] for v in row14_launches.values()),
+        "launches_by_path": {k: v["rollout_blocks_2d.launches"] for k, v in row14_launches.items()},
+        "max_abs_err": err["rollout2d_blocks_kernel"], "steps": CHECK_STEPS, "blocks": 4,
+        "ms": mean(row14["route2"]), "turns_ms": row14["route2"], "plain_ms": blocks_plain_ms,
+        "bound_ms": b14r_ms, "bound_by": b14r_by, "library_ms": None,
+        "plan": sharded_step2d.blocks_plan(4, blk, blk, cfg, n_sm),
+        "occupancy": sharded_step2d.blocks_occupancy(4, blk, blk, cfg, dev),
+        "trace": trace14("route2"),
+        "note": "route 2: the whole decomposed rollout in one cooperative launch, every block "
+                "on one card, no gradient",
+    }, {
+        "name": "step2d_blocks_kernel", "jax_kernel": "sharded_step2d._step_kernel",
+        "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/sharded_step2d.cu",
+        "replaces": "percnn_tpu/ops/pallas/sharded_step2d.py:37",
+        "launches": sum(v["step_blocks_2d.launches"] for v in row14_launches.values()),
+        "launches_by_path": {k: v["step_blocks_2d.launches"] for k, v in row14_launches.items()},
+        "max_abs_err": err["step2d_blocks_kernel"], "steps": CHECK_STEPS, "blocks": 4,
+        "ms": mean(row14["route1"]), "turns_ms": row14["route1"], "plain_ms": blocks_plain_ms,
+        "bound_ms": b14s_ms, "bound_by": b14s_by, "library_ms": None,
+        "one_launch_ms": cuda_ms(torch, lambda: sharded_step2d._step_blocks_cuda(
+            packed, state14, none14, layout14, cfg), reps=200),
+        "trace": trace14("route1"),
+        "note": "route 1: one launch a device and step (with a gradient, with blocks on more "
+                "than one device, or past blocks_plan); plain_ms the blocks rollout's plain "
+                "version, the same steps",
+    }])
     phase("times", shape=list(h0.shape), steps=SERVE_STEPS, flops_per_rollout=flops,
           backward_steps=TIME_BACKWARD_STEPS, flops_per_backward=bw_flops,
           bytes_per_backward=bw_bytes, shape3d=list(h03.shape), steps3d=steps3,

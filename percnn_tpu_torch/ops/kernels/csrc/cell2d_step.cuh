@@ -12,9 +12,13 @@
 // [H + 4, W + 4], whose H x W interior is the output, read without a wrap
 // (step2d_haloed_kernel, sharded_step2d.cu); Strip, a strip of whole rows
 // with a 2-row halo above and below, columns wrapped
-// (rollout2d_cluster_kernel, cell2d.cu).  The arithmetic is the same:
+// (rollout2d_cluster_kernel, cell2d.cu); Blocks, every block of a
+// decomposed field at once, each reading its halo from its neighbours'
+// cells wherever they lie (step2d_blocks_kernel and
+// rollout2d_blocks_kernel, sharded_step2d.cu).  The arithmetic is the same:
 // euler_step's at k = 1, which the cluster kernel runs for several cells
-// at a time (euler_cellsN).
+// at a time (euler_cellsN).  A Grid also says where output cell (i, j) is
+// written (at: row-major in H x W but for Blocks).
 
 #pragma once
 
@@ -51,6 +55,7 @@ struct Periodic {
                                         int j0) const {
     kxk::stage_tile(tile, in, H, W, i0, j0);
   }
+  __device__ __forceinline__ int at(int i, int j) const { return i * W + j; }
 };
 
 // A block with a 2-cell halo, [H + 4, W + 4]; output cell (i, j) is input
@@ -71,6 +76,7 @@ struct Haloed {
                                         int j0) const {
     kxk::stage_tile_haloed(tile, in, H, W, i0, j0);
   }
+  __device__ __forceinline__ int at(int i, int j) const { return i * W + j; }
 };
 
 // A strip of H whole rows of a field W wide, with a 2-row halo, [H + 4, W];
@@ -85,6 +91,100 @@ struct Strip {
     const int jm2 = (j + 2 * W - 2) % W, jp2 = (j + 2) % W;
     return {c, c + W, c - W, r + jp1, r + jm1, c + 2 * W, c - 2 * W, r + jp2, r + jm2};
   }
+};
+
+// Entries a block has in a Blocks table: the nine regions of its haloed
+// block, then its output.
+constexpr int kRegions = 10;
+
+// One block of a decomposed field among all the blocks of a launch (block
+// blockIdx.z), its 2-cell halo read in place wherever its neighbours' cells
+// lie.  `region` points at the block's kRegions entries of an int4 table:
+// the nine regions of its haloed block [h + 4, w + 4], row-major over rows
+// (the 2 above, its h, the 2 below) by columns (the 2 left, its w, the 2
+// right), each {buffer, base, ld, 0}: the region's first cell is
+// (buffer ? strips : src)[base] and its rows lie ld cells apart; then
+// {0, base, ld, 0} of the block's output.  The centre region is the block
+// itself; a neighbour in the same buffer (the same device's state, or the
+// frame) is read where it lies, one on another device from the edge rows,
+// columns and corners copied into `strips` before the launch.
+//
+// At k = 1 euler_step walks one row segment of the block (H = 1, W = w):
+// row `row`, columns x0 .. x0 + blockDim.x - 1, its cross read from the 5
+// haloed rows around it staged by stage_rows; at k = 3, 5 euler_step_kxk
+// walks the block (H x W = h x w) from Periodic's tile, staged by stage.
+// Output (i, j) of the block is written at at(i, j) of `out`, which the
+// caller offsets to the block's output base.
+struct Blocks {
+  int H, W;
+  int h, w, ld_out;
+  const int4* region;
+  const float2* src;
+  const float2* strips;
+  int row, x0;
+
+  // Cell (r, c) of the haloed block, r in [-2, h + 2) and c in [-2, w + 2),
+  // from L2: a cooperative launch's earlier step wrote it on another SM.
+  __device__ __forceinline__ float2 cell(int r, int c) const {
+    const int ri = (r >= 0) + (r >= h), rj = (c >= 0) + (c >= w);
+    const int4 d = __ldg(region + 3 * ri + rj);
+    const int rl = r - (ri == 0 ? -kxk::kHalo : (ri == 1 ? 0 : h));
+    const int cl = c - (rj == 0 ? -kxk::kHalo : (rj == 1 ? 0 : w));
+    return __ldcg((d.x ? strips : src) + d.y + rl * d.z + cl);
+  }
+
+  // Tile cells [0, n) into `tile`, cell k being at(k)'s value: each thread
+  // issues kBatch loads before it stores any, so they are in flight
+  // together (a CTA of 64 threads stages its 340 cells in one round).
+  template <class At>
+  __device__ __forceinline__ void stage_cells(float2* tile, int n, At at) const {
+    constexpr int kBatch = 8;
+    for (int base = threadIdx.x; base < n; base += kBatch * blockDim.x) {
+      float2 v[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = base + u * blockDim.x;
+        v[u] = k < n ? at(k) : make_float2(0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int k = base + u * blockDim.x;
+        if (k < n) tile[k] = v[u];
+      }
+    }
+  }
+
+  // k = 1: haloed rows row - 2 .. row + 2 by columns x0 - 2 .. x0 +
+  // blockDim.x + 1 into `tile`, zero past the haloed block's right edge
+  // (read only by the segment's cells past w, which write nothing).
+  __device__ __forceinline__ void stage_rows(float2* tile) const {
+    const int ld = blockDim.x + 2 * kxk::kHalo;
+    stage_cells(tile, (2 * kxk::kHalo + 1) * ld, [&](int k) {
+      const int ti = k / ld;
+      const int c = x0 + k - ti * ld - kxk::kHalo;
+      return c < w + kxk::kHalo ? cell(row + ti - kxk::kHalo, c) : make_float2(0.0f, 0.0f);
+    });
+  }
+
+  // k = 1: the cross of output (0, j) of the segment in stage_rows' tile.
+  __device__ __forceinline__ Cross cross(int, int, int j) const {
+    const int ld = blockDim.x + 2 * kxk::kHalo;
+    const int c = kxk::kHalo * ld + j - x0 + kxk::kHalo;
+    return {c, c + ld, c - ld, c + 1, c - 1, c + 2 * ld, c - 2 * ld, c + 2, c - 2};
+  }
+
+  // k = 3, 5: Periodic's tile, rows i0 - 2 .. i0 + kTileH + 1 and columns
+  // j0 - 2 .. j0 + kTileW + 1 of the haloed block, zero past its edge (read
+  // only by the tile's cells past the output's edge, which write nothing).
+  __device__ __forceinline__ void stage(float2* tile, const float2*, int i0, int j0) const {
+    stage_cells(tile, kxk::kTileLen, [&](int k) {
+      const int ti = k / kxk::kTileRow;
+      const int r = i0 + ti - kxk::kHalo, c = j0 + k - ti * kxk::kTileRow - kxk::kHalo;
+      return (r < h + kxk::kHalo && c < w + kxk::kHalo) ? cell(r, c) : make_float2(0.0f, 0.0f);
+    });
+  }
+
+  __device__ __forceinline__ int at(int i, int j) const { return i * ld_out + j; }
 };
 
 // Pi-block output for one equation; `p` points at that equation's block.
@@ -260,7 +360,7 @@ __device__ __forceinline__ void euler_step_kxk(const float* __restrict__ params,
   const float lap = kxk::tile_lap(tile, li, lj, o, inv_dx2);
   const float ctr = reinterpret_cast<const float*>(tile)[
       ((li + kxk::kHalo) * kxk::kTileRow + lj + kxk::kHalo) * 2 + o];
-  reinterpret_cast<float*>(out)[(gi * W + gj) * 2 + o] = ctr + dt * (sp[o] * lap + pi);
+  reinterpret_cast<float*>(out)[g.at(gi, gj) * 2 + o] = ctr + dt * (sp[o] * lap + pi);
 }
 
 // KS = 1 takes the branch count at run time (NB = 0); KS = 3, 5 take it as
