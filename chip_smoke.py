@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's GS2D, GS3D and Burgers Stage-1 serving and
-training paths, their fallback routes, ensemble training and spatially
-decomposed training, once on one NVIDIA GPU.
+training paths, their fallback routes, ensemble training, spatially
+decomposed training, the lambda-omega forward simulation and the
+three-stage discovery pipeline, once on one NVIDIA GPU.
 
 Run from the root of a checkout, with one CUDA device:
 
@@ -16,7 +17,10 @@ width, drives the fallback routes (``bptt="fused"`` of the 1x1 and 3D cells,
 ``bptt="two_phase"``, the MXU switches off) through the same entry points,
 trains GS2D and Burgers ensembles through ``run_ensemble``, runs the
 domain decomposition (``sharded_rollout_nd``, ``run_experiment(mesh=...)``)
-on meshes that repeat cuda:0, and times the kernels.  Phases, one JSON line each with the seconds
+on meshes that repeat cuda:0, trains FORWARD_SIM_LO in f64, runs the
+discovery pipeline (``run_discovery_pipeline``, and Stages 2 and 3 from the
+JAX package's trained lambda-omega Stage-1 model), serves the symbolic cell,
+and times the kernels.  Phases, one JSON line each with the seconds
 since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
@@ -44,7 +48,8 @@ since start:
                rollout2d_blocks_kernel at k = 1 and 5; with --sass-against
                CSRC_DIR, every kernel of the libraries that share their code
                (cell2d, sharded_step2d and batched2d, which include
-               cell2d_step.cuh; cell2d_ffma, backward3d, backward2d, adj2d)
+               cell2d_step.cuh; cell2d_ffma, backward3d, backward2d, adj2d;
+               and cell2d_kxk and backward2d_kxk, rows 3 and 6)
                against a build of CSRC_DIR's sources (the parent commit's
                csrc/), instruction for instruction
   golden       ISG and kernel rollout against tests/golden/pt_gs2d.npz
@@ -159,6 +164,35 @@ since start:
                evaluation, with the launch counters set to 0 just before
   train_burgers_parity  as train_parity for Burgers: 32 x 32, T = 20,
                5 iterations
+  train_lo_forward  FORWARD_SIM_LO (f64, no kernel): the reference's trained
+               cell against tests/golden/pt_lo_forward.npz (64 x 64, 8
+               steps) through inference_rollout at 5e-10 * t;
+               run_experiment(FORWARD_SIM_LO) at full width, 2 iterations at
+               T = 400 and the 800-step evaluation; the loss at the same
+               parameters on the card and on the CPU at rtol 1e-10; the route
+               bptt="auto" takes (two_phase) and the ms of one iteration by
+               two_phase and remat in turns, their gradients against each
+               other; every launch counter still 0
+  pipeline     run_discovery_pipeline(LO_STAGE1) at full width: ISG pretrain
+               200 of 4000, Stage 1 3 iterations at T = 200 (rows 3 and 6,
+               one launch a call, counted) and its 400-step evaluation,
+               Stage 2 (maxit and stridge_iters cut to 10) on the
+               reconstruction, Stage 3 2 iterations; the artifacts written,
+               with sympy hidden (an import of it raises), each stage's
+               seconds
+  pipeline_trained  the JAX package's trained lambda-omega Stage-1 model
+               (tests/golden/jax_lo_stage1.ckpt.npz, a copy of the JAX
+               pipeline's lo_stage1.ckpt.npz) read by the port's
+               checkpoint reader; its 400-step reconstruction on the card
+               (row 3, one launch), the default Stage 2 on it (precision,
+               recall and coefficient rel-L2 against TRUTH_TERMS, the
+               support against the saved coefficients), Stage 3 from
+               tests/golden/jax_lo_stage1.stage2_coefs.npz, 2 iterations
+  serve_symbolic  build_serving_fn on lambda_omega_stage3's symbolic cell
+               with an ISG, Euler and RK4, frames and final state, 400 steps
+               at 100 x 100, against the CPU at rtol 1e-4 (atol 1e-5), each
+               request's ms after one warm-up request an integrator, no
+               launch
   train_fallback  run_experiment(BURGERS_STAGE1) with the MXU switches off
                (10 iterations at T = 200, the cached truth, the evaluation:
                one launch a rollout and a sweep, ms per iteration),
@@ -306,6 +340,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import importlib.util
 import json
 import os
 import shutil
@@ -319,6 +354,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "pt_gs2d.npz")
 GOLDEN3D = os.path.join(ROOT, "tests", "golden", "pt_gs3d.npz")
 GOLDEN_BURGERS = os.path.join(ROOT, "tests", "golden", "pt_burgers_s1.npz")
+GOLDEN_LO_FORWARD = os.path.join(ROOT, "tests", "golden", "pt_lo_forward.npz")
+# the JAX package's trained lambda-omega Stage-1 model (15 000 iterations) and
+# the Stage-2 coefficients it gave, byte for byte the JAX pipeline's
+# lo_stage1.ckpt.npz and lo_stage1.stage2_coefs.npz
+GOLDEN_LO_STAGE1_CKPT = os.path.join(ROOT, "tests", "golden", "jax_lo_stage1.ckpt.npz")
+GOLDEN_LO_STAGE1_COEFS = os.path.join(ROOT, "tests", "golden", "jax_lo_stage1.stage2_coefs.npz")
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # HBM3 bandwidth, float32 outside the tensor cores (an FMA counts as 2) and
@@ -349,6 +390,10 @@ ENS_BURGERS_ITERS = 2     # at T = 200
 MESH_ITERS = 3            # train_mesh: 1 at each of T = 200, 400, 800
 SHARDED3D_STEPS = 50      # the GS3D decomposed rollout on a (2, 2, 2) mesh
 GRID_BARRIERS = 1000      # grid.sync()s of the empty cooperative kernel timed in times
+LO_FORWARD_ITERS = 2      # of FORWARD_SIM_LO's 2000, at T = 400 in f64
+PIPE_STAGE1_ITERS = 3     # of LO_STAGE1's 15000, at T = 200
+PIPE_STAGE3_ITERS = 2     # of Stage 3's 1000
+PIPE_STAGE2_KWARGS = {"maxit": 10, "stridge_iters": 10}   # the pipeline phase's cut Stage 2
 
 
 class CheckFailed(Exception):
@@ -694,8 +739,11 @@ def main() -> int:
     from percnn_tpu_torch.core.train import train
     from percnn_tpu_torch.data.noise import add_noise
     from percnn_tpu_torch.data.simulate import default_ic, simulate
-    from percnn_tpu_torch.experiments import ensemble, runner
-    from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1, GS2D_RECON, GS3D_RECON
+    from percnn_tpu_torch.core.cell import init_symbolic_cell
+    from percnn_tpu_torch.core.isg import init_isg
+    from percnn_tpu_torch.experiments import ensemble, pipeline, runner, stage3
+    from percnn_tpu_torch.experiments.configs import (BURGERS_STAGE1, FORWARD_SIM_LO,
+                                                      GS2D_RECON, GS3D_RECON, LO_STAGE1)
     from percnn_tpu_torch.ops.kernels import (_build, backward2d, backward3d, batched2d, cell2d,
                                               cell3d, sharded_step2d)
     from percnn_tpu_torch.parallel import halo_exchange, make_mesh, sharded, sharded_rollout_nd
@@ -904,7 +952,7 @@ def main() -> int:
     # sources (the parent commit's csrc/), every kernel instruction for
     # instruction
     sass_libs = ("cell2d", "sharded_step2d", "cell2d_ffma", "backward3d", "backward2d",
-                 "batched2d", "adj2d")
+                 "batched2d", "adj2d", "cell2d_kxk", "backward2d_kxk")
     sass_vs_parent = None
     if sass_parent is not None and _cuobjdump() is not None:
         parent_dir = tempfile.mkdtemp(prefix="chip_smoke_parent_")
@@ -3151,6 +3199,265 @@ def main() -> int:
           iters=pexpb.train.n_iters, card=gpub_h.tolist(), cpu=cpub_h.tolist(),
           max_rel_err=parityb_err, rtol=1e-4)
 
+    # train_lo_forward: FORWARD_SIM_LO (1x1 C = 4 cell, raw diffusion, the
+    # physics loss alone, no ISG, T = 400) in f64 at full width through
+    # run_experiment.  No kernel takes f64, so no launch counter moves.
+    t_phase = time.perf_counter()
+    expf = FORWARD_SIM_LO
+    with np.load(GOLDEN_LO_FORWARD) as z:
+        goldenf = {k: z[k] for k in z.files}
+    cellf = params_from_numpy(unflatten_dotted(goldenf, "cell."), device=dev,
+                              dtype=torch.float64)
+    framesf_want = torch.as_tensor(goldenf["frames"], device=dev)
+    n_goldenf = framesf_want.shape[0] - 1
+    zero_counts()
+    framesf = runner.inference_rollout({"cell": cellf}, expf, framesf_want[0], n_goldenf,
+                                       device=dev)
+    torch.cuda.synchronize()
+    goldenf_counts = read_counts()
+    stepf_err = [max_abs(framesf[k], framesf_want[k]) for k in range(1, n_goldenf + 1)]
+    check(framesf.dtype == torch.float64 and goldenf_counts == {},
+          f"golden lo_forward: dtype {framesf.dtype}, launches {goldenf_counts}")
+    for k, e in enumerate(stepf_err, start=1):
+        check(e <= 5e-10 * k, f"golden lo_forward step {k}: max |diff| {e} over {5e-10 * k}")
+    lo_dir = tempfile.mkdtemp(prefix="chip_smoke_lo_forward_")
+    lo_cache = tempfile.mkdtemp(prefix="chip_smoke_lo_truth_")   # the pipeline phases reuse it
+    try:
+        zero_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            resf = runner.run_experiment(expf, device=dev, out_dir=lo_dir, cache_dir=lo_cache,
+                                         dtype=torch.float64, n_iters_override=LO_FORWARD_ITERS,
+                                         seed=0)
+        torch.cuda.synchronize()
+        trainf_counts = read_counts()
+    finally:
+        shutil.rmtree(lo_dir, ignore_errors=True)
+    histf = resf["history"]
+    check(trainf_counts == {}, f"FORWARD_SIM_LO launched kernels: {trainf_counts}")
+    check(len(histf) == LO_FORWARD_ITERS and bool(np.isfinite(histf).all()),
+          f"FORWARD_SIM_LO training losses {histf}")
+    check(resf["frames"].dtype == np.float64
+          and resf["frames"].shape == (expf.infer_steps + 1, expf.grid, expf.grid, 2)
+          and bool(np.isfinite(resf["rel_l2"])) and not resf["diverged"],
+          f"FORWARD_SIM_LO evaluation: {resf['frames'].dtype} {resf['frames'].shape}, "
+          f"rel_l2 {resf['rel_l2']}")
+    # the loss at the same parameters on the card and on the CPU, the route
+    # "auto" takes, and both f64 routes' gradients and ms an iteration in turns
+    truthf = runner.make_dataset(expf, warmup=100, cache_dir=lo_cache, device=dev)
+    initf = params_to_numpy(runner.init_model(expf, torch.Generator().manual_seed(1),
+                                              torch.float64, device="cpu"))
+    lossf = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        probf = runner.setup_problem(expf, truthf, torch.float64, device=d)
+        with torch.no_grad():
+            lossf[label] = float(runner.build_loss_fn(probf, expf.train_steps)(
+                params_from_numpy(initf, device=d))[0])
+    lossf_err = abs(lossf["card"] - lossf["cpu"]) / abs(lossf["cpu"])
+    check(lossf_err <= 1e-10, f"FORWARD_SIM_LO loss card vs CPU: {lossf}")
+    probf = runner.setup_problem(expf, truthf, torch.float64, device=dev)
+
+    def lo_params():
+        pf = params_from_numpy(initf, device=dev)
+        return pf, [leaf.requires_grad_(True) for _, leaf in flatten_with_paths(pf)]
+
+    def lo_iteration(bptt):
+        """One loss and gradient of FORWARD_SIM_LO at T = 400 by `bptt`."""
+        pf, leaves = lo_params()
+        total = runner.build_loss_fn(probf, expf.train_steps, bptt=bptt)(pf)[0]
+        grads_ = torch.autograd.grad(total, leaves)
+        torch.cuda.synchronize()
+        return grads_
+
+    route_auto = type(runner.forward_rollout(lo_params()[0], probf, 4,
+                                             device=dev).grad_fn).__name__
+    check(route_auto.startswith("_RolloutTP"),
+          f"bptt='auto' of the f64 FORWARD_SIM_LO took {route_auto}, not two_phase")
+    lo_ms, lo_grads = {}, {}
+    zero_counts()
+    for bptt in ("two_phase", "remat", "remat", "two_phase"):
+        t = time.perf_counter()
+        lo_grads[bptt] = lo_iteration(bptt)
+        lo_ms.setdefault(bptt, []).append(1e3 * (time.perf_counter() - t))
+    routes_counts = read_counts()
+    # per leaf, the largest difference over the largest entry
+    lo_grad_err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+                      for a, b in zip(lo_grads["two_phase"], lo_grads["remat"]))
+    check(routes_counts == {} and lo_grad_err <= 1e-10,
+          f"FORWARD_SIM_LO routes: launches {routes_counts}, two_phase vs remat gradients "
+          f"max rel diff {lo_grad_err}")
+    del lo_grads, probf
+    secf = resf["seconds"]
+    phase("train_lo_forward", experiment=expf.name, grid=expf.grid, dtype="float64",
+          golden_max_abs_err_per_step=stepf_err, golden_bar="5e-10 * t",
+          golden_launches=goldenf_counts, launches=trainf_counts, truth_s=secf["truth"],
+          stages=[{**st, "ms_per_iter": 1e3 * st["seconds"] / st["iters"]}
+                  for st in secf["stages"]],
+          evaluate_s=secf["evaluate"], infer_steps=expf.infer_steps, history=histf,
+          rel_l2=resf["rel_l2"], loss_card=lossf["card"], loss_cpu=lossf["cpu"],
+          loss_rel_err=lossf_err, loss_rtol=1e-10, route_auto=route_auto,
+          ms_per_iteration_in_turns={k: v for k, v in lo_ms.items()},
+          ms_per_iteration={k: sum(v) / len(v) for k, v in lo_ms.items()},
+          two_phase_vs_remat_grad_max_rel_err=lo_grad_err,
+          pi_expressions="pi_expressions" in resf,
+          seconds=time.perf_counter() - t_phase)
+
+    # pipeline: run_discovery_pipeline(LO_STAGE1) at full width, Stage 1 (its
+    # forward and reverse sweep by rows 3 and 6, one launch a call) and Stage 3
+    # cut to a few iterations, Stage 2 on the Stage-1 reconstruction.  sympy
+    # is hidden for the phase (an import of it raises): the pipeline must not
+    # need it
+    t_phase = time.perf_counter()
+    sympy_installed = importlib.util.find_spec("sympy") is not None
+    hidden = {name: sys.modules.pop(name) for name in list(sys.modules)
+              if name == "sympy" or name.startswith("sympy.")}
+    sys.modules["sympy"] = None
+    pipe_dir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    try:
+        zero_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            resp = pipeline.run_discovery_pipeline(
+                dataclasses.replace(LO_STAGE1, isg_pretrain_iters=ISG_PRETRAIN_ITERS),
+                out_dir=pipe_dir, cache_dir=lo_cache, stage1_iters=PIPE_STAGE1_ITERS,
+                stage3_iters=PIPE_STAGE3_ITERS, stage2_kwargs=PIPE_STAGE2_KWARGS, device=dev)
+        torch.cuda.synchronize()
+        pipe_counts = read_counts()
+        pipe_files = sorted(os.listdir(pipe_dir))
+    finally:
+        shutil.rmtree(pipe_dir, ignore_errors=True)
+        del sys.modules["sympy"]
+        sys.modules.update(hidden)
+    stepsl = LO_STAGE1.train_steps
+    want_pipe = {"fused_rollout_kxk_2d.launches": PIPE_STAGE1_ITERS + 1,
+                 "fused_rollout_kxk_2d.steps": PIPE_STAGE1_ITERS * stepsl + LO_STAGE1.infer_steps,
+                 "fused_rollout_tp_2d.launches": PIPE_STAGE1_ITERS,
+                 "fused_rollout_tp_2d.steps": PIPE_STAGE1_ITERS * stepsl}
+    check(pipe_counts == want_pipe,
+          f"pipeline launch counts {pipe_counts}, expected {want_pipe}")
+    s2p, s3p = resp["stage2"], resp["stage3"]
+    check(len(s2p["names"]) == 70 and bool(np.isfinite(s2p["w_u"]).all())
+          and bool(np.isfinite(s2p["w_v"]).all()), "pipeline Stage 2: names or coefficients")
+    check(len(s3p["history"]) == PIPE_STAGE3_ITERS and bool(np.isfinite(s3p["history"]).all()),
+          f"pipeline Stage 3 history {s3p['history']}")
+    check(f"{LO_STAGE1.name}.stage1_recon.npz" in pipe_files
+          and f"{LO_STAGE1.name}.stage2_coefs.npz" in pipe_files,
+          f"pipeline artifacts: {pipe_files}")
+    phase("pipeline", experiment=LO_STAGE1.name, grid=LO_STAGE1.grid,
+          isg_pretrain_iters=ISG_PRETRAIN_ITERS, stage1_iters=PIPE_STAGE1_ITERS,
+          stage3_iters=PIPE_STAGE3_ITERS,
+          stage2_kwargs=PIPE_STAGE2_KWARGS, launches=pipe_counts, expected_launches=want_pipe,
+          stage_seconds=resp["seconds"], stage1_seconds=resp["stage1"]["seconds"],
+          stage1_rel_l2=resp["stage1"]["rel_l2"],
+          stage2_support={eq: int(np.count_nonzero(s2p[f"w_{eq}"])) for eq in ("u", "v")},
+          stage2_metrics={eq: s2p.get(f"metrics_{eq}") for eq in ("u", "v")},
+          stage3_history=s3p["history"], stage3_rel_l2=s3p["rel_l2"], artifacts=pipe_files,
+          sympy_installed=sympy_installed, sympy_hidden=True,
+          seconds=time.perf_counter() - t_phase)
+
+    # pipeline_trained: the JAX package's trained lambda-omega Stage-1 model
+    # (15 000 iterations), read by the port's checkpoint reader; its 400-step
+    # reconstruction on the card (row 3, one launch), the realistic Stage 2
+    # on it, and Stage 3 from the saved Stage-2 coefficients
+    t_phase = time.perf_counter()
+    tree_t, meta_t = load_checkpoint_tree(GOLDEN_LO_STAGE1_CKPT)
+    params_t = params_from_numpy(tree_t["params"], device=dev, dtype=torch.float32)
+    truth_t = runner.make_dataset(LO_STAGE1, warmup=100, cache_dir=lo_cache, device=dev)
+    prob_t = runner.setup_problem(LO_STAGE1, truth_t, device=dev)
+    zero_counts()
+    recon_t = runner.inference_rollout(params_t, LO_STAGE1, prob_t.ic_low[0],
+                                       LO_STAGE1.infer_steps, device=dev)
+    torch.cuda.synchronize()
+    recon_counts = read_counts()
+    want_recon = {"fused_rollout_kxk_2d.launches": 1,
+                  "fused_rollout_kxk_2d.steps": LO_STAGE1.infer_steps}
+    check(recon_counts == want_recon,
+          f"trained reconstruction launch counts {recon_counts}, expected {want_recon}")
+    recon_t = recon_t.cpu().numpy()
+    recon_rel_l2 = float(np.linalg.norm(recon_t - truth_t[: recon_t.shape[0]])
+                         / np.linalg.norm(truth_t[: recon_t.shape[0]]))
+    check(bool(np.isfinite(recon_t).all()), "trained reconstruction is not finite")
+    t0 = time.perf_counter()
+    s2t = pipeline.run_stage2(LO_STAGE1, recon_t)
+    stage2_s = time.perf_counter() - t0
+    with np.load(GOLDEN_LO_STAGE1_COEFS) as z:
+        saved = {eq: {str(n) for n, c in zip(z["names"], z[f"w_{eq}"][:, 0]) if c != 0}
+                 for eq in ("u", "v")}
+    support_t = {eq: {n for n, c in zip(s2t["names"], s2t[f"w_{eq}"][:, 0]) if c != 0}
+                 for eq in ("u", "v")}
+    check(all(np.isfinite(s2t[f"w_{eq}"]).all() and support_t[eq] for eq in ("u", "v")),
+          f"trained Stage 2: supports {support_t}")
+    stage3_dir = tempfile.mkdtemp(prefix="chip_smoke_stage3_")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res3t = pipeline.run_stage3_from_coefs(
+                LO_STAGE1, GOLDEN_LO_STAGE1_COEFS, out_dir=stage3_dir, cache_dir=lo_cache,
+                stage3_iters=PIPE_STAGE3_ITERS, device=dev)
+        stage3_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(stage3_dir, ignore_errors=True)
+    check(len(res3t["stage3"]["history"]) == PIPE_STAGE3_ITERS
+          and bool(np.isfinite(res3t["stage3"]["history"]).all())
+          and bool(np.isfinite(res3t["stage3"]["frames"]).all()),
+          f"trained Stage 3 history {res3t['stage3']['history']}")
+    phase("pipeline_trained", checkpoint=os.path.relpath(GOLDEN_LO_STAGE1_CKPT, ROOT),
+          checkpoint_iteration=meta_t.get("iteration"), launches=recon_counts,
+          reconstruction_steps=LO_STAGE1.infer_steps, reconstruction_rel_l2=recon_rel_l2,
+          stage2_s=stage2_s,
+          stage2_metrics={eq: s2t[f"metrics_{eq}"] for eq in ("u", "v")},
+          stage2_support_size={eq: len(support_t[eq]) for eq in ("u", "v")},
+          saved_support_size={eq: len(saved[eq]) for eq in ("u", "v")},
+          support_only_here={eq: sorted(support_t[eq] - saved[eq]) for eq in ("u", "v")},
+          support_only_saved={eq: sorted(saved[eq] - support_t[eq]) for eq in ("u", "v")},
+          saved_coefs_metrics={eq: res3t["stage2"][f"metrics_{eq}"] for eq in ("u", "v")},
+          stage3_s=stage3_s, stage3_history=res3t["stage3"]["history"],
+          stage3_rel_l2=res3t["stage3"]["rel_l2"], seconds=time.perf_counter() - t_phase)
+
+    # serve_symbolic: build_serving_fn on lambda_omega_stage3's symbolic cell
+    # with an ISG, Euler and RK4, frames and final state, 400 steps at full
+    # width: the card against the CPU, no kernel launched
+    t_phase = time.perf_counter()
+    s3cfg = stage3.lambda_omega_stage3(LO_STAGE1)
+    gen_s = torch.Generator().manual_seed(0)
+    sym_model = params_to_numpy({
+        "cell": init_symbolic_cell(gen_s, s3cfg.cell, coef_init=s3cfg.coef_init,
+                                   nu_init=s3cfg.nu_init, device="cpu"),
+        "isg": init_isg(gen_s, LO_STAGE1.isg, device="cpu")})
+    request = prob_t.ic_low[0].cpu().numpy()
+    serve_sym, sym_counts = {}, {}
+    for integrator in ("euler", "rk4"):
+        cfg_s = dataclasses.replace(s3cfg.cell, integrator=integrator)
+        want_frames = build_serving_fn(sym_model, cfg_s, LO_STAGE1.infer_steps,
+                                       isg_cfg=LO_STAGE1.isg, device="cpu")(request)
+        entry = {}
+        for final_only in (False, True):
+            fn = build_serving_fn(sym_model, cfg_s, LO_STAGE1.infer_steps, isg_cfg=LO_STAGE1.isg,
+                                  final_only=final_only, device=dev)
+            if not final_only:   # one uncounted warm-up request an integrator
+                fn(request)
+            torch.cuda.synchronize()
+            zero_counts()
+            t = time.perf_counter()
+            got_s = fn(request)
+            torch.cuda.synchronize()
+            latency = 1e3 * (time.perf_counter() - t)
+            sym_counts[f"{integrator}/{'final' if final_only else 'frames'}"] = read_counts()
+            want_s = want_frames[-1] if final_only else want_frames
+            err_s = max_abs(got_s.cpu(), want_s)
+            check(bool(torch.isfinite(got_s).all())
+                  and allclose(got_s.cpu(), want_s, rtol=1e-4, atol=1e-5),
+                  f"serve_symbolic {integrator} final_only={final_only}: card vs CPU max |diff| "
+                  f"{err_s}")
+            entry["final" if final_only else "frames"] = {
+                "request_ms": latency, "max_abs_err_vs_cpu": err_s,
+                "shape": list(got_s.shape)}
+        serve_sym[integrator] = entry
+    check(all(c == {} for c in sym_counts.values()),
+          f"symbolic serving launched kernels: {sym_counts}")
+    shutil.rmtree(lo_cache, ignore_errors=True)
+    phase("serve_symbolic", cell="lambda_omega_stage3", steps=LO_STAGE1.infer_steps,
+          shape=[LO_STAGE1.grid, LO_STAGE1.grid, 2], bar="rtol 1e-4, atol 1e-5 vs the CPU",
+          requests=serve_sym, launches=sym_counts, seconds=time.perf_counter() - t_phase)
+
     # train_fallback: the fallback routes through the entry points a user
     # calls, every launch counted: run_experiment(BURGERS_STAGE1) with the
     # MXU switches off (rollout2d_ffma_persistent_kernel,
@@ -3847,7 +4154,9 @@ def main() -> int:
         wmatb, tailb, h0b, cfgb, stepsb), reps=1, warm=False)
     by_pathb = {"serve": serveb_launches["rollout2d_kxk_persistent_kernel"],
                 "train": trainb_counts["fused_rollout_kxk_2d.launches"],
-                "ensemble": ens_launches["burgers_batched"]["fused_rollout_kxk_2d.launches"]}
+                "ensemble": ens_launches["burgers_batched"]["fused_rollout_kxk_2d.launches"],
+                "pipeline": pipe_counts["fused_rollout_kxk_2d.launches"],
+                "pipeline_trained": recon_counts["fused_rollout_kxk_2d.launches"]}
     kernels.append({
         "name": "rollout2d_kxk_persistent_kernel", "jax_kernel": "cell2d._rollout_kernel_mxu",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",
@@ -3922,8 +4231,10 @@ def main() -> int:
         "name": "adj2d_kxk_persistent_kernel", "jax_kernel": "backward2d._phase1_mxu_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/backward2d_kxk.cu",
         "replaces": "percnn_tpu/ops/pallas/backward2d.py:370",
-        "launches": trainb_counts["fused_rollout_tp_2d.launches"],
-        "launches_by_path": {"serve": 0, "train": trainb_counts["fused_rollout_tp_2d.launches"]},
+        "launches": (trainb_counts["fused_rollout_tp_2d.launches"]
+                     + pipe_counts["fused_rollout_tp_2d.launches"]),
+        "launches_by_path": {"serve": 0, "train": trainb_counts["fused_rollout_tp_2d.launches"],
+                             "pipeline": pipe_counts["fused_rollout_tp_2d.launches"]},
         "max_abs_err": err["adj2d_kxk_persistent_kernel"], "steps": stepsb,
         "ms": row6_ms, "plain_ms": row6_plain_ms, "bound_ms": b6_ms, "bound_by": b6_by,
         "bound_precision": "3xTF32 products at 495 TFLOP/s, the rest at 67",

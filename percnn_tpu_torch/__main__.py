@@ -1,14 +1,19 @@
 """CLI of the port, percnn_tpu's CLI (percnn_tpu/__main__.py) for the verbs
 ported so far:
 
+  python -m percnn_tpu_torch list
   python -m percnn_tpu_torch run gs2d_recon [--iters N] [--mesh 2,2] [--cpu]
+  python -m percnn_tpu_torch pipeline lo_stage1 [--stage1-iters N] [--stage3-iters N] [--cpu]
   python -m percnn_tpu_torch ensemble gs2d_recon --members 4 [--iters N] [--cpu]
 
 It runs on the card unless told --cpu.  ``run --mesh`` trains on a
 spatially decomposed field (experiments.runner.run_experiment(mesh=...)):
 over that many CUDA devices, or with --cpu over a mesh of that many CPU
-entries.  The other verbs (list, pipeline, simulate, export, import-pt,
-profile) come with their slices (ROADMAP.md A5, A8, A9).
+entries.  ``pipeline`` runs the three-stage discovery
+(experiments.pipeline): Stage-1 reconstruction, Stage-2 STRidge, Stage-3
+symbolic fine-tune, or parts of it from saved artifacts.  The other verbs
+(simulate, export, import-pt, profile) come with their slices (ROADMAP.md
+A8, A9).
 """
 
 from __future__ import annotations
@@ -57,9 +62,56 @@ def main(argv=None) -> int:
     pe.add_argument("--shard", action="store_true",
                     help="shard the member axis over all devices (not ported yet)")
 
+    pp = sub.add_parser("pipeline", help="Stage-1/2/3 discovery pipeline")
+    pp.add_argument("experiment")
+    pp.add_argument("--stage1-iters", type=int, default=None)
+    pp.add_argument("--stage3-iters", type=int, default=None)
+    pp.add_argument("--out", default="runs/pipeline")
+    pp.add_argument("--cache", default="data_cache")
+    pp.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
+    pp.add_argument("--seed", type=int, default=0)
+    pp.add_argument("--steps-per-call", type=int, default=None)
+    pp.add_argument("--stage1-recon", default=None,
+                    help="reuse a saved Stage-1 reconstruction .npz "
+                         "(skips Stage-1 training)")
+    pp.add_argument("--noise", type=float, default=None,
+                    help="override the measurement noise %% (e.g. 0.2 for "
+                         "the reference's 0-30%% robustness matrix)")
+    pp.add_argument("--stage2-frames", default=None,
+                    help="Stage-2 regression window as START:STOP frames "
+                         "(reference uses 50:150, PDE_FIND_u.py:220-222)")
+    pp.add_argument("--stage2-coefs", default=None,
+                    help="path to a saved *.stage2_coefs.npz: skip Stage-1/2 "
+                         "and fine-tune (Stage-3) from that support")
+    pp.add_argument("--stage2-subsample", type=float, default=0.2,
+                    help="Stage-2 design-matrix row subsample fraction "
+                         "(reference: 0.2, PDE_FIND_u.py:246-247)")
+    pp.add_argument("--stage2-draws", type=int, default=None,
+                    help="stability-selection Stage-2: majority-vote the "
+                         "support over N independent subsample draws, then "
+                         "full-matrix lstsq refit")
+    pp.add_argument("--ensemble-members", type=int, default=None,
+                    help="ensemble-rescued discovery: train K Stage-1 "
+                         "members on the SAME measurement (init seeds "
+                         "seed..seed+K-1), aggregate reconstructions, run "
+                         "Stage-2/3 on the aggregate + per-coef UQ")
+    pp.add_argument("--ensemble-aggregate", choices=("mean", "median"),
+                    default="mean")
+    pp.add_argument("--member-recon", action="append", default=None,
+                    help="reuse a saved member reconstruction .npz (repeat "
+                         "per member; remaining members train here)")
+
+    sub.add_parser("list", help="list experiment configs")
+
     args = p.parse_args(argv)
 
     from percnn_tpu_torch.experiments.configs import EXPERIMENTS
+
+    if args.cmd == "list":
+        for name, exp in EXPERIMENTS.items():
+            print(f"{name:<18} system={exp.system:<14} grid={exp.grid} "
+                  f"dt={exp.dt} steps={exp.train_steps}")
+        return 0
 
     if args.experiment not in EXPERIMENTS:
         p.error(f"unknown experiment {args.experiment!r}; ported: {', '.join(EXPERIMENTS)}")
@@ -98,6 +150,9 @@ def main(argv=None) -> int:
                           "final_loss": res["history"][-1]}))
         return 0
 
+    if args.cmd == "pipeline":
+        return _pipeline(p, args, exp)
+
     # ensemble
     if args.shard:
         p.error("--shard (the member axis over a device mesh) is not ported yet: "
@@ -114,6 +169,78 @@ def main(argv=None) -> int:
                       "rel_l2_members": res["rel_l2_members"],
                       "rel_l2_mean": res["rel_l2_mean"],
                       "rel_l2_std": res["rel_l2_std"]}))
+    return 0
+
+
+def _pipeline(p: argparse.ArgumentParser, args, exp) -> int:
+    """The pipeline verb: run_discovery_pipeline, or run_stage3_from_coefs
+    (--stage2-coefs), or run_ensemble_discovery (--ensemble-members); print
+    the identified equation as JSON and Stage 3's coefficient table."""
+    import dataclasses
+
+    from percnn_tpu_torch.experiments import pipeline
+
+    device = "cpu" if args.cpu else "cuda"
+    if args.noise is not None:
+        exp = dataclasses.replace(exp, name=f"{exp.name}_n{int(round(args.noise * 100))}",
+                                  noise_pct=args.noise)
+    frames = None
+    if args.stage2_frames:
+        a, b = args.stage2_frames.split(":")
+        frames = slice(int(a), int(b))
+    if args.stage2_coefs:
+        dropped = [flag for flag, on in (
+            ("--stage1-recon", args.stage1_recon is not None),
+            ("--stage2-frames", args.stage2_frames is not None),
+            ("--stage2-subsample", args.stage2_subsample != 0.2),
+            ("--stage2-draws", args.stage2_draws is not None),
+            ("--ensemble-members", args.ensemble_members is not None),
+        ) if on]
+        if dropped:
+            p.error(f"--stage2-coefs skips Stage-1/2 entirely; "
+                    f"{', '.join(dropped)} would be silently ignored")
+        res = pipeline.run_stage3_from_coefs(
+            exp, args.stage2_coefs, out_dir=args.out, cache_dir=args.cache,
+            stage3_iters=args.stage3_iters, seed=args.seed, device=device)
+    elif args.ensemble_members is not None:
+        if args.stage1_recon is not None:
+            p.error("--ensemble-members trains its own members; use "
+                    "--member-recon (repeatable) to reuse saved ones")
+        res = pipeline.run_ensemble_discovery(
+            exp, args.ensemble_members, out_dir=args.out, cache_dir=args.cache,
+            stage1_iters=args.stage1_iters, aggregate=args.ensemble_aggregate,
+            member_recons=args.member_recon, stage2_frames=frames,
+            stage2_subsample=args.stage2_subsample, stage2_draws=args.stage2_draws,
+            stage3_iters=args.stage3_iters, steps_per_call=args.steps_per_call,
+            seed=args.seed, device=device)
+    else:
+        res = pipeline.run_discovery_pipeline(
+            exp, out_dir=args.out, cache_dir=args.cache, stage1_iters=args.stage1_iters,
+            stage3_iters=args.stage3_iters, stage2_frames=frames,
+            stage2_subsample=args.stage2_subsample, stage2_draws=args.stage2_draws,
+            steps_per_call=args.steps_per_call, stage1_recon=args.stage1_recon,
+            seed=args.seed, device=device)
+    s2 = res["stage2"]
+    out = {
+        "experiment": exp.name,
+        "stage1_rel_l2": res["stage1"].get("rel_l2"),
+        "stage2_u": {n: float(c) for n, c in zip(s2["names"], s2["w_u"][:, 0]) if c != 0},
+        "stage2_v": {n: float(c) for n, c in zip(s2["names"], s2["w_v"][:, 0]) if c != 0},
+        "stage3_rel_l2": res["stage3"]["rel_l2"],
+    }
+    for k in ("metrics_u", "metrics_v"):
+        if k in s2:
+            out[k] = s2[k]
+    if "uq" in res:
+        names = res["uq"]["names"]
+        for eq in ("u", "v"):
+            mu, sd = res["uq"][f"coef_mean_{eq}"], res["uq"][f"coef_std_{eq}"]
+            vote = res["uq"][f"support_vote_{eq}"]
+            out[f"uq_{eq}"] = {names[i]: {"mean": float(mu[i]), "std": float(sd[i]),
+                                          "vote": float(vote[i])}
+                               for i in range(len(names)) if vote[i] > 0}
+    print(json.dumps(out, indent=2))
+    print(res["stage3"]["coef_table"])
     return 0
 
 

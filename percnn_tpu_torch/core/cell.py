@@ -8,11 +8,17 @@ lambda-omega Stage-1 cells), multiplied elementwise, then aggregated by a
 mu_up * sigmoid(c).  The state is channels-last [..., *spatial, channels].
 ``pi_cell_step_valid`` is the same step on a block with a halo, the local
 update of a domain-decomposed rollout (parallel/sharded.py).
+
+The Stage-3 symbolic cell (``SymbolicCellConfig``, ``symbolic_cell_step``)
+is an explicit PDE with learnable scalar coefficients over named candidate
+terms (pde/terms.py), stepped by Euler or RK4.  No Pallas kernel stands
+behind it in percnn_tpu, so it runs as plain PyTorch on every device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -24,6 +30,7 @@ from percnn_tpu_torch.core.init import (
 )
 from percnn_tpu_torch.ops.convs import conv_nd, conv_nd_periodic, pointwise_conv
 from percnn_tpu_torch.ops.stencils import STENCIL_HALO, interior, laplacian, laplacian_valid
+from percnn_tpu_torch.pde.terms import TERM_REGISTRY, eval_grads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,3 +149,78 @@ def pi_cell_step_valid(params: dict, xp: torch.Tensor, cfg: PiCellConfig, *,
             outs.append(pointwise_conv(prod, br["w_out"], br["b_out"]))
         nonlin = torch.cat(outs, dim=-1)
     return centre + cfg.dt * (effective_diffusion(params, cfg) * lap + nonlin)
+
+
+# --------------------------------------------------------------------------
+# Stage-3 symbolic cell: explicit PDE with learnable scalar coefficients.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SymbolicCellConfig:
+    """Explicit-PDE cell: per-channel term lists with learnable coefficients
+    (fields and defaults as in percnn_tpu).
+
+    terms[c] is a sequence of term names (pde.terms.TERM_REGISTRY); the
+    diffusion (Laplacian) term is separate, so its coefficient nu can be
+    bounded positive as mu_up * sigmoid(nu).
+    """
+
+    ndim: int = 2
+    channels: int = 2
+    dt: float = 0.00025
+    dx: float = 0.01
+    terms: tuple = ()            # tuple over channels of tuples of term names
+    integrator: str = "euler"    # 'euler' | 'rk4'
+    diffusion: str = "raw"       # nu parametrisation: 'raw' | 'sigmoid'
+    mu_up: float = 0.01
+
+    @property
+    def spatial_axes(self) -> tuple:
+        return tuple(range(-1 - self.ndim, -1))
+
+
+def init_symbolic_cell(gen: torch.Generator, cfg: SymbolicCellConfig,
+                       coef_init: Sequence[Sequence[float]] | None = None,
+                       nu_init: Sequence[float] | None = None, dtype=torch.float32, *,
+                       device: str | torch.device = "cuda") -> dict:
+    """Coefficients {'nu': [channels], 'coef': [[len(terms[c])] per channel]}
+    on `device`: from the Stage-2 STRidge output when given, else drawn
+    from U(-1, 1) by `gen` (a CPU generator; nu first, then each channel's
+    coefficients)."""
+    dev = resolve_device(device)
+    if nu_init is not None:
+        nu = torch.tensor(nu_init, dtype=dtype)
+    else:
+        nu = uniform_symmetric(gen, (cfg.channels,), 1.0, dtype)
+    if coef_init is not None:
+        coef = [torch.tensor(c, dtype=dtype) for c in coef_init]
+    else:
+        coef = [uniform_symmetric(gen, (len(cfg.terms[c]),), 1.0, dtype)
+                for c in range(cfg.channels)]
+    return {"nu": nu.to(dev), "coef": [c.to(dev) for c in coef]}
+
+
+def symbolic_rhs(params: dict, h: torch.Tensor, cfg: SymbolicCellConfig) -> torch.Tensor:
+    """f(h) = nu * Lap(h) + sum_i coef_i * term_i(h), per channel."""
+    lap = laplacian(h, cfg.dx, dims=[a % h.ndim for a in cfg.spatial_axes])
+    nu = params["nu"] if cfg.diffusion == "raw" else cfg.mu_up * torch.sigmoid(params["nu"])
+    grads = eval_grads(h, cfg.dx, cfg.ndim)
+    outs = []
+    for c in range(cfg.channels):
+        acc = nu[c] * lap[..., c]
+        for coef, name in zip(params["coef"][c], cfg.terms[c]):
+            acc = acc + coef * TERM_REGISTRY[name](h, grads)
+        outs.append(acc)
+    return torch.stack(outs, dim=-1)
+
+
+def symbolic_cell_step(params: dict, h: torch.Tensor, cfg: SymbolicCellConfig) -> torch.Tensor:
+    """One Euler (fine_tuning_[5%...].py:209-221) or RK4 (:159-206) step."""
+    if cfg.integrator == "euler":
+        return h + cfg.dt * symbolic_rhs(params, h, cfg)
+    k1 = symbolic_rhs(params, h, cfg)
+    k2 = symbolic_rhs(params, h + 0.5 * cfg.dt * k1, cfg)
+    k3 = symbolic_rhs(params, h + 0.5 * cfg.dt * k2, cfg)
+    k4 = symbolic_rhs(params, h + cfg.dt * k3, cfg)
+    return h + (cfg.dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)

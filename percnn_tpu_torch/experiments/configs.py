@@ -1,8 +1,9 @@
-"""Experiment configurations: the GS2D and GS3D reconstruction models and
-the 5x5-Pi Stage-1 reconstructions of Burgers and lambda-omega.
+"""Experiment configurations: the forward simulation of lambda-omega, the
+GS2D and GS3D reconstruction models and the 5x5-Pi Stage-1 reconstructions
+of Burgers and lambda-omega.
 
 Counterpart of percnn_tpu/experiments/configs.py, with the same field
-values.  The forward simulation of lambda-omega comes with its slice.
+values.
 """
 
 from __future__ import annotations
@@ -37,6 +38,28 @@ class ExperimentConfig:
     isg_pretrain_iters: int = 4000
     seed: int = 66
 
+
+# 2D lambda-omega forward solve (percnn_LO_eqn.py:474-543): physics loss only,
+# raw learnable diffusion, Pi C=4 k=1, f64, Adam 1e-2 StepLR(25, .98) x2000.
+FORWARD_SIM_LO = ExperimentConfig(
+    name="forward_sim_lo",
+    system="lambda_omega",
+    grid=100,
+    dt=0.0125,
+    dx=0.2,
+    train_steps=400,
+    infer_steps=800,
+    cell=PiCellConfig(
+        ndim=2, hidden=4, kernel_size=1, dt=0.0125, dx=0.2,
+        diffusion="raw", diff_init=0.2, init="fanin", init_scale=0.5,
+    ),
+    isg=None,
+    data=None,
+    train=TrainConfig(n_iters=2000, lr=1e-2, lr_step=25, lr_gamma=0.98,
+                      watchdog=False, steps_per_call=25),
+    loss_weights={"phy": 1.0},
+    noise_pct=0.0,
+)
 
 # 2D Gray-Scott reconstruction (train_2drd.py:594-670): ISG 4x, Pi C=8 k=1,
 # bounded diffusion mu_up=3.99e-5, 40*data + 0.25*ic, Adam 1e-3
@@ -151,6 +174,8 @@ LO_STAGE1 = ExperimentConfig(
     interp_periodic_extend=True,
 )
 
-# name -> config, as percnn_tpu's EXPERIMENTS for the configs ported so far
-# (FORWARD_SIM_LO comes with its slice, ROADMAP.md A4)
-EXPERIMENTS = {e.name: e for e in (GS2D_RECON, GS3D_RECON, BURGERS_STAGE1, LO_STAGE1)}
+# name -> config, in percnn_tpu's order
+EXPERIMENTS = {
+    e.name: e
+    for e in (FORWARD_SIM_LO, GS2D_RECON, GS3D_RECON, BURGERS_STAGE1, LO_STAGE1)
+}

@@ -14,14 +14,14 @@ directly, instead of a truth-carrying Problem.
 a step).
 
 Not ported yet: the GSPMD mesh route (``parallel_impl="gspmd"``), a shared
-ISG pretrain file, the visual exports and the closed-form Pi expressions
-(ROADMAP.md).
+ISG pretrain file and the visual exports (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib.util
 import math
 import os
 import time
@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from percnn_tpu_torch._device import full_f32, resolve_device
-from percnn_tpu_torch.bridge import params_from_numpy
+from percnn_tpu_torch.bridge import params_from_numpy, params_to_numpy
 from percnn_tpu_torch.core.cell import init_pi_cell, pi_cell_step
 from percnn_tpu_torch.core.checkpoint import (
     flatten_with_paths,
@@ -148,7 +148,8 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
                     the card, their plain versions on the CPU): 'fused_pg'
                     for a kernel_size-1 cell, 2D or 3D with three branches;
                     'fused' for a 2D cell with odd kernel_size 3 or 5; else
-                    'remat';
+                    'two_phase', as percnn_tpu (an f64 state, such as
+                    FORWARD_SIM_LO's, takes no kernel);
       'fused_pg' -- rollout2d_kernel forward, pg2d_kernel backward
                     (ops/kernels/backward2d.py) in 2D; rollout3d_kernel
                     forward, pg3d_kernel backward (ops/kernels/backward3d.py)
@@ -180,7 +181,8 @@ def forward_rollout(params: dict, prob: Problem, n_steps: int, *, remat: bool = 
         pg_ok = k == 1 and (cell.ndim == 2 or (cell.ndim == 3 and cell.n_branches == 3))
         fused_ok = cell.ndim == 2 and k in (3, 5)
         f32 = cell.channels == 2 and h0.dtype == torch.float32
-        bptt = ("fused_pg" if f32 and pg_ok else "fused" if f32 and fused_ok else "remat")
+        bptt = ("fused_pg" if f32 and pg_ok else "fused" if f32 and fused_ok
+                else "two_phase")
     if bptt == "fused_pg":
         fused = fused_rollout_tp_2d_pg if cell.ndim == 2 else fused_rollout_tp_3d_pg
         return fused(params["cell"], h0, cell, n_steps)
@@ -445,6 +447,11 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     result then holds ``candidate`` and ``probe_scores``.  Besides the JAX
     package's result keys, ``seconds`` holds the host seconds of each phase
     (truth, ISG pretrain, each stage, candidate selection, evaluation).
+    For a kernel_size-1 cell the result holds ``pi_expressions``, the
+    closed-form polynomial each trained Pi block represents
+    (discovery.symbolic), when sympy is installed; without sympy the key is
+    left out.  Unlike percnn_tpu, whose bare ``except`` hides any failure
+    there, an error in the expansion propagates.
 
     mesh: a parallel.Mesh whose first device is `device` -- training runs
     spatially decomposed over its devices (``make_mesh_rollout_fn`` with
@@ -529,6 +536,12 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     logger.close()
     result = {"params": params, "history": history, **metrics, **selection,
               "seconds": seconds}
+    if exp.cell.kernel_size == 1 and importlib.util.find_spec("sympy") is not None:
+        from percnn_tpu_torch.discovery.symbolic import pi_block_expression
+
+        pi = params_to_numpy(params["cell"])["pi"]
+        result["pi_expressions"] = [str(pi_block_expression(pi[c]))
+                                    for c in range(exp.cell.channels)]
     # truth-free convergence telemetry: the minimum training loss of the
     # final curriculum stage (loss scales compare only within a stage)
     finite_tail = [x for x in last_stage_history if math.isfinite(x)]

@@ -12,7 +12,10 @@ writes, equal to the last frame), or past
 their plans one launch a step (``rollout2d_kernel``, ``final2d_kernel``); a
 3D cell through ``cell3d.fused_rollout_3d`` (frames, or the final state
 without frame writes).  For 3D the JAX package serves with its jnp rollout;
-the math is the same.  Export and load of a serialized model come later.
+the math is the same.  The discovery pipeline's symbolic cell
+(``SymbolicCellConfig``) is served by the eager rollout of its step, Euler
+or RK4, as in the JAX package: no kernel stands behind it.  Export and
+load of a serialized model come later.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ import torch
 
 from percnn_tpu_torch._device import full_f32, resolve_device
 from percnn_tpu_torch.bridge import params_from_numpy
-from percnn_tpu_torch.core.cell import PiCellConfig
+from percnn_tpu_torch.core.cell import PiCellConfig, SymbolicCellConfig, symbolic_cell_step
 from percnn_tpu_torch.core.isg import ISGConfig, isg_apply
+from percnn_tpu_torch.core.rollout import rollout, rollout_final
 from percnn_tpu_torch.ops.kernels.cell2d import (
     fused_rollout_2d,
     fused_rollout_final_2d,
@@ -33,8 +37,9 @@ from percnn_tpu_torch.ops.kernels.cell2d import (
 from percnn_tpu_torch.ops.kernels.cell3d import fused_rollout_3d
 
 
-def build_serving_fn(params: dict, cell_cfg: PiCellConfig, n_steps: int, *,
-                     isg_cfg: ISGConfig | None = None, final_only: bool = False,
+def build_serving_fn(params: dict, cell_cfg: PiCellConfig | SymbolicCellConfig,
+                     n_steps: int, *, isg_cfg: ISGConfig | None = None,
+                     final_only: bool = False,
                      device: str | torch.device = "cuda") -> Callable:
     """Weights-baked inference callable: request -> rollout, in float32.
 
@@ -45,13 +50,19 @@ def build_serving_fn(params: dict, cell_cfg: PiCellConfig, n_steps: int, *,
     is a tensor on `device`: [n_steps+1, *spatial, 2] frames, or the final
     state [*spatial, 2] with `final_only=True`.
     """
-    if not (isinstance(cell_cfg, PiCellConfig) and cell_cfg.ndim in (2, 3)):
-        raise NotImplementedError("serving takes 2D and 3D Pi cells; the discovery "
-                                  "pipeline's SymbolicCell is queued in ROADMAP.md A5")
+    if not (isinstance(cell_cfg, SymbolicCellConfig)
+            or isinstance(cell_cfg, PiCellConfig) and cell_cfg.ndim in (2, 3)):
+        raise NotImplementedError(f"serving takes 2D and 3D Pi cells and symbolic cells, "
+                                  f"not {cell_cfg!r}")
     dev = resolve_device(device)
     params = params_from_numpy(params, device=dev, dtype=torch.float32)
     cell_params = params.get("cell", params)
-    if cell_cfg.ndim == 2:
+    if isinstance(cell_cfg, SymbolicCellConfig):
+        def roll(p, h0, cfg, n):
+            step = lambda h: symbolic_cell_step(p, h, cfg)
+            return rollout_final(step, h0, n) if final_only else rollout(step, h0, n,
+                                                                         remat=False)
+    elif cell_cfg.ndim == 2:
         roll = fused_rollout_final_2d if final_only else fused_rollout_2d
     else:
         def roll(p, h0, cfg, n):

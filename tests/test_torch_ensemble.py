@@ -195,7 +195,7 @@ def test_cli_ensemble_verb(monkeypatch, capsys):
     assert calls[-1][0] is BURGERS_STAGE1 and calls[-1][1] == 4
     assert calls[-1][2]["device"] == "cuda"
     for argv, msg in ((["ensemble", "gs2d_recon", "--shard"], "A10"),
-                      (["ensemble", "forward_sim_lo"], "unknown experiment")):
+                      (["ensemble", "no_such_experiment"], "unknown experiment")):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code == 2 and msg in capsys.readouterr().err

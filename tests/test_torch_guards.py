@@ -54,3 +54,6 @@ def test_chip_smoke_reads_only_the_golden_file():
     assert '"tests", "golden", "pt_gs2d.npz"' in src
     assert '"tests", "golden", "pt_gs3d.npz"' in src
     assert '"tests", "golden", "pt_burgers_s1.npz"' in src
+    assert '"tests", "golden", "pt_lo_forward.npz"' in src
+    assert '"tests", "golden", "jax_lo_stage1.ckpt.npz"' in src
+    assert '"tests", "golden", "jax_lo_stage1.stage2_coefs.npz"' in src

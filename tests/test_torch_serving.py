@@ -15,7 +15,12 @@ from percnn_tpu.experiments.configs import GS2D_RECON as J_GS2D_RECON
 from percnn_tpu.serving import build_serving_fn as j_build_serving_fn
 
 from percnn_tpu_torch import bridge
-from percnn_tpu_torch.core.cell import PiCellConfig, init_pi_cell
+from percnn_tpu_torch.core.cell import (
+    PiCellConfig,
+    SymbolicCellConfig,
+    init_pi_cell,
+    init_symbolic_cell,
+)
 from percnn_tpu_torch.core.isg import ISGConfig, init_isg
 from percnn_tpu_torch.experiments import runner
 from percnn_tpu_torch.experiments.configs import GS2D_RECON
@@ -105,6 +110,11 @@ _ENTRY_POINTS = {
     "inference_rollout": lambda dev: runner.inference_rollout(
         bridge.params_from_numpy(_model()[1], device="cpu"), GS2D_RECON,
         _ic_low(), 2, **dev),
+    "build_serving_fn[symbolic]": lambda dev: build_serving_fn(
+        {"nu": np.full(2, 0.1, np.float32), "coef": [np.ones(1, np.float32)] * 2},
+        SymbolicCellConfig(terms=(("u",), ("v",))), 2, **dev),
+    "init_symbolic_cell": lambda dev: init_symbolic_cell(
+        torch.Generator(), SymbolicCellConfig(terms=(("u",), ("v",))), **dev),
 }
 
 

@@ -10,6 +10,9 @@ rtol 1e-4.
 """
 
 import dataclasses
+import functools
+import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +33,12 @@ from percnn_tpu_torch.experiments import runner
 from percnn_tpu_torch.experiments.ensemble import run_ensemble
 from percnn_tpu_torch.experiments.configs import GS2D_RECON
 from percnn_tpu_torch.parallel import make_mesh
+from percnn_tpu_torch.data.io import save_npz
+from percnn_tpu_torch.discovery.library import reconstruction_residual_mse
+from percnn_tpu_torch.experiments import pipeline, stage3
+from percnn_tpu_torch.experiments.stage3 import run_stage3
+from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
+from percnn_tpu_torch.pde.terms import gen_library
 
 
 def _small(base):
@@ -280,8 +289,62 @@ _ENTRY_POINTS = {
         dataclasses.replace(EXP, grid=12, train_steps=4, infer_steps=4, train=dataclasses.replace(
             EXP.train, n_iters=1)), 2, out_dir=dev.pop("out_dir"), cache_dir=None,
         isg_pretrain_override=1, bptt="batched_pg", **dev),
+    "reconstruction_residual_mse": lambda dev: reconstruction_residual_mse(
+        np.full((4, 8, 8, 2), 0.5), PDE_SYSTEMS["lambda_omega"], 0.0125, 0.2, **dev),
+    "run_stage3": lambda dev: run_stage3(
+        dataclasses.replace(stage3.burgers_stage3(_tiny_burgers()),
+                            train=TrainConfig(n_iters=1, log_every=100)),
+        np.full((5, 8, 8, 2), 0.5), out_dir=dev.pop("out_dir"), isg_pretrain_iters=1, **dev),
+    "run_discovery_pipeline": lambda dev: _short_stage3(pipeline.run_discovery_pipeline)(
+        _tiny_burgers(), out_dir=dev["out_dir"], cache_dir=None, stage3_iters=1,
+        stage1_recon=_recon_file(dev.pop("out_dir")), stage2_frames=slice(0, 8), **dev),
+    "run_stage3_from_coefs": lambda dev: _short_stage3(pipeline.run_stage3_from_coefs)(
+        _tiny_burgers(), _coefs_file(dev["out_dir"]), out_dir=dev.pop("out_dir"),
+        cache_dir=None, stage3_iters=1, **dev),
+    "run_ensemble_discovery": lambda dev: _short_stage3(pipeline.run_ensemble_discovery)(
+        _tiny_burgers(), 1, out_dir=dev["out_dir"], cache_dir=None, stage3_iters=1,
+        member_recons=[_recon_file(dev.pop("out_dir"))], stage2_frames=slice(0, 8), **dev),
 }
-_WRITE_FILES = ("run_experiment", "run_experiment_mesh", "run_ensemble")
+_WRITE_FILES = ("run_experiment", "run_experiment_mesh", "run_ensemble", "run_stage3",
+                "run_discovery_pipeline", "run_stage3_from_coefs", "run_ensemble_discovery")
+
+
+def _short_stage3(entry):
+    """`entry` with the pipeline's Stage 3 pretraining its ISG for 1
+    iteration, not 2000."""
+    def call(*args, **kw):
+        with mock.patch.object(pipeline, "run_stage3",
+                               functools.partial(run_stage3, isg_pretrain_iters=1)):
+            return entry(*args, **kw)
+
+    return call
+
+
+def _tiny_burgers():
+    from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1
+
+    return dataclasses.replace(
+        BURGERS_STAGE1, grid=8, train_steps=4, infer_steps=4,
+        data=dataclasses.replace(BURGERS_STAGE1.data, time_stride=2, space_stride=2))
+
+
+def _recon_file(out_dir):
+    """A saved 9-frame 8 x 8 reconstruction (the pipeline's stage1_recon)."""
+    path = os.path.join(out_dir, "recon.npz")
+    rng = np.random.default_rng(0)
+    save_npz(path, (rng.standard_normal((9, 8, 8, 2)) * 0.3).astype(np.float32))
+    return path
+
+
+def _coefs_file(out_dir):
+    """A saved Stage-2 support: nu and one advection term an equation."""
+    names = gen_library()
+    w_u, w_v = np.zeros((70, 1)), np.zeros((70, 1))
+    w_u[names.index("ones*lap_u")], w_u[names.index("u*u_x")] = 0.005, -1.0
+    w_v[names.index("ones*lap_v")], w_v[names.index("v*v_y")] = 0.005, -1.0
+    path = os.path.join(out_dir, "coefs.npz")
+    np.savez(path, w_u=w_u, w_v=w_v, names=np.asarray(names))
+    return path
 
 
 @pytest.mark.parametrize("name", list(_ENTRY_POINTS))
