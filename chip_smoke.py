@@ -20,8 +20,11 @@ domain decomposition (``sharded_rollout_nd``, ``run_experiment(mesh=...)``)
 on meshes that repeat cuda:0, trains FORWARD_SIM_LO in f64, runs the
 discovery pipeline (``run_discovery_pipeline``, and Stages 2 and 3 from the
 JAX package's trained lambda-omega Stage-1 model), serves the symbolic cell,
-and times the kernels.  Phases, one JSON line each with the seconds
-since start:
+exports the serving artifact (``serving.export_model``) and answers with it
+in a fresh process, drives the simulate, import-pt, export and profile
+verbs, draws the figures, and times the kernels.  matplotlib is hidden (an
+import of it raises) until the viz phase, so the runs before it skip their
+figures.  Phases, one JSON line each with the seconds since start:
 
   env          card name and power limit (nvidia-smi), torch and CUDA versions
   build        nvcc builds of percnn_tpu_torch/ops/kernels/csrc/*.cu, in parallel,
@@ -193,6 +196,28 @@ since start:
                at 100 x 100, against the CPU at rtol 1e-4 (atol 1e-5), each
                request's ms after one warm-up request an integrator, no
                launch
+  export       the golden GS2D weights written as a reference .pt (train_2drd.py's
+               module names, one Adam step's optimizer state), the import-pt
+               verb (the weights back bit for bit), the export verb (frames
+               and --final-only, 2500 steps); both artifacts loaded in a
+               fresh python3 process that can import neither jax nor
+               percnn_tpu, a warm-up and 5 timed 25 x 25 requests each, the
+               answers against build_serving_fn's to the bit with one launch
+               of rows 1 and 2 a request; export_model / load_model in this
+               process for Burgers (row 3, 1200 steps), GS3D (row 8, 1000
+               steps) and the symbolic cell (Euler, 400 steps, 1 timed
+               request, no launch), the same checks; each request's ms beside
+               build_serving_fn's (host clock, synchronised, after a warm-up);
+               the GS3D ISG on one request twice, with and without
+               cudnn.deterministic (equal under it)
+  cli          simulate gray_scott_2d (20 steps) and profile gs2d_recon
+               --iters 3 through __main__.main; the trace names
+               rollout2d_cluster_kernel (4 launches) and
+               pg2d_persistent_kernel (3)
+  viz          whether matplotlib and plotly are installed; with matplotlib,
+               runner._export_viz on the GS2D and GS3D training results and
+               its files, with the seconds taken; either way a small GS2D
+               run_experiment that writes its figures or skips them
   train_fallback  run_experiment(BURGERS_STAGE1) with the MXU switches off
                (10 iterations at T = 200, the cached truth, the evaluation:
                one launch a rollout and a sweep, ms per iteration),
@@ -394,6 +419,7 @@ LO_FORWARD_ITERS = 2      # of FORWARD_SIM_LO's 2000, at T = 400 in f64
 PIPE_STAGE1_ITERS = 3     # of LO_STAGE1's 15000, at T = 200
 PIPE_STAGE3_ITERS = 2     # of Stage 3's 1000
 PIPE_STAGE2_KWARGS = {"maxit": 10, "stridge_iters": 10}   # the pipeline phase's cut Stage 2
+EXPORT_REPS = 5           # timed requests of each exported kernel model (the symbolic cell's: 1)
 
 
 class CheckFailed(Exception):
@@ -703,6 +729,109 @@ def profile_busy(torch, fn) -> dict:
                                      for name, d in kernels.items()}}
 
 
+def write_reference_pt(torch, np, model: dict, path: str) -> None:
+    """Write the GS2D model tree (the port's channels-last layout, numpy
+    leaves) as a reference checkpoint: train_2drd.py's module names
+    (crnn_cell.CA/CB, Wh{1..4}_{u,v}, a frozen W_laplace, and
+    UpconvBlock.convnet.{0,2,3}) in PyTorch's weight layouts, with the
+    optimizer_state_dict of one Adam step, in the legacy format the
+    reference commits.  The weights saved are the model's, bit for bit."""
+    cell, isg = model["cell"], model["isg"]
+    ref = torch.nn.Module()
+    ref.UpconvBlock = torch.nn.Module()
+    ref.UpconvBlock.convnet = torch.nn.Sequential(
+        torch.nn.ConvTranspose2d(*isg["up0_w"].shape[2:], 5, 2, 2, 1), torch.nn.Sigmoid(),
+        torch.nn.ConvTranspose2d(*isg["up1_w"].shape[2:], 5, 2, 2, 1),
+        torch.nn.Conv2d(*isg["out_w"].shape, 1))
+    ref.crnn_cell = torch.nn.Module()
+    ref.crnn_cell.CA = torch.nn.Parameter(torch.tensor(float(cell["diff"][0])))
+    ref.crnn_cell.CB = torch.nn.Parameter(torch.tensor(float(cell["diff"][1])))
+    lap = np.zeros((1, 1, 5, 5), np.float32)
+    lap[0, 0, 2, :] += (-1 / 12, 4 / 3, -5 / 2, 4 / 3, -1 / 12)
+    lap[0, 0, :, 2] += (-1 / 12, 4 / 3, -5 / 2, 4 / 3, -1 / 12)
+    ref.crnn_cell.W_laplace = torch.nn.Parameter(torch.from_numpy(lap), requires_grad=False)
+    hidden = cell["pi"][0]["w0"].shape[-1]
+    for cn in "uv":
+        for i in (1, 2, 3):
+            setattr(ref.crnn_cell, f"Wh{i}_{cn}", torch.nn.Conv2d(2, hidden, 1))
+        setattr(ref.crnn_cell, f"Wh4_{cn}", torch.nn.Conv2d(hidden, 1, 1))
+
+    def conv(w):        # [Cin, Cout] -> [Cout, Cin, 1, 1]
+        return np.ascontiguousarray(np.asarray(w).T[:, :, None, None])
+
+    def convt(w):       # [k, k, Cin, Cout] -> [Cin, Cout, k, k]
+        return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 0, 1)))
+
+    sd = {"UpconvBlock.convnet.0.weight": convt(isg["up0_w"]),
+          "UpconvBlock.convnet.0.bias": isg["up0_b"],
+          "UpconvBlock.convnet.2.weight": convt(isg["up1_w"]),
+          "UpconvBlock.convnet.2.bias": isg["up1_b"],
+          "UpconvBlock.convnet.3.weight": conv(isg["out_w"]),
+          "UpconvBlock.convnet.3.bias": isg["out_b"],
+          "crnn_cell.CA": np.asarray(cell["diff"][0]), "crnn_cell.CB": np.asarray(cell["diff"][1]),
+          "crnn_cell.W_laplace": lap}
+    for c, cn in enumerate("uv"):
+        for i in range(3):
+            sd[f"crnn_cell.Wh{i + 1}_{cn}.weight"] = conv(cell["pi"][c][f"w{i}"])
+            sd[f"crnn_cell.Wh{i + 1}_{cn}.bias"] = cell["pi"][c][f"b{i}"]
+        sd[f"crnn_cell.Wh4_{cn}.weight"] = conv(cell["pi"][c]["w_out"])
+        sd[f"crnn_cell.Wh4_{cn}.bias"] = cell["pi"][c]["b_out"]
+
+    def load():
+        ref.load_state_dict({k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in sd.items()})
+
+    load()
+    opt = torch.optim.Adam(ref.parameters(), lr=1e-3)
+    sum((p ** 2).sum() for p in ref.parameters() if p.requires_grad).backward()
+    opt.step()
+    load()                  # the Adam state of that step, the model's own weights
+    torch.save({"model_state_dict": ref.state_dict(), "optimizer_state_dict": opt.state_dict()},
+               path, _use_new_zipfile_serialization=False)
+
+
+# The export phase's fresh process: it imports the port alone (an import of
+# jax or percnn_tpu raises), loads the two GS2D artifacts, answers the
+# request with each (a warm-up, which builds the kernel library in this
+# process, then EXPORT_REPS timed requests), writes the last answers and
+# prints one JSON line: the latencies and the launch and step counters of
+# rows 1 and 2 after each artifact's requests (from 0 at the start).  argv: root, frames artifact, final-state artifact, request
+# .npy, output dir.
+FRESH_SERVE = """
+import json, os, sys, time
+sys.modules['jax'] = None
+sys.modules['percnn_tpu'] = None
+root, frames_art, final_art, req_path, out_dir, reps = sys.argv[1:7]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+from percnn_tpu_torch.ops.kernels import cell2d
+from percnn_tpu_torch.serving import load_model
+x = np.load(req_path)
+out = {}
+for tag, art, counter in (('frames', frames_art, cell2d.fused_rollout_2d),
+                          ('final', final_art, cell2d.fused_rollout_final_2d)):
+    t = time.perf_counter()
+    fn, cfg = load_model(art, device='cuda')
+    load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fn(x)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    ms = []
+    for _ in range(int(reps)):
+        t = time.perf_counter()
+        y = fn(x)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    np.save(os.path.join(out_dir, tag + '.npy'), y.cpu().numpy())
+    out[tag] = {'load_s': load_s, 'warmup_s': warm_s, 'request_ms': ms,
+                'launches': counter.launches, 'steps': counter.steps, 'config': cfg}
+out['modules'] = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'percnn_tpu')
+                        and sys.modules[m] is not None)
+print(json.dumps(out))
+"""
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -748,7 +877,15 @@ def main() -> int:
                                               cell3d, sharded_step2d)
     from percnn_tpu_torch.parallel import halo_exchange, make_mesh, sharded, sharded_rollout_nd
     from percnn_tpu_torch.parallel.halo import object_grid
-    from percnn_tpu_torch.serving import build_serving_fn
+    from percnn_tpu_torch.serving import build_serving_fn, export_model, load_model
+    from percnn_tpu_torch import __main__ as cli
+
+    # matplotlib is hidden (an import of it raises) until the viz phase, the
+    # one phase that draws: the runs before it skip their figures
+    mpl_installed = importlib.util.find_spec("matplotlib") is not None
+    mpl_hidden = {name: sys.modules.pop(name) for name in list(sys.modules)
+                  if name == "matplotlib" or name.startswith("matplotlib.")}
+    sys.modules["matplotlib"] = None
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -3458,6 +3595,255 @@ def main() -> int:
           shape=[LO_STAGE1.grid, LO_STAGE1.grid, 2], bar="rtol 1e-4, atol 1e-5 vs the CPU",
           requests=serve_sym, launches=sym_counts, seconds=time.perf_counter() - t_phase)
 
+    # export: the serving artifact at full width.  The golden GS2D weights as a
+    # reference .pt (written here), the import-pt and export verbs (frames and
+    # final state, 2500 steps), then the artifacts loaded in a fresh process
+    # that imports the port alone and answers a 25 x 25 request with each;
+    # the answers against build_serving_fn on the same weights to the bit, one
+    # launch of rows 1 and 2 a request.  Then in this process, the same for
+    # Burgers (row 3, 1200 steps), GS3D (row 8, 1000 steps) and the symbolic
+    # cell (Euler, 400 steps, no launch)
+    t_phase = time.perf_counter()
+    exp_dir = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        pt_path = os.path.join(exp_dir, "reference.pt")
+        write_reference_pt(torch, np, model, pt_path)
+        imp_path = os.path.join(exp_dir, "imported.ckpt.npz")
+        arts = {tag: os.path.join(exp_dir, f"gs2d_{tag}.npz") for tag in ("frames", "final")}
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            check(cli.main(["import-pt", pt_path, "--out", imp_path]) == 0, "import-pt")
+            import_s = time.perf_counter() - t
+            t = time.perf_counter()
+            check(cli.main(["export", GS2D_RECON.name, "--ckpt", imp_path, "--steps",
+                            str(SERVE_STEPS), "--out", arts["frames"]]) == 0, "export")
+            export_s = time.perf_counter() - t
+            check(cli.main(["export", GS2D_RECON.name, "--ckpt", imp_path, "--steps",
+                            str(SERVE_STEPS), "--final-only", "--out", arts["final"]]) == 0,
+                  "export --final-only")
+        imported, imp_meta = load_checkpoint_tree(imp_path)
+        imp_same = [p for (p, a), (_, b) in zip(flatten_with_paths(imported["params"]),
+                                                flatten_with_paths(model))
+                    if not np.array_equal(a, np.asarray(b, np.float32))]
+        check(not imp_same and imp_meta.get("iteration") == 1
+              and float(imported["opt_state"]["step"]) == 1.0,
+              f"import-pt: leaves differing from the golden model {imp_same}, meta {imp_meta}")
+        req_path = os.path.join(exp_dir, "request.npy")
+        np.save(req_path, np.asarray(requests[0], np.float32))
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", FRESH_SERVE, ROOT, arts["frames"],
+                               arts["final"], req_path, exp_dir, str(EXPORT_REPS)],
+                              capture_output=True, text=True, timeout=600, cwd=exp_dir)
+        fresh_s = time.perf_counter() - t
+        check(proc.returncode == 0, f"the fresh serving process failed: {proc.stderr[-3000:]}")
+        fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = {tag: np.load(os.path.join(exp_dir, f"{tag}.npy")) for tag in ("frames", "final")}
+        art_bytes = {tag: os.path.getsize(a) for tag, a in arts.items()}
+    finally:
+        shutil.rmtree(exp_dir, ignore_errors=True)
+    check(fresh["modules"] == [], f"the fresh process imported {fresh['modules']}")
+    export_serve, export_launches = {}, {}
+    for tag, final_only in (("frames", False), ("final", True)):
+        fn = build_serving_fn(model, cfg, SERVE_STEPS, isg_cfg=isg_cfg, final_only=final_only,
+                              device=dev)
+        fn(requests[0])
+        ms = []
+        for _ in range(EXPORT_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want = fn(requests[0])
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        want = want.cpu().numpy()
+        f = fresh[tag]
+        check(got[tag].shape == want.shape and np.array_equal(got[tag], want),
+              f"export {tag}: the artifact's answer vs build_serving_fn's, max |diff| "
+              f"{float(np.abs(got[tag] - want).max()) if got[tag].shape == want.shape else 'shape'}")
+        # the warm-up and the timed requests: one launch a request
+        check(f["launches"] == 1 + EXPORT_REPS and f["steps"] == (1 + EXPORT_REPS) * SERVE_STEPS,
+              f"export {tag}: {f['launches']} launches, {f['steps']} steps in "
+              f"{1 + EXPORT_REPS} requests")
+        export_launches["rollout2d_cluster_kernel" + ("[final]" if final_only else "")] = (
+            f["launches"])
+        export_serve[f"gs2d_{tag}"] = {
+            "artifact_request_ms": f["request_ms"], "build_serving_fn_request_ms": ms,
+            "artifact_load_s": f["load_s"], "artifact_warmup_s": f["warmup_s"],
+            "requests": 1 + EXPORT_REPS, "launches": f["launches"], "steps": f["steps"],
+            "equal_bits": True, "artifact_bytes": art_bytes[tag], "traced_on":
+            f["config"]["traced_on"], "torch_version": f["config"]["torch_version"]}
+
+    def export_in_process(label, model_, cfg_, isg_, steps_, request_, want_counts, reps):
+        """export_model -> bytes -> load_model on the card; a warm-up and
+        `reps` timed requests, counted from 0, the last against
+        build_serving_fn's answer to the bit; then build_serving_fn's
+        `reps` timed requests."""
+        t = time.perf_counter()
+        blob = export_model(model_, cfg_, steps_, tuple(np.shape(request_)), isg_cfg=isg_,
+                            device=dev)
+        fn, _ = load_model(blob, device=dev)
+        prep_s = time.perf_counter() - t
+        bfn = build_serving_fn(model_, cfg_, steps_, isg_cfg=isg_, device=dev)
+        bfn(request_)
+        torch.cuda.synchronize()
+        zero_counts()
+        fn(request_)
+
+        def timed_ms(f_):
+            out_, ms_ = None, []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t_ = time.perf_counter()
+                out_ = f_(request_)
+                torch.cuda.synchronize()
+                ms_.append(1e3 * (time.perf_counter() - t_))
+            return out_, ms_
+
+        got_, ms_art = timed_ms(fn)
+        counts_ = read_counts()
+        want_, ms_bfn = timed_ms(bfn)
+        check(got_.shape == want_.shape and torch.equal(got_, want_)
+              and bool(torch.isfinite(got_).all()),
+              f"export {label}: the artifact's answer vs build_serving_fn's")
+        check(counts_ == want_counts, f"export {label}: counts {counts_}, expected {want_counts}")
+        export_serve[label] = {"artifact_request_ms": ms_art, "build_serving_fn_request_ms": ms_bfn,
+                               "export_and_load_s": prep_s, "requests": 1 + reps,
+                               "counts": counts_,
+                               "blob_bytes": len(blob), "equal_bits": True,
+                               "shape": list(got_.shape)}
+        return counts_
+
+    # one launch a request, the warm-up's included
+    nreq = 1 + EXPORT_REPS
+    cb = export_in_process("burgers", modelb, BURGERS_STAGE1.cell, BURGERS_STAGE1.isg,
+                           BURGERS_STAGE1.infer_steps, requestsb[0],
+                           {"fused_rollout_kxk_2d.launches": nreq,
+                            "fused_rollout_kxk_2d.steps": nreq * BURGERS_STAGE1.infer_steps},
+                           EXPORT_REPS)
+    c3 = export_in_process("gs3d", model3, GS3D_RECON.cell, GS3D_RECON.isg,
+                           GS3D_RECON.infer_steps, request3,
+                           {"fused_rollout_3d.launches": nreq,
+                            "fused_rollout_3d.steps": nreq * GS3D_RECON.infer_steps}, EXPORT_REPS)
+    export_in_process("symbolic_euler", sym_model, s3cfg.cell, LO_STAGE1.isg,
+                      LO_STAGE1.infer_steps, request, {}, 1)
+    export_launches["rollout2d_kxk_persistent_kernel"] = cb["fused_rollout_kxk_2d.launches"]
+    export_launches["rollout3d_persistent_kernel"] = c3["fused_rollout_3d.launches"]
+    # why serving runs under _device.repeatable(): the GS3D ISG on one
+    # request, twice, with cuDNN free to pick its algorithms and with
+    # deterministic ones (printed, not checked: the first may be 0 on
+    # another card or library)
+    x3 = torch.as_tensor(request3, dtype=torch.float32, device=dev)[None]
+    isg_twice = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        with torch.no_grad():
+            isg_twice[f"cudnn_deterministic={det}"] = max_abs(
+                isg_apply(params3["isg"], x3, GS3D_RECON.isg),
+                isg_apply(params3["isg"], x3, GS3D_RECON.isg))
+    torch.backends.cudnn.deterministic = False
+    check(isg_twice["cudnn_deterministic=True"] == 0.0,
+          f"the GS3D ISG twice under cudnn.deterministic: {isg_twice}")
+    phase("export", requests=export_serve, launches=export_launches,
+          gs3d_isg_twice_max_abs=isg_twice,
+          fresh_process_s=fresh_s, import_pt_s=import_s, export_s=export_s,
+          clock="host, synchronised, after one warm-up request; ms of each timed request",
+          nvidia_smi=smi,
+          seconds=time.perf_counter() - t_phase)
+
+    # cli: the simulate and profile verbs through __main__.main on the card;
+    # profile traces 3 iterations of GS2D (one a curriculum stage, the ISG
+    # pretrain cut to 1, on the train phase's cached truth), and its trace
+    # names the one-launch forward and sweep
+    t_phase = time.perf_counter()
+    cli_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        sim_path = os.path.join(cli_dir, "gt.npz")
+        with contextlib.redirect_stdout(sys.stderr):
+            check(cli.main(["simulate", "gray_scott_2d", "--steps", "20", "--dt", "0.5",
+                            "--dx", "0.01", "--out", sim_path]) == 0, "simulate")
+        with np.load(sim_path) as z:
+            sim = z["uv"]
+        check(sim.shape == (21, 100, 100, 2) and sim.dtype == np.float64
+              and bool(np.isfinite(sim).all()), f"simulate: shape {sim.shape}")
+        t = time.perf_counter()
+        zero_counts()
+        with contextlib.redirect_stdout(sys.stderr):
+            check(cli.main(["profile", GS2D_RECON.name, "--iters", "3", "--out", cli_dir,
+                            "--cache", truth_cache2d]) == 0, "profile")
+        profile_s = time.perf_counter() - t
+        profile_counts = read_counts()
+        trace_path = os.path.join(cli_dir, f"{GS2D_RECON.name}.trace", "trace.json")
+        with open(trace_path) as f:
+            trace_events = json.load(f)["traceEvents"]
+        trace_mb = os.path.getsize(trace_path) / 2 ** 20
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    in_trace = {name: sum(1 for e in trace_events if e.get("cat") == "kernel"
+                          and name in e.get("name", ""))
+                for name in ("rollout2d_cluster_kernel", "pg2d_persistent_kernel")}
+    # the traced run: 3 iterations, one launch of each a call, and the
+    # evaluation's rollout
+    check(in_trace == {"rollout2d_cluster_kernel": 4, "pg2d_persistent_kernel": 3},
+          f"profile trace kernels {in_trace}")
+    phase("cli", simulate_shape=list(sim.shape), profile_s=profile_s,
+          profile_launches=profile_counts, trace_kernel_events=in_trace, trace_mb=trace_mb,
+          seconds=time.perf_counter() - t_phase)
+
+    # viz: the one phase with matplotlib visible.  With it, _export_viz on the
+    # GS2D and GS3D training results (the evaluation frames and the truth)
+    # and the files checked; without it, the skip.  Either way a small GS2D
+    # run_experiment on the card writes its figures or skips them
+    t_phase = time.perf_counter()
+    del sys.modules["matplotlib"]
+    sys.modules.update(mpl_hidden)
+    viz_dir = tempfile.mkdtemp(prefix="chip_smoke_viz_")
+    for sub in ("gs2d", "gs3d"):
+        os.makedirs(os.path.join(viz_dir, sub))
+    viz = {"matplotlib": mpl_installed,
+           "plotly": importlib.util.find_spec("plotly") is not None}
+    try:
+        if mpl_installed:
+            truth2 = runner.make_dataset(GS2D_RECON, cache_dir=truth_cache2d, device=dev)
+            prob2 = runner.setup_problem(GS2D_RECON, truth2, device=dev)
+            t = time.perf_counter()
+            runner._export_viz(GS2D_RECON, prob2, res["params"], res, truth2,
+                               os.path.join(viz_dir, "gs2d"))
+            viz["gs2d_s"] = time.perf_counter() - t
+            mid3 = res3["frames"].shape[0] // 2
+            truth3 = runner.make_dataset(GS3D_RECON, n_frames=mid3, device=dev)
+            prob3 = runner.setup_problem(GS3D_RECON, truth3, device=dev)
+            t = time.perf_counter()
+            runner._export_viz(GS3D_RECON, prob3, res3["params"], res3, truth3,
+                               os.path.join(viz_dir, "gs3d"))
+            viz["gs3d_s"] = time.perf_counter() - t
+            files2 = sorted(os.listdir(os.path.join(viz_dir, "gs2d")))
+            frames2 = os.listdir(os.path.join(viz_dir, "gs2d", f"{GS2D_RECON.name}_frames"))
+            files3 = sorted(os.listdir(os.path.join(viz_dir, "gs3d")))
+            ext = "html" if viz["plotly"] else "png"
+            check(f"{GS2D_RECON.name}.panel.png" in files2
+                  and f"{GS2D_RECON.name}.ic_panel.png" in files2 and len(frames2) >= 25,
+                  f"GS2D figures {files2}, {len(frames2)} frames")
+            check({f"{GS3D_RECON.name}.panel.png"}
+                  | {f"{GS3D_RECON.name}.iso.{c}.{t_}.{ext}" for c in "uv"
+                     for t_ in ("pred", "truth")} <= set(files3), f"GS3D figures {files3}")
+            viz.update(gs2d_files=len(files2) + len(frames2), gs3d_files=files3)
+        tiny = dataclasses.replace(
+            GS2D_RECON, grid=32, train_steps=20, infer_steps=20, curriculum=(),
+            data=dataclasses.replace(GS2D_RECON.data, time_stride=5),
+            train=dataclasses.replace(GS2D_RECON.train, n_iters=1, log_every=1))
+        tiny_dir = os.path.join(viz_dir, "tiny")
+        with contextlib.redirect_stdout(sys.stderr):
+            rest = runner.run_experiment(tiny, device=dev, out_dir=tiny_dir, cache_dir=None,
+                                         isg_pretrain_override=1)
+        pngs = sorted(f for f in os.listdir(tiny_dir) if f.endswith(".png"))
+        check((pngs == [f"{tiny.name}.ic_panel.png", f"{tiny.name}.panel.png"]
+               and "viz" in rest["seconds"]) if mpl_installed
+              else (pngs == [] and "viz" not in rest["seconds"]),
+              f"run_experiment's figures with matplotlib installed={mpl_installed}: {pngs}")
+        viz["run_experiment_pngs"] = pngs
+    finally:
+        shutil.rmtree(viz_dir, ignore_errors=True)
+    phase("viz", **viz, seconds=time.perf_counter() - t_phase)
+
     # train_fallback: the fallback routes through the entry points a user
     # calls, every launch counted: run_experiment(BURGERS_STAGE1) with the
     # MXU switches off (rollout2d_ffma_persistent_kernel,
@@ -3931,7 +4317,10 @@ def main() -> int:
     # loop of "auto"
     ens_row1 = sum(c.get("fused_rollout_2d.launches", 0) for c in ens_launches.values())
     by_path1 = {"serve": launches["rollout2d_cluster_kernel"],
-                "train": train_launches["rollout2d_cluster_kernel"], "ensemble": ens_row1}
+                "train": train_launches["rollout2d_cluster_kernel"], "ensemble": ens_row1,
+                "export": export_launches["rollout2d_cluster_kernel"]}
+    by_path2 = {"serve": launches["rollout2d_cluster_kernel[final]"],
+                "export": export_launches["rollout2d_cluster_kernel[final]"]}
     kernels = [{
         "name": "rollout2d_cluster_kernel", "jax_kernel": "cell2d._rollout_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
@@ -3950,8 +4339,7 @@ def main() -> int:
         "name": "rollout2d_cluster_kernel[final]", "jax_kernel": "cell2d._final_kernel",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d.cu",
         "replaces": "percnn_tpu/ops/pallas/cell2d.py:384",
-        "launches": launches["rollout2d_cluster_kernel[final]"],
-        "launches_by_path": {"serve": launches["rollout2d_cluster_kernel[final]"]},
+        "launches": sum(by_path2.values()), "launches_by_path": by_path2,
         "max_abs_err": err["rollout2d_cluster_kernel[final]"], "ms": row2_ms,
         "plain_ms": row2_plain_ms, "bound_ms": b2_ms, "bound_by": b2_by, "library_ms": None,
         "steps": SERVE_STEPS, "launches_per_call": 1, "us_per_step": 1e3 * row2_ms / SERVE_STEPS,
@@ -4045,7 +4433,8 @@ def main() -> int:
     b_ms, b_by = bound_ms(coef_bytes + state3_bytes + (steps3 + 1) * state3_bytes, flops3)
     bf_ms, bf_by = bound_ms(coef_bytes + 2 * state3_bytes, flops3)
     by_path3 = {"serve": serve3_launches["rollout3d_persistent_kernel"],
-                "train": train3_launches["rollout3d_persistent_kernel"]}
+                "train": train3_launches["rollout3d_persistent_kernel"],
+                "export": export_launches["rollout3d_persistent_kernel"]}
     # rows 8 and 10 run their T steps in one launch; beside each, its
     # per-step route (rollout3d_kernel, pg3d_kernel) at the same shape, timed
     # in turns, before the plain versions load the host
@@ -4156,7 +4545,8 @@ def main() -> int:
                 "train": trainb_counts["fused_rollout_kxk_2d.launches"],
                 "ensemble": ens_launches["burgers_batched"]["fused_rollout_kxk_2d.launches"],
                 "pipeline": pipe_counts["fused_rollout_kxk_2d.launches"],
-                "pipeline_trained": recon_counts["fused_rollout_kxk_2d.launches"]}
+                "pipeline_trained": recon_counts["fused_rollout_kxk_2d.launches"],
+                "export": export_launches["rollout2d_kxk_persistent_kernel"]}
     kernels.append({
         "name": "rollout2d_kxk_persistent_kernel", "jax_kernel": "cell2d._rollout_kernel_mxu",
         "route": "cuda", "source": "percnn_tpu_torch/ops/kernels/csrc/cell2d_kxk.cu",

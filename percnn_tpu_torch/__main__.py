@@ -1,19 +1,26 @@
-"""CLI of the port, percnn_tpu's CLI (percnn_tpu/__main__.py) for the verbs
-ported so far:
+"""CLI of the port, with percnn_tpu's verbs and flags (percnn_tpu/__main__.py):
 
   python -m percnn_tpu_torch list
-  python -m percnn_tpu_torch run gs2d_recon [--iters N] [--mesh 2,2] [--cpu]
+  python -m percnn_tpu_torch run gs2d_recon [--iters N] [--mesh 2,2] [--resume] [--cpu]
   python -m percnn_tpu_torch pipeline lo_stage1 [--stage1-iters N] [--stage3-iters N] [--cpu]
   python -m percnn_tpu_torch ensemble gs2d_recon --members 4 [--iters N] [--cpu]
+  python -m percnn_tpu_torch simulate gray_scott_2d --dt 0.5 --dx 0.01 --steps 500 --out gt.npz
+  python -m percnn_tpu_torch import-pt checkpoint.pt --out imported.ckpt.npz
+  python -m percnn_tpu_torch export gs2d_recon --ckpt runs/gs2d_recon.ckpt.npz --out m.npz
+  python -m percnn_tpu_torch profile gs2d_recon --iters 20 --out runs/profile
 
 It runs on the card unless told --cpu.  ``run --mesh`` trains on a
 spatially decomposed field (experiments.runner.run_experiment(mesh=...)):
 over that many CUDA devices, or with --cpu over a mesh of that many CPU
 entries.  ``pipeline`` runs the three-stage discovery
 (experiments.pipeline): Stage-1 reconstruction, Stage-2 STRidge, Stage-3
-symbolic fine-tune, or parts of it from saved artifacts.  The other verbs
-(simulate, export, import-pt, profile) come with their slices (ROADMAP.md
-A8, A9).
+symbolic fine-tune, or parts of it from saved artifacts.  ``simulate``
+writes the RK4 ground truth; ``import-pt`` turns a reference ``.pt``
+checkpoint into the port's checkpoint (weights and Adam state, which ``run
+--resume`` continues from once it is the experiment's checkpoint);
+``export`` writes a serving artifact (serving.export_model) and
+``profile`` a torch.profiler trace of training iterations.  Still raising,
+for ROADMAP.md A10: ``run --parallel gspmd`` and ``ensemble --shard``.
 """
 
 from __future__ import annotations
@@ -101,6 +108,43 @@ def main(argv=None) -> int:
                     help="reuse a saved member reconstruction .npz (repeat "
                          "per member; remaining members train here)")
 
+    ps = sub.add_parser("simulate", help="generate FD ground truth")
+    ps.add_argument("system")
+    ps.add_argument("--grid", type=int, default=100)
+    ps.add_argument("--steps", type=int, default=500)
+    ps.add_argument("--dt", type=float, required=True)
+    ps.add_argument("--dx", type=float, required=True)
+    ps.add_argument("--out", default="truth.npz")
+    ps.add_argument("--warmup", type=int, default=0)
+    ps.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
+
+    px = sub.add_parser("export", help="export a trained model as a self-contained "
+                        "torch.export serving artifact")
+    px.add_argument("experiment")
+    px.add_argument("--ckpt", required=True, help="the port's .npz checkpoint (from `run`)")
+    px.add_argument("--steps", type=int, default=None,
+                    help="rollout length baked into the artifact "
+                         "(default: the experiment's infer_steps)")
+    px.add_argument("--out", default="model.export.npz")
+    px.add_argument("--final-only", action="store_true",
+                    help="emit only the final state (no frame streaming)")
+    px.add_argument("--cpu", action="store_true", help="trace on the CPU, not the card")
+
+    pi = sub.add_parser("import-pt", help="convert a reference PyTorch .pt checkpoint "
+                        "to the port's .npz checkpoint")
+    pi.add_argument("pt_path")
+    pi.add_argument("--out", default="imported.ckpt.npz")
+    pi.add_argument("--cpu", action="store_true", help="accepted for percnn_tpu's flags; "
+                    "the import runs on the host")
+
+    pf = sub.add_parser("profile", help="capture a torch.profiler trace of N training "
+                        "iterations (Perfetto / chrome://tracing)")
+    pf.add_argument("experiment")
+    pf.add_argument("--iters", type=int, default=20)
+    pf.add_argument("--out", default="runs/profile")
+    pf.add_argument("--cache", default="data_cache")
+    pf.add_argument("--cpu", action="store_true", help="run on the CPU, not the card")
+
     sub.add_parser("list", help="list experiment configs")
 
     args = p.parse_args(argv)
@@ -112,6 +156,10 @@ def main(argv=None) -> int:
             print(f"{name:<18} system={exp.system:<14} grid={exp.grid} "
                   f"dt={exp.dt} steps={exp.train_steps}")
         return 0
+    if args.cmd == "simulate":
+        return _simulate(args)
+    if args.cmd == "import-pt":
+        return _import_pt(args)
 
     if args.experiment not in EXPERIMENTS:
         p.error(f"unknown experiment {args.experiment!r}; ported: {', '.join(EXPERIMENTS)}")
@@ -152,6 +200,10 @@ def main(argv=None) -> int:
 
     if args.cmd == "pipeline":
         return _pipeline(p, args, exp)
+    if args.cmd == "export":
+        return _export(args, exp)
+    if args.cmd == "profile":
+        return _profile(args, exp)
 
     # ensemble
     if args.shard:
@@ -241,6 +293,110 @@ def _pipeline(p: argparse.ArgumentParser, args, exp) -> int:
                                for i in range(len(names)) if vote[i] > 0}
     print(json.dumps(out, indent=2))
     print(res["stage3"]["coef_table"])
+    return 0
+
+
+def _simulate(args) -> int:
+    """The simulate verb: the system's default IC on a --grid, --warmup
+    steps discarded, then --steps frames of RK4 (f64) saved as ``uv``."""
+    from percnn_tpu_torch.data.io import save_npz
+    from percnn_tpu_torch.data.simulate import default_ic, simulate
+
+    device = "cpu" if args.cpu else "cuda"
+    h0 = default_ic(args.system, args.grid)
+    if args.warmup:
+        h0 = simulate(args.system, h0, args.warmup, args.dt, args.dx, device=device)[-1]
+    truth = simulate(args.system, h0, args.steps, args.dt, args.dx, device=device)
+    save_npz(args.out, truth)
+    print(f"wrote {args.out}: {truth.shape}")
+    return 0
+
+
+def _import_pt(args) -> int:
+    """The import-pt verb: the reference checkpoint's weights and Adam state
+    as the port's checkpoint {'params', 'opt_state': {'step', 'exp_avg',
+    'exp_avg_sq'}} (core/train.TrainState.as_tree).  Optimizer state that
+    cannot be mapped is reported and left out: the moments are then zero
+    and the step 0, a fresh Adam on the imported weights."""
+    import numpy as np
+
+    from percnn_tpu_torch.bridge import _map_tree
+    from percnn_tpu_torch.core.checkpoint import flatten_with_paths, save_checkpoint
+    from percnn_tpu_torch.data.pt_import import import_reference_checkpoint, map_adam_moments
+
+    cell, isg, raw = import_reference_checkpoint(args.pt_path)
+    params = {"cell": cell, **({"isg": isg} if isg is not None else {})}
+    meta = {"source": args.pt_path}
+    try:
+        moments = map_adam_moments(raw)
+    except (ValueError, KeyError) as e:
+        # a non-Adam optimizer, or positions that do not match the state dict
+        print(f"warning: optimizer state not imported ({e!r})")
+        moments = None
+
+    if moments is not None:
+        def as_params(pair):
+            cell_m, isg_m = pair
+            return {"cell": cell_m, **({"isg": isg_m} if isg is not None else {})}
+
+        opt = {"step": np.asarray(moments["count"], np.float32),
+               "exp_avg": as_params(moments["mu"]), "exp_avg_sq": as_params(moments["nu"])}
+        meta["iteration"] = moments["count"]
+    else:
+        opt = {"step": np.asarray(0.0, np.float32),
+               "exp_avg": _map_tree(np.zeros_like, params),
+               "exp_avg_sq": _map_tree(np.zeros_like, params)}
+    save_checkpoint(args.out, {"params": params, "opt_state": opt}, meta=meta)
+    n = len(flatten_with_paths(params))
+    print(f"wrote {args.out}: {n} tensors"
+          + (" (cell + isg)" if isg is not None else " (cell only)")
+          + (f" + Adam state @ step {moments['count']}" if moments is not None else ""))
+    return 0
+
+
+def _export(args, exp) -> int:
+    """The export verb: serving.export_model of a checkpoint's params, the
+    ISG baked in when the experiment and the checkpoint have one."""
+    from percnn_tpu_torch.core.checkpoint import load_checkpoint_tree
+    from percnn_tpu_torch.serving import export_model
+
+    tree, _meta = load_checkpoint_tree(args.ckpt)
+    params = tree.get("params", tree)
+    n_steps = args.steps if args.steps is not None else exp.infer_steps
+    if exp.isg is not None and "isg" in params:
+        input_shape = (exp.grid // exp.isg.scale,) * exp.cell.ndim + (2,)
+        isg_cfg = exp.isg
+    else:
+        input_shape = (exp.grid,) * exp.cell.ndim + (2,)
+        isg_cfg = None
+    export_model(params, exp.cell, n_steps, input_shape, isg_cfg=isg_cfg,
+                 final_only=args.final_only, path=args.out,
+                 device="cpu" if args.cpu else "cuda")
+    print(f"wrote {args.out}: input {input_shape}, {n_steps} steps"
+          f"{' (final only)' if args.final_only else ''}")
+    return 0
+
+
+def _profile(args, exp) -> int:
+    """The profile verb: one warm-up run of one iteration (the kernels'
+    builds and first calls stay out of the trace), then a traced
+    run_experiment of --iters iterations; both with an ISG pretrain of one
+    iteration.  The trace goes to {out}/{name}.trace/trace.json."""
+    import os
+
+    from percnn_tpu_torch.experiments.runner import run_experiment
+    from percnn_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    device = "cpu" if args.cpu else "cuda"
+    trace_dir = os.path.join(args.out, f"{exp.name}.trace")
+    run_experiment(exp, out_dir=args.out, cache_dir=args.cache, n_iters_override=1,
+                   isg_pretrain_override=1, seed=0, device=device)
+    with trace(trace_dir):
+        run_experiment(exp, out_dir=args.out, cache_dir=args.cache,
+                       n_iters_override=args.iters, isg_pretrain_override=1, seed=0,
+                       device=device)
+    print(f"trace written to {os.path.join(trace_dir, TRACE_FILE)} (open with Perfetto "
+          f"or chrome://tracing)")
     return 0
 
 

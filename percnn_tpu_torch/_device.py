@@ -37,3 +37,21 @@ def full_f32():
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@contextlib.contextmanager
+def repeatable():
+    """Run cuDNN's convolutions by deterministic algorithms.
+
+    Without it cuDNN may pick, for the 3D transposed convolutions of the
+    GS3D ISG, an algorithm whose sums are ordered by atomics: two identical
+    requests then differ in the last bits (2.4e-7 on an H100).  The serving
+    callables run under it, so a request gets the same answer every time.
+    The flag is restored on exit.
+    """
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved

@@ -11,6 +11,7 @@ Either package reads the other's parameter checkpoints.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -24,7 +25,8 @@ import torch
 _KEY_RE = re.compile(r"\['([^']*)'\]|\[(\d+)\]|\.([A-Za-z_][A-Za-z0-9_]*)")
 
 
-def _parse_keypath(p: str) -> list:
+@functools.lru_cache(maxsize=4096)
+def _parse_keypath(p: str) -> tuple:
     keys = []
     covered = 0
     for m in _KEY_RE.finditer(p):
@@ -36,7 +38,7 @@ def _parse_keypath(p: str) -> list:
                     else (name if name is not None else attr))
     if not keys or covered != len(p):
         raise ValueError(f"unparseable checkpoint keypath {p!r}")
-    return keys
+    return tuple(keys)
 
 
 def flatten_with_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -104,17 +106,10 @@ def load_checkpoint(path: str, like: Any) -> tuple[Any, dict]:
     return rebuild(like, ""), meta
 
 
-def load_checkpoint_tree(path: str) -> tuple[dict, dict]:
-    """Rebuild nested dicts and lists from the stored keypaths.
-
-    Returns (tree, meta).  Integer keys become list slots; named fields
-    (such as an optimizer state's ``.mu``) become dict keys.
-    """
-    with np.load(path, allow_pickle=False) as z:
-        paths = json.loads(str(z["__paths__"]))
-        meta = json.loads(str(z["__meta__"]))
-        leaves = [z[f"leaf_{i}"] for i in range(len(paths))]
-
+def unflatten_paths(paths: list[str], leaves: list) -> Any:
+    """Rebuild nested dicts and lists from keystr paths and their leaves
+    (the inverse of flatten_with_paths).  Integer keys become list slots;
+    named fields (such as an optimizer state's ``.mu``) become dict keys."""
     root: dict = {}
     for p, leaf in zip(paths, leaves):
         keys = _parse_keypath(p)
@@ -134,4 +129,14 @@ def load_checkpoint_tree(path: str) -> tuple[dict, dict]:
             return {k: listify(v) for k, v in node.items()}
         return node
 
-    return listify(root), meta
+    return listify(root)
+
+
+def load_checkpoint_tree(path: str) -> tuple[dict, dict]:
+    """Rebuild nested dicts and lists from the stored keypaths
+    (``unflatten_paths``).  Returns (tree, meta)."""
+    with np.load(path, allow_pickle=False) as z:
+        paths = json.loads(str(z["__paths__"]))
+        meta = json.loads(str(z["__meta__"]))
+        leaves = [z[f"leaf_{i}"] for i in range(len(paths))]
+    return unflatten_paths(paths, leaves), meta

@@ -12,14 +12,17 @@ artifacts still written out for inspection/compat.
 Stage 1 is ``runner.run_experiment`` on `device` (the card unless told
 "cpu"): for the 5x5 Stage-1 cells in float32 that is the k x k kernels, one
 launch a rollout and one a reverse sweep.  Stage 2 is host numpy in f64.
-Stage 3 is ``stage3.run_stage3`` on `device`.  The Pareto panel that
-percnn_tpu draws beside the Stage-2 coefficients (select_gamma_{u,v}.png)
-comes with the port's viz module (ROADMAP.md A9); the sweep's arrays are
-in the ``*.stage2_coefs.npz`` artifact.
+Stage 3 is ``stage3.run_stage3`` on `device`.  Beside the Stage-2
+coefficients (``*.stage2_coefs.npz``, the gamma sweep's arrays included)
+the Pareto panel of each equation is drawn (``select_gamma_{u,v}.png``,
+viz.plots.pareto_panel) when matplotlib is installed; without it the
+panels are skipped, and an error in drawing them propagates (percnn_tpu
+hides it in a bare ``except``).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 import time
 
@@ -320,6 +323,12 @@ def run_discovery_pipeline(
                           f"pareto_ls_{eq}": pr["ls_loss"],
                           f"pareto_l0_{eq}": pr["l0_count"],
                           f"pareto_gamma_{eq}": pr["selected_gamma"]})
+            if importlib.util.find_spec("matplotlib") is not None:
+                from percnn_tpu_torch.viz.plots import pareto_panel
+
+                pareto_panel(pr["gammas"], pr["ls_loss"], pr["l0_count"],
+                             os.path.join(out_dir, f"select_gamma_{eq}.png"),
+                             selected_gamma=pr["selected_gamma"], eq=eq)
     np.savez(os.path.join(out_dir, f"{exp.name}.stage2_coefs.npz"),
              w_u=w_u, w_v=w_v, names=np.asarray(s2["names"]), **extra)
     seconds["stage2"] = time.perf_counter() - t0

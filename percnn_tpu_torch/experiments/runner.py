@@ -11,10 +11,12 @@ directly, instead of a truth-carrying Problem.
 
 ``run_experiment(mesh=...)`` trains on a spatially decomposed field
 (``make_mesh_rollout_fn``: parallel.sharded_rollout_nd, a halo exchange
-a step).
+a step).  ``run_experiment(isg_params_path=...)`` shares one ISG pretrain
+between runs, and every run writes the reference's post-processing figures
+(``_export_viz``) when matplotlib is installed.
 
-Not ported yet: the GSPMD mesh route (``parallel_impl="gspmd"``), a shared
-ISG pretrain file and the visual exports (ROADMAP.md).
+Not ported yet: the GSPMD mesh route (``parallel_impl="gspmd"``, ROADMAP.md
+A10).
 """
 
 from __future__ import annotations
@@ -35,11 +37,19 @@ from percnn_tpu_torch.bridge import params_from_numpy, params_to_numpy
 from percnn_tpu_torch.core.cell import init_pi_cell, pi_cell_step
 from percnn_tpu_torch.core.checkpoint import (
     flatten_with_paths,
+    load_checkpoint,
     load_checkpoint_tree,
     peek_meta,
+    save_checkpoint,
 )
 from percnn_tpu_torch.core.isg import init_isg, isg_apply
-from percnn_tpu_torch.core.losses import DataLossConfig, data_loss, ic_loss, phys_loss
+from percnn_tpu_torch.core.losses import (
+    DataLossConfig,
+    data_loss,
+    ic_loss,
+    ic_target,
+    phys_loss,
+)
 from percnn_tpu_torch.core.rollout import rollout, rollout_tp
 from percnn_tpu_torch.core.train import pretrain_isg, train
 from percnn_tpu_torch.data.noise import add_noise
@@ -430,13 +440,64 @@ def evaluate(params: dict, prob: Problem, n_steps: int) -> dict:
     }
 
 
+def _export_viz(exp: ExperimentConfig, prob: Problem, params: dict, metrics: dict,
+                truth: np.ndarray, out_dir: str) -> None:
+    """The reference's post-processing figures, in ``out_dir``:
+
+    - the 2x3 panel with the noisy-measurement column (train_2drd.py:445-521),
+      or pred / truth / |err| without a measurement: ``{name}.panel.png``;
+    - the every-N-steps image series (percnn_LO_eqn.py:526-543):
+      ``{name}_frames/{name}_NNN.png``;
+    - in 3D, u and v isosurfaces of prediction and truth (Plot3D.py:6-29):
+      ``{name}.iso.{u,v}.{pred,truth}.html`` (a ``.png`` montage without
+      plotly), and the mid-depth slice's panel;
+    - with an ISG, its output against the interpolation target and the
+      measurement (rcnn_Burgers...py:489-578): ``{name}.ic_panel.png``.
+    """
+    from percnn_tpu_torch.viz.plots import (comparison_panel, frame_series, ic_panel,
+                                            isosurface_pair, measurement_panel)
+
+    frames = metrics["frames"]
+    mid = frames.shape[0] // 2
+    if exp.cell.ndim == 3:
+        isosurface_pair(frames[mid], np.asarray(truth[mid]),
+                        os.path.join(out_dir, f"{exp.name}.iso"))
+        comparison_panel(frames[mid][frames.shape[1] // 2],
+                         np.asarray(truth[mid][truth.shape[1] // 2]),
+                         os.path.join(out_dir, f"{exp.name}.panel.png"),
+                         title=f"{exp.name} t={mid} (mid-depth slice)")
+        return
+    if prob.measurement is not None:
+        meas = prob.measurement.cpu().numpy()
+        tm = meas.shape[0] // 2
+        t_frame = min(tm * exp.data.time_stride, frames.shape[0] - 1)
+        measurement_panel(frames[t_frame], np.asarray(truth[t_frame]), meas[tm],
+                          os.path.join(out_dir, f"{exp.name}.panel.png"),
+                          title=f"{exp.name} t={t_frame}")
+    else:
+        comparison_panel(frames[mid], np.asarray(truth[mid]),
+                         os.path.join(out_dir, f"{exp.name}.panel.png"),
+                         title=f"{exp.name} t={mid}")
+    frame_series(frames, np.asarray(truth[: frames.shape[0]]),
+                 os.path.join(out_dir, f"{exp.name}_frames"), name=exp.name)
+    if exp.isg is not None:
+        with torch.no_grad(), full_f32():
+            out = isg_apply(params["isg"], prob.ic_low, exp.isg)
+            tgt = ic_target(prob.ic_low, tuple(out.shape[1:-1]), exp.cell.ndim,
+                            exp.interp_method, align_corners=exp.interp_align_corners,
+                            periodic_extend=exp.interp_periodic_extend)
+        ic_panel(out[0].cpu().numpy(), tgt[0].cpu().numpy(),
+                 os.path.join(out_dir, f"{exp.name}.ic_panel.png"),
+                 low_res=prob.ic_low[0].cpu().numpy())
+
+
 def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                    cache_dir: str | None = "data_cache", dtype=torch.float32,
                    n_iters_override: int | None = None,
                    isg_pretrain_override: int | None = None, warmup: int | None = None,
                    steps_per_call: int | None = None, resume: bool = False,
                    seed: int = 0, device: str | torch.device = "cuda", mesh=None,
-                   parallel_impl: str = "halo") -> dict:
+                   parallel_impl: str = "halo", isg_params_path: str | None = None) -> dict:
     """Full pipeline on `device`: data -> (ISG pretrain) -> curriculum train -> eval.
 
     resume=True reloads params and optimizer from the experiment checkpoint
@@ -458,6 +519,17 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     `parallel_impl`), without the stability probe, as in percnn_tpu.  The
     parameters stay on `device` throughout (each rollout copies them to the
     other mesh devices), so evaluation and serving take them as they are.
+
+    isg_params_path: a checkpoint of the ISG alone (``save_checkpoint``'s
+    format, which both packages read).  When the file exists, the ISG is
+    loaded from it instead of pretrained; otherwise the pretrained ISG is
+    saved there.  The ISG sees only the seeded noisy IC, so runs of the
+    same experiment and seed can share one pretrain.
+
+    After the evaluation the reference's figures are written to `out_dir`
+    (``_export_viz``) when matplotlib is installed; without it they are
+    skipped.  Unlike percnn_tpu, whose bare ``except`` hides any failure
+    there, an error in drawing them propagates.
     """
     dev = resolve_device(device)
     if mesh is not None and mesh.devices.flat[0] != canonical_device(dev):
@@ -477,10 +549,16 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
 
     if exp.isg is not None and not resume:
         t0 = time.perf_counter()
-        n_pre = isg_pretrain_override if isg_pretrain_override is not None \
-            else exp.isg_pretrain_iters
-        params["isg"] = pretrain_isg(build_isg_pretrain_loss(prob), params["isg"],
-                                     n_iters=n_pre, logger=logger, device=dev)
+        if isg_params_path is not None and os.path.exists(isg_params_path):
+            params["isg"] = load_checkpoint(isg_params_path, params["isg"])[0]
+        else:
+            n_pre = isg_pretrain_override if isg_pretrain_override is not None \
+                else exp.isg_pretrain_iters
+            params["isg"] = pretrain_isg(build_isg_pretrain_loss(prob), params["isg"],
+                                         n_iters=n_pre, logger=logger, device=dev)
+            if isg_params_path is not None:
+                save_checkpoint(isg_params_path, params["isg"],
+                                {"experiment": exp.name, "seed": seed})
         seconds["isg_pretrain"] = time.perf_counter() - t0
 
     stages = list(exp.curriculum) + [exp.train_steps]
@@ -534,6 +612,10 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                    "rel_l2_stable": metrics["rel_l2_stable"],
                    "diverged": True} if metrics["diverged"] else {}))
     logger.close()
+    if importlib.util.find_spec("matplotlib") is not None:
+        t0 = time.perf_counter()
+        _export_viz(exp, prob, params, metrics, truth, out_dir)
+        seconds["viz"] = time.perf_counter() - t0
     result = {"params": params, "history": history, **metrics, **selection,
               "seconds": seconds}
     if exp.cell.kernel_size == 1 and importlib.util.find_spec("sympy") is not None:

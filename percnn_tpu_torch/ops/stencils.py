@@ -53,6 +53,11 @@ def laplacian_2d(u: torch.Tensor, dx: float) -> torch.Tensor:
     return laplacian(u, dx, dims=(u.ndim - 3, u.ndim - 2))
 
 
+def laplacian_3d(u: torch.Tensor, dx: float) -> torch.Tensor:
+    """Laplacian over the (D, H, W) dims of [..., D, H, W, C]."""
+    return laplacian(u, dx, dims=(u.ndim - 4, u.ndim - 3, u.ndim - 2))
+
+
 def grad_axis(u: torch.Tensor, dx: float, dim: int) -> torch.Tensor:
     """4th-order central first derivative along one periodic dim."""
     return _shifted_sum(u, FD1_CENTRAL_1D, dim) / dx

@@ -10,6 +10,7 @@ package's fused-kernel bar); trajectories under Adam rtol 1e-4.
 """
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,13 @@ from percnn_tpu_torch.ops.kernels import backward2d
 from percnn_tpu_torch.pde.systems import PDE_SYSTEMS, physics_residual
 
 RTOL, ATOL = 2e-4, 2e-6
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
 
 
 @pytest.mark.parametrize("system,dx", [("burgers", 0.01), ("lambda_omega", 0.2)])

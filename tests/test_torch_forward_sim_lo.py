@@ -11,6 +11,7 @@ steps.
 
 import dataclasses
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,14 @@ from percnn_tpu.experiments import runner as jrunner
 from percnn_tpu_torch.bridge import params_from_numpy, unflatten_dotted
 from percnn_tpu_torch.core.cell import pi_cell_step
 from percnn_tpu_torch.experiments import EXPERIMENTS, FORWARD_SIM_LO, runner
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "pt_lo_forward.npz")
 

@@ -11,6 +11,7 @@ atol 2e-6); rollouts rtol 2e-4 / atol 1e-5; trajectories under Adam rtol
 """
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +31,13 @@ from percnn_tpu_torch.data.simulate import default_ic, simulate
 from percnn_tpu_torch.experiments import runner
 from percnn_tpu_torch.experiments.configs import GS3D_RECON
 from percnn_tpu_torch.serving import build_serving_fn
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
 
 
 def test_gs3d_config_matches_jax():

@@ -39,6 +39,9 @@ def test_port_files_found():
     assert "percnn_tpu_torch/ops/kernels/sharded_step2d.py" in names
     for module in ("__init__", "mesh", "halo", "sharded"):
         assert f"percnn_tpu_torch/parallel/{module}.py" in names
+    for module in ("serving", "data/pt_import", "utils/params", "utils/profiling",
+                   "utils/debug", "viz/__init__", "viz/plots", "ops/kernels/serve_ops"):
+        assert f"percnn_tpu_torch/{module}.py" in names
     assert "chip_smoke.py" in names
 
 

@@ -7,6 +7,7 @@ chip_smoke.py runs the same path with a mesh that repeats cuda:0.
 
 import dataclasses
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -16,6 +17,14 @@ from percnn_tpu_torch import __main__ as cli
 from percnn_tpu_torch.experiments import configs, runner
 from percnn_tpu_torch.experiments.configs import GS2D_RECON
 from percnn_tpu_torch.parallel import make_mesh
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
 
 EXP = dataclasses.replace(
     GS2D_RECON, grid=16, train_steps=12, infer_steps=12, curriculum=(),

@@ -15,6 +15,7 @@ import dataclasses
 import functools
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,14 @@ from percnn_tpu_torch.data.noise import add_noise
 from percnn_tpu_torch.data.simulate import default_ic, simulate
 from percnn_tpu_torch.experiments import configs, pipeline, runner, stage3
 from percnn_tpu_torch.pde.terms import gen_library
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
 
 STAGE2_BAR = dict(rtol=1e-10, atol=1e-12)
 

@@ -12,6 +12,7 @@ rtol 1e-4.
 import dataclasses
 import functools
 import os
+import sys
 from unittest import mock
 
 import jax
@@ -39,6 +40,13 @@ from percnn_tpu_torch.experiments import pipeline, stage3
 from percnn_tpu_torch.experiments.stage3 import run_stage3
 from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
 from percnn_tpu_torch.pde.terms import gen_library
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
 
 
 def _small(base):

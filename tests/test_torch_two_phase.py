@@ -45,6 +45,15 @@ from percnn_tpu_torch.ops.kernels import backward2d, cell2d
 from percnn_tpu_torch.serving import build_serving_fn
 
 RTOL, ATOL = 2e-4, 2e-6
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
+
 CFGS = {
     "k5": dict(ndim=2, hidden=3, kernel_size=5, dt=0.05, dx=0.2, diffusion="sigmoid",
                mu_up=0.2, init_scale=0.3),

@@ -17,6 +17,7 @@ sides of it.
 import dataclasses
 import math
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +37,14 @@ from percnn_tpu_torch.core.train import TrainConfig, train
 from percnn_tpu_torch.experiments import runner
 from percnn_tpu_torch.experiments.configs import GS2D_RECON
 from percnn_tpu_torch.utils.metrics import MetricsLogger
+
+
+@pytest.fixture(autouse=True)
+def _figures_skipped(monkeypatch):
+    """run_experiment's figures (tested in test_torch_viz.py) are skipped
+    here, as where matplotlib is not installed: neither package's runs draw."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+
 
 RTOL = 1e-5
 
