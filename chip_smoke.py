@@ -17,7 +17,10 @@ width, drives the fallback routes (``bptt="fused"`` of the 1x1 and 3D cells,
 ``bptt="two_phase"``, the MXU switches off) through the same entry points,
 trains GS2D and Burgers ensembles through ``run_ensemble``, runs the
 domain decomposition (``sharded_rollout_nd``, ``run_experiment(mesh=...)``)
-on meshes that repeat cuda:0, trains FORWARD_SIM_LO in f64, runs the
+on meshes that repeat cuda:0, the GSPMD counterparts (DTensor over a
+process group of one rank a mesh position: ``make_train_step_spmd``,
+``run_experiment(parallel_impl="gspmd")``, the member-sharded
+``run_ensemble``), trains FORWARD_SIM_LO in f64, runs the
 discovery pipeline (``run_discovery_pipeline``, and Stages 2 and 3 from the
 JAX package's trained lambda-omega Stage-1 model), serves the symbolic cell,
 exports the serving artifact (``serving.export_model``) and answers with it
@@ -306,6 +309,21 @@ figures.  Phases, one JSON line each with the seconds since start:
                decomposed iteration is paced by the host: PERF.md), the
                2500-step evaluation; the losses held to each other at rtol
                1e-4, each run's ms per iteration, launches counted
+  spmd         the GSPMD counterparts (parallel/spmd.py, spmd_phase), one
+               process a mesh position, each part on a one-position NCCL
+               mesh of cuda:0 (a mesh that repeats cuda:0 is refused, and
+               the refusal checked): one make_train_step_spmd step of
+               scale_by_adam on the golden GS2D cell's rollout fit at
+               T = 200 against the unsharded step (loss rtol 1e-5, leaves
+               rtol 1e-4, atol 1e-6); run_experiment(GS2D_RECON at
+               T = 200, parallel_impl="gspmd"), 2 iterations, against the
+               same run without a mesh (rtol 1e-4); run_ensemble(GS2D_RECON
+               at T = 800, 4 members, mesh=("data",)) by "batched_pg" and
+               "fused_pg", 2 iterations, against the unsharded runs (rtol
+               1e-3), the rank's launches of rows 11 and 13 (batched_pg)
+               and 1 and 7 (fused_pg, every evaluation) counted exactly;
+               ms per iteration beside the single-device run's and
+               train_mesh's halo iteration at T = 200
   train_ensemble_parity  run_ensemble on the card against the CPU (plain
                versions), 32 x 32, T = 20, M = 2, 3 iterations, both batched
                modes
@@ -420,6 +438,12 @@ PIPE_STAGE1_ITERS = 3     # of LO_STAGE1's 15000, at T = 200
 PIPE_STAGE3_ITERS = 2     # of Stage 3's 1000
 PIPE_STAGE2_KWARGS = {"maxit": 10, "stridge_iters": 10}   # the pipeline phase's cut Stage 2
 EXPORT_REPS = 5           # timed requests of each exported kernel model (the symbolic cell's: 1)
+SPMD_STEPS = 200          # spmd (a): the SPMD Adam step's rollout
+SPMD_T = 200              # spmd (b): the gspmd run's one stage
+SPMD_ITERS = 2            # spmd (b): its iterations
+SPMD_ENS_ITERS = 2        # spmd (c): the ensembles' iterations at T = 800
+SPMD_ISG_ITERS = 20       # spmd (b), (c): the ISG pretrain
+SPMD_EVAL = 800           # spmd (b), (c): the evaluations' steps (of 2500)
 
 
 class CheckFailed(Exception):
@@ -830,6 +854,241 @@ out['modules'] = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'pe
                         and sys.modules[m] is not None)
 print(json.dumps(out))
 """
+
+# The spmd phase's counted kernels: rows 11 and 13 (batched_pg), 1 and 7
+# (fused_pg and every evaluation), as (module, wrapper, counter)
+SPMD_COUNTERS = (("batched2d", "fused_rollout_2d_batched", "launches"),
+                 ("batched2d", "fused_phase1_pg_2d_batched", "launches"),
+                 ("cell2d", "fused_rollout_2d", "launches"),
+                 ("backward2d", "fused_rollout_tp_2d_pg", "launches"))
+
+
+def spmd_rank(fit_args: tuple, ensembles: dict) -> dict:
+    """On the rank of a parallel.launch, in place (the process group is
+    up): (a) _spmd_examples.spmd_fit_step(*fit_args), then (c) run_ensemble(exp,
+    n, **kw) for each mode of `ensembles` ({mode: (exp, n, kw)}), each
+    with the launches of SPMD_COUNTERS from 0 gathered from every rank and
+    its seconds.  The ensembles' params stay behind (the checks read their
+    losses)."""
+    import importlib
+
+    import torch.distributed as dist
+
+    from percnn_tpu_torch.experiments import ensemble
+    from percnn_tpu_torch.parallel import _spmd_examples
+
+    t = time.perf_counter()
+    params, loss = _spmd_examples.spmd_fit_step(*fit_args)
+    out = {"a": {"params": params, "loss": loss, "s": time.perf_counter() - t}, "c": {},
+           "world_size": dist.get_world_size()}
+    wrappers = [(getattr(importlib.import_module(f"percnn_tpu_torch.ops.kernels.{m}"), f), f, a)
+                for m, f, a in SPMD_COUNTERS]
+    for mode, (exp, n_members, kw) in ensembles.items():
+        for fn, _, attr in wrappers:
+            setattr(fn, attr, 0)
+        t = time.perf_counter()
+        res = ensemble.run_ensemble(exp, n_members, **kw)
+        seconds = time.perf_counter() - t
+        counts = [None] * dist.get_world_size()
+        dist.all_gather_object(counts, {f"{f}.{a}": getattr(fn, a) for fn, f, a in wrappers})
+        out["c"][mode] = {**res, "params": None, "launches_by_rank": counts, "s": seconds}
+    return out
+
+
+@contextlib.contextmanager
+def stdout_to_stderr():
+    """fd 1 pointed at fd 2, so that processes started inside (the ranks of
+    a launch, whose trainer echoes its log) keep this script's standard
+    output to its JSON lines."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    os.dup2(2, 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | None, exp=None, steps: int = SPMD_STEPS,
+               stage_t: int = SPMD_T, iters: int = SPMD_ITERS,
+               ens_iters: int = SPMD_ENS_ITERS, isg_iters: int = SPMD_ISG_ITERS,
+               eval_steps: int = SPMD_EVAL) -> dict:
+    """The spmd phase: the GSPMD counterparts (parallel/spmd.py) through
+    the entry points a user calls, one process a mesh position, on
+    `spmd_mesh` (2D: (a), (b)) and `data_mesh` (("data",): (c)), whose
+    positions hold the same devices in the same order.  main() gives them
+    one position of cuda:0 (a mesh that repeats cuda:0 is refused, which
+    is checked here on a CUDA `dev`); examples/spmd_phase.py gives them
+    four cards, or four CPU ranks.
+
+    (b) run_experiment(exp at T = stage_t, parallel_impl="gspmd") launches
+    its ranks itself; (a) and (c) share one launched rank (spmd_rank),
+    where the calls run in place, as under torchrun.  (a) One
+    make_train_step_spmd step of scale_by_adam on the golden GS2D cell
+    `cell_np`'s rollout fit at T = steps against the same step unsharded
+    (test_parallel's bars: loss rtol 1e-5, leaves rtol 1e-4 atol 1e-6);
+    (b) against the same run without a mesh, the losses at rtol 1e-4;
+    (c) run_ensemble(exp, ENS_MEMBERS, mesh=data_mesh) by "batched_pg" and
+    "fused_pg" against the unsharded batched_pg run at rtol 1e-3, each
+    rank's launches of rows 11, 13, 1 and 7 counted exactly (none on the
+    CPU, where the wrappers run their plain versions); (d) ms per
+    iteration of each beside the single-device run's (and `halo_stage`,
+    train_mesh's halo stage at T = 200, where given).  exp defaults to
+    GS2D_RECON; the evaluations are cut to eval_steps (so the truth, of
+    max(T, eval_steps) frames, is made here, in a cache the parts share).
+    A failed check raises CheckFailed.
+    Returns the phase's fields, with the ranks' world sizes."""
+    import numpy as np
+    import torch
+
+    from percnn_tpu_torch._device import full_f32
+    from percnn_tpu_torch.bridge import params_from_numpy
+    from percnn_tpu_torch.experiments import ensemble, runner
+    from percnn_tpu_torch.experiments.configs import GS2D_RECON
+    from percnn_tpu_torch.parallel import _spmd_examples, launch, make_mesh, scale_by_adam, sharded
+    from percnn_tpu_torch.parallel import spmd as spmd_mod
+
+    exp = GS2D_RECON if exp is None else exp
+    cfg, grid = exp.cell, exp.grid
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    out = {"mesh": {"a_b": spmd_mesh.shape, "c": data_mesh.shape},
+           "backend": spmd_mod.backend_for(spmd_mesh)}
+    if on_card:
+        try:
+            spmd_mod.backend_for(make_mesh(("x",), shape=(2,), devices=[dev] * 2))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        check(refused is not None and "repeats a CUDA device" in refused,
+              f"a mesh that repeats {dev}: {refused}")
+        out["repeated_device_refused"] = refused
+    quiet = dataclasses.replace(exp.train, log_every=0)
+    bexp = dataclasses.replace(exp, curriculum=(), train_steps=stage_t, infer_steps=eval_steps,
+                               train=quiet)
+    cexp = dataclasses.replace(exp, curriculum=(), infer_steps=eval_steps, train=quiet)
+    rs = np.random.RandomState(23)
+    cell_cpu = params_from_numpy(cell_np, device="cpu", dtype=torch.float32)
+    h0a = torch.as_tensor(rs.uniform(0.0, 1.0, (grid, grid, 2)), dtype=torch.float32)
+    tgta = torch.as_tensor(rs.uniform(0.0, 1.0, (steps, grid, grid, 2)), dtype=torch.float32)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    truth_cache = os.path.join(out_dir, "truth")
+    try:
+        # the unsharded references, in this process
+        ckw = dict(cache_dir=truth_cache, n_iters_override=ens_iters,
+                   isg_pretrain_override=isg_iters, seed=0, device=dev)
+        t = time.perf_counter()
+        with stdout_to_stderr():
+            ref_c = ensemble.run_ensemble(cexp, ENS_MEMBERS, out_dir=out_dir + "/c",
+                                          bptt="batched_pg", **ckw)
+        sync()
+        ref_c_s = time.perf_counter() - t
+        runs_b = {}
+        for label, kw in (("single", {}), ("gspmd", {"mesh": spmd_mesh, "parallel_impl": "gspmd"})):
+            t = time.perf_counter()
+            with stdout_to_stderr():
+                runs_b[label] = runner.run_experiment(
+                    bexp, device=dev, out_dir=f"{out_dir}/b_{label}", cache_dir=truth_cache,
+                    n_iters_override=iters, isg_pretrain_override=isg_iters, seed=0, **kw)
+            sync()
+            runs_b[label]["wall_s"] = time.perf_counter() - t
+        # (a) and (c) on one launched group
+        t = time.perf_counter()
+        with stdout_to_stderr():
+            ranked = launch(spmd_rank, data_mesh,
+                            (cell_cpu, h0a, tgta, cfg, steps, spmd_mesh, 1e-3),
+                            {mode: (cexp, ENS_MEMBERS,
+                                    dict(ckw, mesh=data_mesh, bptt=mode,
+                                         out_dir=f"{out_dir}/c_{mode}"))
+                             for mode in ("batched_pg", "fused_pg")},
+                            timeout=900)
+        rank_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["world_size"] = ranked["world_size"]
+    # (a) against the unsharded step
+    leaves_a = [p_.to(dev).clone().requires_grad_(True) for p_ in sharded._flatten(cell_cpu)]
+    tree_a = sharded._unflatten(cell_cpu, iter(leaves_a))
+    with full_f32():
+        want_loss_a, _ = _spmd_examples.rollout_fit_loss(
+            tree_a, (h0a.to(dev), tgta.to(dev)), cfg=cfg, n_steps=steps)
+        grads_a = torch.autograd.grad(want_loss_a, leaves_a)
+    want_loss_a = want_loss_a.detach()
+    plain_a = sharded._unflatten(cell_cpu, iter([p_.detach() for p_ in leaves_a]))
+    tx = scale_by_adam()
+    upd_a, _ = tx.update(sharded._unflatten(cell_cpu, iter(grads_a)), tx.init(plain_a))
+    want_a = sharded._zip_map(lambda p_, u: p_ - 1e-3 * u, plain_a, upd_a)
+    got_a, loss_a = ranked["a"]["params"], ranked["a"]["loss"]
+    leaf_err_a = max(float((g.to(dev) - w).abs().max())
+                     for g, w in zip(sharded._flatten(got_a), sharded._flatten(want_a)))
+    check(abs(float(loss_a) - float(want_loss_a)) <= 1e-5 * abs(float(want_loss_a))
+          and all(allclose(g.to(dev), w, rtol=1e-4, atol=1e-6)
+                  for g, w in zip(sharded._flatten(got_a), sharded._flatten(want_a))),
+          f"spmd (a): loss {float(loss_a)} vs {float(want_loss_a)}, leaves max |diff| "
+          f"{leaf_err_a}")
+    out["a"] = {"steps": steps, "loss": float(loss_a), "unsharded_loss": float(want_loss_a),
+                "leaf_max_abs_err": leaf_err_a, "s_in_rank": ranked["a"]["s"]}
+    # (b) against no mesh
+    hb = {k: np.asarray(r["history"]) for k, r in runs_b.items()}
+    b_err = float(np.max(np.abs(hb["gspmd"] - hb["single"]) / np.abs(hb["single"])))
+    check(len(hb["gspmd"]) == iters and bool(np.isfinite(hb["gspmd"]).all())
+          and b_err <= 1e-4 and bool(np.isfinite(runs_b["gspmd"]["rel_l2"]))
+          and runs_b["gspmd"]["params"]["cell"]["diff"].device == dev,
+          f"spmd (b): gspmd losses {hb['gspmd'].tolist()} vs {hb['single'].tolist()} "
+          f"(rtol 1e-4), rel_l2 {runs_b['gspmd']['rel_l2']}")
+    out["b"] = {"steps": stage_t, "iters": iters, "eval_steps": eval_steps,
+                "history": {k: v.tolist() for k, v in hb.items()},
+                "history_max_rel_err": b_err,
+                "rel_l2": {k: r["rel_l2"] for k, r in runs_b.items()},
+                "placements": runs_b["gspmd"]["placements"],
+                "ms_per_iter": {k: 1e3 * r["seconds"]["stages"][0]["seconds"] / iters
+                                for k, r in runs_b.items()},
+                "halo_2x2_ms_per_iter": None if halo_stage is None else {
+                    "steps": halo_stage["steps"],
+                    "ms": 1e3 * halo_stage["seconds"] / halo_stage["iters"]},
+                "wall_s": {k: r["wall_s"] for k, r in runs_b.items()}}
+    # (c) against the unsharded ensemble, each rank's launches exact: its
+    # members' batched forward and pg adjoint once an iteration (rows 11,
+    # 13) and each member's evaluation (row 1) by batched_pg; each
+    # member's fused forward every iteration and evaluation (row 1) and pg
+    # adjoint every iteration (row 7) by fused_pg
+    n_ranks = data_mesh.devices.size
+    mine = ENS_MEMBERS // n_ranks
+    c_want = {
+        "batched_pg": {"fused_rollout_2d_batched.launches": ens_iters,
+                       "fused_phase1_pg_2d_batched.launches": ens_iters,
+                       "fused_rollout_2d.launches": mine,
+                       "fused_rollout_tp_2d_pg.launches": 0},
+        "fused_pg": {"fused_rollout_2d_batched.launches": 0,
+                     "fused_phase1_pg_2d_batched.launches": 0,
+                     "fused_rollout_2d.launches": mine * (ens_iters + 1),
+                     "fused_rollout_tp_2d_pg.launches": mine * ens_iters}}
+    if not on_card:
+        c_want = {m: dict.fromkeys(w, 0) for m, w in c_want.items()}
+    out["c"] = {}
+    for mode, got_c in ranked["c"].items():
+        hist_err = float(np.max(np.abs(np.asarray(got_c["history"]) - ref_c["history"])
+                                / np.abs(ref_c["history"])))
+        rel_err = float(np.max(np.abs(np.asarray(got_c["rel_l2_members"])
+                                      - ref_c["rel_l2_members"])
+                               / np.abs(ref_c["rel_l2_members"])))
+        want_c = [c_want[mode]] * n_ranks
+        check(len(got_c["history"]) == ens_iters and hist_err <= 1e-3
+              and rel_err <= 1e-3 and got_c["launches_by_rank"] == want_c,
+              f"spmd (c) {mode}: history {got_c['history']} vs {ref_c['history']}, "
+              f"members' rel_l2 {got_c['rel_l2_members']} vs {ref_c['rel_l2_members']} "
+              f"(rtol 1e-3); launches by rank {got_c['launches_by_rank']}, expected {want_c}")
+        out["c"][mode] = {
+            "members": ENS_MEMBERS, "steps": cexp.train_steps, "iters": ens_iters,
+            "eval_steps": eval_steps,
+            "history": {"single_batched_pg": ref_c["history"], "mesh": got_c["history"]},
+            "history_max_rel_err": hist_err, "rel_l2_max_rel_err": rel_err,
+            "launches_by_rank": got_c["launches_by_rank"],
+            "s": {"single_batched_pg": ref_c_s, "mesh_in_rank": got_c["s"]}}
+    out["rank_s_with_spawn"] = rank_s
+    return out
 
 
 def main() -> int:
@@ -4074,6 +4333,14 @@ def main() -> int:
                        for k, r in mesh_res.items()},
           evaluate_s={k: r["seconds"]["evaluate"] for k, r in mesh_res.items()},
           rel_l2={k: r["rel_l2"] for k, r in mesh_res.items()})
+
+    # spmd: the GSPMD counterparts on one-position NCCL meshes of cuda:0
+    # (spmd_phase), beside train_mesh's halo iteration at T = 200
+    t_phase = time.perf_counter()
+    spmd_out = spmd_phase(dev, make_mesh(("x", "y"), shape=(1, 1), devices=[dev]),
+                          make_mesh(("data",), shape=(1,), devices=[dev]), cell_np=model["cell"],
+                          halo_stage=mesh_res["mesh"]["seconds"]["stages"][0])
+    phase("spmd", **spmd_out, nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 
     # train_ensemble_parity: ensemble training on the card against the CPU
     # (the plain versions), both batched modes

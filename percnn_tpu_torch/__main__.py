@@ -1,9 +1,9 @@
 """CLI of the port, with percnn_tpu's verbs and flags (percnn_tpu/__main__.py):
 
   python -m percnn_tpu_torch list
-  python -m percnn_tpu_torch run gs2d_recon [--iters N] [--mesh 2,2] [--resume] [--cpu]
+  python -m percnn_tpu_torch run gs2d_recon [--iters N] [--mesh 2,2 [--parallel gspmd]] [--resume] [--cpu]
   python -m percnn_tpu_torch pipeline lo_stage1 [--stage1-iters N] [--stage3-iters N] [--cpu]
-  python -m percnn_tpu_torch ensemble gs2d_recon --members 4 [--iters N] [--cpu]
+  python -m percnn_tpu_torch ensemble gs2d_recon --members 4 [--iters N] [--shard] [--cpu]
   python -m percnn_tpu_torch simulate gray_scott_2d --dt 0.5 --dx 0.01 --steps 500 --out gt.npz
   python -m percnn_tpu_torch import-pt checkpoint.pt --out imported.ckpt.npz
   python -m percnn_tpu_torch export gs2d_recon --ckpt runs/gs2d_recon.ckpt.npz --out m.npz
@@ -12,15 +12,17 @@
 It runs on the card unless told --cpu.  ``run --mesh`` trains on a
 spatially decomposed field (experiments.runner.run_experiment(mesh=...)):
 over that many CUDA devices, or with --cpu over a mesh of that many CPU
-entries.  ``pipeline`` runs the three-stage discovery
+entries; ``--parallel gspmd`` runs it as one process a mesh position on
+DTensors (parallel/spmd.py).  ``ensemble --shard`` shards the members over
+a ("data",) mesh of every CUDA device (with --cpu, one CPU rank), as
+percnn_tpu does.  ``pipeline`` runs the three-stage discovery
 (experiments.pipeline): Stage-1 reconstruction, Stage-2 STRidge, Stage-3
 symbolic fine-tune, or parts of it from saved artifacts.  ``simulate``
 writes the RK4 ground truth; ``import-pt`` turns a reference ``.pt``
 checkpoint into the port's checkpoint (weights and Adam state, which ``run
 --resume`` continues from once it is the experiment's checkpoint);
 ``export`` writes a serving artifact (serving.export_model) and
-``profile`` a torch.profiler trace of training iterations.  Still raising,
-for ROADMAP.md A10: ``run --parallel gspmd`` and ``ensemble --shard``.
+``profile`` a torch.profiler trace of training iterations.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ def main(argv=None) -> int:
                          "--cpu, one CPU entry a block: a 1 x 1 mesh) over the "
                          "experiment's spatial axes")
     pr.add_argument("--parallel", choices=("halo", "gspmd"), default="halo",
-                    help="decomposition: the explicit halo exchange, or GSPMD (not ported)")
+                    help="decomposition: the explicit halo exchange in one process, or "
+                         "GSPMD's counterpart, one process a mesh position on DTensors")
 
     pe = sub.add_parser("ensemble", help="train K members together")
     pe.add_argument("experiment")
@@ -67,7 +70,7 @@ def main(argv=None) -> int:
     pe.add_argument("--seed", type=int, default=0)
     pe.add_argument("--steps-per-call", type=int, default=None)
     pe.add_argument("--shard", action="store_true",
-                    help="shard the member axis over all devices (not ported yet)")
+                    help="shard the member axis over all devices (one process a device)")
 
     pp = sub.add_parser("pipeline", help="Stage-1/2/3 discovery pipeline")
     pp.add_argument("experiment")
@@ -206,16 +209,20 @@ def main(argv=None) -> int:
         return _profile(args, exp)
 
     # ensemble
-    if args.shard:
-        p.error("--shard (the member axis over a device mesh) is not ported yet: "
-                "ROADMAP.md A10")
     from percnn_tpu_torch.experiments.ensemble import run_ensemble
 
+    device = "cpu" if args.cpu else "cuda"
+    shard = {}
+    if args.shard:
+        from percnn_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(("data",), devices=["cpu"] if args.cpu else None)
+        device = mesh.devices.flat[0]
+        shard = {"mesh": mesh}
     res = run_ensemble(
         exp, args.members, out_dir=args.out, cache_dir=args.cache,
         n_iters_override=args.iters, isg_pretrain_override=args.isg_iters,
-        steps_per_call=args.steps_per_call, seed=args.seed,
-        device="cpu" if args.cpu else "cuda",
+        steps_per_call=args.steps_per_call, seed=args.seed, device=device, **shard,
     )
     print(json.dumps({"experiment": exp.name,
                       "rel_l2_members": res["rel_l2_members"],

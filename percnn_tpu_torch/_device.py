@@ -1,10 +1,22 @@
-"""Device resolution and the f32 numerics of the port's entry points."""
+"""Device resolution, the f32 numerics of the port's entry points, and the
+process-group reads that the trainer makes.
+
+The last group serves a run on every rank of a process group
+(parallel/spmd.py): every rank must make the same collective calls in the
+same order, so a host read (``host``) is made on every rank and gives all
+of them rank 0's value, and only rank 0 (``is_writer``) writes files.
+Outside a group they are the plain reads and writes of one process.  They
+live here, below ``core``, so that the trainer needs nothing of
+``parallel``."""
 
 from __future__ import annotations
 
 import contextlib
+import sys
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -55,3 +67,65 @@ def repeatable():
         yield
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+def is_dtensor(x) -> bool:
+    """Whether x is a DTensor (parallel/spmd.py), without importing
+    torch.distributed.tensor: where it is not imported, no DTensor exists."""
+    module = sys.modules.get("torch.distributed.tensor")
+    return module is not None and isinstance(x, module.DTensor)
+
+
+def in_group() -> bool:
+    """Whether this process is a rank of an initialised process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if in_group() else 0
+
+
+def is_writer() -> bool:
+    """Whether this process writes files: rank 0, or a process outside a group."""
+    return rank() == 0
+
+
+def barrier() -> None:
+    if in_group():
+        dist.barrier()
+
+
+def full(x):
+    """The whole tensor of a DTensor (a collective: call it on every rank;
+    differentiable), a plain tensor as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def host(x: torch.Tensor) -> np.ndarray:
+    """A host read that every rank makes and that gives every rank rank 0's
+    value, so that decisions on it are the same on every rank."""
+    x = full(x).detach()
+    if in_group():
+        x = x.contiguous().clone()
+        dist.broadcast(x, 0)
+    return x.cpu().numpy()
+
+
+def distribute(x: torch.Tensor, dmesh, place):
+    """A plain tensor placed on DeviceMesh `dmesh` (rank 0's data is the
+    source), or a DTensor redistributed there; a no-op when it is already so."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if is_dtensor(x):
+        return x if tuple(x.placements) == tuple(place) else x.redistribute(dmesh, place)
+    dev = torch.device(dmesh.device_type, torch.cuda.current_device()) \
+        if dmesh.device_type == "cuda" else torch.device(dmesh.device_type)
+    return distribute_tensor(x.detach().to(dev), dmesh, place)
+
+
+def local_like(x: torch.Tensor, like):
+    """Plain tensor `x` laid out as `like` (a DTensor, or a plain tensor on
+    the device of `like`)."""
+    if is_dtensor(like):
+        return distribute(x, like.device_mesh, like.placements)
+    return x.to(device=like.device, dtype=like.dtype)

@@ -105,8 +105,10 @@ def pi_block(branch: dict, h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
 def pi_rhs(params: dict, h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
     """dh/dt = D_eff * Lap(h) + Pi(h), per channel."""
     lap = laplacian(h, cfg.dx, dims=[a % h.ndim for a in cfg.spatial_axes])
+    # the channel dim as a positive index, as DTensor needs on PyTorch 2.11
+    # (pde/systems._stack_channels)
     nonlin = torch.cat(
-        [pi_block(params["pi"][c], h, cfg) for c in range(cfg.channels)], dim=-1)
+        [pi_block(params["pi"][c], h, cfg) for c in range(cfg.channels)], dim=h.ndim - 1)
     return effective_diffusion(params, cfg) * lap + nonlin
 
 

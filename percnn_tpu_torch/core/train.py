@@ -10,6 +10,15 @@ the number of steps between host reads of the losses: one device
 synchronisation per chunk, where the watchdog judges the chunk.  Every step
 runs in full float32 (``_device.full_f32``).
 
+Under a process group (parallel/spmd.py) the params may be DTensors, the
+GSPMD route's counterpart: ``torch.optim.Adam`` takes them as they are;
+each gradient is reduced to its parameter's placement before the
+optimizer step (a replicated parameter's comes back a partial sum); every
+host read (losses, the watchdog's metric, the log) is made on every rank
+and gives every rank rank 0's value, so every rank takes the same
+decisions; checkpoints hold full tensors and only rank 0 writes them, then
+every rank waits for the file.
+
 The JAX trainer computes a chunk functionally and drops a failed chunk's
 new params and optimizer state.  Here ``opt.step()`` updates in place, so
 with the watchdog on the trainer snapshots the params and the Adam state
@@ -27,6 +36,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from percnn_tpu_torch import _device
 from percnn_tpu_torch._device import full_f32, resolve_device
 from percnn_tpu_torch.bridge import _map_tree
 from percnn_tpu_torch.core.checkpoint import (
@@ -71,16 +81,39 @@ def _leaves(tree) -> list:
 
 
 def _trainable(params, dev: torch.device):
-    """Fresh leaf tensors on `dev` that require grad (the caller's stay as they are)."""
+    """Fresh leaf tensors on `dev` that require grad (the caller's stay as
+    they are); a DTensor stays on its mesh."""
     def leaf(t):
         t = t.detach() if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))
-        return t.to(dev).clone().requires_grad_(True)
+        return (t if _device.is_dtensor(t) else t.to(dev)).clone().requires_grad_(True)
 
     return _map_tree(leaf, params)
 
 
 def _snapshot(tree):
     return _map_tree(lambda t: t.detach().clone(), tree)
+
+
+def _pin_grads(leaves: list) -> None:
+    """Each DTensor gradient reduced to its parameter's placement (the JAX
+    step's sharding constraint on the gradients)."""
+    for p in leaves:
+        if _device.is_dtensor(p) and p.grad is not None:
+            p.grad = _device.distribute(p.grad, p.device_mesh, p.placements)
+
+
+def _full_tree(tree):
+    """Full tensors of a tree's DTensors (on every rank), for a checkpoint."""
+    return _map_tree(lambda t: _device.full(t) if isinstance(t, torch.Tensor) else t, tree)
+
+
+def _save(path: str, tree, meta: dict) -> None:
+    """save_checkpoint of full tensors, by rank 0; every rank then waits
+    for the file, so their next look at it agrees."""
+    tree = _full_tree(tree)
+    if _device.is_writer():
+        save_checkpoint(path, tree, meta)
+    _device.barrier()
 
 
 class TrainState:
@@ -108,15 +141,19 @@ class TrainState:
                               "exp_avg_sq": self._moment("exp_avg_sq")}}
 
     def load_tree(self, tree: dict) -> None:
+        """Put a checkpoint's tree (plain tensors) into the params and the
+        Adam state, laid out as the params are."""
         with torch.no_grad():
             for p, v in zip(_leaves(self.params), _leaves(tree["params"])):
-                p.copy_(v)
+                p.copy_(_device.local_like(v, p))
         opt = tree["opt_state"]
         step = float(opt["step"])
         for p, m, v in zip(_leaves(self.params), _leaves(opt["exp_avg"]),
                            _leaves(opt["exp_avg_sq"])):
-            self.opt.state[p] = ({"step": torch.tensor(step), "exp_avg": m.clone(),
-                                  "exp_avg_sq": v.clone()} if step > 0 else {})
+            self.opt.state[p] = ({"step": torch.tensor(step),
+                                  "exp_avg": _device.local_like(m, p).clone(),
+                                  "exp_avg_sq": _device.local_like(v, p).clone()}
+                                 if step > 0 else {})
 
     def capture(self) -> tuple:
         """Copies of the params and the Adam state, for ``restore``."""
@@ -174,14 +211,19 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                          "policies: they would race for best_params/.best")
     dev = resolve_device(device)
     state = TrainState(_trainable(params, dev), cfg.lr)
-    if resume and cfg.ckpt_path and os.path.exists(cfg.ckpt_path):
-        tree, meta = load_checkpoint(cfg.ckpt_path, state.as_tree())
+
+    def load(path: str) -> dict:
+        tree, meta = load_checkpoint(path, _full_tree(state.as_tree()))
         state.load_tree(tree)
-        state.load_meta(meta)
+        return meta
+
+    if resume and cfg.ckpt_path and os.path.exists(cfg.ckpt_path):
+        state.load_meta(load(cfg.ckpt_path))
 
     own_logger = logger is None
     if own_logger:
-        logger = MetricsLogger(cfg.log_path, echo_every=cfg.log_every)
+        logger = MetricsLogger(cfg.log_path if _device.is_writer() else None,
+                               echo_every=cfg.log_every if _device.is_writer() else 0)
     history: list = []
     best_params = _snapshot(state.params)
     nan_streak = 0
@@ -200,8 +242,8 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
 
     def save(path_suffix: str = "", extra: dict | None = None) -> None:
         if cfg.ckpt_path:
-            save_checkpoint(cfg.ckpt_path + path_suffix, state.as_tree(),
-                            {**state.meta(), **(extra_meta or {}), **(extra or {})})
+            _save(cfg.ckpt_path + path_suffix, state.as_tree(),
+                  {**state.meta(), **(extra_meta or {}), **(extra or {})})
 
     try:
         with full_f32():
@@ -217,13 +259,14 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                     state.opt.zero_grad(set_to_none=True)
                     total, aux = loss_fn(state.params, *loss_args)
                     total.backward()
+                    _pin_grads(_leaves(state.params))
                     state.opt.step()
                     totals.append(total.detach())
                     auxs.append({name: v.detach() for name, v in aux.items()})
                     lrs.append(lr)
-                # one host read per chunk
-                totals = torch.stack(totals).cpu().numpy()
-                auxs = {name: torch.stack([a[name] for a in auxs]).cpu().numpy()
+                # one host read per chunk, the same on every rank
+                totals = _device.host(torch.stack([_device.full(t) for t in totals]))
+                auxs = {name: _device.host(torch.stack([_device.full(a[name]) for a in auxs]))
                         for name in auxs[0]}
                 watch = auxs.get(cfg.watchdog_key, totals) if cfg.watchdog else totals
 
@@ -259,8 +302,7 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                         spike_streak += 1
                     state.lr_scale *= 0.9
                     if cfg.ckpt_path and os.path.exists(cfg.ckpt_path):
-                        tree, _ = load_checkpoint(cfg.ckpt_path, state.as_tree())
-                        state.load_tree(tree)
+                        load(cfg.ckpt_path)
                     opt_reset = cfg.spike_reset_opt and nan_streak + spike_streak >= 2
                     if opt_reset:
                         state.reset_opt()
@@ -314,7 +356,7 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                             best_unflushed = (
                                 _map_tree(lambda t: np.array(t.detach().cpu())
                                           if isinstance(t, torch.Tensor) else t,
-                                          state.as_tree()),
+                                          _full_tree(state.as_tree())),
                                 {**state.meta(), **(extra_meta or {})})
 
                 if (probe is not None and cfg.probe_every > 0
@@ -332,7 +374,7 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                     save()
     finally:
         # an improvement inside the last throttle window reaches disk too
-        if best_unflushed is not None and cfg.ckpt_path:
+        if best_unflushed is not None and cfg.ckpt_path and _device.is_writer():
             save_checkpoint(cfg.ckpt_path + ".best", *best_unflushed)
         if own_logger:
             logger.close()
@@ -351,7 +393,8 @@ def pretrain_isg(isg_loss_fn: Callable, params, *, n_iters: int = 4000,
     The losses are read back every steps_per_call steps, when logged."""
     dev = resolve_device(device)
     params = _trainable(params, dev)
-    opt = torch.optim.Adam(_leaves(params), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    leaves = _leaves(params)
+    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     it = 0
     with full_f32():
         while it < n_iters:
@@ -360,8 +403,9 @@ def pretrain_isg(isg_loss_fn: Callable, params, *, n_iters: int = 4000,
                 opt.zero_grad(set_to_none=True)
                 loss = isg_loss_fn(params)
                 loss.backward()
+                _pin_grads(leaves)
                 opt.step()
             it += n_sub
             if logger and (it % log_every < n_sub or it >= n_iters):
-                logger.log(it - 1, isg_loss=float(loss.detach()))
+                logger.log(it - 1, isg_loss=float(_device.host(loss)))
     return _snapshot(params)

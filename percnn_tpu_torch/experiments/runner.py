@@ -10,13 +10,14 @@ the request (the low-res IC, or the full-res IC when the model has no ISG)
 directly, instead of a truth-carrying Problem.
 
 ``run_experiment(mesh=...)`` trains on a spatially decomposed field
-(``make_mesh_rollout_fn``: parallel.sharded_rollout_nd, a halo exchange
-a step).  ``run_experiment(isg_params_path=...)`` shares one ISG pretrain
-between runs, and every run writes the reference's post-processing figures
+(``make_mesh_rollout_fn``): by default the halo route
+(parallel.sharded_rollout_nd, a halo exchange a step, one process), or
+with ``parallel_impl="gspmd"`` GSPMD's counterpart, the eager model on
+DTensors over a process group of one rank a mesh position
+(parallel/spmd.py), the whole run on every rank.
+``run_experiment(isg_params_path=...)`` shares one ISG pretrain between
+runs, and every run writes the reference's post-processing figures
 (``_export_viz``) when matplotlib is installed.
-
-Not ported yet: the GSPMD mesh route (``parallel_impl="gspmd"``, ROADMAP.md
-A10).
 """
 
 from __future__ import annotations
@@ -59,8 +60,9 @@ from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d, fused_r
 from percnn_tpu_torch.ops.kernels.backward3d import fused_rollout_tp_3d, fused_rollout_tp_3d_pg
 from percnn_tpu_torch.ops.kernels.cell2d import fused_rollout_2d
 from percnn_tpu_torch.ops.kernels.cell3d import fused_rollout_3d
-from percnn_tpu_torch.parallel import sharded_rollout_nd
+from percnn_tpu_torch.parallel import replicate, sharded_rollout_nd, spmd
 from percnn_tpu_torch.parallel.mesh import canonical_device
+from percnn_tpu_torch.parallel.spmd import P
 from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
 from percnn_tpu_torch.utils.metrics import MetricsLogger, rel_l2
 
@@ -215,47 +217,136 @@ def _cell_step_for(cell_cfg):
 
 def make_mesh_rollout_fn(prob: Problem, n_steps: int, mesh, *, impl: str = "halo"):
     """The rollout of ``build_loss_fn`` on a spatially decomposed field:
-    rollout_fn(params) -> frames [n_steps + 1, *spatial, 2] on the mesh's
-    first device.
+    rollout_fn(params) -> frames [n_steps + 1, *spatial, 2].
 
     impl:
       'halo'  -- explicit domain decomposition: parallel.sharded_rollout_nd
                  over the mesh's first ndim axes, a 2-cell halo exchange a
                  step, the eager valid-region step on each block (its
                  default impl, as percnn_tpu's runner keeps); autograd
-                 crosses the exchange;
-      'gspmd' -- not ported (ROADMAP.md A10): PyTorch has no GSPMD; its
-                 counterpart is DTensor over a process group.
+                 crosses the exchange; the frames on the mesh's first device;
+      'gspmd' -- the eager model on DTensors, run on every rank of a process
+                 group of one rank a mesh position: the initial state placed
+                 P(*axes, None), the rollout of pi_cell_step with remat, the
+                 frames P(None, *axes, None).  DTensor places the
+                 collectives: a periodic roll along a cut dim gathers it, and
+                 the loss's means reduce across ranks.  The Problem's arrays
+                 become DTensors on the mesh here, once (``spmd_problem``),
+                 unless they already are.  Outside a process group,
+                 rollout_fn(params) runs the rollout on the mesh's ranks
+                 (parallel.launch) and returns the whole frames, without
+                 gradient.  rollout_fn.placements records the frames'
+                 placements as DTensor left them, before the constraint.
     """
     exp = prob.exp
+    axis_names = _mesh_axes(exp, prob.truth.shape[1:1 + exp.cell.ndim], mesh)
+    if impl not in ("halo", "gspmd"):
+        raise ValueError(f"unknown parallel impl {impl!r} (expected 'halo' or 'gspmd')")
+
+    if impl == "halo":
+        def rollout_fn(params):
+            h0 = (isg_apply(params["isg"], prob.ic_low, exp.isg)[0] if exp.isg is not None
+                  else prob.h0)
+            return sharded_rollout_nd(params["cell"], h0, exp.cell, n_steps, mesh,
+                                      axis_names=axis_names)
+
+        return rollout_fn
+    if not spmd.in_group():
+        host_prob = _problem_to(prob, torch.device("cpu"))
+
+        def rollout_fn(params):
+            params = spmd.tree_map(lambda t: t.detach().cpu(), params)
+            return spmd.launch(_gspmd_frames, mesh, host_prob, n_steps, mesh, params)
+
+        return rollout_fn
+    return gspmd_rollout_fn(spmd_problem(prob, mesh), n_steps, spmd.device_mesh(mesh),
+                            spmd.placements(mesh, P(*axis_names, None)),
+                            spmd.placements(mesh, P(None, *axis_names, None)))
+
+
+def _mesh_axes(exp: ExperimentConfig, spatial: tuple, mesh) -> tuple:
+    """The mesh axes that cut the grid dims `spatial` (its first ndim);
+    each must divide its dim."""
     nd = exp.cell.ndim
     axis_names = tuple(mesh.axis_names)[:nd]
     if len(axis_names) != nd:
         raise ValueError(
             f"mesh {tuple(mesh.axis_names)} has fewer axes than the "
             f"{nd}D experiment {exp.name!r}")
-    spatial = prob.truth.shape[1:1 + nd]
     for n, a in zip(spatial, axis_names):
         if n % mesh.shape[a]:
             raise ValueError(
                 f"grid axis {a}={n} not divisible by mesh axis "
                 f"{a}={mesh.shape[a]} for experiment {exp.name!r}")
-    if impl == "gspmd":
-        raise NotImplementedError("parallel_impl='gspmd' is not ported: PyTorch has no "
-                                  "GSPMD; DTensor over a process group is its "
-                                  "counterpart (ROADMAP.md A10)")
-    if impl != "halo":
-        raise ValueError(f"unknown parallel impl {impl!r} (expected 'halo' or 'gspmd')")
+    return axis_names
+
+
+def gspmd_rollout_fn(dprob: Problem, n_steps: int, dmesh, state_p: tuple, frames_p: tuple):
+    """make_mesh_rollout_fn's 'gspmd' rollout on a DeviceMesh: the initial
+    state (the ISG's output, or the full-res IC) placed `state_p`, the
+    rollout of pi_cell_step with remat, the frames placed `frames_p`.
+    dprob's arrays are DTensors on `dmesh`."""
+    exp = dprob.exp
 
     def rollout_fn(params):
-        if exp.isg is not None:
-            h0 = isg_apply(params["isg"], prob.ic_low, exp.isg)[0]
-        else:
-            h0 = prob.h0
-        return sharded_rollout_nd(params["cell"], h0, exp.cell, n_steps, mesh,
-                                  axis_names=axis_names)
+        h0 = (replicated_isg(params["isg"], dprob.ic_low, exp.isg)[0] if exp.isg is not None
+              else dprob.h0)
+        h0 = spmd.distribute(h0, dmesh, state_p)
+        frames = rollout(lambda h: pi_cell_step(params["cell"], h, exp.cell), h0, n_steps,
+                         remat=True)
+        rollout_fn.placements = str(tuple(frames.placements))
+        return spmd.distribute(frames, dmesh, frames_p)
 
+    rollout_fn.placements = None
     return rollout_fn
+
+
+def replicated_isg(params: dict, h_low, cfg) -> torch.Tensor:
+    """isg_apply on DTensors, run whole on every rank
+    (spmd.replicated_local): a replicated DTensor out.  PyTorch 2.11 takes
+    a DTensor convolution only cut along W, so the gspmd route does not
+    partition the ISG."""
+    return spmd.replicated_local(lambda p, x: isg_apply(p, x, cfg), params, h_low)
+
+
+def _problem_to(prob: Problem, dev: torch.device) -> Problem:
+    """The Problem's arrays on `dev` (plain tensors)."""
+    return dataclasses.replace(prob, **{
+        k: getattr(prob, k).to(dev) for k in ("h0", "ic_low", "measurement")
+        if getattr(prob, k) is not None})
+
+
+def spmd_problem(prob: Problem, mesh) -> Problem:
+    """The Problem with its arrays DTensors on the mesh (on every rank):
+    the full-res IC placed as the gspmd rollout's state, P(*axes, None);
+    the low-res IC and the measurement replicated (percnn_tpu closes over
+    them as constants, which XLA may place as it likes).  Arrays that are
+    DTensors already stay as they are."""
+    dmesh = spmd.device_mesh(mesh)
+    dev = spmd.rank_device(mesh)
+    axes = tuple(mesh.axis_names)[:prob.exp.cell.ndim]
+    specs = {"h0": P(*axes, None), "ic_low": P(), "measurement": P()}
+    out = {}
+    for name, spec in specs.items():
+        x = getattr(prob, name)
+        if x is not None and not spmd.is_dtensor(x):
+            out[name] = spmd.distribute(x.to(dev), dmesh, spmd.placements(mesh, spec))
+    return dataclasses.replace(prob, **out)
+
+
+def _gspmd_frames(prob: Problem, n_steps: int, mesh, params: dict) -> torch.Tensor:
+    """On every rank: the gspmd rollout of `params` (replicated), whole."""
+    dev = spmd.rank_device(mesh)
+    params = spmd.tree_map(lambda t: t.to(dev), params)
+    with torch.no_grad(), full_f32():
+        rollout_fn = make_mesh_rollout_fn(_problem_to(prob, dev), n_steps, mesh, impl="gspmd")
+        frames = spmd.implicitly_replicated(rollout_fn)(replicate(params, mesh))
+        return spmd.full(frames)
+
+
+def _mesh_libraries(mesh, names: tuple) -> tuple:
+    """The kernel libraries to build before a launch on a CUDA mesh."""
+    return names if mesh.devices.flat[0].type == "cuda" else ()
 
 
 def _n_meas(n_frames: int, dcfg: DataLossConfig) -> int:
@@ -263,13 +354,15 @@ def _n_meas(n_frames: int, dcfg: DataLossConfig) -> int:
                                      dcfg.time_stride)])
 
 
-def build_loss_fn(prob: Problem, n_steps: int, *, bptt: str = "auto", rollout_fn=None):
+def build_loss_fn(prob: Problem, n_steps: int, *, bptt: str = "auto", rollout_fn=None,
+                  isg_fn=isg_apply):
     """Composite loss per the experiment's weights; aux carries every
     component plus 'val' (holdout data MSE) and 'phy' (residual metric).
 
     loss_fn(params) -> (total, aux).  rollout_fn(params) -> frames
-    overrides forward_rollout.  When 'phy' has no weight it is a metric
-    only, computed without autograd.
+    overrides forward_rollout, and isg_fn the ISG of the IC loss (the
+    gspmd route's is ``replicated_isg``).  When 'phy' has no weight it is
+    a metric only, computed without autograd.
     """
     exp = prob.exp
     w = exp.loss_weights
@@ -296,7 +389,7 @@ def build_loss_fn(prob: Problem, n_steps: int, *, bptt: str = "auto", rollout_fn
             if "data" in w:
                 total = total + w["data"] * tr
         if exp.isg is not None:
-            out = isg_apply(params["isg"], prob.ic_low, exp.isg)
+            out = isg_fn(params["isg"], prob.ic_low, exp.isg)
             icl = ic_loss(out, prob.ic_low, nd, exp.interp_method,
                           align_corners=exp.interp_align_corners,
                           periodic_extend=exp.interp_periodic_extend)
@@ -491,6 +584,22 @@ def _export_viz(exp: ExperimentConfig, prob: Problem, params: dict, metrics: dic
                  low_res=prob.ic_low[0].cpu().numpy())
 
 
+def _recording(rollout_fn, dprob: Problem, n_steps: int, seen: dict):
+    """The gspmd stage's loss, plain tensors taken as replicated; its first
+    call records in `seen` the placements of the frames (as DTensor left
+    them) and of the loss."""
+    loss_fn = spmd.implicitly_replicated(build_loss_fn(dprob, n_steps, rollout_fn=rollout_fn,
+                                                       isg_fn=replicated_isg))
+
+    def call(params):
+        total, aux = loss_fn(params)
+        if not seen:
+            seen.update(frames=rollout_fn.placements, loss=str(tuple(total.placements)))
+        return total, aux
+
+    return call
+
+
 def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                    cache_dir: str | None = "data_cache", dtype=torch.float32,
                    n_iters_override: int | None = None,
@@ -516,9 +625,18 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
 
     mesh: a parallel.Mesh whose first device is `device` -- training runs
     spatially decomposed over its devices (``make_mesh_rollout_fn`` with
-    `parallel_impl`), without the stability probe, as in percnn_tpu.  The
-    parameters stay on `device` throughout (each rollout copies them to the
-    other mesh devices), so evaluation and serving take them as they are.
+    `parallel_impl`), without the stability probe, as in percnn_tpu.  With
+    'halo' the parameters stay on `device` throughout (each rollout copies
+    them to the other mesh devices).  With 'gspmd' the whole run goes
+    through parallel.launch: every rank makes the truth (rank 0 first, into
+    the cache), pretrains the ISG and trains on replicated DTensor
+    parameters and DTensor data; every host read is made on every rank and
+    only rank 0 writes the log, checkpoints and figures; after training
+    each rank gathers the parameters and evaluates, and rank 0's result
+    comes back (under torchrun, each rank's) with the parameters on
+    `device` and the placements DTensor gave the frames and the loss
+    under ``placements``.  Either way evaluation and serving take the
+    returned parameters as they are.
 
     isg_params_path: a checkpoint of the ISG alone (``save_checkpoint``'s
     format, which both packages read).  When the file exists, the ISG is
@@ -535,14 +653,66 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     if mesh is not None and mesh.devices.flat[0] != canonical_device(dev):
         raise ValueError(f"the mesh's first device {mesh.devices.flat[0]} is not the "
                          f"run's device {dev}; pass device={mesh.devices.flat[0]!s}")
-    os.makedirs(out_dir, exist_ok=True)
-    logger = MetricsLogger(os.path.join(out_dir, f"{exp.name}.metrics.jsonl"),
-                           echo_every=exp.train.log_every)
+    gspmd = mesh is not None and parallel_impl == "gspmd"
+    if gspmd and not spmd.in_group():
+        _mesh_axes(exp, (exp.grid,) * exp.cell.ndim, mesh)   # refused before any rank starts
+        run = functools.partial(
+            _run_experiment, out_dir=out_dir, cache_dir=cache_dir, dtype=dtype,
+            n_iters_override=n_iters_override, isg_pretrain_override=isg_pretrain_override,
+            warmup=warmup, steps_per_call=steps_per_call, resume=resume, seed=seed,
+            device=dev, mesh=mesh, parallel_impl=parallel_impl,
+            isg_params_path=isg_params_path, expressions=False)
+        result = spmd.launch(run, mesh, exp, libraries=_mesh_libraries(
+            mesh, ("cell2d",) if exp.cell.ndim == 2 else ("cell3d",)))
+        result["params"] = params_from_numpy(result["params"], device=dev)
+        result.update(_pi_expressions(exp, result["params"]))
+        return result
+    return _run_experiment(exp, out_dir=out_dir, cache_dir=cache_dir, dtype=dtype,
+                           n_iters_override=n_iters_override,
+                           isg_pretrain_override=isg_pretrain_override, warmup=warmup,
+                           steps_per_call=steps_per_call, resume=resume, seed=seed,
+                           device=dev, mesh=mesh, parallel_impl=parallel_impl,
+                           isg_params_path=isg_params_path)
+
+
+def _pi_expressions(exp: ExperimentConfig, params: dict) -> dict:
+    """{'pi_expressions': the closed form of each trained Pi block} for a
+    kernel_size-1 cell when sympy is installed, else {}."""
+    if exp.cell.kernel_size != 1 or importlib.util.find_spec("sympy") is None:
+        return {}
+    from percnn_tpu_torch.discovery.symbolic import pi_block_expression
+
+    pi = params_to_numpy(params["cell"])["pi"]
+    return {"pi_expressions": [str(pi_block_expression(pi[c]))
+                               for c in range(exp.cell.channels)]}
+
+
+def _run_experiment(exp: ExperimentConfig, *, out_dir: str, cache_dir: str | None, dtype,
+                    n_iters_override: int | None, isg_pretrain_override: int | None,
+                    warmup: int | None, steps_per_call: int | None, resume: bool, seed: int,
+                    device: torch.device, mesh, parallel_impl: str,
+                    isg_params_path: str | None, expressions: bool = True) -> dict:
+    """run_experiment's body, in this process (on each rank of a gspmd run,
+    where the launching process adds the pi_expressions)."""
+    dev = device
+    gspmd = mesh is not None and parallel_impl == "gspmd"
+    if gspmd:
+        dev = spmd.rank_device(mesh)
+        spmd.device_mesh(mesh)
+    writer = spmd.is_writer()
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
+    logger = MetricsLogger(os.path.join(out_dir, f"{exp.name}.metrics.jsonl") if writer else None,
+                           echo_every=exp.train.log_every if writer else 0)
     seconds: dict = {"stages": []}
     if warmup is None:
         warmup = 100 if exp.system == "lambda_omega" else 0
     t0 = time.perf_counter()
-    truth = make_dataset(exp, warmup=warmup, cache_dir=cache_dir, device=dev)
+    truth = (make_dataset(exp, warmup=warmup, cache_dir=cache_dir, device=dev)
+             if writer else None)
+    spmd.barrier()   # rank 0 made the cache file, which the other ranks read
+    if truth is None:
+        truth = make_dataset(exp, warmup=warmup, cache_dir=cache_dir, device=dev)
     seconds["truth"] = time.perf_counter() - t0
     prob = setup_problem(exp, truth, dtype, device=dev)
     params = init_model(exp, torch.Generator().manual_seed(seed), dtype, device=dev)
@@ -556,10 +726,16 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                 else exp.isg_pretrain_iters
             params["isg"] = pretrain_isg(build_isg_pretrain_loss(prob), params["isg"],
                                          n_iters=n_pre, logger=logger, device=dev)
-            if isg_params_path is not None:
+            if isg_params_path is not None and writer:
                 save_checkpoint(isg_params_path, params["isg"],
                                 {"experiment": exp.name, "seed": seed})
+            spmd.barrier()
         seconds["isg_pretrain"] = time.perf_counter() - t0
+    if gspmd:
+        # replicated from rank 0's copy, so every rank starts from the same
+        # parameters whatever its own ISG pretrain gave
+        params = replicate(params, mesh)
+        dprob = spmd_problem(prob, mesh)
 
     stages = list(exp.curriculum) + [exp.train_steps]
     n_total = n_iters_override if n_iters_override is not None else exp.train.n_iters
@@ -575,6 +751,7 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
             os.remove(ckpt_path + ".stable")   # stale: another run's params
     history: list = []
     last_stage_history: list = []
+    placements: dict = {}   # gspmd: what DTensor gave the frames and the loss
     for i, steps in enumerate(stages):
         if i < start_stage:
             continue
@@ -586,16 +763,24 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
             **({"steps_per_call": steps_per_call} if steps_per_call else {}),
         )
         t0 = time.perf_counter()
-        rollout_fn = (make_mesh_rollout_fn(prob, steps, mesh, impl=parallel_impl)
-                      if mesh is not None else None)
-        params, h = train(build_loss_fn(prob, steps, rollout_fn=rollout_fn), params, tcfg,
-                          logger=logger,
+        if gspmd:
+            loss_fn = _recording(make_mesh_rollout_fn(dprob, steps, mesh, impl="gspmd"),
+                                 dprob, steps, placements)
+        else:
+            rollout_fn = (make_mesh_rollout_fn(prob, steps, mesh, impl=parallel_impl)
+                          if mesh is not None else None)
+            loss_fn = build_loss_fn(prob, steps, rollout_fn=rollout_fn)
+        params, h = train(loss_fn, params, tcfg, logger=logger,
                           resume=resume and i == start_stage, extra_meta={"stage": i},
                           probe=probe, device=dev)
         seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,
                                   "seconds": time.perf_counter() - t0})
         history.extend(h)
         last_stage_history = h
+        if gspmd and i == start_stage and placements:
+            logger.log(len(history) - 1, event="gspmd_placements", **placements)
+    if gspmd:
+        params = spmd.tree_map(spmd.full, params)
 
     selection: dict = {}
     if probe is not None:
@@ -612,18 +797,14 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                    "rel_l2_stable": metrics["rel_l2_stable"],
                    "diverged": True} if metrics["diverged"] else {}))
     logger.close()
-    if importlib.util.find_spec("matplotlib") is not None:
+    if writer and importlib.util.find_spec("matplotlib") is not None:
         t0 = time.perf_counter()
         _export_viz(exp, prob, params, metrics, truth, out_dir)
         seconds["viz"] = time.perf_counter() - t0
     result = {"params": params, "history": history, **metrics, **selection,
-              "seconds": seconds}
-    if exp.cell.kernel_size == 1 and importlib.util.find_spec("sympy") is not None:
-        from percnn_tpu_torch.discovery.symbolic import pi_block_expression
-
-        pi = params_to_numpy(params["cell"])["pi"]
-        result["pi_expressions"] = [str(pi_block_expression(pi[c]))
-                                    for c in range(exp.cell.channels)]
+              "seconds": seconds, **({"placements": placements} if gspmd else {})}
+    if expressions:
+        result.update(_pi_expressions(exp, params))
     # truth-free convergence telemetry: the minimum training loss of the
     # final curriculum stage (loss scales compare only within a stage)
     finite_tail = [x for x in last_stage_history if math.isfinite(x)]

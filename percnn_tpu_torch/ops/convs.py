@@ -14,15 +14,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from percnn_tpu_torch._device import full_f32
+from percnn_tpu_torch._device import full_f32, is_dtensor
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 
 
 def pointwise_conv(x: torch.Tensor, w: torch.Tensor,
                    b: torch.Tensor | None = None) -> torch.Tensor:
-    """1x1 conv: x [..., Cin] @ w [Cin, Cout] (+ b [Cout])."""
-    y = torch.einsum("...i,io->...o", x, w)
+    """1x1 conv: x [..., Cin] @ w [Cin, Cout] (+ b [Cout]).
+
+    A DTensor x (the gspmd route) takes a broadcast product summed over
+    Cin: einsum's matmul flattens the leading dims, which PyTorch 2.11's
+    DTensor refuses when one of them is cut."""
+    if is_dtensor(x):
+        y = (x.unsqueeze(-1) * w).sum(-2)
+    else:
+        y = torch.einsum("...i,io->...o", x, w)
     if b is not None:
         y = y + b
     return y

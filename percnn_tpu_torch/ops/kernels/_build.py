@@ -65,7 +65,24 @@ def build(name: str) -> Path:
     return out
 
 
+_PATHS: dict[str, str] = {}
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """Build csrc/<name>.cu once per process and load it."""
-    return ctypes.CDLL(str(build(name)))
+    """Build csrc/<name>.cu once per process and load it (or load the
+    library another process built, handed over by ``adopt``)."""
+    if name not in _PATHS:
+        _PATHS[name] = str(build(name))
+    return ctypes.CDLL(_PATHS[name])
+
+
+def built() -> dict[str, str]:
+    """The libraries this process has built or adopted: name -> path."""
+    return dict(_PATHS)
+
+
+def adopt(paths: dict[str, str]) -> None:
+    """Load these libraries (from ``built()`` of the process that built
+    them, on this machine) instead of building them again."""
+    _PATHS.update(paths)

@@ -1,6 +1,10 @@
-"""Domain-decomposed Pi-cell rollout: blocks over a mesh, a halo exchange a step.
+"""Sharded execution: the halo-exchange rollout and the GSPMD train step.
 
-Counterpart of percnn_tpu/parallel/sharded.py's explicit path.
+Counterpart of percnn_tpu/parallel/sharded.py, both paths.  The GSPMD
+helpers (``shard_array``, ``replicate``, ``make_train_step_spmd``, and
+``scale_by_adam``, optax's Adam for them) run on every rank of a process
+group, one rank a mesh position, on DTensors (parallel/spmd.py), and keep
+the JAX package's names and signatures.  The explicit path:
 ``sharded_rollout_nd`` cuts the field into one block per mesh position
 (the first ``cfg.ndim`` mesh axes cut the spatial dims in order), puts
 each block on its mesh device with a copy of the parameters there, and
@@ -28,12 +32,13 @@ unchanged):
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from percnn_tpu_torch._device import full_f32
 from percnn_tpu_torch.core.cell import PiCellConfig, pi_cell_step_valid
 from percnn_tpu_torch.core.rollout import _flatten, _pick_segment, _unflatten
 from percnn_tpu_torch.ops.kernels.cell2d import _check_fusable, _sm_count, pack_pi_params_2d
@@ -46,6 +51,14 @@ from percnn_tpu_torch.ops.kernels.sharded_step2d import (
 )
 from percnn_tpu_torch.ops.stencils import STENCIL_HALO
 from percnn_tpu_torch.parallel.halo import halo_exchange, object_grid
+from percnn_tpu_torch.parallel.spmd import (
+    P,
+    device_mesh,
+    distribute,
+    implicitly_replicated,
+    placements,
+    tree_map,
+)
 
 _IMPLS = ("jnp", "pallas")
 
@@ -390,3 +403,99 @@ def sharded_rollout_nd(params: dict, h0: torch.Tensor, cfg: PiCellConfig, n_step
         flat = [p[-1] for p in part]
     joined = object_grid(shape, [torch.cat(f, dim=0) for f in frames])
     return _assemble(joined, mesh.devices.flat[0])
+
+
+# ---------------------------------------------------------------------------
+# GSPMD's counterparts: DTensor over a process group (parallel/spmd.py)
+
+
+def shard_array(x, mesh, spec: P) -> torch.Tensor:
+    """`x` placed on the mesh as `spec` says (GSPMD's input annotation): a
+    DTensor whose data is rank 0's.  Call it on every rank."""
+    return distribute(torch.as_tensor(x), device_mesh(mesh), placements(mesh, spec))
+
+
+def replicate(tree, mesh):
+    """Every tensor (or array) leaf of `tree` replicated over the mesh."""
+    dmesh = device_mesh(mesh)
+    place = placements(mesh, P())
+    return tree_map(lambda x: distribute(torch.as_tensor(x), dmesh, place), tree)
+
+
+class ScaleByAdamState(NamedTuple):
+    """optax.ScaleByAdamState: the step count and the two moments."""
+
+    count: int
+    mu: Any
+    nu: Any
+
+
+class GradientTransformation(NamedTuple):
+    """optax's contract: init(params) -> state; update(updates, state,
+    params=None) -> (updates, state)."""
+
+    init: Callable
+    update: Callable
+
+
+def _zip_map(fn, *trees):
+    """fn over the leaves of trees of one structure (dicts and lists)."""
+    return _unflatten(trees[0], iter([fn(*xs) for xs in zip(*map(_flatten, trees))]))
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                  eps_root: float = 0.0) -> GradientTransformation:
+    """optax.scale_by_adam written out in torch: the moments' exponential
+    averages, their bias corrections at the incremented count, and
+    mu_hat / (sqrt(nu_hat + eps_root) + eps) as the update (a descent
+    direction: the caller scales it by -lr).  Elementwise, so DTensor
+    leaves keep their placements."""
+
+    def init(params):
+        zeros = lambda p: torch.zeros_like(p)
+        return ScaleByAdamState(0, _zip_map(zeros, params), _zip_map(zeros, params))
+
+    def update(updates, state: ScaleByAdamState, params=None):
+        mu = _zip_map(lambda g, m: b1 * m + (1 - b1) * g, updates, state.mu)
+        nu = _zip_map(lambda g, v: b2 * v + (1 - b2) * g * g, updates, state.nu)
+        count = state.count + 1
+        c1, c2 = 1 - b1 ** count, 1 - b2 ** count
+        out = _zip_map(lambda m, v: (m / c1) / (torch.sqrt(v / c2 + eps_root) + eps), mu, nu)
+        return out, ScaleByAdamState(count, mu, nu)
+
+    return GradientTransformation(init, update)
+
+
+def make_train_step_spmd(loss_fn, tx, mesh, *, param_spec: P = P()):
+    """An SPMD train step: step(params, opt_state, batch, lr) ->
+    (params, opt_state, total, aux), run on every rank.
+
+    loss_fn(params, batch) -> (loss, aux), the plain model on DTensor
+    inputs (the batch placed by shard_array): DTensor partitions it, and
+    plain tensors it makes are taken as replicated.  Params, gradients and
+    optimizer state are pinned to ``param_spec`` (replicated by default),
+    as the JAX step's sharding constraints pin them: the gradient of a
+    replicated parameter comes back a partial sum and is reduced to the
+    parameter's placement before ``tx`` sees it.  tx follows optax's
+    init/update contract (``scale_by_adam``); the update is params - lr * u.
+    """
+    def step(params, opt_state, batch, lr):
+        dmesh = device_mesh(mesh)
+        place = placements(mesh, param_spec)
+
+        def pin(tree):
+            return tree_map(lambda x: distribute(x, dmesh, place)
+                            if isinstance(x, torch.Tensor) else x, tree)
+
+        params = pin(params)
+        leaves = [p.detach().requires_grad_(True) for p in _flatten(params)]
+        with full_f32():
+            total, aux = implicitly_replicated(loss_fn)(_unflatten(params, iter(leaves)), batch)
+            grads = pin(_unflatten(params, iter(torch.autograd.grad(total, leaves))))
+        with torch.no_grad():
+            updates, opt_state = tx.update(grads, opt_state, params)
+            params = pin(_zip_map(lambda p, u: p - lr * u, params, updates))
+        aux = tree_map(lambda a: a.detach() if isinstance(a, torch.Tensor) else a, aux)
+        return params, pin(opt_state), total.detach(), aux
+
+    return step

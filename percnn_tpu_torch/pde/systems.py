@@ -30,13 +30,20 @@ class PDESystem:
     rhs: Callable  # (h [..., *spatial, 2], dx) -> dh/dt, same shape
 
 
+def _stack_channels(fu: torch.Tensor, fv: torch.Tensor) -> torch.Tensor:
+    """[..., 2] from the two channels' fields.  The new dim is given as a
+    positive index: PyTorch 2.11's DTensor stack misplaces a cut for
+    dim=-1 (the gspmd route's physics residual on a 2 x 2 mesh)."""
+    return torch.stack([fu, fv], dim=fu.ndim)
+
+
 def _lo_rhs(h: torch.Tensor, dx: float) -> torch.Tensor:
     lap = laplacian(h, dx, dims=(h.ndim - 3, h.ndim - 2))
     u, v = h[..., 0], h[..., 1]
     a2 = u * u + v * v
     fu = 0.1 * lap[..., 0] + (1.0 - a2) * u + a2 * v
     fv = 0.1 * lap[..., 1] - a2 * u + (1.0 - a2) * v
-    return torch.stack([fu, fv], dim=-1)
+    return _stack_channels(fu, fv)
 
 
 def _gs2d_rhs(h: torch.Tensor, dx: float) -> torch.Tensor:
@@ -46,7 +53,7 @@ def _gs2d_rhs(h: torch.Tensor, dx: float) -> torch.Tensor:
     uvv = u * v * v
     fu = Du * lap[..., 0] - uvv + f * (1.0 - u)
     fv = Dv * lap[..., 1] + uvv - (f + k) * v
-    return torch.stack([fu, fv], dim=-1)
+    return _stack_channels(fu, fv)
 
 
 def _gs3d_rhs(h: torch.Tensor, dx: float) -> torch.Tensor:
@@ -56,7 +63,7 @@ def _gs3d_rhs(h: torch.Tensor, dx: float) -> torch.Tensor:
     uvv = u * v * v
     fu = Du * lap[..., 0] - uvv + f * (1.0 - u)
     fv = Dv * lap[..., 1] + uvv - (f + k) * v
-    return torch.stack([fu, fv], dim=-1)
+    return _stack_channels(fu, fv)
 
 
 def _burgers_rhs(h: torch.Tensor, dx: float) -> torch.Tensor:
@@ -69,7 +76,7 @@ def _burgers_rhs(h: torch.Tensor, dx: float) -> torch.Tensor:
     vy = grad_y(h[..., 1:2], dx)[..., 0]
     fu = nu * lap[..., 0] - u * ux - v * uy
     fv = nu * lap[..., 1] - u * vx - v * vy
-    return torch.stack([fu, fv], dim=-1)
+    return _stack_channels(fu, fv)
 
 
 PDE_SYSTEMS = {

@@ -183,6 +183,10 @@ def test_profile_writes_a_trace(tmp_path, monkeypatch, capsys):
     assert any(n.startswith("aten::") for n in names)
 
 
-def test_verbs_still_raising_name_a10():
-    with pytest.raises(SystemExit):
-        main(["ensemble", "gs2d_recon", "--shard", "--cpu"])
+def test_verbs_still_raising_name_a10(monkeypatch):
+    """``ensemble --shard`` (the member axis over every CUDA device, one
+    rank a device) has no CPU fallback: without a card and without --cpu
+    it raises before any rank starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["ensemble", "gs2d_recon", "--shard"])

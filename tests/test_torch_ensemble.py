@@ -140,10 +140,18 @@ def test_members_draw_their_inits_from_seed_plus_k(monkeypatch, tmp_path):
 
 
 def test_mesh_and_unknown_mode_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A10"):
-        ensemble.run_ensemble(EXP, M, out_dir=str(tmp_path), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        ensemble.run_ensemble(EXP, M, out_dir=str(tmp_path), spatial_axes=("x",), device="cpu")
+    """A mesh the members cannot shard over, and spatial axes without a
+    mesh, are refused before any rank starts."""
+    from percnn_tpu_torch.parallel import make_mesh
+
+    data3 = make_mesh(("data",), devices=["cpu"] * 3)
+    for kw, msg in ((dict(mesh=data3), "do not split"),
+                    (dict(mesh=data3, member_axis="batch"), "not one of"),
+                    (dict(mesh=make_mesh(("data", "x"), shape=(1, 2), devices=["cpu"] * 2),
+                          spatial_axes=("data",)), "cannot cut the field"),
+                    (dict(spatial_axes=("x",)), "pass mesh=")):
+        with pytest.raises(ValueError, match=msg):
+            ensemble.run_ensemble(EXP, M, out_dir=str(tmp_path), device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown bptt mode"):
         ensemble.run_ensemble(EXP, M, out_dir=str(tmp_path), bptt="vmap", device="cpu")
     with pytest.raises(ValueError, match="unknown bptt mode"):
@@ -173,7 +181,8 @@ def test_checkpoint_loads_in_percnn_tpu(monkeypatch, members, tmp_path):
 def test_cli_ensemble_verb(monkeypatch, capsys):
     """`python -m percnn_tpu_torch ensemble` reaches run_ensemble with the
     parsed arguments (stubbed here: no 100 x 100 truth on the CPU) and prints
-    percnn_tpu's JSON line; --shard and an unknown experiment are refused."""
+    percnn_tpu's JSON line; --shard passes a ("data",) mesh (one CPU rank
+    with --cpu); an unknown experiment is refused."""
     calls = []
 
     def stub(exp, n_members, **kw):
@@ -194,9 +203,10 @@ def test_cli_ensemble_verb(monkeypatch, capsys):
     cli.main(["ensemble", "burgers_stage1"])
     assert calls[-1][0] is BURGERS_STAGE1 and calls[-1][1] == 4
     assert calls[-1][2]["device"] == "cuda"
-    for argv, msg in ((["ensemble", "gs2d_recon", "--shard"], "A10"),
-                      (["ensemble", "no_such_experiment"], "unknown experiment")):
-        with pytest.raises(SystemExit) as e:
-            cli.main(argv)
-        assert e.value.code == 2 and msg in capsys.readouterr().err
-    assert len(calls) == 2
+    cli.main(["ensemble", "gs2d_recon", "--shard", "--cpu"])
+    kw = calls[-1][2]
+    assert kw["mesh"].shape == {"data": 1} and kw["device"] == torch.device("cpu")
+    with pytest.raises(SystemExit) as e:
+        cli.main(["ensemble", "no_such_experiment"])
+    assert e.value.code == 2 and "unknown experiment" in capsys.readouterr().err
+    assert len(calls) == 3

@@ -37,7 +37,7 @@ def test_port_files_found():
     assert "percnn_tpu_torch/ops/kernels/backward3d.py" in names
     assert "percnn_tpu_torch/experiments/runner.py" in names
     assert "percnn_tpu_torch/ops/kernels/sharded_step2d.py" in names
-    for module in ("__init__", "mesh", "halo", "sharded"):
+    for module in ("__init__", "mesh", "halo", "sharded", "spmd", "_spmd_examples"):
         assert f"percnn_tpu_torch/parallel/{module}.py" in names
     for module in ("serving", "data/pt_import", "utils/params", "utils/profiling",
                    "utils/debug", "viz/__init__", "viz/plots", "ops/kernels/serve_ops"):

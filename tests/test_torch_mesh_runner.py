@@ -1,8 +1,10 @@
 """Spatially decomposed training through the port's public entry points, on
 the CPU: ``run_experiment(mesh=...)`` against the same run without a mesh
-(as tests/test_parallel.py holds percnn_tpu's), the mesh's errors, and the
-``run`` CLI verb with ``--mesh``.  The mesh repeats "cpu"; on the card
-chip_smoke.py runs the same path with a mesh that repeats cuda:0.
+(as tests/test_parallel.py holds percnn_tpu's), the mesh's errors, the
+gspmd rollout against the halo one, and the ``run`` CLI verb with
+``--mesh``.  The mesh repeats "cpu"; on the card chip_smoke.py runs the
+halo path with a mesh that repeats cuda:0.  The gspmd run itself is in
+tests/test_torch_spmd_runner.py.
 """
 
 import dataclasses
@@ -60,20 +62,25 @@ def test_mesh_rollout_fn_errors(tmp_path):
         runner.make_mesh_rollout_fn(prob, 4, _mesh((3, 1)))
     with pytest.raises(ValueError, match="fewer axes"):
         runner.make_mesh_rollout_fn(prob, 4, make_mesh(("x",), devices=["cpu"] * 2))
-    with pytest.raises(NotImplementedError, match="A10"):
-        runner.make_mesh_rollout_fn(prob, 4, _mesh(), impl="gspmd")
+    with pytest.raises(ValueError, match="not divisible by mesh axis x=3"):
+        runner.make_mesh_rollout_fn(prob, 4, _mesh((3, 1)), impl="gspmd")
     with pytest.raises(ValueError, match="unknown parallel impl"):
         runner.make_mesh_rollout_fn(prob, 4, _mesh(), impl="dtensor")
-    frames = runner.make_mesh_rollout_fn(prob, 4, _mesh())(
-        runner.init_model(EXP, torch.Generator().manual_seed(0), device="cpu"))
+    params = runner.init_model(EXP, torch.Generator().manual_seed(0), device="cpu")
+    frames = runner.make_mesh_rollout_fn(prob, 4, _mesh())(params)
     assert frames.shape == (5, EXP.grid, EXP.grid, 2)
+    # the gspmd route outside a process group: its ranks' frames, whole
+    gspmd = runner.make_mesh_rollout_fn(prob, 4, _mesh(), impl="gspmd")(params)
+    torch.testing.assert_close(gspmd, frames.detach(), rtol=2e-4, atol=1e-5)
 
 
 def test_run_experiment_mesh_errors(tmp_path):
-    with pytest.raises(NotImplementedError, match="gspmd"):
-        _run(tmp_path, "gspmd", mesh=_mesh(), parallel_impl="gspmd")
-    with pytest.raises(ValueError, match="not divisible"):
-        _run(tmp_path, "odd", mesh=_mesh((3, 1)))
+    for impl in ("halo", "gspmd"):   # gspmd: refused before any rank starts
+        with pytest.raises(ValueError, match="not divisible"):
+            _run(tmp_path, "odd", mesh=_mesh((3, 1)), parallel_impl=impl)
+    with pytest.raises(ValueError, match="fewer axes"):
+        _run(tmp_path, "flat", mesh=make_mesh(("x",), devices=["cpu"] * 2),
+             parallel_impl="gspmd")
     meta = make_mesh(("x", "y"), shape=(1, 1), devices=["meta"])
     with pytest.raises(ValueError, match="first device meta is not the run's device cpu"):
         _run(tmp_path, "elsewhere", mesh=meta)
@@ -101,6 +108,9 @@ def test_cli_run_verb_with_mesh(monkeypatch, tmp_path, capsys):
     cli.main(["run", "gs2d_recon", "--cpu", "--iters", "6", "--x64", "--parallel", "gspmd"])
     assert calls[-1]["mesh"] is None and calls[-1]["dtype"] == torch.float64
     assert calls[-1]["n_iters_override"] == 6 and calls[-1]["parallel_impl"] == "gspmd"
+    cli.main(["run", "gs2d_recon", "--cpu", "--mesh", "2,2", "--parallel", "gspmd"])
+    assert calls[-1]["mesh"].shape == {"x": 2, "y": 2}
+    assert calls[-1]["parallel_impl"] == "gspmd" and calls[-1]["device"] == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["run", "gs2d_recon", "--mesh", "2,2"])
