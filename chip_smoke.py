@@ -322,8 +322,12 @@ figures.  Phases, one JSON line each with the seconds since start:
                "fused_pg", 2 iterations, against the unsharded runs (rtol
                1e-3), the rank's launches of rows 11 and 13 (batched_pg)
                and 1 and 7 (fused_pg, every evaluation) counted exactly;
-               ms per iteration beside the single-device run's and
-               train_mesh's halo iteration at T = 200
+               run_experiment(BURGERS_STAGE1 at T = 200, parallel_impl=
+               "gspmd"), the 5x5 cell, 2 iterations, against the same run
+               without a mesh (rtol 1e-4), rank 0's halo sends counted
+               (ops/spmd_halo.py: none on one position); ms per iteration
+               beside the single-device runs' and train_mesh's halo
+               iteration at T = 200
   train_ensemble_parity  run_ensemble on the card against the CPU (plain
                versions), 32 x 32, T = 20, M = 2, 3 iterations, both batched
                modes
@@ -444,6 +448,7 @@ SPMD_ITERS = 2            # spmd (b): its iterations
 SPMD_ENS_ITERS = 2        # spmd (c): the ensembles' iterations at T = 800
 SPMD_ISG_ITERS = 20       # spmd (b), (c): the ISG pretrain
 SPMD_EVAL = 800           # spmd (b), (c): the evaluations' steps (of 2500)
+SPMD_BURGERS_T = 200      # spmd (d): the gspmd Burgers run's one stage and its evaluation
 
 
 class CheckFailed(Exception):
@@ -911,10 +916,11 @@ def stdout_to_stderr():
         os.close(saved)
 
 
-def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | None, exp=None, steps: int = SPMD_STEPS,
-               stage_t: int = SPMD_T, iters: int = SPMD_ITERS,
-               ens_iters: int = SPMD_ENS_ITERS, isg_iters: int = SPMD_ISG_ITERS,
-               eval_steps: int = SPMD_EVAL) -> dict:
+def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | None, exp=None,
+               burgers=None, steps: int = SPMD_STEPS, stage_t: int = SPMD_T,
+               iters: int = SPMD_ITERS, ens_iters: int = SPMD_ENS_ITERS,
+               isg_iters: int = SPMD_ISG_ITERS, eval_steps: int = SPMD_EVAL,
+               burgers_t: int = SPMD_BURGERS_T) -> dict:
     """The spmd phase: the GSPMD counterparts (parallel/spmd.py) through
     the entry points a user calls, one process a mesh position, on
     `spmd_mesh` (2D: (a), (b)) and `data_mesh` (("data",): (c)), whose
@@ -933,12 +939,17 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
     (c) run_ensemble(exp, ENS_MEMBERS, mesh=data_mesh) by "batched_pg" and
     "fused_pg" against the unsharded batched_pg run at rtol 1e-3, each
     rank's launches of rows 11, 13, 1 and 7 counted exactly (none on the
-    CPU, where the wrappers run their plain versions); (d) ms per
-    iteration of each beside the single-device run's (and `halo_stage`,
-    train_mesh's halo stage at T = 200, where given).  exp defaults to
-    GS2D_RECON; the evaluations are cut to eval_steps (so the truth, of
-    max(T, eval_steps) frames, is made here, in a cache the parts share).
-    A failed check raises CheckFailed.
+    CPU, where the wrappers run their plain versions); (d) the 5x5 cell:
+    run_experiment(burgers at T = burgers_t, parallel_impl="gspmd") on
+    `spmd_mesh`, iters iterations, against the same run without a mesh,
+    the losses at rtol 1e-4 (on a 2 x 2 mesh its periodic pads and rolls
+    trade halos between the ranks, ops/spmd_halo.py, whose sends are
+    counted).  (b) and (d) give their ms per iteration beside the
+    single-device run's (and `halo_stage`, train_mesh's halo stage at
+    T = 200, where given).  exp defaults to GS2D_RECON and burgers to
+    BURGERS_STAGE1; the evaluations are cut to eval_steps and burgers_t (so
+    the truths, of max(T, eval_steps) and burgers_t frames, are made here,
+    in a cache the parts share).  A failed check raises CheckFailed.
     Returns the phase's fields, with the ranks' world sizes."""
     import numpy as np
     import torch
@@ -946,11 +957,12 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
     from percnn_tpu_torch._device import full_f32
     from percnn_tpu_torch.bridge import params_from_numpy
     from percnn_tpu_torch.experiments import ensemble, runner
-    from percnn_tpu_torch.experiments.configs import GS2D_RECON
+    from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1, GS2D_RECON
     from percnn_tpu_torch.parallel import _spmd_examples, launch, make_mesh, scale_by_adam, sharded
     from percnn_tpu_torch.parallel import spmd as spmd_mod
 
     exp = GS2D_RECON if exp is None else exp
+    burgers = BURGERS_STAGE1 if burgers is None else burgers
     cfg, grid = exp.cell, exp.grid
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -969,6 +981,9 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
     bexp = dataclasses.replace(exp, curriculum=(), train_steps=stage_t, infer_steps=eval_steps,
                                train=quiet)
     cexp = dataclasses.replace(exp, curriculum=(), infer_steps=eval_steps, train=quiet)
+    dexp = dataclasses.replace(burgers, curriculum=(), train_steps=burgers_t,
+                               infer_steps=burgers_t,
+                               train=dataclasses.replace(burgers.train, log_every=0))
     rs = np.random.RandomState(23)
     cell_cpu = params_from_numpy(cell_np, device="cpu", dtype=torch.float32)
     h0a = torch.as_tensor(rs.uniform(0.0, 1.0, (grid, grid, 2)), dtype=torch.float32)
@@ -994,6 +1009,16 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
                     n_iters_override=iters, isg_pretrain_override=isg_iters, seed=0, **kw)
             sync()
             runs_b[label]["wall_s"] = time.perf_counter() - t
+        # (d) the 5x5 cell's gspmd run against no mesh
+        runs_d = {}
+        for label, kw in (("single", {}), ("gspmd", {"mesh": spmd_mesh, "parallel_impl": "gspmd"})):
+            t = time.perf_counter()
+            with stdout_to_stderr():
+                runs_d[label] = runner.run_experiment(
+                    dexp, device=dev, out_dir=f"{out_dir}/d_{label}", cache_dir=truth_cache,
+                    n_iters_override=iters, isg_pretrain_override=isg_iters, seed=0, **kw)
+            sync()
+            runs_d[label]["wall_s"] = time.perf_counter() - t
         # (a) and (c) on one launched group
         t = time.perf_counter()
         with stdout_to_stderr():
@@ -1049,6 +1074,28 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
                     "steps": halo_stage["steps"],
                     "ms": 1e3 * halo_stage["seconds"] / halo_stage["iters"]},
                 "wall_s": {k: r["wall_s"] for k, r in runs_b.items()}}
+    # (d) against no mesh
+    hd = {k: np.asarray(r["history"]) for k, r in runs_d.items()}
+    d_err = float(np.max(np.abs(hd["gspmd"] - hd["single"]) / np.abs(hd["single"])))
+    sends_d = runs_d["gspmd"]["halo_exchange"]["sends"]
+    cut = spmd_mesh.devices.size > 1
+    check(len(hd["gspmd"]) == iters and bool(np.isfinite(hd["gspmd"]).all())
+          and d_err <= 1e-4 and bool(np.isfinite(runs_d["gspmd"]["rel_l2"]))
+          and runs_d["gspmd"]["params"]["cell"]["diff"].device == dev
+          and (sends_d > 0) == cut,
+          f"spmd (d): gspmd Burgers losses {hd['gspmd'].tolist()} vs {hd['single'].tolist()} "
+          f"(rtol 1e-4), rel_l2 {runs_d['gspmd']['rel_l2']}, rank 0's halo sends {sends_d} "
+          f"on a mesh of {spmd_mesh.devices.size}")
+    out["d"] = {"experiment": dexp.name, "kernel_size": dexp.cell.kernel_size,
+                "grid": dexp.grid, "steps": burgers_t, "iters": iters,
+                "history": {k: v.tolist() for k, v in hd.items()},
+                "history_max_rel_err": d_err,
+                "rel_l2": {k: r["rel_l2"] for k, r in runs_d.items()},
+                "placements": runs_d["gspmd"]["placements"],
+                "halo_exchange_rank0": runs_d["gspmd"]["halo_exchange"],
+                "ms_per_iter": {k: 1e3 * r["seconds"]["stages"][0]["seconds"] / iters
+                                for k, r in runs_d.items()},
+                "wall_s": {k: r["wall_s"] for k, r in runs_d.items()}}
     # (c) against the unsharded ensemble, each rank's launches exact: its
     # members' batched forward and pg adjoint once an iteration (rows 11,
     # 13) and each member's evaluation (row 1) by batched_pg; each

@@ -1,15 +1,18 @@
-"""The collectives of the port's gspmd route, counted: one GS2D training
-loss and its backward at full width (100 x 100, the golden-free random
-init) on a 2 x 2 mesh of CPU ranks (gloo), at T = 1 and T = 2, so that the
+"""The traffic of the port's gspmd route, counted: one GS2D training loss
+and its backward at full width (100 x 100, the golden-free random init) on
+a 2 x 2 mesh of CPU ranks (gloo), at T = 1 and T = 2, so that the
 difference is one step's.  Every collective DTensor issues is seen by a
-dispatch mode in each rank (the op, the bytes of its input on the rank,
-and its group's size); rank 0 prints one JSON line.
+dispatch mode in each rank (the op and the bytes of its input on the
+rank); the halo exchange's point-to-point sends (ops/spmd_halo.py: the
+periodic rolls and pads along cut dims) are its own counts, under
+"halo_exchange".  Rank 0 prints one JSON line.
 
     PYTHONPATH=. python examples/gspmd_traffic.py [--steps 1 2] [--mesh 2 2]
 
 The traffic is the same on any device (it follows the placements), so this
-runs on the CPU.  The bytes are those each rank hands to a collective: an
-all-gather of a B-byte block moves B to each of the other g - 1 ranks.
+runs on the CPU.  The bytes are those each rank hands to a collective (an
+all-gather of a B-byte block moves B to each of the other g - 1 ranks) or
+sends to a neighbour.
 """
 
 from __future__ import annotations
@@ -25,13 +28,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def traffic(steps: tuple, mesh) -> dict:
     """On every rank: the collectives of the gspmd loss and its backward
-    at each T in `steps`, by op: calls and bytes handed in."""
+    at each T in `steps`, by op, and the halo exchange's sends: calls and
+    bytes handed in."""
     import torch
     from torch.distributed.tensor import DTensor
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from percnn_tpu_torch.experiments import runner
     from percnn_tpu_torch.experiments.configs import GS2D_RECON
+    from percnn_tpu_torch.ops import spmd_halo
     from percnn_tpu_torch.parallel import replicate, spmd
 
     class Counting(TorchDispatchMode):
@@ -63,10 +68,12 @@ def traffic(steps: tuple, mesh) -> dict:
         loss_fn = spmd.implicitly_replicated(runner.build_loss_fn(
             runner.spmd_problem(prob, mesh), t,
             rollout_fn=runner.make_mesh_rollout_fn(prob, t, mesh, impl="gspmd")))
+        spmd_halo.sends = spmd_halo.bytes_sent = 0
         with Counting() as mode:
             total, _ = loss_fn(params)
             total.backward()
-        out[t] = dict(mode.ops)
+        out[t] = {**mode.ops, "halo_exchange": {"calls": spmd_halo.sends,
+                                                "bytes": spmd_halo.bytes_sent}}
     return out
 
 

@@ -6,7 +6,9 @@
     python3 examples/spmd_phase.py --cpu       # four gloo ranks on the CPU, shrunk
 
 With four cards (or four CPU ranks) each ensemble rank holds one of the
-four members, and the phase checks each rank's launches.  On the CPU the
+four members, and the phase checks each rank's launches; the GS2D and
+Burgers gspmd runs cut their 100 x 100 grids into 50 x 50 blocks, whose
+halos cross the cards (part (d) checks that rank 0 sent them).  On the CPU the
 wrappers run their plain versions, so every count must be 0, and the
 configuration is cut to a 16 x 16 grid and a few steps.  The script checks
 that the phase ran on as many ranks as the meshes have positions, prints
@@ -38,17 +40,20 @@ def main() -> int:
     import torch
 
     from percnn_tpu_torch.bridge import unflatten_dotted
-    from percnn_tpu_torch.experiments.configs import GS2D_RECON
+    from percnn_tpu_torch.experiments.configs import BURGERS_STAGE1, GS2D_RECON
     from percnn_tpu_torch.parallel import make_mesh
 
     sys.modules["matplotlib"] = None   # as in chip_smoke.py before its viz phase
     sizes = {}
-    exp = GS2D_RECON
+    exp, burgers = GS2D_RECON, BURGERS_STAGE1
     if cpu:
         devices = [torch.device("cpu")] * 4
         exp = dataclasses.replace(exp, grid=16, train_steps=8, infer_steps=10, curriculum=(),
                                   data=dataclasses.replace(exp.data, time_stride=2))
-        sizes = dict(steps=6, stage_t=8, iters=2, ens_iters=2, isg_iters=5, eval_steps=10)
+        burgers = dataclasses.replace(burgers, grid=16,
+                                      data=dataclasses.replace(burgers.data, time_stride=2))
+        sizes = dict(steps=6, stage_t=8, iters=2, ens_iters=2, isg_iters=5, eval_steps=10,
+                     burgers_t=6)
         smi = "cpu"
     else:
         from percnn_tpu_torch.ops.kernels import _build
@@ -57,7 +62,8 @@ def main() -> int:
             raise SystemExit(f"--cards {cards}: {torch.cuda.device_count()} CUDA devices")
         devices = [torch.device("cuda", i) for i in range(cards)]
         with concurrent.futures.ThreadPoolExecutor(4) as pool:
-            list(pool.map(_build.load_library, ("cell2d", "backward2d", "batched2d", "adj2d")))
+            list(pool.map(_build.load_library, ("cell2d", "backward2d", "batched2d", "adj2d",
+                                                "cell2d_kxk", "backward2d_kxk")))
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip().splitlines()[0]
@@ -67,7 +73,7 @@ def main() -> int:
     with np.load(chip_smoke.GOLDEN) as z:
         cell_np = unflatten_dotted({k: z[k] for k in z.files}, "cell.")
     out = chip_smoke.spmd_phase(devices[0], spmd_mesh, data_mesh, cell_np=cell_np,
-                                halo_stage=None, exp=exp, **sizes)
+                                halo_stage=None, exp=exp, burgers=burgers, **sizes)
     chip_smoke.check(out["world_size"] == n
                      and all(len(c["launches_by_rank"]) == n for c in out["c"].values()),
                      f"the phase ran on {out['world_size']} ranks, the meshes have {n} positions")

@@ -56,6 +56,8 @@ from percnn_tpu_torch.core.train import pretrain_isg, train
 from percnn_tpu_torch.data.noise import add_noise
 from percnn_tpu_torch.data.simulate import default_ic, simulate
 from percnn_tpu_torch.experiments.configs import ExperimentConfig
+from percnn_tpu_torch.ops import spmd_halo
+from percnn_tpu_torch.ops.stencils import STENCIL_HALO
 from percnn_tpu_torch.ops.kernels.backward2d import fused_rollout_tp_2d, fused_rollout_tp_2d_pg
 from percnn_tpu_torch.ops.kernels.backward3d import fused_rollout_tp_3d, fused_rollout_tp_3d_pg
 from percnn_tpu_torch.ops.kernels.cell2d import fused_rollout_2d
@@ -228,9 +230,11 @@ def make_mesh_rollout_fn(prob: Problem, n_steps: int, mesh, *, impl: str = "halo
       'gspmd' -- the eager model on DTensors, run on every rank of a process
                  group of one rank a mesh position: the initial state placed
                  P(*axes, None), the rollout of pi_cell_step with remat, the
-                 frames P(None, *axes, None).  DTensor places the
-                 collectives: a periodic roll along a cut dim gathers it, and
-                 the loss's means reduce across ranks.  The Problem's arrays
+                 frames P(None, *axes, None).  Any cell: the periodic
+                 rolls and the k x k branches' circular pads trade halos
+                 with the neighbouring ranks (ops/spmd_halo.py, XLA's
+                 collective-permute), and DTensor reduces the loss's means
+                 across ranks.  The Problem's arrays
                  become DTensors on the mesh here, once (``spmd_problem``),
                  unless they already are.  Outside a process group,
                  rollout_fn(params) runs the rollout on the mesh's ranks
@@ -266,18 +270,25 @@ def make_mesh_rollout_fn(prob: Problem, n_steps: int, mesh, *, impl: str = "halo
 
 def _mesh_axes(exp: ExperimentConfig, spatial: tuple, mesh) -> tuple:
     """The mesh axes that cut the grid dims `spatial` (its first ndim);
-    each must divide its dim."""
+    each must divide its dim into blocks at least as thick as the halo a
+    block hands on (the stencils' 2 cells, a k x k branch's k // 2)."""
     nd = exp.cell.ndim
     axis_names = tuple(mesh.axis_names)[:nd]
     if len(axis_names) != nd:
         raise ValueError(
             f"mesh {tuple(mesh.axis_names)} has fewer axes than the "
             f"{nd}D experiment {exp.name!r}")
+    halo = max(STENCIL_HALO, exp.cell.kernel_size // 2)
     for n, a in zip(spatial, axis_names):
         if n % mesh.shape[a]:
             raise ValueError(
                 f"grid axis {a}={n} not divisible by mesh axis "
                 f"{a}={mesh.shape[a]} for experiment {exp.name!r}")
+        if n // mesh.shape[a] < halo:
+            raise ValueError(
+                f"grid axis {a}={n} cut by mesh axis {a}={mesh.shape[a]} leaves blocks of "
+                f"{n // mesh.shape[a]} cells, thinner than the {halo}-cell halo each "
+                f"hands on, for experiment {exp.name!r}")
     return axis_names
 
 
@@ -303,9 +314,11 @@ def gspmd_rollout_fn(dprob: Problem, n_steps: int, dmesh, state_p: tuple, frames
 
 def replicated_isg(params: dict, h_low, cfg) -> torch.Tensor:
     """isg_apply on DTensors, run whole on every rank
-    (spmd.replicated_local): a replicated DTensor out.  PyTorch 2.11 takes
-    a DTensor convolution only cut along W, so the gspmd route does not
-    partition the ISG."""
+    (spmd.replicated_local): a replicated DTensor out.  Its input, the
+    low-res IC, is replicated (``spmd_problem``) and it runs once an
+    iteration, off the rollout's T steps: run whole, its forward needs no
+    collective, where cutting it would need halos of the coarse grid
+    through its transposed convs, which ops/spmd_halo does not move."""
     return spmd.replicated_local(lambda p, x: isg_apply(p, x, cfg), params, h_low)
 
 
@@ -634,9 +647,10 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     only rank 0 writes the log, checkpoints and figures; after training
     each rank gathers the parameters and evaluates, and rank 0's result
     comes back (under torchrun, each rank's) with the parameters on
-    `device` and the placements DTensor gave the frames and the loss
-    under ``placements``.  Either way evaluation and serving take the
-    returned parameters as they are.
+    `device`, the placements DTensor gave the frames and the loss under
+    ``placements``, and the rank's halo sends and bytes in training
+    (ops/spmd_halo.py) under ``halo_exchange``.  Either way evaluation and
+    serving take the returned parameters as they are.
 
     isg_params_path: a checkpoint of the ISG alone (``save_checkpoint``'s
     format, which both packages read).  When the file exists, the ISG is
@@ -662,8 +676,9 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
             warmup=warmup, steps_per_call=steps_per_call, resume=resume, seed=seed,
             device=dev, mesh=mesh, parallel_impl=parallel_impl,
             isg_params_path=isg_params_path, expressions=False)
-        result = spmd.launch(run, mesh, exp, libraries=_mesh_libraries(
-            mesh, ("cell2d",) if exp.cell.ndim == 2 else ("cell3d",)))
+        evaluation = ("cell3d" if exp.cell.ndim == 3 else
+                      "cell2d" if exp.cell.kernel_size == 1 else "cell2d_kxk")
+        result = spmd.launch(run, mesh, exp, libraries=_mesh_libraries(mesh, (evaluation,)))
         result["params"] = params_from_numpy(result["params"], device=dev)
         result.update(_pi_expressions(exp, result["params"]))
         return result
@@ -752,6 +767,8 @@ def _run_experiment(exp: ExperimentConfig, *, out_dir: str, cache_dir: str | Non
     history: list = []
     last_stage_history: list = []
     placements: dict = {}   # gspmd: what DTensor gave the frames and the loss
+    if gspmd:
+        spmd_halo.sends = spmd_halo.bytes_sent = 0   # the result counts training's
     for i, steps in enumerate(stages):
         if i < start_stage:
             continue
@@ -802,7 +819,10 @@ def _run_experiment(exp: ExperimentConfig, *, out_dir: str, cache_dir: str | Non
         _export_viz(exp, prob, params, metrics, truth, out_dir)
         seconds["viz"] = time.perf_counter() - t0
     result = {"params": params, "history": history, **metrics, **selection,
-              "seconds": seconds, **({"placements": placements} if gspmd else {})}
+              "seconds": seconds,
+              **({"placements": placements,
+                  "halo_exchange": {"sends": spmd_halo.sends, "bytes": spmd_halo.bytes_sent}}
+                 if gspmd else {})}
     if expressions:
         result.update(_pi_expressions(exp, params))
     # truth-free convergence telemetry: the minimum training loss of the

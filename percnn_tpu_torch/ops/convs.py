@@ -7,6 +7,9 @@ convs run in full float32 (``full_f32``): cuDNN would take them to TF32.
 The weight gradient of the 2D convs (the k x k Pi branches, periodic or
 VALID) is one FFMA matrix product of the output cotangent with the im2col
 stack of the input (``_Conv2d``), not cuDNN's weight-grad convolution.
+A DTensor cut along its grid (the gspmd route) takes the periodic convs
+block by block: each rank's block padded from its neighbours
+(ops/spmd_halo.py), then the same VALID conv on plain tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from percnn_tpu_torch._device import full_f32, is_dtensor
+from percnn_tpu_torch._device import distribute, full_f32, is_dtensor
+from percnn_tpu_torch.ops import spmd_halo
 
 _CONV = {2: F.conv2d, 3: F.conv3d}
 
@@ -79,6 +83,8 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     nd = w.ndim - 2
     if nd not in _CONV:
         raise ValueError(f"the convs take a 2D or 3D kernel, got weight {tuple(w.shape)}")
+    if wrap and is_dtensor(x):
+        return _conv_periodic_dtensor(x, w, b)
     lead = tuple(x.shape[:-1 - nd])
     xb = x.reshape((-1,) + tuple(x.shape[-1 - nd:])).movedim(-1, 1)
     if wrap:
@@ -94,6 +100,40 @@ def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
             y = _CONV[nd](xb, wt, b)
     y = y.movedim(1, -1)
     return y.reshape(lead + tuple(y.shape[1:]))
+
+
+def _conv_periodic_dtensor(x, w, b):
+    """The periodic conv of a DTensor x (the gspmd route), as XLA's SPMD
+    partitioner runs it: each rank's block wrap-padded across the ring of
+    blocks (ops/spmd_halo.pad_periodic), then the VALID conv of plain
+    tensors on every rank, the output placed as x.  The weight and bias are
+    taken whole, their gradients partial sums over the mesh dims that cut
+    x (core/train and make_train_step_spmd reduce them to the parameter's
+    placement); a plain weight counts as replicated."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    nd = w.ndim - 2
+    mesh, place = x.device_mesh, tuple(x.placements)
+    if not all(isinstance(p, Replicate) or (isinstance(p, Shard) and p.dim % x.ndim < x.ndim - 1)
+               for p in place):
+        raise ValueError(f"a periodic conv takes a DTensor replicated or cut along its "
+                         f"grid or batch dims, got {place}")
+    grad_place = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in place)
+    rep = (Replicate(),) * mesh.ndim
+
+    def whole(t):
+        if t is None:
+            return None
+        t = distribute(t, mesh, rep) if is_dtensor(t) else DTensor.from_local(t, mesh, rep)
+        return t.to_local(grad_placements=grad_place)
+
+    first = x.ndim - 1 - nd
+    xp = spmd_halo.pad_periodic(x, {first + i: (k // 2, (k - 1) // 2)
+                                    for i, k in enumerate(w.shape[:nd])})
+    y = _conv(xp, whole(w), whole(b), wrap=False)
+    shape = torch.Size(tuple(x.shape[:-1]) + (w.shape[-1],))
+    return DTensor.from_local(y, mesh, place, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def conv_nd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:

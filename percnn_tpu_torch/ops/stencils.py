@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 
 from percnn_tpu_torch._device import is_dtensor
+from percnn_tpu_torch.ops import spmd_halo
 
 # 1D second-derivative cross-section of the 4th-order Laplacian, offsets -2..2.
 LAP_CROSS_1D = (-1.0 / 12.0, 4.0 / 3.0, -5.0 / 2.0, 4.0 / 3.0, -1.0 / 12.0)
@@ -28,21 +29,13 @@ STENCIL_HALO = 2
 
 
 def periodic_roll(u: torch.Tensor, shift: int, dim: int) -> torch.Tensor:
-    """torch.roll along one dim.  A DTensor (the gspmd route) is first made
-    whole along `dim` (the mesh dims that cut it replicate: an all-gather),
-    then each rank rolls its block, which stays cut along the other dims,
-    as PyTorch 2.13's own rule for roll does.  PyTorch 2.11 has no rule for
-    roll; this spells the placements out instead of registering one."""
-    if not is_dtensor(u):
-        return torch.roll(u, shift, dims=dim)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-
-    d = dim % u.ndim
-    place = tuple(Replicate() if isinstance(p, Shard) and p.dim == d else p
-                  for p in u.placements)
-    whole = u.redistribute(u.device_mesh, place)
-    return DTensor.from_local(torch.roll(whole.to_local(), shift, dims=d), u.device_mesh,
-                              place, shape=whole.shape, stride=whole.stride())
+    """torch.roll along one dim.  A DTensor (the gspmd route) keeps its
+    placements: along a cut dim each rank takes |shift| planes from its
+    neighbour in the ring (ops/spmd_halo.roll, XLA's collective-permute),
+    and rolls its own block where the dim is whole."""
+    if is_dtensor(u):
+        return spmd_halo.roll(u, shift, dim)
+    return torch.roll(u, shift, dims=dim)
 
 
 def _shifted_sum(u: torch.Tensor, coeffs: Sequence[float], dim: int) -> torch.Tensor:

@@ -74,3 +74,87 @@ def spmd_fit_step(params: dict, h0: torch.Tensor, target: torch.Tensor, cfg: PiC
         tx, mesh)
     new, _, total, _ = step(params, tx.init(params), batch, lr)
     return tree_map(full, new), full(total)
+
+
+def halo_against_whole(cases: list, mesh, widths: tuple = (1, 2), seed: int = 0) -> list:
+    """ops/spmd_halo against the same ops on whole tensors, on every rank,
+    for each case (x [*spatial, C], spec): x placed `spec` on `mesh`; for
+    each width w, ``pad_periodic`` by (w, w) on every spatial dim against
+    this rank's window of ``F.pad(mode="circular")``, and ``roll`` by +-w
+    along each spatial dim against ``torch.roll``.  Each forward is
+    compared to the bit; each adjoint is the backward of numpy-seeded
+    cotangents (one a rank's window for the pad, one whole for the roll)
+    against plain autograd of the whole op, as the largest gap.  Also
+    pad_periodic's ValueError for a pad thicker than a block, raised before
+    any send.  Returns, for each case, every rank's dict of results."""
+    import torch.distributed as dist
+
+    out = []
+    for x, spec in cases:
+        got = _halo_case(x, spec, mesh, widths, seed)
+        gathered = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, got)
+        out.append(gathered)
+    return out
+
+
+def _halo_case(x: torch.Tensor, spec: P, mesh, widths: tuple, seed: int) -> dict:
+    import itertools
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from percnn_tpu_torch.ops import spmd_halo
+    from percnn_tpu_torch.parallel.spmd import device_mesh, distribute, placements
+
+    dmesh = device_mesh(mesh)
+    place = placements(mesh, spec)
+    x = x.to(rank_device(mesh))
+    xd = distribute(x, dmesh, place)
+    nd = x.ndim - 1
+
+    def window(coord, w):
+        """A rank's padded block within F.pad of the whole x."""
+        sl = []
+        for d in range(nd):
+            cut = [i for i, p in enumerate(place) if getattr(p, "dim", None) == d]
+            b = x.shape[d] // (dmesh.size(cut[0]) if cut else 1)
+            o = coord[cut[0]] * b if cut else 0
+            sl.append(slice(o, o + b + 2 * w))
+        return tuple(sl)
+
+    def cotangent(shape, key):
+        rs = np.random.RandomState(seed + key)
+        return torch.as_tensor(rs.standard_normal(tuple(shape)), dtype=x.dtype, device=x.device)
+
+    out = {}
+    me = tuple(dmesh.get_coordinate())
+    coords = list(itertools.product(*[range(s) for s in dmesh.shape]))
+    for w in widths:
+        xl = xd.detach().requires_grad_(True)
+        got = spmd_halo.pad_periodic(xl, {d: (w, w) for d in range(nd)})
+        xw = x.detach().clone().requires_grad_(True)
+        whole = F.pad(xw.movedim(-1, 0)[None], [w] * (2 * nd), mode="circular")[0].movedim(0, -1)
+        out[f"pad{w}"] = bool(torch.equal(got, whole[window(me, w)]))
+        cts = {c: cotangent(whole[window(c, w)].shape, k) for k, c in enumerate(coords)}
+        sum(((whole[window(c, w)] * ct).sum() for c, ct in cts.items())).backward()
+        (got * cts[me]).sum().backward()
+        out[f"pad{w}_adjoint"] = float((full(xl.grad) - xw.grad).abs().max())
+        for d in range(nd):
+            for s in (w, -w):
+                xl = xd.detach().requires_grad_(True)
+                r = spmd_halo.roll(xl, s, d)
+                xw = x.detach().clone().requires_grad_(True)
+                rw = torch.roll(xw, s, d)
+                out[f"roll{s:+d}@{d}"] = (bool(torch.equal(full(r), rw))
+                                          and tuple(r.placements) == tuple(place))
+                ct = cotangent(x.shape, 100 + d)
+                (rw * ct).sum().backward()
+                (r * distribute(ct, dmesh, place)).sum().backward()
+                out[f"roll{s:+d}@{d}_adjoint"] = float((full(xl.grad) - xw.grad).abs().max())
+    try:
+        spmd_halo.pad_periodic(xd, {d: (x.shape[d], 0) for d in range(nd)})
+        out["thick_pad"] = None
+    except ValueError as e:
+        out["thick_pad"] = str(e)
+    return out

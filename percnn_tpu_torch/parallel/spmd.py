@@ -24,10 +24,10 @@ collectives, as XLA does.
   all of them the same value; only rank 0 (``is_writer``) writes files.
   These reads live in _device.py, below ``core``, and are named here too.
 
-A periodic roll along a cut dim gathers that dim
-(``ops/stencils.periodic_roll``): where XLA moves a halo by a
-collective-permute, DTensor all-gathers.  The numbers agree; the traffic
-is the whole dim.
+Along a cut dim, a periodic roll or a k x k branch's circular pad trades
+halos with the neighbouring ranks by point-to-point sends
+(``ops/spmd_halo.py``), as XLA's collective-permute does; the dim stays
+cut.
 """
 
 from __future__ import annotations
@@ -71,6 +71,9 @@ class P(tuple):
 
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
+
+    def __getnewargs__(self):
+        return tuple(self)   # pickle (a launch's arguments) rebuilds P(*entries)
 
     def __repr__(self) -> str:
         return f"P{tuple.__repr__(self)}"
@@ -156,9 +159,7 @@ def replicated_local(fn: Callable, *args):
     """fn run whole on every rank: its DTensor arguments gathered (a
     replicated one is already whole) and passed as plain tensors, its
     tensor outputs replicated DTensors on their mesh (differentiable both
-    ways).  For a part of a model that DTensor cannot place in every
-    release: PyTorch 2.11 takes a DTensor convolution only cut along W at
-    stride 1, so the ISG runs so."""
+    ways).  The ISG runs so (``runner.replicated_isg``)."""
     from torch.distributed.tensor import DTensor, Replicate
 
     meshes = []
