@@ -328,6 +328,15 @@ figures.  Phases, one JSON line each with the seconds since start:
                (ops/spmd_halo.py: none on one position); ms per iteration
                beside the single-device runs' and train_mesh's halo
                iteration at T = 200
+  full_runs    examples/full_runs_torch.py --smoke in this process: its four
+               tasks (run_experiment(GS2D_RECON) and run_ensemble(GS2D_RECON,
+               4); run_discovery_pipeline of LO_STAGE1 at 20% noise;
+               run_experiment_with_restarts(GS3D_RECON) with one restart;
+               run_discovery_pipeline(BURGERS_STAGE1)) at full width, a few
+               iterations each, their truths in a temp cache; each row's
+               fields, its rel-L2 finite, its cuts listed, and each task's
+               launches of the kernel rows its path takes (1 and 7; 3 and 6;
+               8 and 10; 3 and 6) above 0
   train_ensemble_parity  run_ensemble on the card against the CPU (plain
                versions), 32 x 32, T = 20, M = 2, 3 iterations, both batched
                modes
@@ -4388,6 +4397,57 @@ def main() -> int:
                           make_mesh(("data",), shape=(1,), devices=[dev]), cell_np=model["cell"],
                           halo_stage=mesh_res["mesh"]["seconds"]["stages"][0])
     phase("spmd", **spmd_out, nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+
+    # full_runs: examples/full_runs_torch.py, the full-budget driver, with
+    # --smoke on the card: its four tasks at full width, a few iterations
+    # each (every cut named in the row's "reduced"); each row's fields, its
+    # rel-L2 finite, and each task's launches of the kernel rows its path
+    # takes (the driver zeroes the counters before each task)
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "full_runs_torch", os.path.join(ROOT, "examples", "full_runs_torch.py"))
+    full_runs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(full_runs)
+    fr_dir = tempfile.mkdtemp(prefix="chip_smoke_full_runs_")
+    try:
+        with contextlib.redirect_stdout(sys.stderr):
+            fr_rc = full_runs.main(["--smoke", "--out", os.path.join(fr_dir, "out"),
+                                    "--cache", os.path.join(fr_dir, "cache")])
+        with open(os.path.join(fr_dir, "out", "rows.jsonl")) as f:
+            fr_rows = [json.loads(line) for line in f]
+    finally:
+        shutil.rmtree(fr_dir, ignore_errors=True)
+    check(fr_rc == 0 and [r["tag"] for r in fr_rows] == list(full_runs.TASKS),
+          f"full_runs: rc {fr_rc}, tasks {[r['tag'] for r in fr_rows]}")
+    fr_out = {}
+    for row in fr_rows:
+        tag = row["tag"]
+        check(row["ok"], f"full_runs {tag}: {row.get('error')} {row.get('traceback')}")
+        check(row["device"] == "cuda" and row["card"] == smi and row["smoke"]
+              and row["reduced"], f"full_runs {tag}: device, card or reduced: {row}")
+        if tag == "gs2d":
+            rel = [row["run"]["rel_l2"], *row["ensemble"]["rel_l2_members"]]
+            check(all(set(part["seconds"]) >= {"truth", "isg_pretrain", "stages", "evaluate"}
+                      for part in (row["run"], row["ensemble"])), "full_runs gs2d: seconds")
+        elif tag == "gs3d":
+            rel = [r["rel_l2"] for r in row["by_seed"].values()]
+            check(all(r["attempts"] and r["candidate"] in ("best", "latest", "stable")
+                      and r["events"]["counts"].get("probe")
+                      for r in row["by_seed"].values()), "full_runs gs3d: ladder, probe")
+        else:
+            rel = [row["stage1"]["rel_l2"], row["stage3"]["rel_l2"]]
+            check(all(set(row["stage2"][eq]) >= {"support", "precision", "recall",
+                                                 "coef_rel_l2"} for eq in ("u", "v"))
+                  and set(row["seconds"]) == {"stage1", "stage2", "stage3"},
+                  f"full_runs {tag}: stage 2 fields or seconds")
+        check(all(isinstance(x, float) and np.isfinite(x) for x in rel),
+              f"full_runs {tag}: rel-L2 not finite: {rel}")
+        launched = row["launches"]["rows"]
+        check(all(launched.get(str(r), 0) > 0 for r in row["path_rows"]),
+              f"full_runs {tag}: rows {row['path_rows']} launched {launched}")
+        fr_out[tag] = {"rel_l2": rel, "launches_by_row": launched,
+                       "wall_seconds": row["wall_seconds"], "reduced": row["reduced"]}
+    phase("full_runs", tasks=fr_out, seconds=time.perf_counter() - t_phase)
 
     # train_ensemble_parity: ensemble training on the card against the CPU
     # (the plain versions), both batched modes

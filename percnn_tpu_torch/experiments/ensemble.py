@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import time
 
 import numpy as np
 import torch
@@ -161,7 +162,9 @@ def run_ensemble(
     bptt: 'auto' (auto_bptt), or one of BPTT_MODES (build_ensemble_loss_fn).
     The checkpoint (``<out_dir>/<name>.ens.ckpt.npz``) holds the stacked
     params; the log is ``<name>.ens.metrics.jsonl``.  Returns the params,
-    the loss history and the members' rel-L2 with its mean and spread.
+    the loss history and the members' rel-L2 with its mean and spread; on
+    one device also ``seconds``, the host seconds of each phase (truth, ISG
+    pretrain, each stage, evaluation), as run_experiment's.
 
     mesh: a parallel.Mesh whose first device is `device`; the run goes
     through parallel.launch, one rank a mesh position (``_run_sharded``).
@@ -205,7 +208,10 @@ def run_ensemble(
                            echo_every=exp.train.log_every)
     if warmup is None:
         warmup = 100 if exp.system == "lambda_omega" else 0
+    seconds: dict = {"stages": []}
+    t0 = time.perf_counter()
     truth = make_dataset(exp, warmup=warmup, cache_dir=cache_dir, device=dev)
+    seconds["truth"] = time.perf_counter() - t0
 
     problems, params_list = [], []
     for k in range(n_members):
@@ -223,8 +229,10 @@ def run_ensemble(
             return torch.stack([build_isg_pretrain_loss(problems[m])(_member(isg_params, m))
                                 for m in range(n_members)]).mean()
 
+        t0 = time.perf_counter()
         params["isg"] = pretrain_isg(ens_isg_loss, params["isg"], n_iters=n_pre,
                                      logger=logger, device=dev)
+        seconds["isg_pretrain"] = time.perf_counter() - t0
 
     stages = list(exp.curriculum) + [exp.train_steps]
     n_total = n_iters_override if n_iters_override is not None else exp.train.n_iters
@@ -237,19 +245,25 @@ def run_ensemble(
             ckpt_path=os.path.join(out_dir, f"{exp.name}.ens.ckpt.npz"),
             **({"steps_per_call": steps_per_call} if steps_per_call else {}),
         )
+        t0 = time.perf_counter()
         params, h = train(build_ensemble_loss_fn(exp, problems, steps, bptt), params, tcfg,
                           logger=logger, device=dev)
+        seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,
+                                  "seconds": time.perf_counter() - t0})
         history.extend(h)
 
     n_eval = min(exp.infer_steps, truth.shape[0] - 1)
+    t0 = time.perf_counter()
     rel = np.asarray([evaluate(_member(params, k), problems[k], n_eval)["rel_l2"]
                       for k in range(n_members)])
+    seconds["evaluate"] = time.perf_counter() - t0
     result = {
         "params": params,
         "history": history,
         "rel_l2_members": rel.tolist(),
         "rel_l2_mean": float(rel.mean()),
         "rel_l2_std": float(rel.std()),
+        "seconds": seconds,
     }
     logger.log(n_total, rel_l2_mean=result["rel_l2_mean"], rel_l2_std=result["rel_l2_std"])
     logger.close()
