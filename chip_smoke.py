@@ -328,15 +328,16 @@ figures.  Phases, one JSON line each with the seconds since start:
                (ops/spmd_halo.py: none on one position); ms per iteration
                beside the single-device runs' and train_mesh's halo
                iteration at T = 200
-  full_runs    examples/full_runs_torch.py --smoke in this process: its four
+  full_runs    examples/full_runs_torch.py --smoke in this process: its five
                tasks (run_experiment(GS2D_RECON) and run_ensemble(GS2D_RECON,
                4); run_discovery_pipeline of LO_STAGE1 at 20% noise;
                run_experiment_with_restarts(GS3D_RECON) with one restart;
-               run_discovery_pipeline(BURGERS_STAGE1)) at full width, a few
-               iterations each, their truths in a temp cache; each row's
-               fields, its rel-L2 finite, its cuts listed, and each task's
-               launches of the kernel rows its path takes (1 and 7; 3 and 6;
-               8 and 10; 3 and 6) above 0
+               run_discovery_pipeline(BURGERS_STAGE1); run_experiment(
+               FORWARD_SIM_LO) in f64) at full width, a few iterations each,
+               their truths in a temp cache; each row's fields, its rel-L2
+               finite, its cuts listed, and each task's launches of the
+               kernel rows its path takes (1 and 7; 3 and 6; 8 and 10; 3 and
+               6; none) above 0
   train_ensemble_parity  run_ensemble on the card against the CPU (plain
                versions), 32 x 32, T = 20, M = 2, 3 iterations, both batched
                modes
@@ -345,6 +346,19 @@ figures.  Phases, one JSON line each with the seconds since start:
                "auto" (the per-member loop): host and device ms, enqueue,
                launches and steps, and the device's idle share from a
                torch.profiler trace
+  train_graph  whole training iterations replayed as CUDA graphs
+               (core/graph.py) against the same step run eagerly
+               (train(graph=False)), full width: GS2D at T = 200, 400, 800,
+               the M = 4 GS2D ensemble at T = 800 (batched_pg and auto),
+               GS3D at 150 and 300 (watchdog and probe on), Burgers at 200
+               and lambda-omega Stage 3 at 200, 6 iterations (Stage 3: 3)
+               from one init on the same data: histories and params at
+               rtol 1e-4, launch and step counts, watchdog events and probe
+               scores equal; each iteration's ms, enqueue, device span and
+               idle share graphed and eager in turns, the capture's
+               seconds; the GS2D truth graphed (2500 frames) against the
+               eager loop's first 500 (to the bit, seconds each); the ISG
+               pretrain's ms a step in turns
   times        each kernel's and its plain version's ms at the main path's
                shapes, beside the card's bound for the same work (rows 1
                (k = 1 and 5), 2 (k = 1, and k = 5 by both MXU routes), 3, 4
@@ -923,6 +937,272 @@ def stdout_to_stderr():
         sys.stdout.flush()
         os.dup2(saved, 1)
         os.close(saved)
+
+
+GRAPH_ITERS = 6            # train_graph: each configuration's train() in chunks of 3
+GRAPH_STAGE3_ITERS = 3     # train_graph: lambda-omega Stage 3's, one chunk
+GRAPH_EAGER_TRUTH = 500    # train_graph: frames of the eager GS2D truth (of 2500)
+GRAPH_REPS = 3             # train_graph: timed iterations a turn (Stage 3: 1)
+GRAPH_ISG_ITERS = 100      # train_graph: ISG pretrain steps a turn
+
+
+def train_graph_phase(dev) -> dict:
+    """train_graph: whole training iterations replayed as CUDA graphs
+    against the same step run eagerly (``train(graph=False)``), at full
+    width, for GS2D at T = 200, 400, 800, GS3D at 150 and 300 (watchdog and
+    probe on), Burgers at 200, the M = 4 GS2D ensemble at T = 800
+    (batched_pg and auto) and lambda-omega Stage 3 at T = 200: one init on
+    the same data through both, the loss histories and final params held
+    to each other at rtol 1e-4 (params: per leaf max|graphed - eager| <=
+    1e-4 max|eager|), launch and step counts equal, GS3D's watchdog events
+    and probe scores the same; then each iteration timed graphed and eager
+    in turns (eager, graphed, graphed, eager) from a state of its own, and
+    one more of each under torch.profiler for the idle share.  Also the
+    GS2D truth graphed (2500 frames, seconds) against the eager loop over
+    its first GRAPH_EAGER_TRUTH frames (to the bit, seconds) and the ISG
+    pretrain's ms a step in turns."""
+    import numpy as np
+    import torch
+
+    from percnn_tpu_torch._device import full_f32
+    from percnn_tpu_torch.bridge import params_from_numpy, params_to_numpy
+    from percnn_tpu_torch.core.checkpoint import flatten_with_paths
+    from percnn_tpu_torch.core.graph import Replayer, kernel_counters
+    from percnn_tpu_torch.core.train import TrainState, TrainStep, _trainable, pretrain_isg, train
+    from percnn_tpu_torch.data.simulate import default_ic, simulate
+    from percnn_tpu_torch.experiments import ensemble, runner, stage3
+    from percnn_tpu_torch.experiments.configs import (BURGERS_STAGE1, GS2D_RECON, GS3D_RECON,
+                                                      LO_STAGE1)
+    from percnn_tpu_torch.utils.metrics import MetricsLogger
+
+    counters = kernel_counters()
+
+    def zero():
+        for f, a in counters:
+            setattr(f, a, 0)
+
+    def counts():
+        return {f"{f.__name__}.{a}": getattr(f, a) for f, a in counters if getattr(f, a)}
+
+    out: dict = {}
+    # the GS2D truth graphed (it bears any first-use cost), then the eager
+    # loop over its first GRAPH_EAGER_TRUTH frames
+    n_truth = max(GS2D_RECON.train_steps, GS2D_RECON.infer_steps)
+    h0 = default_ic(GS2D_RECON.system, GS2D_RECON.grid, seed=GS2D_RECON.seed)
+    truths, truth_s = {}, {}
+    for mode, n in ((True, n_truth), (False, GRAPH_EAGER_TRUTH)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        truths[mode] = simulate(GS2D_RECON.system, h0, n, GS2D_RECON.dt, GS2D_RECON.dx,
+                                device=dev, graph=mode)
+        truth_s[mode] = time.perf_counter() - t
+    check(np.array_equal(truths[True][:GRAPH_EAGER_TRUTH + 1], truths[False]),
+          "the graphed GS2D truth differs from the eager one")
+    out["gs2d_truth"] = {"frames": n_truth, "graphed_s": truth_s[True],
+                         "eager_frames": GRAPH_EAGER_TRUTH, "eager_s": truth_s[False],
+                         "ms_per_frame": {"graphed": 1e3 * truth_s[True] / n_truth,
+                                          "eager": 1e3 * truth_s[False] / GRAPH_EAGER_TRUTH},
+                         "bitwise_equal": True}
+    truth2 = truths[True]
+    del truths
+
+    def model(exp, seed=0):
+        return params_to_numpy(runner.init_model(exp, torch.Generator().manual_seed(seed),
+                                                 device=dev))
+
+    def leaf_err(got, want):
+        return max(float(np.max(np.abs(g - w))) / max(float(np.max(np.abs(w))), 1e-30)
+                   for (_, g), (_, w) in zip(flatten_with_paths(got), flatten_with_paths(want)))
+
+    def agree(label, loss_fn, init, tcfg, *, loss_args=(), probe=None):
+        """train() graphed and eager from `init`; their histories, params,
+        counts, events and probe scores held to each other."""
+        res = {}
+        for mode in (True, False):
+            zero()
+            lg = MetricsLogger(None, echo_every=0)
+            scores: list = []
+            pr = None if probe is None else (lambda p: scores.append(probe(p)) or scores[-1])
+            ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_graph_")
+            try:
+                cfg_ = dataclasses.replace(tcfg, ckpt_path=os.path.join(ckpt_dir, "c.npz"))
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(sys.stderr):
+                    p, h = train(loss_fn, init, cfg_, logger=lg, probe=pr, loss_args=loss_args,
+                                 device=dev, graph=mode)
+                torch.cuda.synchronize()
+                res[mode] = {"params": params_to_numpy(p), "history": np.asarray(h),
+                             "counts": counts(), "scores": scores,
+                             "events": [{k: v for k, v in r.items()
+                                         if k not in ("time", "ema", "watch", "lr_scale")}
+                                        for r in lg.history if "event" in r],
+                             "seconds": time.perf_counter() - t}
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
+        g, e = res[True], res[False]
+        hist_err = float(np.max(np.abs(g["history"] - e["history"]) / np.abs(e["history"])))
+        par_err = leaf_err(g["params"], e["params"])
+        check(len(g["history"]) == tcfg.n_iters and bool(np.isfinite(g["history"]).all())
+              and np.allclose(g["history"], e["history"], rtol=1e-4, atol=0),
+              f"train_graph {label}: histories {g['history'].tolist()} vs "
+              f"{e['history'].tolist()}")
+        check(par_err <= 1e-4, f"train_graph {label}: params differ by {par_err} of the largest")
+        check(g["counts"] == e["counts"],
+              f"train_graph {label}: counts {g['counts']} vs {e['counts']}")
+        check(len(g["events"]) == len(e["events"]) and all(
+            sorted(a) == sorted(b) and all(
+                np.allclose(a[k], b[k], rtol=1e-4, atol=0, equal_nan=True)
+                if isinstance(b[k], float) else a[k] == b[k] for k in b)
+            for a, b in zip(g["events"], e["events"])),
+              f"train_graph {label}: events {g['events']} vs {e['events']}")
+        check(len(g["scores"]) == len(e["scores"])
+              and np.allclose(g["scores"], e["scores"], rtol=1e-4, atol=0, equal_nan=True),
+              f"train_graph {label}: probe scores {g['scores']} vs {e['scores']}")
+        return {"history_max_rel_err": hist_err, "params_max_rel_err": par_err,
+                "counts": g["counts"], "events": g["events"], "probe_scores": g["scores"],
+                "train_s": {"graphed": g["seconds"], "eager": e["seconds"]}}
+
+    def timed(loss_fn, init, tcfg, reps, *, loss_args=()):
+        """Steady iterations in turns (eager, graphed, graphed, eager), each
+        mode from a state of its own: medians of host ms to the synchronised
+        end, enqueue ms, device span by CUDA events; one more of each under
+        torch.profiler; the capture's seconds."""
+        runs = {}
+        with full_f32():
+            for mode in (False, True):
+                state = TrainState(_trainable(params_from_numpy(init, device=dev), dev), dev)
+                step = TrainStep(loss_fn, loss_args, state, tcfg, dev, 1)
+                run = Replayer(step, dev, mode)
+                # graphed: warm-up, then capture and replay (agree() has run
+                # the same loss eagerly, so the eager step needs no warm-up)
+                for _ in range(2 if mode else 0):
+                    step.begin(0, 1.0)
+                    run()
+                runs[mode] = (step, run)
+            samples = {False: [], True: []}
+            for mode in (False, True, True, False):
+                step, run = runs[mode]
+                for _ in range(reps):
+                    step.begin(0, 1.0)
+                    torch.cuda.synchronize()
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    t = time.perf_counter()
+                    start.record()
+                    run()
+                    end.record()
+                    enqueue_ms = 1e3 * (time.perf_counter() - t)
+                    torch.cuda.synchronize()
+                    samples[mode].append([1e3 * (time.perf_counter() - t), enqueue_ms,
+                                          start.elapsed_time(end)])
+            row = {}
+            for mode, name in ((True, "graphed"), (False, "eager")):
+                step, run = runs[mode]
+                med = np.median(np.asarray(samples[mode]), axis=0).tolist()
+                step.begin(0, 1.0)
+                prof = profile_busy(torch, run)
+                row[name] = {"iteration_ms": med[0], "enqueue_ms": med[1],
+                             "device_span_ms": med[2], "device_busy_ms": prof["device_busy_ms"],
+                             "device_events": prof["device_events"],
+                             "device_idle_share_of_span": 1.0 - prof["device_busy_ms"] / med[2]}
+            row["graphed"]["capture_s"] = runs[True][1].capture_seconds
+            for _, run in runs.values():
+                run.close()
+        return row
+
+    class Rows(dict):
+        def __setitem__(self, name, row):   # each row to stderr as it is done
+            print(f"train_graph {name}: {json.dumps(row, default=str)}", file=sys.stderr,
+                  flush=True)
+            super().__setitem__(name, row)
+
+    rows = Rows()
+    short = dict(n_iters=GRAPH_ITERS, steps_per_call=GRAPH_ITERS // 2, log_every=10 ** 9)
+    prob2 = runner.setup_problem(GS2D_RECON, truth2, device=dev)
+    init2 = model(GS2D_RECON)
+    for steps in list(GS2D_RECON.curriculum) + [GS2D_RECON.train_steps]:
+        loss_fn = runner.build_loss_fn(prob2, steps)
+        tcfg = dataclasses.replace(GS2D_RECON.train, **short)
+        rows[f"gs2d_T{steps}"] = {**agree(f"GS2D T = {steps}", loss_fn, init2, tcfg),
+                                  **timed(loss_fn, init2, tcfg, GRAPH_REPS)}
+    # the ensemble, M = 4 at T = 800, each member's data from the same truth
+    eprobs = [runner.setup_problem(dataclasses.replace(GS2D_RECON, seed=GS2D_RECON.seed + k),
+                                   truth2, device=dev) for k in range(ENS_MEMBERS)]
+    ens_init = params_to_numpy(ensemble._stack_trees(
+        [runner.init_model(GS2D_RECON, torch.Generator().manual_seed(k), device=dev)
+         for k in range(ENS_MEMBERS)]))
+    for mode in ("batched_pg", ensemble.auto_bptt(GS2D_RECON)):
+        loss_fn = ensemble.build_ensemble_loss_fn(GS2D_RECON, eprobs, GS2D_RECON.train_steps,
+                                                  mode)
+        tcfg = dataclasses.replace(GS2D_RECON.train, **short)
+        rows[f"ensemble_M{ENS_MEMBERS}_T{GS2D_RECON.train_steps}_{mode}"] = {
+            **agree(f"ensemble {mode}", loss_fn, ens_init, tcfg),
+            **timed(loss_fn, ens_init, tcfg, GRAPH_REPS)}
+    # the ISG pretrain: ms a step of GRAPH_ISG_ITERS steps, warm-up and
+    # capture included, in turns; the graphed ISG against the eager one
+    isg_loss = runner.build_isg_pretrain_loss(prob2)
+    isg_s, isg_out = {True: [], False: []}, {}
+    for mode in (False, True, True, False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        isg_out[mode] = pretrain_isg(isg_loss, init2["isg"], n_iters=GRAPH_ISG_ITERS,
+                                     device=dev, graph=mode)
+        torch.cuda.synchronize()
+        isg_s[mode].append(time.perf_counter() - t)
+    isg_err = leaf_err(params_to_numpy(isg_out[True]), params_to_numpy(isg_out[False]))
+    check(isg_err <= 1e-4, f"train_graph ISG pretrain: graphed and eager differ by {isg_err}")
+    out["isg_pretrain"] = {"steps": GRAPH_ISG_ITERS, "params_max_rel_err": isg_err,
+                           "ms_per_step": {("graphed" if m else "eager"):
+                                           [1e3 * x / GRAPH_ISG_ITERS for x in v]
+                                           for m, v in isg_s.items()}}
+    del eprobs, prob2, truth2
+    # GS3D: watchdog on, the probe over the truth's horizon every 3 iterations
+    truth3 = runner.make_dataset(GS3D_RECON, n_frames=GS3D_RECON.train_steps + 1, device=dev)
+    prob3 = runner.setup_problem(GS3D_RECON, truth3, device=dev)
+    probe3 = runner.make_stability_probe(prob3, GS3D_RECON.train_steps)
+    init3 = model(GS3D_RECON)
+    for steps in list(GS3D_RECON.curriculum) + [GS3D_RECON.train_steps]:
+        loss_fn = runner.build_loss_fn(prob3, steps)
+        tcfg = dataclasses.replace(GS3D_RECON.train, probe_every=GRAPH_ITERS // 2, **short)
+        rows[f"gs3d_T{steps}"] = {**agree(f"GS3D T = {steps}", loss_fn, init3, tcfg,
+                                          probe=probe3),
+                                  **timed(loss_fn, init3, tcfg, GRAPH_REPS)}
+    del prob3, truth3
+    truthb = runner.make_dataset(BURGERS_STAGE1, n_frames=BURGERS_STAGE1.train_steps + 1,
+                                 device=dev)
+    probb = runner.setup_problem(BURGERS_STAGE1, truthb, device=dev)
+    loss_fn = runner.build_loss_fn(probb, BURGERS_STAGE1.train_steps)
+    tcfg = dataclasses.replace(BURGERS_STAGE1.train, **short)
+    initb = model(BURGERS_STAGE1)
+    rows[f"burgers_T{BURGERS_STAGE1.train_steps}"] = {
+        **agree("Burgers", loss_fn, initb, tcfg), **timed(loss_fn, initb, tcfg, GRAPH_REPS)}
+    del probb, truthb
+    # lambda-omega Stage 3 at its T (LO_STAGE1's train_steps), from the
+    # reference's Stage-3 initial coefficients
+    truthl = runner.make_dataset(LO_STAGE1, n_frames=LO_STAGE1.train_steps + 1, warmup=100,
+                                 device=dev)
+    cfg3 = stage3.lambda_omega_stage3(LO_STAGE1)
+    probl = runner.setup_problem(LO_STAGE1, truthl, device=dev)
+    gen = torch.Generator().manual_seed(0)
+    initl = params_to_numpy({"cell": stage3.init_symbolic_cell(
+        gen, cfg3.cell, coef_init=cfg3.coef_init, nu_init=cfg3.nu_init, device=dev),
+        "isg": stage3.init_isg(gen, LO_STAGE1.isg, device=dev)})
+    loss_fn = stage3.build_stage3_loss_fn(cfg3)
+    largs = ({"ic_low": probl.ic_low, "meas": probl.measurement},)
+    tcfg = dataclasses.replace(cfg3.train, n_iters=GRAPH_STAGE3_ITERS,
+                               steps_per_call=GRAPH_STAGE3_ITERS, log_every=10 ** 9)
+    rows[f"lo_stage3_T{LO_STAGE1.train_steps}"] = {
+        **agree("lambda-omega Stage 3", loss_fn, initl, tcfg, loss_args=largs),
+        **timed(loss_fn, initl, tcfg, 1, loss_args=largs)}
+    out["rows"] = dict(rows)
+    out["table"] = [
+        f"{name}: graphed {r['graphed']['iteration_ms']:.3f} ms (enqueue "
+        f"{r['graphed']['enqueue_ms']:.3f}, span {r['graphed']['device_span_ms']:.3f}, idle "
+        f"{r['graphed']['device_idle_share_of_span']:.3f}, capture {r['graphed']['capture_s']} s)"
+        f" | eager {r['eager']['iteration_ms']:.3f} ms (enqueue {r['eager']['enqueue_ms']:.3f}, "
+        f"span {r['eager']['device_span_ms']:.3f}, idle "
+        f"{r['eager']['device_idle_share_of_span']:.3f})" for name, r in rows.items()]
+    return out
 
 
 def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | None, exp=None,
@@ -4399,7 +4679,7 @@ def main() -> int:
     phase("spmd", **spmd_out, nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
 
     # full_runs: examples/full_runs_torch.py, the full-budget driver, with
-    # --smoke on the card: its four tasks at full width, a few iterations
+    # --smoke on the card: its five tasks at full width, a few iterations
     # each (every cut named in the row's "reduced"); each row's fields, its
     # rel-L2 finite, and each task's launches of the kernel rows its path
     # takes (the driver zeroes the counters before each task)
@@ -4429,6 +4709,10 @@ def main() -> int:
             rel = [row["run"]["rel_l2"], *row["ensemble"]["rel_l2_members"]]
             check(all(set(part["seconds"]) >= {"truth", "isg_pretrain", "stages", "evaluate"}
                       for part in (row["run"], row["ensemble"])), "full_runs gs2d: seconds")
+        elif tag == "lo_forward":
+            rel = [row["run"]["rel_l2"]]
+            check(row["dtype"] == "float64" and set(row["run"]["seconds"])
+                  >= {"truth", "stages", "evaluate"}, "full_runs lo_forward: dtype or seconds")
         elif tag == "gs3d":
             rel = [r["rel_l2"] for r in row["by_seed"].values()]
             check(all(r["attempts"] and r["candidate"] in ("best", "latest", "stable")
@@ -4659,6 +4943,12 @@ def main() -> int:
           reps=BREAKDOWN_REPS, statistic="median, after one warm-up", rows=ens_rows,
           note="as step_breakdown, for a whole ensemble iteration (ISG, rollouts, losses, "
                "backward and Adam of every member)")
+
+    # train_graph: whole training iterations as CUDA graphs against the
+    # eager step (train_graph_phase)
+    t_phase = time.perf_counter()
+    phase("train_graph", **train_graph_phase(dev), nvidia_smi=smi,
+          seconds=time.perf_counter() - t_phase)
 
     # times: per rollout at the serving shape (the ISG output of request 0)
     with torch.inference_mode():

@@ -6,18 +6,28 @@ The port's counterpart of the JAX package's full-budget drivers
 (examples/queue_round5.py's GS3D seeds, examples/lo20_protocol_row.py and
 examples/discovery_pipeline.py).  Tasks, in this order:
 
-  gs2d     run_experiment(GS2D_RECON, seed=0), then
-           run_ensemble(GS2D_RECON, 4) at the same budget ("auto")
+  gs2d     run_experiment(GS2D_RECON, seed=S) for S of --seed (default
+           0), then run_ensemble(GS2D_RECON, 4) at the same budget
+           ("auto"), unless --no-ensemble
   lo20     run_discovery_pipeline(LO_STAGE1 at noise_pct=0.2), with
            steps_per_call=20 as lo20_protocol_row.py passes it
   gs3d     run_experiment_with_restarts(GS3D_RECON, seed=s, max_restarts=3,
            loss_gate=1.85e-3) for s = 0 and 1
   burgers  run_discovery_pipeline(BURGERS_STAGE1)
+  lo_forward  run_experiment(FORWARD_SIM_LO, seed=S) in float64 (the
+           physics-only lambda-omega forward simulation; no kernel runs)
 
 Run from the root of a checkout, on one CUDA device:
 
     python3 examples/full_runs_torch.py [--only TAG] [--smoke] [--out DIR]
-                                        [--cache DIR] [--cpu]
+                                        [--cache DIR] [--cpu] [--seed S]
+                                        [--no-ensemble]
+
+--seed S (default 0) is the init seed of the gs2d run and of lo_forward,
+and --no-ensemble leaves gs2d's ensemble out: a seed spread is measured by
+one call a seed, each with its own --out (a task already done in an --out
+is skipped), e.g. ``--only gs2d --seed 2 --no-ensemble --out
+runs/full_torch/gs2d_seed2``.
 
 Each task prints one JSON line and appends it to ``<out>/rows.jsonl``
 (default runs/full_torch): the configuration, the seeds, the iterations of
@@ -65,20 +75,21 @@ sys.path.insert(0, ROOT)
 
 from percnn_tpu_torch.experiments.configs import (  # noqa: E402
     BURGERS_STAGE1,
+    FORWARD_SIM_LO,
     GS2D_RECON,
     GS3D_RECON,
     LO_STAGE1,
 )
 
-TASKS = ("gs2d", "lo20", "gs3d", "burgers")
+TASKS = ("gs2d", "lo20", "gs3d", "burgers", "lo_forward")
 # the configuration of each task, as the JAX package's drivers ran them
 CONFIGS = {
     "gs2d": GS2D_RECON,
     "lo20": dataclasses.replace(LO_STAGE1, noise_pct=0.2),
     "gs3d": GS3D_RECON,
     "burgers": BURGERS_STAGE1,
+    "lo_forward": FORWARD_SIM_LO,
 }
-GS2D_SEED = 0
 ENSEMBLE_MEMBERS = 4
 LO20_STEPS_PER_CALL = 20          # lo20_protocol_row.py's argument
 GS3D_SEEDS = (0, 1)
@@ -121,7 +132,8 @@ COUNTERS = (
     ("sharded_step2d", "rollout_blocks_2d", "launches", 14),
 )
 # the kernel rows each task's path must launch on the card
-TASK_ROWS = {"gs2d": (1, 7), "lo20": (3, 6), "gs3d": (8, 10), "burgers": (3, 6)}
+TASK_ROWS = {"gs2d": (1, 7), "lo20": (3, 6), "gs3d": (8, 10), "burgers": (3, 6),
+             "lo_forward": ()}
 
 
 def _counters():
@@ -238,8 +250,10 @@ class Task:
     """What a task needs: its configuration (cut under --smoke, each cut
     listed in ``reduced``), its directory, the cache and the device."""
 
-    def __init__(self, tag: str, *, out: str, cache: str | None, device: str, smoke: bool):
+    def __init__(self, tag: str, *, out: str, cache: str | None, device: str, smoke: bool,
+                 seed: int = 0, ensemble: bool = True):
         self.tag, self.cache, self.device, self.smoke = tag, cache, device, smoke
+        self.seed, self.ensemble = seed, ensemble
         self.dir = os.path.join(out, tag)
         self.reduced: list = []
         exp = CONFIGS[tag]
@@ -280,11 +294,14 @@ def task_gs2d(task: Task) -> dict:
     exp = task.exp
     d = task.path("run")
     resume = os.path.exists(os.path.join(d, f"{exp.name}.ckpt.npz"))
-    res = run_experiment(exp, out_dir=d, cache_dir=task.cache, seed=GS2D_SEED,
+    res = run_experiment(exp, out_dir=d, cache_dir=task.cache, seed=task.seed,
                          resume=resume, device=task.device)
-    run = {"seed": GS2D_SEED, "resumed": resume,
+    run = {"seed": task.seed, "resumed": resume,
            **run_fields(exp, res, os.path.join(d, f"{exp.name}.metrics.jsonl")),
            "launches": take_counts()}
+    if not task.ensemble:
+        return {"seeds": {"run": task.seed, "ensemble": []}, "run": run, "ensemble": None,
+                "launches": run["launches"]}
     d = task.path("ensemble")
     ens = run_ensemble(exp, ENSEMBLE_MEMBERS, out_dir=d, cache_dir=task.cache,
                        device=task.device)
@@ -301,7 +318,7 @@ def task_gs2d(task: Task) -> dict:
         "events": events(os.path.join(d, f"{exp.name}.ens.metrics.jsonl")),
         "launches": take_counts(),
     }
-    return {"seeds": {"run": GS2D_SEED, "ensemble": ensemble["init_seeds"]},
+    return {"seeds": {"run": task.seed, "ensemble": ensemble["init_seeds"]},
             "run": run, "ensemble": ensemble,
             "launches": _add_counts(run["launches"], ensemble["launches"])}
 
@@ -428,8 +445,24 @@ def task_pipeline(task: Task) -> dict:
     }
 
 
+def task_lo_forward(task: Task) -> dict:
+    import torch
+
+    from percnn_tpu_torch.experiments.runner import run_experiment
+
+    exp = task.exp
+    d = task.path("run")
+    resume = os.path.exists(os.path.join(d, f"{exp.name}.ckpt.npz"))
+    res = run_experiment(exp, out_dir=d, cache_dir=task.cache, dtype=torch.float64,
+                         seed=task.seed, resume=resume, device=task.device)
+    return {"seeds": {"run": task.seed}, "dtype": "float64",
+            "run": {"seed": task.seed, "resumed": resume,
+                    **run_fields(exp, res, os.path.join(d, f"{exp.name}.metrics.jsonl"))},
+            "launches": take_counts()}
+
+
 RUNNERS = {"gs2d": task_gs2d, "lo20": task_pipeline, "gs3d": task_gs3d,
-           "burgers": task_pipeline}
+           "burgers": task_pipeline, "lo_forward": task_lo_forward}
 
 
 def done_tags(rows_path: str, smoke: bool) -> set:
@@ -445,10 +478,11 @@ def done_tags(rows_path: str, smoke: bool) -> set:
 
 
 def run_task(tag: str, *, out: str, cache: str | None, device: str, smoke: bool,
-             card_name: str | None) -> dict:
+             card_name: str | None, seed: int = 0, ensemble: bool = True) -> dict:
     import torch
 
-    task = Task(tag, out=out, cache=cache, device=device, smoke=smoke)
+    task = Task(tag, out=out, cache=cache, device=device, smoke=smoke, seed=seed,
+                ensemble=ensemble)
     zero_counts()
     t0 = time.perf_counter()
     row = {"tag": tag, "config": task.exp.name, "smoke": smoke, "device": device,
@@ -477,6 +511,10 @@ def main(argv: list | None = None) -> int:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
     ap.add_argument("--out", default=os.path.join("runs", "full_torch"))
     ap.add_argument("--cache", default="data_cache", help="ground-truth cache directory")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the init seed of the gs2d run and of lo_forward")
+    ap.add_argument("--no-ensemble", action="store_true",
+                    help="the gs2d task without its ensemble")
     args = ap.parse_args(argv)
 
     import torch
@@ -495,7 +533,7 @@ def main(argv: list | None = None) -> int:
             print(f"full_runs_torch: {tag} already done in {rows_path}; skipped", flush=True)
             continue
         row = run_task(tag, out=args.out, cache=args.cache, device=device, smoke=args.smoke,
-                       card_name=card_name)
+                       card_name=card_name, seed=args.seed, ensemble=not args.no_ensemble)
         failed += not row["ok"]
         line = json.dumps(row, allow_nan=False)
         with open(rows_path, "a") as f:

@@ -76,7 +76,10 @@ def rollout(step_fn: Callable[[torch.Tensor], torch.Tensor], h0: torch.Tensor,
     h = h0
     for _ in range(n_steps // seg):
         if remat:
-            part = checkpoint(_unroll, step_fn, h, seg, use_reentrant=False)
+            # the steps draw no random numbers: no RNG state to save and
+            # restore around the recompute, in a captured graph or not
+            part = checkpoint(_unroll, step_fn, h, seg, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             part = _unroll(step_fn, h, seg)
         frames.append(part)

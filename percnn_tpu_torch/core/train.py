@@ -2,28 +2,32 @@
 best-validation selection, the NaN/spike watchdog family and the stability
 probe.
 
-Counterpart of percnn_tpu/core/train.py.  ``torch.optim.Adam(eps=1e-8)``
-takes the place of ``optax.scale_by_adam`` scaled by -lr: the two compute
-the same update.  The learning rate lr * gamma^(it // lr_step) * lr_scale
-is set on the parameter group before every step.  ``steps_per_call`` is
-the number of steps between host reads of the losses: one device
-synchronisation per chunk, where the watchdog judges the chunk.  Every step
-runs in full float32 (``_device.full_f32``).
+Counterpart of percnn_tpu/core/train.py.  One iteration is one call of
+``TrainStep``: the learning rate lr * gamma^(it // lr_step) * lr_scale in
+float32 from device scalars, the loss and its gradients, the Adam update
+(``adam_update``, optax's ``scale_by_adam`` scaled by -lr) and the losses
+written into device buffers at a device-side index, all in place over
+tensors whose addresses never change.  ``steps_per_call`` iterations make a
+chunk, read back by one host read, where the watchdog judges the chunk: on
+CUDA (``graph=True``, no DTensor leaf) the chunk replays one captured CUDA
+graph of the iteration (core/graph.py), the counterpart of the JAX
+trainer's jit of a scan; elsewhere, and where a caller passes
+``graph=False``, the same step runs eagerly.  Every step runs in full
+float32 (``_device.full_f32``).
 
 Under a process group (parallel/spmd.py) the params may be DTensors, the
-GSPMD route's counterpart: ``torch.optim.Adam`` takes them as they are;
-each gradient is reduced to its parameter's placement before the
-optimizer step (a replicated parameter's comes back a partial sum); every
-host read (losses, the watchdog's metric, the log) is made on every rank
-and gives every rank rank 0's value, so every rank takes the same
-decisions; checkpoints hold full tensors and only rank 0 writes them, then
-every rank waits for the file.
+GSPMD route's counterpart, and the step runs eagerly: each gradient is
+reduced to its parameter's placement before the update (a replicated
+parameter's comes back a partial sum); every host read (losses, the
+watchdog's metric, the log) is made on every rank and gives every rank rank
+0's value, so every rank takes the same decisions; checkpoints hold full
+tensors and only rank 0 writes them, then every rank waits for the file.
 
 The JAX trainer computes a chunk functionally and drops a failed chunk's
-new params and optimizer state.  Here ``opt.step()`` updates in place, so
-with the watchdog on the trainer snapshots the params and the Adam state
-before each chunk and restores that snapshot when the chunk fails, before
-it reloads the checkpoint (if one exists): the same replay as in JAX.
+new params and optimizer state.  Here the step updates in place, so with
+the watchdog on the trainer copies the params and the Adam state before
+each chunk and copies them back when the chunk fails, before it reloads the
+checkpoint (if one exists): the same replay as in JAX.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from percnn_tpu_torch.core.checkpoint import (
     peek_meta,
     save_checkpoint,
 )
+from percnn_tpu_torch.core.graph import Replayer
 from percnn_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -94,12 +99,18 @@ def _snapshot(tree):
     return _map_tree(lambda t: t.detach().clone(), tree)
 
 
-def _pin_grads(leaves: list) -> None:
-    """Each DTensor gradient reduced to its parameter's placement (the JAX
-    step's sharding constraint on the gradients)."""
-    for p in leaves:
-        if _device.is_dtensor(p) and p.grad is not None:
-            p.grad = _device.distribute(p.grad, p.device_mesh, p.placements)
+def _grads(total: torch.Tensor, leaves: list) -> list:
+    """The gradient of `total` for each leaf (zeros for a leaf it does not
+    read, as in JAX); each DTensor gradient reduced to its parameter's
+    placement (the JAX step's sharding constraint on the gradients)."""
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    out = []
+    for p, g in zip(leaves, grads):
+        g = torch.zeros_like(p) if g is None else g
+        if _device.is_dtensor(p):
+            g = _device.distribute(g, p.device_mesh, p.placements)
+        out.append(g)
+    return out
 
 
 def _full_tree(tree):
@@ -116,66 +127,93 @@ def _save(path: str, tree, meta: dict) -> None:
     _device.barrier()
 
 
-class TrainState:
-    """params + Adam state + host-side schedule bookkeeping (resumable)."""
+B1, B2, EPS = 0.9, 0.999, 1e-8   # optax.scale_by_adam's defaults
 
-    def __init__(self, params, lr: float):
+
+class TrainState:
+    """params + Adam state + host-side schedule bookkeeping (resumable).
+
+    The Adam state is the first and second moments of every leaf and one
+    update count, as optax keeps them; it is made with the params and only
+    ever written in place, so a captured graph of the step stays valid
+    through a rollback, a fresh Adam state and a checkpoint load."""
+
+    def __init__(self, params, device: torch.device):
         self.params = params
-        self.opt = torch.optim.Adam(_leaves(params), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        self.leaves = _leaves(params)
+        with torch.no_grad():
+            self.exp_avg = [torch.zeros_like(p) for p in self.leaves]
+            self.exp_avg_sq = [torch.zeros_like(p) for p in self.leaves]
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
         self.iteration = 0
         self.lr_scale = 1.0
         self.best_val = math.inf
 
-    def _moment(self, name: str):
-        return _map_tree(lambda p: self.opt.state[p][name] if self.opt.state[p]
-                         else torch.zeros_like(p), self.params)
+    def adam_update(self, grads: list, lr: torch.Tensor) -> None:
+        """One Adam step in place: optax's ``scale_by_adam`` scaled by -lr,
+        in torch.optim.Adam's arrangement (which the port's trainer used
+        before it kept its own state): m = lerp(m, g, 1 - b1), v = b2 v +
+        (1 - b2) g^2, p -= (lr / (1 - b1^t)) m / (sqrt(v) / sqrt(1 - b2^t)
+        + eps), the bias corrections in float64 from the count t, and no
+        host read."""
+        with torch.no_grad():
+            self.count.add_(1)
+            torch._foreach_lerp_(self.exp_avg, grads, 1 - B1)
+            torch._foreach_mul_(self.exp_avg_sq, B2)
+            torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, value=1 - B2)
+            count = self.count.to(torch.float64)
+            dtype = self.leaves[0].dtype   # a model's leaves share one dtype
+            step_size = (lr.to(torch.float64) / (1 - B1 ** count)).to(dtype)
+            den = torch._foreach_sqrt(self.exp_avg_sq)
+            torch._foreach_div_(den, torch.sqrt(1 - B2 ** count).to(dtype))
+            torch._foreach_add_(den, EPS)
+            upd = torch._foreach_mul(self.exp_avg, step_size)
+            torch._foreach_div_(upd, den)
+            torch._foreach_sub_(self.leaves, upd)
+
+    def _tree(self, values: list):
+        by_leaf = {id(p): v for p, v in zip(self.leaves, values)}
+        return _map_tree(lambda p: by_leaf[id(p)], self.params)
 
     def as_tree(self) -> dict:
         """{'params', 'opt_state': {'step', 'exp_avg', 'exp_avg_sq'}} (the
         port's own keys for the Adam moments)."""
-        first = self.opt.state[_leaves(self.params)[0]]
-        step = float(first["step"]) if first else 0.0
         return {"params": self.params,
-                "opt_state": {"step": np.asarray(step, np.float32),
-                              "exp_avg": self._moment("exp_avg"),
-                              "exp_avg_sq": self._moment("exp_avg_sq")}}
+                "opt_state": {"step": np.asarray(float(self.count), np.float32),
+                              "exp_avg": self._tree(self.exp_avg),
+                              "exp_avg_sq": self._tree(self.exp_avg_sq)}}
 
     def load_tree(self, tree: dict) -> None:
-        """Put a checkpoint's tree (plain tensors) into the params and the
+        """Copy a checkpoint's tree (plain tensors) into the params and the
         Adam state, laid out as the params are."""
-        with torch.no_grad():
-            for p, v in zip(_leaves(self.params), _leaves(tree["params"])):
-                p.copy_(_device.local_like(v, p))
         opt = tree["opt_state"]
-        step = float(opt["step"])
-        for p, m, v in zip(_leaves(self.params), _leaves(opt["exp_avg"]),
-                           _leaves(opt["exp_avg_sq"])):
-            self.opt.state[p] = ({"step": torch.tensor(step),
-                                  "exp_avg": _device.local_like(m, p).clone(),
-                                  "exp_avg_sq": _device.local_like(v, p).clone()}
-                                 if step > 0 else {})
+        with torch.no_grad():
+            for dst, src in ((self.leaves, tree["params"]), (self.exp_avg, opt["exp_avg"]),
+                             (self.exp_avg_sq, opt["exp_avg_sq"])):
+                for d, v in zip(dst, _leaves(src)):
+                    d.copy_(_device.local_like(v, d))
+            self.count.fill_(int(float(opt["step"])))
 
-    def capture(self) -> tuple:
+    def snapshot(self) -> tuple:
         """Copies of the params and the Adam state, for ``restore``."""
-        leaves = _leaves(self.params)
-        return ([p.detach().clone() for p in leaves],
-                [{k: v.clone() for k, v in self.opt.state[p].items()} for p in leaves])
+        with torch.no_grad():
+            return tuple([t.clone() for t in ts] for ts in
+                         (self.leaves, self.exp_avg, self.exp_avg_sq, [self.count]))
 
     def restore(self, snap: tuple) -> None:
-        """Put back what ``capture`` copied (the copies are taken over, not
-        copied again: each chunk takes a fresh capture)."""
-        values, opt_states = snap
+        """Copy back what ``snapshot`` copied."""
         with torch.no_grad():
-            for p, v in zip(_leaves(self.params), values):
-                p.copy_(v)
-        for p, st in zip(_leaves(self.params), opt_states):
-            self.opt.state[p] = st
+            for dst, src in zip((self.leaves, self.exp_avg, self.exp_avg_sq, [self.count]), snap):
+                for d, v in zip(dst, src):
+                    d.copy_(v)
 
     def reset_opt(self) -> None:
         """Fresh Adam state: zero moments and step 0, so the bias correction
         restarts (optax's ``tx.init``)."""
-        for p in _leaves(self.params):
-            self.opt.state[p] = {}
+        with torch.no_grad():
+            for t in self.exp_avg + self.exp_avg_sq:
+                t.zero_()
+            self.count.zero_()
 
     def meta(self) -> dict:
         return {"iteration": self.iteration, "lr_scale": self.lr_scale,
@@ -188,10 +226,66 @@ class TrainState:
         self.best_val = math.inf if bv is None else float(bv)
 
 
+class TrainStep:
+    """One training iteration, in place (the JAX trainer's scan body,
+    percnn_tpu/core/train.py:186-196): lr = lr0 * gamma^(it // lr_step) *
+    lr_scale in float32 from the device scalars ``it`` and ``lr_scale``,
+    the loss and its gradients, the Adam update, and the total, the lr and
+    every aux written into [n_buf] device buffers at the device index
+    ``slot``; then ``it`` and ``slot`` advance.  ``begin`` sets the scalars
+    for a chunk and ``read`` reads its buffers back.  The buffers are made
+    at the first call, whose loss gives their names and dtypes."""
+
+    def __init__(self, loss_fn: Callable, loss_args: tuple, state: TrainState,
+                 cfg: TrainConfig, device: torch.device, n_buf: int):
+        self.loss_fn, self.loss_args, self.state, self.cfg = loss_fn, loss_args, state, cfg
+        self.it = torch.zeros((), dtype=torch.int64, device=device)
+        self.slot = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.lr_scale = torch.ones((), dtype=torch.float32, device=device)
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.lrs = torch.zeros((n_buf,), dtype=torch.float32, device=device)
+        self.totals = None
+        self.auxs: dict = {}
+
+    def begin(self, it: int, lr_scale: float) -> None:
+        self.it.fill_(it)
+        self.lr_scale.fill_(lr_scale)
+        self.slot.zero_()
+
+    def __call__(self) -> None:
+        cfg, state = self.cfg, self.state
+        with torch.no_grad():
+            decay = torch.pow(cfg.lr_gamma, torch.div(self.it, cfg.lr_step, rounding_mode="floor")
+                              .to(torch.float32))
+            self.lr.copy_(cfg.lr * decay * self.lr_scale)
+        total, aux = self.loss_fn(state.params, *self.loss_args)
+        state.adam_update(_grads(total, state.leaves), self.lr)
+        with torch.no_grad():
+            values = {name: _device.full(v).detach() for name, v in aux.items()}
+            total = _device.full(total).detach()
+            if self.totals is None:
+                n = self.lrs.shape[0]
+                self.totals = self.lrs.new_zeros((n,), dtype=total.dtype)
+                self.auxs = {name: self.lrs.new_zeros((n,), dtype=v.dtype)
+                             for name, v in values.items()}
+            for buf, v in [(self.totals, total), (self.lrs, self.lr),
+                           *((self.auxs[name], v) for name, v in values.items())]:
+                buf.index_copy_(0, self.slot, v.reshape(1))
+            self.it.add_(1)
+            self.slot.add_(1)
+
+    def read(self, n: int) -> tuple:
+        """(totals, lrs, {aux: values}) of the chunk's n iterations, float64
+        numpy arrays, by one host read."""
+        bufs = [self.totals, self.lrs, *self.auxs.values()]
+        flat = _device.host(torch.stack([b[:n].to(torch.float64) for b in bufs]))
+        return flat[0], flat[1], dict(zip(self.auxs, flat[2:]))
+
+
 def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
           logger: MetricsLogger | None = None, extra_meta: dict | None = None,
           loss_args: tuple = (), probe: Callable | None = None,
-          device: str | torch.device = "cuda") -> tuple:
+          device: str | torch.device = "cuda", graph: bool = True) -> tuple:
     """Run the training loop on `device`.
 
     loss_fn(params, *loss_args) -> (total_loss, aux dict of scalar tensors).
@@ -205,12 +299,19 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
     list); under best_val/best_key the best params start as the starting
     params (after any resume), so a run that never sees a finite best
     returns those.
+
+    graph: on CUDA, with no DTensor leaf, run each chunk by replaying a
+    CUDA graph of one iteration, captured once per call after one eager
+    warm-up iteration and freed on return (core/graph.py); a step that
+    cannot be captured raises.  graph=False runs the same step eagerly, for
+    callers whose loss moves tensors between devices or runs collectives
+    (``run_experiment(mesh=...)``) and for comparisons.
     """
     if cfg.best_val and cfg.best_key is not None:
         raise ValueError("best_val and best_key are mutually exclusive selection "
                          "policies: they would race for best_params/.best")
     dev = resolve_device(device)
-    state = TrainState(_trainable(params, dev), cfg.lr)
+    state = TrainState(_trainable(params, dev), dev)
 
     def load(path: str) -> dict:
         tree, meta = load_checkpoint(path, _full_tree(state.as_tree()))
@@ -245,29 +346,19 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
             _save(cfg.ckpt_path + path_suffix, state.as_tree(),
                   {**state.meta(), **(extra_meta or {}), **(extra or {})})
 
+    step = TrainStep(loss_fn, loss_args, state, cfg, dev, cfg.steps_per_call)
+    run = Replayer(step, dev, graph and not any(_device.is_dtensor(p) for p in state.leaves))
     try:
         with full_f32():
             while state.iteration < cfg.n_iters:
                 it = state.iteration
                 n_sub = min(cfg.steps_per_call, cfg.n_iters - it)
-                before = state.capture() if cfg.watchdog else None
-                totals, auxs, lrs = [], [], []
-                for k in range(n_sub):
-                    lr = cfg.lr * cfg.lr_gamma ** ((it + k) // cfg.lr_step) * state.lr_scale
-                    for group in state.opt.param_groups:
-                        group["lr"] = lr
-                    state.opt.zero_grad(set_to_none=True)
-                    total, aux = loss_fn(state.params, *loss_args)
-                    total.backward()
-                    _pin_grads(_leaves(state.params))
-                    state.opt.step()
-                    totals.append(total.detach())
-                    auxs.append({name: v.detach() for name, v in aux.items()})
-                    lrs.append(lr)
+                before = state.snapshot() if cfg.watchdog else None
+                step.begin(it, state.lr_scale)
+                for _ in range(n_sub):
+                    run()
                 # one host read per chunk, the same on every rank
-                totals = _device.host(torch.stack([_device.full(t) for t in totals]))
-                auxs = {name: _device.host(torch.stack([_device.full(a[name]) for a in auxs]))
-                        for name in auxs[0]}
+                totals, lrs, auxs = step.read(n_sub)
                 watch = auxs.get(cfg.watchdog_key, totals) if cfg.watchdog else totals
 
                 bad = bool(np.isnan(watch).any() or np.isnan(totals).any())
@@ -373,6 +464,7 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                                       or state.iteration >= cfg.n_iters):
                     save()
     finally:
+        run.close()
         # an improvement inside the last throttle window reaches disk too
         if best_unflushed is not None and cfg.ckpt_path and _device.is_writer():
             save_checkpoint(cfg.ckpt_path + ".best", *best_unflushed)
@@ -387,25 +479,35 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
 def pretrain_isg(isg_loss_fn: Callable, params, *, n_iters: int = 4000,
                  lr: float = 0.02, log_every: int = 500, steps_per_call: int = 100,
                  logger: MetricsLogger | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", graph: bool = True):
     """Pre-fit the ISG alone against the interpolated IC (the reference's
     pretrain_upscaler: Adam, lr 0.02).  isg_loss_fn(isg_params) -> loss.
-    The losses are read back every steps_per_call steps, when logged."""
+    One step is the loss, its gradients and the Adam update in place, run
+    as train() runs its iteration (graphed on CUDA unless graph=False or a
+    leaf is a DTensor); the loss is read back every steps_per_call steps,
+    when logged."""
     dev = resolve_device(device)
-    params = _trainable(params, dev)
-    leaves = _leaves(params)
-    opt = torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    state = TrainState(_trainable(params, dev), dev)
+    lr_t = torch.full((), lr, dtype=torch.float32, device=dev)
+    last = torch.zeros((), dtype=torch.float64, device=dev)
+
+    def step():
+        loss = isg_loss_fn(state.params)
+        state.adam_update(_grads(loss, state.leaves), lr_t)
+        with torch.no_grad():
+            last.copy_(_device.full(loss).detach())
+
+    run = Replayer(step, dev, graph and not any(_device.is_dtensor(p) for p in state.leaves))
     it = 0
-    with full_f32():
-        while it < n_iters:
-            n_sub = min(steps_per_call, n_iters - it)
-            for _ in range(n_sub):
-                opt.zero_grad(set_to_none=True)
-                loss = isg_loss_fn(params)
-                loss.backward()
-                _pin_grads(leaves)
-                opt.step()
-            it += n_sub
-            if logger and (it % log_every < n_sub or it >= n_iters):
-                logger.log(it - 1, isg_loss=float(_device.host(loss)))
-    return _snapshot(params)
+    try:
+        with full_f32():
+            while it < n_iters:
+                n_sub = min(steps_per_call, n_iters - it)
+                for _ in range(n_sub):
+                    run()
+                it += n_sub
+                if logger and (it % log_every < n_sub or it >= n_iters):
+                    logger.log(it - 1, isg_loss=float(_device.host(last)))
+    finally:
+        run.close()
+    return _snapshot(state.params)

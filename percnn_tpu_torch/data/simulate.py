@@ -6,7 +6,11 @@ numbers from ``np.random.RandomState(seed)`` in the same order, so the two
 packages start from the same field to the bit.  The JAX package integrates
 on the host; here the RK4 runs as tensor ops on ``device`` (the card by
 default), since the GS2D truth is 2500 frames of 4 substeps each, the GS3D
-truth 1000 frames of a 48^3 grid and the Burgers truth 1200 frames.
+truth 1000 frames of a 48^3 grid and the Burgers truth 1200 frames.  One
+frame (its substeps and its write into the frames) is one step of a
+``core.graph.Replayer``: on CUDA a captured graph replayed once a frame,
+the counterpart of the JAX package's jit of two nested scans
+(percnn_tpu/data/simulate.py:83-99).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from percnn_tpu_torch._device import resolve_device
+from percnn_tpu_torch.core.graph import Replayer
 from percnn_tpu_torch.pde.systems import PDE_SYSTEMS
 
 
@@ -70,23 +75,36 @@ def default_ic(system: str, n: int, seed: int = 66) -> np.ndarray:
 
 def simulate(system: str, h0: np.ndarray, n_steps: int, dt: float, dx: float, *,
              oversample: int = 4, dtype=torch.float64,
-             device: str | torch.device = "cuda") -> np.ndarray:
+             device: str | torch.device = "cuda", graph: bool = True) -> np.ndarray:
     """Integrate `system` from h0 for n_steps steps of dt, by RK4 at
     dt/oversample; returns [n_steps+1, *spatial, 2] on the host (frame 0 =
-    h0), in `dtype`."""
+    h0), in `dtype`.  graph: on CUDA, replay one captured graph a frame
+    (the same ops in the same order as graph=False, so the same bits)."""
     dev = resolve_device(device)
     rhs = PDE_SYSTEMS[system].rhs
     dts = dt / oversample
-    h = torch.as_tensor(np.asarray(h0), dtype=dtype, device=dev)
+    h = torch.as_tensor(np.asarray(h0), dtype=dtype, device=dev).clone()
     frames = torch.empty((n_steps + 1,) + tuple(h.shape), dtype=dtype, device=dev)
     frames[0] = h
-    with torch.no_grad():
-        for t in range(n_steps):
-            for _ in range(oversample):
-                k1 = rhs(h, dx)
-                k2 = rhs(h + 0.5 * dts * k1, dx)
-                k3 = rhs(h + 0.5 * dts * k2, dx)
-                k4 = rhs(h + dts * k3, dx)
-                h = h + (dts / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
-            frames[t + 1] = h
+    t = torch.ones((1,), dtype=torch.int64, device=dev)   # the next frame's index
+
+    def frame():
+        x = h
+        for _ in range(oversample):
+            k1 = rhs(x, dx)
+            k2 = rhs(x + 0.5 * dts * k1, dx)
+            k3 = rhs(x + 0.5 * dts * k2, dx)
+            k4 = rhs(x + dts * k3, dx)
+            x = x + (dts / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+        h.copy_(x)
+        frames.index_copy_(0, t, x[None])
+        t.add_(1)
+
+    run = Replayer(frame, dev, graph)
+    try:
+        with torch.no_grad():
+            for _ in range(n_steps):
+                run()
+    finally:
+        run.close()
     return frames.cpu().numpy()

@@ -787,9 +787,12 @@ def _run_experiment(exp: ExperimentConfig, *, out_dir: str, cache_dir: str | Non
             rollout_fn = (make_mesh_rollout_fn(prob, steps, mesh, impl=parallel_impl)
                           if mesh is not None else None)
             loss_fn = build_loss_fn(prob, steps, rollout_fn=rollout_fn)
+        # a mesh's strips move between devices by .to(device), which a
+        # CUDA graph does not capture: that route's iterations run eagerly
+        # (the gspmd route's DTensor params do anyway)
         params, h = train(loss_fn, params, tcfg, logger=logger,
                           resume=resume and i == start_stage, extra_meta={"stage": i},
-                          probe=probe, device=dev)
+                          probe=probe, device=dev, graph=mesh is None)
         seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,
                                   "seconds": time.perf_counter() - t0})
         history.extend(h)

@@ -5,7 +5,9 @@ conventions.
 Counterpart of percnn_tpu/ops/interp.py.  Per axis, a dense [out, in]
 matrix is built with numpy and applied with ``torch.tensordot``; the
 builders are copies of the JAX package's, so both packages resample with
-the same matrices.
+the same matrices.  Each matrix is kept on the device, once per shape,
+dtype and device, so a training iteration copies nothing from the host
+(and can be captured into a CUDA graph).
 """
 
 from __future__ import annotations
@@ -65,6 +67,16 @@ def _axis_matrix(n_in: int, n_out: int, method: str,
     return M
 
 
+@functools.lru_cache(maxsize=64)
+def _axis_matrix_on(n_in: int, n_out: int, method: str, align_corners: bool,
+                    dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """_axis_matrix as a tensor on `device`; made outside inference mode, so
+    a matrix first made by an evaluation can be saved for a backward."""
+    with torch.inference_mode(False):
+        return torch.tensor(_axis_matrix(n_in, n_out, method, align_corners),
+                            dtype=dtype, device=device)
+
+
 def resize_align_corners(x: torch.Tensor, sizes, *, method: str = "cubic",
                          align_corners: bool = True,
                          channel_last: bool = True) -> torch.Tensor:
@@ -81,7 +93,6 @@ def resize_align_corners(x: torch.Tensor, sizes, *, method: str = "cubic",
         n_in = x.shape[ax]
         if n_in == n_out:
             continue
-        M = torch.tensor(_axis_matrix(n_in, n_out, method, align_corners),
-                         dtype=x.dtype, device=x.device)
+        M = _axis_matrix_on(n_in, n_out, method, align_corners, x.dtype, x.device)
         x = torch.movedim(torch.tensordot(M, torch.movedim(x, ax, 0), dims=([1], [0])), 0, ax)
     return x

@@ -308,7 +308,7 @@ def im2col_2d(h: torch.Tensor, cfg: PiCellConfig) -> torch.Tensor:
             for ki in range(k) for kj in range(k)]
     extra = torch.zeros(h.shape[:-1] + (_round_up(n_taps(cfg), 8) - k * k * 2,),
                         dtype=h.dtype, device=h.device)
-    extra[..., 0] = 1.0
+    extra[..., 0].fill_(1.0)
     return torch.cat(cols + [extra], dim=-1)
 
 

@@ -81,10 +81,9 @@ def test_import_export_load_chain(tmp_path, capsys):
     tree, meta = load_checkpoint_tree(ckpt)
     assert meta["iteration"] == 2 and float(tree["opt_state"]["step"]) == 2.0
     # the checkpoint has the trainer's layout: a TrainState takes it whole
-    state = TrainState(params_from_numpy(tree["params"], device="cpu"), 1e-3)
+    state = TrainState(params_from_numpy(tree["params"], device="cpu"), torch.device("cpu"))
     state.load_tree(load_checkpoint(ckpt, state.as_tree())[0])
-    first = state.opt.state[state.opt.param_groups[0]["params"][0]]
-    assert float(first["step"]) == 2.0 and bool(first["exp_avg"].abs().sum() > 0)
+    assert float(state.count) == 2.0 and bool(state.exp_avg[0].abs().sum() > 0)
 
     assert main(["export", "gs2d_recon", "--ckpt", ckpt, "--steps", "4", "--out", art,
                  "--cpu"]) == 0

@@ -1,6 +1,6 @@
 """examples/full_runs_torch.py, the port's full-budget driver, on the CPU.
 
-Its four tasks run with ``--smoke --cpu`` on configurations shrunk to a 16
+Its five tasks run with ``--smoke --cpu`` on configurations shrunk to a 16
 grid (16^3 for GS3D), two hidden channels and T <= 10: every row has its
 fields, finite numbers and a ``reduced`` list that names the cuts; a second
 call skips the tasks already done; the driver refuses to run without a card
@@ -42,7 +42,7 @@ def _shrunk(exp, *, curriculum=()):
 
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
-    """The four tasks once, --smoke --cpu, on the shrunk configurations;
+    """The five tasks once, --smoke --cpu, on the shrunk configurations;
     figures and the sympy expansion hidden (seconds each on the CPU)."""
     driver = _load_driver()
     out = tmp_path_factory.mktemp("full_runs")
@@ -54,6 +54,9 @@ def run(tmp_path_factory):
             "lo20": _shrunk(driver.CONFIGS["lo20"]),
             "gs3d": _shrunk(driver.CONFIGS["gs3d"], curriculum=(4,)),
             "burgers": _shrunk(driver.CONFIGS["burgers"]),
+            "lo_forward": dataclasses.replace(
+                driver.CONFIGS["lo_forward"], grid=16, train_steps=8, infer_steps=10,
+                cell=dataclasses.replace(driver.CONFIGS["lo_forward"].cell, hidden=2)),
         })
         argv = ["--smoke", "--cpu", "--out", str(out / "o"), "--cache", str(out / "c")]
         rc = driver.main(argv)
@@ -79,7 +82,7 @@ def _finite_rel_l2(x) -> bool:
 
 def test_every_task_writes_an_ok_row(run):
     assert run["rc"] == 0
-    assert list(run["rows"]) == ["gs2d", "lo20", "gs3d", "burgers"]
+    assert list(run["rows"]) == ["gs2d", "lo20", "gs3d", "burgers", "lo_forward"]
     for tag, row in run["rows"].items():
         assert row["ok"], (tag, row.get("error"), row.get("traceback"))
         assert row["smoke"] is True and row["device"] == "cpu" and row["card"] is None
@@ -144,6 +147,36 @@ def test_gs3d_row(run):
     assert seed["iterations"]["stages"] == [{"T": 4, "iters": 2}, {"T": 4, "iters": 2}]
 
 
+def test_lo_forward_row(run):
+    """FORWARD_SIM_LO in float64 through run_experiment, seed 0."""
+    row = run["rows"]["lo_forward"]
+    assert row["config"] == "forward_sim_lo" and row["dtype"] == "float64"
+    assert row["seeds"] == {"run": 0} and row["path_rows"] == []
+    r = row["run"]
+    assert _finite_rel_l2(r["rel_l2"]) and not r["diverged"] and r["candidate"] == "final"
+    assert r["iterations"]["stages"] == [{"T": 2, "iters": 2}]
+    assert set(r["seconds"]) >= {"truth", "stages", "evaluate"}
+    assert "train.n_iters: 2000 -> 2" in row["reduced"]
+
+
+def test_gs2d_seed_without_the_ensemble(run, tmp_path):
+    """--seed sets the gs2d run's init seed; --no-ensemble leaves the
+    ensemble out of its row."""
+    driver = run["driver"]
+    out = tmp_path / "seed2"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "matplotlib", None)
+        mp.setattr(driver, "CONFIGS", {**driver.CONFIGS})
+        assert driver.main(["--only", "gs2d", "--smoke", "--cpu", "--seed", "2",
+                            "--no-ensemble", "--out", str(out), "--cache",
+                            str(run["out"] / "c")]) == 0
+    (row,) = [json.loads(line) for line in open(out / "rows.jsonl")]
+    assert row["ok"] and row["seeds"] == {"run": 2, "ensemble": []}
+    assert row["ensemble"] is None and row["run"]["seed"] == 2
+    assert _finite_rel_l2(row["run"]["rel_l2"])
+    assert row["run"]["rel_l2"] != run["rows"]["gs2d"]["run"]["rel_l2"]
+
+
 @pytest.mark.parametrize("tag, terms", [("lo20", 6), ("burgers", 3)])
 def test_pipeline_rows(run, tag, terms):
     row = run["rows"][tag]
@@ -166,10 +199,10 @@ def test_second_call_skips_the_tasks_done(run, capsys):
     capsys.readouterr()
     assert run["driver"].main(run["argv"]) == 0
     said = capsys.readouterr().out
-    for tag in ("gs2d", "lo20", "gs3d", "burgers"):
+    for tag in ("gs2d", "lo20", "gs3d", "burgers", "lo_forward"):
         assert f"{tag} already done" in said
     lines = open(run["out"] / "o" / "rows.jsonl").read().splitlines()
-    assert len(lines) == 4
+    assert len(lines) == 5
     # a full run is another mode: nothing of the smoke rows counts as done
     assert run["driver"].done_tags(str(run["out"] / "o" / "rows.jsonl"), False) == set()
 
