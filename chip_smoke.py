@@ -312,22 +312,28 @@ figures.  Phases, one JSON line each with the seconds since start:
   spmd         the GSPMD counterparts (parallel/spmd.py, spmd_phase), one
                process a mesh position, each part on a one-position NCCL
                mesh of cuda:0 (a mesh that repeats cuda:0 is refused, and
-               the refusal checked): one make_train_step_spmd step of
+               the refusal checked), each rank's training one replayed
+               CUDA graph an iteration: one make_train_step_spmd step of
                scale_by_adam on the golden GS2D cell's rollout fit at
                T = 200 against the unsharded step (loss rtol 1e-5, leaves
                rtol 1e-4, atol 1e-6); run_experiment(GS2D_RECON at
-               T = 200, parallel_impl="gspmd"), 2 iterations, against the
+               T = 200, parallel_impl="gspmd"), 5 iterations, against the
                same run without a mesh (rtol 1e-4); run_ensemble(GS2D_RECON
                at T = 800, 4 members, mesh=("data",)) by "batched_pg" and
-               "fused_pg", 2 iterations, against the unsharded runs (rtol
+               "fused_pg", 6 iterations, against the unsharded runs (rtol
                1e-3), the rank's launches of rows 11 and 13 (batched_pg)
                and 1 and 7 (fused_pg, every evaluation) counted exactly;
                run_experiment(BURGERS_STAGE1 at T = 200, parallel_impl=
-               "gspmd"), the 5x5 cell, 2 iterations, against the same run
-               without a mesh (rtol 1e-4), rank 0's halo sends counted
-               (ops/spmd_halo.py: none on one position); ms per iteration
-               beside the single-device runs' and train_mesh's halo
-               iteration at T = 200
+               "gspmd"), the 5x5 cell, 5 iterations, against the same run
+               without a mesh (rtol 1e-4); rank 0's halo sends in both
+               gspmd runs counted (ops/spmd_halo.py: none on one
+               position); each of the last
+               three once more with graph=False, held to the graphed run
+               (losses rtol 1e-4, params 1e-4 of the largest, launches and
+               halo sends equal); each one's steady ms per iteration
+               graphed, eager and unsharded graphed (one iteration a chunk,
+               timed by its log), beside train_mesh's halo iteration at
+               T = 200
   full_runs    examples/full_runs_torch.py --smoke in this process: its five
                tasks (run_experiment(GS2D_RECON) and run_ensemble(GS2D_RECON,
                4); run_discovery_pipeline of LO_STAGE1 at 20% noise;
@@ -467,8 +473,9 @@ PIPE_STAGE2_KWARGS = {"maxit": 10, "stridge_iters": 10}   # the pipeline phase's
 EXPORT_REPS = 5           # timed requests of each exported kernel model (the symbolic cell's: 1)
 SPMD_STEPS = 200          # spmd (a): the SPMD Adam step's rollout
 SPMD_T = 200              # spmd (b): the gspmd run's one stage
-SPMD_ITERS = 2            # spmd (b): its iterations
-SPMD_ENS_ITERS = 2        # spmd (c): the ensembles' iterations at T = 800
+SPMD_ITERS = 5            # spmd (b), (d): each run's iterations, one a chunk (graphed: a
+                          # warm-up, a capture and three replays)
+SPMD_ENS_ITERS = 6        # spmd (c): the ensembles' iterations at T = 800
 SPMD_ISG_ITERS = 20       # spmd (b), (c): the ISG pretrain
 SPMD_EVAL = 800           # spmd (b), (c): the evaluations' steps (of 2500)
 SPMD_BURGERS_T = 200      # spmd (d): the gspmd Burgers run's one stage and its evaluation
@@ -893,11 +900,12 @@ SPMD_COUNTERS = (("batched2d", "fused_rollout_2d_batched", "launches"),
 
 def spmd_rank(fit_args: tuple, ensembles: dict) -> dict:
     """On the rank of a parallel.launch, in place (the process group is
-    up): (a) _spmd_examples.spmd_fit_step(*fit_args), then (c) run_ensemble(exp,
-    n, **kw) for each mode of `ensembles` ({mode: (exp, n, kw)}), each
+    up): (a) _spmd_examples.spmd_fit_step(*fit_args); (c) run_ensemble(exp,
+    n, **kw) for each mode of `ensembles` ({mode: (exp, n, kw)}), graphed
+    (as a user gets it) and with graph=False (out_dir + "_eager"), each
     with the launches of SPMD_COUNTERS from 0 gathered from every rank and
-    its seconds.  The ensembles' params stay behind (the checks read their
-    losses)."""
+    its seconds, and the largest gap between the two runs' params (per
+    leaf, of the leaf's largest eager value)."""
     import importlib
 
     import torch.distributed as dist
@@ -912,14 +920,20 @@ def spmd_rank(fit_args: tuple, ensembles: dict) -> dict:
     wrappers = [(getattr(importlib.import_module(f"percnn_tpu_torch.ops.kernels.{m}"), f), f, a)
                 for m, f, a in SPMD_COUNTERS]
     for mode, (exp, n_members, kw) in ensembles.items():
-        for fn, _, attr in wrappers:
-            setattr(fn, attr, 0)
-        t = time.perf_counter()
-        res = ensemble.run_ensemble(exp, n_members, **kw)
-        seconds = time.perf_counter() - t
-        counts = [None] * dist.get_world_size()
-        dist.all_gather_object(counts, {f"{f}.{a}": getattr(fn, a) for fn, f, a in wrappers})
-        out["c"][mode] = {**res, "params": None, "launches_by_rank": counts, "s": seconds}
+        runs = {}
+        for label, graph in (("graphed", True), ("eager", False)):
+            for fn, _, attr in wrappers:
+                setattr(fn, attr, 0)
+            t = time.perf_counter()
+            res = ensemble.run_ensemble(
+                exp, n_members, graph=graph,
+                **dict(kw, out_dir=kw["out_dir"] + ("" if graph else "_eager")))
+            seconds = time.perf_counter() - t
+            counts = [None] * dist.get_world_size()
+            dist.all_gather_object(counts, {f"{f}.{a}": getattr(fn, a) for fn, f, a in wrappers})
+            runs[label] = {**res, "launches_by_rank": counts, "s": seconds}
+        gap = params_gap(runs["graphed"].pop("params"), runs["eager"].pop("params"))
+        out["c"][mode] = {**runs, "params_max_rel_err": gap}
     return out
 
 
@@ -1205,6 +1219,37 @@ def train_graph_phase(dev) -> dict:
     return out
 
 
+def iteration_ms(log_path: str) -> list:
+    """The ms between a run's consecutive training records in its metrics
+    log (one record a chunk, so one an iteration at steps_per_call 1):
+    entry i is iteration i + 1's, its host read included.  Graphed, entry
+    0 holds the capture and the later ones are replays; eager, each is a
+    steady iteration (iteration 0, the first use, has no entry)."""
+    with open(log_path) as f:
+        times = [r["time"] for r in map(json.loads, f) if "loss" in r and "event" not in r]
+    return [1e3 * (b - a) for a, b in zip(times, times[1:])]
+
+
+def steady_ms(ms: list, graphed: bool):
+    """The median of a run's steady iterations (iteration_ms), or None."""
+    import numpy as np
+
+    ms = ms[1:] if graphed else ms
+    return float(np.median(ms)) if ms else None
+
+
+def params_gap(got, want) -> float:
+    """The largest gap between two param trees, per leaf, of the leaf's
+    largest value in `want` (train_graph's bar)."""
+    from percnn_tpu_torch.parallel.spmd import tree_map
+
+    pairs = [[], []]
+    for tree, acc in zip((got, want), pairs):
+        tree_map(lambda t: acc.append(t.detach().cpu().double()), tree)
+    return max(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for g, w in zip(*pairs))
+
+
 def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | None, exp=None,
                burgers=None, steps: int = SPMD_STEPS, stage_t: int = SPMD_T,
                iters: int = SPMD_ITERS, ens_iters: int = SPMD_ENS_ITERS,
@@ -1212,34 +1257,42 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
                burgers_t: int = SPMD_BURGERS_T) -> dict:
     """The spmd phase: the GSPMD counterparts (parallel/spmd.py) through
     the entry points a user calls, one process a mesh position, on
-    `spmd_mesh` (2D: (a), (b)) and `data_mesh` (("data",): (c)), whose
+    `spmd_mesh` (2D: (a), (b), (d)) and `data_mesh` (("data",): (c)), whose
     positions hold the same devices in the same order.  main() gives them
     one position of cuda:0 (a mesh that repeats cuda:0 is refused, which
     is checked here on a CUDA `dev`); examples/spmd_phase.py gives them
     four cards, or four CPU ranks.
 
-    (b) run_experiment(exp at T = stage_t, parallel_impl="gspmd") launches
-    its ranks itself; (a) and (c) share one launched rank (spmd_rank),
-    where the calls run in place, as under torchrun.  (a) One
-    make_train_step_spmd step of scale_by_adam on the golden GS2D cell
-    `cell_np`'s rollout fit at T = steps against the same step unsharded
-    (test_parallel's bars: loss rtol 1e-5, leaves rtol 1e-4 atol 1e-6);
-    (b) against the same run without a mesh, the losses at rtol 1e-4;
-    (c) run_ensemble(exp, ENS_MEMBERS, mesh=data_mesh) by "batched_pg" and
-    "fused_pg" against the unsharded batched_pg run at rtol 1e-3, each
-    rank's launches of rows 11, 13, 1 and 7 counted exactly (none on the
-    CPU, where the wrappers run their plain versions); (d) the 5x5 cell:
-    run_experiment(burgers at T = burgers_t, parallel_impl="gspmd") on
-    `spmd_mesh`, iters iterations, against the same run without a mesh,
+    On CUDA each rank replays one captured graph an iteration (the ISG
+    pretrain's too), as a user gets it; (b), (c) and (d) run once more with
+    graph=False, the eager step, and are held to it: losses at rtol 1e-4,
+    params within 1e-4 of each leaf's largest, launches and halo sends
+    equal.  (b) and (d): run_experiment(..., parallel_impl="gspmd"), graphed
+    and eager, launches its ranks itself; (a) and (c) share one launched
+    rank (spmd_rank), where the calls run in place, as under torchrun.
+    (a) One make_train_step_spmd step of scale_by_adam on
+    the golden GS2D cell `cell_np`'s rollout fit at T = steps against the
+    same step unsharded (test_parallel's bars: loss rtol 1e-5, leaves rtol
+    1e-4 atol 1e-6); (b) run_experiment(exp at T = stage_t), iters
+    iterations, against the same run without a mesh, the losses at rtol
+    1e-4 (on a 2 x 2 mesh its periodic rolls trade halos, counted as
+    (d)'s); (c) run_ensemble(exp, ENS_MEMBERS, mesh=data_mesh) by
+    "batched_pg" and "fused_pg", ens_iters iterations at T = 800, against
+    the unsharded batched_pg run at rtol 1e-3, each rank's launches of rows
+    11, 13, 1 and 7 counted exactly (none on the CPU, where the wrappers run
+    their plain versions); (d) the 5x5 cell: run_experiment(burgers at
+    T = burgers_t), iters iterations, against the same run without a mesh,
     the losses at rtol 1e-4 (on a 2 x 2 mesh its periodic pads and rolls
     trade halos between the ranks, ops/spmd_halo.py, whose sends are
-    counted).  (b) and (d) give their ms per iteration beside the
-    single-device run's (and `halo_stage`, train_mesh's halo stage at
-    T = 200, where given).  exp defaults to GS2D_RECON and burgers to
-    BURGERS_STAGE1; the evaluations are cut to eval_steps and burgers_t (so
-    the truths, of max(T, eval_steps) and burgers_t frames, are made here,
-    in a cache the parts share).  A failed check raises CheckFailed.
-    Returns the phase's fields, with the ranks' world sizes."""
+    counted).  Every run takes one iteration a chunk, so its log times each
+    iteration: (b), (c) and (d) give the steady ms an iteration graphed,
+    eager and unsharded graphed (iteration_ms; and `halo_stage`,
+    train_mesh's halo stage at T = 200, where given).  exp defaults to
+    GS2D_RECON and burgers to BURGERS_STAGE1; the evaluations are cut to
+    eval_steps and burgers_t (so the truths, of max(T, eval_steps) and
+    burgers_t frames, are made here, in a cache the parts share).  A failed
+    check raises CheckFailed.  Returns the phase's fields, with the ranks'
+    world sizes."""
     import numpy as np
     import torch
 
@@ -1256,7 +1309,7 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     out = {"mesh": {"a_b": spmd_mesh.shape, "c": data_mesh.shape},
-           "backend": spmd_mod.backend_for(spmd_mesh)}
+           "backend": spmd_mod.backend_for(spmd_mesh), "steps_per_call": 1}
     if on_card:
         try:
             spmd_mod.backend_for(make_mesh(("x",), shape=(2,), devices=[dev] * 2))
@@ -1279,9 +1332,10 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
     tgta = torch.as_tensor(rs.uniform(0.0, 1.0, (steps, grid, grid, 2)), dtype=torch.float32)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
     truth_cache = os.path.join(out_dir, "truth")
+    gspmd = {"mesh": spmd_mesh, "parallel_impl": "gspmd"}
     try:
         # the unsharded references, in this process
-        ckw = dict(cache_dir=truth_cache, n_iters_override=ens_iters,
+        ckw = dict(cache_dir=truth_cache, n_iters_override=ens_iters, steps_per_call=1,
                    isg_pretrain_override=isg_iters, seed=0, device=dev)
         t = time.perf_counter()
         with stdout_to_stderr():
@@ -1289,25 +1343,21 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
                                           bptt="batched_pg", **ckw)
         sync()
         ref_c_s = time.perf_counter() - t
-        runs_b = {}
-        for label, kw in (("single", {}), ("gspmd", {"mesh": spmd_mesh, "parallel_impl": "gspmd"})):
-            t = time.perf_counter()
-            with stdout_to_stderr():
-                runs_b[label] = runner.run_experiment(
-                    bexp, device=dev, out_dir=f"{out_dir}/b_{label}", cache_dir=truth_cache,
-                    n_iters_override=iters, isg_pretrain_override=isg_iters, seed=0, **kw)
-            sync()
-            runs_b[label]["wall_s"] = time.perf_counter() - t
-        # (d) the 5x5 cell's gspmd run against no mesh
-        runs_d = {}
-        for label, kw in (("single", {}), ("gspmd", {"mesh": spmd_mesh, "parallel_impl": "gspmd"})):
-            t = time.perf_counter()
-            with stdout_to_stderr():
-                runs_d[label] = runner.run_experiment(
-                    dexp, device=dev, out_dir=f"{out_dir}/d_{label}", cache_dir=truth_cache,
-                    n_iters_override=iters, isg_pretrain_override=isg_iters, seed=0, **kw)
-            sync()
-            runs_d[label]["wall_s"] = time.perf_counter() - t
+        # (b) GS2D and (d) the 5x5 cell: without a mesh, then the gspmd run
+        # graphed as a user gets it and with graph=False (each launching
+        # its ranks itself)
+        runs = {"b": {}, "d": {}}
+        kw = dict(cache_dir=truth_cache, n_iters_override=iters, steps_per_call=1,
+                  isg_pretrain_override=isg_iters, seed=0, device=dev)
+        for part, e in (("b", bexp), ("d", dexp)):
+            for label, route in (("single", {}), ("gspmd", gspmd),
+                                 ("eager", {**gspmd, "graph": False})):
+                t = time.perf_counter()
+                with stdout_to_stderr():
+                    runs[part][label] = runner.run_experiment(
+                        e, out_dir=f"{out_dir}/{part}_{label}", **kw, **route)
+                sync()
+                runs[part][label]["wall_s"] = time.perf_counter() - t
         # (a) and (c) on one launched group
         t = time.perf_counter()
         with stdout_to_stderr():
@@ -1319,6 +1369,13 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
                              for mode in ("batched_pg", "fused_pg")},
                             timeout=900)
         rank_s = time.perf_counter() - t
+        # each run's log times its iterations
+        name = {"b": bexp.name, "d": dexp.name}
+        it_ms = {part: {label: iteration_ms(f"{out_dir}/{part}_{label}/{name[part]}.metrics.jsonl")
+                        for label in ("single", "gspmd", "eager")} for part in runs}
+        it_ms["c"] = {label: iteration_ms(f"{out_dir}/{label}/{cexp.name}.ens.metrics.jsonl")
+                      for label in ("c", "c_batched_pg", "c_batched_pg_eager", "c_fused_pg",
+                                    "c_fused_pg_eager")}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     out["world_size"] = ranked["world_size"]
@@ -1344,52 +1401,57 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
           f"{leaf_err_a}")
     out["a"] = {"steps": steps, "loss": float(loss_a), "unsharded_loss": float(want_loss_a),
                 "leaf_max_abs_err": leaf_err_a, "s_in_rank": ranked["a"]["s"]}
-    # (b) against no mesh
-    hb = {k: np.asarray(r["history"]) for k, r in runs_b.items()}
-    b_err = float(np.max(np.abs(hb["gspmd"] - hb["single"]) / np.abs(hb["single"])))
-    check(len(hb["gspmd"]) == iters and bool(np.isfinite(hb["gspmd"]).all())
-          and b_err <= 1e-4 and bool(np.isfinite(runs_b["gspmd"]["rel_l2"]))
-          and runs_b["gspmd"]["params"]["cell"]["diff"].device == dev,
-          f"spmd (b): gspmd losses {hb['gspmd'].tolist()} vs {hb['single'].tolist()} "
-          f"(rtol 1e-4), rel_l2 {runs_b['gspmd']['rel_l2']}")
-    out["b"] = {"steps": stage_t, "iters": iters, "eval_steps": eval_steps,
-                "history": {k: v.tolist() for k, v in hb.items()},
-                "history_max_rel_err": b_err,
-                "rel_l2": {k: r["rel_l2"] for k, r in runs_b.items()},
-                "placements": runs_b["gspmd"]["placements"],
-                "ms_per_iter": {k: 1e3 * r["seconds"]["stages"][0]["seconds"] / iters
-                                for k, r in runs_b.items()},
-                "halo_2x2_ms_per_iter": None if halo_stage is None else {
-                    "steps": halo_stage["steps"],
-                    "ms": 1e3 * halo_stage["seconds"] / halo_stage["iters"]},
-                "wall_s": {k: r["wall_s"] for k, r in runs_b.items()}}
-    # (d) against no mesh
-    hd = {k: np.asarray(r["history"]) for k, r in runs_d.items()}
-    d_err = float(np.max(np.abs(hd["gspmd"] - hd["single"]) / np.abs(hd["single"])))
-    sends_d = runs_d["gspmd"]["halo_exchange"]["sends"]
+
+    def rel_err(got, want) -> float:
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    # (b) and (d): graphed against no mesh (the existing bar) and against
+    # the eager step
     cut = spmd_mesh.devices.size > 1
-    check(len(hd["gspmd"]) == iters and bool(np.isfinite(hd["gspmd"]).all())
-          and d_err <= 1e-4 and bool(np.isfinite(runs_d["gspmd"]["rel_l2"]))
-          and runs_d["gspmd"]["params"]["cell"]["diff"].device == dev
-          and (sends_d > 0) == cut,
-          f"spmd (d): gspmd Burgers losses {hd['gspmd'].tolist()} vs {hd['single'].tolist()} "
-          f"(rtol 1e-4), rel_l2 {runs_d['gspmd']['rel_l2']}, rank 0's halo sends {sends_d} "
-          f"on a mesh of {spmd_mesh.devices.size}")
-    out["d"] = {"experiment": dexp.name, "kernel_size": dexp.cell.kernel_size,
-                "grid": dexp.grid, "steps": burgers_t, "iters": iters,
-                "history": {k: v.tolist() for k, v in hd.items()},
-                "history_max_rel_err": d_err,
-                "rel_l2": {k: r["rel_l2"] for k, r in runs_d.items()},
-                "placements": runs_d["gspmd"]["placements"],
-                "halo_exchange_rank0": runs_d["gspmd"]["halo_exchange"],
-                "ms_per_iter": {k: 1e3 * r["seconds"]["stages"][0]["seconds"] / iters
-                                for k, r in runs_d.items()},
-                "wall_s": {k: r["wall_s"] for k, r in runs_d.items()}}
+    for part, e, t_ in (("b", bexp, stage_t), ("d", dexp, burgers_t)):
+        r = runs[part]
+        g, s_, ea = r["gspmd"], r["single"], r["eager"]
+        err = rel_err(g["history"], s_["history"])
+        eager_err = rel_err(g["history"], ea["history"])
+        gap = params_gap(g["params"], ea["params"])
+        sends = g["halo_exchange"]["sends"]
+        check(len(g["history"]) == iters == len(ea["history"])
+              and bool(np.isfinite(g["history"]).all()) and err <= 1e-4
+              and bool(np.isfinite(g["rel_l2"])) and g["params"]["cell"]["diff"].device == dev
+              and (sends > 0) == cut,
+              f"spmd ({part}): gspmd {e.name} losses {g['history']} vs {s_['history']} "
+              f"(rtol 1e-4), rel_l2 {g['rel_l2']}, rank 0's halo sends {sends} on a mesh of "
+              f"{spmd_mesh.devices.size}")
+        check(eager_err <= 1e-4 and gap <= 1e-4
+              and g["halo_exchange"] == ea["halo_exchange"],
+              f"spmd ({part}): graphed against eager: losses {g['history']} vs "
+              f"{ea['history']} (rtol 1e-4), params differ by {gap} of the largest, halo "
+              f"exchange {g['halo_exchange']} vs {ea['halo_exchange']}")
+        ms = it_ms[part]
+        out[part] = {
+            "experiment": e.name, "kernel_size": e.cell.kernel_size, "grid": e.grid,
+            "steps": t_, "iters": iters, "eval_steps": e.infer_steps,
+            "history": {"single": s_["history"], "gspmd": g["history"],
+                        "gspmd_eager": ea["history"]},
+            "history_max_rel_err": err, "graphed_vs_eager": {
+                "history_max_rel_err": eager_err, "params_max_rel_err": gap},
+            "rel_l2": {"single": s_["rel_l2"], "gspmd": g["rel_l2"], "gspmd_eager": ea["rel_l2"]},
+            "placements": g["placements"],
+            "halo_exchange_rank0": {"graphed": g["halo_exchange"], "eager": ea["halo_exchange"]},
+            "ms_per_iter": {"graphed": steady_ms(ms["gspmd"], True),
+                            "eager": steady_ms(ms["eager"], False),
+                            "unsharded_graphed": steady_ms(ms["single"], True)},
+            "iteration_ms": {"graphed": ms["gspmd"], "eager": ms["eager"],
+                             "unsharded_graphed": ms["single"]},
+            "wall_s": {k: r[k]["wall_s"] for k in ("single", "gspmd", "eager")}}
+    out["b"]["halo_2x2_ms_per_iter"] = None if halo_stage is None else {
+        "steps": halo_stage["steps"], "ms": 1e3 * halo_stage["seconds"] / halo_stage["iters"]}
     # (c) against the unsharded ensemble, each rank's launches exact: its
     # members' batched forward and pg adjoint once an iteration (rows 11,
     # 13) and each member's evaluation (row 1) by batched_pg; each
     # member's fused forward every iteration and evaluation (row 1) and pg
-    # adjoint every iteration (row 7) by fused_pg
+    # adjoint every iteration (row 7) by fused_pg; the same graphed and eager
     n_ranks = data_mesh.devices.size
     mine = ENS_MEMBERS // n_ranks
     c_want = {
@@ -1405,24 +1467,38 @@ def spmd_phase(dev, spmd_mesh, data_mesh, *, cell_np: dict, halo_stage: dict | N
         c_want = {m: dict.fromkeys(w, 0) for m, w in c_want.items()}
     out["c"] = {}
     for mode, got_c in ranked["c"].items():
-        hist_err = float(np.max(np.abs(np.asarray(got_c["history"]) - ref_c["history"])
-                                / np.abs(ref_c["history"])))
-        rel_err = float(np.max(np.abs(np.asarray(got_c["rel_l2_members"])
-                                      - ref_c["rel_l2_members"])
-                               / np.abs(ref_c["rel_l2_members"])))
+        g, ea = got_c["graphed"], got_c["eager"]
+        hist_err = rel_err(g["history"], ref_c["history"])
+        rel_err_m = rel_err(g["rel_l2_members"], ref_c["rel_l2_members"])
+        eager_err = rel_err(g["history"], ea["history"])
         want_c = [c_want[mode]] * n_ranks
-        check(len(got_c["history"]) == ens_iters and hist_err <= 1e-3
-              and rel_err <= 1e-3 and got_c["launches_by_rank"] == want_c,
-              f"spmd (c) {mode}: history {got_c['history']} vs {ref_c['history']}, "
-              f"members' rel_l2 {got_c['rel_l2_members']} vs {ref_c['rel_l2_members']} "
-              f"(rtol 1e-3); launches by rank {got_c['launches_by_rank']}, expected {want_c}")
+        check(len(g["history"]) == ens_iters and hist_err <= 1e-3
+              and rel_err_m <= 1e-3 and g["launches_by_rank"] == want_c,
+              f"spmd (c) {mode}: history {g['history']} vs {ref_c['history']}, "
+              f"members' rel_l2 {g['rel_l2_members']} vs {ref_c['rel_l2_members']} "
+              f"(rtol 1e-3); launches by rank {g['launches_by_rank']}, expected {want_c}")
+        check(len(ea["history"]) == ens_iters and eager_err <= 1e-4
+              and got_c["params_max_rel_err"] <= 1e-4
+              and ea["launches_by_rank"] == g["launches_by_rank"],
+              f"spmd (c) {mode}: graphed against eager: history {g['history']} vs "
+              f"{ea['history']} (rtol 1e-4), params differ by {got_c['params_max_rel_err']} "
+              f"of the largest, launches by rank {g['launches_by_rank']} vs "
+              f"{ea['launches_by_rank']}")
+        ms = {"graphed": it_ms["c"][f"c_{mode}"], "eager": it_ms["c"][f"c_{mode}_eager"],
+              "unsharded_graphed_batched_pg": it_ms["c"]["c"]}
         out["c"][mode] = {
             "members": ENS_MEMBERS, "steps": cexp.train_steps, "iters": ens_iters,
             "eval_steps": eval_steps,
-            "history": {"single_batched_pg": ref_c["history"], "mesh": got_c["history"]},
-            "history_max_rel_err": hist_err, "rel_l2_max_rel_err": rel_err,
-            "launches_by_rank": got_c["launches_by_rank"],
-            "s": {"single_batched_pg": ref_c_s, "mesh_in_rank": got_c["s"]}}
+            "history": {"single_batched_pg": ref_c["history"], "mesh": g["history"],
+                        "mesh_eager": ea["history"]},
+            "history_max_rel_err": hist_err, "rel_l2_max_rel_err": rel_err_m,
+            "graphed_vs_eager": {"history_max_rel_err": eager_err,
+                                 "params_max_rel_err": got_c["params_max_rel_err"]},
+            "launches_by_rank": g["launches_by_rank"],
+            "ms_per_iter": {k: steady_ms(v, k != "eager") for k, v in ms.items()},
+            "iteration_ms": ms,
+            "s": {"single_batched_pg": ref_c_s, "mesh_in_rank": g["s"],
+                  "mesh_eager_in_rank": ea["s"]}}
     out["rank_s_with_spawn"] = rank_s
     return out
 

@@ -52,7 +52,7 @@ def main() -> int:
                                   data=dataclasses.replace(exp.data, time_stride=2))
         burgers = dataclasses.replace(burgers, grid=16,
                                       data=dataclasses.replace(burgers.data, time_stride=2))
-        sizes = dict(steps=6, stage_t=8, iters=2, ens_iters=2, isg_iters=5, eval_steps=10,
+        sizes = dict(steps=6, stage_t=8, iters=3, ens_iters=3, isg_iters=5, eval_steps=10,
                      burgers_t=6)
         smi = "cpu"
     else:

@@ -103,7 +103,12 @@ def full(x):
 
 def host(x: torch.Tensor) -> np.ndarray:
     """A host read that every rank makes and that gives every rank rank 0's
-    value, so that decisions on it are the same on every rank."""
+    value, so that decisions on it are the same on every rank.  Never
+    inside a captured step: a graph holds no host read, so it raises
+    there."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("a host read inside a step being captured into a CUDA graph: "
+                           "read the step's results after it (TrainStep.read)")
     x = full(x).detach()
     if in_group():
         x = x.contiguous().clone()

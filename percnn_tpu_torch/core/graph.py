@@ -13,11 +13,21 @@ call replays the graph.  Anywhere else each call runs the step eagerly, so
 the CPU runs the same step function.  A step that cannot be captured raises
 at its capture; nothing falls back to the eager loop.
 
-The kernels' launch and step counters are Python attributes that their
-wrappers add to as they launch (ops/kernels).  A capture adds to them for
-work that has not run, and a replay adds nothing, so the change over the
-capture is taken off and added back once per replay: the counters count
-what ran, as in the eager loop.
+Under a process group (parallel/spmd.py) the step holds collectives: the
+all-reduces and gathers of DTensor and the halo exchange's paired sends
+and receives (ops/spmd_halo.py).  Each rank captures its own graph, NCCL's
+kernels in it.  The warm-up iteration runs every collective of the step
+once, so NCCL has made each communicator it needs (the point-to-point
+pairs too, which it makes at their first send) before the capture, which
+could not make one.  Every rank replays its graph once per call, as it
+ran the step, so the ranks' collectives stay matched.
+
+The kernels' launch and step counters and the halo exchange's send and
+byte counters are Python attributes that their wrappers add to as they
+launch or send.  A capture adds to them for work that has not run, and a
+replay adds nothing, so the change over the capture is taken off and
+added back once per replay: the counters count what ran, as in the eager
+loop.
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import time
 from typing import Callable
 
 import torch
+
+from percnn_tpu_torch import _device
 
 _COUNTER_ATTRS = ("launches", "steps", "launches_kxk", "steps_kxk")
 
@@ -43,6 +55,14 @@ def kernel_counters() -> list:
             if inspect.isfunction(obj) and obj.__module__ == mod.__name__:
                 found += [(obj, a) for a in _COUNTER_ATTRS if isinstance(getattr(obj, a, None), int)]
     return found
+
+
+def halo_counters() -> list:
+    """The halo exchange's send and byte counters (ops/spmd_halo.py), as
+    (module, attribute) pairs."""
+    from percnn_tpu_torch.ops import spmd_halo
+
+    return [(spmd_halo, "sends"), (spmd_halo, "bytes_sent")]
 
 
 class Replayer:
@@ -80,11 +100,19 @@ class Replayer:
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
-        counters = kernel_counters()
+        counters = kernel_counters() + halo_counters()
         before = [getattr(obj, attr) for obj, attr in counters]
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            # On a rank of a process group the capture refuses only this
+            # thread's calls that cannot be captured ("thread_local"), not
+            # those of the threads ProcessGroupNCCL runs beside it, such as
+            # its watchdog's event queries.  Every gspmd run of the port
+            # has been captured so, on one card and on four; "global", the
+            # default kept for one device, has captured the one-position
+            # GS2D run as well, and no capture has been seen to fail in it.
+            mode = "thread_local" if _device.in_group() else "global"
+            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode=mode):
                 self.step()
         except RuntimeError as err:
             raise RuntimeError(

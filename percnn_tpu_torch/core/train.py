@@ -9,19 +9,21 @@ float32 from device scalars, the loss and its gradients, the Adam update
 written into device buffers at a device-side index, all in place over
 tensors whose addresses never change.  ``steps_per_call`` iterations make a
 chunk, read back by one host read, where the watchdog judges the chunk: on
-CUDA (``graph=True``, no DTensor leaf) the chunk replays one captured CUDA
-graph of the iteration (core/graph.py), the counterpart of the JAX
-trainer's jit of a scan; elsewhere, and where a caller passes
-``graph=False``, the same step runs eagerly.  Every step runs in full
-float32 (``_device.full_f32``).
+CUDA (``graph=True``) the chunk replays one captured CUDA graph of the
+iteration (core/graph.py), the counterpart of the JAX trainer's jit of a
+scan; elsewhere, and where a caller passes ``graph=False``, the same step
+runs eagerly.  Every step runs in full float32 (``_device.full_f32``).
 
 Under a process group (parallel/spmd.py) the params may be DTensors, the
-GSPMD route's counterpart, and the step runs eagerly: each gradient is
-reduced to its parameter's placement before the update (a replicated
-parameter's comes back a partial sum); every host read (losses, the
-watchdog's metric, the log) is made on every rank and gives every rank rank
-0's value, so every rank takes the same decisions; checkpoints hold full
-tensors and only rank 0 writes them, then every rank waits for the file.
+GSPMD route's counterpart, and on CUDA each rank replays its own graph of
+the iteration, the collectives in it (the JAX package's jitted chunk under
+GSPMD): each gradient is reduced to its parameter's placement before the
+update (a replicated parameter's comes back a partial sum), and the update
+writes the DTensors' local blocks in place; every host read (losses, the
+watchdog's metric, the log) is made on every rank, outside the step, and
+gives every rank rank 0's value, so every rank takes the same decisions;
+checkpoints hold full tensors and only rank 0 writes them, then every rank
+waits for the file.
 
 The JAX trainer computes a chunk functionally and drops a failed chunk's
 new params and optimizer state.  Here the step updates in place, so with
@@ -135,8 +137,9 @@ class TrainState:
 
     The Adam state is the first and second moments of every leaf and one
     update count, as optax keeps them; it is made with the params and only
-    ever written in place, so a captured graph of the step stays valid
-    through a rollback, a fresh Adam state and a checkpoint load."""
+    ever written in place (a DTensor's local block too), so a captured
+    graph of the step stays valid through a rollback, a fresh Adam state
+    and a checkpoint load."""
 
     def __init__(self, params, device: torch.device):
         self.params = params
@@ -300,12 +303,13 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
     params (after any resume), so a run that never sees a finite best
     returns those.
 
-    graph: on CUDA, with no DTensor leaf, run each chunk by replaying a
-    CUDA graph of one iteration, captured once per call after one eager
-    warm-up iteration and freed on return (core/graph.py); a step that
-    cannot be captured raises.  graph=False runs the same step eagerly, for
-    callers whose loss moves tensors between devices or runs collectives
-    (``run_experiment(mesh=...)``) and for comparisons.
+    graph: on CUDA run each chunk by replaying a CUDA graph of one
+    iteration, captured once per call after one eager warm-up iteration and
+    freed on return (core/graph.py), on DTensor params too (each rank of the
+    group its own graph); a step that cannot be captured raises.
+    graph=False runs the same step eagerly, for callers whose loss moves
+    tensors between devices within the process (``run_experiment(mesh=...)``
+    without gspmd) and for comparisons.
     """
     if cfg.best_val and cfg.best_key is not None:
         raise ValueError("best_val and best_key are mutually exclusive selection "
@@ -347,7 +351,7 @@ def train(loss_fn: Callable, params, cfg: TrainConfig, *, resume: bool = False,
                   {**state.meta(), **(extra_meta or {}), **(extra or {})})
 
     step = TrainStep(loss_fn, loss_args, state, cfg, dev, cfg.steps_per_call)
-    run = Replayer(step, dev, graph and not any(_device.is_dtensor(p) for p in state.leaves))
+    run = Replayer(step, dev, graph)
     try:
         with full_f32():
             while state.iteration < cfg.n_iters:
@@ -483,9 +487,8 @@ def pretrain_isg(isg_loss_fn: Callable, params, *, n_iters: int = 4000,
     """Pre-fit the ISG alone against the interpolated IC (the reference's
     pretrain_upscaler: Adam, lr 0.02).  isg_loss_fn(isg_params) -> loss.
     One step is the loss, its gradients and the Adam update in place, run
-    as train() runs its iteration (graphed on CUDA unless graph=False or a
-    leaf is a DTensor); the loss is read back every steps_per_call steps,
-    when logged."""
+    as train() runs its iteration (graphed on CUDA unless graph=False); the
+    loss is read back every steps_per_call steps, when logged."""
     dev = resolve_device(device)
     state = TrainState(_trainable(params, dev), dev)
     lr_t = torch.full((), lr, dtype=torch.float32, device=dev)
@@ -497,7 +500,7 @@ def pretrain_isg(isg_loss_fn: Callable, params, *, n_iters: int = 4000,
         with torch.no_grad():
             last.copy_(_device.full(loss).detach())
 
-    run = Replayer(step, dev, graph and not any(_device.is_dtensor(p) for p in state.leaves))
+    run = Replayer(step, dev, graph)
     it = 0
     try:
         with full_f32():

@@ -154,6 +154,7 @@ def run_ensemble(
     bptt: str = "auto",
     seed: int = 0,
     device: str | torch.device = "cuda",
+    graph: bool = True,
 ) -> dict:
     """Train `n_members` models (distinct init and noise seeds) together on
     `device`: truth, per-member data, the ISG pretrain of every member on
@@ -181,6 +182,10 @@ def run_ensemble(
     ranks and is divided by M.  Only rank 0 writes the log and checkpoints.
     Unlike percnn_tpu, which ignores spatial_axes without a mesh, that
     raises.
+
+    graph: on CUDA the ISG pretrain and every training iteration replay a
+    captured CUDA graph (core/train.py), on every rank of a mesh too;
+    graph=False runs them eagerly.
     """
     if spatial_axes and mesh is None:
         raise ValueError("spatial_axes shard the members' fields over a mesh: pass mesh=")
@@ -196,7 +201,7 @@ def run_ensemble(
             dtype=dtype, n_iters_override=n_iters_override,
             isg_pretrain_override=isg_pretrain_override, steps_per_call=steps_per_call,
             mesh=mesh, member_axis=member_axis, spatial_axes=tuple(spatial_axes),
-            warmup=warmup, bptt=bptt, seed=seed)
+            warmup=warmup, bptt=bptt, seed=seed, graph=graph)
         if spmd.in_group():
             return run(exp)
         result = spmd.launch(run, mesh, exp, libraries=_mesh_libraries(
@@ -231,7 +236,7 @@ def run_ensemble(
 
         t0 = time.perf_counter()
         params["isg"] = pretrain_isg(ens_isg_loss, params["isg"], n_iters=n_pre,
-                                     logger=logger, device=dev)
+                                     logger=logger, device=dev, graph=graph)
         seconds["isg_pretrain"] = time.perf_counter() - t0
 
     stages = list(exp.curriculum) + [exp.train_steps]
@@ -247,7 +252,7 @@ def run_ensemble(
         )
         t0 = time.perf_counter()
         params, h = train(build_ensemble_loss_fn(exp, problems, steps, bptt), params, tcfg,
-                          logger=logger, device=dev)
+                          logger=logger, device=dev, graph=graph)
         seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,
                                   "seconds": time.perf_counter() - t0})
         history.extend(h)
@@ -306,7 +311,7 @@ def _local(x):
 def _run_sharded(exp: ExperimentConfig, n_members: int, *, out_dir: str,
                  cache_dir: str | None, dtype, n_iters_override, isg_pretrain_override,
                  steps_per_call, mesh, member_axis: str, spatial_axes: tuple, warmup,
-                 bptt: str, seed: int) -> dict:
+                 bptt: str, seed: int, graph: bool) -> dict:
     """run_ensemble on every rank of a process group over `mesh`."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
@@ -372,7 +377,7 @@ def _run_sharded(exp: ExperimentConfig, n_members: int, *, out_dir: str,
                 for j in range(per_rank)]).sum())
 
         params["isg"] = pretrain_isg(ens_isg_loss, params["isg"], n_iters=n_pre,
-                                     logger=logger, device=dev)
+                                     logger=logger, device=dev, graph=graph)
 
     split = bptt == "two_phase" and bool(spatial_axes)
     if split:
@@ -431,7 +436,7 @@ def _run_sharded(exp: ExperimentConfig, n_members: int, *, out_dir: str,
             return (mean_over_members(total),
                     {k: mean_over_members(v.detach()) for k, v in aux.items()})
 
-        params, h = train(loss_fn, params, tcfg, logger=logger, device=dev)
+        params, h = train(loss_fn, params, tcfg, logger=logger, device=dev, graph=graph)
         history.extend(h)
 
     # each rank evaluates its own members; every rank learns every score

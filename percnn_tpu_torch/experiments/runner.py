@@ -619,7 +619,8 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                    isg_pretrain_override: int | None = None, warmup: int | None = None,
                    steps_per_call: int | None = None, resume: bool = False,
                    seed: int = 0, device: str | torch.device = "cuda", mesh=None,
-                   parallel_impl: str = "halo", isg_params_path: str | None = None) -> dict:
+                   parallel_impl: str = "halo", isg_params_path: str | None = None,
+                   graph: bool = True) -> dict:
     """Full pipeline on `device`: data -> (ISG pretrain) -> curriculum train -> eval.
 
     resume=True reloads params and optimizer from the experiment checkpoint
@@ -652,6 +653,12 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
     (ops/spmd_halo.py) under ``halo_exchange``.  Either way evaluation and
     serving take the returned parameters as they are.
 
+    graph: on CUDA the ISG pretrain and every training iteration replay a
+    captured CUDA graph (core/train.py), on every rank of a gspmd run too;
+    graph=False runs them eagerly.  The 'halo' route's iterations run
+    eagerly whatever `graph` says (its strips move between the devices of
+    one process).
+
     isg_params_path: a checkpoint of the ISG alone (``save_checkpoint``'s
     format, which both packages read).  When the file exists, the ISG is
     loaded from it instead of pretrained; otherwise the pretrained ISG is
@@ -675,7 +682,7 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
             n_iters_override=n_iters_override, isg_pretrain_override=isg_pretrain_override,
             warmup=warmup, steps_per_call=steps_per_call, resume=resume, seed=seed,
             device=dev, mesh=mesh, parallel_impl=parallel_impl,
-            isg_params_path=isg_params_path, expressions=False)
+            isg_params_path=isg_params_path, graph=graph, expressions=False)
         evaluation = ("cell3d" if exp.cell.ndim == 3 else
                       "cell2d" if exp.cell.kernel_size == 1 else "cell2d_kxk")
         result = spmd.launch(run, mesh, exp, libraries=_mesh_libraries(mesh, (evaluation,)))
@@ -687,7 +694,7 @@ def run_experiment(exp: ExperimentConfig, *, out_dir: str = "runs",
                            isg_pretrain_override=isg_pretrain_override, warmup=warmup,
                            steps_per_call=steps_per_call, resume=resume, seed=seed,
                            device=dev, mesh=mesh, parallel_impl=parallel_impl,
-                           isg_params_path=isg_params_path)
+                           isg_params_path=isg_params_path, graph=graph)
 
 
 def _pi_expressions(exp: ExperimentConfig, params: dict) -> dict:
@@ -706,7 +713,7 @@ def _run_experiment(exp: ExperimentConfig, *, out_dir: str, cache_dir: str | Non
                     n_iters_override: int | None, isg_pretrain_override: int | None,
                     warmup: int | None, steps_per_call: int | None, resume: bool, seed: int,
                     device: torch.device, mesh, parallel_impl: str,
-                    isg_params_path: str | None, expressions: bool = True) -> dict:
+                    isg_params_path: str | None, graph: bool, expressions: bool = True) -> dict:
     """run_experiment's body, in this process (on each rank of a gspmd run,
     where the launching process adds the pi_expressions)."""
     dev = device
@@ -740,7 +747,7 @@ def _run_experiment(exp: ExperimentConfig, *, out_dir: str, cache_dir: str | Non
             n_pre = isg_pretrain_override if isg_pretrain_override is not None \
                 else exp.isg_pretrain_iters
             params["isg"] = pretrain_isg(build_isg_pretrain_loss(prob), params["isg"],
-                                         n_iters=n_pre, logger=logger, device=dev)
+                                         n_iters=n_pre, logger=logger, device=dev, graph=graph)
             if isg_params_path is not None and writer:
                 save_checkpoint(isg_params_path, params["isg"],
                                 {"experiment": exp.name, "seed": seed})
@@ -787,12 +794,13 @@ def _run_experiment(exp: ExperimentConfig, *, out_dir: str, cache_dir: str | Non
             rollout_fn = (make_mesh_rollout_fn(prob, steps, mesh, impl=parallel_impl)
                           if mesh is not None else None)
             loss_fn = build_loss_fn(prob, steps, rollout_fn=rollout_fn)
-        # a mesh's strips move between devices by .to(device), which a
-        # CUDA graph does not capture: that route's iterations run eagerly
-        # (the gspmd route's DTensor params do anyway)
+        # the 'halo' route runs eagerly: its strips move between the mesh's
+        # devices by .to(device) within this process, and one stream's
+        # capture holds no copy to another device's stream.  A gspmd rank
+        # holds one device, and its graph its collectives.
         params, h = train(loss_fn, params, tcfg, logger=logger,
                           resume=resume and i == start_stage, extra_meta={"stage": i},
-                          probe=probe, device=dev, graph=mesh is None)
+                          probe=probe, device=dev, graph=graph and (mesh is None or gspmd))
         seconds["stages"].append({"steps": steps, "iters": tcfg.n_iters,
                                   "seconds": time.perf_counter() - t0})
         history.extend(h)

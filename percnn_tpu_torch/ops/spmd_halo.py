@@ -22,9 +22,14 @@ global ranks (the port's DeviceMesh spans every rank of the group); gloo
 and NCCL both take them.  Every rank of a ring must make the same calls
 in the same order, as for any collective.
 
+Inside a CUDA graph capture (core/graph.py) the sends, the receives and
+the waits are captured on NCCL as they are posted: ``work.wait()`` makes
+the capturing stream wait for NCCL's, with no host wait, and a replay
+posts them in the same order.
+
 ``sends`` and ``bytes_sent`` count this rank's sends and the bytes they
-carry, forward and backward, as the kernels' wrappers count launches: set
-them to 0 to start a count.
+carry, forward and backward, as the kernels' wrappers count launches (a
+replayed graph's too, core/graph.py): set them to 0 to start a count.
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ import torch
 from percnn_tpu_torch.core.cell import PiCellConfig, pi_cell_step
 from percnn_tpu_torch.core.losses import mse
 from percnn_tpu_torch.core.rollout import rollout
+from percnn_tpu_torch.core.train import train
 from percnn_tpu_torch.parallel.mesh import make_mesh
 from percnn_tpu_torch.parallel.sharded import (
     make_train_step_spmd,
@@ -74,6 +75,31 @@ def spmd_fit_step(params: dict, h0: torch.Tensor, target: torch.Tensor, cfg: PiC
         tx, mesh)
     new, _, total, _ = step(params, tx.init(params), batch, lr)
     return tree_map(full, new), full(total)
+
+
+def train_dtensor_probed(params: dict, h0: torch.Tensor, target: torch.Tensor,
+                         cfg: PiCellConfig, n_steps: int, mesh, tcfg) -> tuple:
+    """core/train.train of rollout_fit_loss on every rank of `mesh` (under
+    launch), the parameters replicated DTensors and the data placed as
+    spmd_fit_step places them: (the trained parameters, full tensors; the
+    loss history; the addresses of the parameters' local blocks at each
+    probe).  The probe fires every tcfg.probe_every iterations and at the
+    end, so the addresses show whether the in-place update kept each block
+    where a captured graph writes it."""
+    axes = tuple(mesh.axis_names)[:cfg.ndim]
+    batch = (shard_array(h0, mesh, P(*axes, None)), shard_array(target, mesh, P(None, *axes, None)))
+    loss = functools.partial(rollout_fit_loss, cfg=cfg, n_steps=n_steps)
+    seen = []
+
+    def probe(p):
+        leaves = []
+        tree_map(leaves.append, p)
+        seen.append([t.to_local().data_ptr() for t in leaves])
+        return 0.0
+
+    trained, history = train(loss, replicate(params, mesh), tcfg, loss_args=(batch,),
+                             probe=probe, device=rank_device(mesh))
+    return tree_map(full, trained), history, seen
 
 
 def halo_against_whole(cases: list, mesh, widths: tuple = (1, 2), seed: int = 0) -> list:

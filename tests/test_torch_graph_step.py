@@ -321,7 +321,7 @@ def test_counters_count_what_replays_ran(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a, **k: stream())
     monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda g, stream=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph", lambda g, **kw: contextlib.nullcontext())
     _FakeGraph.replays = 0
     saved = (cell2d.fused_rollout_2d.launches, cell2d.fused_rollout_2d.steps,
              backward2d.fused_rollout_tp_2d_pg.launches)
